@@ -1,0 +1,78 @@
+"""The port stands alone: ``skeletondiffusion_tpu_torch``, ``chip_smoke.py``
+and ``scripts/torch_predict_breakdown.py`` import neither ``jax`` nor
+``skeletondiffusion_tpu``, and
+``chip_smoke.py`` refuses to report a result without a CUDA device or
+without the rest of the repository."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "skeletondiffusion_tpu_torch"
+
+CHECK = """
+import importlib, pkgutil, sys
+import skeletondiffusion_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "skeletondiffusion_tpu"
+             or m.startswith("skeletondiffusion_tpu."))
+assert not bad, bad
+print("clean")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    out = subprocess.run([sys.executable, "-c", CHECK], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
+                                        for p in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py",
+                                                  REPO / "scripts" / "torch_predict_breakdown.py"]))
+def test_no_jax_import_statement(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "skeletondiffusion_tpu"), (path, name)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
