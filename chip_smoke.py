@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fp32 prediction path on one NVIDIA GPU and hold
-its hand-written CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's fp32 and bf16 prediction paths on one NVIDIA GPU
+and hold its hand-written CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 Phases, each printed with its elapsed seconds:
 
-1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds skeletondiffusion_tpu_torch/csrc/*.cu (ptxas report);
-3. kernels — the AMASS flagship model at full width (21 nodes, latent and
-             hidden 96, denoiser depth 4 × 8 heads × 32, 10 diffusion steps,
-             observe 30, predict 120) is built from a seed; each kernel runs on
-             inputs of the main path's shapes (batch 256 × 50 samples = 12 800
-             rows) and is compared with its plain version and timed;
-4. main    — batch 256 × 50 samples through the predictor and the metric-space
-             transform: predictions/s, launch counts per prediction, and the
-             same prediction with injected noise against the predictor with
-             both kernels replaced by their plain versions.
+1. device   — the card's name and power limit (nvidia-smi);
+2. build    — nvcc builds skeletondiffusion_tpu_torch/csrc/*.cu (ptxas report);
+3. kernels  — the AMASS flagship model at full width (21 nodes, latent and
+              hidden 96, denoiser depth 4 × 8 heads × 32, 10 diffusion steps,
+              observe 30, predict 120) is built from a seed; K1 and K2 run on
+              inputs of the main path's shapes (batch 256 × 50 samples =
+              12 800 rows) and are compared with their plain versions and
+              timed;
+4. main     — the fp32 path: batch 256 × 50 samples through the predictor and
+              the metric-space transform: predictions/s, launch counts per
+              prediction, and the same prediction with injected noise against
+              the predictor with both kernels replaced by their plain versions;
+5. denoiser — the same model with a bf16 denoiser and encoder: each kernel of
+              the fused denoiser (B1–B5) and K2's bf16-x̂₀ entry on the bench
+              shapes in bf16 and in fp32 and at a ragged row count, against
+              its plain version, timed beside its bound, its plain version and
+              the one PyTorch call that computes its function, where there is
+              one;
+6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
+              and with injected noise the sampler's state after each step and
+              the predictions against the same path on the plain versions,
+              beside the bf16 path's deviation from the fp32 path.
 
-The fp32 path runs with TF32 off for matmuls and cuDNN.  Any failure exits
+The fp32 parts run with TF32 off for matmuls and cuDNN.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit, and before that one JSON line lists every kernel.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -38,9 +51,14 @@ from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
 from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
 from skeletondiffusion_tpu_torch.models import AutoEncoder
 from skeletondiffusion_tpu_torch.ops.graph_linear import l1_normalize_rows
+from skeletondiffusion_tpu_torch.ops.kernels import attention_proj as proj_mod
 from skeletondiffusion_tpu_torch.ops.kernels import build
+from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
+from skeletondiffusion_tpu_torch.ops.kernels import graph_linear_fused as stem_mod
 from skeletondiffusion_tpu_torch.ops.kernels import gru_rollout as rollout_mod
+from skeletondiffusion_tpu_torch.ops.kernels import joint_attention as attn_mod
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod
+from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 
 BATCH, SAMPLES, OBS_LEN, PRED_LEN = 256, 50, 30, 120
@@ -59,10 +77,35 @@ K2_TOL = 1e-4
 K1_TOL = 1e-4
 E2E_TOL = 1e-4
 
+# The fused denoiser's kernels against their plain versions on the same
+# inputs: in fp32 they differ only in the order of their sums (≤ 1e-4, as
+# K1/K2); in bf16 a sum taken in another order can flip a rounding, so they
+# are held, compared in fp32, at max |Δ| ≤ 3e-2·max|ref| and mean
+# |Δ| ≤ 2e-3·max|ref| (8 significant bits, 2–4 roundings per kernel).
+F32_TOL = 1e-4
+BF16_MAX, BF16_MEAN = 3e-2, 2e-3
+RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
+BF16_E2E_MAX = 2.0  # see compare_bf16
+
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
-# tensor cores and HBM3 bandwidth.
+# tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 PEAK_BYTES_S = 3.35e12
+
+# Every kernel's launch counter: name → (wrapper module, attribute).
+COUNTERS = {
+    "gru_rollout": (rollout_mod, "launches"),
+    "posterior_step": (posterior_mod, "launches"),
+    "posterior_step_x0_bf16": (posterior_mod, "launches_x0_bf16"),
+    "graph_linear_fused": (stem_mod, "launches"),
+    "resnet_block": (block_mod, "launches_block"),
+    "rms_qkv": (proj_mod, "launches_rms_qkv"),
+    "attention_core": (attn_mod, "launches"),
+    "outproj_res": (proj_mod, "launches_outproj_res"),
+    "final_block_in": (block_mod, "launches_final_in"),
+    "final_block_out": (block_mod, "launches_final_out"),
+}
 
 
 def log(msg: str) -> None:
@@ -95,9 +138,21 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(bytes_moved: float, flops: float):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+def bound_ms(bytes_moved: float, flops: float, tensor_flops: float = 0.0):
+    """The least time for the work: bytes at the HBM rate against fp32 flops
+    outside the tensor cores plus bf16 flops on them."""
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_ops = flops / PEAK_FP32_FLOP_S + tensor_flops / PEAK_BF16_FLOP_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
 def perturb_influence(module: torch.nn.Module, gen: torch.Generator) -> None:
@@ -113,20 +168,35 @@ def perturb_influence(module: torch.nn.Module, gen: torch.Generator) -> None:
                 p.copy_(0.05 * (noise - 0.5))
 
 
-def build_model(device: torch.device):
+def spread_weights(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """Add N(0, 1/fan_in) to every weight bank and Dense kernel of the
+    denoiser: at its init scale its x̂₀ is ~1e-2, a trained model's is O(1),
+    and bf16 effects would otherwise sit in the last rounding of the output."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("weight", "kernel"):
+                noise = torch.randn(p.shape, generator=gen, device=gen.device).to(p.device)
+                p.add_(noise / p.shape[-2] ** 0.5)
+
+
+def build_model(device: torch.device, compute_dtype=None):
+    """(skeleton, predictor) of the flagship from seed ``SEED``; the weights
+    do not depend on ``compute_dtype`` (the denoiser's and the encoder's)."""
     skeleton = create_skeleton(
         dataset_name="amass", motion_repr_type="SkeletonRescalePose", num_joints=22,
         pose_box_size=1.5, obs_length=OBS_LEN, pred_length=PRED_LEN, if_consider_hip=False,
     )
     gen = torch.Generator().manual_seed(SEED)
     ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT, gen,
-                     node_types=skeleton.nodes_type_id)
+                     node_types=skeleton.nodes_type_id, compute_dtype=compute_dtype)
     diffusion, denoiser = create_diffusion(
         skeleton, gen, latent_size=LATENT, diffusion_conditioning=True,
         diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH, device=device,
+        compute_dtype=compute_dtype,
     )
     perturb_influence(ae, gen)
     perturb_influence(denoiser, gen)
+    spread_weights(denoiser, gen)
     predictor = SkeletonDiffusionPredictor(
         skeleton, ae, diffusion, num_samples=SAMPLES, pred_length=PRED_LEN, device=device,
     )
@@ -217,8 +287,10 @@ def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str) -> dict:
-    """Timed predictions with launch counts; returns the launches of one call."""
+def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str, expected: dict,
+                  label: str) -> dict:
+    """Timed predictions; every launch counter is set to 0 before each timed
+    call and read after it.  Returns the launches of one call."""
     def predict(seed: int) -> torch.Tensor:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         pred, _ = predictor(gen, obs)
@@ -228,60 +300,255 @@ def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str) -> dic
     torch.cuda.synchronize()
     times, counts = [], []
     for i in range(TIMED_CALLS):
-        rollout_mod.launches = 0
-        posterior_mod.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = predict(SEED + 1 + i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts.append({"gru_rollout": rollout_mod.launches,
-                       "posterior_step": posterior_mod.launches})
-    expected = {"gru_rollout": 1, "posterior_step": TIMESTEPS}
+        counts.append(read_counts())
+    expected = {name: expected.get(name, 0) for name in COUNTERS}
     if any(c != expected for c in counts):
-        raise AssertionError(f"launch counts per prediction {counts}, expected {expected}")
+        raise AssertionError(f"{label}: launch counts per prediction {counts}, expected {expected}")
     want_shape = (BATCH, SAMPLES, PRED_LEN, skeleton.num_nodes, 3)
     if tuple(out.shape) != want_shape or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"prediction of shape {tuple(out.shape)} (want {want_shape}) "
-                             f"or not finite")
+        raise AssertionError(f"{label}: prediction of shape {tuple(out.shape)} (want "
+                             f"{want_shape}) or not finite")
     p50 = statistics.median(times)
-    log(f"main path: {BATCH / p50:.2f} preds/s (batch {BATCH} × {SAMPLES} samples, median of "
+    launched = {k: v for k, v in counts[-1].items() if v}
+    log(f"{label}: {BATCH / p50:.2f} preds/s (batch {BATCH} × {SAMPLES} samples, median of "
         f"{TIMED_CALLS} calls {[round(t, 4) for t in times]} s) on {card_name}; "
-        f"launches per prediction {counts[-1]}")
+        f"launches per prediction {launched}")
     return counts[-1]
 
 
-def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Generator) -> None:
+def injected_run(skeleton, predictor, obs: torch.Tensor, start: torch.Tensor,
+                 steps: torch.Tensor, plain: bool):
+    """The metric-space prediction with injected sampler noise, and the
+    sampler's state after each step; ``plain`` replaces every kernel wrapper
+    with its plain PyTorch version."""
+    states = []
+    step = posterior_mod.posterior_step_plain if plain else posterior_mod.posterior_step
+
+    def recording(*args):
+        states.append(step(*args))
+        return states[-1]
+
+    patches = [mock.patch.object(posterior_mod, "posterior_step", recording)]
+    if plain:
+        patches += [
+            mock.patch.object(rollout_mod, "gru_rollout", rollout_mod.gru_rollout_plain),
+            mock.patch.object(stem_mod, "graph_linear_fused", stem_mod.graph_linear_fused_plain),
+            mock.patch.object(block_mod, "resnet_block", block_mod.resnet_block_plain),
+            mock.patch.object(block_mod, "final_block_in", block_mod.final_block_in_plain),
+            mock.patch.object(block_mod, "final_block_out", block_mod.final_block_out_plain),
+            mock.patch.object(proj_mod, "rms_qkv", proj_mod.rms_qkv_plain),
+            mock.patch.object(proj_mod, "outproj_res", proj_mod.outproj_res_plain),
+            mock.patch.object(attn_mod, "attention_core", attn_mod.attention_core_plain),
+        ]
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        pred, _ = predictor(None, obs, start_noise=start, step_noise=steps)
+    return skeleton.transform_to_metric_space(pred), torch.stack(states)
+
+
+def injected_noise(skeleton, gen: torch.Generator):
     rows, n = BATCH * SAMPLES, skeleton.num_nodes
-    start = torch.randn((rows, n, LATENT), generator=gen, device="cuda")
-    steps = torch.randn((rows, TIMESTEPS - 1, n, LATENT), generator=gen, device="cuda")
+    return (torch.randn((rows, n, LATENT), generator=gen, device="cuda"),
+            torch.randn((rows, TIMESTEPS - 1, n, LATENT), generator=gen, device="cuda"))
 
-    def predict(step):
-        """Metric-space prediction, and the sampler's state after each step."""
-        states = []
 
-        def recording(*args):
-            states.append(step(*args))
-            return states[-1]
-
-        with mock.patch.object(posterior_mod, "posterior_step", recording):
-            pred, _ = predictor(None, obs, start_noise=start, step_noise=steps)
-        return skeleton.transform_to_metric_space(pred), torch.stack(states)
-
-    fast, fast_states = predict(posterior_mod.posterior_step)
-    with mock.patch.object(rollout_mod, "gru_rollout", rollout_mod.gru_rollout_plain):
-        plain, plain_states = predict(posterior_mod.posterior_step_plain)
+def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Generator) -> None:
+    start, steps = injected_noise(skeleton, gen)
+    fast, fast_states = injected_run(skeleton, predictor, obs, start, steps, plain=False)
+    plain, plain_states = injected_run(skeleton, predictor, obs, start, steps, plain=True)
     torch.cuda.synchronize()
     # The sampler's states carry the O(1) injected noise, and of the two
-    # kernels only K2 acts on them; the small random-init predictions depend
-    # only weakly on that noise.
+    # kernels only K2 acts on them.
     for what, got, want in (("sampler states after each step", fast_states, plain_states),
                             ("prediction, metric space", fast, plain)):
         err = (got - want).abs().max().item()
-        log(f"main path with injected noise vs plain kernels: {what}: max_abs_err {err:.3e} "
+        log(f"fp32 path with injected noise vs plain kernels: {what}: max_abs_err {err:.3e} "
             f"(tol {E2E_TOL:.0e}, |plain| ≤ {want.abs().max().item():.3f})")
         if not err <= E2E_TOL:
             raise AssertionError(f"end-to-end kernel path disagrees with the plain path in "
                                  f"the {what}: {err}")
+
+
+def compare_bf16(skeleton, predictor, predictor_f32, obs: torch.Tensor,
+                 gen: torch.Generator) -> None:
+    """The bf16 path with injected noise: kernels against plain versions,
+    beside the bf16 path's deviation from the fp32 path (same weights and
+    noise), for the sampler's state after each step and for the predictions.
+
+    The kernel-vs-plain mean deviation must be below the bf16-vs-fp32 one.
+    Its max may reach BF16_E2E_MAX times the bf16-vs-fp32 max: the two bf16
+    paths round at the same points but sum in another order, so now and then
+    a value lands on the other side of a rounding point, and the flip, a
+    whole bf16 step of an O(1) x̂₀, is carried through the later layers and
+    steps, where the bf16-vs-fp32 deviation of the same value can stay below
+    one step."""
+    start, steps = injected_noise(skeleton, gen)
+    fast, fast_states = injected_run(skeleton, predictor, obs, start, steps, plain=False)
+    plain, plain_states = injected_run(skeleton, predictor, obs, start, steps, plain=True)
+    f32, f32_states = injected_run(skeleton, predictor_f32, obs, start, steps, plain=False)
+    torch.cuda.synchronize()
+    for what, unit, scale, (a, b, c) in (
+            ("sampler states after each step", "", 1.0, (fast_states, plain_states, f32_states)),
+            ("prediction, metric space", " mm", 1e3, (fast, plain, f32))):
+        kp, bf = (a - b).abs() * scale, (a - c).abs() * scale
+        kp_max, kp_mean, bf_max, bf_mean = (kp.max().item(), kp.mean().item(), bf.max().item(),
+                                            bf.mean().item())
+        log(f"bf16 path with injected noise: {what}: kernels vs plain max {kp_max:.4e}{unit} "
+            f"mean {kp_mean:.4e}{unit}; bf16 vs fp32 path max {bf_max:.4e}{unit} mean "
+            f"{bf_mean:.4e}{unit} (|fp32| ≤ {c.abs().max().item() * scale:.4f}{unit})")
+        if not (kp_mean < bf_mean and kp_max <= BF16_E2E_MAX * bf_max):
+            raise AssertionError(f"bf16 kernel path vs plain path in the {what}: max {kp_max}, "
+                                 f"mean {kp_mean}, against the bf16-vs-fp32 deviation "
+                                 f"(max {bf_max}, mean {bf_mean})")
+
+
+def bf16_errors(got: torch.Tensor, want: torch.Tensor):
+    """(max |Δ|, mean |Δ|, max |want|) in fp32."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), d.mean().item(), want.float().abs().max().item()
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, source: str,
+                       tensor_flops: float = 0.0, flops: float = 0.0, library=None,
+                       f32: bool = True) -> dict:
+    """One kernel at the bench shapes: bf16 against its plain version, its
+    fp32 instantiation, a ragged row count, and its times."""
+    rows = BATCH * SAMPLES
+    got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    err, parts = 0.0, []
+    for g, w in zip(got, want):
+        mx, mean, ref = bf16_errors(g, w)
+        err = max(err, mx)
+        parts.append(f"max {mx:.3e} mean {mean:.3e} |ref| {ref:.3f}")
+        if g.dtype == torch.float32:  # K2's output: fp32 sums of the same inputs
+            ok = mx <= F32_TOL
+        else:
+            ok = mx <= BF16_MAX * ref and mean <= BF16_MEAN * ref
+        if not ok:
+            raise AssertionError(f"{name} (bf16) disagrees with its plain version: {parts[-1]}")
+    f32_err = None
+    if f32:
+        a32 = [a.float() if torch.is_tensor(a) else a for a in args]
+        f32_err = max((g - w).abs().max().item()
+                      for g, w in zip(as_tuple(kernel(*a32)), as_tuple(plain(*a32))))
+        if not f32_err <= F32_TOL:
+            raise AssertionError(f"{name} (fp32) disagrees with its plain version: {f32_err}")
+    cut = rows - RAGGED
+    ragged = [a[:, :cut].contiguous() if torch.is_tensor(a) and a.dim() == 3 and
+              a.shape[1] == rows else a for a in args]
+    r_err = 0.0
+    for g, w in zip(as_tuple(kernel(*ragged)), as_tuple(plain(*ragged))):
+        mx, mean, ref = bf16_errors(g, w)
+        r_err = max(r_err, mx)
+        tol_ok = (mx <= F32_TOL) if g.dtype == torch.float32 else (
+            mx <= BF16_MAX * ref and mean <= BF16_MEAN * ref)
+        if g.shape[1] != cut or not tol_ok:
+            raise AssertionError(f"{name} at {cut} rows disagrees with its plain version: {mx}")
+    ms = cuda_ms(lambda: kernel(*args), reps=20)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+    library_ms = cuda_ms(library, reps=20) if library is not None else None
+    moved = sum(t.numel() * t.element_size() for t in (*args, *got) if torch.is_tensor(t))
+    bnd, by = bound_ms(moved, flops, tensor_flops)
+    log(f"{name}: bf16 vs plain {'; '.join(parts)}; fp32 vs plain "
+        f"{'—' if f32_err is None else f'{f32_err:.3e}'} (tol {F32_TOL:.0e}); {cut} rows "
+        f"{r_err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bnd:.4f} ms ({by})")
+    return {"name": name, "route": "cuda", "source": f"skeletondiffusion_tpu_torch/csrc/{source}",
+            "replaces": f"skeletondiffusion_tpu/ops/pallas/{replaces}", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
+    """The fused denoiser's kernels and K2's bf16-x̂₀ entry on the bench
+    shapes, on the bf16 model's own operands and activations drawn from
+    ``gen`` (each kernel's input is what the one before it produced)."""
+    bf16 = torch.bfloat16
+    diff, den = predictor.diffusion, predictor.diffusion.denoiser
+    pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
+    f, d = den.dim + den.cond_dim, den.dim
+    heads, dh = den.attn_heads, den.attn_dim_head
+    hd = heads * dh
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf16)
+
+    with torch.no_grad():
+        tt = torch.tanh(den.time_embedding(TIMESTEPS // 2, torch.device("cuda")))
+        u = den.cond_embedding(torch.tanh(torch.randn((rows, n, d), generator=gen,
+                                                      device="cuda"))).contiguous()
+        stem, blk, att, fin, head = (pre["stem"], pre["blocks"][0], pre["attns"][0],
+                                     pre["final"], pre["head"])
+        film = denoiser_fused._film(blk["film"], tt, bf16)
+        film_f = denoiser_fused._film(fin["film"], tt, bf16)
+        x_lat, r = rnd(n, rows, d), rnd(n, rows, f, scale=0.5)
+        x = stem_mod.graph_linear_fused(x_lat, stem["w"], stem["b"], stem["g"], u)
+        qkv = proj_mod.rms_qkv(x, att["g_rms"], att["w_qkv"], att["g_qkv"])
+        core = attn_mod.attention_core(qkv, heads=heads, dim_head=dh)
+        h, res = block_mod.final_block_in(x, r, film_f, fin["w1"], fin["b1"], fin["g1"],
+                                          fin["wr"], fin["gr"])
+        x0 = rnd(n, rows, d, scale=1.5)
+        xt, eps = (torch.randn((n, rows, d), generator=gen, device="cuda") for _ in range(2))
+        m_t = diff.step_tables[TIMESTEPS // 2]
+        q, k, v = (t.reshape(n, rows, heads, dh).permute(1, 2, 0, 3).reshape(rows * heads, n, dh)
+                   .contiguous() for t in qkv.split(hd, dim=-1))
+        stacked = torch.cat([x0.float().clamp(-1, 1), xt, eps]).reshape(3 * n, -1)
+        mix = lambda width: 2.0 * n * n * rows * width  # noqa: E731
+        prod = lambda k_, o: 2.0 * n * rows * k_ * o  # noqa: E731
+        return [
+            check_fused_kernel(
+                "graph_linear_fused", stem_mod.graph_linear_fused,
+                stem_mod.graph_linear_fused_plain, [x_lat, stem["w"], stem["b"], stem["g"], u],
+                replaces="graph_linear_fused.py:70", source="graph_linear_fused.cu",
+                tensor_flops=prod(d, f) + mix(f)),
+            check_fused_kernel(
+                "resnet_block", block_mod.resnet_block, block_mod.resnet_block_plain,
+                [x, film, blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]],
+                replaces="resnet_block.py:134", source="resnet_block.cu",
+                tensor_flops=2 * (prod(f, f) + mix(f))),
+            check_fused_kernel(
+                "rms_qkv", proj_mod.rms_qkv, proj_mod.rms_qkv_plain,
+                [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="attention_proj.py:114",
+                source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd)),
+            check_fused_kernel(
+                "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
+                                                    dim_head=dh),
+                functools.partial(attn_mod.attention_core_plain, heads=heads, dim_head=dh),
+                [qkv], replaces="joint_attention.py:124", source="joint_attention.cu",
+                tensor_flops=4.0 * rows * heads * n * n * dh,
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+            check_fused_kernel(
+                "outproj_res", proj_mod.outproj_res, proj_mod.outproj_res_plain,
+                [core, x, att["w_out"], att["g_out"]], replaces="attention_proj.py:143",
+                source="attention_proj.cu", tensor_flops=prod(hd, f) + mix(f)),
+            check_fused_kernel(
+                "final_block_in", block_mod.final_block_in, block_mod.final_block_in_plain,
+                [x, r, film_f, fin["w1"], fin["b1"], fin["g1"], fin["wr"], fin["gr"]],
+                replaces="resnet_block.py:351", source="resnet_block.cu",
+                tensor_flops=2 * (prod(2 * f, f) + mix(f))),
+            check_fused_kernel(
+                "final_block_out", block_mod.final_block_out, block_mod.final_block_out_plain,
+                [h, res, fin["w2"], fin["b2"], fin["g2"], head["w"], head["b"], head["g"]],
+                replaces="resnet_block.py:372", source="resnet_block.cu",
+                tensor_flops=prod(f, f) + mix(f) + prod(f, d) + mix(d)),
+            check_fused_kernel(
+                "posterior_step_x0_bf16", posterior_mod.posterior_step,
+                posterior_mod.posterior_step_plain, [x0, xt, eps, m_t],
+                replaces="posterior_step.py:93", source="posterior_step.cu",
+                flops=2.0 * n * 3 * n * rows * d, f32=False,
+                library=lambda: torch.matmul(m_t, stacked)),
+        ]
 
 
 def main() -> int:
@@ -319,11 +586,34 @@ def main() -> int:
     t = time.perf_counter()
     obs = 0.3 * torch.randn((BATCH, OBS_LEN, skeleton.num_nodes, 3), generator=gen,
                             device="cuda")
-    launches = run_main_path(skeleton, predictor, obs, card_name)
+    launches = run_main_path(skeleton, predictor, obs, card_name,
+                             {"gru_rollout": 1, "posterior_step": TIMESTEPS}, "main path fp32")
     compare_with_plain(skeleton, predictor, obs, gen)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     phase("main", t)
+
+    t = time.perf_counter()
+    _, predictor_bf16 = build_model(device, torch.bfloat16)
+    fused = check_denoiser_kernels(predictor_bf16, gen)
+    phase("denoiser", t)
+
+    t = time.perf_counter()
+    expected = {"gru_rollout": 1, "posterior_step_x0_bf16": TIMESTEPS,
+                "graph_linear_fused": TIMESTEPS, "resnet_block": 8 * TIMESTEPS,
+                "rms_qkv": 7 * TIMESTEPS, "attention_core": 7 * TIMESTEPS,
+                "outproj_res": 7 * TIMESTEPS, "final_block_in": TIMESTEPS,
+                "final_block_out": TIMESTEPS}
+    launches = run_main_path(skeleton, predictor_bf16, obs, card_name, expected,
+                             "main path bf16")
+    compare_bf16(skeleton, predictor_bf16, predictor, obs, gen)
+    for k in fused:
+        k["launches"] = launches[k["name"]]
+    total = sum(k["ms"] * k["launches"] for k in fused)
+    log("bf16 path, kernel time per prediction (ms × launches): " + ", ".join(
+        f"{k['name']} {k['ms'] * k['launches']:.3f}" for k in fused) + f"; sum {total:.3f} ms")
+    kernels += fused
+    phase("main_bf16", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

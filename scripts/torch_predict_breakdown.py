@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one fp32 prediction of the PyTorch port goes on the GPU,
-at the configuration of ``chip_smoke.py`` (AMASS flagship at full width,
-batch 256 × 50 samples, seeded random weights).
+"""Where the time of one prediction of the PyTorch port goes on the GPU, on
+the fp32 path and on the bf16 path (fused denoiser kernels), at the
+configuration of ``chip_smoke.py`` (AMASS flagship at full width, batch
+256 × 50 samples, seeded random weights).
 
     python3 scripts/torch_predict_breakdown.py
 
-Prints the card's name and power limit, CUDA-event times of each layer of
-the prediction (past embedding, conditioning product, one denoiser forward,
-one posterior step, the whole sampler, the decode, the whole prediction),
-the device's busy share over one prediction from ``torch.profiler`` and its
-top device kernels, and the rollout kernel's time per block and step at
-66, 132 and 1600 blocks.
+Prints the card's name and power limit; for each path, CUDA-event times of
+each layer of the prediction (past embedding, conditioning product, one
+denoiser forward, one posterior step, the whole sampler, the decode, the
+whole prediction), the device's busy share over one prediction from
+``torch.profiler`` and its top device kernels; then the rollout kernel's
+time per block and step at 66, 132 and 1600 blocks.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from skeletondiffusion_tpu_torch.ops.kernels import build  # noqa: E402
+from skeletondiffusion_tpu_torch.ops.kernels.denoiser_fused import (  # noqa: E402
+    fused_denoiser_core_nm,
+)
 from skeletondiffusion_tpu_torch.ops.kernels import gru_rollout as rollout_mod  # noqa: E402
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod  # noqa: E402
 
@@ -38,13 +42,19 @@ def layer_times(predictor, obs: torch.Tensor, gen: torch.Generator) -> dict:
         x_cond = z_past.repeat_interleave(S, dim=0)
         u = den.cond_embedding(x_cond)
         img = torch.randn((obs.shape[2], rows, cs.LATENT), generator=gen, device="cuda")
-        x0 = den(img, t_mid, u)
+        if diff.fused is not None:  # the bf16 path: the fused kernel chain
+            def forward():
+                return fused_denoiser_core_nm(den, img, t_mid, u, diff.fused)
+        else:
+            def forward():
+                return den(img, t_mid, u)
+        x0 = forward()
         latents, _ = diff.sample(x_cond, gen)
         last2 = obs[:, -2:].repeat_interleave(S, dim=0)
         return {
             "past_embedding_ms": cs.cuda_ms(lambda: ae.get_past_embedding(obs), reps=5),
             "cond_embedding_ms": cs.cuda_ms(lambda: den.cond_embedding(x_cond), reps=5),
-            "denoiser_forward_ms": cs.cuda_ms(lambda: den(img, t_mid, u), reps=3),
+            "denoiser_forward_ms": cs.cuda_ms(forward, reps=3),
             "posterior_step_ms": cs.cuda_ms(
                 lambda: posterior_mod.posterior_step(x0, img, img, diff.step_tables[t_mid]), reps=10),
             "sampler_ms": cs.cuda_ms(
@@ -109,12 +119,16 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     obs = 0.3 * torch.randn((cs.BATCH, cs.OBS_LEN, skeleton.num_nodes, 3), generator=gen,
                             device="cuda")
-    predictor(gen, obs)  # warm-up
-    result = {"card": card, "layers": layer_times(predictor, obs, gen)}
-    for key, value in result["layers"].items():
-        print(f"{key}: {value:.3f}")
+    result = {"card": card}
+    _, predictor_bf16 = cs.build_model(torch.device("cuda"), torch.bfloat16)
+    for path, pred in (("fp32", predictor), ("bf16", predictor_bf16)):
+        pred(gen, obs)  # warm-up
+        result[path] = layer_times(pred, obs, gen)
+        for key, value in result[path].items():
+            print(f"{path} {key}: {value:.3f}")
+        print(f"{path} path:")
+        profile_prediction(pred, obs, gen)
     result["rollout_scaling"] = rollout_scaling(predictor, gen)
-    profile_prediction(predictor, obs, gen)
     print(json.dumps(result))
     return 0
 

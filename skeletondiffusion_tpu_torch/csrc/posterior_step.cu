@@ -19,7 +19,13 @@
 // accumulators stay in registers; the matrix sits in shared memory and is
 // read as warp-wide broadcasts.  No intermediate touches device memory.
 // The TPU version padded D to 128 lanes; here D stays at its real width.
+//
+// A second entry reads x̂₀ in bf16, as the fused bf16 denoiser emits it (the
+// Pallas kernel reads it in its own dtype and widens it, `:53`); x_t, the
+// noise and the output stay float32.  It moves 5/6 of the bytes of the
+// float32 entry.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -37,9 +43,21 @@ __device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-template <int N>
+// Four adjacent x̂₀ values, the i4-th group, widened to float.
+__device__ __forceinline__ float4 load4(const float* x0, size_t i4) {
+  return __ldg(reinterpret_cast<const float4*>(x0) + i4);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x0, size_t i4) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(x0) + i4);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <int N, typename X0>
 __global__ void __launch_bounds__(kThreads)
-posterior_step_kernel(const float4* __restrict__ x0, const float4* __restrict__ xt,
+posterior_step_kernel(const X0* __restrict__ x0, const float4* __restrict__ xt,
                       const float4* __restrict__ eps, const float* __restrict__ m,
                       float4* __restrict__ out, int cols4) {
   __shared__ float ms[N * 3 * N];
@@ -56,7 +74,7 @@ posterior_step_kernel(const float4* __restrict__ x0, const float4* __restrict__ 
 #pragma unroll 3
   for (int k = 0; k < N; ++k) {
     const size_t off = static_cast<size_t>(k) * cols4 + c;
-    float4 a = __ldg(x0 + off);
+    float4 a = load4(x0, off);
     const float4 b = __ldg(xt + off);
     const float4 e = __ldg(eps + off);
     a.x = clip1(a.x);
@@ -75,6 +93,26 @@ posterior_step_kernel(const float4* __restrict__ x0, const float4* __restrict__ 
   for (int n = 0; n < N; ++n) out[static_cast<size_t>(n) * cols4 + c] = acc[n];
 }
 
+template <typename X0>
+int launch(const X0* x0, const float* xt, const float* eps, const float* m, float* out,
+           int n_nodes, int cols, void* stream) {
+  if (cols <= 0 || cols % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols4 = cols / 4;
+  const dim3 grid((cols4 + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* b = reinterpret_cast<const float4*>(xt);
+  const float4* e = reinterpret_cast<const float4*>(eps);
+  float4* o = reinterpret_cast<float4*>(out);
+  switch (n_nodes) {
+    case 21:
+      posterior_step_kernel<21><<<grid, kThreads, 0, s>>>(x0, b, e, m, o, cols4);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x0, xt, eps, out: [n_nodes, cols] float32, cols % 4 == 0, 16-byte aligned;
@@ -82,20 +120,12 @@ posterior_step_kernel(const float4* __restrict__ x0, const float4* __restrict__ 
 extern "C" int posterior_step_f32(const float* x0, const float* xt, const float* eps,
                                   const float* m, float* out, int n_nodes, int cols,
                                   void* stream) {
-  if (cols <= 0 || cols % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols4 = cols / 4;
-  const dim3 grid((cols4 + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* a = reinterpret_cast<const float4*>(x0);
-  const float4* b = reinterpret_cast<const float4*>(xt);
-  const float4* e = reinterpret_cast<const float4*>(eps);
-  float4* o = reinterpret_cast<float4*>(out);
-  switch (n_nodes) {
-    case 21:
-      posterior_step_kernel<21><<<grid, kThreads, 0, s>>>(a, b, e, m, o, cols4);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(x0, xt, eps, m, out, n_nodes, cols, stream);
+}
+
+// As posterior_step_f32 with x0 in bf16 (8-byte aligned).
+extern "C" int posterior_step_x0_bf16(const __nv_bfloat16* x0, const float* xt, const float* eps,
+                                      const float* m, float* out, int n_nodes, int cols,
+                                      void* stream) {
+  return launch(x0, xt, eps, m, out, n_nodes, cols, stream);
 }

@@ -10,6 +10,13 @@ denoiser's layout, and each reverse step after the denoiser is one call of
 the posterior-step kernel wrapper (``ops/kernels/posterior_step.py``) with
 the step's ``[N, 3N]`` table.  Randomness comes only from an explicit
 ``torch.Generator`` or from injected noise.
+
+The fused branch (`engine.py:218-248`): with ``fused`` set to the operands of
+``ops.kernels.denoiser_fused.prep_fused_denoiser``, each step runs the
+denoiser as its kernel chain and hands its x̂₀ to the posterior-step kernel
+in the compute dtype (bf16); the latent stays float32.  The port takes that
+branch with injected noise too (the JAX package falls back to its plain scan
+there): the two branches differ only in the functions they call.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.denoiser import Denoiser
 from ..ops.kernels import posterior_step as posterior_kernel
+from ..ops.kernels.denoiser_fused import fused_denoiser_core_nm, prep_fused_denoiser
 from .process import NonisotropicProcess
 
 
@@ -43,6 +51,7 @@ class GaussianDiffusion:
         self.seq_length = latent_size
         self.num_timesteps = process.num_timesteps
         self.step_tables = process.posterior_step_tables()  # [T, N, 3N]
+        self.fused: Optional[dict] = None  # prep_fused_denoiser operands, on the device
 
     @property
     def device(self) -> torch.device:
@@ -53,6 +62,8 @@ class GaussianDiffusion:
         self.process = self.process.to(device)
         self.denoiser.to(device)
         self.step_tables = self.step_tables.to(device)
+        if self.fused is not None:
+            self.fused = prep_fused_denoiser(self.denoiser)
         return self
 
     @torch.no_grad()
@@ -86,7 +97,10 @@ class GaussianDiffusion:
         start = img.transpose(0, 1)
         no_noise = torch.zeros_like(img)
         for t in range(T - 1, -1, -1):
-            x0 = self.denoiser(img, t, u_cond)
+            if self.fused is not None:
+                x0 = fused_denoiser_core_nm(self.denoiser, img, t, u_cond, self.fused)
+            else:
+                x0 = self.denoiser(img, t, u_cond)
             if t == 0:
                 noise = no_noise  # the table's noise block is zero at t=0 as well
             elif step_noise is not None:

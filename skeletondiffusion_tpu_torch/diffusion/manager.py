@@ -3,7 +3,7 @@ engine; port of ``skeletondiffusion_tpu/diffusion/manager.py`` (reference
 `src/core/diffusion_manager.py:8-45`) for the nonisotropic pred_x0 sampler."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -20,6 +20,7 @@ def build_denoiser(
     latent_size: int = 96,
     node_types=None,
     diffusion_arch: Optional[Dict[str, Any]] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Denoiser:
     """Reference `diffusion_manager.py:36-45` (``get_network``)."""
     arch = dict(diffusion_arch or {})
@@ -37,6 +38,7 @@ def build_denoiser(
         generator=generator,
         cond_dim=latent_size,
         node_types=node_types,
+        compute_dtype=compute_dtype,
         **arch,
     )
 
@@ -62,13 +64,18 @@ def create_diffusion(
     diffusion_activation: str = "identity",
     diffusion_arch: Optional[Dict[str, Any]] = None,
     device: DeviceLike = "cuda",
+    compute_dtype: Optional[Union[str, torch.dtype]] = None,
     **kwargs,
 ) -> Tuple[GaussianDiffusion, Denoiser]:
     """Build (engine, denoiser) on ``device``; the denoiser's weights are
     drawn from ``generator``.  Reference `diffusion_manager.py:8-31`.  The
     port samples what every shipped config trains: the conditioned
-    nonisotropic process with identity output activation."""
+    nonisotropic process with identity output activation.
+    ``compute_dtype`` (``"bfloat16"`` or a torch dtype; None = float32) is
+    the denoiser's, as the JAX factory passes it."""
     device = resolve_device(device)
+    if isinstance(compute_dtype, str):
+        compute_dtype = {"bfloat16": torch.bfloat16, "float32": None}[compute_dtype]
     if diffusion_type != "NonisotropicGaussianDiffusion":
         raise NotImplementedError(f"{diffusion_type}: the port has the nonisotropic process")
     if not diffusion_conditioning or diffusion_activation != "identity":
@@ -76,7 +83,7 @@ def create_diffusion(
                                   "output activation")
     model = build_denoiser(
         skeleton.num_nodes, generator, latent_size=latent_size, node_types=skeleton.nodes_type_id,
-        diffusion_arch=diffusion_arch,
+        diffusion_arch=diffusion_arch, compute_dtype=compute_dtype,
     )
     if covariance_matrix_type == "adjacency":
         corr = skeleton.adj_matrix

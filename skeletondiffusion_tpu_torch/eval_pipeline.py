@@ -4,7 +4,9 @@ Port of ``SkeletonDiffusionPredictor`` from
 ``skeletondiffusion_tpu/eval_pipeline.py`` (`:29-180`; reference
 `src/eval_prepare_model.py:89-121`): past embedding (graph-GRU encoder) →
 S-fold fan-out → nonisotropic ancestral sampling (posterior-step kernel) →
-graph-GRU decode rollout (rollout kernel).
+graph-GRU decode rollout (rollout kernel).  With a bf16 denoiser the sampler
+takes the fused branch: the denoiser runs as its chain of kernels
+(``ops/kernels/denoiser_fused.py``) on operands prepared once here.
 """
 from __future__ import annotations
 
@@ -15,13 +17,22 @@ import torch
 from .device import DeviceLike, resolve_device
 from .diffusion.engine import GaussianDiffusion
 from .models.autoencoder import AutoEncoder
+from .ops.kernels.denoiser_fused import prep_fused_denoiser
 
 
 class SkeletonDiffusionPredictor:
     """The trained model pair (AE + diffusion) as a prediction function.
 
-    This is the float32 path.  On the GPU its products must run in full fp32:
-    set ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    With a denoiser whose ``compute_dtype`` is bfloat16 the sampler runs the
+    fused kernel chain, under the JAX predictor's conditions
+    (`eval_pipeline.py:72-87`: attention, no self-conditioning, the
+    nonisotropic pred_x0 process with clipping — all the port builds) minus
+    the TPU's shape limits; its weight operands are prepared once, at
+    construction (re-preparing per call cost the JAX package 42 ms).  The
+    decode stays the float32 rollout kernel.
+
+    Otherwise this is the float32 path.  On the GPU its products must run in
+    full fp32: set ``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False`` (PyTorch's defaults for
     matmuls, not for cuDNN) — TF32 keeps about three decimal digits.
 
@@ -43,6 +54,8 @@ class SkeletonDiffusionPredictor:
         self.skeleton = skeleton
         self.autoencoder = autoencoder.to(self.device).eval()
         self.diffusion = diffusion.to(self.device)
+        if diffusion.denoiser.compute_dtype == torch.bfloat16:
+            self.diffusion.fused = prep_fused_denoiser(diffusion.denoiser)
         self.num_samples = num_samples
         self.pred_length = pred_length
 

@@ -7,7 +7,11 @@ one layer each side.  The encoder loops the graph-GRU step over the observed
 frames; the decoder hoists its constant input gates and runs the whole
 rollout (hidden state, evolving influence G ← l1norm(G + ΔG), output head) in
 one call of the rollout kernel wrapper (``ops/kernels/gru_rollout.py``).
-Submodule and parameter names are the flax ones.
+Submodule and parameter names are the flax ones.  ``compute_dtype`` runs the
+encoder's graph-GRU cell in that dtype (its products, mixes and gates; the
+hidden state stays float32), as the flax encoder does; the decode stays the
+float32 rollout kernel, which is what the JAX package runs on its prediction
+path whatever the AutoEncoder's dtype (`eval_pipeline.py:164-170`).
 """
 from __future__ import annotations
 
@@ -27,12 +31,13 @@ class Encoder(nn.Module):
     frames, output = tanh(fc(last hidden)); reference `encoder.py:10-82`."""
 
     def __init__(self, num_nodes: int, input_size: int, hidden_size: int, output_size: int,
-                 generator: torch.Generator, node_types: Optional[np.ndarray] = None):
+                 generator: torch.Generator, node_types: Optional[np.ndarray] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         common = dict(num_nodes=num_nodes, generator=generator, node_types=node_types)
         self.initial_hidden1 = StaticGraphLinear(input_size, hidden_size, learn_influence=True,
                                                  **common)
-        self.rnn = StaticGraphGRU(input_size, hidden_size, **common)
+        self.rnn = StaticGraphGRU(input_size, hidden_size, compute_dtype=compute_dtype, **common)
         self.fc = StaticGraphLinear(hidden_size, output_size, learn_influence=True, **common)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,10 +98,10 @@ class AutoEncoder(nn.Module):
     def __init__(self, num_nodes: int, encoder_hidden_size: int, decoder_hidden_size: int,
                  latent_size: int, generator: torch.Generator,
                  node_types: Optional[np.ndarray] = None, input_size: int = 3,
-                 output_size: int = 3):
+                 output_size: int = 3, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoder = Encoder(num_nodes, input_size, encoder_hidden_size, latent_size,
-                               generator, node_types)
+                               generator, node_types, compute_dtype=compute_dtype)
         self.decoder = Decoder(num_nodes, input_size, latent_size, decoder_hidden_size,
                                output_size, generator, node_types)
 

@@ -9,6 +9,13 @@ the sampler's layout — and always takes the conditioning as the hoisted
 product of ``cond_embedding`` (the flax module's ``u_cond`` path); submodule
 and parameter names are the flax ones, so the weight bridge is a copy.  No
 self-conditioning (no shipped config uses it).
+
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs the network in that dtype as
+the flax module does (`models/denoiser.py:94-106`): parameters stay float32,
+the input, the graph linears and the FiLM rows are cast, the time MLP stays
+float32, and the output is float32.  This plain forward is the counterpart
+of the JAX package's XLA bf16 path; the prediction path runs the same
+weights through the fused kernels (``ops/kernels/denoiser_fused.py``).
 """
 from __future__ import annotations
 
@@ -39,14 +46,17 @@ class Denoiser(nn.Module):
         attn_dim_head: int = 32,
         attn_heads: int = 4,
         sinusoidal_pos_emb_theta: float = 10000.0,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.dim, self.cond_dim = dim, cond_dim
+        self.compute_dtype = compute_dtype
+        self.attn_heads, self.attn_dim_head = attn_heads, attn_dim_head
         self.theta = sinusoidal_pos_emb_theta
         size = dim + cond_dim
         time_dim = size * 4
         common = dict(num_nodes=channels, generator=generator, node_types=node_types,
-                      learn_influence=learn_influence)
+                      learn_influence=learn_influence, compute_dtype=compute_dtype)
         self.init_lin = StaticGraphLinear(dim + cond_dim, size, **common)
         self.time_mlp0 = Dense(size, time_dim, generator)
         self.time_mlp1 = Dense(time_dim, time_dim, generator)
@@ -61,8 +71,18 @@ class Denoiser(nn.Module):
 
     def cond_embedding(self, x_cond: torch.Tensor) -> torch.Tensor:
         """The loop-invariant conditioning half of the stem, node-major
-        [N,B,size]: the sampler computes it once and passes it as ``u_cond``."""
+        [N,B,size] in the compute dtype: the sampler computes it once and
+        passes it as ``u_cond``."""
         return self.init_lin.partial(x_cond.transpose(0, 1), input_offset=0)
+
+    def time_embedding(self, time: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
+        """Sinusoidal embedding → Dense → exact (erf) GELU → Dense, float32:
+        [1 | B, 4·(dim+cond_dim)]."""
+        time = torch.as_tensor(time, device=device).reshape(-1)
+        t = sinusoidal_pos_emb(time, self.dim + self.cond_dim, self.theta)
+        t = self.time_mlp0(t)
+        t = nn.functional.gelu(t, approximate="none")
+        return self.time_mlp1(t)
 
     def forward(
         self,
@@ -75,14 +95,12 @@ class Denoiser(nn.Module):
         ``time`` is one step shared by the batch (an int) or a [B] tensor."""
         if self.cond_dim and u_cond is None:
             raise ValueError("a conditioned denoiser needs u_cond (see cond_embedding)")
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x = self.init_lin(x, input_offset=self.cond_dim, partial_in=u_cond)
         r = x
 
-        time = torch.as_tensor(time, device=x.device).reshape(-1)
-        t = sinusoidal_pos_emb(time, self.dim + self.cond_dim, self.theta)
-        t = self.time_mlp0(t)
-        t = nn.functional.gelu(t, approximate="none")
-        t = self.time_mlp1(t)
+        t = self.time_embedding(time, x.device)
 
         for i in range(self.n_pairs):
             x = getattr(self, f"res{i}")(x, t)
@@ -90,4 +108,4 @@ class Denoiser(nn.Module):
                 x = getattr(self, f"attn{i}")(x)
 
         x = self.final_res_block(torch.cat([x, r], dim=-1), t)
-        return self.final_glin(x)
+        return self.final_glin(x).float()

@@ -2,8 +2,11 @@
 denoiser's building blocks, node-major ``[N, B, F]``.
 
 Port of ``skeletondiffusion_tpu/ops/attention.py`` (reference
-`src/core/network/layers/attention.py`).  Plain PyTorch: the fused TPU
-kernels of these blocks (the bf16 path) are not ported yet.
+`src/core/network/layers/attention.py`).  Plain PyTorch; ``compute_dtype``
+is passed down to every graph linear as the flax modules pass it, and the
+FiLM row is cast to it.  The fused kernels of these blocks (the bf16
+prediction path) are in ``ops/kernels/`` and driven by
+``ops/kernels/denoiser_fused.py``.
 """
 from __future__ import annotations
 
@@ -36,12 +39,13 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_nodes: int, generator: torch.Generator, heads: int = 4,
                  dim_head: int = 32, node_types: Optional[np.ndarray] = None,
-                 learn_influence: bool = False):
+                 learn_influence: bool = False, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
         common = dict(num_nodes=num_nodes, generator=generator, node_types=node_types,
-                      learn_influence=learn_influence, use_bias=False)
+                      learn_influence=learn_influence, use_bias=False,
+                      compute_dtype=compute_dtype)
         self.to_qkv = StaticGraphLinear(dim, hidden * 3, **common)
         self.to_out = StaticGraphLinear(hidden, dim, **common)
 
@@ -90,10 +94,11 @@ class ResnetBlock(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int, num_nodes: int,
                  generator: torch.Generator, node_types: Optional[np.ndarray] = None,
-                 learn_influence: bool = False):
+                 learn_influence: bool = False, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         common = dict(num_nodes=num_nodes, generator=generator, node_types=node_types,
-                      learn_influence=learn_influence)
+                      learn_influence=learn_influence, compute_dtype=compute_dtype)
         self.mlp = Dense(time_emb_dim, dim_out * 2, generator)
         self.block1 = Block(dim, dim_out, **common)
         self.block2 = Block(dim_out, dim_out, **common)
@@ -104,6 +109,8 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         # [B|1, C] → [1, B|1, C]: broadcast over the node axis
         t = self.mlp(torch.tanh(time_emb))[None]
+        if self.compute_dtype is not None:
+            t = t.to(self.compute_dtype)
         h = self.block1(x, scale_shift=t.chunk(2, dim=-1))
         h = self.block2(h)
         return h + (x if self.res_linear is None else self.res_linear(x))

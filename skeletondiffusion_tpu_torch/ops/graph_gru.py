@@ -10,7 +10,9 @@ Port of the GRU half of ``skeletondiffusion_tpu/ops/graph_gru.py`` (reference
 
 ``graph_gru_step`` is one step on precomputed input gates; the encoder loops
 it over the observed frames, and it is the plain version of the decode
-rollout kernel (``ops/kernels/gru_rollout.py``).
+rollout kernel (``ops/kernels/gru_rollout.py``).  With ``compute_dtype`` the
+cell's products, mixes and gates run in that dtype and the carried hidden
+state stays float32, as in the flax cell (`graph_gru.py:99-101`).
 """
 from __future__ import annotations
 
@@ -31,13 +33,17 @@ def graph_gru_step(
     w_hh: torch.Tensor,   # [N,H,3H] per-node banks
     b_hh: torch.Tensor,   # [N,3H]
 ) -> torch.Tensor:
-    """h' of one graph-GRU step."""
+    """h' of one graph-GRU step, computed in ``cx``'s dtype (h, g and the
+    banks are cast to it); h' has h's dtype."""
+    cdt = cx.dtype
+    g = g.to(cdt)
     i_r, i_z, i_n = gmix_nm(g, cx).chunk(3, dim=-1)
-    h_r, h_z, h_n = gmix_nm(g, gmm_nm(h, w_hh) + b_hh[:, None, :]).chunk(3, dim=-1)
+    h_gates = gmm_nm(h.to(cdt), w_hh.to(cdt)) + b_hh.to(cdt)[:, None, :]
+    h_r, h_z, h_n = gmix_nm(g, h_gates).chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
-    return n - n * z + z * h
+    return (n - n * z).to(h.dtype) + z.to(h.dtype) * h
 
 
 class StaticGraphGRUCell(nn.Module):
@@ -53,8 +59,10 @@ class StaticGraphGRUCell(nn.Module):
         generator: torch.Generator,
         node_types: Optional[np.ndarray] = None,
         learn_additive_graph_influence: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         index, n_types = type_index(node_types, num_nodes)
         self.register_buffer("type_index", torch.as_tensor(index), persistent=False)
         H = hidden_size
@@ -68,8 +76,10 @@ class StaticGraphGRUCell(nn.Module):
         )
 
     def input_gates(self, x: torch.Tensor) -> torch.Tensor:
-        """x·W_ih[type] + b_ih: [N,B,in] → [N,B,3H]."""
-        return gmm_nm(x, self.weight_ih[self.type_index]) + self.bias_ih[self.type_index][:, None, :]
+        """x·W_ih[type] + b_ih: [N,B,in] → [N,B,3H], in the compute dtype."""
+        cast = (lambda t: t) if self.compute_dtype is None else (lambda t: t.to(self.compute_dtype))
+        return (gmm_nm(cast(x), cast(self.weight_ih[self.type_index]))
+                + cast(self.bias_ih[self.type_index])[:, None, :])
 
     def hidden_banks(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(W_hh [N,H,3H], b_hh [N,3H]) gathered per node."""
@@ -97,10 +107,12 @@ class StaticGraphGRU(nn.Module):
         num_nodes: int,
         generator: torch.Generator,
         node_types: Optional[np.ndarray] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.G0 = nn.Parameter(torch.eye(num_nodes))
-        self.cell0 = StaticGraphGRUCell(input_size, hidden_size, num_nodes, generator, node_types)
+        self.cell0 = StaticGraphGRUCell(input_size, hidden_size, num_nodes, generator, node_types,
+                                        compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
         """Hidden state after the last frame, [N,B,H]."""

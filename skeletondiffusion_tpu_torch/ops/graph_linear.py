@@ -9,6 +9,9 @@ node-major only: activations are ``[N, B, F]`` and
 
 is one batched matmul over nodes followed by one [N,N]·[N, B·F] matmul.
 Weights keep the JAX layout ``[types, in, out]`` and the flax parameter names.
+With ``compute_dtype`` (e.g. ``torch.bfloat16``) the parameters stay float32
+and x, W, b and G are cast to it where the flax module casts them, so the
+products, the mix and the output run in that dtype.
 """
 from __future__ import annotations
 
@@ -59,8 +62,10 @@ class StaticGraphLinear(nn.Module):
         node_types: Optional[np.ndarray] = None,
         learn_influence: bool = False,
         use_bias: bool = True,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         index, n_types = type_index(node_types, num_nodes)
         self.register_buffer("type_index", torch.as_tensor(index), persistent=False)
         self.weight = nn.Parameter(
@@ -73,15 +78,19 @@ class StaticGraphLinear(nn.Module):
         self.G = nn.Parameter(torch.eye(num_nodes)) if learn_influence else None
 
     def influence(self) -> Optional[torch.Tensor]:
-        """The row-normalized G, or None for the identity."""
+        """The row-normalized G (float32), or None for the identity."""
         return None if self.G is None else l1_normalize_rows(self.G)
+
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.compute_dtype is None else t.to(self.compute_dtype)
 
     def partial(self, x: torch.Tensor, input_offset: int = 0) -> torch.Tensor:
         """Weight product of an input SLICE (columns ``input_offset:`` …
         ``+x.shape[-1]``) without bias or G — the hoisted conditioning
-        product that re-enters ``forward`` as ``partial_in``."""
+        product that re-enters ``forward`` as ``partial_in``; in the compute
+        dtype."""
         w = self.weight[:, input_offset : input_offset + x.shape[-1]]
-        return gmm_nm(x, w[self.type_index])
+        return gmm_nm(self._cast(x), self._cast(w[self.type_index]))
 
     def forward(
         self,
@@ -91,11 +100,11 @@ class StaticGraphLinear(nn.Module):
     ) -> torch.Tensor:
         out = self.partial(x, input_offset)
         if partial_in is not None:
-            out = out + partial_in
+            out = out + partial_in.to(out.dtype)
         if self.bias is not None:
-            out = out + self.bias[self.type_index][:, None, :]
+            out = out + self._cast(self.bias[self.type_index])[:, None, :]
         g = self.influence()
-        return out if g is None else gmix_nm(g, out)
+        return out if g is None else gmix_nm(self._cast(g), out)
 
 
 class Dense(nn.Module):

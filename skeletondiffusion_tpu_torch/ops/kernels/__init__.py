@@ -6,6 +6,15 @@ plain version; given CUDA tensors it launches the kernel (built by
 ``build.py`` with ``nvcc`` at first use) or raises — it never falls back.
 
 * ``gru_rollout``     — the 120-step graph-GRU decode (``csrc/gru_rollout.cu``)
-* ``posterior_step``  — one reverse-diffusion posterior update
-  (``csrc/posterior_step.cu``)
+* ``posterior_step``  — one reverse-diffusion posterior update, x̂₀ in fp32
+  or bf16 (``csrc/posterior_step.cu``)
+* ``graph_linear_fused`` — the fused denoiser's stem (``csrc/graph_linear_fused.cu``)
+* ``resnet_block``    — its ResnetBlocks and the final block with the output
+  head (``csrc/resnet_block.cu``)
+* ``attention_proj``  — RMSNorm + qkv projection, output projection +
+  residual (``csrc/attention_proj.cu``)
+* ``joint_attention`` — attention over the joints (``csrc/joint_attention.cu``)
+* ``denoiser_fused``  — the denoiser forward as the chain of those kernels
+
+The fused denoiser's four sources share ``csrc/node_mix.cuh``.
 """

@@ -1,0 +1,82 @@
+"""The attention layer's two projection stages as CUDA kernels.
+
+Node-major activations, per-node banks, row-normalized influences [N, N],
+all in one element type (bf16 on the prediction path; fp32 is instantiated
+too); sums in fp32, round() to that type where the Pallas kernels
+materialise:
+
+    rms_qkv:      h   = round(x / sqrt(max(Σx², 1e-24)) · g_rms)
+                  qkv = round(G_qkv·round(h·W_qkv))        [N,B,F] → [N,B,3·hd]
+    outproj_res:  out = round(G_out·round(a·W_out) + x)    [N,B,hd] → [N,B,F]
+
+``g_rms`` [F] is the RMSNorm gain with √F folded in.  Ports of
+``skeletondiffusion_tpu/ops/pallas/attention_proj.py::rms_qkv_pallas`` and
+``::outproj_res_pallas`` without the TPU's padding; the kernels are
+``csrc/attention_proj.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .graph_linear_fused import mix_plain, product_plain
+
+launches_rms_qkv = 0
+launches_outproj_res = 0
+
+
+def rms_qkv_plain(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    norm = torch.sqrt(torch.clamp((xf * xf).sum(dim=-1, keepdim=True), min=1e-24))
+    h = (xf / norm * g_rms.float()).to(dt)
+    return mix_plain(g_qkv, product_plain(h, w_qkv).to(dt)).to(dt)
+
+
+def outproj_res_plain(a, x, w_out, g_out) -> torch.Tensor:
+    dt = x.dtype
+    return (mix_plain(g_out, product_plain(a, w_out).to(dt)) + x.float()).to(dt)
+
+
+def _launch(kernel: str, tensors: dict, shapes: dict, out: torch.Tensor, ints: tuple) -> None:
+    dt = out.dtype
+    suffix = build.element_suffix(kernel, dt)
+    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
+    build.check_aligned(kernel, 32, **tensors)
+    ptrs = [t.data_ptr() for t in tensors.values()] + [out.data_ptr()]
+    status = build.c_entry("attention_proj", f"{kernel}_{suffix}", len(ptrs), len(ints))(
+        *ptrs, *ints, build.stream_of(out))
+    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
+
+
+def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
+    """x [N,B,F], g_rms [F], w_qkv [N,F,3·hd], g_qkv [N,N] → [N,B,3·hd].  CPU
+    tensors run ``rms_qkv_plain``; CUDA tensors launch the kernel or raise."""
+    global launches_rms_qkv
+    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
+    if build.kernel_device(**tensors) == "cpu":
+        return rms_qkv_plain(**tensors)
+    n, rows, f = x.shape
+    fo = w_qkv.shape[-1]
+    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
+    out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
+    _launch("rms_qkv", tensors, shapes, out, (n, rows, f, fo))
+    launches_rms_qkv += 1
+    return out
+
+
+def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
+    """a [N,B,hd], x [N,B,F], w_out [N,hd,F], g_out [N,N] → [N,B,F].  CPU
+    tensors run ``outproj_res_plain``; CUDA tensors launch the kernel or
+    raise."""
+    global launches_outproj_res
+    tensors = dict(a=a, x=x, w_out=w_out, g_out=g_out)
+    if build.kernel_device(**tensors) == "cpu":
+        return outproj_res_plain(**tensors)
+    n, rows, hd = a.shape
+    f = x.shape[-1]
+    shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n))
+    out = torch.empty_like(x)
+    _launch("outproj_res", tensors, shapes, out, (n, rows, hd, f))
+    launches_outproj_res += 1
+    return out

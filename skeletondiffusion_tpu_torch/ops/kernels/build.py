@@ -12,6 +12,7 @@ as ``<name>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Mapping, Union
 
 import torch
 
@@ -37,6 +38,7 @@ _libraries: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
+    """The kernel sources, one library each (headers ``*.cuh`` are included)."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
@@ -131,18 +133,55 @@ def kernel_device(**tensors: torch.Tensor) -> str:
                      f"{ {k: str(t.device) for k, t in tensors.items()} }")
 
 
-def check_kernel_inputs(kernel: str, shapes: Dict[str, tuple], **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is float32, contiguous, of its expected shape
-    and needs no gradient (the kernels are forward-only)."""
+def check_kernel_inputs(kernel: str, shapes: Dict[str, tuple],
+                        dtypes: Union[torch.dtype, Mapping[str, torch.dtype]],
+                        **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor has its expected dtype (one for all, or one
+    per tensor), is contiguous, of its expected shape and needs no gradient
+    (the kernels are forward-only)."""
     for key, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {key} must be float32, got {t.dtype}")
+        dtype = dtypes if isinstance(dtypes, torch.dtype) else dtypes[key]
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {key} must be {str(dtype).removeprefix('torch.')}, "
+                            f"got {t.dtype}")
         if tuple(t.shape) != tuple(shapes[key]):
             raise ValueError(f"{kernel}: {key} has shape {tuple(t.shape)}, expected {shapes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {key} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError(f"{kernel}: the kernel is forward-only; {key} requires grad")
+
+
+def check_aligned(kernel: str, alignment: int, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on an ``alignment``-byte
+    boundary (the kernels' vector and tensor-core loads need it)."""
+    for key, t in tensors.items():
+        if t.data_ptr() % alignment:
+            raise ValueError(f"{kernel}: {key} must be {alignment}-byte aligned")
+
+
+ELEMENT_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def element_suffix(kernel: str, dtype: torch.dtype) -> str:
+    """The C entry suffix of the kernels instantiated for both element types."""
+    if dtype not in ELEMENT_SUFFIX:
+        raise TypeError(f"{kernel}: the kernel is built for bfloat16 and float32, got {dtype}")
+    return ELEMENT_SUFFIX[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def c_entry(name: str, symbol: str, n_pointers: int, n_ints: int):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` taking ``n_pointers``
+    pointers, ``n_ints`` ints and the stream, returning a cudaError."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_status(kernel: str, status: int) -> None:

@@ -69,7 +69,7 @@ def gru_rollout(
     f = w_fc.shape[-1]
     shapes = dict(cx=(n, b, 3 * h), h0=(n, b, h), w_hh=(n, h, 3 * h), b_hh=(n, 3 * h),
                   g0=(n, n), g_add=(n, n), w_fc=(n, h, f), b_fc=(n, f), g_fc=(n, n))
-    build.check_kernel_inputs("gru_rollout", shapes, **tensors)
+    build.check_kernel_inputs("gru_rollout", shapes, torch.float32, **tensors)
     if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
         raise ValueError(f"gru_rollout: batch {b} and ph {ph} out of the kernel's range")
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)

@@ -1,0 +1,128 @@
+"""The fused denoiser's ResnetBlocks as CUDA kernels: the square block (one
+kernel) and the rectangular 2F→F final block with the output head (two).
+
+Node-major [N, B, F] activations, per-node banks [N, in, out], biases
+[N, out], row-normalized influences [N, N] and the block's scalar-time FiLM
+row ``film`` = scale‖shift [2F], all in one element type (bf16 on the
+prediction path; fp32 is instantiated too); sums in fp32, round() to that
+type where the Pallas kernels materialise:
+
+    resnet_block:     h   = round(tanh(FiLM(G1·round(x·W1 + b1))))
+                      out = round(tanh(G2·round(h·W2 + b2)) + x)
+    final_block_in:   h   = round(tanh(FiLM(G1·round([x‖r]·W1 + b1))))
+                      res = round(Gr·round([x‖r]·Wr))
+    final_block_out:  o   = round(tanh(G2·round(h·W2 + b2)) + res)
+                      out = round(Gh·round(o·Wh + bh))
+
+with FiLM(y) = y·(scale + 1) + shift in fp32 from the bf16 row.  Ports of
+``skeletondiffusion_tpu/ops/pallas/resnet_block.py::resnet_block_pallas_padded``
+(``_resnet_kernel``) and ``final_block_head_pallas_padded``
+(``_rect_in_kernel``, ``_rect_out_head_kernel``) without the TPU's padding; the
+kernels are ``csrc/resnet_block.cu``.  The final block's [2F, F] banks stay
+whole: rows :F act on x and F: on the long skip r, which the kernel stages
+side by side, so x‖r is never written out.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .graph_linear_fused import mix_plain, product_plain
+
+launches_block = 0
+launches_final_in = 0
+launches_final_out = 0
+
+
+def film_plain(y: torch.Tensor, film: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """round(tanh(y·(scale+1) + shift)) for fp32 y and film [2F], in fp32."""
+    f = y.shape[-1]
+    scale = film[:f].float() + 1.0
+    return torch.tanh(y * scale + film[f:].float()).to(dt)
+
+
+def resnet_block_plain(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    dt = x.dtype
+    h = film_plain(mix_plain(g1, product_plain(x, w1, b1).to(dt)), film, dt)
+    h2 = mix_plain(g2, product_plain(h, w2, b2).to(dt))
+    return (torch.tanh(h2) + x.float()).to(dt)
+
+
+def final_block_in_plain(x, r, film, w1, b1, g1, wr, gr):
+    dt = x.dtype
+    xr = torch.cat([x, r], dim=-1)
+    h = film_plain(mix_plain(g1, product_plain(xr, w1, b1).to(dt)), film, dt)
+    res = mix_plain(gr, product_plain(xr, wr).to(dt)).to(dt)
+    return h, res
+
+
+def final_block_out_plain(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
+    dt = h.dtype
+    h2 = mix_plain(g2, product_plain(h, w2, b2).to(dt))
+    o = (torch.tanh(h2) + res.float()).to(dt)
+    return mix_plain(gh, product_plain(o, wh, bh).to(dt)).to(dt)
+
+
+def _launch(kernel: str, tensors: dict, shapes: dict, ints: tuple, outs: tuple):
+    """Check the inputs, launch ``<kernel>_<bf16|f32>`` on their pointers,
+    the outputs' and ``ints``, and return the outputs."""
+    dt = next(iter(tensors.values())).dtype
+    suffix = build.element_suffix(kernel, dt)
+    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
+    build.check_aligned(kernel, 32, **tensors)
+    ptrs = [t.data_ptr() for t in (*tensors.values(), *outs)]
+    status = build.c_entry("resnet_block", f"{kernel}_{suffix}", len(ptrs), len(ints))(
+        *ptrs, *ints, build.stream_of(outs[0]))
+    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
+
+
+def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    """x [N,B,F], film [2F], w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] →
+    [N,B,F].  CPU tensors run ``resnet_block_plain``; CUDA tensors launch the
+    kernel or raise."""
+    global launches_block
+    tensors = dict(x=x, film=film, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2, g2=g2)
+    if build.kernel_device(**tensors) == "cpu":
+        return resnet_block_plain(**tensors)
+    n, rows, f = x.shape
+    shapes = dict(x=(n, rows, f), film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n),
+                  w2=(n, f, f), b2=(n, f), g2=(n, n))
+    out = torch.empty_like(x)
+    _launch("resnet_block", tensors, shapes, (n, rows, f), (out,))
+    launches_block += 1
+    return out
+
+
+def final_block_in(x, r, film, w1, b1, g1, wr, gr):
+    """x, r [N,B,F], film [2F], w1, wr [N,2F,F], b1 [N,F], g1, gr [N,N] →
+    (h, res) [N,B,F] each.  CPU tensors run ``final_block_in_plain``; CUDA
+    tensors launch the kernel or raise."""
+    global launches_final_in
+    tensors = dict(x=x, r=r, film=film, w1=w1, b1=b1, g1=g1, wr=wr, gr=gr)
+    if build.kernel_device(**tensors) == "cpu":
+        return final_block_in_plain(**tensors)
+    n, rows, f = x.shape
+    shapes = dict(x=(n, rows, f), r=(n, rows, f), film=(2 * f,), w1=(n, 2 * f, f), b1=(n, f),
+                  g1=(n, n), wr=(n, 2 * f, f), gr=(n, n))
+    h, res = torch.empty_like(x), torch.empty_like(x)
+    _launch("final_block_in", tensors, shapes, (n, rows, f), (h, res))
+    launches_final_in += 1
+    return h, res
+
+
+def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
+    """h, res [N,B,F], w2 [N,F,F], b2 [N,F], wh [N,F,O], bh [N,O], g2, gh
+    [N,N] → [N,B,O].  CPU tensors run ``final_block_out_plain``; CUDA tensors
+    launch the kernel or raise."""
+    global launches_final_out
+    tensors = dict(h=h, res=res, w2=w2, b2=b2, g2=g2, wh=wh, bh=bh, gh=gh)
+    if build.kernel_device(**tensors) == "cpu":
+        return final_block_out_plain(**tensors)
+    n, rows, f = h.shape
+    fo = wh.shape[-1]
+    shapes = dict(h=(n, rows, f), res=(n, rows, f), w2=(n, f, f), b2=(n, f), g2=(n, n),
+                  wh=(n, f, fo), bh=(n, fo), gh=(n, n))
+    out = torch.empty((n, rows, fo), dtype=h.dtype, device=h.device)
+    _launch("final_block_out", tensors, shapes, (n, rows, f, fo), (out,))
+    launches_final_out += 1
+    return out
