@@ -31,14 +31,13 @@ using namespace nodemix;
 
 constexpr int kChunk = 256;
 
-// s[r][0:f] ← round(s[r]/‖s[r]‖ · g_rms) in place, for the rows of one node
-// staged raw; a warp per row, sums over the features in fp32.  The ragged
-// rows are zeros and stay zeros.  Ends with the block synchronised.
+// s[r][0:f] ← round(s[r]/‖s[r]‖ · g_rms) in place for the n_rows staged
+// raw rows; a warp per row, sums over the features in fp32.  The ragged rows
+// are zeros and stay zeros.  Ends with the block synchronised.
 template <typename T>
-__device__ void normalize_rows(T* s, const T* g_rms, int f) {
-  constexpr int R = RowTile<T>::kRows;
+__device__ void normalize_rows(T* s, const T* g_rms, int f, int n_rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += kWarps) {
+  for (int r = warp; r < n_rows; r += kWarps) {
     T* sr = s + r * f;
     float sq = 0.0f;
     for (int c = lane; c < f; c += 32) {
@@ -68,8 +67,8 @@ rms_qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_rms, const T* __
   for (int c0 = 0; c0 < fo; c0 += kChunk) {
     const int fc = min(kChunk, fo - c0);
     node_products(
-        [&](int n) { stage_rows(sm.s, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
-        [&](T* buf) { normalize_rows(buf, g_rms, f); },
+        [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
+        [&](T* buf, int n_rows) { normalize_rows(buf, g_rms, f, n_rows); },
         sm.s, f, w + c0, fo, fc, sm.scratch,
         [&](int n, int r, int c, float acc) { p[(n * R + r) * kChunk + c] = from_f<T>(acc); });
     node_mix(p, kChunk, fc, sm.g, [&](int n, int r, int c, float y) {
@@ -91,7 +90,7 @@ outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __
 
   T* p = sm.p;
   node_products(
-      [&](int n) { stage_rows(sm.s, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
+      [&](int n, T* buf) { stage_rows(buf, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
       AsStaged{}, sm.s, hd, w, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) { p[(n * R + r) * f + c] = from_f<T>(acc); });
   node_mix(p, f, f, sm.g, [&](int n, int r, int c, float y) {

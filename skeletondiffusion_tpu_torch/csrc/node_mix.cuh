@@ -46,9 +46,12 @@ constexpr int kNodes = 21;           // the AMASS skeleton without its hip
 constexpr int kGStride = 24;         // G rows padded to whole float4s
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
-// Blocks hold 140–210 KB of shared memory, so one block runs on an SM, and
+// Blocks hold 160–215 KB of shared memory, so one block runs on an SM, and
 // its 16 warps may take all of the SM's registers (128 a thread).
 constexpr int kMinBlocks = 1;
+// Nodes staged and multiplied together: fewer barriers, and 4 × 12 column
+// tiles of F = 192 keep all 16 warps busy.
+constexpr int kGroup = 4;
 constexpr int kMaxSmem = 232448;     // 227 KB of dynamic shared memory a block
 
 template <typename T>
@@ -78,7 +81,7 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
 // Shared memory of one block, carved in 128-byte aligned pieces:
-// p [N][kRows][pw] T, s [kRows][kmax] T (the staging buffer),
+// p [N][kRows][pw] T, s [kGroup][kRows][kmax] T (the staging buffer),
 // scratch [kWarps][kRows·16] float, g [ng][N][kGStride] float, vec [nvec] float.
 template <typename T>
 struct Smem {
@@ -92,7 +95,7 @@ struct Smem {
 
   __host__ __device__ static size_t bytes(int pw, int kmax, int ng, int nvec) {
     constexpr int R = RowTile<T>::kRows;
-    return up(sizeof(T) * kNodes * R * pw) + up(sizeof(T) * R * kmax) +
+    return up(sizeof(T) * kNodes * R * pw) + up(sizeof(T) * kGroup * R * kmax) +
            up(sizeof(float) * kWarps * R * 16) + up(sizeof(float) * ng * kNodes * kGStride) +
            up(sizeof(float) * nvec);
   }
@@ -104,7 +107,7 @@ struct Smem {
     m.p = reinterpret_cast<T*>(base + off);
     off += up(sizeof(T) * kNodes * R * pw);
     m.s = reinterpret_cast<T*>(base + off);
-    off += up(sizeof(T) * R * kmax);
+    off += up(sizeof(T) * kGroup * R * kmax);
     m.scratch = reinterpret_cast<float*>(base + off);
     off += up(sizeof(float) * kWarps * R * 16);
     m.g = reinterpret_cast<float*>(base + off);
@@ -155,7 +158,7 @@ __device__ void stage_from_p(T* s, const T* p, int ldp, int n, int k) {
 __device__ __forceinline__ void warp_tile_product(const bf16* a, int lda, const bf16* b, int ldb,
                                                   int k, float* c) {
   using namespace nvcuda;
-  constexpr int kAhead = 4;  // k-steps whose fragments are loaded before their products
+  constexpr int kAhead = 6;  // k-steps whose fragments are loaded before their products
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[kAhead];
   wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[kAhead];
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -198,27 +201,32 @@ __device__ __forceinline__ void warp_tile_product(const float* a, int lda, const
   *reinterpret_cast<float4*>(c + r * 16 + c0) = acc;
 }
 
-// For each node n: stage(n) fills s [kRows][k] with the node's input rows
-// (from device memory, or from P itself when a second product follows the
-// first); finish(s) may then transform them in place (RMSNorm); then the
-// warps compute the fc columns of s·w[n] (w[n] is [k][ldw], already offset
-// to the first column of this chunk) 16 at a time and hand every sum to
-// store(n, row, column, value).  Ends with the block synchronised.
+// For each group of kGroup nodes: stage(n, buf) fills buf [kRows][k] with
+// node n's input rows (from device memory, or from P itself when a second
+// product follows the first), for every node of the group into s
+// [kGroup][kRows][k]; finish(s, rows) may then transform those rows in place
+// (RMSNorm); then the warps compute the fc columns of each node's rows ·
+// w[n] (w[n] is [k][ldw], already offset to the first column of this chunk)
+// 16 at a time and hand every sum to store(n, row, column, value).  Ends
+// with the block synchronised.
 template <typename T, typename Stage, typename Finish, typename Store>
 __device__ void node_products(Stage stage, Finish finish, T* s, int k, const T* w, int ldw,
                               int fc, float* scratch, Store store) {
   constexpr int R = RowTile<T>::kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = fc / 16;
   float* c = scratch + warp * R * 16;
-  for (int n = 0; n < kNodes; ++n) {
-    stage(n);
+  for (int n0 = 0; n0 < kNodes; n0 += kGroup) {
+    const int group = min(kGroup, kNodes - n0);
+    for (int j = 0; j < group; ++j) stage(n0 + j, s + j * R * k);
     __syncthreads();
-    finish(s);
-    const T* wn = w + static_cast<size_t>(n) * k * ldw;
-    for (int tile = warp; tile < fc / 16; tile += kWarps) {
-      warp_tile_product(s, k, wn + tile * 16, ldw, k, c);
+    finish(s, group * R);
+    for (int task = warp; task < group * tiles; task += kWarps) {
+      const int j = task / tiles, tile = task % tiles;
+      const T* wn = w + static_cast<size_t>(n0 + j) * k * ldw;
+      warp_tile_product(s + j * R * k, k, wn + tile * 16, ldw, k, c);
       __syncwarp();
-      for (int e = lane; e < R * 16; e += 32) store(n, e >> 4, tile * 16 + (e & 15), c[e]);
+      for (int e = lane; e < R * 16; e += 32) store(n0 + j, e >> 4, tile * 16 + (e & 15), c[e]);
       __syncwarp();
     }
     __syncthreads();
@@ -228,7 +236,7 @@ __device__ void node_products(Stage stage, Finish finish, T* s, int k, const T* 
 // The finish of a staging that needs none.
 struct AsStaged {
   template <typename T>
-  __device__ __forceinline__ void operator()(T*) const {}
+  __device__ __forceinline__ void operator()(T*, int) const {}
 };
 
 // For every (row r, column c < fc) of the tile: y[n] = Σ_m G[n,m]·p[m][r][c]

@@ -66,7 +66,7 @@ resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
 
   T* p = sm.p;
   node_products(
-      [&](int n) { stage_rows(sm.s, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
+      [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
       AsStaged{}, sm.s, f, w1, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
@@ -75,7 +75,7 @@ resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
     p[(n * R + r) * f + c] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
   });
   node_products(
-      [&](int n) { stage_from_p(sm.s, p, f, n, f); },
+      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
       AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
@@ -108,9 +108,9 @@ final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ rr,
 
   T* p = sm.p;
   const int k = 2 * f;
-  auto stage_xr = [&](int n) {
-    stage_rows(sm.s, k, 0, x + at(n, rows, b0, f, 0), f, valid);
-    stage_rows(sm.s, k, f, rr + at(n, rows, b0, f, 0), f, valid);
+  auto stage_xr = [&](int n, T* buf) {
+    stage_rows(buf, k, 0, x + at(n, rows, b0, f, 0), f, valid);
+    stage_rows(buf, k, f, rr + at(n, rows, b0, f, 0), f, valid);
   };
   node_products(stage_xr, AsStaged{}, sm.s, k, w1, f, f, sm.scratch,
                 [&](int n, int r, int c, float acc) {
@@ -147,7 +147,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
 
   T* p = sm.p;
   node_products(
-      [&](int n) { stage_rows(sm.s, f, 0, h + at(n, rows, b0, f, 0), f, valid); },
+      [&](int n, T* buf) { stage_rows(buf, f, 0, h + at(n, rows, b0, f, 0), f, valid); },
       AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
@@ -159,7 +159,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
   // the head: its [·, fo] products go back into the first fo columns of each
   // node's P rows (stride f) after those rows were staged
   node_products(
-      [&](int n) { stage_from_p(sm.s, p, f, n, f); },
+      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
       AsStaged{}, sm.s, f, wh, fo, fo, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(bh[n * fo + c]));
