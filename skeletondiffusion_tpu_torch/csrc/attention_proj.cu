@@ -104,7 +104,7 @@ outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __
 template <typename T>
 int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* g, void* out,
                    int n_nodes, int rows, int f, int fo, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 16 || fo <= 0 || fo % 16)
+  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 || fo <= 0 || fo % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Smem<T>::bytes(kChunk, f, 1, 0);
   cudaError_t err = prepare(rms_qkv_kernel<T>, bytes);
@@ -118,7 +118,7 @@ int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* 
 template <typename T>
 int launch_outproj_res(const void* a, const void* x, const void* w, const void* g, void* out,
                        int n_nodes, int rows, int hd, int f, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || hd <= 0 || hd % 16 || f <= 0 || f % 16)
+  if (n_nodes != kNodes || rows <= 0 || hd <= 0 || hd % 32 || f <= 0 || f % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Smem<T>::bytes(f, hd, 1, 0);
   cudaError_t err = prepare(outproj_res_kernel<T>, bytes);

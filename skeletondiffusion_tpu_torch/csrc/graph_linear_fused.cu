@@ -52,7 +52,7 @@ graph_linear_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* _
 template <typename T>
 int launch(const void* x, const void* w, const void* b, const void* g, const void* u, void* out,
            int n_nodes, int rows, int fi, int fo, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || fi % 16 || fo % 16 || fi <= 0 || fo <= 0)
+  if (n_nodes != kNodes || rows <= 0 || fi % 32 || fo % 16 || fi <= 0 || fo <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Smem<T>::bytes(fo, fi, 1, 0);
   cudaError_t err = prepare(graph_linear_kernel<T>, bytes);

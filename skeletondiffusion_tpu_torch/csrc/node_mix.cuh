@@ -153,31 +153,41 @@ __device__ void stage_from_p(T* s, const T* p, int ldp, int n, int k) {
 }
 
 // One warp: c[16][16] = a[16][k] · b[k][16], bf16 operands on the tensor
-// cores, fp32 sums.  a in shared memory (row stride lda), b in device memory
-// (row stride ldb); both 32-byte aligned, lda and ldb multiples of 16.
+// cores, fp32 sums; k a multiple of 32.  a in shared memory (row stride
+// lda, 32-byte aligned, lda a multiple of 16); b in device memory (row
+// stride ldb, 16-byte aligned, ldb a multiple of 8).  The weight rows come
+// in 32 at a time with coalesced 16-byte loads (two a lane), the next 32
+// loaded while the current are multiplied, and pass through the warp's c
+// buffer in shared memory: tensor-core fragment loads straight from device
+// memory would split into many small scattered loads.
 __device__ __forceinline__ void warp_tile_product(const bf16* a, int lda, const bf16* b, int ldb,
                                                   int k, float* c) {
   using namespace nvcuda;
-  constexpr int kAhead = 6;  // k-steps whose fragments are loaded before their products
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[kAhead];
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[kAhead];
+  const int lane = threadIdx.x & 31;
+  bf16* bs = reinterpret_cast<bf16*>(c);  // [32][16]: two k-steps of the weight tile
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa0, fa1;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb0, fb1;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
   wmma::fill_fragment(acc, 0.0f);
-  // the weight fragments come from L2: issue up to kAhead of them before the
-  // first product waits on one
-  for (int k0 = 0; k0 < k; k0 += 16 * kAhead) {
-    const int steps = min(kAhead, (k - k0) / 16);
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      if (j < steps) {
-        wmma::load_matrix_sync(fb[j], b + static_cast<size_t>(k0 + 16 * j) * ldb,
-                               static_cast<unsigned>(ldb));
-        wmma::load_matrix_sync(fa[j], a + k0 + 16 * j, static_cast<unsigned>(lda));
-      }
+  // this lane's pieces: rows lane/2 and 16 + lane/2, columns (lane%2)·8 …+8
+  const bf16* bl = b + static_cast<size_t>(lane >> 1) * ldb + (lane & 1) * 8;
+  uint4 r0 = __ldg(reinterpret_cast<const uint4*>(bl));
+  uint4 r1 = __ldg(reinterpret_cast<const uint4*>(bl + static_cast<size_t>(16) * ldb));
+  for (int k0 = 0; k0 < k; k0 += 32) {
+    reinterpret_cast<uint4*>(bs)[lane] = r0;
+    reinterpret_cast<uint4*>(bs)[32 + lane] = r1;
+    __syncwarp();
+    if (k0 + 32 < k) {
+      r0 = __ldg(reinterpret_cast<const uint4*>(bl + static_cast<size_t>(k0 + 32) * ldb));
+      r1 = __ldg(reinterpret_cast<const uint4*>(bl + static_cast<size_t>(k0 + 48) * ldb));
     }
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j)
-      if (j < steps) wmma::mma_sync(acc, fa[j], fb[j], acc);
+    wmma::load_matrix_sync(fb0, bs, 16);
+    wmma::load_matrix_sync(fb1, bs + 256, 16);
+    wmma::load_matrix_sync(fa0, a + k0, static_cast<unsigned>(lda));
+    wmma::load_matrix_sync(fa1, a + k0 + 16, static_cast<unsigned>(lda));
+    wmma::mma_sync(acc, fa0, fb0, acc);
+    wmma::mma_sync(acc, fa1, fb1, acc);
+    __syncwarp();
   }
   wmma::store_matrix_sync(c, acc, 16, wmma::mem_row_major);
 }

@@ -170,7 +170,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
 }
 
 bool bad_shape(int n_nodes, int rows, int f) {
-  return n_nodes != kNodes || rows <= 0 || f <= 0 || f % 16 != 0;
+  return n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 != 0;
 }
 
 template <typename T>
