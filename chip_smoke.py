@@ -27,7 +27,14 @@ Phases, each printed with its elapsed seconds:
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
-              beside the bf16 path's deviation from the fp32 path.
+              beside the bf16 path's deviation from the fp32 path;
+7. layer_fused — the per-layer kernels of the layer-fused denoiser (B9a–c),
+              checked and timed as in phase 5;
+8. main_layer_fused — the bf16 path with SKELDIFF_LAYER_FUSED=1 (set for this
+              phase only): predictions/s and launch counts per prediction,
+              and with injected noise against the same path on the plain
+              versions and against the single-stage kernel path of phase 6,
+              each beside the bf16 path's deviation from the fp32 path.
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
@@ -39,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -57,6 +65,7 @@ from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
 from skeletondiffusion_tpu_torch.ops.kernels import graph_linear_fused as stem_mod
 from skeletondiffusion_tpu_torch.ops.kernels import gru_rollout as rollout_mod
 from skeletondiffusion_tpu_torch.ops.kernels import joint_attention as attn_mod
+from skeletondiffusion_tpu_torch.ops.kernels import layer_fused as layer_mod
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
@@ -85,7 +94,13 @@ E2E_TOL = 1e-4
 F32_TOL = 1e-4
 BF16_MAX, BF16_MEAN = 3e-2, 2e-3
 RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
-BF16_E2E_MAX = 2.0  # see compare_bf16
+# The bf16 kernel paths against their plain paths with injected noise: the
+# max |Δ| may reach this multiple of the bf16 path's max deviation from the
+# fp32 path (see hold_bf16).  Measured on an H100 80GB HBM3 at 700 W: 1.185
+# and 1.193 (sampler states; the single-stage and the layer-fused path)
+# before the plain bf16 encoder rounded where XLA rounds, 0.949 and 1.149
+# after; 0.80–0.87 in the predictions.  It was 2.0.
+BF16_E2E_MAX = 1.3
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
 # tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
@@ -105,6 +120,9 @@ COUNTERS = {
     "outproj_res": (proj_mod, "launches_outproj_res"),
     "final_block_in": (block_mod, "launches_final_in"),
     "final_block_out": (block_mod, "launches_final_out"),
+    "stem_block": (layer_mod, "launches_stem_block"),
+    "rms_qkv_core": (layer_mod, "launches_rms_qkv_core"),
+    "outproj_block": (layer_mod, "launches_outproj_block"),
 }
 
 
@@ -344,6 +362,9 @@ def injected_run(skeleton, predictor, obs: torch.Tensor, start: torch.Tensor,
             mock.patch.object(proj_mod, "rms_qkv", proj_mod.rms_qkv_plain),
             mock.patch.object(proj_mod, "outproj_res", proj_mod.outproj_res_plain),
             mock.patch.object(attn_mod, "attention_core", attn_mod.attention_core_plain),
+            mock.patch.object(layer_mod, "stem_block", layer_mod.stem_block_plain),
+            mock.patch.object(layer_mod, "rms_qkv_core", layer_mod.rms_qkv_core_plain),
+            mock.patch.object(layer_mod, "outproj_block", layer_mod.outproj_block_plain),
         ]
     with contextlib.ExitStack() as stack:
         for patch in patches:
@@ -375,37 +396,79 @@ def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Genera
                                  f"the {what}: {err}")
 
 
+def hold_bf16(label: str, runs: dict, pairs) -> None:
+    """For each (name of the run held, name of the run it is held against)
+    in ``pairs``, the sampler's state after each step and the metric-space
+    predictions of the two runs with injected noise, beside the held run's
+    deviation from the ``"fp32"`` run (same weights and noise).
+
+    The mean deviation must be below the bf16-vs-fp32 one.  The max may reach
+    BF16_E2E_MAX times the bf16-vs-fp32 max: two bf16 paths that round at the
+    same points but sum in another order disagree now and then on which side
+    of a rounding point a value lands, and the flip, a whole bf16 step of an
+    O(1) x̂₀, is carried through the later layers and steps, where the
+    bf16-vs-fp32 deviation of the same value can stay below one step."""
+    for held, against in pairs:
+        for what, unit, scale, i in (("sampler states after each step", "", 1.0, 1),
+                                     ("prediction, metric space", " mm", 1e3, 0)):
+            a, b, c = runs[held][i], runs[against][i], runs["fp32"][i]
+            kp, bf = (a - b).abs() * scale, (a - c).abs() * scale
+            kp_max, kp_mean, bf_max, bf_mean = (kp.max().item(), kp.mean().item(),
+                                                bf.max().item(), bf.mean().item())
+            log(f"{label} with injected noise: {what}: {held} vs {against} max "
+                f"{kp_max:.4e}{unit} mean {kp_mean:.4e}{unit}; {held} vs fp32 path max "
+                f"{bf_max:.4e}{unit} mean {bf_mean:.4e}{unit} (max ratio {kp_max / bf_max:.3f}, "
+                f"bound {BF16_E2E_MAX}; |fp32| ≤ {c.abs().max().item() * scale:.4f}{unit})")
+            if not (kp_mean < bf_mean and kp_max <= BF16_E2E_MAX * bf_max):
+                raise AssertionError(f"{label}: {held} vs {against} in the {what}: max {kp_max}, "
+                                     f"mean {kp_mean}, against the bf16-vs-fp32 deviation "
+                                     f"(max {bf_max}, mean {bf_mean})")
+
+
 def compare_bf16(skeleton, predictor, predictor_f32, obs: torch.Tensor,
                  gen: torch.Generator) -> None:
-    """The bf16 path with injected noise: kernels against plain versions,
-    beside the bf16 path's deviation from the fp32 path (same weights and
-    noise), for the sampler's state after each step and for the predictions.
-
-    The kernel-vs-plain mean deviation must be below the bf16-vs-fp32 one.
-    Its max may reach BF16_E2E_MAX times the bf16-vs-fp32 max: the two bf16
-    paths round at the same points but sum in another order, so now and then
-    a value lands on the other side of a rounding point, and the flip, a
-    whole bf16 step of an O(1) x̂₀, is carried through the later layers and
-    steps, where the bf16-vs-fp32 deviation of the same value can stay below
-    one step."""
+    """The bf16 path with injected noise: kernels against plain versions
+    (``hold_bf16``)."""
     start, steps = injected_noise(skeleton, gen)
-    fast, fast_states = injected_run(skeleton, predictor, obs, start, steps, plain=False)
-    plain, plain_states = injected_run(skeleton, predictor, obs, start, steps, plain=True)
-    f32, f32_states = injected_run(skeleton, predictor_f32, obs, start, steps, plain=False)
+    runs = {"kernels": injected_run(skeleton, predictor, obs, start, steps, plain=False),
+            "plain": injected_run(skeleton, predictor, obs, start, steps, plain=True),
+            "fp32": injected_run(skeleton, predictor_f32, obs, start, steps, plain=False)}
     torch.cuda.synchronize()
-    for what, unit, scale, (a, b, c) in (
-            ("sampler states after each step", "", 1.0, (fast_states, plain_states, f32_states)),
-            ("prediction, metric space", " mm", 1e3, (fast, plain, f32))):
-        kp, bf = (a - b).abs() * scale, (a - c).abs() * scale
-        kp_max, kp_mean, bf_max, bf_mean = (kp.max().item(), kp.mean().item(), bf.max().item(),
-                                            bf.mean().item())
-        log(f"bf16 path with injected noise: {what}: kernels vs plain max {kp_max:.4e}{unit} "
-            f"mean {kp_mean:.4e}{unit}; bf16 vs fp32 path max {bf_max:.4e}{unit} mean "
-            f"{bf_mean:.4e}{unit} (|fp32| ≤ {c.abs().max().item() * scale:.4f}{unit})")
-        if not (kp_mean < bf_mean and kp_max <= BF16_E2E_MAX * bf_max):
-            raise AssertionError(f"bf16 kernel path vs plain path in the {what}: max {kp_max}, "
-                                 f"mean {kp_mean}, against the bf16-vs-fp32 deviation "
-                                 f"(max {bf_max}, mean {bf_mean})")
+    hold_bf16("bf16 path", runs, [("kernels", "plain")])
+
+
+@contextlib.contextmanager
+def layer_fused_path():
+    """SKELDIFF_LAYER_FUSED=1 inside the block, restored after it."""
+    old = os.environ.get("SKELDIFF_LAYER_FUSED")
+    os.environ["SKELDIFF_LAYER_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SKELDIFF_LAYER_FUSED"]
+        else:
+            os.environ["SKELDIFF_LAYER_FUSED"] = old
+
+
+def compare_layer_fused(skeleton, predictor, predictor_f32, obs: torch.Tensor,
+                        gen: torch.Generator) -> None:
+    """The layer-fused bf16 path with injected noise against the same path
+    on plain versions and against the single-stage kernel path
+    (``hold_bf16``)."""
+    start, steps = injected_noise(skeleton, gen)
+    with layer_fused_path():
+        runs = {"layer-fused kernels": injected_run(skeleton, predictor, obs, start, steps,
+                                                    plain=False),
+                "layer-fused plain": injected_run(skeleton, predictor, obs, start, steps,
+                                                  plain=True)}
+    runs["single-stage kernels"] = injected_run(skeleton, predictor, obs, start, steps,
+                                                plain=False)
+    runs["fp32"] = injected_run(skeleton, predictor_f32, obs, start, steps, plain=False)
+    torch.cuda.synchronize()
+    hold_bf16("layer-fused bf16 path", runs,
+                     [("layer-fused kernels", "layer-fused plain"),
+                      ("layer-fused kernels", "single-stage kernels")])
 
 
 def bf16_errors(got: torch.Tensor, want: torch.Tensor):
@@ -551,6 +614,64 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
         ]
 
 
+def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
+    """The layer-fused denoiser's kernels (B9a–c) on the bench shapes, on the
+    bf16 model's own operands and activations drawn from ``gen`` (each
+    kernel's input is what the one before it produced)."""
+    bf16 = torch.bfloat16
+    diff, den = predictor.diffusion, predictor.diffusion.denoiser
+    pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
+    f, d = den.dim + den.cond_dim, den.dim
+    heads, dh = den.attn_heads, den.attn_dim_head
+    hd = heads * dh
+    banks = denoiser_fused._block_banks
+
+    with torch.no_grad():
+        tt = torch.tanh(den.time_embedding(TIMESTEPS // 2, torch.device("cuda")))
+        u = den.cond_embedding(torch.tanh(torch.randn((rows, n, d), generator=gen,
+                                                      device="cuda"))).contiguous()
+        stem, att, blk0, blk1 = pre["stem"], pre["attns"][0], pre["blocks"][0], pre["blocks"][1]
+        film0 = denoiser_fused._film(blk0["film"], tt, bf16)
+        film1 = denoiser_fused._film(blk1["film"], tt, bf16)
+        x_lat = torch.randn((n, rows, d), generator=gen, device="cuda").to(bf16)
+        _, x = layer_mod.stem_block(x_lat, u, film0, stem["w"], stem["b"], stem["g"],
+                                    *banks(blk0))
+        core = layer_mod.rms_qkv_core(x, att["g_rms"], att["w_qkv"], att["g_qkv"], heads=heads,
+                                      dim_head=dh)
+        mix = lambda width: 2.0 * n * n * rows * width  # noqa: E731
+        prod = lambda k_, o: 2.0 * n * rows * k_ * o  # noqa: E731
+        block = 2 * (prod(f, f) + mix(f))
+        return [
+            check_fused_kernel(
+                "stem_block", layer_mod.stem_block, layer_mod.stem_block_plain,
+                [x_lat, u, film0, stem["w"], stem["b"], stem["g"], *banks(blk0)],
+                replaces="layer_fused.py:233", source="layer_fused.cu",
+                tensor_flops=prod(d, f) + mix(f) + block),
+            check_fused_kernel(
+                "rms_qkv_core",
+                functools.partial(layer_mod.rms_qkv_core, heads=heads, dim_head=dh),
+                functools.partial(layer_mod.rms_qkv_core_plain, heads=heads, dim_head=dh),
+                [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="layer_fused.py:285",
+                source="layer_fused.cu",
+                tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh),
+            check_fused_kernel(
+                "outproj_block", layer_mod.outproj_block, layer_mod.outproj_block_plain,
+                [core, x, film1, att["w_out"], att["g_out"], *banks(blk1)],
+                replaces="layer_fused.py:325", source="layer_fused.cu",
+                tensor_flops=prod(hd, f) + mix(f) + block),
+        ]
+
+
+def log_kernel_time(label: str, entries: list, launches: dict) -> None:
+    """Kernel time per prediction of the entries launched on a path: ms a
+    launch × the path's ``launches``."""
+    entries = [k for k in entries if launches[k["name"]]]
+    total = sum(k["ms"] * launches[k["name"]] for k in entries)
+    log(f"{label}, kernel time per prediction (ms × launches): " + ", ".join(
+        f"{k['name']} {k['ms'] * launches[k['name']]:.3f}" for k in entries) +
+        f"; sum {total:.3f} ms")
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -609,11 +730,28 @@ def main() -> int:
     compare_bf16(skeleton, predictor_bf16, predictor, obs, gen)
     for k in fused:
         k["launches"] = launches[k["name"]]
-    total = sum(k["ms"] * k["launches"] for k in fused)
-    log("bf16 path, kernel time per prediction (ms × launches): " + ", ".join(
-        f"{k['name']} {k['ms'] * k['launches']:.3f}" for k in fused) + f"; sum {total:.3f} ms")
+    log_kernel_time("bf16 path", fused, launches)
     kernels += fused
     phase("main_bf16", t)
+
+    t = time.perf_counter()
+    layer = check_layer_fused_kernels(predictor_bf16, gen)
+    phase("layer_fused", t)
+
+    t = time.perf_counter()
+    expected = {"gru_rollout": 1, "posterior_step_x0_bf16": TIMESTEPS,
+                "stem_block": TIMESTEPS, "rms_qkv_core": 7 * TIMESTEPS,
+                "outproj_block": 7 * TIMESTEPS, "final_block_in": TIMESTEPS,
+                "final_block_out": TIMESTEPS}
+    with layer_fused_path():
+        launches = run_main_path(skeleton, predictor_bf16, obs, card_name, expected,
+                                 "main path bf16, layer-fused")
+    compare_layer_fused(skeleton, predictor_bf16, predictor, obs, gen)
+    for k in layer:
+        k["launches"] = launches[k["name"]]
+    log_kernel_time("layer-fused bf16 path", fused + layer, launches)
+    kernels += layer
+    phase("main_layer_fused", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one prediction of the PyTorch port goes on the GPU, on
-the fp32 path and on the bf16 path (fused denoiser kernels), at the
+the fp32 path, on the bf16 path (fused denoiser kernels) and on the bf16
+path with SKELDIFF_LAYER_FUSED=1 (the per-layer kernels), at the
 configuration of ``chip_smoke.py`` (AMASS flagship at full width, batch
 256 × 50 samples, seeded random weights).
 
@@ -15,6 +16,7 @@ time per block and step at 66, 132 and 1600 blocks.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import sys
@@ -121,13 +123,15 @@ def main() -> int:
                             device="cuda")
     result = {"card": card}
     _, predictor_bf16 = cs.build_model(torch.device("cuda"), torch.bfloat16)
-    for path, pred in (("fp32", predictor), ("bf16", predictor_bf16)):
-        pred(gen, obs)  # warm-up
-        result[path] = layer_times(pred, obs, gen)
-        for key, value in result[path].items():
-            print(f"{path} {key}: {value:.3f}")
-        print(f"{path} path:")
-        profile_prediction(pred, obs, gen)
+    for path, pred in (("fp32", predictor), ("bf16", predictor_bf16),
+                       ("bf16_layer_fused", predictor_bf16)):
+        with cs.layer_fused_path() if path == "bf16_layer_fused" else contextlib.nullcontext():
+            pred(gen, obs)  # warm-up
+            result[path] = layer_times(pred, obs, gen)
+            for key, value in result[path].items():
+                print(f"{path} {key}: {value:.3f}")
+            print(f"{path} path:")
+            profile_prediction(pred, obs, gen)
     result["rollout_scaling"] = rollout_scaling(predictor, gen)
     print(json.dumps(result))
     return 0

@@ -31,27 +31,6 @@ using namespace nodemix;
 
 constexpr int kChunk = 256;
 
-// s[r][0:f] ← round(s[r]/‖s[r]‖ · g_rms) in place for the n_rows staged
-// raw rows; a warp per row, sums over the features in fp32.  The ragged rows
-// are zeros and stay zeros.  Ends with the block synchronised.
-template <typename T>
-__device__ void normalize_rows(T* s, const T* g_rms, int f, int n_rows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n_rows; r += kWarps) {
-    T* sr = s + r * f;
-    float sq = 0.0f;
-    for (int c = lane; c < f; c += 32) {
-      const float v = to_f(sr[c]);
-      sq = fmaf(v, v, sq);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float norm = sqrtf(fmaxf(sq, 1e-24f));
-    for (int c = lane; c < f; c += 32) sr[c] = from_f<T>(to_f(sr[c]) / norm * to_f(g_rms[c]));
-  }
-  __syncthreads();
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rms_qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_rms, const T* __restrict__ w,

@@ -24,48 +24,15 @@
 // 21 × 3·H·dh values into shared memory with 16-byte loads (each value read
 // once); a lane keeps its query in registers, reads each key and value of
 // its head as a broadcast, holds its 21 scores in registers for the softmax
-// and writes its dh outputs with 16-byte stores.
+// and writes its dh outputs with 16-byte stores.  That per-lane body is
+// joint_attention.cuh's head_attention, shared with the fused B9b kernel
+// (layer_fused.cu).
 
 #include <cmath>
 
-#include "node_mix.cuh"
+#include "joint_attention.cuh"
 
 namespace {
-
-using nodemix::bf16;
-using nodemix::from_f;
-using nodemix::round_to;
-
-__device__ __forceinline__ void load8(const bf16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 template <typename T, int N, int DH>
 __global__ void __launch_bounds__(1024)
@@ -83,58 +50,10 @@ attention_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int rows, 
   }
   __syncthreads();
 
-  const int h = threadIdx.x >> 5, n = threadIdx.x & 31;
-  if (n >= N) return;
-  const float sc = round_to<T>(scale);
-  float q[DH];
-#pragma unroll
-  for (int c = 0; c < DH; c += 8) load8(s + n * width + h * DH + c, q + c);
-#pragma unroll
-  for (int c = 0; c < DH; ++c) q[c] = round_to<T>(q[c] * sc);
-
-  float p[N];
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const T* km = s + m * width + hd + h * DH;
-    float d = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DH; c += 8) {
-      float kv[8];
-      load8(km + c, kv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d += round_to<T>(q[c + j] * kv[j]);
-    }
-    p[m] = d;
-  }
-  float mx = p[0];
-#pragma unroll
-  for (int m = 1; m < N; ++m) mx = fmaxf(mx, p[m]);
-  float sum = 0.0f;
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    p[m] = expf(p[m] - mx);
-    sum += p[m];
-  }
-#pragma unroll
-  for (int m = 0; m < N; ++m) p[m] = round_to<T>(p[m] / sum);
-
-  float acc[DH];
-#pragma unroll
-  for (int c = 0; c < DH; ++c) acc[c] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const T* vm = s + m * width + 2 * hd + h * DH;
-#pragma unroll
-    for (int c = 0; c < DH; c += 8) {
-      float vv[8];
-      load8(vm + c, vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[c + j] = fmaf(p[m], vv[j], acc[c + j]);
-    }
-  }
-  T* o = out + (static_cast<size_t>(n) * rows + b) * hd + h * DH;
-#pragma unroll
-  for (int c = 0; c < DH; c += 8) store8(o + c, acc + c);
+  const int h = threadIdx.x >> 5;
+  nodemix::head_attention<T, N, DH>(s + h * DH, s + hd + h * DH, s + 2 * hd + h * DH, width,
+                                    scale, out + static_cast<size_t>(b) * hd + h * DH,
+                                    static_cast<size_t>(rows) * hd);
 }
 
 template <typename T>

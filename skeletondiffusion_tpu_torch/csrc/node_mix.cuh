@@ -281,9 +281,78 @@ __device__ void node_mix(const T* p, int ldp, int fc, const float* g, Epi epi) {
   __syncthreads();
 }
 
+// s[r][0:f] ← round(s[r]/‖s[r]‖ · g_rms) in place for the n_rows staged
+// raw rows (row stride f); a warp per row, sums over the features in fp32.
+// The ragged rows are zeros and stay zeros.  Ends with the block synchronised.
+template <typename T>
+__device__ void normalize_rows(T* s, const T* g_rms, int f, int n_rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < n_rows; r += kWarps) {
+    T* sr = s + r * f;
+    float sq = 0.0f;
+    for (int c = lane; c < f; c += 32) {
+      const float v = to_f(sr[c]);
+      sq = fmaf(v, v, sq);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float norm = sqrtf(fmaxf(sq, 1e-24f));
+    for (int c = lane; c < f; c += 32) sr[c] = from_f<T>(to_f(sr[c]) / norm * to_f(g_rms[c]));
+  }
+  __syncthreads();
+}
+
+// scale + 1 and shift of a ResnetBlock's FiLM row scale‖shift [2f], widened
+// to fp32, into vec[0:2f].
+template <typename T>
+__device__ void load_film(float* vec, const T* film, int f) {
+  for (int c = threadIdx.x; c < f; c += kThreads) {
+    vec[c] = to_f(film[c]) + 1.0f;
+    vec[f + c] = to_f(film[f + c]);
+  }
+}
+
 // Offset of (node n, row b, column c) in a node-major [N, rows, width] tensor.
 __device__ __forceinline__ size_t at(int n, int rows, int b, int width, int c) {
   return (static_cast<size_t>(n) * rows + b) * width + c;
+}
+
+// The ResnetBlock (B1's body) on a tile of kRows rows from row b0, valid of
+// them real: stage_in(n, buf) stages node n's input rows o for the first
+// product (from device memory, or from P when a kernel left o there), then
+//   P ← round(o·W1 + b1), h = round(tanh(FiLM(G1·P))) in place,
+//   P ← round(h·W2 + b2), out = round(tanh(G2·P) + o)
+// for the valid rows, with o read from o_dev [N, rows, f] after the last mix
+// (out may be o_dev itself: each element is read before it is written, by
+// the thread that writes it).  FiLM's scale + 1 and shift are in sm.vec;
+// g1s, g2s are the influences in shared memory.
+template <typename T, typename StageIn>
+__device__ void resnet_block_body(const Smem<T>& sm, StageIn stage_in, const float* g1s,
+                                  const float* g2s, const T* __restrict__ w1,
+                                  const T* __restrict__ b1, const T* __restrict__ w2,
+                                  const T* __restrict__ b2, const T* o_dev, T* out, int rows,
+                                  int b0, int valid, int f) {
+  constexpr int R = RowTile<T>::kRows;
+  T* p = sm.p;
+  node_products(stage_in, AsStaged{}, sm.s, f, w1, f, f, sm.scratch,
+                [&](int n, int r, int c, float acc) {
+                  p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
+                });
+  node_mix(p, f, f, g1s, [&](int n, int r, int c, float y) {
+    p[(n * R + r) * f + c] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
+  });
+  node_products(
+      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
+      AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
+      [&](int n, int r, int c, float acc) {
+        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
+      });
+  node_mix(p, f, f, g2s, [&](int n, int r, int c, float y) {
+    if (r < valid) {
+      const size_t i = at(n, rows, b0 + r, f, c);
+      out[i] = from_f<T>(tanhf(y) + to_f(o_dev[i]));
+    }
+  });
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory and check the launch

@@ -38,15 +38,6 @@ namespace {
 
 using namespace nodemix;
 
-// scale + 1 and shift of the FiLM row, widened to fp32, into vec[0:2f].
-template <typename T>
-__device__ void load_film(float* vec, const T* film, int f) {
-  for (int c = threadIdx.x; c < f; c += kThreads) {
-    vec[c] = to_f(film[c]) + 1.0f;
-    vec[f + c] = to_f(film[f + c]);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
@@ -64,28 +55,9 @@ resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
   load_influence(g2s, g2);
   load_film(sm.vec, film, f);
 
-  T* p = sm.p;
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
-      AsStaged{}, sm.s, f, w1, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
-      });
-  node_mix(p, f, f, g1s, [&](int n, int r, int c, float y) {
-    p[(n * R + r) * f + c] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
-  });
-  node_products(
-      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
-      AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
-      });
-  node_mix(p, f, f, g2s, [&](int n, int r, int c, float y) {
-    if (r < valid) {
-      const size_t i = at(n, rows, b0 + r, f, c);
-      out[i] = from_f<T>(tanhf(y) + to_f(x[i]));
-    }
-  });
+  resnet_block_body(
+      sm, [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
+      g1s, g2s, w1, b1, w2, b2, x, out, rows, b0, valid, f);
 }
 
 template <typename T>

@@ -4,9 +4,11 @@ denoiser's building blocks, node-major ``[N, B, F]``.
 Port of ``skeletondiffusion_tpu/ops/attention.py`` (reference
 `src/core/network/layers/attention.py`).  Plain PyTorch; ``compute_dtype``
 is passed down to every graph linear as the flax modules pass it, and the
-FiLM row is cast to it.  The fused kernels of these blocks (the bf16
-prediction path) are in ``ops/kernels/`` and driven by
-``ops/kernels/denoiser_fused.py``.
+FiLM row is cast to it.  In bf16 every op rounds, as XLA rounds the jitted
+flax modules, except where XLA keeps a value in float32 that the flax code
+widens (RMSNorm's x/‖x‖, the softmax's sum of exponentials).  The fused
+kernels of these blocks (the bf16 prediction path) are in ``ops/kernels/``
+and driven by ``ops/kernels/denoiser_fused.py``.
 """
 from __future__ import annotations
 
@@ -29,8 +31,16 @@ class RMSNorm(nn.Module):
         self.g = nn.Parameter(torch.ones(1, 1, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        norm = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
-        return x / norm * self.g * (self.dim ** 0.5)
+        """float32 out (g is a float32 parameter).  In reduced precision the
+        norm is rounded to x's dtype twice, as XLA evaluates
+        ``jnp.linalg.norm``: the sum of the float32 squares, and its root;
+        x/norm stays float32."""
+        if x.dtype == torch.float32:
+            norm = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+            return x / norm * self.g * (self.dim ** 0.5)
+        xf = x.float()
+        norm = torch.sqrt((xf * xf).sum(dim=-1, keepdim=True).to(x.dtype))
+        return xf / torch.clamp(norm, min=1e-12).float() * self.g * (self.dim ** 0.5)
 
 
 class Attention(nn.Module):
@@ -53,13 +63,26 @@ class Attention(nn.Module):
         n, b = x.shape[0], x.shape[1]
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         shape4 = (n, b, self.heads, self.dim_head)
-        q = q.reshape(shape4) * (self.dim_head ** -0.5)
+        # the scale in q's dtype, as JAX casts a Python scalar
+        q = q.reshape(shape4) * torch.tensor(self.dim_head ** -0.5, dtype=q.dtype)
         k = k.reshape(shape4)
         v = v.reshape(shape4)
         sim = torch.einsum("nbhc,mbhc->bhnm", q, k)
-        attn = torch.softmax(sim, dim=-1)
+        attn = softmax_last(sim)
         out = torch.einsum("bhnm,mbhc->nbhc", attn, v).reshape(n, b, -1)
         return self.to_out(out)
+
+
+def softmax_last(s: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis as XLA computes it in s's dtype:
+    in reduced precision s − max rounded, the sum of its float32
+    exponentials rounded, the rounded exponentials divided by it and the
+    quotient rounded."""
+    if s.dtype == torch.float32:
+        return torch.softmax(s, dim=-1)
+    d = s - s.amax(dim=-1, keepdim=True)
+    total = torch.exp(d.float()).sum(dim=-1, keepdim=True).to(s.dtype)
+    return torch.exp(d) / total
 
 
 class PreNormAttentionResidual(nn.Module):

@@ -12,7 +12,11 @@ Port of the GRU half of ``skeletondiffusion_tpu/ops/graph_gru.py`` (reference
 it over the observed frames, and it is the plain version of the decode
 rollout kernel (``ops/kernels/gru_rollout.py``).  With ``compute_dtype`` the
 cell's products, mixes and gates run in that dtype and the carried hidden
-state stays float32, as in the flax cell (`graph_gru.py:99-101`).
+state stays float32, as in the flax cell (`graph_gru.py:99-101`), rounding
+where XLA rounds the flax cell's scanned step: after every op, with σ(a)
+expanded as 1/(1 + exp(−a)), except that h' = (n − round(n·z)) + z·h is
+float32 with z before its rounding (XLA drops the round trip of
+``astype(float32)``).
 """
 from __future__ import annotations
 
@@ -37,13 +41,22 @@ def graph_gru_step(
     banks are cast to it); h' has h's dtype."""
     cdt = cx.dtype
     g = g.to(cdt)
-    i_r, i_z, i_n = gmix_nm(g, cx).chunk(3, dim=-1)
-    h_gates = gmm_nm(h.to(cdt), w_hh.to(cdt)) + b_hh.to(cdt)[:, None, :]
-    h_r, h_z, h_n = gmix_nm(g, h_gates).chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (n - n * z).to(h.dtype) + z.to(h.dtype) * h
+    gi = gmix_nm(g, cx)
+    gh = gmix_nm(g, gmm_nm(h.to(cdt), w_hh.to(cdt)) + b_hh.to(cdt)[:, None, :])
+    if cdt == torch.float32:
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (n - n * z).to(h.dtype) + z.to(h.dtype) * h
+    # every op in cdt rounds, as XLA evaluates the flax cell; σ is 1/(1 + e^−a),
+    # here for the r and z gates at once
+    hid = h.shape[-1]
+    rz = 1.0 / (1.0 + torch.exp(-(gi[..., :2 * hid] + gh[..., :2 * hid]))).float()
+    r, z = rz[..., :hid].to(cdt), rz[..., hid:]  # z·h takes z unrounded
+    n = torch.tanh(gi[..., 2 * hid:] + r * gh[..., 2 * hid:])
+    return ((n.float() - n * z.to(cdt)) + z * h.float()).to(h.dtype)
 
 
 class StaticGraphGRUCell(nn.Module):

@@ -14,7 +14,12 @@ plain version; given CUDA tensors it launches the kernel (built by
 * ``attention_proj``  — RMSNorm + qkv projection, output projection +
   residual (``csrc/attention_proj.cu``)
 * ``joint_attention`` — attention over the joints (``csrc/joint_attention.cu``)
+* ``layer_fused``     — the per-layer kernels of ``SKELDIFF_LAYER_FUSED=1``:
+  stem + block, RMSNorm + qkv + attention, out-projection + block
+  (``csrc/layer_fused.cu``)
 * ``denoiser_fused``  — the denoiser forward as the chain of those kernels
 
-The fused denoiser's four sources share ``csrc/node_mix.cuh``.
+The fused denoiser's five sources share ``csrc/node_mix.cuh``; the
+attention kernel and the fused RMSNorm + qkv + attention kernel share
+``csrc/joint_attention.cuh``.
 """

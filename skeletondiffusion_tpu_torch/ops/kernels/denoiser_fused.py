@@ -10,6 +10,15 @@ node-major ``[N, B, ·]`` from end to end, with one kernel per stage:
     2·depth−1 × rms_qkv → attention_core → outproj_res   (B3a, B2, B3b)
     final       final_block_in → final_block_out          (B5a, B5b)
 
+or, with the environment variable ``SKELDIFF_LAYER_FUSED=1`` (read at each
+call, as the JAX package reads it; default ``0``), one kernel per layer
+(``layer_fused.py``):
+
+    stem + block 0            stem_block      (B9a)
+    2·depth−1 ×               rms_qkv_core → outproj_block + next block
+                                              (B9b, B9c)
+    final                     final_block_in → final_block_out   (B5a, B5b)
+
 ``prep_fused_denoiser`` gathers every weight-side operand once (the caller
 keeps it across calls); ``fused_denoiser_core_nm`` computes the time MLP and
 the FiLM rows (float32, a few [1, ·] products) and runs the kernels.  The
@@ -19,13 +28,14 @@ tile.  On the CPU every wrapper runs its plain PyTorch version.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Union
 
 import torch
 
 from ...models.denoiser import Denoiser
 from ..graph_linear import StaticGraphLinear
-from . import attention_proj, graph_linear_fused, joint_attention, resnet_block
+from . import attention_proj, graph_linear_fused, joint_attention, layer_fused, resnet_block
 
 
 def _influence(lin: StaticGraphLinear, n: int) -> torch.Tensor:
@@ -78,6 +88,11 @@ def prep_fused_denoiser(den: Denoiser) -> Dict:
             "head": _banks(den.final_glin, dt), "final": final}
 
 
+def _block_banks(blk: Dict):
+    """A ResnetBlock's w1, b1, g1, w2, b2, g2, in the kernels' order."""
+    return blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]
+
+
 def _film(mlp, tt: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """The block's scalar-time FiLM row scale‖shift [2F]: fp32, then cast
     (`denoiser_fused.py:224-234`)."""
@@ -98,19 +113,28 @@ def fused_denoiser_core_nm(
     dt = prepped["dtype"]
     tt = torch.tanh(den.time_embedding(time, x_nm.device))  # [1, time_dim] float32
 
-    stem = prepped["stem"]
-    xp = graph_linear_fused.graph_linear_fused(
-        x_nm.to(dt).contiguous(), stem["w"], stem["b"], stem["g"], u.to(dt).contiguous())
-    rp = xp  # the long skip
-    for i, blk in enumerate(prepped["blocks"]):
-        xp = resnet_block.resnet_block(xp, _film(blk["film"], tt, dt), blk["w1"], blk["b1"],
-                                       blk["g1"], blk["w2"], blk["b2"], blk["g2"])
-        if i < len(prepped["attns"]):
-            a = prepped["attns"][i]
-            qkv = attention_proj.rms_qkv(xp, a["g_rms"], a["w_qkv"], a["g_qkv"])
-            core = joint_attention.attention_core(qkv, heads=den.attn_heads,
-                                                  dim_head=den.attn_dim_head)
-            xp = attention_proj.outproj_res(core, xp, a["w_out"], a["g_out"])
+    stem, blocks = prepped["stem"], prepped["blocks"]
+    x_in, u_in = x_nm.to(dt).contiguous(), u.to(dt).contiguous()
+    if os.environ.get("SKELDIFF_LAYER_FUSED", "0") == "1":
+        b0 = blocks[0]
+        rp, xp = layer_fused.stem_block(x_in, u_in, _film(b0["film"], tt, dt), stem["w"],
+                                        stem["b"], stem["g"], *_block_banks(b0))
+        for a, blk in zip(prepped["attns"], blocks[1:]):
+            core = layer_fused.rms_qkv_core(xp, a["g_rms"], a["w_qkv"], a["g_qkv"],
+                                            heads=den.attn_heads, dim_head=den.attn_dim_head)
+            xp = layer_fused.outproj_block(core, xp, _film(blk["film"], tt, dt), a["w_out"],
+                                           a["g_out"], *_block_banks(blk))
+    else:
+        xp = graph_linear_fused.graph_linear_fused(x_in, stem["w"], stem["b"], stem["g"], u_in)
+        rp = xp  # the long skip
+        for i, blk in enumerate(blocks):
+            xp = resnet_block.resnet_block(xp, _film(blk["film"], tt, dt), *_block_banks(blk))
+            if i < len(prepped["attns"]):
+                a = prepped["attns"][i]
+                qkv = attention_proj.rms_qkv(xp, a["g_rms"], a["w_qkv"], a["g_qkv"])
+                core = joint_attention.attention_core(qkv, heads=den.attn_heads,
+                                                      dim_head=den.attn_dim_head)
+                xp = attention_proj.outproj_res(core, xp, a["w_out"], a["g_out"])
     fin, head = prepped["final"], prepped["head"]
     h, res = resnet_block.final_block_in(xp, rp, _film(fin["film"], tt, dt), fin["w1"],
                                          fin["b1"], fin["g1"], fin["wr"], fin["gr"])

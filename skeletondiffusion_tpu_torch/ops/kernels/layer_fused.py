@@ -1,0 +1,121 @@
+"""The denoiser's per-layer kernels (``SKELDIFF_LAYER_FUSED=1``): each runs
+two or three stages of the single-stage chain in one CUDA kernel, so that
+what passes between them never leaves the block.
+
+Node-major activations, per-node banks, biases, row-normalized influences
+[N, N] and FiLM rows scale‖shift [2F], all in one element type (bf16 on the
+prediction path; fp32 is instantiated too); they round where the
+single-stage kernels round, and their plain versions are those kernels'
+plain versions composed:
+
+    stem_block:     r   = graph_linear_fused(x, Ws, bs, Gs, u)        (B4)
+                    out = resnet_block(r)                             (B1)
+    rms_qkv_core:   out = attention_core(rms_qkv(x))                  (B3a, B2)
+    outproj_block:  out = resnet_block(outproj_res(a, x))             (B3b, B1)
+
+Ports of ``skeletondiffusion_tpu/ops/pallas/layer_fused.py``
+(``stem_block_pallas``, ``rms_qkv_core_pallas``, ``outproj_block_pallas``)
+without the TPU's padding; the kernels are ``csrc/layer_fused.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .attention_proj import outproj_res_plain, rms_qkv_plain
+from .graph_linear_fused import graph_linear_fused_plain
+from .joint_attention import attention_core_plain
+from .resnet_block import resnet_block_plain
+
+launches_stem_block = 0
+launches_rms_qkv_core = 0
+launches_outproj_block = 0
+
+
+def stem_block_plain(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
+    r = graph_linear_fused_plain(x, ws, bs, gs, u)
+    return r, resnet_block_plain(r, film, w1, b1, g1, w2, b2, g2)
+
+
+def rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int) -> torch.Tensor:
+    return attention_core_plain(rms_qkv_plain(x, g_rms, w_qkv, g_qkv), heads, dim_head)
+
+
+def outproj_block_plain(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    return resnet_block_plain(outproj_res_plain(a, x, w_out, g_out), film, w1, b1, g1, w2, b2,
+                              g2)
+
+
+def _launch(kernel: str, tensors: dict, shapes: dict, ints: tuple, outs: tuple) -> None:
+    """Check the inputs, launch ``<kernel>_<bf16|f32>`` on their pointers,
+    the outputs' and ``ints``."""
+    dt = next(iter(tensors.values())).dtype
+    suffix = build.element_suffix(kernel, dt)
+    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
+    build.check_aligned(kernel, 32, **tensors)
+    ptrs = [t.data_ptr() for t in (*tensors.values(), *outs)]
+    status = build.c_entry("layer_fused", f"{kernel}_{suffix}", len(ptrs), len(ints))(
+        *ptrs, *ints, build.stream_of(outs[0]))
+    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
+
+
+def _block_shapes(n: int, f: int) -> dict:
+    return dict(film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n), w2=(n, f, f), b2=(n, f),
+                g2=(n, n))
+
+
+def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
+    """x [N,B,D], u [N,B,F], film [2F], ws [N,D,F], bs [N,F], gs [N,N], the
+    block's w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] → (r, out) [N,B,F]
+    each: the stem's output (the long skip) and block 0's.  CPU tensors run
+    ``stem_block_plain``; CUDA tensors launch the kernel or raise."""
+    global launches_stem_block
+    tensors = dict(x=x, u=u, film=film, ws=ws, bs=bs, gs=gs, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2,
+                   g2=g2)
+    if build.kernel_device(**tensors) == "cpu":
+        return stem_block_plain(**tensors)
+    n, rows, d = x.shape
+    f = ws.shape[-1]
+    shapes = dict(x=(n, rows, d), u=(n, rows, f), ws=(n, d, f), bs=(n, f), gs=(n, n),
+                  **_block_shapes(n, f))
+    r = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(r)
+    _launch("stem_block", tensors, shapes, (n, rows, d, f), (r, out))
+    launches_stem_block += 1
+    return r, out
+
+
+def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
+    """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·dh] (q‖k‖v),
+    g_qkv [N,N] → the attention core's output [N,B,H·dh].  CPU tensors run
+    ``rms_qkv_core_plain``; CUDA tensors launch the kernel or raise."""
+    global launches_rms_qkv_core
+    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
+    if build.kernel_device(**tensors) == "cpu":
+        return rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, heads, dim_head)
+    n, rows, f = x.shape
+    hd = heads * dim_head
+    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
+    out = torch.empty((n, rows, hd), dtype=x.dtype, device=x.device)
+    _launch("rms_qkv_core", tensors, shapes, (n, rows, f, heads, dim_head), (out,))
+    launches_rms_qkv_core += 1
+    return out
+
+
+def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    """a [N,B,hd], x [N,B,F], film [2F], w_out [N,hd,F], g_out [N,N], the
+    next block's banks as ``stem_block`` takes them → [N,B,F].  CPU tensors
+    run ``outproj_block_plain``; CUDA tensors launch the kernel or raise."""
+    global launches_outproj_block
+    tensors = dict(a=a, x=x, film=film, w_out=w_out, g_out=g_out, w1=w1, b1=b1, g1=g1, w2=w2,
+                   b2=b2, g2=g2)
+    if build.kernel_device(**tensors) == "cpu":
+        return outproj_block_plain(**tensors)
+    n, rows, hd = a.shape
+    f = x.shape[-1]
+    shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n),
+                  **_block_shapes(n, f))
+    out = torch.empty_like(x)
+    _launch("outproj_block", tensors, shapes, (n, rows, hd, f), (out,))
+    launches_outproj_block += 1
+    return out

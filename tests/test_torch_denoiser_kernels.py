@@ -1,7 +1,9 @@
 """The fused denoiser's kernels (B1–B5 and K2's bf16-x̂₀ entry): their plain
 PyTorch versions against the JAX package's Pallas kernels, run with
 ``interpret=True`` on the CPU as the repo's own Pallas tests run them, and
-the wrappers' refusal to fall back when a CUDA launch is asked for.
+the wrappers' refusal to fall back when a CUDA launch is asked for (those of
+the layer-fused kernels B9a–c too; their plain versions are held in
+``tests/test_torch_layer_fused.py``).
 
 Shapes are the flagship's widths (21 nodes, D 96, F 192, 8 heads × 32) at a
 batch of 16.  The Pallas kernels need their feature axes padded to 128-lane
@@ -27,87 +29,40 @@ from skeletondiffusion_tpu.ops.pallas.attention_proj import outproj_res_pallas, 
 from skeletondiffusion_tpu.ops.pallas.graph_linear_fused import graph_linear_pallas
 from skeletondiffusion_tpu.ops.pallas.joint_attention import attention_core_pallas
 from skeletondiffusion_tpu.ops.pallas.posterior_step import posterior_step_pallas
-from skeletondiffusion_tpu_torch.ops.graph_linear import l1_normalize_rows
 from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, graph_linear_fused
-from skeletondiffusion_tpu_torch.ops.kernels import joint_attention, posterior_step, resnet_block
+from skeletondiffusion_tpu_torch.ops.kernels import joint_attention, layer_fused, posterior_step
+from skeletondiffusion_tpu_torch.ops.kernels import resnet_block
 
-from torch_parity import assert_bf16_close
+from torch_parity import KernelInputs, check_kernel, pad_to
 
 N, B, D, F, HEADS, DH = 21, 16, 96, 192, 8, 32
 HD = HEADS * DH
 FP = 256  # the Pallas kernels' padded feature width
-DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
-
-
-class Inputs:
-    """Random inputs made with numpy from a seed, rounded to the dtype under
-    test, handed to the port as torch tensors and to JAX as arrays."""
-
-    def __init__(self, dtype: str, seed: int):
-        self.rng = np.random.default_rng(seed)
-        self.tdt, self.jdt = DTYPES[dtype]
-
-    def _make(self, a: np.ndarray):
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.tdt)
-        return t, jnp.asarray(t.float().numpy(), self.jdt)
-
-    def act(self, *shape, scale=0.5):
-        return self._make(scale * self.rng.standard_normal(shape))
-
-    def bank(self, fi, fo):
-        return self._make(self.rng.standard_normal((N, fi, fo)) / np.sqrt(fi))
-
-    def bias(self, fo):
-        return self._make(0.1 * self.rng.standard_normal((N, fo)))
-
-    def influence(self):
-        g = np.eye(N) + 0.2 * self.rng.random((N, N))
-        return self._make(l1_normalize_rows(torch.from_numpy(g)).numpy())
-
-    def film(self, f):
-        return self._make(0.3 * self.rng.standard_normal(2 * f))
-
-
-def pad_to(a, *sizes):
-    """Zero-pad the trailing axes of a JAX array to ``sizes``."""
-    lead = a.ndim - len(sizes)
-    return jnp.pad(a, [(0, 0)] * lead + [(0, s - n) for s, n in zip(sizes, a.shape[lead:])])
-
-
-def check(got: torch.Tensor, want, dtype: str, what: str = ""):
-    got = got.float().numpy()
-    want = np.asarray(jnp.asarray(want, jnp.float32))
-    if dtype == "float32":
-        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4, err_msg=what)
-    else:
-        assert_bf16_close(got, want, what)
-
-
 both = pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 
 
 @both
 def test_graph_linear_fused_plain_matches_pallas(dtype):
-    inp = Inputs(dtype, 0)
+    inp = KernelInputs(dtype, 0)
     (x, jx), (w, jw), (b, jb), (g, jg), (u, ju) = (
         inp.act(N, B, D), inp.bank(D, F), inp.bias(F), inp.influence(), inp.act(N, B, F))
     got = graph_linear_fused.graph_linear_fused(x, w, b, g, u)
     want = graph_linear_pallas(pad_to(jx, 128), pad_to(jw, 128, FP), pad_to(jb, FP), jg,
                                u=pad_to(ju, FP), batch_tile=8, interpret=True)[:, :, :F]
     assert got.dtype == x.dtype and got.shape == (N, B, F)
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 @both
 def test_resnet_block_plain_matches_pallas(dtype):
-    inp = Inputs(dtype, 1)
+    inp = KernelInputs(dtype, 1)
     (x, jx), (film, jfilm) = inp.act(N, B, F), inp.film(F)
     (w1, jw1), (b1, jb1), (g1, jg1) = inp.bank(F, F), inp.bias(F), inp.influence()
     (w2, jw2), (b2, jb2), (g2, jg2) = inp.bank(F, F), inp.bias(F), inp.influence()
     got = resnet_block.resnet_block(x, film, w1, b1, g1, w2, b2, g2)
     want = pallas_resnet.resnet_block_pallas(jx, jfilm[None], jw1, jb1, jg1, jw2, jb2, jg2,
                                              f_pad=FP, batch_tile=8, interpret=True)
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 def _rect_weights(w):
@@ -159,7 +114,7 @@ def _pallas_final_out(h, res, w2, b2, g2, wh, bh, gh):
 
 
 def _final_inputs(dtype):
-    inp = Inputs(dtype, 2)
+    inp = KernelInputs(dtype, 2)
     names = ["x", "r", "film", "w1", "b1", "g1", "wr", "gr", "w2", "b2", "g2", "wh", "bh", "gh"]
     made = [inp.act(N, B, F), inp.act(N, B, F), inp.film(F), inp.bank(2 * F, F), inp.bias(F),
             inp.influence(), inp.bank(2 * F, F), inp.influence(), inp.bank(F, F), inp.bias(F),
@@ -173,13 +128,13 @@ def test_final_block_passes_plain_match_pallas(dtype):
     in_keys = ["x", "r", "film", "w1", "b1", "g1", "wr", "gr"]
     h, res = resnet_block.final_block_in(*(t[k] for k in in_keys))
     jh, jres = _pallas_final_in(*(j[k] for k in in_keys))
-    check(h, jh, dtype, "h")
-    check(res, jres, dtype, "res")
+    check_kernel(h, jh, dtype, "h")
+    check_kernel(res, jres, dtype, "res")
     # the second pass on the same (Pallas) h and res, so each pass is held alone
     out_keys = ["w2", "b2", "g2", "wh", "bh", "gh"]
     as_torch = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(h.dtype)  # noqa
     out = resnet_block.final_block_out(as_torch(jh), as_torch(jres), *(t[k] for k in out_keys))
-    check(out, _pallas_final_out(jh, jres, *(j[k] for k in out_keys)), dtype, "out")
+    check_kernel(out, _pallas_final_out(jh, jres, *(j[k] for k in out_keys)), dtype, "out")
 
 
 @both
@@ -198,46 +153,46 @@ def test_final_block_chain_matches_pallas_function(dtype):
         pad_to(j["w2"], FP, FP), pad_to(j["b2"], FP), j["g2"], pad_to(j["wh"], FP, 128),
         pad_to(j["bh"], 128), j["gh"], batch_tile_in=8, batch_tile_out=8, interpret=True,
     )[:, :, :D]
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 @both
 def test_rms_qkv_plain_matches_pallas(dtype):
-    inp = Inputs(dtype, 3)
+    inp = KernelInputs(dtype, 3)
     (x, jx), (w, jw), (g, jg) = inp.act(N, B, F), inp.bank(F, 3 * HD), inp.influence()
     g_rms, jg_rms = inp._make((1.0 + 0.1 * inp.rng.standard_normal(F)) * np.sqrt(F))
     got = attention_proj.rms_qkv(x, g_rms, w, g)
     want = rms_qkv_pallas(pad_to(jx, FP), pad_to(jg_rms[None], FP), pad_to(jw.swapaxes(1, 2),
                           FP).swapaxes(1, 2), jg, batch_tile=8, interpret=True)
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 @both
 def test_outproj_res_plain_matches_pallas(dtype):
-    inp = Inputs(dtype, 4)
+    inp = KernelInputs(dtype, 4)
     (a, ja), (x, jx), (w, jw), (g, jg) = (inp.act(N, B, HD), inp.act(N, B, F), inp.bank(HD, F),
                                           inp.influence())
     got = attention_proj.outproj_res(a, x, w, g)
     want = outproj_res_pallas(ja, pad_to(jx, FP), pad_to(jw, FP), jg, batch_tile=8,
                               interpret=True)[:, :, :F]
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 @both
 def test_attention_core_plain_matches_pallas(dtype):
     """In bf16 the Pallas kernel also rounds k·(q·scale) and p·v products to
     bf16 before summing; the port sums in fp32 (inside the bf16 criteria)."""
-    qkv, jqkv = Inputs(dtype, 5).act(N, B, 3 * HD, scale=1.5)
+    qkv, jqkv = KernelInputs(dtype, 5).act(N, B, 3 * HD, scale=1.5)
     got = joint_attention.attention_core(qkv, heads=HEADS, dim_head=DH)
     want = attention_core_pallas(jqkv, heads=HEADS, dim_head=DH, batch_tile=8, interpret=True)
     assert got.shape == (N, B, HD)
-    check(got, want, dtype)
+    check_kernel(got, want, dtype)
 
 
 def test_posterior_step_bf16_x0_plain_matches_pallas():
     """K2 with x̂₀ in bf16 (the fused denoiser's output): x_t, the noise and
     the result stay float32, so the tolerance is float32's."""
-    inp = Inputs("bfloat16", 6)
+    inp = KernelInputs("bfloat16", 6)
     x0, jx0 = inp.act(N, B, D, scale=1.5)
     rng = np.random.default_rng(7)
     xt, eps = (rng.standard_normal((N, B, D), dtype=np.float32) for _ in range(2))
@@ -266,6 +221,7 @@ def _wrapper_calls(dtype=torch.bfloat16):
     small flagship-width shapes."""
     z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
     x, g = z(N, 4, F), z(N, N)
+    block = lambda: (z(N, F, F), z(N, F), g, z(N, F, F), z(N, F), g)  # noqa: E731
     return [
         ("graph_linear_fused", graph_linear_fused, "launches",
          lambda: graph_linear_fused.graph_linear_fused(z(N, 4, D), z(N, D, F), z(N, F), g,
@@ -288,10 +244,18 @@ def _wrapper_calls(dtype=torch.bfloat16):
         ("posterior_step", posterior_step, "launches_x0_bf16",
          lambda: posterior_step.posterior_step(z(N, 4, D), torch.zeros(N, 4, D),
                                                torch.zeros(N, 4, D), torch.zeros(N, 3 * N))),
+        ("stem_block", layer_fused, "launches_stem_block",
+         lambda: layer_fused.stem_block(z(N, 4, D), x, z(2 * F), z(N, D, F), z(N, F), g,
+                                        *block())),
+        ("rms_qkv_core", layer_fused, "launches_rms_qkv_core",
+         lambda: layer_fused.rms_qkv_core(x, z(F), z(N, F, 3 * HD), g, heads=HEADS,
+                                          dim_head=DH)),
+        ("outproj_block", layer_fused, "launches_outproj_block",
+         lambda: layer_fused.outproj_block(z(N, 4, HD), x, z(2 * F), z(N, HD, F), g, *block())),
     ]
 
 
-@pytest.mark.parametrize("index", range(8))
+@pytest.mark.parametrize("index", range(11))
 def test_new_wrappers_raise_instead_of_falling_back(monkeypatch, index):
     name, module, counter, call = _wrapper_calls()[index]
     _cuda_request(monkeypatch)
@@ -319,6 +283,21 @@ def test_new_wrappers_check_dtype_and_layout(monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         attention_proj.rms_qkv(x.transpose(0, 1).contiguous().transpose(0, 1), x[0, 0],
                                torch.zeros(N, F, 3 * HD, dtype=torch.bfloat16), g)
+    # the layer-fused kernels' wrappers
+    with pytest.raises(TypeError, match="built for bfloat16 and float32"):
+        _wrapper_calls(torch.float64)[10][3]()
+    bank, bias = torch.zeros(N, F, F, dtype=torch.bfloat16), x[:, 0]
+    with pytest.raises(TypeError, match="u must be bfloat16, got torch.float32"):
+        layer_fused.stem_block(torch.zeros(N, 4, D, dtype=torch.bfloat16), x.float(),
+                               x[0, 0].repeat(2), torch.zeros(N, D, F, dtype=torch.bfloat16), bias,
+                               g, bank, bias, g, bank, bias, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_fused.rms_qkv_core(x.transpose(0, 1).contiguous().transpose(0, 1), x[0, 0],
+                                 torch.zeros(N, F, 3 * HD, dtype=torch.bfloat16), g, heads=HEADS,
+                                 dim_head=DH)
+    with pytest.raises(ValueError, match="w_out has shape"):
+        layer_fused.outproj_block(torch.zeros(N, 4, HD, dtype=torch.bfloat16), x,
+                                  x[0, 0].repeat(2), bank, g, bank, bias, g, bank, bias, g)
 
 
 def _c_signature(source: str, symbol: str):
@@ -353,7 +332,7 @@ def test_wrappers_call_c_entries_that_exist(monkeypatch, dtype):
         monkeypatch.setattr(module, counter, 0)
         call()
         assert getattr(module, counter) == 1, name
-    assert len(calls) == 8 if dtype == torch.bfloat16 else 7
+    assert len(calls) == 11 if dtype == torch.bfloat16 else 10
     for name, symbol, n_pointers, n_ints in calls:
         pointers, ints = _c_signature((csrc / f"{name}.cu").read_text(), symbol)
         assert (pointers, ints) == (n_pointers + 1, n_ints), symbol  # + the stream
