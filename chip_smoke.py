@@ -34,7 +34,21 @@ Phases, each printed with its elapsed seconds:
               phase only): predictions/s and launch counts per prediction,
               and with injected noise against the same path on the plain
               versions and against the single-stage kernel path of phase 6,
-              each beside the bf16 path's deviation from the fp32 path.
+              each beside the bf16 path's deviation from the fp32 path;
+9. decode_bf16 — the merged-gate bf16 rollout (B8) against its plain version
+              at 12 800 and 12 795 rows × 120 steps, its mean deviation also
+              against the plain version's own from the fp32 plain rollout,
+              timed beside its bound and its plain version; then the slice's
+              entry point, scripts/torch_decode_bf16_check.py (a fresh
+              AutoEncoder from seed 0, 12 800 rows), with its launch counts,
+              and its metric-space deviation (B8 against K1) held within
+              1.3× either way of the same deviation of the plain versions;
+10. attn_core_fm — the feature-major attention core (L1) against its plain
+              version in bf16 and fp32 at 12 800 and 12 795 rows, timed beside
+              its bound, its plain version, scaled_dot_product_attention and
+              B2 on the same data; then the lab's entry point,
+              scripts/torch_attn_core_lab.py (its fp32 check and its chains of
+              B2 and L1 calls), with its launch counts.
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
@@ -46,7 +60,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -58,7 +74,6 @@ import torch
 from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
 from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
 from skeletondiffusion_tpu_torch.models import AutoEncoder
-from skeletondiffusion_tpu_torch.ops.graph_linear import l1_normalize_rows
 from skeletondiffusion_tpu_torch.ops.kernels import attention_proj as proj_mod
 from skeletondiffusion_tpu_torch.ops.kernels import build
 from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
@@ -68,7 +83,13 @@ from skeletondiffusion_tpu_torch.ops.kernels import joint_attention as attn_mod
 from skeletondiffusion_tpu_torch.ops.kernels import layer_fused as layer_mod
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
+from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
+
+# the entry points of the decode check and the attention lab
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
+import torch_attn_core_lab as attn_lab  # noqa: E402
+import torch_decode_bf16_check as decode_check  # noqa: E402
 
 BATCH, SAMPLES, OBS_LEN, PRED_LEN = 256, 50, 30, 120
 LATENT, HIDDEN, TIMESTEPS = 96, 96, 10
@@ -101,6 +122,11 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # before the plain bf16 encoder rounded where XLA rounds, 0.949 and 1.149
 # after; 0.80–0.87 in the predictions.  It was 2.0.
 BF16_E2E_MAX = 1.3
+# B8's mean deviation from its plain version may reach this share of the
+# plain version's own mean deviation from K1's fp32 plain version (as the CPU
+# tests hold the plain version to the Pallas kernel): leaving out any one of
+# the merged kernel's rounding points reads 0.26–0.59× there.
+B8_MEAN_SHARE = 0.1
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
 # tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
@@ -111,6 +137,8 @@ PEAK_BYTES_S = 3.35e12
 # Every kernel's launch counter: name → (wrapper module, attribute).
 COUNTERS = {
     "gru_rollout": (rollout_mod, "launches"),
+    "gru_rollout_bf16": (rollout_mod, "launches_bf16"),
+    "attention_core_fm": (fm_mod, "launches"),
     "posterior_step": (posterior_mod, "launches"),
     "posterior_step_x0_bf16": (posterior_mod, "launches_x0_bf16"),
     "graph_linear_fused": (stem_mod, "launches"),
@@ -254,29 +282,21 @@ def check_posterior_step(predictor, gen: torch.Generator) -> dict:
             "bound_by": by, "library_ms": library_ms}
 
 
-def rollout_inputs(predictor, gen: torch.Generator) -> dict:
-    """The decoder's own rollout inputs for 12 800 rows (its hoisted cx, h0,
-    gathered banks and normalized influences)."""
+def rollout_inputs(predictor, gen: torch.Generator, compute_dtypes=(None,)) -> list:
+    """The decoder's own rollout inputs for 12 800 rows (``rollout_args``: its
+    hoisted cx, h0, gathered banks and normalized influences), one dict for
+    each of ``compute_dtypes``, all from the same poses and latents."""
     dec = predictor.autoencoder.decoder
     n, rows = predictor.skeleton.num_nodes, BATCH * SAMPLES
     x = 0.3 * torch.randn((rows, 2, n, 3), generator=gen, device="cuda")
     z = torch.tanh(torch.randn((rows, n, LATENT), generator=gen, device="cuda"))
-    x_t, x_t_1, z_nm = x[:, -1].transpose(0, 1), x[:, -2].transpose(0, 1), z.transpose(0, 1)
-    cell, fc = dec.rollout.cell, dec.rollout.fc
     with torch.no_grad():
-        w_hh, b_hh = cell.hidden_banks()
-        return dict(
-            cx=cell.input_gates(torch.cat([x_t, z_nm], dim=-1)).contiguous(),
-            h0=dec.initial_hidden_h(torch.cat([x_t_1, z_nm], dim=-1)).contiguous(),
-            w_hh=w_hh, b_hh=b_hh, g0=l1_normalize_rows(dec.G0), g_add=cell.G_add.detach(),
-            w_fc=fc.weight[fc.type_index].detach(), b_fc=fc.bias[fc.type_index].detach(),
-            g_fc=fc.influence().detach(),
-        )
+        return [rollout_mod.rollout_args(dec, x, z, dt) for dt in compute_dtypes]
 
 
 def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
     """K1 at the decode's shapes: cx [21, 12800, 288], 120 steps."""
-    inp = rollout_inputs(predictor, gen)
+    inp, = rollout_inputs(predictor, gen)
     with torch.no_grad():
         got = rollout_mod.gru_rollout(**inp, ph=PRED_LEN)
         want = rollout_mod.gru_rollout_plain(**inp, ph=PRED_LEN)
@@ -354,7 +374,7 @@ def injected_run(skeleton, predictor, obs: torch.Tensor, start: torch.Tensor,
     patches = [mock.patch.object(posterior_mod, "posterior_step", recording)]
     if plain:
         patches += [
-            mock.patch.object(rollout_mod, "gru_rollout", rollout_mod.gru_rollout_plain),
+            plain_rollouts(),
             mock.patch.object(stem_mod, "graph_linear_fused", stem_mod.graph_linear_fused_plain),
             mock.patch.object(block_mod, "resnet_block", block_mod.resnet_block_plain),
             mock.patch.object(block_mod, "final_block_in", block_mod.final_block_in_plain),
@@ -662,6 +682,187 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
         ]
 
 
+def check_bf16_errors(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
+    """Raise unless ``got`` meets the bf16 criteria against ``want``."""
+    mx, mean, ref = bf16_errors(got, want)
+    if tuple(got.shape) != tuple(want.shape) or not (mx <= BF16_MAX * ref
+                                                      and mean <= BF16_MEAN * ref):
+        raise AssertionError(f"{name} disagrees with its plain version: shape "
+                             f"{tuple(got.shape)}, max {mx}, mean {mean}, |ref| {ref}")
+    return f"max {mx:.3e} mean {mean:.3e} |ref| {ref:.3f}"
+
+
+def check_gru_rollout_bf16(predictor, gen: torch.Generator) -> dict:
+    """B8 at the decode's shapes on the flagship decoder's own rollout inputs
+    (cx, W_hh and W_fc in bf16), at 12 800 and 12 795 rows, 120 steps: the
+    bf16 criteria against its plain version, and a mean deviation of at most
+    B8_MEAN_SHARE× the plain version's own from K1's plain version on the
+    same inputs in fp32."""
+    inp32, inp = rollout_inputs(predictor, gen, (None, torch.bfloat16))
+    rows = BATCH * SAMPLES
+    parts, err = [], 0.0
+    with torch.no_grad():
+        for cut in (rows, rows - RAGGED):
+            args, args32 = ({k: v[:, :cut].contiguous() if k in ("cx", "h0") else v
+                             for k, v in a.items()} for a in (inp, inp32))
+            got = rollout_mod.gru_rollout(**args, ph=PRED_LEN, compute_dtype=torch.bfloat16)
+            want = rollout_mod.gru_rollout_merged_plain(**args, ph=PRED_LEN)
+            own = (want - rollout_mod.gru_rollout_plain(**args32, ph=PRED_LEN)).abs().mean()
+            torch.cuda.synchronize()
+            mean, own = (got - want).abs().mean().item(), own.item()
+            parts.append(f"{cut} rows {check_bf16_errors('gru_rollout_bf16', got, want)}, "
+                         f"{mean / own:.4f}× the plain version's mean {own:.3e} from fp32 "
+                         f"(bound {B8_MEAN_SHARE})")
+            if not mean <= B8_MEAN_SHARE * own:
+                raise AssertionError(f"gru_rollout_bf16 at {cut} rows: mean {mean} from its "
+                                     f"plain version, its plain version's from fp32 {own}")
+            err = max(err, (got - want).abs().max().item())
+        ms = cuda_ms(lambda: rollout_mod.gru_rollout(**inp, ph=PRED_LEN,
+                                                     compute_dtype=torch.bfloat16), reps=3)
+        plain_ms = cuda_ms(lambda: rollout_mod.gru_rollout_merged_plain(**inp, ph=PRED_LEN),
+                           reps=2)
+    n, _, h3 = inp["cx"].shape
+    h, f = h3 // 3, inp["w_fc"].shape[-1]
+    # the kernel's algorithm per row and step, as check_gru_rollout counts it:
+    # the bf16 products and node mixes (tensor-core operands), the fp32 head mix
+    tensor_row_step = 2 * n * h * 3 * h + 2 * n * n * h * 4 + 2 * n * h * f
+    compulsory = (sum(t.numel() * t.element_size() for t in inp.values())
+                  + 4 * PRED_LEN * n * rows * f)
+    bnd, by = bound_ms(compulsory, 2.0 * n * n * f * rows * PRED_LEN,
+                       float(tensor_row_step) * rows * PRED_LEN)
+    log(f"gru_rollout_bf16: {'; '.join(parts)}; {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library none, bound {bnd:.3f} ms ({by})")
+    return {"name": "gru_rollout_bf16", "route": "cuda",
+            "source": "skeletondiffusion_tpu_torch/csrc/gru_rollout_merged.cu",
+            "replaces": "skeletondiffusion_tpu/ops/pallas/gru_rollout.py:377",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None}
+
+
+def plain_rollouts():
+    """Patch the rollout wrapper to its plain versions (both dtypes)."""
+    def plain(*, ph, compute_dtype=None, **tensors):
+        if compute_dtype == torch.bfloat16:
+            return rollout_mod.gru_rollout_merged_plain(**tensors, ph=ph)
+        return rollout_mod.gru_rollout_plain(**tensors, ph=ph)
+    return mock.patch.object(rollout_mod, "gru_rollout", plain)
+
+
+def run_decode_check(card_name: str) -> dict:
+    """The decode check's entry point with every launch counter set to 0
+    before it and read after it; its B8-vs-K1 metric-space deviation held
+    against the plain versions' (merged plain against fp32 plain) on the same
+    model and inputs.  Returns the launches of the run."""
+    reset_counts()
+    result = decode_check.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    calls = 1 + decode_check.TIMED_CALLS
+    expected = {name: 0 for name in COUNTERS}
+    expected.update(gru_rollout=calls, gru_rollout_bf16=calls)
+    if counts != expected:
+        raise AssertionError(f"decode check: launch counts {counts}, expected {expected}")
+    log(f"decode check on {card_name}: {json.dumps(result)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    skeleton, dec, x_last2, z = decode_check.setup()
+    with plain_rollouts():
+        plain = decode_check.decode_deviation(skeleton, dec, x_last2, z, decode_check.PH)
+    kernel_mean, plain_mean = result["mm_mean"], plain.mean().item()
+    log(f"decode check, metric space: B8 vs K1 mean {kernel_mean:.4f} mm max "
+        f"{result['mm_max']:.4f} mm; merged plain vs fp32 plain mean {plain_mean:.4f} mm max "
+        f"{plain.max().item():.4f} mm (ratio {kernel_mean / plain_mean:.3f}, bounds "
+        f"1/{BF16_E2E_MAX} and {BF16_E2E_MAX})")
+    finite = all(math.isfinite(v) for v in result.values() if isinstance(v, float))
+    if not (finite and plain_mean <= BF16_E2E_MAX * kernel_mean
+            and kernel_mean <= BF16_E2E_MAX * plain_mean):
+        raise AssertionError(f"decode check: B8 vs K1 mean {kernel_mean} mm against the plain "
+                             f"pair's {plain_mean} mm")
+    return counts
+
+
+def peak_extra_bytes(fn) -> int:
+    """Device memory allocated by ``fn`` at its peak, above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def check_attention_core_fm(gen: torch.Generator) -> dict:
+    """L1 at the lab's shapes (21 joints, 8 heads × 32) in bf16 and fp32, at
+    12 800 and 12 795 rows, timed in bf16 beside its bound, its plain
+    version, scaled_dot_product_attention on [B, heads, 21, dh] views of the
+    feature-major tensor, and B2 on the same data in batch-major."""
+    heads, dh, n, rows = attn_lab.H, attn_lab.DH, attn_lab.N, BATCH * SAMPLES
+    hd = heads * dh
+    core = functools.partial(fm_mod.attention_core_fm, heads=heads, dim_head=dh)
+    parts, err = [], 0.0
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for cut in (rows, rows - RAGGED):
+                qkv = (0.5 * torch.randn((n, 3 * hd, cut), generator=gen, device="cuda")).to(dtype)
+                got, want = core(qkv), fm_mod.attention_core_fm_plain(qkv, heads, dh)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    mx = (got - want).abs().max().item()
+                    if not (got.shape == want.shape and mx <= F32_TOL):
+                        raise AssertionError(f"attention_core_fm (fp32, {cut} rows) disagrees "
+                                             f"with its plain version: {mx}")
+                    parts.append(f"fp32 {cut} rows max {mx:.3e}")
+                else:
+                    parts.append(f"bf16 {cut} rows "
+                                 + check_bf16_errors("attention_core_fm", got, want))
+                    err = max(err, (got.float() - want.float()).abs().max().item())
+        qkv = (0.5 * torch.randn((n, 3 * hd, rows), generator=gen, device="cuda")).to(torch.bfloat16)
+        qkv_bm = qkv.transpose(1, 2).contiguous()
+        q, k, v = (t.view(n, heads, dh, rows).permute(3, 1, 0, 2) for t in qkv.split(hd, dim=1))
+        out = core(qkv)
+        ms = cuda_ms(lambda: core(qkv), reps=20)
+        plain_ms = cuda_ms(lambda: fm_mod.attention_core_fm_plain(qkv, heads, dh), reps=3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q, k, v), reps=20)
+        # whether the call copies the strided views: its peak memory beside
+        # the same call's on contiguous copies
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        contiguous_ms = cuda_ms(lambda: sdpa(qc, kc, vc), reps=20)
+        extra_mb = [peak_extra_bytes(lambda a=a: sdpa(*a)) / 1e6 for a in ((q, k, v), (qc, kc, vc))]
+        b2_ms = cuda_ms(lambda: attn_mod.attention_core(qkv_bm, heads=heads, dim_head=dh), reps=20)
+    moved = qkv.numel() * qkv.element_size() + out.numel() * out.element_size()
+    bnd, by = bound_ms(moved, 0.0, 4.0 * rows * heads * n * n * dh)
+    log(f"attention_core_fm: {'; '.join(parts)}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms (scaled_dot_product_attention on views with a last-dim stride of "
+        f"{q.stride(-1)}; {contiguous_ms:.4f} ms on contiguous copies; peak memory of one call "
+        f"{extra_mb[0]:.1f} MB on the views, {extra_mb[1]:.1f} MB on the copies, q, k and v "
+        f"{qc.numel() * qc.element_size() / 1e6:.1f} MB each), B2 batch-major {b2_ms:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by})")
+    return {"name": "attention_core_fm", "route": "cuda",
+            "source": "skeletondiffusion_tpu_torch/csrc/attention_core_fm.cu",
+            "replaces": "scripts/attn_core_lab.py:66", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+
+
+def run_attention_lab(card_name: str) -> dict:
+    """The attention lab's entry point: its fp32 check, then its timed chains
+    with every launch counter set to 0 before them and read after them.
+    Returns the launches of the chains."""
+    attn_lab.check("cuda")
+    reset_counts()
+    result = attn_lab.timing()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    calls = attn_lab.DEPTH * (1 + attn_lab.TIMED_CHAINS)
+    expected = {name: 0 for name in COUNTERS}
+    expected.update(attention_core=calls, attention_core_fm=calls)
+    if counts != expected:
+        raise AssertionError(f"attention lab: launch counts {counts}, expected {expected}")
+    log(f"attention lab on {card_name}: {json.dumps(result)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
     """Kernel time per prediction of the entries launched on a path: ms a
     launch × the path's ``launches``."""
@@ -752,6 +953,20 @@ def main() -> int:
     log_kernel_time("layer-fused bf16 path", fused + layer, launches)
     kernels += layer
     phase("main_layer_fused", t)
+
+    t = time.perf_counter()
+    rollout_bf16 = check_gru_rollout_bf16(predictor, gen)
+    launches = run_decode_check(card_name)
+    rollout_bf16["launches"] = launches["gru_rollout_bf16"]
+    kernels.append(rollout_bf16)
+    phase("decode_bf16", t)
+
+    t = time.perf_counter()
+    core_fm = check_attention_core_fm(gen)
+    launches = run_attention_lab(card_name)
+    core_fm["launches"] = launches["attention_core_fm"]
+    kernels.append(core_fm)
+    phase("attn_core_fm", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -11,7 +11,9 @@ Submodule and parameter names are the flax ones.  ``compute_dtype`` runs the
 encoder's graph-GRU cell in that dtype (its products, mixes and gates; the
 hidden state stays float32), as the flax encoder does; the decode stays the
 float32 rollout kernel, which is what the JAX package runs on its prediction
-path whatever the AutoEncoder's dtype (`eval_pipeline.py:164-170`).
+path whatever the AutoEncoder's dtype (`eval_pipeline.py:164-170`).  The
+decode's hoisting lives in ``ops/kernels/gru_rollout.decode_rollout``, which
+also runs the opt-in merged-gate bf16 rollout.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.graph_gru import StaticGraphGRU, StaticGraphGRUCell
-from ..ops.graph_linear import StaticGraphLinear, l1_normalize_rows
+from ..ops.graph_linear import StaticGraphLinear
 from ..ops.kernels import gru_rollout as rollout_kernel
 
 
@@ -77,18 +79,7 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
         """x [B,≥2,N,3] observed poses, z [B,N,latent] → [B,ph,N,3]."""
-        x_t = x[:, -1].transpose(0, 1)
-        x_t_1 = x[:, -2].transpose(0, 1)
-        z_nm = z.transpose(0, 1)
-        h0 = self.initial_hidden_h(torch.cat([x_t_1, z_nm], dim=-1))
-        cell, fc = self.rollout.cell, self.rollout.fc
-        cx = cell.input_gates(torch.cat([x_t, z_nm], dim=-1))
-        w_hh, b_hh = cell.hidden_banks()
-        ys = rollout_kernel.gru_rollout(
-            cx, h0, w_hh, b_hh, l1_normalize_rows(self.G0), cell.G_add,
-            fc.weight[fc.type_index], fc.bias[fc.type_index], fc.influence(), ph=ph,
-        )  # [ph,N,B,3]
-        return ys.permute(2, 0, 1, 3)
+        return rollout_kernel.decode_rollout(self, x[:, -2:], z, ph)
 
 
 class AutoEncoder(nn.Module):

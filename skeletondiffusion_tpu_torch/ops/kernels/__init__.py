@@ -5,7 +5,11 @@ plain-integer ``launches`` counter.  A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel (built by
 ``build.py`` with ``nvcc`` at first use) or raises — it never falls back.
 
-* ``gru_rollout``     — the 120-step graph-GRU decode (``csrc/gru_rollout.cu``)
+* ``gru_rollout``     — the 120-step graph-GRU decode in fp32
+  (``csrc/gru_rollout.cu``) and, with ``compute_dtype=torch.bfloat16``, the
+  merged-gate bf16 rollout (``csrc/gru_rollout_merged.cu``), which only the
+  decode check (``scripts/torch_decode_bf16_check.py``) runs; and
+  ``decode_rollout``, the decoder's decode around either
 * ``posterior_step``  — one reverse-diffusion posterior update, x̂₀ in fp32
   or bf16 (``csrc/posterior_step.cu``)
 * ``graph_linear_fused`` — the fused denoiser's stem (``csrc/graph_linear_fused.cu``)
@@ -18,6 +22,9 @@ plain version; given CUDA tensors it launches the kernel (built by
   stem + block, RMSNorm + qkv + attention, out-projection + block
   (``csrc/layer_fused.cu``)
 * ``denoiser_fused``  — the denoiser forward as the chain of those kernels
+* ``attention_core_fm`` — attention over the joints in the feature-major
+  layout (``csrc/attention_core_fm.cu``): a lab kernel on no predictor path,
+  driven by ``scripts/torch_attn_core_lab.py``
 
 The fused denoiser's five sources share ``csrc/node_mix.cuh``; the
 attention kernel and the fused RMSNorm + qkv + attention kernel share

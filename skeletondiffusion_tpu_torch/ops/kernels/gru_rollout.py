@@ -8,14 +8,22 @@ The decoder unrolls ``ph`` graph-GRU steps with a constant input whose gates
     y_t = tanh(G_fc·(h'·W_fc + b_fc)),  G_{t+1} = l1norm_rows(G_t + G_add)
 
 Port of ``skeletondiffusion_tpu/ops/pallas/gru_rollout.py::gru_rollout_pallas``
-(fp32 ``_rollout_kernel``) without the TPU's 128-lane padding: the kernel is
-``csrc/gru_rollout.cu``; the plain version is the step loop of
-``ops/graph_gru.py``.
+without the TPU's 128-lane padding, in its two forms:
+
+* fp32 (``_rollout_kernel``): the kernel is ``csrc/gru_rollout.cu``; the plain
+  version is the step loop of ``ops/graph_gru.py``;
+* ``compute_dtype=torch.bfloat16`` (``_rollout_kernel_merged``, the
+  merged-gate kernel): bf16 operands for every product and mix, fp32 carries
+  and sums; the kernel is ``csrc/gru_rollout_merged.cu``, the plain version
+  ``gru_rollout_merged_plain``.
+
+``decode_rollout`` is the decoder's whole decode (the counterpart of the JAX
+package's ``decode_rollout``): the hoisted input gates and initial hidden
+state (``rollout_args``), then one rollout in either dtype.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
+from typing import Optional
 
 import torch
 
@@ -24,6 +32,7 @@ from ..graph_linear import gmix_nm, gmm_nm, l1_normalize_rows
 from . import build
 
 launches = 0
+launches_bf16 = 0
 
 
 def gru_rollout_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *, ph: int) -> torch.Tensor:
@@ -37,12 +46,38 @@ def gru_rollout_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *, ph: in
     return torch.stack(ys)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.library("gru_rollout").gru_rollout_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 and widened back to fp32."""
+    return t.to(torch.bfloat16).float()
+
+
+def gru_rollout_merged_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *,
+                             ph: int) -> torch.Tensor:
+    """The merged-gate bf16 kernel's function in plain PyTorch → [ph, N, B, F]
+    float32, rounding where ``_rollout_kernel_merged`` rounds: cx, W_hh and
+    W_fc are bf16 (rounded here if given in fp32); per step, with gc = bf16(G_t)
+
+        hw3 = bf16(bf16(h)·W_hh + b_hh)
+        r, z = bf16(σ(gc·cx + gc·hw3))                  (per gate, fp32 sums)
+        n = tanh(gc·cx_n + r·(gc·hw3_n)),  h' = n − n·z + z·h      (fp32)
+        y = tanh(G_fc·(bf16(h')·W_fc + b_fc))           (G_fc and y fp32)
+        G_{t+1} = l1norm_rows(G_t + G_add)              (fp32)
+    """
+    cx, w_hh, w_fc = _bf16(cx), _bf16(w_hh), _bf16(w_fc)
+    hid = h0.shape[-1]
+    h, g = h0.float(), g0.float()
+    ys = []
+    for _ in range(ph):
+        gc = _bf16(g)
+        hw3 = _bf16(gmm_nm(_bf16(h), w_hh) + b_hh[:, None, :])
+        xg, hg = gmix_nm(gc, cx), gmix_nm(gc, hw3)
+        rz = _bf16(torch.sigmoid(xg[..., :2 * hid] + hg[..., :2 * hid]))
+        r, z = rz[..., :hid], rz[..., hid:]
+        n = torch.tanh(xg[..., 2 * hid:] + r * hg[..., 2 * hid:])
+        h = n - n * z + z * h
+        ys.append(torch.tanh(gmix_nm(g_fc, gmm_nm(_bf16(h), w_fc) + b_fc[:, None, :])))
+        g = l1_normalize_rows(g + g_add)
+    return torch.stack(ys)
 
 
 def gru_rollout(
@@ -57,25 +92,70 @@ def gru_rollout(
     g_fc: torch.Tensor,   # [N, N] row-normalized output-head influence
     *,
     ph: int,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Full rollout → [ph, N, B, F] float32.  CPU tensors run
-    ``gru_rollout_plain``; CUDA tensors launch the kernel or raise."""
-    global launches
+    """Full rollout → [ph, N, B, F] float32.  ``compute_dtype=None`` is the
+    fp32 rollout (every tensor float32); ``torch.bfloat16`` the merged-gate
+    rollout (cx, w_hh and w_fc bfloat16, the rest float32).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel or raise."""
+    global launches, launches_bf16
+    if compute_dtype not in (None, torch.bfloat16):
+        raise TypeError(f"gru_rollout: compute_dtype must be None or bfloat16, got {compute_dtype}")
+    merged = compute_dtype == torch.bfloat16
     tensors = dict(cx=cx, h0=h0, w_hh=w_hh, b_hh=b_hh, g0=g0, g_add=g_add, w_fc=w_fc,
                    b_fc=b_fc, g_fc=g_fc)
     if build.kernel_device(**tensors) == "cpu":
-        return gru_rollout_plain(**tensors, ph=ph)
+        plain = gru_rollout_merged_plain if merged else gru_rollout_plain
+        return plain(**tensors, ph=ph)
     n, b, h = h0.shape
     f = w_fc.shape[-1]
     shapes = dict(cx=(n, b, 3 * h), h0=(n, b, h), w_hh=(n, h, 3 * h), b_hh=(n, 3 * h),
                   g0=(n, n), g_add=(n, n), w_fc=(n, h, f), b_fc=(n, f), g_fc=(n, n))
-    build.check_kernel_inputs("gru_rollout", shapes, torch.float32, **tensors)
+    kernel = "gru_rollout_bf16" if merged else "gru_rollout"
+    dtypes = {k: (torch.bfloat16 if merged and k in ("cx", "w_hh", "w_fc") else torch.float32)
+              for k in tensors}
+    build.check_kernel_inputs(kernel, shapes, dtypes, **tensors)
     if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
-        raise ValueError(f"gru_rollout: batch {b} and ph {ph} out of the kernel's range")
+        raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
     ptrs = [t.data_ptr() for t in tensors.values()]
-    status = _entry()(*ptrs, out.data_ptr(), n, b, h, f, ph,
-                      torch.cuda.current_stream(cx.device).cuda_stream)
-    build.check_status(f"gru_rollout at (nodes, hidden, outputs)={(n, h, f)}", status)
-    launches += 1
+    entry = (build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 5) if merged
+             else build.c_entry("gru_rollout", "gru_rollout_f32", 10, 5))
+    status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, build.stream_of(cx))
+    build.check_status(f"{kernel} at (nodes, hidden, outputs)={(n, h, f)}", status)
+    if merged:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
+
+
+def rollout_args(decoder, x_last2: torch.Tensor, z: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """``gru_rollout``'s tensors for the decoder's decode: the initial hidden
+    state G·([x_{T-2}, z]·W + b) and the constant input gates [x_{T-1}, z]·W_ih
+    + b_ih (fp32, hoisted out of the loop), the gathered banks and the
+    normalized influences; cx and the banks rounded to bf16 for the merged
+    rollout.  ``decoder`` is the port's ``models.autoencoder.Decoder``;
+    x_last2 [B, 2, N, 3] are the last two observed poses, z [B, N, L]."""
+    x_t = x_last2[:, -1].transpose(0, 1)
+    x_t_1 = x_last2[:, -2].transpose(0, 1)
+    z_nm = z.transpose(0, 1)
+    h0 = decoder.initial_hidden_h(torch.cat([x_t_1, z_nm], dim=-1))
+    cell, fc = decoder.rollout.cell, decoder.rollout.fc
+    cx = cell.input_gates(torch.cat([x_t, z_nm], dim=-1))
+    w_hh, b_hh = cell.hidden_banks()
+    w_fc = fc.weight[fc.type_index]
+    if compute_dtype == torch.bfloat16:
+        cx, w_hh, w_fc = (t.to(torch.bfloat16) for t in (cx, w_hh, w_fc))
+    return dict(cx=cx, h0=h0, w_hh=w_hh, b_hh=b_hh, g0=l1_normalize_rows(decoder.G0),
+                g_add=cell.G_add, w_fc=w_fc, b_fc=fc.bias[fc.type_index], g_fc=fc.influence())
+
+
+def decode_rollout(decoder, x_last2: torch.Tensor, z: torch.Tensor, ph: int, *,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The decoder's decode → [B, ph, N, 3]: ``rollout_args``, then
+    ``gru_rollout`` in ``compute_dtype``."""
+    ys = gru_rollout(**rollout_args(decoder, x_last2, z, compute_dtype), ph=ph,
+                     compute_dtype=compute_dtype)  # [ph,N,B,3]
+    return ys.permute(2, 0, 1, 3)

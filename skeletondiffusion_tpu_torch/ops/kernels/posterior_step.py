@@ -16,9 +16,6 @@ kernel; x_t, the noise and the output are float32 either way.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from . import build
@@ -36,14 +33,6 @@ def posterior_step_plain(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor
     flat = lambda a: a.reshape(n, -1)  # noqa: E731
     out = m_t[:, :n] @ flat(x0) + m_t[:, n : 2 * n] @ flat(xt) + m_t[:, 2 * n :] @ flat(noise)
     return out.reshape(xt.shape)
-
-
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.library("posterior_step").posterior_step_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
@@ -67,8 +56,8 @@ def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
         raise ValueError("posterior_step: xt and noise must be 16-byte aligned and x0 16-byte "
                          "(float32) or 8-byte (bfloat16) aligned (vector loads)")
     out = torch.empty_like(xt)
-    entry = (build.c_entry("posterior_step", "posterior_step_x0_bf16", 5, 2) if x0_bf16
-             else _entry())
+    entry = build.c_entry("posterior_step", "posterior_step_x0_bf16" if x0_bf16
+                          else "posterior_step_f32", 5, 2)
     status = entry(x0.data_ptr(), xt.data_ptr(), noise.data_ptr(), m_t.data_ptr(),
                    out.data_ptr(), n, b * d, build.stream_of(xt))
     build.check_status(f"posterior_step at {n} nodes", status)

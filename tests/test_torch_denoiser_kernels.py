@@ -2,8 +2,9 @@
 PyTorch versions against the JAX package's Pallas kernels, run with
 ``interpret=True`` on the CPU as the repo's own Pallas tests run them, and
 the wrappers' refusal to fall back when a CUDA launch is asked for (those of
-the layer-fused kernels B9a–c too; their plain versions are held in
-``tests/test_torch_layer_fused.py``).
+the layer-fused kernels B9a–c, the feature-major attention core L1 and the
+merged-gate bf16 rollout B8 too; their plain versions are held in
+``tests/test_torch_layer_fused.py`` and ``tests/test_torch_decode_bf16.py``).
 
 Shapes are the flagship's widths (21 nodes, D 96, F 192, 8 heads × 32) at a
 batch of 16.  The Pallas kernels need their feature axes padded to 128-lane
@@ -29,7 +30,8 @@ from skeletondiffusion_tpu.ops.pallas.attention_proj import outproj_res_pallas, 
 from skeletondiffusion_tpu.ops.pallas.graph_linear_fused import graph_linear_pallas
 from skeletondiffusion_tpu.ops.pallas.joint_attention import attention_core_pallas
 from skeletondiffusion_tpu.ops.pallas.posterior_step import posterior_step_pallas
-from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, graph_linear_fused
+from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm, attention_proj, build
+from skeletondiffusion_tpu_torch.ops.kernels import graph_linear_fused, gru_rollout
 from skeletondiffusion_tpu_torch.ops.kernels import joint_attention, layer_fused, posterior_step
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block
 
@@ -220,6 +222,10 @@ def _wrapper_calls(dtype=torch.bfloat16):
     """(name, counter module, counter attribute, call) of every new wrapper at
     small flagship-width shapes."""
     z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
+    bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
+    f32 = lambda *s: torch.zeros(*s)  # noqa: E731
+    bf16 = dtype == torch.bfloat16
+    rb = bf if bf16 else f32
     x, g = z(N, 4, F), z(N, N)
     block = lambda: (z(N, F, F), z(N, F), g, z(N, F, F), z(N, F), g)  # noqa: E731
     return [
@@ -241,7 +247,7 @@ def _wrapper_calls(dtype=torch.bfloat16):
          lambda: attention_proj.outproj_res(z(N, 4, HD), x, z(N, HD, F), g)),
         ("attention_core", joint_attention, "launches",
          lambda: joint_attention.attention_core(z(N, 4, 3 * HD), heads=HEADS, dim_head=DH)),
-        ("posterior_step", posterior_step, "launches_x0_bf16",
+        ("posterior_step", posterior_step, "launches_x0_bf16" if bf16 else "launches",
          lambda: posterior_step.posterior_step(z(N, 4, D), torch.zeros(N, 4, D),
                                                torch.zeros(N, 4, D), torch.zeros(N, 3 * N))),
         ("stem_block", layer_fused, "launches_stem_block",
@@ -252,10 +258,19 @@ def _wrapper_calls(dtype=torch.bfloat16):
                                           dim_head=DH)),
         ("outproj_block", layer_fused, "launches_outproj_block",
          lambda: layer_fused.outproj_block(z(N, 4, HD), x, z(2 * F), z(N, HD, F), g, *block())),
+        ("attention_core_fm", attention_core_fm, "launches",
+         lambda: attention_core_fm.attention_core_fm(z(N, 3 * HD, 4), heads=HEADS, dim_head=DH)),
+        # the rollout: in bf16 the merged-gate one (cx and the banks bf16, the
+        # rest fp32), in fp32 the fp32 one
+        ("gru_rollout", gru_rollout, "launches_bf16" if bf16 else "launches",
+         lambda: gru_rollout.gru_rollout(
+             rb(N, 4, 3 * D), f32(N, 4, D), rb(N, D, 3 * D), f32(N, 3 * D), f32(N, N), f32(N, N),
+             rb(N, D, 3), f32(N, 3), f32(N, N), ph=3,
+             compute_dtype=torch.bfloat16 if bf16 else None)),
     ]
 
 
-@pytest.mark.parametrize("index", range(11))
+@pytest.mark.parametrize("index", range(13))
 def test_new_wrappers_raise_instead_of_falling_back(monkeypatch, index):
     name, module, counter, call = _wrapper_calls()[index]
     _cuda_request(monkeypatch)
@@ -327,12 +342,10 @@ def test_wrappers_call_c_entries_that_exist(monkeypatch, dtype):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     for name, module, counter, call in _wrapper_calls(dtype):
-        if name == "posterior_step" and dtype == torch.float32:
-            continue  # the float32 entry is posterior_step_f32 (test_torch_kernels.py)
         monkeypatch.setattr(module, counter, 0)
         call()
         assert getattr(module, counter) == 1, name
-    assert len(calls) == 11 if dtype == torch.bfloat16 else 10
+    assert len(calls) == 13
     for name, symbol, n_pointers, n_ints in calls:
         pointers, ints = _c_signature((csrc / f"{name}.cu").read_text(), symbol)
         assert (pointers, ints) == (n_pointers + 1, n_ints), symbol  # + the stream

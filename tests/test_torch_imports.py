@@ -1,5 +1,5 @@
 """The port stands alone: ``skeletondiffusion_tpu_torch``, ``chip_smoke.py``
-and ``scripts/torch_predict_breakdown.py`` import neither ``jax`` nor
+and the port's scripts (``scripts/torch_*.py``) import neither ``jax`` nor
 ``skeletondiffusion_tpu``, and
 ``chip_smoke.py`` refuses to report a result without a CUDA device or
 without the rest of the repository."""
@@ -45,7 +45,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
                                         for p in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py",
-                                                  REPO / "scripts" / "torch_predict_breakdown.py"]))
+                                                  *(REPO / "scripts").glob("torch_*.py")]))
 def test_no_jax_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

@@ -125,14 +125,13 @@ def _as_cuda_request(monkeypatch):
     whose tensors live on a GPU would."""
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    rollout_mod._entry.cache_clear()
-    posterior_mod._entry.cache_clear()
+    build.c_entry.cache_clear()
 
 
-def _c_entry_refusing_shapes(monkeypatch, module):
+def _c_entry_refusing_shapes(monkeypatch):
     """Stand in for a kernel's C entry at shapes its source does not
     instantiate: it returns cudaErrorInvalidValue (1) and launches nothing."""
-    monkeypatch.setattr(module, "_entry", lambda: (lambda *args: 1))
+    monkeypatch.setattr(build, "c_entry", lambda *a: (lambda *args: 1))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -146,7 +145,7 @@ def test_posterior_step_raises_instead_of_falling_back(monkeypatch):
         posterior_mod.posterior_step(x0, xt, eps, m_t)
     with pytest.raises(TypeError, match="float32"):
         posterior_mod.posterior_step(x0.double(), xt, eps, m_t)
-    _c_entry_refusing_shapes(monkeypatch, posterior_mod)
+    _c_entry_refusing_shapes(monkeypatch)
     with pytest.raises(RuntimeError, match="at 5 nodes: .*cudaError 1"):  # not instantiated
         posterior_mod.posterior_step(x0[:5], xt[:5], eps[:5], torch.zeros(5, 15))
     assert posterior_mod.launches == before
@@ -164,7 +163,7 @@ def test_gru_rollout_raises_instead_of_falling_back(monkeypatch):
                                    .transpose(0, 1)}, ph=3)
     small = {k: torch.from_numpy(v)
              for k, v in _rollout_inputs(np.random.default_rng(4), None, b=4, h=16).items()}
-    _c_entry_refusing_shapes(monkeypatch, rollout_mod)
+    _c_entry_refusing_shapes(monkeypatch)
     with pytest.raises(RuntimeError, match=r"=\(21, 16, 3\): .*cudaError 1"):
         rollout_mod.gru_rollout(**small, ph=3)
     assert rollout_mod.launches == before
