@@ -23,13 +23,16 @@ Phases, each printed with its elapsed seconds:
               shapes in bf16 and in fp32 and at a ragged row count, against
               its plain version, timed beside its bound, its plain version and
               the one PyTorch call that computes its function, where there is
-              one;
+              one (B3a also beside one torch.bmm of its per-node products
+              alone, [21, 12 800, 192]·[21, 192, 768]: the product stage's
+              cuBLAS time, not the function);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
               beside the bf16 path's deviation from the fp32 path;
 7. layer_fused — the per-layer kernels of the layer-fused denoiser (B9a–c),
-              checked and timed as in phase 5;
+              checked and timed as in phase 5 (B9b also beside the products-only
+              torch.bmm);
 8. main_layer_fused — the bf16 path with SKELDIFF_LAYER_FUSED=1 (set for this
               phase only): predictions/s and launch counts per prediction,
               and with injected noise against the same path on the plain
@@ -115,6 +118,11 @@ E2E_TOL = 1e-4
 F32_TOL = 1e-4
 BF16_MAX, BF16_MEAN = 3e-2, 2e-3
 RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
+# B3a's and B9b's clusters take two adjacent row tiles (32 rows in bf16, 8 in
+# fp32); at this count both have an odd number of tiles (399 and 1 595), so
+# the last cluster's second block has no rows, and the bf16 tile before it
+# is ragged (24 rows).
+ODD_TILE_ROWS = 12_760
 # The bf16 kernel paths against their plain paths with injected noise: the
 # max |Δ| may reach this multiple of the bf16 path's max deviation from the
 # fp32 path (see hold_bf16).  Measured on an H100 80GB HBM3 at 700 W: 1.185
@@ -501,11 +509,34 @@ def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def cut_rows(args: list, rows: int, cut: int) -> list:
+    """``args`` with every [·, rows, ·] tensor cut to its first ``cut`` rows."""
+    return [a[:, :cut].contiguous() if torch.is_tensor(a) and a.dim() == 3 and
+            a.shape[1] == rows else a for a in args]
+
+
+def hold_at_rows(name: str, kernel, plain, args: list, cut: int) -> float:
+    """The kernel against its plain version on ``args`` cut to ``cut`` rows,
+    fp32 outputs at ≤ F32_TOL, bf16 at the bf16 criteria; the max |Δ|."""
+    err = 0.0
+    for g, w in zip(as_tuple(kernel(*args)), as_tuple(plain(*args))):
+        mx, mean, ref = bf16_errors(g, w)
+        err = max(err, mx)
+        tol_ok = (mx <= F32_TOL) if g.dtype == torch.float32 else (
+            mx <= BF16_MAX * ref and mean <= BF16_MEAN * ref)
+        if g.shape[1] != cut or not tol_ok:
+            raise AssertionError(f"{name} ({g.dtype}) at {cut} rows disagrees with its plain "
+                                 f"version: {mx}")
+    return err
+
+
 def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, source: str,
                        tensor_flops: float = 0.0, flops: float = 0.0, library=None,
-                       f32: bool = True) -> dict:
+                       products=None, f32: bool = True, odd_tiles: bool = False) -> dict:
     """One kernel at the bench shapes: bf16 against its plain version, its
-    fp32 instantiation, a ragged row count, and its times."""
+    fp32 instantiation, a ragged row count, with ``odd_tiles`` also
+    ODD_TILE_ROWS in bf16 and fp32, and its times (``products``: a call of
+    the kernel's per-node products alone, timed as a yardstick)."""
     rows = BATCH * SAMPLES
     got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
@@ -521,36 +552,45 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
         if not ok:
             raise AssertionError(f"{name} (bf16) disagrees with its plain version: {parts[-1]}")
     f32_err = None
+    a32 = [a.float() if torch.is_tensor(a) else a for a in args]
     if f32:
-        a32 = [a.float() if torch.is_tensor(a) else a for a in args]
         f32_err = max((g - w).abs().max().item()
                       for g, w in zip(as_tuple(kernel(*a32)), as_tuple(plain(*a32))))
         if not f32_err <= F32_TOL:
             raise AssertionError(f"{name} (fp32) disagrees with its plain version: {f32_err}")
     cut = rows - RAGGED
-    ragged = [a[:, :cut].contiguous() if torch.is_tensor(a) and a.dim() == 3 and
-              a.shape[1] == rows else a for a in args]
-    r_err = 0.0
-    for g, w in zip(as_tuple(kernel(*ragged)), as_tuple(plain(*ragged))):
-        mx, mean, ref = bf16_errors(g, w)
-        r_err = max(r_err, mx)
-        tol_ok = (mx <= F32_TOL) if g.dtype == torch.float32 else (
-            mx <= BF16_MAX * ref and mean <= BF16_MEAN * ref)
-        if g.shape[1] != cut or not tol_ok:
-            raise AssertionError(f"{name} at {cut} rows disagrees with its plain version: {mx}")
+    r_err = hold_at_rows(name, kernel, plain, cut_rows(args, rows, cut), cut)
+    odd = ""
+    if odd_tiles:
+        odd_errs = [hold_at_rows(name, kernel, plain, cut_rows(a, rows, ODD_TILE_ROWS),
+                                 ODD_TILE_ROWS) for a in (args, a32)]
+        odd = f"; {ODD_TILE_ROWS} rows bf16 {odd_errs[0]:.3e} fp32 {odd_errs[1]:.3e}"
     ms = cuda_ms(lambda: kernel(*args), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args), reps=3)
     library_ms = cuda_ms(library, reps=20) if library is not None else None
+    products_ms = cuda_ms(products, reps=20) if products is not None else None
     moved = sum(t.numel() * t.element_size() for t in (*args, *got) if torch.is_tensor(t))
     bnd, by = bound_ms(moved, flops, tensor_flops)
     log(f"{name}: bf16 vs plain {'; '.join(parts)}; fp32 vs plain "
         f"{'—' if f32_err is None else f'{f32_err:.3e}'} (tol {F32_TOL:.0e}); {cut} rows "
-        f"{r_err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bnd:.4f} ms ({by})")
-    return {"name": name, "route": "cuda", "source": f"skeletondiffusion_tpu_torch/csrc/{source}",
-            "replaces": f"skeletondiffusion_tpu/ops/pallas/{replaces}", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": library_ms}
+        f"{r_err:.3e}{odd}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bnd:.4f} ms ({by})"
+        + ("" if products_ms is None else f", products-only bmm {products_ms:.4f} ms"))
+    entry = {"name": name, "route": "cuda",
+             "source": f"skeletondiffusion_tpu_torch/csrc/{source}",
+             "replaces": f"skeletondiffusion_tpu/ops/pallas/{replaces}", "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+             "library_ms": library_ms}
+    if products_ms is not None:
+        entry["products_only_bmm_ms"] = products_ms
+    return entry
+
+
+def products_only(x: torch.Tensor, w_qkv: torch.Tensor):
+    """One torch.bmm of the per-node products h·W_qkv alone ([N, B, F]·[N, F,
+    3·hd] in bf16): the cuBLAS time of B3a's and B9b's product stage, a
+    yardstick the port never calls."""
+    return lambda: torch.bmm(x, w_qkv)
 
 
 def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
@@ -603,7 +643,8 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
             check_fused_kernel(
                 "rms_qkv", proj_mod.rms_qkv, proj_mod.rms_qkv_plain,
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="attention_proj.py:114",
-                source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd)),
+                source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd),
+                products=products_only(x, att["w_qkv"]), odd_tiles=True),
             check_fused_kernel(
                 "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
                                                     dim_head=dh),
@@ -673,7 +714,8 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 functools.partial(layer_mod.rms_qkv_core_plain, heads=heads, dim_head=dh),
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="layer_fused.py:285",
                 source="layer_fused.cu",
-                tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh),
+                tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh,
+                products=products_only(x, att["w_qkv"]), odd_tiles=True),
             check_fused_kernel(
                 "outproj_block", layer_mod.outproj_block, layer_mod.outproj_block_plain,
                 [core, x, film1, att["w_out"], att["g_out"], *banks(blk1)],

@@ -15,45 +15,59 @@
 // bf16, B3a moves ~516 MB against ~88 GFLOP (0.154 ms against 0.089 ms on
 // the tensor cores) and B3b ~344 MB.
 //
-// What the design does about it: as in node_mix.cuh, a block owns 16 rows
-// (8 in fp32) of all 21 nodes and every activation crosses device memory
-// once per pass.  B3a's 768 output columns are produced in chunks of at most
-// 256 (the mix is per column, so a chunk is mixed as soon as its products
-// are done), which keeps the tile of products at 172 KB of shared memory in
-// bf16; each chunk restages and renormalises the rows, which costs reads of
-// x from L2, not a second pass over device memory.
+// B3a runs on node_mix_sm90.cuh's engine, as B9b (layer_fused.cu) does:
+// items of 32 rows × 96 of the 768 output columns (8 column groups; fp32:
+// 8 rows), the two blocks of a cluster on adjacent row tiles; per item and
+// node one bulk copy of the 32 input rows and half of the packed 192 × 96
+// weight tile each block, multicast to both; normalisation in place,
+// mma.sync products and the tensor-core mix from shared memory, 16-byte
+// stores.  Shared memory (bf16, F = 192): P 21 × (32·96·2 + 16) B =
+// 129.4 KB, two stages of 12.3 KB rows + 36.9 KB weights and the barriers:
+// 227 840 B of the 232 448 a block may have; one block an SM.  Each weight
+// byte from L2 serves 64 rows (16 in the node_mix.cuh design), each input row 96
+// columns (256): L2 → shared memory traffic a call is 200 row pairs ×
+// 6.19 MB of weights (1.24 GB) plus 8 column groups × 103 MB of rows
+// (0.83 GB), 2.07 GB against ~5.3 GB.  The card then spends a block's time
+// normalising (39%: each row tile once per column group) and in the
+// products (36%), not waiting on loads (7%); 1.07 ms, 6.9× the bound
+// (PERF.md §6).
+
+// B3b keeps node_mix.cuh's design: a block owns 16 rows (8 in fp32) of all
+// 21 nodes, multiplies each node's staged rows on the tensor cores (wmma),
+// keeps the product tile in shared memory and mixes it one thread per
+// column.
 
 #include "node_mix.cuh"
+#include "node_mix_sm90.cuh"
 
 namespace {
 
 using namespace nodemix;
 
-constexpr int kChunk = 256;
+// B3a's tiles: rows an item, output columns a group.
+template <typename T>
+struct QkvTile;
+template <>
+struct QkvTile<bf16> {
+  static constexpr int kRows = 32, kCols = 96;
+};
+template <>
+struct QkvTile<float> {
+  static constexpr int kRows = 8, kCols = 96;  // an fp32 weight tile takes 73.7 KB a stage
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 rms_qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_rms, const T* __restrict__ w,
-               const T* __restrict__ g, T* __restrict__ out, int rows, int f, int fo) {
-  constexpr int R = RowTile<T>::kRows;
+               const T* __restrict__ g, T* __restrict__ out, int rows, int f, int fo, int groups,
+               int stages) {
+  constexpr int R = QkvTile<T>::kRows, C = QkvTile<T>::kCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, kChunk, f, 1);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  load_influence(sm.g, g);
-
-  T* p = sm.p;
-  for (int c0 = 0; c0 < fo; c0 += kChunk) {
-    const int fc = min(kChunk, fo - c0);
-    node_products(
-        [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
-        [&](T* buf, int n_rows) { normalize_rows(buf, g_rms, f, n_rows); },
-        sm.s, f, w + c0, fo, fc, sm.scratch,
-        [&](int n, int r, int c, float acc) { p[(n * R + r) * kChunk + c] = from_f<T>(acc); });
-    node_mix(p, kChunk, fc, sm.g, [&](int n, int r, int c, float y) {
-      if (r < valid) out[at(n, rows, b0 + r, fo, c0 + c)] = from_f<T>(y);
-    });
-  }
+  const sm90mix::Problem<T> pb{x, g_rms, w, g, rows, f, groups, stages};
+  sm90mix::run<T, R, C>(
+      pb, smem_raw, [&](const T* p, int plane, int b0, int valid, int grp) {
+        sm90mix::store_tile<T, R, C>(p, plane, out, rows, fo, b0, valid, grp * C);
+      });
 }
 
 template <typename T>
@@ -70,7 +84,7 @@ outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __
   T* p = sm.p;
   node_products(
       [&](int n, T* buf) { stage_rows(buf, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
-      AsStaged{}, sm.s, hd, w, f, f, sm.scratch,
+      sm.s, hd, w, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) { p[(n * R + r) * f + c] = from_f<T>(acc); });
   node_mix(p, f, f, sm.g, [&](int n, int r, int c, float y) {
     if (r < valid) {
@@ -80,18 +94,24 @@ outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __
   });
 }
 
+// The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
+// bytes) must be the one instantiated here.
 template <typename T>
 int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* g, void* out,
-                   int n_nodes, int rows, int f, int fo, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 || fo <= 0 || fo % 16)
+                   int n_nodes, int rows, int f, int fo, int tile_rows, int tile_cols, int stages,
+                   int cluster, int smem_bytes, void* stream) {
+  constexpr int R = QkvTile<T>::kRows, C = QkvTile<T>::kCols;
+  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 ||
+      f > sm90mix::kMaxF ||
+      fo <= 0 || fo % 8 || tile_rows != R || tile_cols != C || stages < 2 ||
+      stages > sm90mix::kMaxStages || cluster != sm90mix::kCluster ||
+      static_cast<size_t>(smem_bytes) != sm90mix::layout<T>(R, C, f, stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(kChunk, f, 1, 0);
-  cudaError_t err = prepare(rms_qkv_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rms_qkv_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  const int groups = (fo + C - 1) / C;
+  return static_cast<int>(sm90mix::launch(
+      rms_qkv_kernel<T>, sm90mix::items(rows, R, groups), smem_bytes, cluster, stream,
       static_cast<const T*>(x), static_cast<const T*>(g_rms), static_cast<const T*>(w),
-      static_cast<const T*>(g), static_cast<T*>(out), rows, f, fo);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const T*>(g), static_cast<T*>(out), rows, f, fo, groups, stages));
 }
 
 template <typename T>
@@ -114,15 +134,20 @@ int launch_outproj_res(const void* a, const void* x, const void* w, const void* 
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // shapes not instantiated.
 
-// x [n_nodes, rows, f], g_rms [f], w [n_nodes, f, fo], g [n_nodes, n_nodes],
-// out [n_nodes, rows, fo] (fo = 3·hd, q‖k‖v).
+// x [n_nodes, rows, f], g_rms [f], g [n_nodes, n_nodes], out [n_nodes, rows,
+// fo] (fo = 3·hd, q‖k‖v); w is W_qkv [n_nodes, f, fo] packed into tiles
+// [n_nodes, ⌈fo/tile_cols⌉, f·tile_cols] (ops/kernels/node_mix_sm90.py).
 extern "C" int rms_qkv_bf16(const void* x, const void* g_rms, const void* w, const void* g,
-                            void* out, int n_nodes, int rows, int f, int fo, void* stream) {
-  return launch_rms_qkv<nodemix::bf16>(x, g_rms, w, g, out, n_nodes, rows, f, fo, stream);
+                            void* out, int n_nodes, int rows, int f, int fo, int tile_rows,
+                            int tile_cols, int stages, int cluster, int smem_bytes, void* stream) {
+  return launch_rms_qkv<nodemix::bf16>(x, g_rms, w, g, out, n_nodes, rows, f, fo, tile_rows,
+                                       tile_cols, stages, cluster, smem_bytes, stream);
 }
 extern "C" int rms_qkv_f32(const void* x, const void* g_rms, const void* w, const void* g,
-                           void* out, int n_nodes, int rows, int f, int fo, void* stream) {
-  return launch_rms_qkv<float>(x, g_rms, w, g, out, n_nodes, rows, f, fo, stream);
+                           void* out, int n_nodes, int rows, int f, int fo, int tile_rows,
+                           int tile_cols, int stages, int cluster, int smem_bytes, void* stream) {
+  return launch_rms_qkv<float>(x, g_rms, w, g, out, n_nodes, rows, f, fo, tile_rows, tile_cols,
+                               stages, cluster, smem_bytes, stream);
 }
 
 // a [n_nodes, rows, hd], x and out [n_nodes, rows, f], w [n_nodes, hd, f].

@@ -14,6 +14,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "node_mix.cuh"
 
 namespace nodemix {
@@ -53,31 +55,64 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 // joint m's q, k and v (DH values each, 16-byte aligned) start at q + m·ld,
 // k + m·ld and v + m·ld (shared memory, read as broadcasts); the DH outputs
 // go to o + n·ldo with 16-byte stores.  Lanes n ≥ N return at once.
+//
+// In bf16, q·round(scale) and the q·k products are bf16x2 instructions:
+// each gives the product rounded to bf16, as round_to<bf16> of the fp32
+// product does (the fp32 product of two bf16 values is exact), and the
+// products are summed in the same order, so both forms give the same bits.
 template <typename T, int N, int DH>
 __device__ __forceinline__ void head_attention(const T* q_base, const T* k_base, const T* v_base,
                                                int ld, float scale, T* o_base, size_t ldo) {
   const int n = threadIdx.x & 31;
   if (n >= N) return;
-  const float sc = round_to<T>(scale);
-  float q[DH];
-#pragma unroll
-  for (int c = 0; c < DH; c += 8) load8(q_base + n * ld + c, q + c);
-#pragma unroll
-  for (int c = 0; c < DH; ++c) q[c] = round_to<T>(q[c] * sc);
-
   float p[N];
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
+    __nv_bfloat162 q[DH / 2];
 #pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const T* km = k_base + m * ld;
-    float d = 0.0f;
+    for (int c = 0; c < DH / 8; ++c) {
+      const uint4 u = *reinterpret_cast<const uint4*>(q_base + n * ld + 8 * c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int c = 0; c < DH; c += 8) {
-      float kv[8];
-      load8(km + c, kv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d += round_to<T>(q[c + j] * kv[j]);
+      for (int i = 0; i < 4; ++i) q[4 * c + i] = __hmul2(h[i], sc);
     }
-    p[m] = d;
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const uint4* km = reinterpret_cast<const uint4*>(k_base + m * ld);
+      float d = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        const uint4 u = km[c];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 prod = __hmul2(q[4 * c + i], h[i]);
+          d += __low2float(prod);
+          d += __high2float(prod);
+        }
+      }
+      p[m] = d;
+    }
+  } else {
+    const float sc = round_to<T>(scale);
+    float q[DH];
+#pragma unroll
+    for (int c = 0; c < DH; c += 8) load8(q_base + n * ld + c, q + c);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) q[c] = round_to<T>(q[c] * sc);
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const T* km = k_base + m * ld;
+      float d = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DH; c += 8) {
+        float kv[8];
+        load8(km + c, kv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) d += round_to<T>(q[c + j] * kv[j]);
+      }
+      p[m] = d;
+    }
   }
   float mx = p[0];
 #pragma unroll

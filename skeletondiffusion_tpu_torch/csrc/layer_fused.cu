@@ -27,10 +27,10 @@
 // against ~94 GFLOP (0.095 ms: the products bind), B9c ~344 MB (0.103 ms)
 // against ~73 GFLOP (0.074 ms).
 //
-// What the design does about it: as in node_mix.cuh, a block owns 16 rows
-// (8 in fp32) of all 21 nodes, so every input crosses device memory once and
-// every output is written once; the intermediates (r's second use, o, h,
-// the 768-wide qkv) stay in the block.
+// What the design does about it: a block owns a tile of rows of all 21
+// nodes (B9a and B9c: 16 rows, 8 in fp32, as in node_mix.cuh), so every
+// input crosses device memory once and every output is written once; the
+// intermediates (r's second use, o, h, the 768-wide qkv) stay in the block.
 //
 // * B9a and B9c run the stem or the out-projection into the product tile P
 //   (21 × 16 × 192 bf16, 129 KB), mix it in place, then B1's body on P.  B1
@@ -43,19 +43,25 @@
 //   the one that wrote it.  Chosen over 8-row tiles, which would halve the
 //   rows of every tensor-core tile; the cost is 16 KB of extra writes and
 //   reads per block through L2.
-// * B9b normalises the tile's input once and keeps it in shared memory (129
-//   KB); the full qkv of the tile (516 KB) cannot stay.  The node mix is per
-//   column and the attention per head, so it works one head at a time: the
-//   head's 3 × 32 q, k, v columns for all 21 nodes (64.5 KB), mixed in
-//   place, then the head's attention with a warp per row and a lane per
-//   query joint (joint_attention.cuh, B2's body), 32 output columns.  The
-//   head's columns are read from w_qkv [N, F, 3·hd] where they lie (q at
-//   h·dh, k at hd + h·dh, v at 2·hd + h·dh), so no reordered copy is needed.
+// * B9b runs on node_mix_sm90.cuh's engine, as B3a (attention_proj.cu)
+//   does: items of 32 rows × one head's 96 q‖k‖v columns (fp32: 8 rows),
+//   the two blocks of a cluster on adjacent row tiles, each weight tile
+//   multicast to both; per item the 21 × 32 × 96 products are mixed in
+//   place, then the head's attention runs with a warp per row and a lane
+//   per query joint (B2's body, joint_attention.cuh), 32 output columns.
+//   The head's columns are packed into one tile by the wrapper.  Shared memory (bf16, F = 192):
+//   227 840 B; a 64-row tile would need 258 KB for P alone.  Each weight
+//   byte from L2 serves 64 rows (16 before): L2 → shared memory traffic a
+//   call is 1.24 GB of weights plus 8 heads × 103 MB of rows, 2.07 GB
+//   against ~5.0 GB.  A block spends 41% of its time in the attention, 24%
+//   normalising, 23% in the products; 1.66 ms (PERF.md §6).  It
+//   computes the same bits as B3a followed by B2.
 
 #include <cmath>
 
 #include "joint_attention.cuh"
 #include "node_mix.cuh"
+#include "node_mix_sm90.cuh"
 
 namespace {
 
@@ -87,7 +93,7 @@ stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __r
   T* p = sm.p;
   node_products(
       [&](int n, T* buf) { stage_rows(buf, d, 0, x + at(n, rows, b0, d, 0), d, valid); },
-      AsStaged{}, sm.s, d, ws, f, f, sm.scratch,
+      sm.s, d, ws, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         float h = acc + to_f(bs[n * f + c]);
         if (r < valid) h += to_f(u[at(n, rows, b0 + r, f, c)]);
@@ -126,7 +132,7 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
   T* p = sm.p;
   node_products(
       [&](int n, T* buf) { stage_rows(buf, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
-      AsStaged{}, sm.s, hd, wo, f, f, sm.scratch,
+      sm.s, hd, wo, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) { p[(n * R + r) * f + c] = from_f<T>(acc); });
   // o = round(G_out·P + x): into P as the block's input and, for the valid
   // rows, into out as its residual
@@ -140,84 +146,37 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
                     b1, w2, b2, out, out, rows, b0, valid, f);
 }
 
-// Shared memory of the B9b block: xn [N][kRows][f] T (the normalised input),
-// qkv [N][kRows][kHeadCols] T (one head's mixed q‖k‖v), scratch
-// [kWarps][kRows·16] float, g [N][kGStride] float.
+// B9b's rows an item (the columns are a head's q‖k‖v).
 template <typename T>
-struct CoreSmem {
-  T* xn;
-  T* qkv;
-  float* scratch;
-  float* g;
-
-  __host__ __device__ static size_t up(size_t bytes) { return (bytes + 127) & ~size_t(127); }
-
-  __host__ __device__ static size_t bytes(int f) {
-    constexpr int R = RowTile<T>::kRows;
-    return up(sizeof(T) * kNodes * R * f) + up(sizeof(T) * kNodes * R * kHeadCols) +
-           up(sizeof(float) * kWarps * R * 16) + up(sizeof(float) * kNodes * kGStride);
-  }
-
-  __device__ static CoreSmem carve(unsigned char* base, int f) {
-    constexpr int R = RowTile<T>::kRows;
-    CoreSmem m;
-    size_t off = 0;
-    m.xn = reinterpret_cast<T*>(base + off);
-    off += up(sizeof(T) * kNodes * R * f);
-    m.qkv = reinterpret_cast<T*>(base + off);
-    off += up(sizeof(T) * kNodes * R * kHeadCols);
-    m.scratch = reinterpret_cast<float*>(base + off);
-    off += up(sizeof(float) * kWarps * R * 16);
-    m.g = reinterpret_cast<float*>(base + off);
-    return m;
-  }
+struct CoreTile;
+template <>
+struct CoreTile<bf16> {
+  static constexpr int kRows = 32;
+};
+template <>
+struct CoreTile<float> {
+  static constexpr int kRows = 8;  // an fp32 weight tile takes 73.7 KB a stage
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 rms_qkv_core_kernel(const T* __restrict__ x, const T* __restrict__ g_rms,
                     const T* __restrict__ w, const T* __restrict__ g, T* __restrict__ out,
-                    int rows, int f, int heads, float scale) {
-  constexpr int R = RowTile<T>::kRows;
+                    int rows, int f, int heads, int stages, float scale) {
+  constexpr int R = CoreTile<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const CoreSmem<T> sm = CoreSmem<T>::carve(smem_raw, f);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int hd = heads * kDimHead, fo = 3 * hd;
-  load_influence(sm.g, g);
-  for (int n = 0; n < kNodes; ++n)
-    stage_rows(sm.xn + n * R * f, f, 0, x + at(n, rows, b0, f, 0), f, valid);
-  __syncthreads();
-  normalize_rows(sm.xn, g_rms, f, kNodes * R);
-
-  constexpr int kTiles = kHeadCols / 16;  // 16-column tiles of a head's q‖k‖v
-  float* c = sm.scratch + warp * R * 16;
-  for (int h = 0; h < heads; ++h) {
-    // the head's products: tile t is columns (t%2)·16 … of part t/2 (q, k, v)
-    for (int task = warp; task < kNodes * kTiles; task += kWarps) {
-      const int n = task / kTiles, t = task % kTiles;
-      const int col = (t >> 1) * hd + h * kDimHead + (t & 1) * 16;
-      warp_tile_product(sm.xn + n * R * f, f, w + static_cast<size_t>(n) * f * fo + col, fo, f, c);
-      __syncwarp();
-      for (int e = lane; e < R * 16; e += 32)
-        sm.qkv[(n * R + (e >> 4)) * kHeadCols + t * 16 + (e & 15)] = from_f<T>(c[e]);
-      __syncwarp();
-    }
-    __syncthreads();
-    node_mix(sm.qkv, kHeadCols, kHeadCols, sm.g, [&](int n, int r, int col, float y) {
-      sm.qkv[(n * R + r) * kHeadCols + col] = from_f<T>(y);
-    });
-    // the head's attention: warp r takes row r, lane n query joint n
-    if (warp < valid) {
-      const T* row = sm.qkv + warp * kHeadCols;
-      head_attention<T, kNodes, kDimHead>(row, row + kDimHead, row + 2 * kDimHead,
-                                          R * kHeadCols, scale,
-                                          out + at(0, rows, b0 + warp, hd, h * kDimHead),
-                                          static_cast<size_t>(rows) * hd);
-    }
-    __syncthreads();
-  }
+  const sm90mix::Problem<T> pb{x, g_rms, w, g, rows, f, heads, stages};
+  const int hd = heads * kDimHead;
+  sm90mix::run<T, R, kHeadCols>(
+      pb, smem_raw, [&](const T* p, int plane, int b0, int valid, int h) {
+        // warp r takes rows r, r + 8, …; lane n query joint n
+        for (int r = threadIdx.x >> 5; r < valid; r += sm90mix::kConsumerWarps) {
+          const T* row = p + r * kHeadCols;
+          head_attention<T, kNodes, kDimHead>(row, row + kDimHead, row + 2 * kDimHead, plane,
+                                              scale, out + at(0, rows, b0 + r, hd, h * kDimHead),
+                                              static_cast<size_t>(rows) * hd);
+        }
+      });
 }
 
 bool bad_block_shape(int n_nodes, int rows, int k, int f) {
@@ -242,20 +201,25 @@ int launch_stem_block(const void* x, const void* u, const void* film, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
+// bytes) must be the one instantiated here.
 template <typename T>
 int launch_rms_qkv_core(const void* x, const void* g_rms, const void* w, const void* g, void* out,
-                        int n_nodes, int rows, int f, int heads, int dim_head, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 || heads <= 0 || dim_head != kDimHead)
+                        int n_nodes, int rows, int f, int heads, int dim_head, int tile_rows,
+                        int tile_cols, int stages, int cluster, int smem_bytes, void* stream) {
+  constexpr int R = CoreTile<T>::kRows;
+  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 ||
+      f > sm90mix::kMaxF || heads <= 0 ||
+      dim_head != kDimHead ||
+      tile_rows != R || tile_cols != kHeadCols || stages < 2 || stages > sm90mix::kMaxStages ||
+      cluster != sm90mix::kCluster ||
+      static_cast<size_t>(smem_bytes) != sm90mix::layout<T>(R, kHeadCols, f, stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = CoreSmem<T>::bytes(f);
-  cudaError_t err = prepare(rms_qkv_core_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rms_qkv_core_kernel<T><<<grid_for<T>(rows), kThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(sm90mix::launch(
+      rms_qkv_core_kernel<T>, sm90mix::items(rows, R, heads), smem_bytes, cluster, stream,
       static_cast<const T*>(x), static_cast<const T*>(g_rms), static_cast<const T*>(w),
-      static_cast<const T*>(g), static_cast<T*>(out), rows, f, heads,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(kDimHead))));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const T*>(g), static_cast<T*>(out), rows, f, heads, stages,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(kDimHead)))));
 }
 
 template <typename T>
@@ -302,19 +266,23 @@ extern "C" int stem_block_f32(const void* x, const void* u, const void* film, co
                                   n_nodes, rows, d, f, stream);
 }
 
-// x [·, rows, f], g_rms [f], w [·, f, 3·heads·dim_head] (q‖k‖v), out
-// [·, rows, heads·dim_head].
+// x [·, rows, f], g_rms [f], g [·, ·], out [·, rows, heads·dim_head]; w is
+// W_qkv [·, f, 3·heads·dim_head] (q‖k‖v) packed into one tile of a head's
+// q, k and v columns each, [·, heads, f·3·dim_head] (ops/kernels/node_mix_sm90.py).
 extern "C" int rms_qkv_core_bf16(const void* x, const void* g_rms, const void* w, const void* g,
                                  void* out, int n_nodes, int rows, int f, int heads, int dim_head,
-                                 void* stream) {
+                                 int tile_rows, int tile_cols, int stages, int cluster,
+                                 int smem_bytes, void* stream) {
   return launch_rms_qkv_core<nodemix::bf16>(x, g_rms, w, g, out, n_nodes, rows, f, heads,
-                                            dim_head, stream);
+                                            dim_head, tile_rows, tile_cols, stages, cluster,
+                                            smem_bytes, stream);
 }
 extern "C" int rms_qkv_core_f32(const void* x, const void* g_rms, const void* w, const void* g,
                                 void* out, int n_nodes, int rows, int f, int heads, int dim_head,
-                                void* stream) {
+                                int tile_rows, int tile_cols, int stages, int cluster,
+                                int smem_bytes, void* stream) {
   return launch_rms_qkv_core<float>(x, g_rms, w, g, out, n_nodes, rows, f, heads, dim_head,
-                                    stream);
+                                    tile_rows, tile_cols, stages, cluster, smem_bytes, stream);
 }
 
 // a [·, rows, hd], x and out [·, rows, f], w_out [·, hd, f]; w1, w2 [·, f, f].

@@ -1,5 +1,6 @@
-// Shared device routines of the fused denoiser's kernels (B1, B3a, B3b, B4,
-// B5a, B5b) for NVIDIA Hopper (sm_90a).
+// Shared device routines of the fused denoiser's kernels (B1, B3b, B4, B5a,
+// B5b, B9a, B9c) for NVIDIA Hopper (sm_90a); B3a and B9b run on
+// node_mix_sm90.cuh.
 //
 // Every one of those kernels computes the same pattern on node-major
 // activations [N, B, F] (element (n, b, f) at (n·B + b)·F + f):
@@ -214,14 +215,13 @@ __device__ __forceinline__ void warp_tile_product(const float* a, int lda, const
 // For each group of kGroup nodes: stage(n, buf) fills buf [kRows][k] with
 // node n's input rows (from device memory, or from P itself when a second
 // product follows the first), for every node of the group into s
-// [kGroup][kRows][k]; finish(s, rows) may then transform those rows in place
-// (RMSNorm); then the warps compute the fc columns of each node's rows ·
+// [kGroup][kRows][k]; then the warps compute the fc columns of each node's rows ·
 // w[n] (w[n] is [k][ldw], already offset to the first column of this chunk)
 // 16 at a time and hand every sum to store(n, row, column, value).  Ends
 // with the block synchronised.
-template <typename T, typename Stage, typename Finish, typename Store>
-__device__ void node_products(Stage stage, Finish finish, T* s, int k, const T* w, int ldw,
-                              int fc, float* scratch, Store store) {
+template <typename T, typename Stage, typename Store>
+__device__ void node_products(Stage stage, T* s, int k, const T* w, int ldw, int fc,
+                              float* scratch, Store store) {
   constexpr int R = RowTile<T>::kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = fc / 16;
@@ -230,7 +230,6 @@ __device__ void node_products(Stage stage, Finish finish, T* s, int k, const T* 
     const int group = min(kGroup, kNodes - n0);
     for (int j = 0; j < group; ++j) stage(n0 + j, s + j * R * k);
     __syncthreads();
-    finish(s, group * R);
     for (int task = warp; task < group * tiles; task += kWarps) {
       const int j = task / tiles, tile = task % tiles;
       const T* wn = w + static_cast<size_t>(n0 + j) * k * ldw;
@@ -242,12 +241,6 @@ __device__ void node_products(Stage stage, Finish finish, T* s, int k, const T* 
     __syncthreads();
   }
 }
-
-// The finish of a staging that needs none.
-struct AsStaged {
-  template <typename T>
-  __device__ __forceinline__ void operator()(T*, int) const {}
-};
 
 // For every (row r, column c < fc) of the tile: y[n] = Σ_m G[n,m]·p[m][r][c]
 // in fp32, handed to epi(n, r, c, y).  Ends with the block synchronised.
@@ -277,27 +270,6 @@ __device__ void node_mix(const T* p, int ldp, int fc, const float* g, Epi epi) {
       }
       epi(n, r, c, y);
     }
-  }
-  __syncthreads();
-}
-
-// s[r][0:f] ← round(s[r]/‖s[r]‖ · g_rms) in place for the n_rows staged
-// raw rows (row stride f); a warp per row, sums over the features in fp32.
-// The ragged rows are zeros and stay zeros.  Ends with the block synchronised.
-template <typename T>
-__device__ void normalize_rows(T* s, const T* g_rms, int f, int n_rows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n_rows; r += kWarps) {
-    T* sr = s + r * f;
-    float sq = 0.0f;
-    for (int c = lane; c < f; c += 32) {
-      const float v = to_f(sr[c]);
-      sq = fmaf(v, v, sq);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float norm = sqrtf(fmaxf(sq, 1e-24f));
-    for (int c = lane; c < f; c += 32) sr[c] = from_f<T>(to_f(sr[c]) / norm * to_f(g_rms[c]));
   }
   __syncthreads();
 }
@@ -334,7 +306,7 @@ __device__ void resnet_block_body(const Smem<T>& sm, StageIn stage_in, const flo
                                   int b0, int valid, int f) {
   constexpr int R = RowTile<T>::kRows;
   T* p = sm.p;
-  node_products(stage_in, AsStaged{}, sm.s, f, w1, f, f, sm.scratch,
+  node_products(stage_in, sm.s, f, w1, f, f, sm.scratch,
                 [&](int n, int r, int c, float acc) {
                   p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
                 });
@@ -343,7 +315,7 @@ __device__ void resnet_block_body(const Smem<T>& sm, StageIn stage_in, const flo
   });
   node_products(
       [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
-      AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
+      sm.s, f, w2, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
       });

@@ -84,14 +84,14 @@ final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ rr,
     stage_rows(buf, k, 0, x + at(n, rows, b0, f, 0), f, valid);
     stage_rows(buf, k, f, rr + at(n, rows, b0, f, 0), f, valid);
   };
-  node_products(stage_xr, AsStaged{}, sm.s, k, w1, f, f, sm.scratch,
+  node_products(stage_xr, sm.s, k, w1, f, f, sm.scratch,
                 [&](int n, int r, int c, float acc) {
     p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
   });
   node_mix(p, f, f, g1s, [&](int n, int r, int c, float y) {
     if (r < valid) h_out[at(n, rows, b0 + r, f, c)] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
   });
-  node_products(stage_xr, AsStaged{}, sm.s, k, wr, f, f, sm.scratch,
+  node_products(stage_xr, sm.s, k, wr, f, f, sm.scratch,
                 [&](int n, int r, int c, float acc) {
     p[(n * R + r) * f + c] = from_f<T>(acc);
   });
@@ -120,7 +120,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
   T* p = sm.p;
   node_products(
       [&](int n, T* buf) { stage_rows(buf, f, 0, h + at(n, rows, b0, f, 0), f, valid); },
-      AsStaged{}, sm.s, f, w2, f, f, sm.scratch,
+      sm.s, f, w2, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
       });
@@ -132,7 +132,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
   // node's P rows (stride f) after those rows were staged
   node_products(
       [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
-      AsStaged{}, sm.s, f, wh, fo, fo, sm.scratch,
+      sm.s, f, wh, fo, fo, sm.scratch,
       [&](int n, int r, int c, float acc) {
         p[(n * R + r) * f + c] = from_f<T>(acc + to_f(bh[n * fo + c]));
       });

@@ -12,17 +12,23 @@ materialise:
 ``g_rms`` [F] is the RMSNorm gain with √F folded in.  Ports of
 ``skeletondiffusion_tpu/ops/pallas/attention_proj.py::rms_qkv_pallas`` and
 ``::outproj_res_pallas`` without the TPU's padding; the kernels are
-``csrc/attention_proj.cu``.
+``csrc/attention_proj.cu``.  ``rms_qkv`` runs on the engine of
+``csrc/node_mix_sm90.cuh``: it takes W_qkv in the JAX layout and hands the
+kernel a packed copy (``node_mix_sm90.pack_banks``, cached per bank) and
+the tile plan ``rms_qkv_plan``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, node_mix_sm90
 from .graph_linear_fused import mix_plain, product_plain
 
 launches_rms_qkv = 0
 launches_outproj_res = 0
+
+# rows an item and output columns a group of the rms_qkv kernel
+QKV_TILES = {torch.bfloat16: (32, 96), torch.float32: (8, 96)}
 
 
 def rms_qkv_plain(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
@@ -49,6 +55,18 @@ def _launch(kernel: str, tensors: dict, shapes: dict, out: torch.Tensor, ints: t
     build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
 
 
+def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int) -> node_mix_sm90.TilePlan:
+    """The tile plan of the rms_qkv kernel at input width ``f`` and output
+    width ``fo``; raises for what the kernel does not take."""
+    build.element_suffix("rms_qkv", dtype)
+    if f <= 0 or f % 32:
+        raise ValueError(f"rms_qkv: F={f} must be a positive multiple of 32")
+    if fo <= 0 or fo % 8:
+        raise ValueError(f"rms_qkv: the output width {fo} must be a positive multiple of 8")
+    rows, cols = QKV_TILES[dtype]
+    return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f)
+
+
 def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
     """x [N,B,F], g_rms [F], w_qkv [N,F,3·hd], g_qkv [N,N] → [N,B,3·hd].  CPU
     tensors run ``rms_qkv_plain``; CUDA tensors launch the kernel or raise."""
@@ -58,9 +76,11 @@ def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
         return rms_qkv_plain(**tensors)
     n, rows, f = x.shape
     fo = w_qkv.shape[-1]
-    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
+    plan = rms_qkv_plan(x.dtype, f, fo)
     out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
-    _launch("rms_qkv", tensors, shapes, out, (n, rows, f, fo))
+    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
+    node_mix_sm90.launch("attention_proj", "rms_qkv", tensors, shapes, ("groups", fo, plan.cols),
+                         plan, (n, rows, f, fo), out)
     launches_rms_qkv += 1
     return out
 

@@ -16,12 +16,16 @@ plain versions composed:
 Ports of ``skeletondiffusion_tpu/ops/pallas/layer_fused.py``
 (``stem_block_pallas``, ``rms_qkv_core_pallas``, ``outproj_block_pallas``)
 without the TPU's padding; the kernels are ``csrc/layer_fused.cu``.
+``rms_qkv_core`` runs on the engine of ``csrc/node_mix_sm90.cuh``: it takes
+W_qkv in the JAX layout and hands the kernel a packed copy, one tile of a
+head's q, k and v columns (``node_mix_sm90.pack_banks``, cached per bank),
+and the tile plan ``rms_qkv_core_plan``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, node_mix_sm90
 from .attention_proj import outproj_res_plain, rms_qkv_plain
 from .graph_linear_fused import graph_linear_fused_plain
 from .joint_attention import attention_core_plain
@@ -30,6 +34,10 @@ from .resnet_block import resnet_block_plain
 launches_stem_block = 0
 launches_rms_qkv_core = 0
 launches_outproj_block = 0
+
+# rows an item of the rms_qkv_core kernel (its columns are a head's q‖k‖v)
+CORE_ROWS = {torch.bfloat16: 32, torch.float32: 8}
+CORE_DIM_HEAD = 32
 
 
 def stem_block_plain(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
@@ -85,6 +93,18 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
     return r, out
 
 
+def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int,
+                      dim_head: int) -> node_mix_sm90.TilePlan:
+    """The tile plan of the rms_qkv_core kernel at input width ``f``; raises
+    for what the kernel does not take."""
+    build.element_suffix("rms_qkv_core", dtype)
+    if dim_head != CORE_DIM_HEAD or heads <= 0:
+        raise ValueError(f"rms_qkv_core: takes heads of {CORE_DIM_HEAD}, got {heads} × {dim_head}")
+    if f <= 0 or f % 32:
+        raise ValueError(f"rms_qkv_core: F={f} must be a positive multiple of 32")
+    return node_mix_sm90.plan("rms_qkv_core", dtype, CORE_ROWS[dtype], 3 * dim_head, f)
+
+
 def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
     """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·dh] (q‖k‖v),
     g_qkv [N,N] → the attention core's output [N,B,H·dh].  CPU tensors run
@@ -95,9 +115,11 @@ def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.
         return rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, heads, dim_head)
     n, rows, f = x.shape
     hd = heads * dim_head
-    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
+    plan = rms_qkv_core_plan(x.dtype, f, heads, dim_head)
     out = torch.empty((n, rows, hd), dtype=x.dtype, device=x.device)
-    _launch("rms_qkv_core", tensors, shapes, (n, rows, f, heads, dim_head), (out,))
+    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
+    node_mix_sm90.launch("layer_fused", "rms_qkv_core", tensors, shapes,
+                         ("heads", heads, dim_head), plan, (n, rows, f, heads, dim_head), out)
     launches_rms_qkv_core += 1
     return out
 

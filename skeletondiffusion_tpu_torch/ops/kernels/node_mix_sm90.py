@@ -1,0 +1,138 @@
+"""The host side of ``csrc/node_mix_sm90.cuh``, the RMSNorm → per-node
+product → node-mix engine of B3a (``attention_proj.rms_qkv``) and B9b
+(``layer_fused.rms_qkv_core``): the tile plan the kernels are launched with,
+and the weight banks packed into the contiguous tiles that one bulk copy
+brings into shared memory.
+
+Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
+kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from . import build
+
+MAX_SMEM = 232448     # bytes of dynamic shared memory a block may have (227 KB)
+MAX_STAGES = 4        # mbarrier pairs the kernels reserve
+N_NODES = 21
+G_STRIDE = 24         # fp32 influence rows padded to whole float4s
+MAX_F = 256           # the widest input row the kernels normalise (in registers)
+PLANE_PAD = 16        # bytes after each node's plane of products
+CLUSTER = 2           # blocks a cluster: adjacent row tiles that share each weight tile
+
+
+class TilePlan(NamedTuple):
+    """Rows an item, output columns a group, ring stages, blocks a cluster
+    and dynamic shared-memory bytes of one launch."""
+    rows: int
+    cols: int
+    stages: int
+    cluster: int
+    smem_bytes: int
+
+
+def _up(n: int) -> int:
+    return (n + 127) & ~127
+
+
+def plan_bytes(elem: int, rows: int, cols: int, f: int, stages: int) -> int:
+    """Shared memory of one block (``layout`` in ``node_mix_sm90.cuh``):
+    barriers and a zero row, the fp32 influence (fp32 only), ``stages`` ×
+    (input rows + weight tile), the products of all nodes."""
+    g_mix = _up(4 * N_NODES * G_STRIDE) if elem == 4 else 0
+    stage = _up(rows * f * elem) + _up(f * cols * elem)
+    plane = rows * cols * elem + PLANE_PAD
+    return 128 + g_mix + stages * stage + _up(N_NODES * plane)
+
+
+def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int) -> TilePlan:
+    """The plan of ``rows`` × ``cols`` tiles at input width ``f``: as many
+    ring stages (2 to 4) as fit; raises ValueError when two do not, or when
+    f exceeds MAX_F."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    if f > MAX_F:
+        raise ValueError(f"{kernel}: F={f} exceeds {MAX_F}, the widest row the kernels "
+                         f"normalise")
+    fits = [s for s in range(2, MAX_STAGES + 1) if plan_bytes(elem, rows, cols, f, s) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} in {dtype} does not fit "
+                         f"{MAX_SMEM} bytes of shared memory with two stages")
+    return TilePlan(rows, cols, fits[-1], CLUSTER, plan_bytes(elem, rows, cols, f, fits[-1]))
+
+
+def group_columns(out: int, cols: int) -> torch.Tensor:
+    """[⌈out/cols⌉, cols]: consecutive groups of ``cols`` columns, the last
+    padded with −1 (zero columns)."""
+    groups = -(-out // cols)
+    idx = torch.arange(groups * cols).reshape(groups, cols)
+    return torch.where(idx < out, idx, -1)
+
+
+def head_columns(heads: int, dim_head: int) -> torch.Tensor:
+    """[heads, 3·dim_head]: head h's q, k and v columns of a q‖k‖v bank."""
+    hd = heads * dim_head
+    one = torch.arange(dim_head)
+    return torch.stack([torch.cat([h * dim_head + one, hd + h * dim_head + one,
+                                   2 * hd + h * dim_head + one]) for h in range(heads)])
+
+
+COLUMNS = {"groups": group_columns, "heads": head_columns}
+
+# (id, version, data pointer, shape, dtype, device, columns) → (bank, packed):
+# the bank is held so that its id and storage are not reused while cached
+_PACKED: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_PACKED_MAX = 64
+
+
+def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
+    """Per-node banks w [N, F, out] → [N, G, F·C] tiles, one contiguous tile
+    per node and group of the columns ``COLUMNS[columns[0]](*columns[1:])``
+    [G, C] (−1: a zero column): for bf16 in the tensor cores' canonical
+    K-major layout (8 × 8 core matrices, [F/8][C/8][8 columns][8 k]), for
+    fp32 row-major [F][C].
+
+    Cached for the bank as it is (its identity and version counter), so a
+    caller that keeps its weights packs them once."""
+    try:
+        version = w._version
+    except RuntimeError:  # inference tensors keep no version counter
+        version = None
+    key = (id(w), version, w.data_ptr(), tuple(w.shape), w.dtype, w.device, columns)
+    if version is not None and key in _PACKED:
+        return _PACKED[key][1]
+    idx = COLUMNS[columns[0]](*columns[1:])
+    n, f, out = w.shape
+    g, c = idx.shape
+    padded = torch.cat([w, w.new_zeros(n, f, 1)], dim=-1)  # column `out` is zero
+    idx = torch.where(idx < 0, out, idx).to(w.device)
+    t = padded[:, :, idx.reshape(-1)].reshape(n, f, g, c)
+    if w.dtype == torch.float32:
+        packed = t.permute(0, 2, 1, 3).contiguous().reshape(n, g, f * c)
+    else:
+        packed = (t.reshape(n, f // 8, 8, g, c // 8, 8).permute(0, 3, 1, 4, 5, 2)
+                  .contiguous().reshape(n, g, f * c))
+    if version is not None:
+        if len(_PACKED) >= _PACKED_MAX:
+            _PACKED.pop(next(iter(_PACKED)))
+        _PACKED[key] = (w, packed)
+    return packed
+
+
+def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,
+           columns: Tuple, plan: TilePlan, ints: Tuple[int, ...], out: torch.Tensor) -> None:
+    """Check x, g_rms, w_qkv and g_qkv (``tensors``, in that order), pack
+    w_qkv's ``columns`` and launch ``<kernel>_<bf16|f32>`` of
+    ``csrc/<library>.cu`` on them, ``out``, ``ints`` and the plan; raises
+    unless the launch succeeded."""
+    dt = out.dtype
+    suffix = build.element_suffix(kernel, dt)
+    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
+    packed = dict(tensors, w_qkv=pack_banks(tensors["w_qkv"], columns))
+    build.check_aligned(kernel, 32, **packed)
+    ints = (*ints, *plan)
+    status = build.c_entry(library, f"{kernel}_{suffix}", len(packed) + 1, len(ints))(
+        *(t.data_ptr() for t in packed.values()), out.data_ptr(), *ints, build.stream_of(out))
+    build.check_status(f"{kernel} at (nodes, rows, widths, plan)={ints}", status)
