@@ -23,16 +23,17 @@ Phases, each printed with its elapsed seconds:
               shapes in bf16 and in fp32 and at a ragged row count, against
               its plain version, timed beside its bound, its plain version and
               the one PyTorch call that computes its function, where there is
-              one (B3a also beside one torch.bmm of its per-node products
-              alone, [21, 12 800, 192]·[21, 192, 768]: the product stage's
-              cuBLAS time, not the function);
+              one (B1 and B3a also beside torch.bmm calls of their per-node
+              products alone, e.g. [21, 12 800, 192]·[21, 192, 768] for B3a:
+              the product stage's cuBLAS time, not the function; both also
+              at a row count with an odd number of their row tiles);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
               beside the bf16 path's deviation from the fp32 path;
 7. layer_fused — the per-layer kernels of the layer-fused denoiser (B9a–c),
-              checked and timed as in phase 5 (B9b also beside the products-only
-              torch.bmm);
+              checked and timed as in phase 5 (B9b and B9c also beside their
+              products-only torch.bmm calls and at an odd number of row tiles);
 8. main_layer_fused — the bf16 path with SKELDIFF_LAYER_FUSED=1 (set for this
               phase only): predictions/s and launch counts per prediction,
               and with injected noise against the same path on the plain
@@ -121,7 +122,8 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # B3a's and B9b's clusters take two adjacent row tiles (32 rows in bf16, 8 in
 # fp32); at this count both have an odd number of tiles (399 and 1 595), so
 # the last cluster's second block has no rows, and the bf16 tile before it
-# is ragged (24 rows).
+# is ragged (24 rows).  B1's and B9c's counts come from their plans
+# (odd_tile_rows).
 ODD_TILE_ROWS = 12_760
 # The bf16 kernel paths against their plain paths with injected noise: the
 # max |Δ| may reach this multiple of the bf16 path's max deviation from the
@@ -530,13 +532,22 @@ def hold_at_rows(name: str, kernel, plain, args: list, cut: int) -> float:
     return err
 
 
+def odd_tile_rows(tile_rows: int) -> int:
+    """The largest row count up to the bench's that is a whole number of
+    ``tile_rows`` tiles, an odd one: the walk's last cluster of two blocks
+    then has one tile, and its second block none."""
+    tiles = BATCH * SAMPLES // tile_rows
+    return (tiles - 1 + tiles % 2) * tile_rows
+
+
 def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, source: str,
                        tensor_flops: float = 0.0, flops: float = 0.0, library=None,
-                       products=None, f32: bool = True, odd_tiles: bool = False) -> dict:
+                       products=None, f32: bool = True, odd_rows: tuple = ()) -> dict:
     """One kernel at the bench shapes: bf16 against its plain version, its
-    fp32 instantiation, a ragged row count, with ``odd_tiles`` also
-    ODD_TILE_ROWS in bf16 and fp32, and its times (``products``: a call of
-    the kernel's per-node products alone, timed as a yardstick)."""
+    fp32 instantiation, a ragged row count, with ``odd_rows`` (bf16, fp32)
+    also those row counts (an odd number of the kernel's row tiles), and its
+    times (``products``: a call of the kernel's per-node products alone,
+    timed as a yardstick)."""
     rows = BATCH * SAMPLES
     got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
@@ -560,11 +571,8 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
             raise AssertionError(f"{name} (fp32) disagrees with its plain version: {f32_err}")
     cut = rows - RAGGED
     r_err = hold_at_rows(name, kernel, plain, cut_rows(args, rows, cut), cut)
-    odd = ""
-    if odd_tiles:
-        odd_errs = [hold_at_rows(name, kernel, plain, cut_rows(a, rows, ODD_TILE_ROWS),
-                                 ODD_TILE_ROWS) for a in (args, a32)]
-        odd = f"; {ODD_TILE_ROWS} rows bf16 {odd_errs[0]:.3e} fp32 {odd_errs[1]:.3e}"
+    odd = "".join(f"; {dt} {n} rows {hold_at_rows(name, kernel, plain, cut_rows(a, rows, n), n):.3e}"
+                  for dt, a, n in zip(("bf16", "fp32"), (args, a32), odd_rows))
     ms = cuda_ms(lambda: kernel(*args), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args), reps=3)
     library_ms = cuda_ms(library, reps=20) if library is not None else None
@@ -586,11 +594,12 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
     return entry
 
 
-def products_only(x: torch.Tensor, w_qkv: torch.Tensor):
-    """One torch.bmm of the per-node products h·W_qkv alone ([N, B, F]·[N, F,
-    3·hd] in bf16): the cuBLAS time of B3a's and B9b's product stage, a
-    yardstick the port never calls."""
-    return lambda: torch.bmm(x, w_qkv)
+def products_only(*pairs):
+    """One torch.bmm for each (x, w) of ``pairs``, the per-node products
+    [N, B, K]·[N, K, F] in bf16 of a kernel alone (B3a and B9b: h·W_qkv; B1:
+    x·W1, h·W2; B9c: a·W_out, o·W1, h·W2): the cuBLAS time of its product
+    stage, a yardstick the port never calls."""
+    return lambda: [torch.bmm(x, w) for x, w in pairs]
 
 
 def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
@@ -639,12 +648,16 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 "resnet_block", block_mod.resnet_block, block_mod.resnet_block_plain,
                 [x, film, blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]],
                 replaces="resnet_block.py:134", source="resnet_block.cu",
-                tensor_flops=2 * (prod(f, f) + mix(f))),
+                tensor_flops=2 * (prod(f, f) + mix(f)),
+                products=products_only((x, blk["w1"]), (x, blk["w2"])),
+                odd_rows=tuple(odd_tile_rows(block_mod.resnet_block_plan(dt, f).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "rms_qkv", proj_mod.rms_qkv, proj_mod.rms_qkv_plain,
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="attention_proj.py:114",
                 source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd),
-                products=products_only(x, att["w_qkv"]), odd_tiles=True),
+                products=products_only((x, att["w_qkv"])),
+                odd_rows=(ODD_TILE_ROWS, ODD_TILE_ROWS)),
             check_fused_kernel(
                 "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
                                                     dim_head=dh),
@@ -715,12 +728,16 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="layer_fused.py:285",
                 source="layer_fused.cu",
                 tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh,
-                products=products_only(x, att["w_qkv"]), odd_tiles=True),
+                products=products_only((x, att["w_qkv"])),
+                odd_rows=(ODD_TILE_ROWS, ODD_TILE_ROWS)),
             check_fused_kernel(
                 "outproj_block", layer_mod.outproj_block, layer_mod.outproj_block_plain,
                 [core, x, film1, att["w_out"], att["g_out"], *banks(blk1)],
                 replaces="layer_fused.py:325", source="layer_fused.cu",
-                tensor_flops=prod(hd, f) + mix(f) + block),
+                tensor_flops=prod(hd, f) + mix(f) + block,
+                products=products_only((core, att["w_out"]), (x, blk1["w1"]), (x, blk1["w2"])),
+                odd_rows=tuple(odd_tile_rows(layer_mod.outproj_block_plan(dt, hd, f).rows)
+                               for dt in (bf16, torch.float32))),
         ]
 
 

@@ -92,7 +92,7 @@ def rollout_scaling(predictor, gen: torch.Generator) -> dict:
     per-block step time grows with the number of busy SMs, a shared
     resource (L2, HBM) limits it; if it stays, each SM's own issue and
     latency do."""
-    inp = cs.rollout_inputs(predictor, gen)
+    inp, = cs.rollout_inputs(predictor, gen)
     rows_per_block = 8
     out = {}
     with torch.no_grad():

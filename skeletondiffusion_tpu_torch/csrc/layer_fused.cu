@@ -28,21 +28,28 @@
 // against ~73 GFLOP (0.074 ms).
 //
 // What the design does about it: a block owns a tile of rows of all 21
-// nodes (B9a and B9c: 16 rows, 8 in fp32, as in node_mix.cuh), so every
-// input crosses device memory once and every output is written once; the
-// intermediates (r's second use, o, h, the 768-wide qkv) stay in the block.
+// nodes, so every input crosses device memory once and every output is
+// written once; the intermediates (r's second use, o, h, the 768-wide qkv)
+// stay in the block.
 //
-// * B9a and B9c run the stem or the out-projection into the product tile P
-//   (21 × 16 × 192 bf16, 129 KB), mix it in place, then B1's body on P.  B1
-//   reads its residual back from device memory after its last mix; so do
-//   these.  B9a's residual is r, which it writes as an output anyway.  B9c's
-//   residual o is not an output, and o and P do not both fit in 227 KB
-//   (258 KB): B9c writes o into its output buffer, and the last epilogue
-//   reads each element there before it overwrites it.  The two mixes map a
-//   (row, column) to the same thread, so the thread that reads an element is
-//   the one that wrote it.  Chosen over 8-row tiles, which would halve the
-//   rows of every tensor-core tile; the cost is 16 KB of extra writes and
-//   reads per block through L2.
+// * B9a runs the stem into the product tile P (21 × 16 × 192 bf16, 129 KB;
+//   node_mix.cuh, 16 rows, 8 in fp32), mixes it in place, then the old
+//   ResnetBlock body (node_mix.cuh::resnet_block_body) on P.  It reads its
+//   residual r back from device memory after its last mix: r is an output
+//   anyway.
+// * B9c runs on node_mix_sm90.cuh's engine (`run_blocks`), as B1 does
+//   (resnet_block.cu): items of 16 rows (fp32: 8) × all 192 columns, three
+//   product passes through the k-slice ring (the out-projection from a's
+//   rows, then B1's two in place in P), each followed by a tensor-core mix.
+//   o and P do not both fit in 227 KB (P alone is 135 KB), so after the
+//   first mix o goes from P into out as the residual; the last mix reads
+//   each element of o there before the barrier that ends it, and the store
+//   after that barrier overwrites it.  Shared memory (bf16) as B1's,
+//   217 088 B; the out-projection's 256-wide rows run as four k-slices.
+//   Each weight byte from L2 serves 32 rows: 2.06 GB of weights a call,
+//   4.1 GB before.  A block's item takes ~340 000 cycles: the products 58%
+//   (a fifth of it waiting on the ring), the three mixes 35%, the two
+//   stores 4% (PERF.md §6).
 // * B9b runs on node_mix_sm90.cuh's engine, as B3a (attention_proj.cu)
 //   does: items of 32 rows × one head's 96 q‖k‖v columns (fp32: 8 rows),
 //   the two blocks of a cluster on adjacent row tiles, each weight tile
@@ -108,42 +115,30 @@ stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __r
                     b1, w2, b2, r_out, out, rows, b0, valid, f);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
                      const T* __restrict__ film, const T* __restrict__ wo,
                      const T* __restrict__ go, const T* __restrict__ w1,
                      const T* __restrict__ b1, const T* __restrict__ g1,
                      const T* __restrict__ w2, const T* __restrict__ b2,
-                     const T* __restrict__ g2, T* out, int rows, int hd, int f) {
-  constexpr int R = RowTile<T>::kRows;
+                     const T* __restrict__ g2, T* out, int rows, int hd, int f, int kslice,
+                     int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, max(hd, f), 3);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  float* gos = sm.g;
-  float* g1s = sm.g + kNodes * kGStride;
-  float* g2s = sm.g + 2 * kNodes * kGStride;
-  load_influence(gos, go);
-  load_influence(g1s, g1);
-  load_influence(g2s, g2);
-  load_film(sm.vec, film, f);
-
-  T* p = sm.p;
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
-      sm.s, hd, wo, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) { p[(n * R + r) * f + c] = from_f<T>(acc); });
-  // o = round(G_out·P + x): into P as the block's input and, for the valid
-  // rows, into out as its residual
-  node_mix(p, f, f, gos, [&](int n, int r, int c, float y) {
-    const size_t i = at(n, rows, b0 + r, f, c);
-    const T o = from_f<T>(y + (r < valid ? to_f(x[i]) : 0.0f));
-    p[(n * R + r) * f + c] = o;
-    if (r < valid) out[i] = o;
+  const sm90mix::BlockProblem<T> pb{
+      {{a, wo, nullptr, hd}, {nullptr, w1, b1, f}, {nullptr, w2, b2, f}}, {go, g1, g2}, film, 3,
+      rows, f, kslice, stages};
+  sm90mix::run_blocks<T, R, NT>(pb, smem_raw, [&](auto& it) {
+    it.product(0);  // P = round(a·W_out)
+    // o = round(G_out·P + x): P, the block's input, and out, its residual
+    it.mix(0, x, [](int, float y, float res) { return __fadd_rn(y, res); });
+    it.store(out);
+    // each element of o in out is read before the barrier that ends the
+    // block's last mix, and overwritten after it
+    it.resnet_block(1, out);
+    it.store(out);
   });
-  resnet_block_body(sm, [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); }, g1s, g2s, w1,
-                    b1, w2, b2, out, out, rows, b0, valid, f);
 }
 
 // B9b's rows an item (the columns are a head's q‖k‖v).
@@ -222,22 +217,28 @@ int launch_rms_qkv_core(const void* x, const void* g_rms, const void* w, const v
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(kDimHead)))));
 }
 
+// The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
+// bytes) must be the one instantiated here; bf16 is instantiated for each
+// f = 64·NT the plan takes.
 template <typename T>
 int launch_outproj_block(const void* a, const void* x, const void* film, const void* wo,
                          const void* go, const void* w1, const void* b1, const void* g1,
                          const void* w2, const void* b2, const void* g2, void* out, int n_nodes,
-                         int rows, int hd, int f, void* stream) {
-  if (bad_block_shape(n_nodes, rows, hd, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, hd > f ? hd : f, 3, 2 * f);
-  cudaError_t err = prepare(outproj_block_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  outproj_block_kernel<T><<<grid_for<T>(rows), kThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(x), static_cast<const T*>(film),
-      static_cast<const T*>(wo), static_cast<const T*>(go), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(g1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<const T*>(g2), static_cast<T*>(out), rows, hd, f);
-  return static_cast<int>(cudaGetLastError());
+                         int rows, int hd, int f, int tile_rows, int kslice, int stages,
+                         int cluster, int smem_bytes, void* stream) {
+  const int ks[3] = {hd, f, f};
+  if (n_nodes != kNodes || rows <= 0 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 3, tile_rows, kslice, stages, cluster, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(
+        outproj_block_kernel<T, decltype(nt)::value>, sm90mix::items(rows, tile_rows, 1),
+        smem_bytes, cluster, stream, static_cast<const T*>(a), static_cast<const T*>(x),
+        static_cast<const T*>(film), static_cast<const T*>(wo), static_cast<const T*>(go),
+        static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(g1),
+        static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(g2),
+        static_cast<T*>(out), rows, hd, f, kslice, stages);
+  }));
 }
 
 }  // namespace
@@ -285,20 +286,27 @@ extern "C" int rms_qkv_core_f32(const void* x, const void* g_rms, const void* w,
                                     tile_rows, tile_cols, stages, cluster, smem_bytes, stream);
 }
 
-// a [·, rows, hd], x and out [·, rows, f], w_out [·, hd, f]; w1, w2 [·, f, f].
+// a [·, rows, hd], x and out [·, rows, f]; w_out [·, hd, f] and w1, w2
+// [·, f, f] packed into one tile of all f columns each, [·, 1, hd·f] and
+// [·, 1, f·f] (ops/kernels/node_mix_sm90.py); the tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int outproj_block_bf16(const void* a, const void* x, const void* film,
                                   const void* w_out, const void* g_out, const void* w1,
                                   const void* b1, const void* g1, const void* w2, const void* b2,
                                   const void* g2, void* out, int n_nodes, int rows, int hd, int f,
-                                  void* stream) {
+                                  int tile_rows, int kslice, int stages, int cluster,
+                                  int smem_bytes, void* stream) {
   return launch_outproj_block<nodemix::bf16>(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2,
-                                             out, n_nodes, rows, hd, f, stream);
+                                             out, n_nodes, rows, hd, f, tile_rows, kslice, stages,
+                                             cluster, smem_bytes, stream);
 }
 extern "C" int outproj_block_f32(const void* a, const void* x, const void* film,
                                  const void* w_out, const void* g_out, const void* w1,
                                  const void* b1, const void* g1, const void* w2, const void* b2,
                                  const void* g2, void* out, int n_nodes, int rows, int hd, int f,
-                                 void* stream) {
+                                 int tile_rows, int kslice, int stages, int cluster,
+                                 int smem_bytes, void* stream) {
   return launch_outproj_block<float>(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2, out,
-                                     n_nodes, rows, hd, f, stream);
+                                     n_nodes, rows, hd, f, tile_rows, kslice, stages, cluster,
+                                     smem_bytes, stream);
 }

@@ -1,6 +1,7 @@
-// Shared device routines of the fused denoiser's kernels (B1, B3b, B4, B5a,
-// B5b, B9a, B9c) for NVIDIA Hopper (sm_90a); B3a and B9b run on
-// node_mix_sm90.cuh.
+// Shared device routines of the fused denoiser's kernels B3b, B4, B5a, B5b
+// and B9a for NVIDIA Hopper (sm_90a); B1, B3a, B9b and B9c run on
+// node_mix_sm90.cuh (B9a still runs resnet_block_body below, the ResnetBlock
+// body B1 and B9c ran before they moved).
 //
 // Every one of those kernels computes the same pattern on node-major
 // activations [N, B, F] (element (n, b, f) at (n·B + b)·F + f):
@@ -289,7 +290,7 @@ __device__ __forceinline__ size_t at(int n, int rows, int b, int width, int c) {
   return (static_cast<size_t>(n) * rows + b) * width + c;
 }
 
-// The ResnetBlock (B1's body) on a tile of kRows rows from row b0, valid of
+// The ResnetBlock (B9a's, once B1's body) on a tile of kRows rows from row b0, valid of
 // them real: stage_in(n, buf) stages node n's input rows o for the first
 // product (from device memory, or from P when a kernel left o there), then
 //   P ← round(o·W1 + b1), h = round(tanh(FiLM(G1·P))) in place,

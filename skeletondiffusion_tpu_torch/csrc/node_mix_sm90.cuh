@@ -1,9 +1,20 @@
-// The product-and-mix engine of the attention layer's input stage for NVIDIA
-// Hopper (sm_90a): RMSNorm → per-node product → node mix, shared by B3a
-// (rms_qkv, attention_proj.cu) and B9b (rms_qkv_core, layer_fused.cu).
+// The product-and-mix engine of the fused denoiser's kernels for NVIDIA
+// Hopper (sm_90a), with two kinds of item:
+//
+// * a row tile × a group of output columns (`run`): RMSNorm → per-node
+//   product → node mix, the attention layer's input stage, B3a (rms_qkv,
+//   attention_proj.cu) and B9b (rms_qkv_core, layer_fused.cu);
+// * a row tile × every column (`run_blocks`, below `store_tile`): up to
+//   three per-node products, each followed by a node mix, with P in shared
+//   memory from the first product to the last mix: the ResnetBlock, B1
+//   (resnet_block, resnet_block.cu) and B9c (outproj_block, layer_fused.cu).
+//
+// Both share the roles, the ring of bulk copies on mbarriers, the two-block
+// clusters with multicast weight tiles, the mma.sync products through
+// ldmatrix and the tensor-core node mix described here for the first.
 //
 // Over node-major activations [N, B, F] (N = 21 nodes), for one tile of R rows
-// and one group of C output columns (an item):
+// and one group of C output columns (an item of the first kind):
 //
 //   h[n]   = round(x[n] / sqrt(max(Σ x[n]², 1e-24)) · g_rms)   each row
 //   P[n]   = round(h[n]·W[n][:, group])                       fp32 sums
@@ -64,6 +75,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "node_mix.cuh"
 
@@ -84,6 +96,7 @@ constexpr int kMaxSmem = 232448;      // 227 KB of dynamic shared memory a block
 constexpr int kPlanePad = 16;         // bytes after each node's plane of P
 constexpr int kMaxF = 256;            // the widest input row the kernels normalise
 constexpr int kZeroOffset = 2 * kMaxStages * 8;  // a 16-byte zero row after the barriers
+static_assert(kZeroOffset + 16 <= 128, "the barriers and the zero row fill the first 128 bytes");
 
 __host__ __device__ constexpr size_t up(size_t bytes) { return (bytes + 127) & ~size_t(127); }
 
@@ -176,6 +189,22 @@ __device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, 
       "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(static_cast<uint16_t>((1u << kCluster) - 1u))
       : "memory");
+}
+
+// 16 bytes from device memory into this block's shared memory by this
+// thread (cp.async, cached in L2 only); src_bytes 0 writes zeros and reads
+// nothing.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Arrive on the barrier at `bar`'s offset in block `peer` of the cluster.
@@ -658,6 +687,531 @@ __device__ __forceinline__ void store_tile(const T* p, int plane, T* out, int ro
     if (r < valid && c < fo)
       *reinterpret_cast<uint4*>(out + (static_cast<size_t>(n) * rows + b0 + r) * fo + c) =
           *reinterpret_cast<const uint4*>(p + n * plane + r * C + v * kVec);
+  }
+}
+
+// ---- whole-row-tile items: the ResnetBlock kernels (B1, B9c) ------------------------
+
+// A ResnetBlock's second product contracts over all F columns of h, for each
+// node, so its item is a row tile × every column: P holds all 21 nodes'
+// R × F products and stays in shared memory from the first product to the
+// last mix.  An item runs up to kMaxPasses product passes, each followed by
+// a node mix with the kernel's epilogue:
+//
+//   pass i, node n:  P[n] = round(A[n]·W_i[n] (+ b_i[n]))     fp32 sums
+//
+// where A[n] is node n's R input rows from device memory (x for B1's first
+// pass, a for B9c's out-projection) or P[n] itself, in place (every later
+// pass).  The ring carries, per (pass, node, k-slice of kslice rows of the
+// bank), the k-slice of the R input rows (16-byte cp.async copies by the
+// producer warp's 32 lanes, each lane's arrival on the stage's `full`
+// barrier once its copies land; a bulk copy a row made the loads the
+// bottleneck; none for a pass in place) and half of the k-slice of node n's
+// bank, multicast into both blocks of the cluster: [kslice][F] from the
+// bank packed once by the wrapper (node_mix_sm90.py::pack_banks, one group
+// of all F columns: a k-slice is contiguous).  A warp accumulates its
+// 16 rows × F/8 columns (fp32: a thread its outputs) over the k-slices in
+// registers, so a pass in place overwrites node n's plane only after a
+// barrier that every warp reaches once it has read that plane.
+//
+// Rows of P and of a staged slice are padded by 16 bytes (F = 192: 400-byte
+// rows), so the 8 rows of an ldmatrix fall in 8 distinct bank groups with
+// no swizzle.
+
+constexpr int kMaxPasses = 3;
+constexpr int kMaxNt = kMaxF / 64;  // n8 tiles of a warp's columns (bf16: F = 64·NT)
+
+// Byte offsets of one block's shared memory.  The wrappers' tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan_bytes) computes the same total.
+struct BlockLayout {
+  size_t gmix, film, stages, stage_bytes, a_bytes, p, total;
+  int a_stride, p_stride, plane;  // elements between rows of a staged slice, of P; between planes
+};
+
+template <typename T>
+__host__ __device__ BlockLayout block_layout(int rows, int f, int kslice, int stages, int mixes) {
+  constexpr int kPad = 16 / static_cast<int>(sizeof(T));
+  BlockLayout l{};
+  size_t off = 128;  // full[kMaxStages], empty[kMaxStages], the zero row
+  l.gmix = off;
+  off += is_f32<T>() ? up(sizeof(float) * kNodes * kGStride * mixes) : 0;
+  l.film = off;
+  off += up(sizeof(float) * 2 * f);
+  l.a_stride = kslice + kPad;
+  l.a_bytes = up(sizeof(T) * rows * l.a_stride);
+  l.stage_bytes = l.a_bytes + up(sizeof(T) * kslice * f);
+  l.stages = off;
+  off += stages * l.stage_bytes;
+  l.p_stride = f + kPad;
+  l.plane = static_cast<int>((sizeof(T) * rows * l.p_stride + kPlanePad) / sizeof(T));
+  l.p = off;
+  off += up(sizeof(T) * kNodes * l.plane);
+  l.total = off;
+  return l;
+}
+
+// One product pass: A from device memory a [N, rows, k] (nullptr: P in
+// place), the packed bank w [N, k·f], the bias [N, f] or nullptr.
+template <typename T>
+struct BlockPass {
+  const T* a;
+  const T* w;
+  const T* bias;
+  int k;
+};
+
+// What one launch works on: the passes, the influence of each pass's mix
+// [N, N], FiLM's scale‖shift [2f], rows and widths, the plan.
+template <typename T>
+struct BlockProblem {
+  BlockPass<T> pass[kMaxPasses];
+  const T* g[kMaxPasses];
+  const T* film;
+  int passes, rows, f, kslice, stages;
+};
+
+// A position in the ring: the stage and the parity of its current phase.
+struct RingPos {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// The producer warp: for every item, pass, node and k-slice, one stage.
+template <typename T, int R>
+__device__ __forceinline__ void produce_blocks(const BlockProblem<T>& pb, const BlockLayout& l,
+                                               unsigned char* smem, uint64_t* full,
+                                               uint64_t* empty, uint32_t rank, int n_items) {
+  const int lane = threadIdx.x & 31;
+  const int a_chunks = static_cast<int>(sizeof(T)) * pb.kslice / 16;  // of an input row's k-slice
+  const uint32_t w_bytes = static_cast<uint32_t>(sizeof(T) * pb.kslice * pb.f);
+  const uint32_t w_part = w_bytes / kCluster;
+  RingPos q;
+  for (int item = cluster_id(); item < n_items; item += cluster_count()) {
+    const int b0 = (item * kCluster + static_cast<int>(rank)) * R;
+    const int valid = max(0, min(R, pb.rows - b0));
+    for (int i = 0; i < pb.passes; ++i) {
+      const BlockPass<T> ps = pb.pass[i];
+      const int slices = ps.k / pb.kslice;
+      for (int n = 0; n < kNodes; ++n)
+        for (int j = 0; j < slices; ++j, q.advance(pb.stages)) {
+          const int s = q.s;
+          mbar_wait(&empty[s], q.phase ^ 1u);  // both blocks' consumers are done
+          unsigned char* st = smem + l.stages + s * l.stage_bytes;
+          if (lane == 0) mbar_expect_tx(&full[s], w_bytes);
+          __syncwarp();
+          if (ps.a != nullptr) {  // the input rows' k-slice, 16 bytes a copy, zeros past the last row
+            for (int e = lane; e < R * a_chunks; e += 32) {
+              const int r = e / a_chunks, cc = e % a_chunks;
+              const int row = min(b0 + r, pb.rows - 1);
+              cp_async_16(st + sizeof(T) * r * l.a_stride + 16 * cc,
+                          ps.a + (static_cast<size_t>(n) * pb.rows + row) * ps.k + j * pb.kslice +
+                              cc * (16 / sizeof(T)),
+                          r < valid ? 16u : 0u);
+            }
+          }
+          cp_async_arrive(&full[s]);  // every lane, every stage
+          if (lane == 0) {  // this block's half of the bank's k-slice, into both blocks
+            const unsigned char* wt = reinterpret_cast<const unsigned char*>(
+                ps.w + (static_cast<size_t>(n) * ps.k + j * pb.kslice) * pb.f);
+            bulk_load_multicast(st + l.a_bytes + rank * w_part, wt + rank * w_part, w_part,
+                                &full[s]);
+          }
+        }
+    }
+  }
+}
+
+// A consumer's view of one item: the ring, P, and the item's rows.  NT:
+// the n8 tiles of a warp's columns in bf16 (f = 64·NT), 0 in fp32.
+template <typename T, int R, int NT>
+struct BlockItem {
+  const BlockProblem<T>& pb;
+  const BlockLayout& l;
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t rank;
+  RingPos& q;
+  int b0, valid;
+
+  // f and P's row stride: compile-time in bf16 (f = 64·NT)
+  static constexpr int kF = 64 * NT, kPStride = kF + 16 / static_cast<int>(sizeof(T));
+  __device__ __forceinline__ int width() const { return NT ? kF : pb.f; }
+  __device__ __forceinline__ int p_stride() const { return NT ? kPStride : l.p_stride; }
+  __device__ __forceinline__ T* p() const { return reinterpret_cast<T*>(smem + l.p); }
+  // FiLM's scale + 1 (columns 0 … f) and shift (f … 2f), fp32
+  __device__ __forceinline__ const float* film() const {
+    return reinterpret_cast<const float*>(smem + l.film);
+  }
+
+  __device__ __forceinline__ unsigned char* wait_stage() const {
+    mbar_wait(&full[q.s], q.phase);
+    return smem + l.stages + q.s * l.stage_bytes;
+  }
+  // the stage may be refilled once both blocks' consumers are done with it
+  __device__ __forceinline__ void release_stage() const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      mbar_arrive(&empty[q.s]);
+      mbar_arrive_peer(&empty[q.s], rank ^ 1u);
+    }
+    q.advance(pb.stages);
+  }
+
+  // P[n] ← round(A[n]·W[n] + bias[n]) for every node of pass i; ends with
+  // the consumers synchronised.
+  __device__ void product(int i) {
+    const BlockPass<T> ps = pb.pass[i];
+    const bool in_place = ps.a == nullptr;
+    for (int n = 0; n < kNodes; ++n) {
+      if constexpr (is_f32<T>()) {
+        product_node_fma(ps, n, in_place);
+      } else {
+        product_node_mma(ps, n, in_place);
+      }
+    }
+    consumer_sync();
+  }
+
+  // bf16: a warp takes the 16 rows × columns 8·NT·warp … of width 8·NT.
+  // A k-slice's fragments (A through ldmatrix from the stage or from P, B
+  // from the stage) go to registers and the stage is released at once; the
+  // next k-slice's are loaded before this one's products.
+  __device__ __forceinline__ void product_node_mma(const BlockPass<T>& ps, int n, bool in_place) {
+    static_assert(R == 16 && NT >= 1 && NT <= kMaxNt, "a warp's tile: 16 rows × 8·NT columns");
+    constexpr int kMaxKs = 4;  // k-steps of a k-slice (kslice ≤ 64)
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    constexpr int f = kF;
+    const int ksteps = pb.kslice / 16, slices = ps.k / pb.kslice;
+    T* pn = p() + n * l.plane;
+    float acc[NT][4];
+    float2 bias[NT];  // this lane's bias pairs, loaded before the products
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      const int c = (warp * NT + j) * 8 + 2 * (lane & 3);
+      bias[j] = ps.bias != nullptr ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                         ps.bias + n * f + c))
+                                   : make_float2(0.0f, 0.0f);
+    }
+    uint32_t a[2][kMaxKs][4], b[2][kMaxKs][NT][2];
+    auto load = [&](int buf, int sl) {
+      const unsigned char* st = wait_stage();
+      // this lane's A row (lane % 16) and k half (lane / 16) of a k-step
+      const uint32_t arow =
+          (in_place ? smem_u32(pn) + sizeof(T) * ((lane & 15) * kPStride + sl * pb.kslice)
+                    : smem_u32(st) + sizeof(T) * (lane & 15) * l.a_stride) +
+          (lane >> 4) * 16;
+      // lanes 0-7: rows of core (2ks, nb); lanes 8-15: of core (2ks + 1, nb)
+      const uint32_t bw = smem_u32(st + l.a_bytes) + ((lane >> 3) & 1) * (f / 8) * 128 +
+                          (lane & 7) * 16 + warp * NT * 128;
+#pragma unroll
+      for (int ks = 0; ks < kMaxKs; ++ks) {
+        if (ks < ksteps) {
+          ldmatrix_x4(a[buf][ks], arow + ks * 32);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            ldmatrix_x2(b[buf][ks][j], bw + (2 * ks * (f / 8) + j) * 128);
+        }
+      }
+      release_stage();
+    };
+    auto multiply = [&](int buf) {
+#pragma unroll
+      for (int ks = 0; ks < kMaxKs; ++ks)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (ks < ksteps) mma_bf16(acc[j], a[buf][ks], b[buf][ks][j][0], b[buf][ks][j][1]);
+    };
+    load(0, 0);
+    for (int sl = 0; sl < slices; sl += 2) {
+      if (sl + 1 < slices) load(1, sl + 1);
+      multiply(0);
+      if (sl + 2 < slices) load(0, sl + 2);
+      if (sl + 1 < slices) multiply(1);
+    }
+    if (in_place) consumer_sync();  // every warp has read node n's plane
+    const int r = lane >> 2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = (warp * NT + j) * 8 + 2 * (lane & 3);
+      bf16* out = reinterpret_cast<bf16*>(pn) + r * kPStride + c;
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[j][0] + bias[j].x, acc[j][1] + bias[j].y);
+      *reinterpret_cast<uint32_t*>(out + 8 * kPStride) =
+          pack_bf16(acc[j][2] + bias[j].x, acc[j][3] + bias[j].y);
+    }
+  }
+
+  // fp32: a thread per output (tid + kConsumers·i), FMAs over the k-slices.
+  __device__ __forceinline__ void product_node_fma(const BlockPass<T>& ps, int n, bool in_place) {
+    constexpr int kOut = R * kMaxF / kConsumers;
+    const int f = pb.f, slices = ps.k / pb.kslice;
+    float* pn = reinterpret_cast<float*>(p()) + n * l.plane;
+    float acc[kOut];
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) acc[i] = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) {
+      const unsigned char* st = wait_stage();
+      const float* a = in_place ? pn + sl * pb.kslice : reinterpret_cast<const float*>(st);
+      const int lda = in_place ? l.p_stride : l.a_stride;
+      const float* w = reinterpret_cast<const float*>(st + l.a_bytes);
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        const int o = threadIdx.x + kConsumers * i;
+        if (o < R * f) {
+          const float* ar = a + (o / f) * lda;
+          const float* wc = w + o % f;
+          for (int k = 0; k < pb.kslice; ++k) acc[i] = fmaf(ar[k], wc[k * f], acc[i]);
+        }
+      }
+      release_stage();
+    }
+    if (in_place) consumer_sync();
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) {
+      const int o = threadIdx.x + kConsumers * i;
+      if (o < R * f) {
+        const int r = o / f, c = o % f;
+        pn[r * l.p_stride + c] = acc[i] + (ps.bias != nullptr ? to_f(ps.bias[n * f + c]) : 0.0f);
+      }
+    }
+  }
+
+  // P ← round(epi(c, Y, res)) in place, Y = G_i·P in fp32 (bf16: on the
+  // tensor cores, as mix_mma), res the element of res [N, rows, f] at the
+  // same node, row and column (0 where res is nullptr or the row is past
+  // the last); ends with the consumers synchronised.
+  template <typename Epi>
+  __device__ void mix(int i, const T* res, Epi epi) {
+    const int f = pb.f;
+    if constexpr (is_f32<T>()) {
+      const float* g = reinterpret_cast<const float*>(smem + l.gmix) + i * kNodes * kGStride;
+      float* pp = reinterpret_cast<float*>(p());
+      for (int pos = threadIdx.x; pos < R * f; pos += kConsumers) {
+        const int r = pos / f, c = pos % f, e = r * l.p_stride + c;
+        float v[kGStride];
+#pragma unroll
+        for (int m = 0; m < kNodes; ++m) v[m] = pp[m * l.plane + e];
+#pragma unroll
+        for (int m = kNodes; m < kGStride; ++m) v[m] = 0.0f;
+#pragma unroll 1
+        for (int n = 0; n < kNodes; ++n) {
+          const float4* gr = reinterpret_cast<const float4*>(g + n * kGStride);
+          float y = 0.0f;
+#pragma unroll
+          for (int qq = 0; qq < kGStride / 4; ++qq) {
+            const float4 gq = gr[qq];
+            y = fmaf(gq.x, v[4 * qq], y);
+            y = fmaf(gq.y, v[4 * qq + 1], y);
+            y = fmaf(gq.z, v[4 * qq + 2], y);
+            y = fmaf(gq.w, v[4 * qq + 3], y);
+          }
+          const float rv = res != nullptr && r < valid
+                               ? res[(static_cast<size_t>(n) * pb.rows + b0 + r) * f + c]
+                               : 0.0f;
+          pp[n * l.plane + e] = epi(c, y, rv);
+        }
+      }
+    } else {
+      mix_tc(i, res, epi);
+    }
+    consumer_sync();
+  }
+
+  // bf16: a warp takes the 16-byte chunks warp, warp + 8, … (NT of them) of
+  // every row, a row at a time: for each chunk (8 positions) the node values
+  // through one ldmatrix.trans (rows of the nodes past 21: the zero row),
+  // Yᵀ = G·P with G's mma A fragments in registers; this lane's residual
+  // pairs of the next row are loaded before the current row's products.
+  template <typename Epi>
+  __device__ __forceinline__ void mix_tc(int i, const T* res, Epi epi) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    uint32_t ga[2][2][4];
+    load_mix_fragments(ga, reinterpret_cast<const bf16*>(pb.g[i]));
+    bf16* pp = reinterpret_cast<bf16*>(p());
+    const uint32_t row = lane < kNodes ? smem_u32(pp) + lane * l.plane * 2 : smem_u32(smem + kZeroOffset);
+    const uint32_t step = lane < kNodes ? 2 * kPStride : 0u;  // the zero row stays put
+    const int nl = lane >> 2, cl = 2 * (lane & 3);
+    // this lane's residual pairs of row r: chunks warp + 8u, nodes nl, nl + 8, nl + 16
+    auto residual = [&](int r, uint32_t (&v)[NT][3]) {
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int n = nl + 8 * k;
+          v[u][k] = 0u;
+          if (res != nullptr && r < valid && n < kNodes)
+            v[u][k] = *reinterpret_cast<const uint32_t*>(
+                res + (static_cast<size_t>(n) * pb.rows + b0 + r) * kF + (warp + 8 * u) * 8 + cl);
+        }
+    };
+    uint32_t cur[NT][3], next[NT][3];
+    residual(0, cur);
+    for (int r = 0; r < R; ++r) {
+      residual(r + 1, next);
+      float d[NT][2][4];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        uint32_t bm[4];
+        ldmatrix_x4_trans(bm, row + r * step + (lane < kNodes ? 16 * (warp + 8 * u) : 0));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[u][0][e] = d[u][1][e] = 0.0f;
+        mma_bf16(d[u][0], ga[0][0], bm[0], bm[1]);
+        mma_bf16(d[u][0], ga[0][1], bm[2], bm[3]);
+        mma_bf16(d[u][1], ga[1][0], bm[0], bm[1]);
+        mma_bf16(d[u][1], ga[1][1], bm[2], bm[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        const int c = (warp + 8 * u) * 8 + cl;
+        bf16* col = pp + r * kPStride + c;
+        const float y[3][2] = {{d[u][0][0], d[u][0][1]}, {d[u][0][2], d[u][0][3]},
+                               {d[u][1][0], d[u][1][1]}};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int n = nl + 8 * k;
+          if (n < kNodes) {
+            const float2 rv =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cur[u][k]));
+            *reinterpret_cast<uint32_t*>(col + n * l.plane) =
+                pack_bf16(epi(c, y[k][0], rv.x), epi(c + 1, y[k][1], rv.y));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cur[u][k] = next[u][k];
+      }
+    }
+  }
+
+  // The ResnetBlock on P with passes i and i + 1 (B1's body, and B9c's after
+  // its out-projection):
+  //   h   = round(tanh(FiLM(G_i·round(A·W_i + b_i))))
+  //   out = round(tanh(G_{i+1}·round(h·W_{i+1} + b_{i+1})) + res)   into P
+  // FiLM(y) = y·(scale + 1) + shift with FiLM's fp32 row, the product and the
+  // sum each rounded to fp32, as the plain version computes them.
+  __device__ void resnet_block(int i, const T* res) {
+    const float* fm = film();
+    const int f = width();
+    product(i);
+    mix(i, nullptr, [fm, f](int c, float y, float) {
+      return tanhf(__fadd_rn(__fmul_rn(y, fm[c]), fm[f + c]));
+    });
+    product(i + 1);
+    mix(i + 1, res, [](int, float y, float r) { return __fadd_rn(tanhf(y), r); });
+  }
+
+  // out [N, rows, f] ← P for the item's valid rows, 16-byte stores; ends
+  // with the consumers synchronised.
+  __device__ void store(T* out) {
+    constexpr int kVec = 16 / sizeof(T);
+    const int f = width(), per_row = f / kVec, ps = p_stride();
+    const T* pp = p();
+    for (int e = threadIdx.x; e < kNodes * R * per_row; e += kConsumers) {
+      const int v = e % per_row, r = e / per_row % R, n = e / (per_row * R);
+      if (r < valid)
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(n) * pb.rows + b0 + r) * f + v * kVec) =
+            *reinterpret_cast<const uint4*>(pp + n * l.plane + r * ps + v * kVec);
+    }
+    consumer_sync();
+  }
+};
+
+// Rows of a ResnetBlock item: P of 21 × 16 × 200 bf16 (fp32: × 8 × 196) is
+// 135 KB (132 KB); 32 rows would need 270 KB.
+template <typename T>
+struct BlockRows;
+template <>
+struct BlockRows<bf16> {
+  static constexpr int kRows = 16;  // the mma tile's M
+};
+template <>
+struct BlockRows<float> {
+  static constexpr int kRows = 8;
+};
+
+// Whether a launch's widths and tile plan are ones the kernels take: f a
+// multiple of 64 up to kMaxF, each pass's contraction width a multiple of
+// kslice (64 or 32), the type's rows, 2 to kMaxStages stages, the cluster,
+// and the shared memory block_layout computes.
+template <typename T>
+bool block_plan_ok(int f, const int* ks, int passes, int tile_rows, int kslice, int stages,
+                   int cluster, int smem_bytes) {
+  if (f <= 0 || f % 64 || f > kMaxF || tile_rows != BlockRows<T>::kRows ||
+      (kslice != 64 && kslice != 32) || stages < 2 || stages > kMaxStages || cluster != kCluster)
+    return false;
+  for (int i = 0; i < passes; ++i)
+    if (ks[i] <= 0 || ks[i] % kslice) return false;
+  return static_cast<size_t>(smem_bytes) ==
+         block_layout<T>(tile_rows, f, kslice, stages, passes).total;
+}
+
+// Runs every item of this block: body(item) is called by all consumer
+// threads together with each item's BlockItem (product, mix, store).
+template <typename T, int R, int NT, typename Body>
+__device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned char* smem,
+                                           Body body) {
+  const BlockLayout l = block_layout<T>(R, pb.f, pb.kslice, pb.stages, pb.passes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t rank = cluster_rank();
+  const int n_items = items(pb.rows, R, 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pb.stages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the producer's expect_tx and its lanes' cp.async arrivals
+      mbar_init(&empty[s], kConsumerWarps * kCluster);
+    }
+    *reinterpret_cast<uint4*>(smem + kZeroOffset) = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* film = reinterpret_cast<float*>(smem + l.film);
+  for (int c = threadIdx.x; c < pb.f; c += kThreads) {
+    film[c] = to_f(pb.film[c]) + 1.0f;
+    film[pb.f + c] = to_f(pb.film[pb.f + c]);
+  }
+  if constexpr (is_f32<T>()) {
+    float* gmix = reinterpret_cast<float*>(smem + l.gmix);
+    for (int e = threadIdx.x; e < pb.passes * kNodes * kGStride; e += kThreads) {
+      const int i = e / (kNodes * kGStride), n = e / kGStride % kNodes, m = e % kGStride;
+      gmix[e] = m < kNodes ? to_f(pb.g[i][n * kNodes + m]) : 0.0f;
+    }
+  }
+  cluster_sync();  // the peer's barriers exist before anything reaches them
+
+  if (warp == kConsumerWarps) {
+    produce_blocks<T, R>(pb, l, smem, full, empty, rank, n_items);
+  } else {
+    RingPos q;
+    for (int item = cluster_id(); item < n_items; item += cluster_count()) {
+      const int b0 = (item * kCluster + static_cast<int>(rank)) * R;
+      BlockItem<T, R, NT> it{pb, l, smem, full, empty, rank, q, b0, max(0, min(R, pb.rows - b0))};
+      body(it);
+    }
+  }
+  cluster_sync();  // no block leaves while its peer may still reach its memory
+}
+
+// launch(std::integral_constant<int, NT>) with the NT of width f: 0 in fp32,
+// f / 64 in bf16 (1 … kMaxNt, as block_plan_ok requires).
+template <typename T, typename Launch>
+cudaError_t with_nt(int f, Launch launch) {
+  if constexpr (is_f32<T>()) {
+    return launch(std::integral_constant<int, 0>{});
+  } else {
+    switch (f / 64) {
+      case 1: return launch(std::integral_constant<int, 1>{});
+      case 2: return launch(std::integral_constant<int, 2>{});
+      case 3: return launch(std::integral_constant<int, 3>{});
+      case 4: return launch(std::integral_constant<int, 4>{});
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

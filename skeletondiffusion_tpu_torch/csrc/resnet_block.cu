@@ -24,40 +24,51 @@
 // B1 moves ~210 MB against ~44 GFLOP on the tensor cores (0.063 ms against
 // 0.045 ms); B5a ~412 MB and ~79 GFLOP; B5b ~258 MB.
 //
-// What the design does about it: a block owns 16 rows (8 in fp32) of all 21
-// nodes (node_mix.cuh), so every activation crosses device memory once and
-// the intermediate h, the block output o and the concatenation x‖r never do:
-// x and r are staged side by side in shared memory as the product's one
-// input of width 2F, against the unsplit [2F, F] banks.  Between the two
-// products of a pass the tile stays in shared memory and each node's rows are
+// B1 runs on node_mix_sm90.cuh's engine (`run_blocks`, the ResnetBlock body
+// it shares with B9c in layer_fused.cu): items of 16 rows (fp32: 8) × all
+// 192 columns, the two blocks of a cluster on adjacent row tiles; per node
+// and k-slice of 64 bank rows (fp32: 32) a ring stage holds the k-slice of
+// the 16 input rows (cp.async) and of W1 or W2 (a bulk copy, half from each
+// block, multicast to both); mma.sync products from shared memory (the
+// second in place in P, its A read straight from P), the two node mixes on
+// the tensor cores with FiLM/tanh and tanh + residual in registers, x read
+// back for the residual, 16-byte stores.  Shared memory (bf16): P 21 × (16 ×
+// 400 + 16) B = 134 784, three stages of 2 304 + 24 576 B, FiLM's 1 536 B
+// and the barriers: 217 088 of 232 448 B; one block an SM.  Each weight byte
+// from L2 serves the cluster's 32 rows (16 before): 1.24 GB of weights a
+// call, 2.5 GB before.  A block's item takes ~210 000 cycles: the products
+// 60% (a tenth of it waiting on the ring; the mma.sync rate binds them), the
+// two mixes 35% (tanhf near half of it), the store 3% (PERF.md §6).
+//
+// B5a and B5b keep node_mix.cuh's design: a block owns 16 rows (8 in fp32)
+// of all 21 nodes, so every activation crosses device memory once and the
+// intermediate h, the block output o and the concatenation x‖r never do: x
+// and r are staged side by side in shared memory as the product's one input
+// of width 2F, against the unsplit [2F, F] banks.  Between the two products
+// of a pass the tile stays in shared memory and each node's rows are
 // restaged from it before its product overwrites them.
 
 #include "node_mix.cuh"
+#include "node_mix_sm90.cuh"
 
 namespace {
 
 using namespace nodemix;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
                     const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ g1,
                     const T* __restrict__ w2, const T* __restrict__ b2, const T* __restrict__ g2,
-                    T* __restrict__ out, int rows, int f) {
-  constexpr int R = RowTile<T>::kRows;
+                    T* __restrict__ out, int rows, int f, int kslice, int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, f, 2);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  float* g1s = sm.g;
-  float* g2s = sm.g + kNodes * kGStride;
-  load_influence(g1s, g1);
-  load_influence(g2s, g2);
-  load_film(sm.vec, film, f);
-
-  resnet_block_body(
-      sm, [&](int n, T* buf) { stage_rows(buf, f, 0, x + at(n, rows, b0, f, 0), f, valid); },
-      g1s, g2s, w1, b1, w2, b2, x, out, rows, b0, valid, f);
+  const sm90mix::BlockProblem<T> pb{{{x, w1, b1, f}, {nullptr, w2, b2, f}, {}},
+                                    {g1, g2, nullptr}, film, 2, rows, f, kslice, stages};
+  sm90mix::run_blocks<T, R, NT>(pb, smem_raw, [&](auto& it) {
+    it.resnet_block(0, x);
+    it.store(out);
+  });
 }
 
 template <typename T>
@@ -145,19 +156,26 @@ bool bad_shape(int n_nodes, int rows, int f) {
   return n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 != 0;
 }
 
+// The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
+// bytes) must be the one instantiated here; bf16 is instantiated for each
+// f = 64·NT the plan takes.
 template <typename T>
 int launch_block(const void* x, const void* film, const void* w1, const void* b1, const void* g1,
                  const void* w2, const void* b2, const void* g2, void* out, int n_nodes, int rows,
-                 int f, void* stream) {
-  if (bad_shape(n_nodes, rows, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, f, 2, 2 * f);
-  cudaError_t err = prepare(resnet_block_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  resnet_block_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(film), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(g1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<const T*>(g2), static_cast<T*>(out), rows, f);
-  return static_cast<int>(cudaGetLastError());
+                 int f, int tile_rows, int kslice, int stages, int cluster, int smem_bytes,
+                 void* stream) {
+  const int ks[2] = {f, f};
+  if (n_nodes != kNodes || rows <= 0 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 2, tile_rows, kslice, stages, cluster, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(
+        resnet_block_kernel<T, decltype(nt)::value>, sm90mix::items(rows, tile_rows, 1),
+        smem_bytes, cluster, stream, static_cast<const T*>(x), static_cast<const T*>(film),
+        static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(g1),
+        static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(g2),
+        static_cast<T*>(out), rows, f, kslice, stages);
+  }));
 }
 
 template <typename T>
@@ -200,17 +218,23 @@ int launch_out(const void* h, const void* res, const void* w2, const void* b2, c
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // shapes not instantiated.
 
-// x, out [·, rows, f]; w1, w2 [·, f, f].
+// x, out [·, rows, f]; w1, w2 [·, f, f] packed into one tile of all f
+// columns each, [·, 1, f·f] (ops/kernels/node_mix_sm90.py); the tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int resnet_block_bf16(const void* x, const void* film, const void* w1, const void* b1,
                                  const void* g1, const void* w2, const void* b2, const void* g2,
-                                 void* out, int n_nodes, int rows, int f, void* stream) {
+                                 void* out, int n_nodes, int rows, int f, int tile_rows,
+                                 int kslice, int stages, int cluster, int smem_bytes,
+                                 void* stream) {
   return launch_block<nodemix::bf16>(x, film, w1, b1, g1, w2, b2, g2, out, n_nodes, rows, f,
-                                     stream);
+                                     tile_rows, kslice, stages, cluster, smem_bytes, stream);
 }
 extern "C" int resnet_block_f32(const void* x, const void* film, const void* w1, const void* b1,
                                 const void* g1, const void* w2, const void* b2, const void* g2,
-                                void* out, int n_nodes, int rows, int f, void* stream) {
-  return launch_block<float>(x, film, w1, b1, g1, w2, b2, g2, out, n_nodes, rows, f, stream);
+                                void* out, int n_nodes, int rows, int f, int tile_rows, int kslice,
+                                int stages, int cluster, int smem_bytes, void* stream) {
+  return launch_block<float>(x, film, w1, b1, g1, w2, b2, g2, out, n_nodes, rows, f, tile_rows,
+                             kslice, stages, cluster, smem_bytes, stream);
 }
 
 // x, r, h_out, res_out [·, rows, f]; w1, wr [·, 2f, f] (rows 0:f act on x,

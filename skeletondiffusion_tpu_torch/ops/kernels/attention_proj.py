@@ -79,8 +79,8 @@ def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
     plan = rms_qkv_plan(x.dtype, f, fo)
     out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
-    node_mix_sm90.launch("attention_proj", "rms_qkv", tensors, shapes, ("groups", fo, plan.cols),
-                         plan, (n, rows, f, fo), out)
+    node_mix_sm90.launch("attention_proj", "rms_qkv", tensors, shapes,
+                         {"w_qkv": ("groups", fo, plan.cols)}, (n, rows, f, fo, *plan), out)
     launches_rms_qkv += 1
     return out
 

@@ -16,10 +16,12 @@ plain versions composed:
 Ports of ``skeletondiffusion_tpu/ops/pallas/layer_fused.py``
 (``stem_block_pallas``, ``rms_qkv_core_pallas``, ``outproj_block_pallas``)
 without the TPU's padding; the kernels are ``csrc/layer_fused.cu``.
-``rms_qkv_core`` runs on the engine of ``csrc/node_mix_sm90.cuh``: it takes
-W_qkv in the JAX layout and hands the kernel a packed copy, one tile of a
-head's q, k and v columns (``node_mix_sm90.pack_banks``, cached per bank),
-and the tile plan ``rms_qkv_core_plan``.
+``rms_qkv_core`` and ``outproj_block`` run on the engine of
+``csrc/node_mix_sm90.cuh``: they take the banks in the JAX layout and hand
+the kernel packed copies (``node_mix_sm90.pack_banks``, cached per bank: for
+``rms_qkv_core`` one tile of a head's q, k and v columns, for
+``outproj_block`` one tile of all F columns of W_out, W1 and W2) and the tile
+plan (``rms_qkv_core_plan``, ``outproj_block_plan``).
 """
 from __future__ import annotations
 
@@ -119,9 +121,17 @@ def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.
     out = torch.empty((n, rows, hd), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
     node_mix_sm90.launch("layer_fused", "rms_qkv_core", tensors, shapes,
-                         ("heads", heads, dim_head), plan, (n, rows, f, heads, dim_head), out)
+                         {"w_qkv": ("heads", heads, dim_head)},
+                         (n, rows, f, heads, dim_head, *plan), out)
     launches_rms_qkv_core += 1
     return out
+
+
+def outproj_block_plan(dtype: torch.dtype, hd: int, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the outproj_block kernel (out-projection hd → f, then
+    the block's two f → f products); raises for what the kernel does not
+    take."""
+    return node_mix_sm90.block_plan("outproj_block", dtype, f, (hd, f, f))
 
 
 def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
@@ -135,9 +145,13 @@ def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Ten
         return outproj_block_plain(**tensors)
     n, rows, hd = a.shape
     f = x.shape[-1]
+    plan = outproj_block_plan(x.dtype, hd, f)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n),
                   **_block_shapes(n, f))
     out = torch.empty_like(x)
-    _launch("outproj_block", tensors, shapes, (n, rows, hd, f), (out,))
+    whole = ("groups", f, f)  # one tile of all f columns a bank
+    node_mix_sm90.launch("layer_fused", "outproj_block", tensors, shapes,
+                         {"w_out": whole, "w1": whole, "w2": whole},
+                         (n, rows, hd, f, *plan), out)
     launches_outproj_block += 1
     return out

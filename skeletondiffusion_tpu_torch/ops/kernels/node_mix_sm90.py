@@ -1,8 +1,13 @@
-"""The host side of ``csrc/node_mix_sm90.cuh``, the RMSNorm → per-node
-product → node-mix engine of B3a (``attention_proj.rms_qkv``) and B9b
-(``layer_fused.rms_qkv_core``): the tile plan the kernels are launched with,
-and the weight banks packed into the contiguous tiles that one bulk copy
-brings into shared memory.
+"""The host side of ``csrc/node_mix_sm90.cuh``, the product-and-mix engine
+of B3a (``attention_proj.rms_qkv``), B9b (``layer_fused.rms_qkv_core``), B1
+(``resnet_block.resnet_block``) and B9c (``layer_fused.outproj_block``): the
+tile plans the kernels are launched with, and the weight banks packed into
+the contiguous tiles that one bulk copy brings into shared memory.
+
+B3a and B9b take items of a row tile × a column group (``plan``); B1 and
+B9c, whose second product contracts over all F columns of each node, items
+of a row tile × every column, their banks streamed in k-slices
+(``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
 kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
@@ -61,6 +66,60 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int) -> TileP
         raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} in {dtype} does not fit "
                          f"{MAX_SMEM} bytes of shared memory with two stages")
     return TilePlan(rows, cols, fits[-1], CLUSTER, plan_bytes(elem, rows, cols, f, fits[-1]))
+
+
+# rows of a ResnetBlock item, and the k-slices of its banks, widest first
+BLOCK_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+KSLICES = (64, 32)
+
+
+class BlockPlan(NamedTuple):
+    """Rows an item, bank rows a ring stage (the k-slice), ring stages,
+    blocks a cluster and dynamic shared-memory bytes of one ResnetBlock
+    launch."""
+    rows: int
+    kslice: int
+    stages: int
+    cluster: int
+    smem_bytes: int
+
+
+def block_plan_bytes(elem: int, rows: int, f: int, kslice: int, stages: int, mixes: int) -> int:
+    """Shared memory of one ResnetBlock block (``block_layout`` in
+    ``node_mix_sm90.cuh``): barriers and a zero row, the fp32 influences
+    (fp32 only), FiLM's fp32 scale + 1 and shift, ``stages`` × (a k-slice of
+    the input rows, rows padded by 16 bytes + a k-slice of the bank), the
+    products of all nodes (rows padded by 16 bytes, planes by PLANE_PAD)."""
+    pad = 16 // elem
+    g_mix = _up(4 * N_NODES * G_STRIDE * mixes) if elem == 4 else 0
+    stage = _up(rows * (kslice + pad) * elem) + _up(kslice * f * elem)
+    plane = rows * (f + pad) * elem + PLANE_PAD
+    return 128 + g_mix + _up(8 * f) + stages * stage + _up(N_NODES * plane)
+
+
+def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> BlockPlan:
+    """The plan of a kernel whose passes contract over ``ks`` into ``f``
+    columns: the widest k-slice that divides every width and fits two ring
+    stages beside the products, with as many stages (2 to 4) as fit; raises
+    ValueError for what the kernel does not take."""
+    build.element_suffix(kernel, dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    if f <= 0 or f % 64 or f > MAX_F:
+        raise ValueError(f"{kernel}: F={f} must be a positive multiple of 64 up to {MAX_F}")
+    if any(k <= 0 or k % KSLICES[-1] for k in ks):
+        raise ValueError(f"{kernel}: the contraction widths {ks} must be positive multiples of "
+                         f"{KSLICES[-1]}")
+    rows = BLOCK_ROWS[dtype]
+    for kslice in KSLICES:
+        if any(k % kslice for k in ks):
+            continue
+        fits = [s for s in range(2, MAX_STAGES + 1)
+                if block_plan_bytes(elem, rows, f, kslice, s, len(ks)) <= MAX_SMEM]
+        if fits:
+            return BlockPlan(rows, kslice, fits[-1], CLUSTER,
+                             block_plan_bytes(elem, rows, f, kslice, fits[-1], len(ks)))
+    raise ValueError(f"{kernel}: a {rows}-row tile at F={f} in {dtype} does not fit "
+                     f"{MAX_SMEM} bytes of shared memory with two stages")
 
 
 def group_columns(out: int, cols: int) -> torch.Tensor:
@@ -122,17 +181,17 @@ def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
 
 
 def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,
-           columns: Tuple, plan: TilePlan, ints: Tuple[int, ...], out: torch.Tensor) -> None:
-    """Check x, g_rms, w_qkv and g_qkv (``tensors``, in that order), pack
-    w_qkv's ``columns`` and launch ``<kernel>_<bf16|f32>`` of
-    ``csrc/<library>.cu`` on them, ``out``, ``ints`` and the plan; raises
-    unless the launch succeeded."""
+           banks: Dict[str, Tuple], ints: Tuple[int, ...], out: torch.Tensor) -> None:
+    """Check ``tensors``, pack each bank named in ``banks`` into the tiles of
+    its columns spec and launch ``<kernel>_<bf16|f32>`` of
+    ``csrc/<library>.cu`` on the tensors in their order, ``out`` and
+    ``ints`` (the widths, then the tile plan); raises unless the launch
+    succeeded."""
     dt = out.dtype
     suffix = build.element_suffix(kernel, dt)
     build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    packed = dict(tensors, w_qkv=pack_banks(tensors["w_qkv"], columns))
+    packed = {k: pack_banks(t, banks[k]) if k in banks else t for k, t in tensors.items()}
     build.check_aligned(kernel, 32, **packed)
-    ints = (*ints, *plan)
     status = build.c_entry(library, f"{kernel}_{suffix}", len(packed) + 1, len(ints))(
         *(t.data_ptr() for t in packed.values()), out.data_ptr(), *ints, build.stream_of(out))
     build.check_status(f"{kernel} at (nodes, rows, widths, plan)={ints}", status)

@@ -18,7 +18,10 @@ with FiLM(y) = y·(scale + 1) + shift in fp32 from the bf16 row.  Ports of
 ``skeletondiffusion_tpu/ops/pallas/resnet_block.py::resnet_block_pallas_padded``
 (``_resnet_kernel``) and ``final_block_head_pallas_padded``
 (``_rect_in_kernel``, ``_rect_out_head_kernel``) without the TPU's padding; the
-kernels are ``csrc/resnet_block.cu``.  The final block's [2F, F] banks stay
+kernels are ``csrc/resnet_block.cu``.  ``resnet_block`` runs on the engine of
+``csrc/node_mix_sm90.cuh``: it hands the kernel W1 and W2 packed into one
+tile of all F columns each (``node_mix_sm90.pack_banks``, cached per bank)
+and the tile plan ``resnet_block_plan``.  The final block's [2F, F] banks stay
 whole: rows :F act on x and F: on the long skip r, which the kernel stages
 side by side, so x‖r is never written out.
 """
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, node_mix_sm90
 from .graph_linear_fused import mix_plain, product_plain
 
 launches_block = 0
@@ -76,6 +79,12 @@ def _launch(kernel: str, tensors: dict, shapes: dict, ints: tuple, outs: tuple):
     build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
 
 
+def resnet_block_plan(dtype: torch.dtype, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the resnet_block kernel at width ``f``; raises for
+    what the kernel does not take."""
+    return node_mix_sm90.block_plan("resnet_block", dtype, f, (f, f))
+
+
 def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
     """x [N,B,F], film [2F], w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] →
     [N,B,F].  CPU tensors run ``resnet_block_plain``; CUDA tensors launch the
@@ -85,10 +94,13 @@ def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
     if build.kernel_device(**tensors) == "cpu":
         return resnet_block_plain(**tensors)
     n, rows, f = x.shape
+    plan = resnet_block_plan(x.dtype, f)
     shapes = dict(x=(n, rows, f), film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n),
                   w2=(n, f, f), b2=(n, f), g2=(n, n))
     out = torch.empty_like(x)
-    _launch("resnet_block", tensors, shapes, (n, rows, f), (out,))
+    whole = ("groups", f, f)  # one tile of all f columns a bank
+    node_mix_sm90.launch("resnet_block", "resnet_block", tensors, shapes,
+                         {"w1": whole, "w2": whole}, (n, rows, f, *plan), out)
     launches_block += 1
     return out
 
