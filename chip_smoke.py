@@ -12,8 +12,9 @@ Phases, each printed with its elapsed seconds:
               hidden 96, denoiser depth 4 × 8 heads × 32, 10 diffusion steps,
               observe 30, predict 120) is built from a seed; K1 and K2 run on
               inputs of the main path's shapes (batch 256 × 50 samples =
-              12 800 rows) and are compared with their plain versions and
-              timed;
+              12 800 rows; K1 also at 12 795 rows and at an odd number of its
+              tiles and clusters) and are compared with their plain versions
+              and timed;
 4. main     — the fp32 path: batch 256 × 50 samples through the predictor and
               the metric-space transform: predictions/s, launch counts per
               prediction, and the same prediction with injected noise against
@@ -23,10 +24,11 @@ Phases, each printed with its elapsed seconds:
               shapes in bf16 and in fp32 and at a ragged row count, against
               its plain version, timed beside its bound, its plain version and
               the one PyTorch call that computes its function, where there is
-              one (B1 and B3a also beside torch.bmm calls of their per-node
-              products alone, e.g. [21, 12 800, 192]·[21, 192, 768] for B3a:
-              the product stage's cuBLAS time, not the function; both also
-              at a row count with an odd number of their row tiles);
+              one (B1, B3a and B3b also beside torch.bmm calls of their
+              per-node products alone, e.g. [21, 12 800, 192]·[21, 192, 768]
+              for B3a: the product stage's cuBLAS time, not the function; all
+              three also at a row count with an odd number of their row
+              tiles);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
@@ -122,8 +124,9 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # B3a's and B9b's clusters take two adjacent row tiles (32 rows in bf16, 8 in
 # fp32); at this count both have an odd number of tiles (399 and 1 595), so
 # the last cluster's second block has no rows, and the bf16 tile before it
-# is ragged (24 rows).  B1's and B9c's counts come from their plans
-# (odd_tile_rows).
+# is ragged (24 rows).  K1's clusters take four 8-row tiles: 1 595 tiles in
+# 399 clusters, the last cluster's fourth block without rows.  B1's, B9c's
+# and B3b's counts come from their plans (odd_tile_rows).
 ODD_TILE_ROWS = 12_760
 # The bf16 kernel paths against their plain paths with injected noise: the
 # max |Δ| may reach this multiple of the bf16 path's max deviation from the
@@ -305,29 +308,45 @@ def rollout_inputs(predictor, gen: torch.Generator, compute_dtypes=(None,)) -> l
 
 
 def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
-    """K1 at the decode's shapes: cx [21, 12800, 288], 120 steps."""
+    """K1 at the decode's shapes: cx [21, 12800, 288], 120 steps, against its
+    plain version at 12 800 rows, a ragged 12 795 and ODD_TILE_ROWS (an odd
+    number of its 8-row tiles and of its 4-block clusters: the last cluster's
+    fourth block has no rows)."""
     inp, = rollout_inputs(predictor, gen)
+    rows = BATCH * SAMPLES
+    n, _, h3 = inp["cx"].shape
+    h, f = h3 // 3, inp["w_fc"].shape[-1]
+    plan = rollout_mod.rollout_plan(n, h)
+    resident = rollout_mod.resident_clusters(plan)
+    rounds = -(-rows // (plan.rows * plan.cluster * resident))
+    parts, err = [], 0.0
     with torch.no_grad():
-        got = rollout_mod.gru_rollout(**inp, ph=PRED_LEN)
-        want = rollout_mod.gru_rollout_plain(**inp, ph=PRED_LEN)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        per_step = (got - want).abs().amax(dim=(1, 2, 3))
+        for cut in (rows, rows - RAGGED, ODD_TILE_ROWS):
+            args = {k: v[:, :cut].contiguous() if k in ("cx", "h0") else v for k, v in inp.items()}
+            got = rollout_mod.gru_rollout(**args, ph=PRED_LEN)
+            want = rollout_mod.gru_rollout_plain(**args, ph=PRED_LEN)
+            torch.cuda.synchronize()
+            cut_err = (got - want).abs().max().item()
+            per_step = (got - want).abs().amax(dim=(1, 2, 3))
+            if cut == rows:
+                steps = sorted({0, PRED_LEN // 4, PRED_LEN // 2, PRED_LEN - 1})
+                parts.append(f"error at steps {[s + 1 for s in steps]}: "
+                             f"{[f'{per_step[s].item():.2e}' for s in steps]}")
+            parts.append(f"{cut} rows max {cut_err:.3e}")
+            if not (got.shape == want.shape and cut_err <= K1_TOL):
+                raise AssertionError(f"gru_rollout kernel disagrees with its plain version at "
+                                     f"{cut} rows: {cut_err}")
+            err = max(err, cut_err)
         ms = cuda_ms(lambda: rollout_mod.gru_rollout(**inp, ph=PRED_LEN), reps=3)
         plain_ms = cuda_ms(lambda: rollout_mod.gru_rollout_plain(**inp, ph=PRED_LEN), reps=2)
-    n, rows, h3 = inp["cx"].shape
-    h, f = h3 // 3, inp["w_fc"].shape[-1]
     # multiply-adds of the kernel's algorithm per row and step: the per-node
     # h·W_hh, one node mix for each of r and z, two for n, the head and its mix
     flops_row_step = 2 * n * h * 3 * h + 2 * n * n * h * 4 + 2 * n * h * f + 2 * n * n * f
-    compulsory = sum(t.numel() for t in inp.values()) + got.numel()
+    compulsory = sum(t.numel() for t in inp.values()) + PRED_LEN * n * rows * f
     bnd, by = bound_ms(4.0 * compulsory, float(flops_row_step) * rows * PRED_LEN)
-    steps = sorted({0, PRED_LEN // 4, PRED_LEN // 2, PRED_LEN - 1})
-    log(f"gru_rollout: max_abs_err {err:.3e} (tol {K1_TOL:.0e}); error at steps "
-        f"{[s + 1 for s in steps]}: {[f'{per_step[s].item():.2e}' for s in steps]}; "
+    log(f"gru_rollout: max_abs_err {err:.3e} (tol {K1_TOL:.0e}); {'; '.join(parts)}; plan "
+        f"{plan._asdict()}, {resident} clusters at once, {rounds} rounds at {rows} rows; "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.3f} ms ({by})")
-    if not err <= K1_TOL:
-        raise AssertionError(f"gru_rollout kernel disagrees with its plain version: {err}")
     return {"name": "gru_rollout", "route": "cuda",
             "source": "skeletondiffusion_tpu_torch/csrc/gru_rollout.cu",
             "replaces": "skeletondiffusion_tpu/ops/pallas/gru_rollout.py:377",
@@ -668,7 +687,10 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
             check_fused_kernel(
                 "outproj_res", proj_mod.outproj_res, proj_mod.outproj_res_plain,
                 [core, x, att["w_out"], att["g_out"]], replaces="attention_proj.py:143",
-                source="attention_proj.cu", tensor_flops=prod(hd, f) + mix(f)),
+                source="attention_proj.cu", tensor_flops=prod(hd, f) + mix(f),
+                products=products_only((core, att["w_out"])),
+                odd_rows=tuple(odd_tile_rows(proj_mod.outproj_res_plan(dt, hd, f).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "final_block_in", block_mod.final_block_in, block_mod.final_block_in_plain,
                 [x, r, film_f, fin["w1"], fin["b1"], fin["g1"], fin["wr"], fin["gr"]],

@@ -12,7 +12,8 @@ each layer of the prediction (past embedding, conditioning product, one
 denoiser forward, one posterior step, the whole sampler, the decode, the
 whole prediction), the device's busy share over one prediction from
 ``torch.profiler`` and its top device kernels; then the rollout kernel's
-time per block and step at 66, 132 and 1600 blocks.
+time per block and step at half and all of the clusters that fit on the
+card at once and at the bench batch (``rollout_scaling``).
 """
 from __future__ import annotations
 
@@ -87,24 +88,30 @@ def profile_prediction(predictor, obs: torch.Tensor, gen: torch.Generator) -> No
 
 
 def rollout_scaling(predictor, gen: torch.Generator) -> dict:
-    """The rollout kernel's time per step and block at 66 blocks (half the
-    132 SMs), 132 blocks (one block on every SM) and the bench batch: if the
-    per-block step time grows with the number of busy SMs, a shared
-    resource (L2, HBM) limits it; if it stays, each SM's own issue and
-    latency do."""
+    """The rollout kernel's time per step and block round at half the clusters
+    that fit on the card at once, all of them (one round each) and the bench
+    batch (its rounds of persistent clusters over the row tiles), with the
+    rows a block and blocks a cluster of the kernel's plan: if the time of a
+    round's step grows with the number of busy SMs, a shared resource (L2,
+    HBM) limits it; if it stays, each SM's own issue and latency do."""
     inp, = cs.rollout_inputs(predictor, gen)
-    rows_per_block = 8
-    out = {}
+    n, rows, h3 = inp["cx"].shape
+    plan = rollout_mod.rollout_plan(n, h3 // 3)
+    resident = rollout_mod.resident_clusters(plan)
+    rows_per_cluster = plan.rows * plan.cluster
+    out = {"plan": plan._asdict(), "resident_clusters": resident}
     with torch.no_grad():
-        for blocks in (66, 132, inp["h0"].shape[1] // rows_per_block):
-            rows = blocks * rows_per_block
-            sub = {k: (v[:, :rows].contiguous() if k in ("cx", "h0") else v)
+        for clusters in (resident // 2, resident, -(-rows // rows_per_cluster)):
+            cut = min(rows, clusters * rows_per_cluster)
+            sub = {k: (v[:, :cut].contiguous() if k in ("cx", "h0") else v)
                    for k, v in inp.items()}
             ms = cs.cuda_ms(lambda: rollout_mod.gru_rollout(**sub, ph=cs.PRED_LEN), reps=3)
-            waves = -(-blocks // 132)
-            out[blocks] = {"ms": ms, "us_per_block_step": 1e3 * ms / (waves * cs.PRED_LEN)}
-            print(f"rollout scaling: {blocks} blocks ({rows} rows): {ms:.3f} ms, "
-                  f"{out[blocks]['us_per_block_step']:.2f} µs per block and step")
+            rounds = -(-clusters // resident)
+            out[clusters] = {"rows": cut, "blocks": clusters * plan.cluster, "rounds": rounds,
+                             "ms": ms, "us_per_block_step": 1e3 * ms / (rounds * cs.PRED_LEN)}
+            print(f"rollout scaling: {clusters} clusters of {plan.cluster} × {plan.rows} rows "
+                  f"({cut} rows, {rounds} rounds of {resident} clusters): {ms:.3f} ms, "
+                  f"{out[clusters]['us_per_block_step']:.2f} µs per block and step")
     return out
 
 

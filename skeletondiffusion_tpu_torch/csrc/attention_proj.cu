@@ -13,7 +13,8 @@
 //
 // What bounds them on the H100: memory.  At N=21, B=12 800, F=192, hd=256 in
 // bf16, B3a moves ~516 MB against ~88 GFLOP (0.154 ms against 0.089 ms on
-// the tensor cores) and B3b ~344 MB.
+// the tensor cores) and B3b ~344 MB against ~55 GFLOP (0.103 ms against
+// 0.056 ms).
 //
 // B3a runs on node_mix_sm90.cuh's engine, as B9b (layer_fused.cu) does:
 // items of 32 rows × 96 of the 768 output columns (8 column groups; fp32:
@@ -31,13 +32,18 @@
 // normalising (39%: each row tile once per column group) and in the
 // products (36%), not waiting on loads (7%); 1.07 ms, 6.9× the bound
 // (PERF.md §6).
+//
+// B3b runs on the engine's whole-row items (`run_blocks`) with B9c's first
+// stage as its body (BlockItem::outproj_res): items of 16 rows (fp32: 8) ×
+// all 192 columns, the two blocks of a cluster on adjacent row tiles; per
+// node and k-slice of 64 bank rows (fp32: 32) a ring stage holds the k-slice
+// of the 16 rows of a (cp.async) and half of W_out's k-slice from each block,
+// multicast to both; mma.sync products into P, the tensor-core mix with the
+// residual x added in registers, 16-byte stores.  Shared memory (bf16): as
+// B1's, 217 088 B.  Each weight byte from L2 serves the cluster's 32 rows:
+// 0.83 GB of weights a call where the node_mix.cuh design, with each
+// 16-row block staging the whole W_out (2.06 MB) for itself, read 1.65 GB.
 
-// B3b keeps node_mix.cuh's design: a block owns 16 rows (8 in fp32) of all
-// 21 nodes, multiplies each node's staged rows on the tensor cores (wmma),
-// keeps the product tile in shared memory and mixes it one thread per
-// column.
-
-#include "node_mix.cuh"
 #include "node_mix_sm90.cuh"
 
 namespace {
@@ -70,28 +76,16 @@ rms_qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_rms, const T* __
       });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ g, T* __restrict__ out, int rows, int hd, int f) {
-  constexpr int R = RowTile<T>::kRows;
+                   const T* __restrict__ g, T* __restrict__ out, int rows, int hd, int f,
+                   int kslice, int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, hd, 1);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  load_influence(sm.g, g);
-
-  T* p = sm.p;
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, hd, 0, a + at(n, rows, b0, hd, 0), hd, valid); },
-      sm.s, hd, w, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) { p[(n * R + r) * f + c] = from_f<T>(acc); });
-  node_mix(p, f, f, sm.g, [&](int n, int r, int c, float y) {
-    if (r < valid) {
-      const size_t i = at(n, rows, b0 + r, f, c);
-      out[i] = from_f<T>(y + to_f(x[i]));
-    }
-  });
+  const sm90mix::BlockProblem<T> pb{{{a, w, nullptr, hd}, {}, {}}, {g, nullptr, nullptr},
+                                    nullptr, 1, rows, f, kslice, stages};
+  sm90mix::run_blocks<T, R, NT>(pb, smem_raw, [&](auto& it) { it.outproj_res(x, out); });
 }
 
 // The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
@@ -114,18 +108,24 @@ int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* 
       static_cast<const T*>(g), static_cast<T*>(out), rows, f, fo, groups, stages));
 }
 
+// The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
+// bytes) must be the one instantiated here; bf16 is instantiated for each
+// f = 64·NT the plan takes.
 template <typename T>
 int launch_outproj_res(const void* a, const void* x, const void* w, const void* g, void* out,
-                       int n_nodes, int rows, int hd, int f, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || hd <= 0 || hd % 32 || f <= 0 || f % 16)
+                       int n_nodes, int rows, int hd, int f, int tile_rows, int kslice,
+                       int stages, int cluster, int smem_bytes, void* stream) {
+  const int ks[1] = {hd};
+  if (n_nodes != kNodes || rows <= 0 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 1, tile_rows, kslice, stages, cluster, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, hd, 1, 0);
-  cudaError_t err = prepare(outproj_res_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  outproj_res_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(g), static_cast<T*>(out), rows, hd, f);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(outproj_res_kernel<T, decltype(nt)::value>,
+                           sm90mix::items(rows, tile_rows, 1), smem_bytes, cluster, stream,
+                           static_cast<const T*>(a), static_cast<const T*>(x),
+                           static_cast<const T*>(w), static_cast<const T*>(g),
+                           static_cast<T*>(out), rows, hd, f, kslice, stages);
+  }));
 }
 
 }  // namespace
@@ -150,12 +150,21 @@ extern "C" int rms_qkv_f32(const void* x, const void* g_rms, const void* w, cons
                                stages, cluster, smem_bytes, stream);
 }
 
-// a [n_nodes, rows, hd], x and out [n_nodes, rows, f], w [n_nodes, hd, f].
+// a [n_nodes, rows, hd], x and out [n_nodes, rows, f]; w is W_out [n_nodes,
+// hd, f] packed into one tile of all f columns, [n_nodes, 1, hd·f]
+// (ops/kernels/node_mix_sm90.py); the tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int outproj_res_bf16(const void* a, const void* x, const void* w, const void* g,
-                                void* out, int n_nodes, int rows, int hd, int f, void* stream) {
-  return launch_outproj_res<nodemix::bf16>(a, x, w, g, out, n_nodes, rows, hd, f, stream);
+                                void* out, int n_nodes, int rows, int hd, int f, int tile_rows,
+                                int kslice, int stages, int cluster, int smem_bytes,
+                                void* stream) {
+  return launch_outproj_res<nodemix::bf16>(a, x, w, g, out, n_nodes, rows, hd, f, tile_rows,
+                                           kslice, stages, cluster, smem_bytes, stream);
 }
 extern "C" int outproj_res_f32(const void* a, const void* x, const void* w, const void* g,
-                               void* out, int n_nodes, int rows, int hd, int f, void* stream) {
-  return launch_outproj_res<float>(a, x, w, g, out, n_nodes, rows, hd, f, stream);
+                               void* out, int n_nodes, int rows, int hd, int f, int tile_rows,
+                               int kslice, int stages, int cluster, int smem_bytes,
+                               void* stream) {
+  return launch_outproj_res<float>(a, x, w, g, out, n_nodes, rows, hd, f, tile_rows, kslice,
+                                   stages, cluster, smem_bytes, stream);
 }

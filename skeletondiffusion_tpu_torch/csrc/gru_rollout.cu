@@ -14,252 +14,527 @@
 //
 // What bounds it on the H100: operations.  At N=21, H=96, B=12800, ph=120 the
 // rollout does ~2.3 TFLOP of fp32 multiply-adds (the per-node h·W_hh products
-// are 77% of them) against ~0.8 GB of compulsory traffic, so it sits far
-// above the fp32 balance point of ~20 flops a byte.  The per-node products
-// are small (8 rows × 96 × 96 per node and gate per block), and every step
-// depends on the previous one.
+// are 77% of them, the four node mixes 22%) against ~0.8 GB of compulsory
+// traffic: 34.7 ms at 67 TFLOP/s.  Every step depends on the one before, and
+// fp32 state for more than 8 rows does not fit a block's shared memory
+// (h alone is 129 KB at 16 rows), so each block streams the whole W_hh bank
+// (2.32 MB) through its SM every step, and each weight element it holds
+// serves only 8 rows: the product reads a weight from shared memory per 8
+// FMAs, and the ring writes it there once, so the products are held near
+// both the FP32 pipes' and shared memory's rates at once.  The old design
+// (7 warps an SM, each loading its nodes' W_hh from L2 itself, cx loaded
+// inside the mixes) spent a block and step on: products 115 400 cycles
+// (44 600 of them waiting on those loads), mixes 82 200 (12 400 waiting on
+// cx), the output head 16 300 (PERF.md §6, PR 10).
 //
-// What the design does about it:
-// * The G mix couples the nodes of a row but the rows are independent, so one
-//   block owns 8 batch rows for all N nodes and runs the whole ph-step loop
-//   itself: no grid-wide synchronisation, and the hidden state, the current
-//   gate, the r gate and the evolving G never leave shared memory (197 KB of
-//   the 227 KB a block may use).  G_t is the same for every row; each block
-//   keeps its own copy.
-// * The h·W_hh product is register-tiled: a warp owns one node, a lane 3
-//   hidden columns × 8 rows, so each weight element is loaded once per block
-//   and step (coalesced, from L2: the 2.3 MB of W_hh stay cached) and used
-//   for 8 rows, and h is read as float4 shared-memory broadcasts.
-// * The gates are processed one at a time in the order r, n, z, so one gate
-//   buffer and one r/n buffer suffice; for r and z the mix is taken once over
-//   (cx + h·W_hh + b_hh), for n separately over cx and over h·W_hh + b_hh.
-// * cx is read from device memory once per step and gate (it is too large to
-//   keep on chip at 8 rows × 21 nodes × 288 gates per block).
+// Design:
+// * A block owns 8 batch rows and runs all ph steps; blocks come in clusters
+//   of 4 on adjacent row tiles, persistent over the tiles.  A block has three
+//   warpgroups: 8 consumer warps (232 registers a thread by setmaxnreg), a
+//   producer warp, a cx loader warp and two idle warps (40 registers).
+// * W_hh and W_fc reach shared memory through a ring of two 32 256-byte
+//   stages on mbarriers, filled by the producer: each block copies its
+//   quarter of a stage (cp.async.bulk) and multicasts it into all four
+//   blocks, so each weight byte read from L2 serves the cluster's 32 rows (8
+//   before).  A stage is 4 bank rows × 21 nodes × the 96 gate columns of a
+//   slice, from W_hh packed once by the wrapper
+//   (gru_rollout.py::pack_rollout_bank: [slice][k][node][r|z|n columns], the
+//   16-byte chunks of odd nodes swapped in halves so that the consumers'
+//   loads hit distinct banks), or W_fc as it is.  A stage costs ~550 cycles
+//   however large it is (up to 32 KB), so the stages are large and few.  No
+//   consumer loads a weight from device memory.
+// * A step runs the 96 hidden columns in 3 slices of 32.  For each slice 252
+//   consumer threads (12 a node, 8 rows × 8 gate columns each) sum h·W_hh
+//   over the ring in registers, a stage's weights loaded and the stage
+//   released before its FMAs; meanwhile the loader warp copies the slice's
+//   cx into P, the slice's gate buffer [node][r | z | n_h | n_x][8 rows][32]
+//   (cp.async, completing on an mbarrier), as soon as the previous mix has
+//   let go of P.  The products add b_hh (and the cx for r and z) into P.
+// * The mix takes a thread per (row, column) and all 21 nodes: the four
+//   areas' 21-term sums for every output node at once, input node by input
+//   node (G_t transposed in shared memory, each of its values for four
+//   sums), then the gate update with branch-free activations.  The new
+//   hidden state of the first two slices stays in the thread's registers
+//   until the last slice's products, which still read the old h, are done.
+// * The output head reads W_fc from the ring (a thread per (node, row)), its
+//   mix and the G update (a warp a row) close the step.
+// * The slice loop and the mix's node loop stay rolled: fully unrolled, a
+//   step was ~15 000 SASS instructions, too large for the instruction cache,
+//   and the kernel took 128.4 ms against 96.2 rolled (~4 200).
+//
+// Shared memory (bytes): barriers 128; ring 2 × 32 256; h [21][8][96 + 4]
+// fp32, 4 floats after each plane (rows and planes one bank quad on) 67 536; P
+// 21 × 4 × 8 × 32 fp32 86 016; G_tᵀ, G_add, G_fc rows padded to 24: 6 048;
+// total 224 240 of the 232 448 a block may have, one block an SM.
+//
+// Filling the card: 12 800 rows are 1 600 tiles, 400 items of 4 tiles; 30
+// clusters of 4 fit on the 132 SMs at this shared memory (120 blocks, as
+// cudaOccupancyMaxActiveClusters reports), so the items run in 14 rounds, the
+// last with 10 of 30 clusters busy (13.3 rounds' worth).  In clusters of 2
+// all 132 SMs would work (13 rounds) at 16 rows a weight byte from L2; a
+// round's step took the same time (PERF.md §6, PR 10).
 // The TPU kernel padded H to 128 lanes; here H stays at its real width.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "node_mix_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 8;    // batch rows per block
-constexpr int kWarps = 7;   // 21 nodes = 3 rounds of 7 warps in the weight product
-constexpr int kThreads = 32 * kWarps;
+using sm90mix::RingPos;
 
-template <int N, int H, int F>
+constexpr int kN = 21, kH = 96, kF = 3;
+constexpr int kRows = 8;                        // batch rows a block
+constexpr int kCluster = 4;                     // blocks a cluster, one multicast a stage
+constexpr int kSlice = 32;                      // hidden columns a slice
+constexpr int kSlices = kH / kSlice;            // 3
+constexpr int kGateCols = 3 * kSlice;           // a node's r|z|n columns of a slice
+constexpr int kKRows = 4;                       // bank rows a stage
+constexpr int kStageFloats = kKRows * kN * kGateCols;  // 8 064
+constexpr int kStageBytes = 4 * kStageFloats;          // 32 256
+constexpr int kFcBytes = 4 * kN * kH * kF;             // 24 192, W_fc in one stage
+constexpr int kKSteps = kH / kKRows;                   // stages a slice
+constexpr int kMaxRing = 6;                     // full/empty pairs before the cx barriers
+constexpr int kGRow = 24;                       // G rows padded to whole float4s
+constexpr int kHRow = kH + 4;                   // floats between rows of h: one bank quad on
+constexpr int kHPlane = kRows * kHRow + 4;      // floats between node planes of h
+constexpr int kArea = kRows * kSlice;           // 256: one gate area of a node's P
+constexpr int kPPlane = 4 * kArea;              // r, z, n_h, n_x
+constexpr int kNodeThreads = 12;                // product threads a node
+constexpr int kProdThreads = kN * kNodeThreads;  // 252
+constexpr int kConsumers = sm90mix::kConsumers;  // 256: 8 warps, two warpgroups
+constexpr int kThreads = kConsumers + 128;      // and a third warpgroup: producer, cx loader
+constexpr int kProducerWarp = 8, kLoaderWarp = 9;
+constexpr int kConsumerRegs = 232, kOtherRegs = 40;  // setmaxnreg: 256·232 + 128·40 = 384·168
+constexpr int kCxChunks = kN * 3 * kRows * (kSlice / 4);  // 16-byte chunks of a slice's cx
+static_assert(kConsumers == kRows * kSlice, "the mix takes a thread per (row, column)");
+static_assert(kGateCols == kNodeThreads * 8, "a product thread takes 8 gate columns");
+static_assert(kStageBytes % (16 * kCluster) == 0 && kFcBytes % (16 * kCluster) == 0,
+              "a block's quarter of a stage is whole 16-byte chunks");
+static_assert(kFcBytes <= kStageBytes, "W_fc fits one stage");
+static_assert(kConsumerRegs * kConsumers + kOtherRegs * 128 <= 168 * kThreads,
+              "the register split fits the launch's allocation");
+
+// Byte offsets of one block's shared memory; the wrapper's plan
+// (gru_rollout.py::rollout_plan) computes the same total.
 struct Layout {
-  static constexpr int NP = (N + 3) / 4 * 4;    // padded row stride of the N×N matrices
-  static constexpr int kState = N * kRows * H;  // floats of one [N][kRows][H] buffer
-  static constexpr int kFloats = 3 * kState + 3 * N * NP + N * kRows * F;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  size_t ring, h, p, g, total;
 };
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+__host__ __device__ constexpr Layout layout(int stages) {
+  Layout l{};
+  l.ring = 128;  // full[kMaxRing], empty[kMaxRing], cx_full, p_free
+  l.h = l.ring + static_cast<size_t>(stages) * kStageBytes;
+  l.p = l.h + sizeof(float) * kN * kHPlane;
+  l.g = l.p + sizeof(float) * kN * kPPlane;
+  l.total = l.g + sizeof(float) * 3 * kN * kGRow;
+  return l;
+}
 
-// p_s[m][r][j] = b_hh[m][gate·H + j] + sum_k h_s[m][r][k] · W_hh[m][k][gate·H + j]
-template <int N, int H>
-__device__ __forceinline__ void gate_product(const float* __restrict__ w_hh,
-                                             const float* __restrict__ b_hh, int gate,
-                                             const float* h_s, float* p_s) {
-  constexpr int Q = H / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int m = warp; m < N; m += kWarps) {
-    const float* w = w_hh + static_cast<size_t>(m) * H * 3 * H + gate * H + lane;
-    const float* hm = h_s + m * kRows * H;
-    float acc[kRows][Q];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int q = 0; q < Q; ++q) acc[r][q] = 0.0f;
-#pragma unroll 2
-    for (int k = 0; k < H; k += 4) {
-      float wv[4][Q];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int q = 0; q < Q; ++q) wv[kk][q] = __ldg(w + (k + kk) * 3 * H + 32 * q);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 hv = *reinterpret_cast<const float4*>(hm + r * H + k);
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          acc[r][q] = fmaf(hv.x, wv[0][q], acc[r][q]);
-          acc[r][q] = fmaf(hv.y, wv[1][q], acc[r][q]);
-          acc[r][q] = fmaf(hv.z, wv[2][q], acc[r][q]);
-          acc[r][q] = fmaf(hv.w, wv[3][q], acc[r][q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const float b = __ldg(b_hh + m * 3 * H + gate * H + lane + 32 * q);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p_s[(m * kRows + r) * H + lane + 32 * q] = acc[r][q] + b;
-    }
+// The gates' activations without branches (the library's division and
+// tanhf branch to slow paths, which keeps the compiler from interleaving the
+// 21 nodes' activations): 1/(1 + e^−x) and 1 − 2/(e^{2x} + 1), expf to
+// ~1 ulp, the quotients to ~2 ulp; both saturate at ±∞.
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + expf(-x)); }
+__device__ __forceinline__ float tanh_gate(float x) {
+  return 1.0f - __fdividef(2.0f, expf(2.0f * x) + 1.0f);
+}
+
+// The 16-byte chunk where the packed bank keeps chunk c of node m's row of a
+// stage (gru_rollout.py::pack_rollout_bank swaps the halves of odd nodes).
+__device__ __forceinline__ int chunk_at(int m, int c) { return c ^ ((m & 1) << 2); }
+
+template <int kRegs>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// mbar_wait for the producer and the cx loader, which wait most of the time
+// and share their SMs' schedulers with the consumers: they sleep between
+// polls.  A fault in the protocol traps after ~10 s instead of hanging.
+__device__ __forceinline__ void wait_idle(uint64_t* bar, uint32_t parity) {
+  for (long long i = 0; !sm90mix::mbar_try_wait(bar, parity); ++i) {
+    if (i > 150000000ll) __trap();
+    __nanosleep(64);
   }
 }
 
-// Mix gate GATE (0 = r, 1 = z, 2 = n) over the nodes and apply its update:
-//   r:  r_s = sigmoid(G·(cx_r + p))
-//   n:  r_s = tanh(G·cx_n + r_s · G·p)          (r_s holds r on entry)
-//   z:  h_s = n - n·z + z·h_s with z = sigmoid(G·(cx_z + p)), n = r_s
-template <int N, int H, int GATE>
-__device__ __forceinline__ void gate_mix(const float* __restrict__ cx, int batch, int row0,
-                                         const float* g_s, const float* p_s, float* r_s,
-                                         float* h_s) {
-  constexpr int NP = (N + 3) / 4 * 4;
-  for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
-    const int r = i / H, j = i % H, row = row0 + r;
-    float p[NP], c[NP];
+struct Block {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t rank;
+  int stages;
+  RingPos q;
+
+  __device__ __forceinline__ const float* wait_stage() {
+    sm90mix::mbar_wait(&full[q.s], q.phase);
+    return reinterpret_cast<const float*>(smem + 128 + static_cast<size_t>(q.s) * kStageBytes);
+  }
+  // the stage may be refilled once every block of the cluster is done with it
+  __device__ __forceinline__ void release_stage() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      sm90mix::mbar_arrive(&empty[q.s]);
 #pragma unroll
-    for (int m = 0; m < NP; ++m) {
-      p[m] = m < N ? p_s[m * kRows * H + i] : 0.0f;
-      c[m] = (m < N && row < batch)
-                 ? __ldg(cx + (static_cast<size_t>(m) * batch + row) * 3 * H + GATE * H + j)
-                 : 0.0f;
-      if (GATE != 2) p[m] += c[m];
+      for (uint32_t p = 1; p < kCluster; ++p)
+        sm90mix::mbar_arrive_peer(&empty[q.s], (rank + p) % kCluster);
     }
-    for (int n = 0; n < N; ++n) {
-      const float4* gr = reinterpret_cast<const float4*>(g_s + n * NP);
-      float hs = 0.0f, xs = 0.0f;
-#pragma unroll
-      for (int m4 = 0; m4 < NP / 4; ++m4) {
-        const float4 g = gr[m4];
-        hs = fmaf(g.x, p[4 * m4], hs);
-        hs = fmaf(g.y, p[4 * m4 + 1], hs);
-        hs = fmaf(g.z, p[4 * m4 + 2], hs);
-        hs = fmaf(g.w, p[4 * m4 + 3], hs);
-        if (GATE == 2) {
-          xs = fmaf(g.x, c[4 * m4], xs);
-          xs = fmaf(g.y, c[4 * m4 + 1], xs);
-          xs = fmaf(g.z, c[4 * m4 + 2], xs);
-          xs = fmaf(g.w, c[4 * m4 + 3], xs);
+    q.advance(stages);
+  }
+};
+
+// The producer: for every item, step and slice the 24 stages of W_hh, then
+// W_fc; this block's quarter of each, multicast into the whole cluster.
+__device__ __forceinline__ void produce(Block& b, const float* w_hh, const float* w_fc, int items,
+                                        int ph) {
+  constexpr uint16_t kAll = (1u << kCluster) - 1u;
+  constexpr uint32_t kPart = kStageBytes / kCluster, kFcPart = kFcBytes / kCluster;
+  const unsigned char* wb = reinterpret_cast<const unsigned char*>(w_hh);
+  const unsigned char* fb = reinterpret_cast<const unsigned char*>(w_fc);
+  for (int item = sm90mix::cluster_id(); item < items; item += sm90mix::cluster_count())
+    for (int t = 0; t < ph; ++t)
+      for (int i = 0; i <= kSlices * kKSteps; ++i, b.q.advance(b.stages)) {
+        const bool fc = i == kSlices * kKSteps;
+        wait_idle(&b.empty[b.q.s], b.q.phase ^ 1u);  // every block is done with it
+        unsigned char* st = b.smem + 128 + static_cast<size_t>(b.q.s) * kStageBytes;
+        const uint32_t part = fc ? kFcPart : kPart;
+        sm90mix::mbar_expect_tx(&b.full[b.q.s], part * kCluster);
+        const unsigned char* src = fc ? fb : wb + static_cast<size_t>(i) * kStageBytes;
+        sm90mix::bulk_load_multicast(st + b.rank * part, src + b.rank * part, part,
+                                     &b.full[b.q.s], kAll);
+      }
+}
+
+// The cx loader warp: once P is free (p_free), each slice's cx of the tile
+// into P's r, z and n_x areas (zeros past the last row), 16-byte cp.async
+// copies, each lane's arrival on cx_full once its copies land.
+__device__ __forceinline__ void load_cx(const float* cx, float* p_s, uint64_t* cx_full,
+                                        uint64_t* p_free, int batch, int items, int ph,
+                                        uint32_t rank) {
+  const int lane = threadIdx.x & 31;
+  uint32_t free_parity = 0;  // of p_free, which completes once a slice
+  for (int item = sm90mix::cluster_id(); item < items; item += sm90mix::cluster_count()) {
+    const int b0 = (item * kCluster + static_cast<int>(rank)) * kRows;
+    const int valid = max(0, min(kRows, batch - b0));
+    for (int t = 0; t < ph; ++t)
+      for (int J = 0; J < kSlices; ++J) {
+        wait_idle(p_free, free_parity);
+        free_parity ^= 1u;
+        for (int i = lane; i < kCxChunks; i += 32) {
+          const int c = i % (kSlice / 4), r = i / (kSlice / 4) % kRows;
+          const int a = i / (kSlice / 4 * kRows) % 3, m = i / (kSlice / 4 * kRows * 3);
+          const int row = min(b0 + r, batch - 1);
+          sm90mix::cp_async_16(
+              p_s + m * kPPlane + (a == 2 ? 3 : a) * kArea + r * kSlice + 4 * c,
+              cx + (static_cast<size_t>(m) * batch + row) * 3 * kH + a * kH + J * kSlice + 4 * c,
+              r < valid ? 16u : 0u);
         }
+        sm90mix::cp_async_arrive(cx_full);
       }
-      const int e = n * kRows * H + i;
-      if (GATE == 0) {
-        r_s[e] = sigmoid(hs);
-      } else if (GATE == 2) {
-        r_s[e] = tanhf(xs + r_s[e] * hs);
-      } else {
-        const float z = sigmoid(hs), cand = r_s[e];
-        h_s[e] = cand - cand * z + z * h_s[e];
-      }
-    }
   }
 }
 
-template <int N, int H, int F>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_rollout_kernel(const float* __restrict__ cx, const float* __restrict__ h0,
                    const float* __restrict__ w_hh, const float* __restrict__ b_hh,
                    const float* __restrict__ g0, const float* __restrict__ g_add,
                    const float* __restrict__ w_fc, const float* __restrict__ b_fc,
-                   const float* __restrict__ g_fc, float* __restrict__ out, int batch, int ph) {
-  static_assert(H % 32 == 0, "the weight product gives each lane H/32 columns");
-  using L = Layout<N, H, F>;
-  constexpr int NP = L::NP;
-  extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // [N][kRows][H] hidden state
-  float* p_s = h_s + L::kState;                  // [N][kRows][H] current gate's h·W_hh + b_hh
-  float* r_s = p_s + L::kState;                  // [N][kRows][H] r gate, then the candidate n
-  float* g_s = r_s + L::kState;                  // [N][NP] influence G_t
-  float* gadd_s = g_s + N * NP;                  // [N][NP] G_add
-  float* gfc_s = gadd_s + N * NP;                // [N][NP] G_fc
-  float* q_s = gfc_s + N * NP;                   // [N][kRows][F] output head before its mix
+                   const float* __restrict__ g_fc, float* __restrict__ out, int batch, int ph,
+                   int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout l = layout(stages);
+  float* h_s = reinterpret_cast<float*>(smem + l.h);
+  float* p_s = reinterpret_cast<float*>(smem + l.p);
+  float* g_s = reinterpret_cast<float*>(smem + l.g);  // G_tᵀ: [m][n]
+  float* gadd_s = g_s + kN * kGRow;
+  float* gfc_s = gadd_s + kN * kGRow;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* cx_full = bars + 2 * kMaxRing;
+  uint64_t* p_free = cx_full + 1;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  Block b{smem, bars, bars + kMaxRing, sm90mix::cluster_rank(), stages, RingPos{}};
+  const int tiles = (batch + kRows - 1) / kRows;
+  const int items = (tiles + kCluster - 1) / kCluster;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-
-  for (int i = tid; i < L::kState; i += kThreads) {
-    const int m = i / (kRows * H), r = (i / H) % kRows, k = i % H, row = row0 + r;
-    h_s[i] = row < batch ? h0[(static_cast<size_t>(m) * batch + row) * H + k] : 0.0f;
-  }
-  for (int i = tid; i < N * NP; i += kThreads) {
-    const int n = i / NP, m = i % NP;
-    g_s[i] = m < N ? g0[n * N + m] : 0.0f;
-    gadd_s[i] = m < N ? g_add[n * N + m] : 0.0f;
-    gfc_s[i] = m < N ? g_fc[n * N + m] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < ph; ++t) {
-    gate_product<N, H>(w_hh, b_hh, 0, h_s, p_s);
-    __syncthreads();
-    gate_mix<N, H, 0>(cx, batch, row0, g_s, p_s, r_s, h_s);
-    __syncthreads();
-    gate_product<N, H>(w_hh, b_hh, 2, h_s, p_s);
-    __syncthreads();
-    gate_mix<N, H, 2>(cx, batch, row0, g_s, p_s, r_s, h_s);
-    __syncthreads();
-    gate_product<N, H>(w_hh, b_hh, 1, h_s, p_s);
-    __syncthreads();
-    gate_mix<N, H, 1>(cx, batch, row0, g_s, p_s, r_s, h_s);  // h_s now holds h'
-    __syncthreads();
-
-    // output head before its mix: q_s[m][r][f] = b_fc[m][f] + h'[m][r]·W_fc[m][:, f]
-    for (int i = tid; i < N * kRows * F; i += kThreads) {
-      const int m = i / (kRows * F), r = (i / F) % kRows, f = i % F;
-      const float* hm = h_s + (m * kRows + r) * H;
-      const float* w = w_fc + static_cast<size_t>(m) * H * F + f;
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) acc = fmaf(hm[k], __ldg(w + k * F), acc);
-      q_s[i] = acc + __ldg(b_fc + m * F + f);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90mix::mbar_init(&b.full[s], 1);
+      sm90mix::mbar_init(&b.empty[s], sm90mix::kConsumerWarps * kCluster);
     }
-    // G_{t+1} = l1norm_rows(G_t + G_add), the row norm clipped at 1e-12
-    for (int n = tid; n < N; n += kThreads) {
-      float* g = g_s + n * NP;
-      const float* ga = gadd_s + n * NP;
-      float s = 0.0f;
-      for (int m = 0; m < N; ++m) s += fabsf(g[m] + ga[m]);
-      const float norm = fmaxf(s, 1e-12f);
-      for (int m = 0; m < N; ++m) g[m] = (g[m] + ga[m]) / norm;
-    }
-    __syncthreads();
-
-    // y_t = tanh(G_fc · q)
-    for (int i = tid; i < N * kRows * F; i += kThreads) {
-      const int n = i / (kRows * F), r = (i / F) % kRows, f = i % F, row = row0 + r;
-      float acc = 0.0f;
-      for (int m = 0; m < N; ++m) acc = fmaf(gfc_s[n * NP + m], q_s[(m * kRows + r) * F + f], acc);
-      if (row < batch) out[((static_cast<size_t>(t) * N + n) * batch + row) * F + f] = tanhf(acc);
-    }
-    // the next writes of q_s and g_s come after the next step's barriers
+    sm90mix::mbar_init(cx_full, 32);  // the loader lanes' cp.async arrivals
+    sm90mix::mbar_init(p_free, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  for (int i = tid; i < kN * kGRow; i += kThreads) {
+    const int n = i / kGRow, m = i % kGRow;
+    gadd_s[i] = m < kN ? g_add[n * kN + m] : 0.0f;
+    gfc_s[i] = m < kN ? g_fc[n * kN + m] : 0.0f;
+  }
+  sm90mix::cluster_sync();  // the peers' barriers exist before any copy reaches them
 
-template <int N, int H, int F>
-cudaError_t launch(const float* cx, const float* h0, const float* w_hh, const float* b_hh,
-                   const float* g0, const float* g_add, const float* w_fc, const float* b_fc,
-                   const float* g_fc, float* out, int batch, int ph, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<N, H, F>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(gru_rollout_kernel<N, H, F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((batch + kRows - 1) / kRows);
-  gru_rollout_kernel<N, H, F><<<grid, kThreads, bytes, stream>>>(
-      cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, out, batch, ph);
-  return cudaGetLastError();
+  if (warp >= sm90mix::kConsumerWarps) {
+    regs_dec<kOtherRegs>();
+    if (warp == kProducerWarp && (tid & 31) == 0) produce(b, w_hh, w_fc, items, ph);
+    if (warp == kLoaderWarp) load_cx(cx, p_s, cx_full, p_free, batch, items, ph, b.rank);
+    __syncwarp();
+  } else {
+    regs_inc<kConsumerRegs>();
+    // product threads: node pm, gate columns of chunks ps and ps + 12 of the slice
+    const int pm = tid / kNodeThreads, ps = tid % kNodeThreads;
+    const bool prod = tid < kProdThreads;
+    const float* hm = h_s + pm * kHPlane;
+    // mix threads: row mr, column mj of the slice
+    const int mr = warp, mj = tid & 31;
+    // head threads: node hm_, row hr of the output head (all F outputs)
+    const int hn_node = tid / kRows, hr = tid % kRows;
+    const bool head = tid < kN * kRows;
+    float bfc[kF];
+#pragma unroll
+    for (int f = 0; f < kF; ++f) bfc[f] = head ? b_fc[hn_node * kF + f] : 0.0f;
+    uint32_t cx_parity = 0;  // of cx_full, which completes once a slice
+
+    for (int item = sm90mix::cluster_id(); item < items; item += sm90mix::cluster_count()) {
+      const int b0 = (item * kCluster + static_cast<int>(b.rank)) * kRows;
+      const int valid = max(0, min(kRows, batch - b0));
+      for (int i = tid; i < kN * kRows * kH; i += kConsumers) {
+        const int m = i / (kRows * kH), r = i / kH % kRows, k = i % kH;
+        h_s[m * kHPlane + r * kHRow + k] =
+            r < valid ? h0[(static_cast<size_t>(m) * batch + b0 + r) * kH + k] : 0.0f;
+      }
+      for (int i = tid; i < kN * kGRow; i += kConsumers) {
+        const int m = i / kGRow, n = i % kGRow;
+        g_s[i] = n < kN ? g0[n * kN + m] : 0.0f;
+      }
+      sm90mix::consumer_sync();
+      if (tid == 0) sm90mix::mbar_arrive(p_free);  // the first slice's cx may come
+
+      for (int t = 0; t < ph; ++t) {
+        // h' of (row mr, column 32J + mj) of the two earlier slices, older
+        // and newer; the slice loop stays rolled (the code of an unrolled
+        // step outgrew the instruction cache)
+        float h_old[kN], h_new[kN];
+        static_assert(kSlices == 3, "two earlier slices are held");
+#pragma unroll 1
+        for (int J = 0; J < kSlices; ++J) {
+          // P[pm] = h·W_hh for this thread's 8 rows × 8 columns; a stage's
+          // weights go to registers and the stage is released before the FMAs
+          float acc[kRows][8];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+#pragma unroll 1
+          for (int ks = 0; ks < kKSteps; ++ks) {
+            const float* st = b.wait_stage();
+            float4 w[kKRows][2];
+#pragma unroll
+            for (int kk = 0; kk < kKRows; ++kk)
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                w[kk][u] = prod ? *reinterpret_cast<const float4*>(
+                                      st + kk * kN * kGateCols + pm * kGateCols +
+                                      4 * chunk_at(pm, ps + 12 * u))
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            b.release_stage();
+            if (prod) {
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                const float4 hv = *reinterpret_cast<const float4*>(hm + r * kHRow + ks * kKRows);
+                const float hk[kKRows] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+                for (int kk = 0; kk < kKRows; ++kk)
+#pragma unroll
+                  for (int u = 0; u < 2; ++u) {
+                    acc[r][4 * u] = fmaf(hk[kk], w[kk][u].x, acc[r][4 * u]);
+                    acc[r][4 * u + 1] = fmaf(hk[kk], w[kk][u].y, acc[r][4 * u + 1]);
+                    acc[r][4 * u + 2] = fmaf(hk[kk], w[kk][u].z, acc[r][4 * u + 2]);
+                    acc[r][4 * u + 3] = fmaf(hk[kk], w[kk][u].w, acc[r][4 * u + 3]);
+                  }
+              }
+            }
+          }
+          sm90mix::mbar_wait(cx_full, cx_parity);  // the slice's cx is in P
+          cx_parity ^= 1u;
+          if (prod) {  // P += b_hh (+ the cx there for r and z)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int col = 4 * (ps + 12 * u), a = col / kSlice;
+              const float4 bias = *reinterpret_cast<const float4*>(
+                  b_hh + pm * 3 * kH + a * kH + J * kSlice + col % kSlice);
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                float4* d = reinterpret_cast<float4*>(p_s + pm * kPPlane + a * kArea + r * kSlice +
+                                                      col % kSlice);
+                float4 v = make_float4(acc[r][4 * u] + bias.x, acc[r][4 * u + 1] + bias.y,
+                                       acc[r][4 * u + 2] + bias.z, acc[r][4 * u + 3] + bias.w);
+                if (a < 2) {  // r and z: mixed once over cx + h·W_hh + b_hh
+                  const float4 c = *d;
+                  v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
+                }
+                *d = v;  // n: its h part into the n_h area
+              }
+            }
+          }
+          sm90mix::consumer_sync();
+          // The mix of (row mr, column mj) over the nodes: all 21 output nodes
+          // of the four areas at once, input node by input node (G's column m
+          // from G_tᵀ in shared memory, each value for four sums): 84
+          // independent sums, each in node order; then the gate update.
+          {
+            float y[4][kN];
+#pragma unroll
+            for (int n = 0; n < kN; ++n) y[0][n] = y[1][n] = y[2][n] = y[3][n] = 0.0f;
+#pragma unroll 7
+            for (int m = 0; m < kN; ++m) {
+              float v[4];
+#pragma unroll
+              for (int a = 0; a < 4; ++a) v[a] = p_s[m * kPPlane + a * kArea + tid];
+              const float4* gc = reinterpret_cast<const float4*>(g_s + m * kGRow);
+#pragma unroll
+              for (int q4 = 0; q4 < kGRow / 4; ++q4) {
+                const float4 g4 = gc[q4];
+                const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int n = 4 * q4 + e;
+                  if (n < kN) {
+#pragma unroll
+                    for (int a = 0; a < 4; ++a) y[a][n] = fmaf(gv[e], v[a], y[a][n]);
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int n = 0; n < kN; ++n) {
+              const float rg = sigmoid(y[0][n]), zg = sigmoid(y[1][n]);
+              const float ng = tanh_gate(y[3][n] + rg * y[2][n]);
+              float* hp = h_s + n * kHPlane + mr * kHRow + J * kSlice + mj;
+              const float hnew = ng - ng * zg + zg * *hp;
+              // the last slice's products are done: its h' goes to h at once
+              if (J == kSlices - 1) {
+                *hp = hnew;
+              } else {
+                h_old[n] = h_new[n];
+                h_new[n] = hnew;
+              }
+            }
+          }
+          sm90mix::consumer_sync();
+          // P is free for the next slice's cx (after the last slice, once the
+          // output head is done with it)
+          if (J < kSlices - 1 && tid == 0) sm90mix::mbar_arrive(p_free);
+        }
+        // every product of the step has read h: h ← h'
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          h_s[n * kHPlane + mr * kHRow + mj] = h_old[n];
+          h_s[n * kHPlane + mr * kHRow + kSlice + mj] = h_new[n];
+        }
+        sm90mix::consumer_sync();
+
+        // the output head before its mix, q[m][r][:] = b_fc + h'[m][r]·W_fc[m]
+        // (W_fc [m][k][f] from the ring), a thread per (node, row)
+        const float* wf = b.wait_stage();
+        float* q_s = p_s;  // [N][rows][F]; P is free until the next slice's cx
+        if (head) {
+          // four bank rows at a time: h's float4 and W_fc's 12 values as 3 float4
+          const float* hrow = h_s + hn_node * kHPlane + hr * kHRow;
+          const float4* w4 = reinterpret_cast<const float4*>(wf + hn_node * kH * kF);
+          float qa[kF] = {bfc[0], bfc[1], bfc[2]};
+          float qb[kF] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+          for (int k4 = 0; k4 < kH / 4; ++k4) {
+            const float4 hv = *reinterpret_cast<const float4*>(hrow + 4 * k4);
+            const float4 a = w4[3 * k4], c = w4[3 * k4 + 1], e = w4[3 * k4 + 2];
+            // [k][f] flattened: a = (k0f0 k0f1 k0f2 k1f0), c = (k1f1 k1f2 k2f0 k2f1),
+            // e = (k2f2 k3f0 k3f1 k3f2)
+            qa[0] = fmaf(hv.x, a.x, qa[0]);
+            qa[1] = fmaf(hv.x, a.y, qa[1]);
+            qa[2] = fmaf(hv.x, a.z, qa[2]);
+            qb[0] = fmaf(hv.y, a.w, qb[0]);
+            qb[1] = fmaf(hv.y, c.x, qb[1]);
+            qb[2] = fmaf(hv.y, c.y, qb[2]);
+            qa[0] = fmaf(hv.z, c.z, qa[0]);
+            qa[1] = fmaf(hv.z, c.w, qa[1]);
+            qa[2] = fmaf(hv.z, e.x, qa[2]);
+            qb[0] = fmaf(hv.w, e.y, qb[0]);
+            qb[1] = fmaf(hv.w, e.z, qb[1]);
+            qb[2] = fmaf(hv.w, e.w, qb[2]);
+          }
+#pragma unroll
+          for (int f = 0; f < kF; ++f) q_s[(hn_node * kRows + hr) * kF + f] = qa[f] + qb[f];
+        }
+        b.release_stage();
+        sm90mix::consumer_sync();
+        // y_t = tanh(G_fc·q), two items (node, row, output) a thread
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = tid + kConsumers * u;
+          if (e < kN * kRows * kF) {
+            const int n = e / (kRows * kF), r = e / kF % kRows, f = e % kF;
+            float acc = 0.0f;
+#pragma unroll
+            for (int m = 0; m < kN; ++m)
+              acc = fmaf(gfc_s[n * kGRow + m], q_s[(m * kRows + r) * kF + f], acc);
+            if (r < valid)
+              out[((static_cast<size_t>(t) * kN + n) * batch + b0 + r) * kF + f] = tanhf(acc);
+          }
+        }
+        // G_{t+1} = l1norm_rows(G_t + G_add), the row norm clipped at 1e-12:
+        // a warp a row n, a lane an entry m (G_t transposed in g_s)
+        for (int n = warp; n < kN; n += sm90mix::kConsumerWarps) {
+          const int m = tid & 31;
+          const float v = m < kN ? g_s[m * kGRow + n] + gadd_s[n * kGRow + m] : 0.0f;
+          float s = fabsf(v);
+#pragma unroll
+          for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (m < kN) g_s[m * kGRow + n] = v / fmaxf(s, 1e-12f);
+        }
+        sm90mix::consumer_sync();  // q and G_t are read before P and G change
+        if (t + 1 < ph && tid == 0) sm90mix::mbar_arrive(p_free);
+      }
+    }
+  }
+  sm90mix::cluster_sync();  // no block leaves while its peers may still reach its memory
 }
 
 }  // namespace
 
-// Shapes as in the header comment, all float32 and contiguous.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes the
-// library does not instantiate).
+// cx [N, batch, 3H], h0 [N, batch, H], b_hh [N, 3H], g0, g_add, g_fc [N, N],
+// w_fc [N, H, F], b_fc [N, F], out [ph, N, batch, F], all float32 and
+// contiguous, the banks 16-byte aligned; w_hh is W_hh [N, H, 3H] packed by
+// gru_rollout.py::pack_rollout_bank, and tile_rows, slice, stages, cluster and
+// smem_bytes the plan of gru_rollout.py::rollout_plan.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
+// and plans the library does not instantiate.
 extern "C" int gru_rollout_f32(const float* cx, const float* h0, const float* w_hh,
                                const float* b_hh, const float* g0, const float* g_add,
                                const float* w_fc, const float* b_fc, const float* g_fc,
                                float* out, int n_nodes, int batch, int hidden, int f_out, int ph,
+                               int tile_rows, int slice, int stages, int cluster, int smem_bytes,
                                void* stream) {
-  if (batch <= 0 || ph <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_nodes == 21 && hidden == 96 && f_out == 3) {
-    return static_cast<int>(
-        launch<21, 96, 3>(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, out, batch, ph, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n_nodes != kN || hidden != kH || f_out != kF || batch <= 0 || ph <= 0 ||
+      tile_rows != kRows || slice != kSlice || cluster != kCluster || stages < 2 ||
+      stages > kMaxRing || static_cast<size_t>(smem_bytes) != layout(stages).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = ((batch + kRows - 1) / kRows + kCluster - 1) / kCluster;
+  return static_cast<int>(sm90mix::launch<kThreads>(gru_rollout_kernel, items, smem_bytes,
+                                                    kCluster, stream, cx, h0, w_hh, b_hh, g0,
+                                                    g_add, w_fc, b_fc, g_fc, out, batch, ph,
+                                                    stages));
+}
+
+// The clusters of the kernel that fit on the card at once under the plan of
+// gru_rollout.py::rollout_plan (stages, smem_bytes), into *clusters; returns
+// the query's cudaError (the stream is not used).
+extern "C" int gru_rollout_f32_clusters(int* clusters, int stages, int smem_bytes, void*) {
+  if (stages < 2 || stages > kMaxRing || static_cast<size_t>(smem_bytes) != layout(stages).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  return static_cast<int>(sm90mix::resident_clusters<kThreads>(gru_rollout_kernel, smem_bytes,
+                                                               kCluster, cfg, attr, clusters));
 }

@@ -130,10 +130,9 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
       {{a, wo, nullptr, hd}, {nullptr, w1, b1, f}, {nullptr, w2, b2, f}}, {go, g1, g2}, film, 3,
       rows, f, kslice, stages};
   sm90mix::run_blocks<T, R, NT>(pb, smem_raw, [&](auto& it) {
-    it.product(0);  // P = round(a·W_out)
-    // o = round(G_out·P + x): P, the block's input, and out, its residual
-    it.mix(0, x, [](int, float y, float res) { return __fadd_rn(y, res); });
-    it.store(out);
+    // o = round(G_out·round(a·W_out) + x) (B3b's body): in P, the block's
+    // input, and in out, its residual
+    it.outproj_res(x, out);
     // each element of o in out is read before the barrier that ends the
     // block's last mix, and overwritten after it
     it.resnet_block(1, out);

@@ -1,5 +1,5 @@
-// Shared device routines of the fused denoiser's kernels B3b, B4, B5a, B5b
-// and B9a for NVIDIA Hopper (sm_90a); B1, B3a, B9b and B9c run on
+// Shared device routines of the fused denoiser's kernels B4, B5a, B5b and
+// B9a for NVIDIA Hopper (sm_90a); B1, B3a, B3b, B9b and B9c run on
 // node_mix_sm90.cuh (B9a still runs resnet_block_body below, the ResnetBlock
 // body B1 and B9c ran before they moved).
 //

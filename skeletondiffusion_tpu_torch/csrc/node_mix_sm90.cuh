@@ -6,8 +6,10 @@
 //   attention_proj.cu) and B9b (rms_qkv_core, layer_fused.cu);
 // * a row tile × every column (`run_blocks`, below `store_tile`): up to
 //   three per-node products, each followed by a node mix, with P in shared
-//   memory from the first product to the last mix: the ResnetBlock, B1
-//   (resnet_block, resnet_block.cu) and B9c (outproj_block, layer_fused.cu).
+//   memory from the first product to the last mix: the attention layer's
+//   out-projection, B3b (outproj_res, attention_proj.cu), the ResnetBlock, B1
+//   (resnet_block, resnet_block.cu), and both, B9c (outproj_block,
+//   layer_fused.cu).
 //
 // Both share the roles, the ring of bulk copies on mbarriers, the two-block
 // clusters with multicast weight tiles, the mma.sync products through
@@ -180,14 +182,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// bytes from device memory into the same offset of both blocks' shared
-// memory of the cluster, completing on the barrier at `bar`'s offset in each.
-__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
-                                                    uint64_t* bar) {
+// bytes from device memory into the same offset of the shared memory of the
+// cluster's blocks in `mask` (by default both of a two-block cluster),
+// completing on the barrier at `bar`'s offset in each.
+__device__ __forceinline__ void bulk_load_multicast(
+    void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+    uint16_t mask = static_cast<uint16_t>((1u << kCluster) - 1u)) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
       "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(static_cast<uint16_t>((1u << kCluster) - 1u))
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -198,6 +202,11 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+
+// Wait until this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // One arrival on `bar` once this thread's earlier cp.async copies have
@@ -761,7 +770,8 @@ struct BlockPass {
 };
 
 // What one launch works on: the passes, the influence of each pass's mix
-// [N, N], FiLM's scale‖shift [2f], rows and widths, the plan.
+// [N, N], FiLM's scale‖shift [2f] (nullptr for a kernel without FiLM), rows
+// and widths, the plan.
 template <typename T>
 struct BlockProblem {
   BlockPass<T> pass[kMaxPasses];
@@ -1106,6 +1116,15 @@ struct BlockItem {
     mix(i + 1, res, [](int, float y, float r) { return __fadd_rn(tanhf(y), r); });
   }
 
+  // The attention layer's out-projection with its residual on pass 0 (B3b's
+  // body, and B9c's first stage):
+  //   out = round(G_0·round(A·W_0) + res)   into P, then into out
+  __device__ void outproj_res(const T* res, T* out) {
+    product(0);
+    mix(0, res, [](int, float y, float r) { return __fadd_rn(y, r); });
+    store(out);
+  }
+
   // out [N, rows, f] ← P for the item's valid rows, 16-byte stores; ends
   // with the consumers synchronised.
   __device__ void store(T* out) {
@@ -1172,7 +1191,7 @@ __device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned c
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   float* film = reinterpret_cast<float*>(smem + l.film);
-  for (int c = threadIdx.x; c < pb.f; c += kThreads) {
+  for (int c = threadIdx.x; pb.film != nullptr && c < pb.f; c += kThreads) {
     film[c] = to_f(pb.film[c]) + 1.0f;
     film[pb.f + c] = to_f(pb.film[pb.f + c]);
   }
@@ -1215,33 +1234,47 @@ cudaError_t with_nt(int f, Launch launch) {
   }
 }
 
-// Launch `kernel` on a persistent grid of clusters of `cluster` blocks (as
-// many as fit on the card at once, at most one an item) with `smem` bytes of
-// dynamic shared memory; returns the launch's error.
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), int items, size_t smem, int cluster, void* stream,
-                   Args... args) {
-  if (smem > static_cast<size_t>(kMaxSmem) || cluster != kCluster || items < 1)
-    return cudaErrorInvalidValue;
+// The launch configuration of `kernel` in clusters of `cluster` blocks of
+// `Threads` threads with `smem` bytes of dynamic shared memory, and how many
+// of those clusters fit on the card at once (in *clusters).
+template <int Threads, typename Kernel>
+cudaError_t resident_clusters(Kernel kernel, size_t smem, int cluster, cudaLaunchConfig_t& cfg,
+                              cudaLaunchAttribute& attr, int* clusters) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
+  cfg = {};
+  cfg.blockDim = dim3(Threads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
   cfg.numAttrs = 1;
   cfg.gridDim = dim3(cluster);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  *clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kernel), &cfg);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  return *clusters < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Launch `kernel` on a persistent grid of clusters of `cluster` blocks (as
+// many as fit on the card at once, at most one an item) with `smem` bytes of
+// dynamic shared memory and `Threads` threads a block; returns the launch's
+// error.  The product-and-mix kernels run clusters of kCluster blocks of
+// kThreads, the rollout (gru_rollout.cu) clusters of 4 of its own size.
+template <int Threads = kThreads, typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int items, size_t smem, int cluster, void* stream,
+                   Args... args) {
+  if (smem > static_cast<size_t>(kMaxSmem) || (cluster != kCluster && cluster != 4) || items < 1)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err = resident_clusters<Threads>(kernel, smem, cluster, cfg, attr, &clusters);
+  if (err != cudaSuccess) return err;
+  cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.gridDim = dim3((items < clusters ? items : clusters) * cluster);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;

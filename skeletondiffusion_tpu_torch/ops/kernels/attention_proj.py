@@ -12,10 +12,12 @@ materialise:
 ``g_rms`` [F] is the RMSNorm gain with √F folded in.  Ports of
 ``skeletondiffusion_tpu/ops/pallas/attention_proj.py::rms_qkv_pallas`` and
 ``::outproj_res_pallas`` without the TPU's padding; the kernels are
-``csrc/attention_proj.cu``.  ``rms_qkv`` runs on the engine of
-``csrc/node_mix_sm90.cuh``: it takes W_qkv in the JAX layout and hands the
-kernel a packed copy (``node_mix_sm90.pack_banks``, cached per bank) and
-the tile plan ``rms_qkv_plan``.
+``csrc/attention_proj.cu``.  Both run on the engine of
+``csrc/node_mix_sm90.cuh``: they take the banks in the JAX layout and hand
+the kernel a packed copy (``node_mix_sm90.pack_banks``, cached per bank: for
+``rms_qkv`` tiles of 96 columns of W_qkv, for ``outproj_res`` one tile of all
+F columns of W_out) and the tile plan (``rms_qkv_plan``,
+``outproj_res_plan``).
 """
 from __future__ import annotations
 
@@ -42,17 +44,6 @@ def rms_qkv_plain(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
 def outproj_res_plain(a, x, w_out, g_out) -> torch.Tensor:
     dt = x.dtype
     return (mix_plain(g_out, product_plain(a, w_out).to(dt)) + x.float()).to(dt)
-
-
-def _launch(kernel: str, tensors: dict, shapes: dict, out: torch.Tensor, ints: tuple) -> None:
-    dt = out.dtype
-    suffix = build.element_suffix(kernel, dt)
-    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    build.check_aligned(kernel, 32, **tensors)
-    ptrs = [t.data_ptr() for t in tensors.values()] + [out.data_ptr()]
-    status = build.c_entry("attention_proj", f"{kernel}_{suffix}", len(ptrs), len(ints))(
-        *ptrs, *ints, build.stream_of(out))
-    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
 
 
 def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int) -> node_mix_sm90.TilePlan:
@@ -85,6 +76,12 @@ def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
     return out
 
 
+def outproj_res_plan(dtype: torch.dtype, hd: int, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the outproj_res kernel (the out-projection hd → f);
+    raises for what the kernel does not take."""
+    return node_mix_sm90.block_plan("outproj_res", dtype, f, (hd,))
+
+
 def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
     """a [N,B,hd], x [N,B,F], w_out [N,hd,F], g_out [N,N] → [N,B,F].  CPU
     tensors run ``outproj_res_plain``; CUDA tensors launch the kernel or
@@ -95,8 +92,12 @@ def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
         return outproj_res_plain(**tensors)
     n, rows, hd = a.shape
     f = x.shape[-1]
+    if n != node_mix_sm90.N_NODES:
+        raise ValueError(f"outproj_res: the kernel takes {node_mix_sm90.N_NODES} nodes, got {n}")
+    plan = outproj_res_plan(x.dtype, hd, f)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n))
     out = torch.empty_like(x)
-    _launch("outproj_res", tensors, shapes, out, (n, rows, hd, f))
+    node_mix_sm90.launch("attention_proj", "outproj_res", tensors, shapes,
+                         {"w_out": ("groups", f, f)}, (n, rows, hd, f, *plan), out)
     launches_outproj_res += 1
     return out

@@ -10,7 +10,9 @@ The decoder unrolls ``ph`` graph-GRU steps with a constant input whose gates
 Port of ``skeletondiffusion_tpu/ops/pallas/gru_rollout.py::gru_rollout_pallas``
 without the TPU's 128-lane padding, in its two forms:
 
-* fp32 (``_rollout_kernel``): the kernel is ``csrc/gru_rollout.cu``; the plain
+* fp32 (``_rollout_kernel``): the kernel is ``csrc/gru_rollout.cu``, which
+  streams W_hh through shared memory from a copy packed once per bank
+  (``pack_rollout_bank``) and is launched with ``rollout_plan``; the plain
   version is the step loop of ``ops/graph_gru.py``;
 * ``compute_dtype=torch.bfloat16`` (``_rollout_kernel_merged``, the
   merged-gate kernel): bf16 operands for every product and mix, fp32 carries
@@ -23,16 +25,98 @@ state (``rollout_args``), then one rollout in either dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..graph_gru import graph_gru_step
 from ..graph_linear import gmix_nm, gmm_nm, l1_normalize_rows
-from . import build
+from . import build, node_mix_sm90
 
 launches = 0
 launches_bf16 = 0
+
+# The fp32 kernel's tiling (csrc/gru_rollout.cu): rows a block, hidden columns
+# a slice, bank rows a ring stage, blocks a cluster (each weight byte read from
+# L2 serves 32 rows).
+ROLLOUT_ROWS = 8
+ROLLOUT_SLICE = 32
+ROLLOUT_K_ROWS = 4
+ROLLOUT_CLUSTER = 4
+ROLLOUT_MAX_STAGES = 6   # mbarrier pairs the kernel reserves
+H_ROW_PAD = 4            # floats after each row of h
+H_PLANE_PAD = 4          # floats after each node's plane of h
+G_ROW = 24               # influence rows padded to whole float4s
+
+
+class RolloutPlan(NamedTuple):
+    """Rows a block, hidden columns a slice, ring stages, blocks a cluster
+    and dynamic shared-memory bytes of one fp32 rollout launch."""
+    rows: int
+    slice: int
+    stages: int
+    cluster: int
+    smem_bytes: int
+
+
+def rollout_plan_bytes(n: int, h: int, stages: int) -> int:
+    """Shared memory of one block (``layout`` in ``csrc/gru_rollout.cu``):
+    barriers, ``stages`` ring stages of ``ROLLOUT_K_ROWS`` bank rows × n
+    nodes × the 3·slice gate columns of a slice, h [n][rows·(h + pad) + pad], the
+    slice's gate buffer [n][4 areas][rows][slice] and G_t, G_add, G_fc."""
+    stage = 4 * ROLLOUT_K_ROWS * n * 3 * ROLLOUT_SLICE
+    h_bytes = 4 * n * (ROLLOUT_ROWS * (h + H_ROW_PAD) + H_PLANE_PAD)
+    p_bytes = 4 * n * 4 * ROLLOUT_ROWS * ROLLOUT_SLICE
+    return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * G_ROW
+
+
+def rollout_plan(n: int, h: int) -> RolloutPlan:
+    """The fp32 rollout's plan at n nodes and hidden width h: as many ring
+    stages as fit (at most ROLLOUT_MAX_STAGES).  The kernel is built for 21
+    nodes, h = 96 and 3 outputs and refuses other shapes itself."""
+    fits = [s for s in range(2, ROLLOUT_MAX_STAGES + 1)
+            if rollout_plan_bytes(n, h, s) <= node_mix_sm90.MAX_SMEM]
+    stages = fits[-1] if fits else 2
+    return RolloutPlan(ROLLOUT_ROWS, ROLLOUT_SLICE, stages, ROLLOUT_CLUSTER,
+                       rollout_plan_bytes(n, h, stages))
+
+
+def resident_clusters(plan: RolloutPlan) -> int:
+    """How many of the fp32 rollout kernel's clusters fit on the card at once
+    under ``plan`` (the blocks of one round are that × ``plan.cluster``); needs
+    a CUDA device."""
+    clusters = ctypes.c_int(0)
+    status = build.c_entry("gru_rollout", "gru_rollout_f32_clusters", 1, 2)(
+        ctypes.addressof(clusters), plan.stages, plan.smem_bytes, None)
+    build.check_status(f"gru_rollout's occupancy query at plan {tuple(plan)}", status)
+    return clusters.value
+
+
+def _pack_rollout(w_hh: torch.Tensor) -> torch.Tensor:
+    n, h, h3 = w_hh.shape
+    s = ROLLOUT_SLICE
+    # [slice J][k][node][gate a][column c] = W_hh[node][k][a·h + J·s + c]
+    t = w_hh.reshape(n, h, 3, h // s, s).permute(3, 1, 0, 2, 4).reshape(h // s, h, n, 3 * s // 4, 4)
+    # the halves of each odd node's row of 16-byte chunks swapped in groups of 8
+    chunk = torch.arange(3 * s // 4)
+    swap = torch.stack([chunk, chunk ^ 4]).to(w_hh.device)  # [parity][position] → chunk
+    t = torch.stack([t[:, :, m, swap[m % 2]] for m in range(n)], dim=2)
+    return t.contiguous().reshape(h // s, h * n * 3 * s)
+
+
+def pack_rollout_bank(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [N, H, 3H] → [H/slice, H·N·3·slice]: for each slice of
+    ROLLOUT_SLICE hidden columns, bank rows k in order, each the N nodes' r, z
+    and n columns of the slice, so that ROLLOUT_K_ROWS consecutive rows are
+    one contiguous ring stage; in node m's row the 16-byte chunk c lies at
+    chunk c ^ 4 for odd m (the kernel's loads then hit distinct banks).
+    Cached per bank (``node_mix_sm90.cached_pack``)."""
+    n, h, h3 = w_hh.shape
+    if h % ROLLOUT_SLICE or h3 != 3 * h:
+        raise ValueError(f"gru_rollout: W_hh of shape {tuple(w_hh.shape)} is not [N, H, 3H] "
+                         f"with H a multiple of {ROLLOUT_SLICE}")
+    return node_mix_sm90.cached_pack(w_hh, ("rollout", ROLLOUT_SLICE), _pack_rollout)
 
 
 def gru_rollout_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *, ph: int) -> torch.Tensor:
@@ -118,10 +202,20 @@ def gru_rollout(
     if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
         raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
-    ptrs = [t.data_ptr() for t in tensors.values()]
-    entry = (build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 5) if merged
-             else build.c_entry("gru_rollout", "gru_rollout_f32", 10, 5))
-    status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, build.stream_of(cx))
+    if merged:
+        ptrs = [t.data_ptr() for t in tensors.values()]
+        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 5)
+        status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, build.stream_of(cx))
+    else:
+        # the bank packed into ring stages (the kernel takes H = 96 only and
+        # refuses other widths), the output head's bank as it is
+        if h % ROLLOUT_SLICE == 0:
+            tensors["w_hh"] = pack_rollout_bank(w_hh)
+        build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], w_fc=w_fc, b_hh=b_hh)
+        ptrs = [t.data_ptr() for t in tensors.values()]
+        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10)
+        status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, *rollout_plan(n, h),
+                       build.stream_of(cx))
     build.check_status(f"{kernel} at (nodes, hidden, outputs)={(n, h, f)}", status)
     if merged:
         launches_bf16 += 1

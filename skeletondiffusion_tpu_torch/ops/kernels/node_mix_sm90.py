@@ -1,20 +1,22 @@
 """The host side of ``csrc/node_mix_sm90.cuh``, the product-and-mix engine
 of B3a (``attention_proj.rms_qkv``), B9b (``layer_fused.rms_qkv_core``), B1
-(``resnet_block.resnet_block``) and B9c (``layer_fused.outproj_block``): the
-tile plans the kernels are launched with, and the weight banks packed into
-the contiguous tiles that one bulk copy brings into shared memory.
+(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``) and B3b
+(``attention_proj.outproj_res``): the tile plans the kernels are launched
+with, and the weight banks packed into the contiguous tiles that one bulk
+copy brings into shared memory (``cached_pack`` also keeps the decode
+rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
 
-B3a and B9b take items of a row tile × a column group (``plan``); B1 and
-B9c, whose second product contracts over all F columns of each node, items
-of a row tile × every column, their banks streamed in k-slices
-(``block_plan``).
+B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c
+and B3b, whose products contract over all input columns of each node into
+all F output columns, items of a row tile × every column, their banks
+streamed in k-slices (``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
 kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -140,28 +142,34 @@ def head_columns(heads: int, dim_head: int) -> torch.Tensor:
 
 COLUMNS = {"groups": group_columns, "heads": head_columns}
 
-# (id, version, data pointer, shape, dtype, device, columns) → (bank, packed):
+# (id, version, data pointer, shape, dtype, device, spec) → (bank, packed):
 # the bank is held so that its id and storage are not reused while cached
 _PACKED: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 _PACKED_MAX = 64
 
 
-def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
-    """Per-node banks w [N, F, out] → [N, G, F·C] tiles, one contiguous tile
-    per node and group of the columns ``COLUMNS[columns[0]](*columns[1:])``
-    [G, C] (−1: a zero column): for bf16 in the tensor cores' canonical
-    K-major layout (8 × 8 core matrices, [F/8][C/8][8 columns][8 k]), for
-    fp32 row-major [F][C].
-
-    Cached for the bank as it is (its identity and version counter), so a
-    caller that keeps its weights packs them once."""
+def cached_pack(w: torch.Tensor, spec: Tuple, pack: Callable[[torch.Tensor], torch.Tensor]
+                ) -> torch.Tensor:
+    """``pack(w)``, cached for the bank as it is (its identity and version
+    counter) and ``spec``, the packing's name and arguments: a caller that
+    keeps its weights packs them once.  Inference tensors, which keep no
+    version counter, are packed at every call."""
     try:
         version = w._version
     except RuntimeError:  # inference tensors keep no version counter
         version = None
-    key = (id(w), version, w.data_ptr(), tuple(w.shape), w.dtype, w.device, columns)
+    key = (id(w), version, w.data_ptr(), tuple(w.shape), w.dtype, w.device, spec)
     if version is not None and key in _PACKED:
         return _PACKED[key][1]
+    packed = pack(w)
+    if version is not None:
+        if len(_PACKED) >= _PACKED_MAX:
+            _PACKED.pop(next(iter(_PACKED)))
+        _PACKED[key] = (w, packed)
+    return packed
+
+
+def _pack_tiles(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
     idx = COLUMNS[columns[0]](*columns[1:])
     n, f, out = w.shape
     g, c = idx.shape
@@ -169,15 +177,18 @@ def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
     idx = torch.where(idx < 0, out, idx).to(w.device)
     t = padded[:, :, idx.reshape(-1)].reshape(n, f, g, c)
     if w.dtype == torch.float32:
-        packed = t.permute(0, 2, 1, 3).contiguous().reshape(n, g, f * c)
-    else:
-        packed = (t.reshape(n, f // 8, 8, g, c // 8, 8).permute(0, 3, 1, 4, 5, 2)
-                  .contiguous().reshape(n, g, f * c))
-    if version is not None:
-        if len(_PACKED) >= _PACKED_MAX:
-            _PACKED.pop(next(iter(_PACKED)))
-        _PACKED[key] = (w, packed)
-    return packed
+        return t.permute(0, 2, 1, 3).contiguous().reshape(n, g, f * c)
+    return (t.reshape(n, f // 8, 8, g, c // 8, 8).permute(0, 3, 1, 4, 5, 2)
+            .contiguous().reshape(n, g, f * c))
+
+
+def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
+    """Per-node banks w [N, F, out] → [N, G, F·C] tiles, one contiguous tile
+    per node and group of the columns ``COLUMNS[columns[0]](*columns[1:])``
+    [G, C] (−1: a zero column): for bf16 in the tensor cores' canonical
+    K-major layout (8 × 8 core matrices, [F/8][C/8][8 columns][8 k]), for
+    fp32 row-major [F][C].  Cached per bank (``cached_pack``)."""
+    return cached_pack(w, ("tiles", columns), lambda t: _pack_tiles(t, columns))
 
 
 def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,

@@ -1,9 +1,9 @@
-"""The host side of B1 (``resnet_block``) and B9c (``outproj_block``) on the
-engine of ``csrc/node_mix_sm90.cuh``: their tile plans, the packed banks the
-ring streams in k-slices, and the wrappers' refusals.  The kernels' walk over
-row tiles and two-block clusters runs only on the card, where
-``chip_smoke.py`` holds both against their plain versions at an even, a
-ragged and an odd number of row tiles.
+"""The host side of B1 (``resnet_block``), B9c (``outproj_block``) and B3b
+(``outproj_res``) on the whole-row items of ``csrc/node_mix_sm90.cuh``:
+their tile plans, the packed banks the ring streams in k-slices, and the
+wrappers' refusals.  The kernels' walk over row tiles and two-block clusters
+runs only on the card, where ``chip_smoke.py`` holds all three against their
+plain versions at an even, a ragged and an odd number of row tiles.
 
 Widths: the bench's (F 192, the attention's 8 heads × 32 = 256).
 """
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from skeletondiffusion_tpu_torch.ops.kernels import build, layer_fused, resnet_block
+from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, layer_fused, resnet_block
 from skeletondiffusion_tpu_torch.ops.kernels import node_mix_sm90 as engine
 
 N, F, HD = 21, 192, 256
@@ -43,6 +43,10 @@ def _plans():
                                             (HD, F, F)),
         ("outproj_block", torch.float32): (layer_fused.outproj_block_plan(torch.float32, HD, F),
                                            (HD, F, F)),
+        ("outproj_res", torch.bfloat16): (attention_proj.outproj_res_plan(torch.bfloat16, HD, F),
+                                          (HD,)),
+        ("outproj_res", torch.float32): (attention_proj.outproj_res_plan(torch.float32, HD, F),
+                                         (HD,)),
     }
 
 
@@ -53,13 +57,17 @@ def test_bench_plans_are_the_documented_ones():
         ("resnet_block", torch.float32): (8, 32, 3, 2, 215040),
         ("outproj_block", torch.bfloat16): (16, 64, 3, 2, 217088),
         ("outproj_block", torch.float32): (8, 32, 3, 2, 217088),
+        ("outproj_res", torch.bfloat16): (16, 64, 3, 2, 217088),
+        ("outproj_res", torch.float32): (8, 32, 3, 2, 212992),
     }
 
 
 @pytest.mark.parametrize("kernel, dtype", [("resnet_block", torch.bfloat16),
                                            ("resnet_block", torch.float32),
                                            ("outproj_block", torch.bfloat16),
-                                           ("outproj_block", torch.float32)])
+                                           ("outproj_block", torch.float32),
+                                           ("outproj_res", torch.bfloat16),
+                                           ("outproj_res", torch.float32)])
 def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     plan, ks = _plans()[(kernel, dtype)]
     elem = torch.empty((), dtype=dtype).element_size()
@@ -84,15 +92,20 @@ def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     (lambda: resnet_block.resnet_block_plan(torch.float32, 256), "does not fit"),
     (lambda: layer_fused.outproj_block_plan(torch.bfloat16, 48, F), "multiples of 32"),
     (lambda: layer_fused.outproj_block_plan(torch.float32, 0, F), "multiples of 32"),
-], ids=["f96", "f320", "f32-f256", "hd48", "hd0"])
+    (lambda: attention_proj.outproj_res_plan(torch.bfloat16, 48, F), "multiples of 32"),
+    (lambda: attention_proj.outproj_res_plan(torch.float32, HD, 160), "multiple of 64"),
+], ids=["f96", "f320", "f32-f256", "hd48", "hd0", "outproj_res-hd48", "outproj_res-f160"])
 def test_block_plans_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
 
 
-def test_block_plans_refuse_other_element_types():
+@pytest.mark.parametrize("plan", [lambda dt: resnet_block.resnet_block_plan(dt, F),
+                                  lambda dt: attention_proj.outproj_res_plan(dt, HD, F)],
+                         ids=["resnet_block", "outproj_res"])
+def test_block_plans_refuse_other_element_types(plan):
     with pytest.raises(TypeError, match="built for bfloat16 and float32"):
-        resnet_block.resnet_block_plan(torch.float16, F)
+        plan(torch.float16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -137,10 +150,13 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
                           lambda: layer_fused.outproj_block(z(N, rows, hd), z(N, rows, f),
                                                             z(2 * f), z(N, hd, f), z(N, N),
                                                             *block)),
+        "outproj_res": (attention_proj, "launches_outproj_res",
+                        lambda: attention_proj.outproj_res(z(N, rows, hd), z(N, rows, f),
+                                                           z(N, hd, f), z(N, N))),
     }
 
 
-@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block"])
+@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res"])
 @pytest.mark.parametrize("widths, match", [(dict(f=96), "multiple of 64"),
                                            (dict(f=320), "up to 256"),
                                            (dict(hd=48), "multiples of 32")],
@@ -160,8 +176,20 @@ def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kern
     assert getattr(module, counter) == before
 
 
+def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
+    """B3b's kernel takes 21 nodes; the wrapper refuses others before it
+    names a C entry, and counts no launch."""
+    monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
+    monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
+    before = attention_proj.launches_outproj_res
+    with pytest.raises(ValueError, match="takes 21 nodes, got 20"):
+        attention_proj.outproj_res(z(20, 4, HD), z(20, 4, F), z(20, HD, F), z(20, 20))
+    assert attention_proj.launches_outproj_res == before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block"])
+@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res"])
 def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel, dtype):
     """The C entry gets the packed tiles of the banks (the cached ones), the
     other tensors as they are, and the widths followed by the plan."""
@@ -187,6 +215,12 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
             dtype, F)
         banks, widths = {2: block[0], 5: block[3]}, (N, rows, F)
         fn = resnet_block.resnet_block
+    elif kernel == "outproj_res":
+        args = [r(N, rows, HD), r(N, rows, F), r(N, HD, F), r(N, N)]
+        module, counter, plan = attention_proj, "launches_outproj_res", \
+            attention_proj.outproj_res_plan(dtype, HD, F)
+        banks, widths = {2: args[2]}, (N, rows, HD, F)
+        fn = attention_proj.outproj_res
     else:
         args = [r(N, rows, HD), r(N, rows, F), r(2 * F), r(N, HD, F), r(N, N)] + block
         module, counter, plan = layer_fused, "launches_outproj_block", \
@@ -198,8 +232,8 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
     assert getattr(module, counter) == before + 1
     (library, symbol, pointers, ints), = calls
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
-    assert (library, symbol) == ({"resnet_block": "resnet_block",
-                                  "outproj_block": "layer_fused"}[kernel], f"{kernel}_{suffix}")
+    assert (library, symbol) == ({"resnet_block": "resnet_block", "outproj_block": "layer_fused",
+                                  "outproj_res": "attention_proj"}[kernel], f"{kernel}_{suffix}")
     assert ints == (*widths, *plan)
     want = [engine.pack_banks(a, WHOLE).data_ptr() if i in banks else a.data_ptr()
             for i, a in enumerate(args)] + [out.data_ptr()]
