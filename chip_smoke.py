@@ -24,11 +24,11 @@ Phases, each printed with its elapsed seconds:
               shapes in bf16 and in fp32 and at a ragged row count, against
               its plain version, timed beside its bound, its plain version and
               the one PyTorch call that computes its function, where there is
-              one (B1, B3a and B3b also beside torch.bmm calls of their
-              per-node products alone, e.g. [21, 12 800, 192]·[21, 192, 768]
-              for B3a: the product stage's cuBLAS time, not the function; all
-              three also at a row count with an odd number of their row
-              tiles);
+              one (B1, B3a, B3b, B5a and B5b also beside torch.bmm calls of
+              their per-node products alone, e.g. [21, 12 800, 192]·[21, 192,
+              768] for B3a: the product stage's cuBLAS time, not the
+              function; all five also at a row count with an odd number of
+              their row tiles);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
@@ -125,8 +125,8 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # fp32); at this count both have an odd number of tiles (399 and 1 595), so
 # the last cluster's second block has no rows, and the bf16 tile before it
 # is ragged (24 rows).  K1's clusters take four 8-row tiles: 1 595 tiles in
-# 399 clusters, the last cluster's fourth block without rows.  B1's, B9c's
-# and B3b's counts come from their plans (odd_tile_rows).
+# 399 clusters, the last cluster's fourth block without rows.  B1's, B9c's,
+# B3b's, B5a's and B5b's counts come from their plans (odd_tile_rows).
 ODD_TILE_ROWS = 12_760
 # The bf16 kernel paths against their plain paths with injected noise: the
 # max |Δ| may reach this multiple of the bf16 path's max deviation from the
@@ -616,8 +616,9 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
 def products_only(*pairs):
     """One torch.bmm for each (x, w) of ``pairs``, the per-node products
     [N, B, K]·[N, K, F] in bf16 of a kernel alone (B3a and B9b: h·W_qkv; B1:
-    x·W1, h·W2; B9c: a·W_out, o·W1, h·W2): the cuBLAS time of its product
-    stage, a yardstick the port never calls."""
+    x·W1, h·W2; B9c: a·W_out, o·W1, h·W2; B5a: x‖r·W1, x‖r·Wr; B5b: h·W2,
+    o·Wh): the cuBLAS time of its product stage, a yardstick the port never
+    calls."""
     return lambda: [torch.bmm(x, w) for x, w in pairs]
 
 
@@ -649,6 +650,9 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
         core = attn_mod.attention_core(qkv, heads=heads, dim_head=dh)
         h, res = block_mod.final_block_in(x, r, film_f, fin["w1"], fin["b1"], fin["g1"],
                                           fin["wr"], fin["gr"])
+        xr = torch.cat([x, r], dim=-1)  # B5a's contraction input, for its products-only bmm
+        o = (torch.tanh(stem_mod.mix_plain(fin["g2"], stem_mod.product_plain(
+            h, fin["w2"], fin["b2"]).to(bf16))) + res.float()).to(bf16)  # B5b's head input
         x0 = rnd(n, rows, d, scale=1.5)
         xt, eps = (torch.randn((n, rows, d), generator=gen, device="cuda") for _ in range(2))
         m_t = diff.step_tables[TIMESTEPS // 2]
@@ -695,12 +699,18 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 "final_block_in", block_mod.final_block_in, block_mod.final_block_in_plain,
                 [x, r, film_f, fin["w1"], fin["b1"], fin["g1"], fin["wr"], fin["gr"]],
                 replaces="resnet_block.py:351", source="resnet_block.cu",
-                tensor_flops=2 * (prod(2 * f, f) + mix(f))),
+                tensor_flops=2 * (prod(2 * f, f) + mix(f)),
+                products=products_only((xr, fin["w1"]), (xr, fin["wr"])),
+                odd_rows=tuple(odd_tile_rows(block_mod.final_block_in_plan(dt, f).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "final_block_out", block_mod.final_block_out, block_mod.final_block_out_plain,
                 [h, res, fin["w2"], fin["b2"], fin["g2"], head["w"], head["b"], head["g"]],
                 replaces="resnet_block.py:372", source="resnet_block.cu",
-                tensor_flops=prod(f, f) + mix(f) + prod(f, d) + mix(d)),
+                tensor_flops=prod(f, f) + mix(f) + prod(f, d) + mix(d),
+                products=products_only((h, fin["w2"]), (o, head["w"])),
+                odd_rows=tuple(odd_tile_rows(block_mod.final_block_out_plan(dt, f, d).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "posterior_step_x0_bf16", posterior_mod.posterior_step,
                 posterior_mod.posterior_step_plain, [x0, xt, eps, m_t],

@@ -37,7 +37,7 @@ graph_linear_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* _
   load_influence(sm.g, g);
 
   node_products(
-      [&](int n, T* buf) { stage_rows(buf, fi, 0, x + at(n, rows, b0, fi, 0), fi, valid); },
+      [&](int n, T* buf) { stage_rows(buf, x + at(n, rows, b0, fi, 0), fi, valid); },
       sm.s, fi, w, fo, fo, sm.scratch,
       [&](int n, int r, int c, float acc) {
         float h = acc + to_f(b[n * fo + c]);

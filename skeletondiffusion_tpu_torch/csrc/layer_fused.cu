@@ -99,7 +99,7 @@ stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __r
 
   T* p = sm.p;
   node_products(
-      [&](int n, T* buf) { stage_rows(buf, d, 0, x + at(n, rows, b0, d, 0), d, valid); },
+      [&](int n, T* buf) { stage_rows(buf, x + at(n, rows, b0, d, 0), d, valid); },
       sm.s, d, ws, f, f, sm.scratch,
       [&](int n, int r, int c, float acc) {
         float h = acc + to_f(bs[n * f + c]);

@@ -1,9 +1,10 @@
-// Shared device routines of the fused denoiser's kernels B4, B5a, B5b and
-// B9a for NVIDIA Hopper (sm_90a); B1, B3a, B3b, B9b and B9c run on
+// Shared device routines of the fused denoiser's kernels B4 and B9a for
+// NVIDIA Hopper (sm_90a); B1, B3a, B3b, B5a, B5b, B9b and B9c run on
 // node_mix_sm90.cuh (B9a still runs resnet_block_body below, the ResnetBlock
-// body B1 and B9c ran before they moved).
+// body B1 and B9c ran before they moved), which takes its element
+// conversions (to_f, from_f) from here.
 //
-// Every one of those kernels computes the same pattern on node-major
+// Both of those kernels compute the same pattern on node-major
 // activations [N, B, F] (element (n, b, f) at (n·B + b)·F + f):
 //
 //   P[n]   = round(X[n]·W[n] + bias[n] (+ extra))   per-node product, fp32 sums
@@ -128,17 +129,17 @@ __device__ void load_influence(float* g_s, const T* g) {
   }
 }
 
-// s[r][col0 : col0+k] = src[r·k : (r+1)·k] for r < valid, zeros for the
-// ragged rows; 16-byte copies by the whole block.  k·sizeof(T) % 16 == 0.
+// s[r][0 : k] = src[r·k : (r+1)·k] for r < valid, zeros for the ragged
+// rows; 16-byte copies by the whole block.  k·sizeof(T) % 16 == 0.
 template <typename T>
-__device__ void stage_rows(T* s, int lds, int col0, const T* src, int k, int valid) {
+__device__ void stage_rows(T* s, const T* src, int k, int valid) {
   constexpr int R = RowTile<T>::kRows;
   const int vecs = static_cast<int>(k * sizeof(T) / 16);
   for (int i = threadIdx.x; i < R * vecs; i += kThreads) {
     const int r = i / vecs, v = i % vecs;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid) val = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * k) + v);
-    reinterpret_cast<uint4*>(s + r * lds + col0)[v] = val;
+    reinterpret_cast<uint4*>(s + r * k)[v] = val;
   }
 }
 

@@ -8,8 +8,9 @@
 //   three per-node products, each followed by a node mix, with P in shared
 //   memory from the first product to the last mix: the attention layer's
 //   out-projection, B3b (outproj_res, attention_proj.cu), the ResnetBlock, B1
-//   (resnet_block, resnet_block.cu), and both, B9c (outproj_block,
-//   layer_fused.cu).
+//   (resnet_block, resnet_block.cu), both, B9c (outproj_block,
+//   layer_fused.cu), and the final block's two halves with the output head,
+//   B5a and B5b (final_block_in, final_block_out, resnet_block.cu).
 //
 // Both share the roles, the ring of bulk copies on mbarriers, the two-block
 // clusters with multicast weight tiles, the mma.sync products through
@@ -710,8 +711,11 @@ __device__ __forceinline__ void store_tile(const T* p, int plane, T* out, int ro
 //   pass i, node n:  P[n] = round(A[n]·W_i[n] (+ b_i[n]))     fp32 sums
 //
 // where A[n] is node n's R input rows from device memory (x for B1's first
-// pass, a for B9c's out-projection) or P[n] itself, in place (every later
-// pass).  The ring carries, per (pass, node, k-slice of kslice rows of the
+// pass, a for B9c's out-projection, x‖r for both of B5a's, from x and r
+// side by side: no k-slice straddles them) or P[n] itself, in place (every
+// later pass).  A pass with fewer output columns than F (B5b's head) is an
+// F-wide pass whose bank and bias are zero past its columns; only its store
+// is narrower.  The ring carries, per (pass, node, k-slice of kslice rows of the
 // bank), the k-slice of the R input rows (16-byte cp.async copies by the
 // producer warp's 32 lanes, each lane's arrival on the stage's `full`
 // barrier once its copies land; a bulk copy a row made the loads the
@@ -771,13 +775,16 @@ struct BlockPass {
 
 // What one launch works on: the passes, the influence of each pass's mix
 // [N, N], FiLM's scale‖shift [2f] (nullptr for a kernel without FiLM), rows
-// and widths, the plan.
+// and widths, the plan, and for a launch whose device inputs have two
+// sources (run_blocks' kSplitA: B5a's x‖r) the second, a2 [N, rows, f]: a
+// pass's input a [N, rows, f] then gives its columns < f and a2 the others.
 template <typename T>
 struct BlockProblem {
   BlockPass<T> pass[kMaxPasses];
   const T* g[kMaxPasses];
   const T* film;
   int passes, rows, f, kslice, stages;
+  const T* a2 = nullptr;
 };
 
 // A position in the ring: the stage and the parity of its current phase.
@@ -793,7 +800,9 @@ struct RingPos {
 };
 
 // The producer warp: for every item, pass, node and k-slice, one stage.
-template <typename T, int R>
+// kSplitA: each k-slice of a pass's input comes wholly from a (columns < f)
+// or from pb.a2 (f a multiple of the k-slice).
+template <typename T, int R, bool kSplitA>
 __device__ __forceinline__ void produce_blocks(const BlockProblem<T>& pb, const BlockLayout& l,
                                                unsigned char* smem, uint64_t* full,
                                                uint64_t* empty, uint32_t rank, int n_items) {
@@ -816,11 +825,20 @@ __device__ __forceinline__ void produce_blocks(const BlockProblem<T>& pb, const 
           if (lane == 0) mbar_expect_tx(&full[s], w_bytes);
           __syncwarp();
           if (ps.a != nullptr) {  // the input rows' k-slice, 16 bytes a copy, zeros past the last row
+            const T* src = ps.a;
+            int lda = ps.k, col = j * pb.kslice;
+            if constexpr (kSplitA) {
+              lda = pb.f;
+              if (col >= pb.f) {
+                src = pb.a2;
+                col -= pb.f;
+              }
+            }
             for (int e = lane; e < R * a_chunks; e += 32) {
               const int r = e / a_chunks, cc = e % a_chunks;
               const int row = min(b0 + r, pb.rows - 1);
               cp_async_16(st + sizeof(T) * r * l.a_stride + 16 * cc,
-                          ps.a + (static_cast<size_t>(n) * pb.rows + row) * ps.k + j * pb.kslice +
+                          src + (static_cast<size_t>(n) * pb.rows + row) * lda + col +
                               cc * (16 / sizeof(T)),
                           r < valid ? 16u : 0u);
             }
@@ -996,8 +1014,8 @@ struct BlockItem {
   // P ← round(epi(c, Y, res)) in place, Y = G_i·P in fp32 (bf16: on the
   // tensor cores, as mix_mma), res the element of res [N, rows, f] at the
   // same node, row and column (0 where res is nullptr or the row is past
-  // the last); ends with the consumers synchronised.
-  template <typename Epi>
+  // the last); ends with the consumers synchronised.  kAhead: see mix_tc.
+  template <bool kAhead = true, typename Epi>
   __device__ void mix(int i, const T* res, Epi epi) {
     const int f = pb.f;
     if constexpr (is_f32<T>()) {
@@ -1029,7 +1047,7 @@ struct BlockItem {
         }
       }
     } else {
-      mix_tc(i, res, epi);
+      mix_tc<kAhead>(i, res, epi);
     }
     consumer_sync();
   }
@@ -1038,8 +1056,10 @@ struct BlockItem {
   // every row, a row at a time: for each chunk (8 positions) the node values
   // through one ldmatrix.trans (rows of the nodes past 21: the zero row),
   // Yᵀ = G·P with G's mma A fragments in registers; this lane's residual
-  // pairs of the next row are loaded before the current row's products.
-  template <typename Epi>
+  // pairs of the next row are loaded before the current row's products
+  // (kAhead), or of the current row (B5b: there the kernel spilled the
+  // pairs held ahead, and each row waited on their round trips to L2).
+  template <bool kAhead, typename Epi>
   __device__ __forceinline__ void mix_tc(int i, const T* res, Epi epi) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     uint32_t ga[2][2][4];
@@ -1062,9 +1082,13 @@ struct BlockItem {
         }
     };
     uint32_t cur[NT][3], next[NT][3];
-    residual(0, cur);
+    if constexpr (kAhead) residual(0, cur);
     for (int r = 0; r < R; ++r) {
-      residual(r + 1, next);
+      if constexpr (kAhead) {
+        residual(r + 1, next);
+      } else {
+        residual(r, cur);
+      }
       float d[NT][2][4];
 #pragma unroll
       for (int u = 0; u < NT; ++u) {
@@ -1093,27 +1117,65 @@ struct BlockItem {
                 pack_bf16(epi(c, y[k][0], rv.x), epi(c + 1, y[k][1], rv.y));
           }
         }
+        if constexpr (kAhead) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) cur[u][k] = next[u][k];
+          for (int k = 0; k < 3; ++k) cur[u][k] = next[u][k];
+        }
       }
     }
+  }
+
+  // A ResnetBlock's two halves on P (pass i's product before each):
+  //   film_half:  h   = round(tanh(FiLM(G_i·P)))
+  //   res_half:   out = round(tanh(G_i·P) + res)
+  // FiLM(y) = y·(scale + 1) + shift with FiLM's fp32 row, the product and the
+  // sum each rounded to fp32, as the plain version computes them.
+  __device__ __forceinline__ void film_half(int i) {
+    const float* fm = film();
+    const int f = width();
+    mix(i, nullptr, [fm, f](int c, float y, float) {
+      return tanhf(__fadd_rn(__fmul_rn(y, fm[c]), fm[f + c]));
+    });
+  }
+  template <bool kAhead = true>
+  __device__ __forceinline__ void res_half(int i, const T* res) {
+    mix<kAhead>(i, res, [](int, float y, float r) { return __fadd_rn(tanhf(y), r); });
   }
 
   // The ResnetBlock on P with passes i and i + 1 (B1's body, and B9c's after
   // its out-projection):
   //   h   = round(tanh(FiLM(G_i·round(A·W_i + b_i))))
   //   out = round(tanh(G_{i+1}·round(h·W_{i+1} + b_{i+1})) + res)   into P
-  // FiLM(y) = y·(scale + 1) + shift with FiLM's fp32 row, the product and the
-  // sum each rounded to fp32, as the plain version computes them.
   __device__ void resnet_block(int i, const T* res) {
-    const float* fm = film();
-    const int f = width();
     product(i);
-    mix(i, nullptr, [fm, f](int c, float y, float) {
-      return tanhf(__fadd_rn(__fmul_rn(y, fm[c]), fm[f + c]));
-    });
+    film_half(i);
     product(i + 1);
-    mix(i + 1, res, [](int, float y, float r) { return __fadd_rn(tanhf(y), r); });
+    res_half(i + 1, res);
+  }
+
+  // The final block's first half and its residual projection over x‖r on
+  // passes 0 and 1 (B5a's body):
+  //   h   = round(tanh(FiLM(G_0·round([x‖r]·W_0 + b_0))))   into h_out
+  //   res = round(G_1·round([x‖r]·W_1))                      into res_out
+  __device__ void final_block_in(T* h_out, T* res_out) {
+    product(0);
+    film_half(0);
+    store(h_out);
+    product(1);
+    mix(1, nullptr, [](int, float y, float) { return y; });
+    store(res_out);
+  }
+
+  // The final block's second half and the output head on passes 0 and 1
+  // (B5b's body), the head's bank and bias zero past its cols columns:
+  //   o   = round(tanh(G_0·round(h·W_0 + b_0)) + res)   in P
+  //   out = round(G_1·round(o·W_1 + b_1))               into out [N, rows, cols]
+  __device__ void final_block_out(const T* res, T* out, int cols) {
+    product(0);
+    res_half<false>(0, res);
+    product(1);
+    mix(1, nullptr, [](int, float y, float) { return y; });
+    store_cols(out, cols);
   }
 
   // The attention layer's out-projection with its residual on pass 0 (B3b's
@@ -1127,14 +1189,18 @@ struct BlockItem {
 
   // out [N, rows, f] ← P for the item's valid rows, 16-byte stores; ends
   // with the consumers synchronised.
-  __device__ void store(T* out) {
+  __device__ void store(T* out) { store_cols(out, width()); }
+
+  // out [N, rows, cols] ← P's first cols columns, as store.
+  __device__ __forceinline__ void store_cols(T* out, int cols) {
     constexpr int kVec = 16 / sizeof(T);
-    const int f = width(), per_row = f / kVec, ps = p_stride();
+    const int per_row = cols / kVec, ps = p_stride();
     const T* pp = p();
     for (int e = threadIdx.x; e < kNodes * R * per_row; e += kConsumers) {
       const int v = e % per_row, r = e / per_row % R, n = e / (per_row * R);
       if (r < valid)
-        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(n) * pb.rows + b0 + r) * f + v * kVec) =
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(n) * pb.rows + b0 + r) * cols +
+                                  v * kVec) =
             *reinterpret_cast<const uint4*>(pp + n * l.plane + r * ps + v * kVec);
     }
     consumer_sync();
@@ -1170,9 +1236,17 @@ bool block_plan_ok(int f, const int* ks, int passes, int tile_rows, int kslice, 
          block_layout<T>(tile_rows, f, kslice, stages, passes).total;
 }
 
+// Whether a pass's store of cols columns fits a launch of width f: up to f,
+// in whole 16-byte chunks.
+template <typename T>
+constexpr bool out_cols_ok(int f, int cols) {
+  return cols > 0 && cols <= f && cols % (16 / static_cast<int>(sizeof(T))) == 0;
+}
+
 // Runs every item of this block: body(item) is called by all consumer
 // threads together with each item's BlockItem (product, mix, store).
-template <typename T, int R, int NT, typename Body>
+// kSplitA: the passes' device inputs have two sources (BlockProblem::a2).
+template <typename T, int R, int NT, bool kSplitA = false, typename Body>
 __device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned char* smem,
                                            Body body) {
   const BlockLayout l = block_layout<T>(R, pb.f, pb.kslice, pb.stages, pb.passes);
@@ -1205,7 +1279,7 @@ __device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned c
   cluster_sync();  // the peer's barriers exist before anything reaches them
 
   if (warp == kConsumerWarps) {
-    produce_blocks<T, R>(pb, l, smem, full, empty, rank, n_items);
+    produce_blocks<T, R, kSplitA>(pb, l, smem, full, empty, rank, n_items);
   } else {
     RingPos q;
     for (int item = cluster_id(); item < n_items; item += cluster_count()) {

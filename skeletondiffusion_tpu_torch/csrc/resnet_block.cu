@@ -22,38 +22,46 @@
 //
 // What bounds them on the H100: memory.  At N=21, B=12 800, F=192 in bf16,
 // B1 moves ~210 MB against ~44 GFLOP on the tensor cores (0.063 ms against
-// 0.045 ms); B5a ~412 MB and ~79 GFLOP; B5b ~258 MB.
+// 0.045 ms); B5a ~413 MB against ~84 GFLOP (0.125 ms); B5b ~258 MB against
+// ~31 GFLOP (0.078 ms).
 //
-// B1 runs on node_mix_sm90.cuh's engine (`run_blocks`, the ResnetBlock body
-// it shares with B9c in layer_fused.cu): items of 16 rows (fp32: 8) × all
-// 192 columns, the two blocks of a cluster on adjacent row tiles; per node
-// and k-slice of 64 bank rows (fp32: 32) a ring stage holds the k-slice of
-// the 16 input rows (cp.async) and of W1 or W2 (a bulk copy, half from each
-// block, multicast to both); mma.sync products from shared memory (the
-// second in place in P, its A read straight from P), the two node mixes on
-// the tensor cores with FiLM/tanh and tanh + residual in registers, x read
-// back for the residual, 16-byte stores.  Shared memory (bf16): P 21 × (16 ×
-// 400 + 16) B = 134 784, three stages of 2 304 + 24 576 B, FiLM's 1 536 B
-// and the barriers: 217 088 of 232 448 B; one block an SM.  Each weight byte
-// from L2 serves the cluster's 32 rows (16 before): 1.24 GB of weights a
-// call, 2.5 GB before.  A block's item takes ~210 000 cycles: the products
-// 60% (a tenth of it waiting on the ring; the mma.sync rate binds them), the
-// two mixes 35% (tanhf near half of it), the store 3% (PERF.md §6).
+// All three run on node_mix_sm90.cuh's engine (`run_blocks`, whose ResnetBlock
+// body B1 shares with B9c in layer_fused.cu): items of 16 rows (fp32: 8) ×
+// all 192 columns, the two blocks of a cluster on adjacent row tiles; per
+// node and k-slice of 64 bank rows (fp32: 32) a ring stage holds the k-slice
+// of the 16 input rows (cp.async) and of the bank (a bulk copy, half from
+// each block, multicast to both); mma.sync products from shared memory (a
+// product in place in P reads its A straight from P), the node mixes on the
+// tensor cores with their epilogues in registers, 16-byte stores.  Shared
+// memory (bf16): P 21 × (16 × 400 + 16) B = 134 784, three stages of 2 304 +
+// 24 576 B, FiLM's 1 536 B and the barriers: 217 088 of 232 448 B; one block
+// an SM.  Each weight byte from L2 serves the cluster's 32 rows.
 //
-// B5a and B5b keep node_mix.cuh's design: a block owns 16 rows (8 in fp32)
-// of all 21 nodes, so every activation crosses device memory once and the
-// intermediate h, the block output o and the concatenation x‖r never do: x
-// and r are staged side by side in shared memory as the product's one input
-// of width 2F, against the unsplit [2F, F] banks.  Between the two products
-// of a pass the tile stays in shared memory and each node's rows are
-// restaged from it before its product overwrites them.
+// B1: a block's item takes ~210 000 cycles: the products 60% (a tenth of it
+// waiting on the ring; the mma.sync rate binds them), the two mixes 35%
+// (tanhf near half of it), the store 3% (PERF.md §6).
+//
+// B5a: both passes contract over x‖r (k = 2F) against the unsplit [2F, F]
+// banks: the ring takes k-slices 0 … F/kslice − 1 from x and the rest from
+// r, so x‖r is never written out; after the first pass's FiLM/tanh mix the
+// item stores h and the second pass reads x‖r again.  An item takes
+// ~324 000 cycles: the products 82% (~1 070 a ring stage, as B1's first
+// pass), the FiLM/tanh mix 11%, the plain mix 2%, the stores 4%.
+//
+// B5b: the block's second half with its residual, read at the row it is
+// added to (held a row ahead, as the other kernels' mixes hold it, it
+// spilled), then the head in place on P as an F-wide pass: its [F, fo] bank
+// and its bias zero-padded to F columns (a pass's products take the same
+// time whatever its width: the ring's stages bind them), the head's mix over
+// all F columns and its store over the first fo.  An item takes ~191 000
+// cycles: the products 63%, the residual mix 31%, the head's mix and the
+// store 6% (PERF.md §6).
 
-#include "node_mix.cuh"
 #include "node_mix_sm90.cuh"
 
 namespace {
 
-using namespace nodemix;
+using sm90mix::bf16;
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(sm90mix::kThreads, 1)
@@ -71,89 +79,33 @@ resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
   });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ rr,
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
+final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ r,
                       const T* __restrict__ film, const T* __restrict__ w1,
                       const T* __restrict__ b1, const T* __restrict__ g1,
-                      const T* __restrict__ wr, const T* __restrict__ gr,
-                      T* __restrict__ h_out, T* __restrict__ res_out, int rows, int f) {
-  constexpr int R = RowTile<T>::kRows;
+                      const T* __restrict__ wr, const T* __restrict__ gr, T* __restrict__ h_out,
+                      T* __restrict__ res_out, int rows, int f, int kslice, int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, 2 * f, 2);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  float* g1s = sm.g;
-  float* grs = sm.g + kNodes * kGStride;
-  load_influence(g1s, g1);
-  load_influence(grs, gr);
-  load_film(sm.vec, film, f);
-
-  T* p = sm.p;
-  const int k = 2 * f;
-  auto stage_xr = [&](int n, T* buf) {
-    stage_rows(buf, k, 0, x + at(n, rows, b0, f, 0), f, valid);
-    stage_rows(buf, k, f, rr + at(n, rows, b0, f, 0), f, valid);
-  };
-  node_products(stage_xr, sm.s, k, w1, f, f, sm.scratch,
-                [&](int n, int r, int c, float acc) {
-    p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
-  });
-  node_mix(p, f, f, g1s, [&](int n, int r, int c, float y) {
-    if (r < valid) h_out[at(n, rows, b0 + r, f, c)] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
-  });
-  node_products(stage_xr, sm.s, k, wr, f, f, sm.scratch,
-                [&](int n, int r, int c, float acc) {
-    p[(n * R + r) * f + c] = from_f<T>(acc);
-  });
-  node_mix(p, f, f, grs, [&](int n, int r, int c, float y) {
-    if (r < valid) res_out[at(n, rows, b0 + r, f, c)] = from_f<T>(y);
-  });
+  const sm90mix::BlockProblem<T> pb{{{x, w1, b1, 2 * f}, {x, wr, nullptr, 2 * f}, {}},
+                                    {g1, gr, nullptr}, film, 2, rows, f, kslice, stages, r};
+  sm90mix::run_blocks<T, R, NT, true>(pb, smem_raw,
+                                      [&](auto& it) { it.final_block_in(h_out, res_out); });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
                        const T* __restrict__ w2, const T* __restrict__ b2,
                        const T* __restrict__ g2, const T* __restrict__ wh,
-                       const T* __restrict__ bh, const T* __restrict__ gh,
-                       T* __restrict__ out, int rows, int f, int fo) {
-  constexpr int R = RowTile<T>::kRows;
+                       const T* __restrict__ bh, const T* __restrict__ gh, T* __restrict__ out,
+                       int rows, int f, int fo, int kslice, int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, f, 2);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  float* g2s = sm.g;
-  float* ghs = sm.g + kNodes * kGStride;
-  load_influence(g2s, g2);
-  load_influence(ghs, gh);
-
-  T* p = sm.p;
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, f, 0, h + at(n, rows, b0, f, 0), f, valid); },
-      sm.s, f, w2, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
-      });
-  node_mix(p, f, f, g2s, [&](int n, int r, int c, float y) {
-    const float skip = r < valid ? to_f(res[at(n, rows, b0 + r, f, c)]) : 0.0f;
-    p[(n * R + r) * f + c] = from_f<T>(tanhf(y) + skip);
-  });
-  // the head: its [·, fo] products go back into the first fo columns of each
-  // node's P rows (stride f) after those rows were staged
-  node_products(
-      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
-      sm.s, f, wh, fo, fo, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(bh[n * fo + c]));
-      });
-  node_mix(p, f, fo, ghs, [&](int n, int r, int c, float y) {
-    if (r < valid) out[at(n, rows, b0 + r, fo, c)] = from_f<T>(y);
-  });
-}
-
-bool bad_shape(int n_nodes, int rows, int f) {
-  return n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 != 0;
+  const sm90mix::BlockProblem<T> pb{{{h, w2, b2, f}, {nullptr, wh, bh, f}, {}},
+                                    {g2, gh, nullptr}, nullptr, 2, rows, f, kslice, stages};
+  sm90mix::run_blocks<T, R, NT>(pb, smem_raw, [&](auto& it) { it.final_block_out(res, out, fo); });
 }
 
 // The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
@@ -165,7 +117,7 @@ int launch_block(const void* x, const void* film, const void* w1, const void* b1
                  int f, int tile_rows, int kslice, int stages, int cluster, int smem_bytes,
                  void* stream) {
   const int ks[2] = {f, f};
-  if (n_nodes != kNodes || rows <= 0 ||
+  if (n_nodes != sm90mix::kNodes || rows <= 0 ||
       !sm90mix::block_plan_ok<T>(f, ks, 2, tile_rows, kslice, stages, cluster, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
@@ -181,33 +133,39 @@ int launch_block(const void* x, const void* film, const void* w1, const void* b1
 template <typename T>
 int launch_in(const void* x, const void* r, const void* film, const void* w1, const void* b1,
               const void* g1, const void* wr, const void* gr, void* h_out, void* res_out,
-              int n_nodes, int rows, int f, void* stream) {
-  if (bad_shape(n_nodes, rows, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, 2 * f, 2, 2 * f);
-  cudaError_t err = prepare(final_block_in_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  final_block_in_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(film),
-      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(g1),
-      static_cast<const T*>(wr), static_cast<const T*>(gr), static_cast<T*>(h_out),
-      static_cast<T*>(res_out), rows, f);
-  return static_cast<int>(cudaGetLastError());
+              int n_nodes, int rows, int f, int tile_rows, int kslice, int stages, int cluster,
+              int smem_bytes, void* stream) {
+  const int ks[2] = {2 * f, 2 * f};
+  if (n_nodes != sm90mix::kNodes || rows <= 0 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 2, tile_rows, kslice, stages, cluster, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(
+        final_block_in_kernel<T, decltype(nt)::value>, sm90mix::items(rows, tile_rows, 1),
+        smem_bytes, cluster, stream, static_cast<const T*>(x), static_cast<const T*>(r),
+        static_cast<const T*>(film), static_cast<const T*>(w1), static_cast<const T*>(b1),
+        static_cast<const T*>(g1), static_cast<const T*>(wr), static_cast<const T*>(gr),
+        static_cast<T*>(h_out), static_cast<T*>(res_out), rows, f, kslice, stages);
+  }));
 }
 
 template <typename T>
 int launch_out(const void* h, const void* res, const void* w2, const void* b2, const void* g2,
                const void* wh, const void* bh, const void* gh, void* out, int n_nodes, int rows,
-               int f, int fo, void* stream) {
-  if (bad_shape(n_nodes, rows, f) || fo <= 0 || fo % 16 != 0 || fo > f)
+               int f, int fo, int tile_rows, int kslice, int stages, int cluster, int smem_bytes,
+               void* stream) {
+  const int ks[2] = {f, f};
+  if (n_nodes != sm90mix::kNodes || rows <= 0 || !sm90mix::out_cols_ok<T>(f, fo) ||
+      !sm90mix::block_plan_ok<T>(f, ks, 2, tile_rows, kslice, stages, cluster, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, f, 2, 0);
-  cudaError_t err = prepare(final_block_out_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  final_block_out_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(h), static_cast<const T*>(res), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<const T*>(g2), static_cast<const T*>(wh),
-      static_cast<const T*>(bh), static_cast<const T*>(gh), static_cast<T*>(out), rows, f, fo);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(
+        final_block_out_kernel<T, decltype(nt)::value>, sm90mix::items(rows, tile_rows, 1),
+        smem_bytes, cluster, stream, static_cast<const T*>(h), static_cast<const T*>(res),
+        static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(g2),
+        static_cast<const T*>(wh), static_cast<const T*>(bh), static_cast<const T*>(gh),
+        static_cast<T*>(out), rows, f, fo, kslice, stages);
+  }));
 }
 
 }  // namespace
@@ -226,8 +184,8 @@ extern "C" int resnet_block_bf16(const void* x, const void* film, const void* w1
                                  void* out, int n_nodes, int rows, int f, int tile_rows,
                                  int kslice, int stages, int cluster, int smem_bytes,
                                  void* stream) {
-  return launch_block<nodemix::bf16>(x, film, w1, b1, g1, w2, b2, g2, out, n_nodes, rows, f,
-                                     tile_rows, kslice, stages, cluster, smem_bytes, stream);
+  return launch_block<bf16>(x, film, w1, b1, g1, w2, b2, g2, out, n_nodes, rows, f, tile_rows,
+                            kslice, stages, cluster, smem_bytes, stream);
 }
 extern "C" int resnet_block_f32(const void* x, const void* film, const void* w1, const void* b1,
                                 const void* g1, const void* w2, const void* b2, const void* g2,
@@ -238,32 +196,42 @@ extern "C" int resnet_block_f32(const void* x, const void* film, const void* w1,
 }
 
 // x, r, h_out, res_out [·, rows, f]; w1, wr [·, 2f, f] (rows 0:f act on x,
-// f:2f on r).
+// f:2f on r) packed into one tile of all f columns each, [·, 1, 2f·f]; the
+// tile plan (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int final_block_in_bf16(const void* x, const void* r, const void* film, const void* w1,
                                    const void* b1, const void* g1, const void* wr, const void* gr,
                                    void* h_out, void* res_out, int n_nodes, int rows, int f,
-                                   void* stream) {
-  return launch_in<nodemix::bf16>(x, r, film, w1, b1, g1, wr, gr, h_out, res_out, n_nodes, rows,
-                                  f, stream);
+                                   int tile_rows, int kslice, int stages, int cluster,
+                                   int smem_bytes, void* stream) {
+  return launch_in<bf16>(x, r, film, w1, b1, g1, wr, gr, h_out, res_out, n_nodes, rows, f,
+                         tile_rows, kslice, stages, cluster, smem_bytes, stream);
 }
 extern "C" int final_block_in_f32(const void* x, const void* r, const void* film, const void* w1,
                                   const void* b1, const void* g1, const void* wr, const void* gr,
                                   void* h_out, void* res_out, int n_nodes, int rows, int f,
-                                  void* stream) {
+                                  int tile_rows, int kslice, int stages, int cluster,
+                                  int smem_bytes, void* stream) {
   return launch_in<float>(x, r, film, w1, b1, g1, wr, gr, h_out, res_out, n_nodes, rows, f,
-                          stream);
+                          tile_rows, kslice, stages, cluster, smem_bytes, stream);
 }
 
-// h, res [·, rows, f]; w2 [·, f, f]; wh [·, f, fo], bh [·, fo]; out [·, rows, fo].
+// h, res [·, rows, f]; w2 [·, f, f] and wh [·, f, fo] packed into one tile
+// of all f columns each (wh's columns past fo zero), [·, 1, f·f], and bh
+// zero-padded to [·, f]; out [·, rows, fo];
+// the tile plan (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int final_block_out_bf16(const void* h, const void* res, const void* w2, const void* b2,
                                     const void* g2, const void* wh, const void* bh, const void* gh,
                                     void* out, int n_nodes, int rows, int f, int fo,
-                                    void* stream) {
-  return launch_out<nodemix::bf16>(h, res, w2, b2, g2, wh, bh, gh, out, n_nodes, rows, f, fo,
-                                   stream);
+                                    int tile_rows, int kslice, int stages, int cluster,
+                                    int smem_bytes, void* stream) {
+  return launch_out<bf16>(h, res, w2, b2, g2, wh, bh, gh, out, n_nodes, rows, f, fo, tile_rows,
+                          kslice, stages, cluster, smem_bytes, stream);
 }
 extern "C" int final_block_out_f32(const void* h, const void* res, const void* w2, const void* b2,
                                    const void* g2, const void* wh, const void* bh, const void* gh,
-                                   void* out, int n_nodes, int rows, int f, int fo, void* stream) {
-  return launch_out<float>(h, res, w2, b2, g2, wh, bh, gh, out, n_nodes, rows, f, fo, stream);
+                                   void* out, int n_nodes, int rows, int f, int fo,
+                                   int tile_rows, int kslice, int stages, int cluster,
+                                   int smem_bytes, void* stream) {
+  return launch_out<float>(h, res, w2, b2, g2, wh, bh, gh, out, n_nodes, rows, f, fo, tile_rows,
+                           kslice, stages, cluster, smem_bytes, stream);
 }

@@ -26,7 +26,9 @@ plain version; given CUDA tensors it launches the kernel (built by
   layout (``csrc/attention_core_fm.cu``): a lab kernel on no predictor path,
   driven by ``scripts/torch_attn_core_lab.py``
 
-The fused denoiser's five sources share ``csrc/node_mix.cuh``; the
-attention kernel and the fused RMSNorm + qkv + attention kernel share
-``csrc/joint_attention.cuh``.
+The fused denoiser's kernels run on the product-and-mix engine of
+``csrc/node_mix_sm90.cuh`` (host side ``node_mix_sm90``), all but the stem
+(B4) and the layer-fused stem + block (B9a), which keep the routines of
+``csrc/node_mix.cuh``; the attention kernel and the fused RMSNorm + qkv +
+attention kernel share ``csrc/joint_attention.cuh``.
 """

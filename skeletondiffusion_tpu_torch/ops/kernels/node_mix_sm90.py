@@ -1,15 +1,17 @@
 """The host side of ``csrc/node_mix_sm90.cuh``, the product-and-mix engine
 of B3a (``attention_proj.rms_qkv``), B9b (``layer_fused.rms_qkv_core``), B1
-(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``) and B3b
-(``attention_proj.outproj_res``): the tile plans the kernels are launched
-with, and the weight banks packed into the contiguous tiles that one bulk
-copy brings into shared memory (``cached_pack`` also keeps the decode
-rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
+(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``), B3b
+(``attention_proj.outproj_res``), B5a and B5b
+(``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
+kernels are launched with, and the weight banks packed into the contiguous
+tiles that one bulk copy brings into shared memory (``cached_pack`` also
+keeps the decode rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
 
-B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c
-and B3b, whose products contract over all input columns of each node into
-all F output columns, items of a row tile × every column, their banks
-streamed in k-slices (``block_plan``).
+B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c,
+B3b, B5a and B5b, whose products contract over all input columns of each
+node into all F output columns (B5b's head into fewer: its bank and bias
+zero-padded to F, ``check_out_width``), items of a row tile × every column,
+their banks streamed in k-slices (``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
 kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
@@ -124,6 +126,16 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> 
                      f"{MAX_SMEM} bytes of shared memory with two stages")
 
 
+def check_out_width(kernel: str, dtype: torch.dtype, f: int, cols: int) -> None:
+    """Raise ValueError unless a pass of ``cols`` output columns at width
+    ``f`` (B5b's head) is one the kernels store: up to ``f`` in whole 16-byte
+    chunks, as ``out_cols_ok`` in ``node_mix_sm90.cuh`` requires."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if cols <= 0 or cols > f or cols % vec:
+        raise ValueError(f"{kernel}: an output width of {cols} must be a positive multiple of "
+                         f"{vec} up to F={f}")
+
+
 def group_columns(out: int, cols: int) -> torch.Tensor:
     """[⌈out/cols⌉, cols]: consecutive groups of ``cols`` columns, the last
     padded with −1 (zero columns)."""
@@ -191,18 +203,32 @@ def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
     return cached_pack(w, ("tiles", columns), lambda t: _pack_tiles(t, columns))
 
 
+def pad_columns(b: torch.Tensor, cols: int) -> torch.Tensor:
+    """A bias b [N, out] → [N, cols], zeros past ``out`` (the bias of a pass
+    whose bank is packed into ``cols`` columns).  Cached per bias
+    (``cached_pack``)."""
+    return cached_pack(b, ("pad", cols),
+                       lambda t: torch.nn.functional.pad(t, (0, cols - t.shape[-1])))
+
+
+def pack(t: torch.Tensor, spec: Tuple) -> torch.Tensor:
+    """``t`` as a kernel reads it: a bias zero-padded to ``spec[1]`` columns
+    for ``("pad", cols)``, else a bank packed into the tiles of the columns
+    spec (``pack_banks``)."""
+    return pad_columns(t, spec[1]) if spec[0] == "pad" else pack_banks(t, spec)
+
+
 def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,
-           banks: Dict[str, Tuple], ints: Tuple[int, ...], out: torch.Tensor) -> None:
-    """Check ``tensors``, pack each bank named in ``banks`` into the tiles of
-    its columns spec and launch ``<kernel>_<bf16|f32>`` of
-    ``csrc/<library>.cu`` on the tensors in their order, ``out`` and
-    ``ints`` (the widths, then the tile plan); raises unless the launch
-    succeeded."""
-    dt = out.dtype
+           packs: Dict[str, Tuple], ints: Tuple[int, ...], *outs: torch.Tensor) -> None:
+    """Check ``tensors``, pack each one named in ``packs`` by its spec
+    (``pack``) and launch ``<kernel>_<bf16|f32>`` of ``csrc/<library>.cu``
+    on the tensors in their order, ``outs`` and ``ints`` (the widths, then
+    the tile plan); raises unless the launch succeeded."""
+    dt = outs[0].dtype
     suffix = build.element_suffix(kernel, dt)
     build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    packed = {k: pack_banks(t, banks[k]) if k in banks else t for k, t in tensors.items()}
+    packed = {k: pack(t, packs[k]) if k in packs else t for k, t in tensors.items()}
     build.check_aligned(kernel, 32, **packed)
-    status = build.c_entry(library, f"{kernel}_{suffix}", len(packed) + 1, len(ints))(
-        *(t.data_ptr() for t in packed.values()), out.data_ptr(), *ints, build.stream_of(out))
+    status = build.c_entry(library, f"{kernel}_{suffix}", len(packed) + len(outs), len(ints))(
+        *(t.data_ptr() for t in (*packed.values(), *outs)), *ints, build.stream_of(outs[0]))
     build.check_status(f"{kernel} at (nodes, rows, widths, plan)={ints}", status)

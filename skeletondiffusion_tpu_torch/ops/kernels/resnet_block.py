@@ -18,12 +18,14 @@ with FiLM(y) = y·(scale + 1) + shift in fp32 from the bf16 row.  Ports of
 ``skeletondiffusion_tpu/ops/pallas/resnet_block.py::resnet_block_pallas_padded``
 (``_resnet_kernel``) and ``final_block_head_pallas_padded``
 (``_rect_in_kernel``, ``_rect_out_head_kernel``) without the TPU's padding; the
-kernels are ``csrc/resnet_block.cu``.  ``resnet_block`` runs on the engine of
-``csrc/node_mix_sm90.cuh``: it hands the kernel W1 and W2 packed into one
-tile of all F columns each (``node_mix_sm90.pack_banks``, cached per bank)
-and the tile plan ``resnet_block_plan``.  The final block's [2F, F] banks stay
-whole: rows :F act on x and F: on the long skip r, which the kernel stages
-side by side, so x‖r is never written out.
+kernels are ``csrc/resnet_block.cu``, all three on the engine of
+``csrc/node_mix_sm90.cuh``.  Each wrapper hands its kernel the banks packed
+into one tile of all F columns each (``node_mix_sm90.pack_banks``, cached
+per bank; the head's [F, O] bank and its bias zero-padded to F columns)
+and its tile plan (``resnet_block_plan``, ``final_block_in_plan``,
+``final_block_out_plan``).  The final block's [2F, F] banks stay whole: rows
+:F act on x and F: on the long skip r, k-slices the kernel reads from x and
+from r, so x‖r is never written out.
 """
 from __future__ import annotations
 
@@ -66,23 +68,24 @@ def final_block_out_plain(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
     return mix_plain(gh, product_plain(o, wh, bh).to(dt)).to(dt)
 
 
-def _launch(kernel: str, tensors: dict, shapes: dict, ints: tuple, outs: tuple):
-    """Check the inputs, launch ``<kernel>_<bf16|f32>`` on their pointers,
-    the outputs' and ``ints``, and return the outputs."""
-    dt = next(iter(tensors.values())).dtype
-    suffix = build.element_suffix(kernel, dt)
-    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    build.check_aligned(kernel, 32, **tensors)
-    ptrs = [t.data_ptr() for t in (*tensors.values(), *outs)]
-    status = build.c_entry("resnet_block", f"{kernel}_{suffix}", len(ptrs), len(ints))(
-        *ptrs, *ints, build.stream_of(outs[0]))
-    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
-
-
 def resnet_block_plan(dtype: torch.dtype, f: int) -> node_mix_sm90.BlockPlan:
     """The tile plan of the resnet_block kernel at width ``f``; raises for
     what the kernel does not take."""
     return node_mix_sm90.block_plan("resnet_block", dtype, f, (f, f))
+
+
+def final_block_in_plan(dtype: torch.dtype, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the final_block_in kernel at width ``f`` (both passes
+    contract over x‖r, 2F wide); raises for what the kernel does not take."""
+    return node_mix_sm90.block_plan("final_block_in", dtype, f, (2 * f, 2 * f))
+
+
+def final_block_out_plan(dtype: torch.dtype, f: int, fo: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the final_block_out kernel at width ``f`` with a head
+    of ``fo`` columns; raises for what the kernel does not take."""
+    plan = node_mix_sm90.block_plan("final_block_out", dtype, f, (f, f))
+    node_mix_sm90.check_out_width("final_block_out", dtype, f, fo)
+    return plan
 
 
 def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
@@ -114,10 +117,13 @@ def final_block_in(x, r, film, w1, b1, g1, wr, gr):
     if build.kernel_device(**tensors) == "cpu":
         return final_block_in_plain(**tensors)
     n, rows, f = x.shape
+    plan = final_block_in_plan(x.dtype, f)
     shapes = dict(x=(n, rows, f), r=(n, rows, f), film=(2 * f,), w1=(n, 2 * f, f), b1=(n, f),
                   g1=(n, n), wr=(n, 2 * f, f), gr=(n, n))
     h, res = torch.empty_like(x), torch.empty_like(x)
-    _launch("final_block_in", tensors, shapes, (n, rows, f), (h, res))
+    whole = ("groups", f, f)
+    node_mix_sm90.launch("resnet_block", "final_block_in", tensors, shapes,
+                         {"w1": whole, "wr": whole}, (n, rows, f, *plan), h, res)
     launches_final_in += 1
     return h, res
 
@@ -132,9 +138,13 @@ def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
         return final_block_out_plain(**tensors)
     n, rows, f = h.shape
     fo = wh.shape[-1]
+    plan = final_block_out_plan(h.dtype, f, fo)
     shapes = dict(h=(n, rows, f), res=(n, rows, f), w2=(n, f, f), b2=(n, f), g2=(n, n),
                   wh=(n, f, fo), bh=(n, fo), gh=(n, n))
     out = torch.empty((n, rows, fo), dtype=h.dtype, device=h.device)
-    _launch("final_block_out", tensors, shapes, (n, rows, f, fo), (out,))
+    # the head is an F-wide pass whose bank and bias are zero past fo
+    packs = {"w2": ("groups", f, f), "wh": ("groups", fo, f), "bh": ("pad", f)}
+    node_mix_sm90.launch("resnet_block", "final_block_out", tensors, shapes, packs,
+                         (n, rows, f, fo, *plan), out)
     launches_final_out += 1
     return out

@@ -1,11 +1,14 @@
-"""The host side of B1 (``resnet_block``), B9c (``outproj_block``) and B3b
-(``outproj_res``) on the whole-row items of ``csrc/node_mix_sm90.cuh``:
-their tile plans, the packed banks the ring streams in k-slices, and the
-wrappers' refusals.  The kernels' walk over row tiles and two-block clusters
-runs only on the card, where ``chip_smoke.py`` holds all three against their
-plain versions at an even, a ragged and an odd number of row tiles.
+"""The host side of B1 (``resnet_block``), B9c (``outproj_block``), B3b
+(``outproj_res``), B5a (``final_block_in``) and B5b (``final_block_out``) on
+the whole-row items of ``csrc/node_mix_sm90.cuh``: their tile plans, the
+packed banks the ring streams in k-slices (B5a's from two sources, x and r;
+B5b's head bank and bias zero-padded to F), and the wrappers' refusals.  The kernels'
+walk over row tiles and two-block clusters runs only on the card, where
+``chip_smoke.py`` holds all five against their plain versions at an even, a
+ragged and an odd number of row tiles.
 
-Widths: the bench's (F 192, the attention's 8 heads × 32 = 256).
+Widths: the bench's (F 192, the attention's 8 heads × 32 = 256, the head's
+latent 96).
 """
 import numpy as np
 import pytest
@@ -14,8 +17,9 @@ import torch
 from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, layer_fused, resnet_block
 from skeletondiffusion_tpu_torch.ops.kernels import node_mix_sm90 as engine
 
-N, F, HD = 21, 192, 256
+N, F, HD, FO = 21, 192, 256, 96
 WHOLE = ("groups", F, F)
+HEAD = ("groups", FO, F)  # the head bank packed into F columns, zero past 96
 
 
 def _layout_bytes(dtype, plan, f, ks):
@@ -47,6 +51,14 @@ def _plans():
                                           (HD,)),
         ("outproj_res", torch.float32): (attention_proj.outproj_res_plan(torch.float32, HD, F),
                                          (HD,)),
+        ("final_block_in", torch.bfloat16): (resnet_block.final_block_in_plan(torch.bfloat16, F),
+                                             (2 * F, 2 * F)),
+        ("final_block_in", torch.float32): (resnet_block.final_block_in_plan(torch.float32, F),
+                                            (2 * F, 2 * F)),
+        ("final_block_out", torch.bfloat16): (
+            resnet_block.final_block_out_plan(torch.bfloat16, F, FO), (F, F)),
+        ("final_block_out", torch.float32): (
+            resnet_block.final_block_out_plan(torch.float32, F, FO), (F, F)),
     }
 
 
@@ -59,6 +71,10 @@ def test_bench_plans_are_the_documented_ones():
         ("outproj_block", torch.float32): (8, 32, 3, 2, 217088),
         ("outproj_res", torch.bfloat16): (16, 64, 3, 2, 217088),
         ("outproj_res", torch.float32): (8, 32, 3, 2, 212992),
+        ("final_block_in", torch.bfloat16): (16, 64, 3, 2, 217088),
+        ("final_block_in", torch.float32): (8, 32, 3, 2, 215040),
+        ("final_block_out", torch.bfloat16): (16, 64, 3, 2, 217088),
+        ("final_block_out", torch.float32): (8, 32, 3, 2, 215040),
     }
 
 
@@ -67,7 +83,11 @@ def test_bench_plans_are_the_documented_ones():
                                            ("outproj_block", torch.bfloat16),
                                            ("outproj_block", torch.float32),
                                            ("outproj_res", torch.bfloat16),
-                                           ("outproj_res", torch.float32)])
+                                           ("outproj_res", torch.float32),
+                                           ("final_block_in", torch.bfloat16),
+                                           ("final_block_in", torch.float32),
+                                           ("final_block_out", torch.bfloat16),
+                                           ("final_block_out", torch.float32)])
 def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     plan, ks = _plans()[(kernel, dtype)]
     elem = torch.empty((), dtype=dtype).element_size()
@@ -100,12 +120,55 @@ def test_block_plans_refuse_what_the_kernels_do_not_take(call, match):
         call()
 
 
+@pytest.mark.parametrize("call, match", [
+    (lambda: resnet_block.final_block_in_plan(torch.bfloat16, 96), "multiple of 64"),
+    (lambda: resnet_block.final_block_in_plan(torch.float32, 320), "multiple of 64 up to 256"),
+    (lambda: resnet_block.final_block_out_plan(torch.bfloat16, 160, FO), "multiple of 64"),
+    (lambda: resnet_block.final_block_out_plan(torch.bfloat16, F, 100), "multiple of 8 up to"),
+    (lambda: resnet_block.final_block_out_plan(torch.bfloat16, F, 4), "multiple of 8 up to"),
+    (lambda: resnet_block.final_block_out_plan(torch.bfloat16, F, 2 * F), "up to F=192"),
+    (lambda: resnet_block.final_block_out_plan(torch.float32, F, 98), "multiple of 4 up to"),
+    (lambda: resnet_block.final_block_out_plan(torch.float32, F, 0), "positive multiple"),
+], ids=["in-f96", "in-f320", "out-f160", "out-fo100", "out-fo4", "out-fo384", "out-f32-fo98",
+        "out-f32-fo0"])
+def test_final_block_plans_refuse_what_the_kernels_do_not_take(call, match):
+    """B5a's and B5b's plans refuse what ``block_plan_ok`` and ``out_cols_ok``
+    in ``node_mix_sm90.cuh`` refuse: F not a multiple of 64 up to 256, a head
+    that is not a positive number of 16-byte chunks up to F."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("dtype, fo", [(torch.bfloat16, 96), (torch.bfloat16, 8),
+                                       (torch.bfloat16, 192), (torch.float32, 96),
+                                       (torch.float32, 4), (torch.float32, 132)])
+def test_final_block_out_plan_takes_heads_of_whole_16_byte_chunks_up_to_f(dtype, fo):
+    """The head's store writes 16-byte chunks of its fo columns: any fo in
+    whole chunks up to F is taken, with the same plan as an F-wide head."""
+    engine.check_out_width("final_block_out", dtype, F, fo)
+    assert resnet_block.final_block_out_plan(dtype, F, fo) == \
+        resnet_block.final_block_out_plan(dtype, F, F)
+
+
 @pytest.mark.parametrize("plan", [lambda dt: resnet_block.resnet_block_plan(dt, F),
-                                  lambda dt: attention_proj.outproj_res_plan(dt, HD, F)],
-                         ids=["resnet_block", "outproj_res"])
+                                  lambda dt: attention_proj.outproj_res_plan(dt, HD, F),
+                                  lambda dt: resnet_block.final_block_in_plan(dt, F),
+                                  lambda dt: resnet_block.final_block_out_plan(dt, F, FO)],
+                         ids=["resnet_block", "outproj_res", "final_block_in", "final_block_out"])
 def test_block_plans_refuse_other_element_types(plan):
     with pytest.raises(TypeError, match="built for bfloat16 and float32"):
         plan(torch.float16)
+
+
+def _slice_at(dtype, kslice, cols):
+    """Where element (k, c) of a k-slice lies in its packed tile of ``cols``
+    columns: for bf16 core matrix (k/8, c/8), row c%8, column k%8; for fp32
+    row-major."""
+    kk = torch.arange(kslice)[:, None].expand(kslice, cols)
+    col = torch.arange(cols)[None, :].expand(kslice, cols)
+    if dtype == torch.bfloat16:
+        return ((kk // 8) * (cols // 8) + col // 8) * 64 + (col % 8) * 8 + kk % 8
+    return kk * cols + col
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -120,15 +183,71 @@ def test_each_k_slice_of_a_packed_bank_is_the_bank_rows_the_kernel_reads(k, dtyp
     packed = engine.pack_banks(w, WHOLE)
     assert packed.shape == (N, 1, k * F) and packed.is_contiguous()
     kslice = engine.KSLICES[0] if dtype == torch.bfloat16 else engine.KSLICES[1]
-    kk = torch.arange(kslice)[:, None].expand(kslice, F)
-    col = torch.arange(F)[None, :].expand(kslice, F)
-    if dtype == torch.bfloat16:
-        at = ((kk // 8) * (F // 8) + col // 8) * 64 + (col % 8) * 8 + kk % 8
-    else:
-        at = kk * F + col
+    at = _slice_at(dtype, kslice, F)
     for j in range(k // kslice):
         tile = packed[:, 0, j * kslice * F:(j + 1) * kslice * F]
         assert torch.equal(tile[:, at], w[:, j * kslice:(j + 1) * kslice, :])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_final_block_in_k_slices_read_x_then_r(dtype):
+    """B5a's passes contract over x‖r against the whole [2F, F] bank: the
+    ring's k-slice j of the packed bank holds bank rows j·ks …, and its input
+    rows come from x for j < F/ks and from r after (each with row stride F,
+    at column j·ks or j·ks − F).  Summing those slices' products as the
+    kernel does gives [x‖r]·W."""
+    rng = np.random.default_rng(2)
+    rows = 5
+    x, r = (torch.from_numpy(rng.standard_normal((N, rows, F), dtype=np.float32)).to(dtype)
+            for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal((N, 2 * F, F), dtype=np.float32)).to(dtype)
+    plan = resnet_block.final_block_in_plan(dtype, F)
+    ks = plan.kslice
+    packed = engine.pack_banks(w, WHOLE)
+    assert packed.shape == (N, 1, 2 * F * F) and packed.is_contiguous()
+    at = _slice_at(dtype, ks, F)
+    acc = torch.zeros(N, rows, F, dtype=torch.float64)
+    sources = []
+    for j in range(2 * F // ks):
+        tile = packed[:, 0, j * ks * F:(j + 1) * ks * F][:, at]  # [N, ks, F]
+        assert torch.equal(tile, w[:, j * ks:(j + 1) * ks, :])
+        hi = j * ks >= F  # as the producer picks the slice's source
+        src, col = (r, j * ks - F) if hi else (x, j * ks)
+        sources.append("r" if hi else "x")
+        acc += src[:, :, col:col + ks].double() @ tile.double()
+    assert sources == ["x"] * (F // ks) + ["r"] * (F // ks)
+    want = torch.cat([x, r], dim=-1).double() @ w.double()
+    torch.testing.assert_close(acc, want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_head_bank_is_w_h_then_zero_columns(dtype):
+    """B5b's head bank [N, F, 96] packs into one tile of F = 192 columns a
+    node, as an F-wide bank: each k-slice's first 96 columns are W_h's,
+    columns 96–191 zero (the head pass computes and mixes them, zeros, and
+    stores only 96)."""
+    rng = np.random.default_rng(3)
+    wh = torch.from_numpy(rng.standard_normal((N, F, FO), dtype=np.float32)).to(dtype)
+    packed = engine.pack_banks(wh, HEAD)
+    assert packed.shape == (N, 1, F * F) and packed.is_contiguous()
+    ks = resnet_block.final_block_out_plan(dtype, F, FO).kslice
+    at = _slice_at(dtype, ks, F)
+    for j in range(F // ks):
+        tile = packed[:, 0, j * ks * F:(j + 1) * ks * F][:, at]  # [N, ks, F]
+        assert torch.equal(tile[:, :, :FO], wh[:, j * ks:(j + 1) * ks, :])
+        assert not tile[:, :, FO:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_padded_head_bias_is_b_h_then_zeros_and_cached(dtype):
+    """B5b's head bias [N, 96] reaches the kernel as [N, F]: the kernel adds
+    a bias to all F columns of the head pass, so columns 96–191 must read 0."""
+    bh = torch.from_numpy(np.random.default_rng(4).standard_normal((N, FO),
+                                                                   dtype=np.float32)).to(dtype)
+    padded = engine.pack(bh, ("pad", F))
+    assert padded.shape == (N, F) and padded.is_contiguous() and padded.dtype == dtype
+    assert torch.equal(padded[:, :FO], bh) and not padded[:, FO:].any()
+    assert engine.pack(bh, ("pad", F)) is padded
 
 
 def test_packed_whole_banks_are_cached_until_the_bank_changes():
@@ -143,7 +262,15 @@ def test_packed_whole_banks_are_cached_until_the_bank_changes():
 def _zeros(dtype, rows=4, f=F, hd=HD):
     z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
     block = (z(N, f, f), z(N, f), z(N, N), z(N, f, f), z(N, f), z(N, N))
+    x = z(N, rows, f)
     return {
+        "final_block_in": (resnet_block, "launches_final_in",
+                           lambda: resnet_block.final_block_in(x, x, z(2 * f), z(N, 2 * f, f),
+                                                               z(N, f), z(N, N), z(N, 2 * f, f),
+                                                               z(N, N))),
+        "final_block_out": (resnet_block, "launches_final_out",
+                            lambda: resnet_block.final_block_out(x, x, *block[:3], z(N, f, FO),
+                                                                 z(N, FO), z(N, N))),
         "resnet_block": (resnet_block, "launches_block",
                          lambda: resnet_block.resnet_block(z(N, rows, f), z(2 * f), *block)),
         "outproj_block": (layer_fused, "launches_outproj_block",
@@ -156,7 +283,8 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
     }
 
 
-@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res"])
+@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
+                                    "final_block_in", "final_block_out"])
 @pytest.mark.parametrize("widths, match", [(dict(f=96), "multiple of 64"),
                                            (dict(f=320), "up to 256"),
                                            (dict(hd=48), "multiples of 32")],
@@ -165,7 +293,7 @@ def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kern
                                                                match):
     """On a CUDA request the wrapper refuses a width its plan refuses before
     it names a C entry, and counts no launch."""
-    if kernel == "resnet_block" and "hd" in widths:
+    if kernel in ("resnet_block", "final_block_in", "final_block_out") and "hd" in widths:
         widths, match = dict(f=160), "multiple of 64"
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
@@ -189,10 +317,12 @@ def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res"])
+@pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
+                                    "final_block_in", "final_block_out"])
 def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel, dtype):
-    """The C entry gets the packed tiles of the banks (the cached ones), the
-    other tensors as they are, and the widths followed by the plan."""
+    """The C entry gets the packed tiles of the banks (the cached ones; B5b's
+    head bank and its bias zero-padded to F columns), the other tensors as they are,
+    the outputs, and the widths followed by the plan."""
     calls = []
 
     def recording(library, symbol, n_pointers, n_ints):
@@ -213,28 +343,43 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
         args = [r(N, rows, F), r(2 * F)] + block
         module, counter, plan = resnet_block, "launches_block", resnet_block.resnet_block_plan(
             dtype, F)
-        banks, widths = {2: block[0], 5: block[3]}, (N, rows, F)
+        banks, widths = {2: WHOLE, 5: WHOLE}, (N, rows, F)
         fn = resnet_block.resnet_block
+    elif kernel == "final_block_in":
+        args = [r(N, rows, F), r(N, rows, F), r(2 * F), r(N, 2 * F, F), r(N, F), r(N, N),
+                r(N, 2 * F, F), r(N, N)]
+        module, counter, plan = resnet_block, "launches_final_in", \
+            resnet_block.final_block_in_plan(dtype, F)
+        banks, widths = {3: WHOLE, 6: WHOLE}, (N, rows, F)
+        fn = resnet_block.final_block_in
+    elif kernel == "final_block_out":
+        args = [r(N, rows, F), r(N, rows, F)] + block[:3] + [r(N, F, FO), r(N, FO), r(N, N)]
+        module, counter, plan = resnet_block, "launches_final_out", \
+            resnet_block.final_block_out_plan(dtype, F, FO)
+        banks, widths = {2: WHOLE, 5: HEAD, 6: ("pad", F)}, (N, rows, F, FO)
+        fn = resnet_block.final_block_out
     elif kernel == "outproj_res":
         args = [r(N, rows, HD), r(N, rows, F), r(N, HD, F), r(N, N)]
         module, counter, plan = attention_proj, "launches_outproj_res", \
             attention_proj.outproj_res_plan(dtype, HD, F)
-        banks, widths = {2: args[2]}, (N, rows, HD, F)
+        banks, widths = {2: WHOLE}, (N, rows, HD, F)
         fn = attention_proj.outproj_res
     else:
         args = [r(N, rows, HD), r(N, rows, F), r(2 * F), r(N, HD, F), r(N, N)] + block
         module, counter, plan = layer_fused, "launches_outproj_block", \
             layer_fused.outproj_block_plan(dtype, HD, F)
-        banks, widths = {3: args[3], 5: block[0], 8: block[3]}, (N, rows, HD, F)
+        banks, widths = {3: WHOLE, 5: WHOLE, 8: WHOLE}, (N, rows, HD, F)
         fn = layer_fused.outproj_block
     before = getattr(module, counter)
     out = fn(*args)
     assert getattr(module, counter) == before + 1
     (library, symbol, pointers, ints), = calls
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
-    assert (library, symbol) == ({"resnet_block": "resnet_block", "outproj_block": "layer_fused",
-                                  "outproj_res": "attention_proj"}[kernel], f"{kernel}_{suffix}")
+    library_of = {"outproj_block": "layer_fused", "outproj_res": "attention_proj"}
+    assert (library, symbol) == (library_of.get(kernel, "resnet_block"), f"{kernel}_{suffix}")
     assert ints == (*widths, *plan)
-    want = [engine.pack_banks(a, WHOLE).data_ptr() if i in banks else a.data_ptr()
-            for i, a in enumerate(args)] + [out.data_ptr()]
+    outs = out if isinstance(out, tuple) else (out,)
+    want = [engine.pack(a, banks[i]).data_ptr() if i in banks else a.data_ptr()
+            for i, a in enumerate(args)] + [o.data_ptr() for o in outs]
     assert list(pointers) == want
+    assert len({p for p in pointers}) == len(pointers)  # the outputs are new tensors
