@@ -27,14 +27,15 @@ Phases, each printed with its elapsed seconds:
               one (B1, B3a, B3b, B5a and B5b also beside torch.bmm calls of
               their per-node products alone, e.g. [21, 12 800, 192]·[21, 192,
               768] for B3a: the product stage's cuBLAS time, not the
-              function; all five also at a row count with an odd number of
-              their row tiles);
+              function; these five and B2 also at a row count with an odd
+              number of their row tiles; B2 also at 32 heads, where its items
+              take one row of a group of heads);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
               and with injected noise the sampler's state after each step and
               the predictions against the same path on the plain versions,
               beside the bf16 path's deviation from the fp32 path;
 7. layer_fused — the per-layer kernels of the layer-fused denoiser (B9a–c),
-              checked and timed as in phase 5 (B9b and B9c also beside their
+              checked and timed as in phase 5 (all three also beside their
               products-only torch.bmm calls and at an odd number of row tiles);
 8. main_layer_fused — the bf16 path with SKELDIFF_LAYER_FUSED=1 (set for this
               phase only): predictions/s and launch counts per prediction,
@@ -126,7 +127,8 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # the last cluster's second block has no rows, and the bf16 tile before it
 # is ragged (24 rows).  K1's clusters take four 8-row tiles: 1 595 tiles in
 # 399 clusters, the last cluster's fourth block without rows.  B1's, B9c's,
-# B3b's, B5a's and B5b's counts come from their plans (odd_tile_rows).
+# B9a's, B3b's, B5a's, B5b's and B2's counts come from their plans
+# (odd_tile_rows).
 ODD_TILE_ROWS = 12_760
 # The bf16 kernel paths against their plain paths with injected noise: the
 # max |Δ| may reach this multiple of the bf16 path's max deviation from the
@@ -613,12 +615,38 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
     return entry
 
 
+def check_attention_head_groups(gen: torch.Generator, heads: int = 32, rows: int = 1000) -> None:
+    """B2 at ``heads`` heads, where a stage holds one row of a group of heads
+    (three bulk copies a node, q, k and v of the group) rather than whole
+    rows: bf16 at the bf16 criteria and fp32 at F32_TOL against the plain
+    version."""
+    dh = ARCH["attn_dim_head"]
+    qkv = torch.randn((21, rows, 3 * heads * dh), generator=gen, device="cuda")
+    parts = []
+    for dt in (torch.bfloat16, torch.float32):
+        plan = attn_mod.attention_plan(dt, heads, dh)
+        if plan.group_heads == heads:
+            raise AssertionError(f"attention_core: {heads} heads in {dt} are not split into groups")
+        x = qkv.to(dt)
+        got = attn_mod.attention_core(x, heads=heads, dim_head=dh)
+        want = attn_mod.attention_core_plain(x, heads, dh)
+        mx, mean, ref = bf16_errors(got, want)
+        ok = mx <= F32_TOL if dt == torch.float32 else (mx <= BF16_MAX * ref and
+                                                         mean <= BF16_MEAN * ref)
+        if not ok:
+            raise AssertionError(f"attention_core at {heads} heads ({dt}) disagrees with its "
+                                 f"plain version: max {mx}, mean {mean}, |ref| {ref}")
+        parts.append(f"{str(dt).removeprefix('torch.')} (groups of {plan.group_heads}) max "
+                     f"{mx:.3e}")
+    log(f"attention_core at {heads} heads × {rows} rows: " + "; ".join(parts))
+
+
 def products_only(*pairs):
     """One torch.bmm for each (x, w) of ``pairs``, the per-node products
     [N, B, K]·[N, K, F] in bf16 of a kernel alone (B3a and B9b: h·W_qkv; B1:
-    x·W1, h·W2; B9c: a·W_out, o·W1, h·W2; B5a: x‖r·W1, x‖r·Wr; B5b: h·W2,
-    o·Wh): the cuBLAS time of its product stage, a yardstick the port never
-    calls."""
+    x·W1, h·W2; B9c: a·W_out, o·W1, h·W2; B9a: x·W_s, r·W1, h·W2; B5a: x‖r·W1,
+    x‖r·Wr; B5b: h·W2, o·Wh): the cuBLAS time of its product stage, a
+    yardstick the port never calls."""
     return lambda: [torch.bmm(x, w) for x, w in pairs]
 
 
@@ -637,6 +665,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
         return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf16)
 
     with torch.no_grad():
+        check_attention_head_groups(torch.Generator(device="cuda").manual_seed(SEED))
         tt = torch.tanh(den.time_embedding(TIMESTEPS // 2, torch.device("cuda")))
         u = den.cond_embedding(torch.tanh(torch.randn((rows, n, d), generator=gen,
                                                       device="cuda"))).contiguous()
@@ -687,7 +716,9 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 functools.partial(attn_mod.attention_core_plain, heads=heads, dim_head=dh),
                 [qkv], replaces="joint_attention.py:124", source="joint_attention.cu",
                 tensor_flops=4.0 * rows * heads * n * n * dh,
-                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                odd_rows=tuple(odd_tile_rows(attn_mod.attention_plan(dt, heads, dh).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "outproj_res", proj_mod.outproj_res, proj_mod.outproj_res_plain,
                 [core, x, att["w_out"], att["g_out"]], replaces="attention_proj.py:143",
@@ -740,7 +771,7 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
         film0 = denoiser_fused._film(blk0["film"], tt, bf16)
         film1 = denoiser_fused._film(blk1["film"], tt, bf16)
         x_lat = torch.randn((n, rows, d), generator=gen, device="cuda").to(bf16)
-        _, x = layer_mod.stem_block(x_lat, u, film0, stem["w"], stem["b"], stem["g"],
+        r, x = layer_mod.stem_block(x_lat, u, film0, stem["w"], stem["b"], stem["g"],
                                     *banks(blk0))
         core = layer_mod.rms_qkv_core(x, att["g_rms"], att["w_qkv"], att["g_qkv"], heads=heads,
                                       dim_head=dh)
@@ -752,7 +783,10 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 "stem_block", layer_mod.stem_block, layer_mod.stem_block_plain,
                 [x_lat, u, film0, stem["w"], stem["b"], stem["g"], *banks(blk0)],
                 replaces="layer_fused.py:233", source="layer_fused.cu",
-                tensor_flops=prod(d, f) + mix(f) + block),
+                tensor_flops=prod(d, f) + mix(f) + block,
+                products=products_only((x_lat, stem["w"]), (r, blk0["w1"]), (r, blk0["w2"])),
+                odd_rows=tuple(odd_tile_rows(layer_mod.stem_block_plan(dt, d, f).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "rms_qkv_core",
                 functools.partial(layer_mod.rms_qkv_core, heads=heads, dim_head=dh),

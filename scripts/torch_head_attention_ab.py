@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""A/B of the attention body the port's B2 (``csrc/joint_attention.cu``) and
-B9b (``csrc/layer_fused.cu``) share, ``csrc/joint_attention.cuh``'s
-``head_attention``, in bf16: its bf16x2 products (as built) against the
-scalar body (each product an fp32 multiply rounded to bf16), at the bench
-shapes: 21 joints, 8 heads × 32, 12 800 rows, F = 192.
+"""A/B of the attention bodies the port's B2 (``csrc/joint_attention.cu``)
+and B9b (``csrc/layer_fused.cu``) share in bf16 (``csrc/joint_attention.cuh``):
+``head_attention_mma``, both products on the tensor cores (as built), against
+``head_attention``, a lane per query joint on the CUDA cores with each q·k
+product rounded to bf16 as the Pallas kernel rounds it, at the bench shapes:
+21 joints, 8 heads × 32, 12 800 rows, F = 192.
 
     python3 scripts/torch_head_attention_ab.py
 
-The scalar variant is the same sources with the bf16 branch of
-``head_attention`` switched off; both variants of ``joint_attention.cu`` and
-``layer_fused.cu`` are built with the port's nvcc flags into
-``build/head_attention_ab/``.  On random inputs from a seed it checks that
-both variants give the same bits, times each kernel in each variant (CUDA
-events, 20 calls a reading, 4 rounds in alternating order) and prints the
-card's name and power limit, then one JSON line.  Needs one CUDA device.
+The CUDA-core variant is the same sources with ``kTensorCoreBody`` switched
+off; both variants of ``joint_attention.cu`` and ``layer_fused.cu`` are built
+with the port's nvcc flags into ``build/head_attention_ab/``.  On random
+inputs from a seed it holds each variant's output against the kernels' plain
+versions at the bf16 bounds (max |Δ| ≤ 3e-2·max|ref|, mean ≤ 2e-3·max|ref|;
+the two bodies differ in where q·k is rounded), times each kernel in each
+variant (CUDA events, 20 calls a reading, 4 rounds in alternating order) and
+prints the card's name and power limit, then one JSON line; exit 1 if a
+variant breaks the bounds.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -34,26 +37,27 @@ from skeletondiffusion_tpu_torch.ops.kernels import build, joint_attention, laye
 
 N, H, DH, B, F = 21, 8, 32, 12800, 192
 LIBRARIES = ("joint_attention", "layer_fused")
-BF16_BRANCH = "if constexpr (std::is_same_v<T, bf16>)"
+TC_SWITCH = "constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;"
 OUT = REPO / "build" / "head_attention_ab"
 ROUNDS, REPS = 4, 20
+BF16_MAX, BF16_MEAN = 3e-2, 2e-3
 
 
-def scalar_sources(dst: pathlib.Path) -> pathlib.Path:
-    """A copy of ``csrc/`` with head_attention's bf16 branch switched off."""
+def cuda_core_sources(dst: pathlib.Path) -> pathlib.Path:
+    """A copy of ``csrc/`` with the tensor-core body switched off."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, dst)
     header = dst / "joint_attention.cuh"
     text = header.read_text()
-    if text.count(BF16_BRANCH) != 1:
-        raise RuntimeError(f"head_attention's bf16 branch ({BF16_BRANCH}) not found once")
-    header.write_text(text.replace(BF16_BRANCH, "if constexpr (false)"))
+    if text.count(TC_SWITCH) != 1:
+        raise RuntimeError(f"the body's switch ({TC_SWITCH}) not found once")
+    header.write_text(text.replace(TC_SWITCH, "constexpr bool kTensorCoreBody = false;"))
     return dst
 
 
 def build_variants() -> dict:
     """{variant: {library: CDLL}}, the two variants built at once."""
-    dirs = {"bf16x2": build.CSRC_DIR, "scalar": scalar_sources(OUT / "scalar_src")}
+    dirs = {"mma": build.CSRC_DIR, "cuda_core": cuda_core_sources(OUT / "cuda_core_src")}
     errors = []
 
     def compile_one(variant, src):
@@ -109,24 +113,30 @@ def main() -> int:
                                                          dim_head=DH),
         "attention_core": lambda: joint_attention.attention_core(qkv, heads=H, dim_head=DH),
     }
-    outs, times = {}, {v: {k: [] for k in kernels} for v in variants}
+    plain = {"rms_qkv_core": layer_fused.rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, H, DH),
+             "attention_core": joint_attention.attention_core_plain(qkv, H, DH)}
+    errors, times = {}, {v: {k: [] for k in kernels} for v in variants}
     for v, libs in variants.items():
         use(libs)
-        outs[v] = {k: fn().clone() for k, fn in kernels.items()}
+        for k, fn in kernels.items():
+            d = (fn().float() - plain[k].float()).abs()
+            ref = plain[k].float().abs().max().item()
+            errors.setdefault(v, {})[k] = {"max": d.max().item(), "mean": d.mean().item(),
+                                           "ref": ref}
     for r in range(ROUNDS):
         for v in (list(variants) if r % 2 == 0 else list(variants)[::-1]):
             use(variants[v])
             for k, fn in kernels.items():
                 times[v][k].append(cuda_ms(fn))
-    same = {k: torch.equal(outs["bf16x2"][k], outs["scalar"][k]) for k in kernels}
-    finite = all(torch.isfinite(t).all().item() for o in outs.values() for t in o.values())
+    ok = all(e["max"] <= BF16_MAX * e["ref"] and e["mean"] <= BF16_MEAN * e["ref"]
+             for ve in errors.values() for e in ve.values())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
     print(json.dumps({"ms": times, "best_ms": {v: {k: min(t) for k, t in kt.items()}
                                                for v, kt in times.items()},
-                      "same_bits": same, "finite": finite}))
-    return 0 if all(same.values()) and finite else 1
+                      "vs_plain": errors, "within_bounds": ok}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -1,22 +1,34 @@
-// Softmax attention of one head over the skeleton's joints, for one query
-// joint per lane: the body shared by the attention kernel (B2,
-// joint_attention.cu) and the fused RMSNorm → qkv → attention kernel (B9b,
-// layer_fused.cu), so that both round at the same points:
+// Softmax attention of one head over the skeleton's joints: the bodies
+// shared by the attention kernel (B2, joint_attention.cu) and the fused
+// RMSNorm → qkv → attention kernel (B9b, layer_fused.cu), so that both round
+// at the same points:
 //
 //   qs      = round(q · round(dh^-1/2))
-//   s[n, m] = Σ_c round(qs[n, c]·k[m, c])           fp32 sums
+//   s[n, m] = Σ_c qs[n, c]·k[m, c]                  fp32 sums
 //   p[n, m] = round(softmax_m(s[n, ·]))
 //   out[n]  = round(Σ_m p[n, m]·v[m])               fp32 sums
 //
-// round() is to the element type, where the Pallas kernels round: they scale
-// q and multiply it into k in their compute dtype, then sum over dh with a
-// block-indicator matmul (a workaround for the TPU's matrix unit) in fp32.
+// round() is to the element type.  The Pallas kernels scale q and multiply
+// it into k in their compute dtype, then sum over dh with a block-indicator
+// matmul (a workaround for the TPU's matrix unit) in fp32: in bf16 they
+// round each product qs·k too.  Two bodies:
+//
+// * head_attention_mma, the kernels' bf16 body: a warp per (row, head), both
+//   products on the tensor cores, which sum the products qs·k exact: the one
+//   rounding point where it differs from the Pallas kernel and the plain
+//   version (held to them at the bf16 bounds; PERF.md §6).
+// * head_attention, their fp32 body: a lane per query joint on the CUDA
+//   cores.  Its bf16 branch rounds every product as the Pallas kernel does
+//   (bit-exact to the plain version); the kernels run it in bf16 only when
+//   kTensorCoreBody is switched off (scripts/torch_head_attention_ab.py).
 
 #pragma once
 
+#include <cmath>
 #include <type_traits>
 
 #include "node_mix.cuh"
+#include "node_mix_sm90.cuh"
 
 namespace nodemix {
 
@@ -143,6 +155,171 @@ __device__ __forceinline__ void head_attention(const T* q_base, const T* k_base,
   T* o = o_base + static_cast<size_t>(n) * ldo;
 #pragma unroll
   for (int c = 0; c < DH; c += 8) store8(o + c, acc + c);
+}
+
+// The body the kernels run for element type T (see the head of this file).
+template <typename T>
+constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
+
+// The attention of one (row, head) by the whole calling warp, bf16, on the
+// tensor cores (mma.sync m16n8k16, fp32 sums):
+//
+//   S = qs·kᵀ   queries 21 → 32 (two m16 tiles) × keys 21 → 24 (three n8
+//               tiles) × dh 32 (two k-steps): 12 mma, q and k through
+//               ldmatrix, q scaled in its fragments (qs = round(q·round(scale)))
+//   p = round(softmax(S)) in the accumulators: keys ≥ 21 masked to −∞, each
+//               row's max and sum over its quad of lanes by shuffles
+//   O = p·v     p reused from registers as the A operand (keys 21 → 32, two
+//               k-steps) × dh 32 (four n8 tiles): 16 mma, v through
+//               ldmatrix.trans
+//
+// Joint m's q, k and v (32 values each, 16-byte aligned) lie at q + m·ld,
+// k + m·ld and v + m·ld in shared memory; the ldmatrix rows of joints ≥ 21
+// read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
+// this warp alone, and no more), then goes to o + n·ldo with 16-byte stores
+// (64 contiguous bytes a joint).  With ld ≡ 16 bytes mod 128 the eight rows
+// of each ldmatrix and of each fragment store fall in distinct banks.
+__device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const bf16* v, int ld,
+                                                   float scale, bf16* o, size_t ldo,
+                                                   const void* zero) {
+  using sm90mix::ldmatrix_x4;
+  using sm90mix::ldmatrix_x4_trans;
+  using sm90mix::mma_bf16;
+  using sm90mix::pack_bf16;
+  using sm90mix::smem_u32;
+  constexpr int N = sm90mix::kNodes;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t zrow = smem_u32(zero);
+  auto row = [&](const bf16* base, int joint, int col) {
+    return joint < N ? smem_u32(base + joint * ld + col) : zrow;
+  };
+
+  // qs: A fragments [m-tile][k-step], this lane's row 16·mt + lane%16, k half lane/16
+  const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
+  uint32_t qa[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      ldmatrix_x4(qa[mt][ks], row(q, 16 * mt + (lane & 15), 16 * ks + 8 * (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 qs = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qa[mt][ks][i]), sc);
+        qa[mt][ks][i] = *reinterpret_cast<const uint32_t*>(&qs);
+      }
+    }
+  // k: B fragments of n-tile nt, dh 0-7, 8-15, 16-23, 24-31 (keys 8·nt + lane%8)
+  uint32_t kb[3][4];
+#pragma unroll
+  for (int nt = 0; nt < 3; ++nt) ldmatrix_x4(kb[nt], row(k, 8 * nt + (lane & 7), 8 * (lane >> 3)));
+  float s[2][3][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt) {
+      s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
+      mma_bf16(s[mt][nt], qa[mt][0], kb[nt][0], kb[nt][1]);
+      mma_bf16(s[mt][nt], qa[mt][1], kb[nt][2], kb[nt][3]);
+    }
+
+  // softmax of this lane's rows 16·mt + g (elements 0, 1) and + 8 (2, 3),
+  // columns 8·nt + 2t + e, over the quad that holds the row
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mt][nt][2 * hf + e];
+          if (8 * nt + 2 * t + e >= N) x = -INFINITY;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mt][nt][2 * hf + e];
+          x = expf(x - mx);
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float rcp = __frcp_rn(sum);
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mt][nt][2 * hf + e];
+          x = sm90mix::quotient(x, sum, rcp);  // x / sum, rounded as IEEE division
+        }
+    }
+
+  // p, rounded, as A fragments [m-tile][k-step]: keys 0-15 from n-tiles 0, 1,
+  // keys 16-23 from n-tile 2, keys 24-31 zero
+  uint32_t pa[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+      pa[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+    }
+    pa[mt][0][2] = pack_bf16(s[mt][1][0], s[mt][1][1]);
+    pa[mt][0][3] = pack_bf16(s[mt][1][2], s[mt][1][3]);
+    pa[mt][1][2] = pa[mt][1][3] = 0u;
+  }
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    // v: B fragments of dh n-tiles j, j + 1 from one ldmatrix.trans (keys
+    // 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 8·j (+ 8 for lanes ≥ 16))
+    uint32_t vb[4][2];
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, row(v, 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
+                               16 * jp + 8 * (lane >> 4)));
+      vb[2 * jp][0] = r[0];
+      vb[2 * jp][1] = r[1];
+      vb[2 * jp + 1][0] = r[2];
+      vb[2 * jp + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
+  }
+
+  // O into q's rows (every lane's ldmatrix of q is long done), then out
+  __syncwarp();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int joint = 16 * mt + 8 * hf + g;
+      if (joint < N) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(q + joint * ld + 8 * j + 2 * t) =
+              pack_bf16(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+      }
+    }
+  __syncwarp();
+  for (int c = lane; c < 4 * N; c += 32) {
+    const int joint = c >> 2, part = c & 3;
+    *reinterpret_cast<uint4*>(o + joint * ldo + 8 * part) =
+        *reinterpret_cast<const uint4*>(q + joint * ld + 8 * part);
+  }
 }
 
 }  // namespace nodemix

@@ -29,14 +29,19 @@
 //
 // What the design does about it: a block owns a tile of rows of all 21
 // nodes, so every input crosses device memory once and every output is
-// written once; the intermediates (r's second use, o, h, the 768-wide qkv)
-// stay in the block.
+// written once; the intermediates (h, o, the 768-wide qkv) stay in the
+// block.
 //
-// * B9a runs the stem into the product tile P (21 × 16 × 192 bf16, 129 KB;
-//   node_mix.cuh, 16 rows, 8 in fp32), mixes it in place, then the old
-//   ResnetBlock body (node_mix.cuh::resnet_block_body) on P.  It reads its
-//   residual r back from device memory after its last mix: r is an output
-//   anyway.
+// * B9a runs on node_mix_sm90.cuh's engine (`run_blocks`), as B9c does:
+//   three product passes through the k-slice ring, the stem from x's rows,
+//   then B1's two in place in P, each followed by a tensor-core mix.  The
+//   stem's contraction of 96 runs as two k-slices of 64: the producer
+//   zero-fills x's columns 96–127 (Input::kNarrow, never reading past x's
+//   last column) against a bank packed with rows 96–127 zero, so the plan
+//   is B9c's.  The stem pass adds u after the bias (`product<true>`), as
+//   the plain version sums; after its plain mix P (r) goes to r_out, which
+//   the block's last mix reads back as its residual, as B9c reads o.
+//   Each weight byte from L2 serves the cluster's 32 rows.
 // * B9c runs on node_mix_sm90.cuh's engine (`run_blocks`), as B1 does
 //   (resnet_block.cu): items of 16 rows (fp32: 8) × all 192 columns, three
 //   product passes through the k-slice ring (the out-projection from a's
@@ -54,15 +59,16 @@
 //   does: items of 32 rows × one head's 96 q‖k‖v columns (fp32: 8 rows),
 //   the two blocks of a cluster on adjacent row tiles, each weight tile
 //   multicast to both; per item the 21 × 32 × 96 products are mixed in
-//   place, then the head's attention runs with a warp per row and a lane
-//   per query joint (B2's body, joint_attention.cuh), 32 output columns.
+//   place, then the head's attention runs with a warp per row on the tensor
+//   cores (B2's body, joint_attention.cuh's head_attention_mma; fp32: a lane
+//   per query joint), 32 output columns, staged in the row's q columns of P.
 //   The head's columns are packed into one tile by the wrapper.  Shared memory (bf16, F = 192):
 //   227 840 B; a 64-row tile would need 258 KB for P alone.  Each weight
 //   byte from L2 serves 64 rows (16 before): L2 → shared memory traffic a
 //   call is 1.24 GB of weights plus 8 heads × 103 MB of rows, 2.07 GB
-//   against ~5.0 GB.  A block spends 41% of its time in the attention, 24%
-//   normalising, 23% in the products; 1.66 ms (PERF.md §6).  It
-//   computes the same bits as B3a followed by B2.
+//   against ~5.0 GB.  With the CUDA-core body (head_attention) a block spent
+//   41% of its time in the attention, 24% normalising, 23% in the products
+//   (PERF.md §6).  It computes the same bits as B3a followed by B2.
 
 #include <cmath>
 
@@ -77,42 +83,22 @@ using namespace nodemix;
 constexpr int kDimHead = 32;
 constexpr int kHeadCols = 3 * kDimHead;  // a head's q‖k‖v columns
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __restrict__ film,
                   const T* __restrict__ ws, const T* __restrict__ bs, const T* __restrict__ gs,
                   const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ g1,
                   const T* __restrict__ w2, const T* __restrict__ b2, const T* __restrict__ g2,
-                  T* r_out, T* __restrict__ out, int rows, int d, int f) {
-  constexpr int R = RowTile<T>::kRows;
+                  T* r_out, T* __restrict__ out, int rows, int d, int kd, int f, int kslice,
+                  int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, f, max(d, f), 3);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  float* gss = sm.g;
-  float* g1s = sm.g + kNodes * kGStride;
-  float* g2s = sm.g + 2 * kNodes * kGStride;
-  load_influence(gss, gs);
-  load_influence(g1s, g1);
-  load_influence(g2s, g2);
-  load_film(sm.vec, film, f);
-
-  T* p = sm.p;
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, x + at(n, rows, b0, d, 0), d, valid); },
-      sm.s, d, ws, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        float h = acc + to_f(bs[n * f + c]);
-        if (r < valid) h += to_f(u[at(n, rows, b0 + r, f, c)]);
-        p[(n * R + r) * f + c] = from_f<T>(h);
-      });
-  node_mix(p, f, f, gss, [&](int n, int r, int c, float y) {
-    const T v = from_f<T>(y);
-    p[(n * R + r) * f + c] = v;
-    if (r < valid) r_out[at(n, rows, b0 + r, f, c)] = v;
-  });
-  resnet_block_body(sm, [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); }, g1s, g2s, w1,
-                    b1, w2, b2, r_out, out, rows, b0, valid, f);
+  sm90mix::BlockProblem<T> pb{
+      {{x, ws, bs, kd}, {nullptr, w1, b1, f}, {nullptr, w2, b2, f}}, {gs, g1, g2}, film, 3,
+      rows, f, kslice, stages};
+  pb.a_cols = d;
+  sm90mix::run_blocks<T, R, NT, sm90mix::Input::kNarrow>(
+      pb, smem_raw, [&](auto& it) { it.stem_block(u, r_out, out); });
 }
 
 template <typename T, int NT>
@@ -162,37 +148,47 @@ rms_qkv_core_kernel(const T* __restrict__ x, const T* __restrict__ g_rms,
   const sm90mix::Problem<T> pb{x, g_rms, w, g, rows, f, heads, stages};
   const int hd = heads * kDimHead;
   sm90mix::run<T, R, kHeadCols>(
-      pb, smem_raw, [&](const T* p, int plane, int b0, int valid, int h) {
-        // warp r takes rows r, r + 8, …; lane n query joint n
+      pb, smem_raw, [&](T* p, int plane, int b0, int valid, int h) {
+        // warp r takes rows r, r + 8, …
         for (int r = threadIdx.x >> 5; r < valid; r += sm90mix::kConsumerWarps) {
-          const T* row = p + r * kHeadCols;
-          head_attention<T, kNodes, kDimHead>(row, row + kDimHead, row + 2 * kDimHead, plane,
-                                              scale, out + at(0, rows, b0 + r, hd, h * kDimHead),
-                                              static_cast<size_t>(rows) * hd);
+          T* row = p + r * kHeadCols;
+          T* o = out + at(0, rows, b0 + r, hd, h * kDimHead);
+          if constexpr (kTensorCoreBody<T>) {
+            head_attention_mma(row, row + kDimHead, row + 2 * kDimHead, plane, scale, o,
+                               static_cast<size_t>(rows) * hd, smem_raw + sm90mix::kZeroOffset);
+          } else {
+            head_attention<T, kNodes, kDimHead>(row, row + kDimHead, row + 2 * kDimHead, plane,
+                                                scale, o, static_cast<size_t>(rows) * hd);
+          }
         }
       });
 }
 
-bool bad_block_shape(int n_nodes, int rows, int k, int f) {
-  return n_nodes != kNodes || rows <= 0 || k <= 0 || k % 32 || f <= 0 || f % 32;
-}
-
+// The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
+// bytes) must be the one instantiated here, with the stem's contraction d
+// (a multiple of 8) padded to kd, the next multiple of 64; bf16 is
+// instantiated for each f = 64·NT the plan takes.
 template <typename T>
 int launch_stem_block(const void* x, const void* u, const void* film, const void* ws,
                       const void* bs, const void* gs, const void* w1, const void* b1,
                       const void* g1, const void* w2, const void* b2, const void* g2, void* r_out,
-                      void* out, int n_nodes, int rows, int d, int f, void* stream) {
-  if (bad_block_shape(n_nodes, rows, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(f, d > f ? d : f, 3, 2 * f);
-  cudaError_t err = prepare(stem_block_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stem_block_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(u), static_cast<const T*>(film),
-      static_cast<const T*>(ws), static_cast<const T*>(bs), static_cast<const T*>(gs),
-      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(g1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(g2),
-      static_cast<T*>(r_out), static_cast<T*>(out), rows, d, f);
-  return static_cast<int>(cudaGetLastError());
+                      void* out, int n_nodes, int rows, int d, int f, int tile_rows, int kslice,
+                      int stages, int cluster, int smem_bytes, void* stream) {
+  const int kd = (d + 63) / 64 * 64;
+  const int ks[3] = {kd, f, f};
+  if (n_nodes != kNodes || rows <= 0 || d <= 0 || d % 8 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 3, tile_rows, kslice, stages, cluster, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    return sm90mix::launch(
+        stem_block_kernel<T, decltype(nt)::value>, sm90mix::items(rows, tile_rows, 1),
+        smem_bytes, cluster, stream, static_cast<const T*>(x), static_cast<const T*>(u),
+        static_cast<const T*>(film), static_cast<const T*>(ws), static_cast<const T*>(bs),
+        static_cast<const T*>(gs), static_cast<const T*>(w1), static_cast<const T*>(b1),
+        static_cast<const T*>(g1), static_cast<const T*>(w2), static_cast<const T*>(b2),
+        static_cast<const T*>(g2), static_cast<T*>(r_out), static_cast<T*>(out), rows, d, kd, f,
+        kslice, stages);
+  }));
 }
 
 // The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
@@ -248,22 +244,30 @@ int launch_outproj_block(const void* a, const void* x, const void* film, const v
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // shapes not instantiated.
 
-// x [·, rows, d], u, r_out, out [·, rows, f]; ws [·, d, f]; w1, w2 [·, f, f].
+// x [·, rows, d], u, r_out, out [·, rows, f]; ws [·, d, f] zero-padded to
+// [·, kd, f] (kd: d rounded up to 64) and w1, w2 [·, f, f] packed into one
+// tile of all f columns each, [·, 1, kd·f] and [·, 1, f·f]
+// (ops/kernels/node_mix_sm90.py); the tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan).
 extern "C" int stem_block_bf16(const void* x, const void* u, const void* film, const void* ws,
                                const void* bs, const void* gs, const void* w1, const void* b1,
                                const void* g1, const void* w2, const void* b2, const void* g2,
                                void* r_out, void* out, int n_nodes, int rows, int d, int f,
+                               int tile_rows, int kslice, int stages, int cluster, int smem_bytes,
                                void* stream) {
   return launch_stem_block<nodemix::bf16>(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2, r_out,
-                                          out, n_nodes, rows, d, f, stream);
+                                          out, n_nodes, rows, d, f, tile_rows, kslice, stages,
+                                          cluster, smem_bytes, stream);
 }
 extern "C" int stem_block_f32(const void* x, const void* u, const void* film, const void* ws,
                               const void* bs, const void* gs, const void* w1, const void* b1,
                               const void* g1, const void* w2, const void* b2, const void* g2,
                               void* r_out, void* out, int n_nodes, int rows, int d, int f,
+                              int tile_rows, int kslice, int stages, int cluster, int smem_bytes,
                               void* stream) {
   return launch_stem_block<float>(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2, r_out, out,
-                                  n_nodes, rows, d, f, stream);
+                                  n_nodes, rows, d, f, tile_rows, kslice, stages, cluster,
+                                  smem_bytes, stream);
 }
 
 // x [·, rows, f], g_rms [f], g [·, ·], out [·, rows, heads·dim_head]; w is

@@ -1,15 +1,14 @@
-// Shared device routines of the fused denoiser's kernels B4 and B9a for
-// NVIDIA Hopper (sm_90a); B1, B3a, B3b, B5a, B5b, B9b and B9c run on
-// node_mix_sm90.cuh (B9a still runs resnet_block_body below, the ResnetBlock
-// body B1 and B9c ran before they moved), which takes its element
+// Shared device routines of the fused denoiser's stem kernel B4
+// (graph_linear_fused.cu) for NVIDIA Hopper (sm_90a); every other kernel of
+// the denoiser runs on node_mix_sm90.cuh, which takes its element
 // conversions (to_f, from_f) from here.
 //
-// Both of those kernels compute the same pattern on node-major
-// activations [N, B, F] (element (n, b, f) at (n·B + b)·F + f):
+// B4 computes this pattern on node-major activations [N, B, F] (element
+// (n, b, f) at (n·B + b)·F + f):
 //
-//   P[n]   = round(X[n]·W[n] + bias[n] (+ extra))   per-node product, fp32 sums
+//   P[n]   = round(X[n]·W[n] + bias[n] (+ u[n]))    per-node product, fp32 sums
 //   Y[n]   = Σ_m G[n, m]·P[m]                        the N×N influence mix
-//   out    = epilogue(Y)                             FiLM, tanh, residual, …
+//   out    = epilogue(Y)                             round(Y) into out
 //
 // The mix couples the N nodes of one row, never two rows, so a block owns a
 // tile of kRows rows for all N nodes and needs nothing from another block.
@@ -17,8 +16,7 @@
 // in their h_scr scratch in the compute dtype): N × kRows × width elements.
 //
 // * node_products: for each node, the block stages that node's kRows input
-//   rows in shared memory (from device memory, or from P itself when a second
-//   product follows the first), then each warp computes 16-column tiles of
+//   rows in shared memory, then each warp computes 16-column tiles of
 //   the product, with bf16 tensor cores (nvcuda::wmma 16×16×16, fp32
 //   accumulators) for T = bf16 and with fp32 FMAs (8×16 tiles) for T = float.
 //   The weight tiles are read straight from device memory (L2-resident).
@@ -143,18 +141,6 @@ __device__ void stage_rows(T* s, const T* src, int k, int valid) {
   }
 }
 
-// s[r][0:k] = p[n][r][0:k] (P rows of stride ldp), whole block.
-template <typename T>
-__device__ void stage_from_p(T* s, const T* p, int ldp, int n, int k) {
-  constexpr int R = RowTile<T>::kRows;
-  const int vecs = static_cast<int>(k * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < R * vecs; i += kThreads) {
-    const int r = i / vecs, v = i % vecs;
-    reinterpret_cast<uint4*>(s + r * k)[v] =
-        reinterpret_cast<const uint4*>(p + static_cast<size_t>(n * R + r) * ldp)[v];
-  }
-}
-
 // One warp: c[16][16] = a[16][k] · b[k][16], bf16 operands on the tensor
 // cores, fp32 sums; k a multiple of 32.  a in shared memory (row stride
 // lda, 32-byte aligned, lda a multiple of 16); b in device memory (row
@@ -215,8 +201,7 @@ __device__ __forceinline__ void warp_tile_product(const float* a, int lda, const
 }
 
 // For each group of kGroup nodes: stage(n, buf) fills buf [kRows][k] with
-// node n's input rows (from device memory, or from P itself when a second
-// product follows the first), for every node of the group into s
+// node n's input rows, for every node of the group into s
 // [kGroup][kRows][k]; then the warps compute the fc columns of each node's rows ·
 // w[n] (w[n] is [k][ldw], already offset to the first column of this chunk)
 // 16 at a time and hand every sum to store(n, row, column, value).  Ends
@@ -276,57 +261,9 @@ __device__ void node_mix(const T* p, int ldp, int fc, const float* g, Epi epi) {
   __syncthreads();
 }
 
-// scale + 1 and shift of a ResnetBlock's FiLM row scale‖shift [2f], widened
-// to fp32, into vec[0:2f].
-template <typename T>
-__device__ void load_film(float* vec, const T* film, int f) {
-  for (int c = threadIdx.x; c < f; c += kThreads) {
-    vec[c] = to_f(film[c]) + 1.0f;
-    vec[f + c] = to_f(film[f + c]);
-  }
-}
-
 // Offset of (node n, row b, column c) in a node-major [N, rows, width] tensor.
 __device__ __forceinline__ size_t at(int n, int rows, int b, int width, int c) {
   return (static_cast<size_t>(n) * rows + b) * width + c;
-}
-
-// The ResnetBlock (B9a's, once B1's body) on a tile of kRows rows from row b0, valid of
-// them real: stage_in(n, buf) stages node n's input rows o for the first
-// product (from device memory, or from P when a kernel left o there), then
-//   P ← round(o·W1 + b1), h = round(tanh(FiLM(G1·P))) in place,
-//   P ← round(h·W2 + b2), out = round(tanh(G2·P) + o)
-// for the valid rows, with o read from o_dev [N, rows, f] after the last mix
-// (out may be o_dev itself: each element is read before it is written, by
-// the thread that writes it).  FiLM's scale + 1 and shift are in sm.vec;
-// g1s, g2s are the influences in shared memory.
-template <typename T, typename StageIn>
-__device__ void resnet_block_body(const Smem<T>& sm, StageIn stage_in, const float* g1s,
-                                  const float* g2s, const T* __restrict__ w1,
-                                  const T* __restrict__ b1, const T* __restrict__ w2,
-                                  const T* __restrict__ b2, const T* o_dev, T* out, int rows,
-                                  int b0, int valid, int f) {
-  constexpr int R = RowTile<T>::kRows;
-  T* p = sm.p;
-  node_products(stage_in, sm.s, f, w1, f, f, sm.scratch,
-                [&](int n, int r, int c, float acc) {
-                  p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b1[n * f + c]));
-                });
-  node_mix(p, f, f, g1s, [&](int n, int r, int c, float y) {
-    p[(n * R + r) * f + c] = from_f<T>(tanhf(y * sm.vec[c] + sm.vec[f + c]));
-  });
-  node_products(
-      [&](int n, T* buf) { stage_from_p(buf, p, f, n, f); },
-      sm.s, f, w2, f, f, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        p[(n * R + r) * f + c] = from_f<T>(acc + to_f(b2[n * f + c]));
-      });
-  node_mix(p, f, f, g2s, [&](int n, int r, int c, float y) {
-    if (r < valid) {
-      const size_t i = at(n, rows, b0 + r, f, c);
-      out[i] = from_f<T>(tanhf(y) + to_f(o_dev[i]));
-    }
-  });
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory and check the launch

@@ -9,8 +9,9 @@
 //   memory from the first product to the last mix: the attention layer's
 //   out-projection, B3b (outproj_res, attention_proj.cu), the ResnetBlock, B1
 //   (resnet_block, resnet_block.cu), both, B9c (outproj_block,
-//   layer_fused.cu), and the final block's two halves with the output head,
-//   B5a and B5b (final_block_in, final_block_out, resnet_block.cu).
+//   layer_fused.cu), the stem with block 0, B9a (stem_block, layer_fused.cu),
+//   and the final block's two halves with the output head, B5a and B5b
+//   (final_block_in, final_block_out, resnet_block.cu).
 //
 // Both share the roles, the ring of bulk copies on mbarriers, the two-block
 // clusters with multicast weight tiles, the mma.sync products through
@@ -582,7 +583,8 @@ struct Problem {
 
 // Runs every item of this block; epi(p, plane, b0, valid, group) gets each
 // item's mixed, rounded tile P [N][R][C] (plane elements between nodes) in
-// shared memory, called by all consumer threads together.
+// shared memory, called by all consumer threads together; it may overwrite
+// P (B9b stages its attention's output there).
 template <typename T, int R, int C, typename Epi>
 __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, Epi epi) {
   const Layout l = layout<T>(R, C, pb.f, pb.stages);
@@ -678,7 +680,7 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
         mix_mma<R, C>(p, l.plane, smem + kZeroOffset, ga);
       }
       consumer_sync();
-      epi(static_cast<const T*>(p), l.plane, b0, valid, grp);
+      epi(p, l.plane, b0, valid, grp);
     }
   }
   cluster_sync();  // no block leaves while its peer may still reach its memory
@@ -712,10 +714,12 @@ __device__ __forceinline__ void store_tile(const T* p, int plane, T* out, int ro
 //
 // where A[n] is node n's R input rows from device memory (x for B1's first
 // pass, a for B9c's out-projection, x‖r for both of B5a's, from x and r
-// side by side: no k-slice straddles them) or P[n] itself, in place (every
-// later pass).  A pass with fewer output columns than F (B5b's head) is an
-// F-wide pass whose bank and bias are zero past its columns; only its store
-// is narrower.  The ring carries, per (pass, node, k-slice of kslice rows of the
+// side by side: no k-slice straddles them; B9a's stem input x, 96 wide,
+// contracted as 128 with zeros past column 96 against a bank whose rows
+// 96–127 are zero) or P[n] itself, in place (every later pass).  B9a's stem
+// pass also adds u [N, rows, f] after the bias (`product<true>`).  A pass
+// with fewer output columns than F (B5b's head) is an F-wide pass whose
+// bank and bias are zero past its columns; only its store is narrower.  The ring carries, per (pass, node, k-slice of kslice rows of the
 // bank), the k-slice of the R input rows (16-byte cp.async copies by the
 // producer warp's 32 lanes, each lane's arrival on the stage's `full`
 // barrier once its copies land; a bulk copy a row made the loads the
@@ -773,11 +777,15 @@ struct BlockPass {
   int k;
 };
 
+// Where a launch's device inputs come from (run_blocks' kInput): each pass's
+// a [N, rows, k] whole; split in two (B5a's x‖r: a [N, rows, f] gives the
+// columns < f and BlockProblem::a2 [N, rows, f] the others); or narrow (B9a's
+// stem: a [N, rows, a_cols], a_cols < k, the columns past a_cols zeros).
+enum class Input { kWhole, kSplit, kNarrow };
+
 // What one launch works on: the passes, the influence of each pass's mix
 // [N, N], FiLM's scale‖shift [2f] (nullptr for a kernel without FiLM), rows
-// and widths, the plan, and for a launch whose device inputs have two
-// sources (run_blocks' kSplitA: B5a's x‖r) the second, a2 [N, rows, f]: a
-// pass's input a [N, rows, f] then gives its columns < f and a2 the others.
+// and widths, the plan, and a2 (Input::kSplit) or a_cols (Input::kNarrow).
 template <typename T>
 struct BlockProblem {
   BlockPass<T> pass[kMaxPasses];
@@ -785,6 +793,7 @@ struct BlockProblem {
   const T* film;
   int passes, rows, f, kslice, stages;
   const T* a2 = nullptr;
+  int a_cols = 0;
 };
 
 // A position in the ring: the stage and the parity of its current phase.
@@ -800,9 +809,11 @@ struct RingPos {
 };
 
 // The producer warp: for every item, pass, node and k-slice, one stage.
-// kSplitA: each k-slice of a pass's input comes wholly from a (columns < f)
-// or from pb.a2 (f a multiple of the k-slice).
-template <typename T, int R, bool kSplitA>
+// Input::kSplit: each k-slice of a pass's input comes wholly from a (columns
+// < f) or from pb.a2 (f a multiple of the k-slice); Input::kNarrow: the
+// chunks of columns ≥ pb.a_cols (a multiple of 16 bytes) are zero-filled,
+// their source never read.
+template <typename T, int R, Input kInput>
 __device__ __forceinline__ void produce_blocks(const BlockProblem<T>& pb, const BlockLayout& l,
                                                unsigned char* smem, uint64_t* full,
                                                uint64_t* empty, uint32_t rank, int n_items) {
@@ -827,20 +838,27 @@ __device__ __forceinline__ void produce_blocks(const BlockProblem<T>& pb, const 
           if (ps.a != nullptr) {  // the input rows' k-slice, 16 bytes a copy, zeros past the last row
             const T* src = ps.a;
             int lda = ps.k, col = j * pb.kslice;
-            if constexpr (kSplitA) {
+            if constexpr (kInput == Input::kSplit) {
               lda = pb.f;
               if (col >= pb.f) {
                 src = pb.a2;
                 col -= pb.f;
               }
+            } else if constexpr (kInput == Input::kNarrow) {
+              lda = pb.a_cols;
             }
             for (int e = lane; e < R * a_chunks; e += 32) {
               const int r = e / a_chunks, cc = e % a_chunks;
               const int row = min(b0 + r, pb.rows - 1);
+              int c = col + cc * (16 / static_cast<int>(sizeof(T)));
+              bool read = r < valid;
+              if constexpr (kInput == Input::kNarrow) {
+                read = read && c < lda;
+                c = c < lda ? c : 0;  // a zero-filled chunk's source: the row's start
+              }
               cp_async_16(st + sizeof(T) * r * l.a_stride + 16 * cc,
-                          src + (static_cast<size_t>(n) * pb.rows + row) * lda + col +
-                              cc * (16 / sizeof(T)),
-                          r < valid ? 16u : 0u);
+                          src + (static_cast<size_t>(n) * pb.rows + row) * lda + c,
+                          read ? 16u : 0u);
             }
           }
           cp_async_arrive(&full[s]);  // every lane, every stage
@@ -892,16 +910,19 @@ struct BlockItem {
     q.advance(pb.stages);
   }
 
-  // P[n] ← round(A[n]·W[n] + bias[n]) for every node of pass i; ends with
-  // the consumers synchronised.
-  __device__ void product(int i) {
+  // P[n] ← round(A[n]·W[n] + bias[n] (+ addend[n])) for every node of pass
+  // i, with kAddend the element of addend [N, rows, f] at the same node, row
+  // and column added after the bias (B9a's stem adds u: (x·W + b) + u, as
+  // the plain version sums); ends with the consumers synchronised.
+  template <bool kAddend = false>
+  __device__ void product(int i, const T* addend = nullptr) {
     const BlockPass<T> ps = pb.pass[i];
     const bool in_place = ps.a == nullptr;
     for (int n = 0; n < kNodes; ++n) {
       if constexpr (is_f32<T>()) {
-        product_node_fma(ps, n, in_place);
+        product_node_fma<kAddend>(ps, n, in_place, addend);
       } else {
-        product_node_mma(ps, n, in_place);
+        product_node_mma<kAddend>(ps, n, in_place, addend);
       }
     }
     consumer_sync();
@@ -910,8 +931,11 @@ struct BlockItem {
   // bf16: a warp takes the 16 rows × columns 8·NT·warp … of width 8·NT.
   // A k-slice's fragments (A through ldmatrix from the stage or from P, B
   // from the stage) go to registers and the stage is released at once; the
-  // next k-slice's are loaded before this one's products.
-  __device__ __forceinline__ void product_node_mma(const BlockPass<T>& ps, int n, bool in_place) {
+  // next k-slice's are loaded before this one's products.  The bias pairs
+  // (and the addend's, kAddend) are loaded before the products.
+  template <bool kAddend>
+  __device__ __forceinline__ void product_node_mma(const BlockPass<T>& ps, int n, bool in_place,
+                                                   const T* addend) {
     static_assert(R == 16 && NT >= 1 && NT <= kMaxNt, "a warp's tile: 16 rows × 8·NT columns");
     constexpr int kMaxKs = 4;  // k-steps of a k-slice (kslice ≤ 64)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -927,6 +951,18 @@ struct BlockItem {
       bias[j] = ps.bias != nullptr ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
                                          ps.bias + n * f + c))
                                    : make_float2(0.0f, 0.0f);
+    }
+    uint32_t add[NT][2];  // kAddend: this lane's addend pairs of rows lane/4 and lane/4 + 8
+    if constexpr (kAddend) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (lane >> 2) + 8 * h, c = (warp * NT + j) * 8 + 2 * (lane & 3);
+          add[j][h] = r < valid ? *reinterpret_cast<const uint32_t*>(
+                                      addend + (static_cast<size_t>(n) * pb.rows + b0 + r) * f + c)
+                                : 0u;
+        }
     }
     uint32_t a[2][kMaxKs][4], b[2][kMaxKs][NT][2];
     auto load = [&](int buf, int sl) {
@@ -970,14 +1006,25 @@ struct BlockItem {
     for (int j = 0; j < NT; ++j) {
       const int c = (warp * NT + j) * 8 + 2 * (lane & 3);
       bf16* out = reinterpret_cast<bf16*>(pn) + r * kPStride + c;
-      *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[j][0] + bias[j].x, acc[j][1] + bias[j].y);
-      *reinterpret_cast<uint32_t*>(out + 8 * kPStride) =
-          pack_bf16(acc[j][2] + bias[j].x, acc[j][3] + bias[j].y);
+      float v[4] = {acc[j][0] + bias[j].x, acc[j][1] + bias[j].y, acc[j][2] + bias[j].x,
+                    acc[j][3] + bias[j].y};
+      if constexpr (kAddend) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&add[j][h]));
+          v[2 * h] += u.x;
+          v[2 * h + 1] += u.y;
+        }
+      }
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(v[0], v[1]);
+      *reinterpret_cast<uint32_t*>(out + 8 * kPStride) = pack_bf16(v[2], v[3]);
     }
   }
 
   // fp32: a thread per output (tid + kConsumers·i), FMAs over the k-slices.
-  __device__ __forceinline__ void product_node_fma(const BlockPass<T>& ps, int n, bool in_place) {
+  template <bool kAddend>
+  __device__ __forceinline__ void product_node_fma(const BlockPass<T>& ps, int n, bool in_place,
+                                                   const T* addend) {
     constexpr int kOut = R * kMaxF / kConsumers;
     const int f = pb.f, slices = ps.k / pb.kslice;
     float* pn = reinterpret_cast<float*>(p()) + n * l.plane;
@@ -1006,7 +1053,11 @@ struct BlockItem {
       const int o = threadIdx.x + kConsumers * i;
       if (o < R * f) {
         const int r = o / f, c = o % f;
-        pn[r * l.p_stride + c] = acc[i] + (ps.bias != nullptr ? to_f(ps.bias[n * f + c]) : 0.0f);
+        float v = acc[i] + (ps.bias != nullptr ? to_f(ps.bias[n * f + c]) : 0.0f);
+        if constexpr (kAddend) {
+          if (r < valid) v += to_f(addend[(static_cast<size_t>(n) * pb.rows + b0 + r) * f + c]);
+        }
+        pn[r * l.p_stride + c] = v;
       }
     }
   }
@@ -1178,6 +1229,19 @@ struct BlockItem {
     store_cols(out, cols);
   }
 
+  // The stem and block 0 on passes 0, 1 and 2 (B9a's body):
+  //   r   = round(G_0·round(x·W_0 + b_0 + u))   into P and r_out
+  //   out = ResnetBlock(r) on passes 1 and 2    into out
+  // The block's last mix reads its residual r back from r_out, stored
+  // before the barriers that end the passes between.
+  __device__ void stem_block(const T* u, T* r_out, T* out) {
+    product<true>(0, u);
+    mix(0, nullptr, [](int, float y, float) { return y; });
+    store(r_out);
+    resnet_block(1, r_out);
+    store(out);
+  }
+
   // The attention layer's out-projection with its residual on pass 0 (B3b's
   // body, and B9c's first stage):
   //   out = round(G_0·round(A·W_0) + res)   into P, then into out
@@ -1245,8 +1309,8 @@ constexpr bool out_cols_ok(int f, int cols) {
 
 // Runs every item of this block: body(item) is called by all consumer
 // threads together with each item's BlockItem (product, mix, store).
-// kSplitA: the passes' device inputs have two sources (BlockProblem::a2).
-template <typename T, int R, int NT, bool kSplitA = false, typename Body>
+// kInput: where the passes' device inputs come from (Input).
+template <typename T, int R, int NT, Input kInput = Input::kWhole, typename Body>
 __device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned char* smem,
                                            Body body) {
   const BlockLayout l = block_layout<T>(R, pb.f, pb.kslice, pb.stages, pb.passes);
@@ -1279,7 +1343,7 @@ __device__ __forceinline__ void run_blocks(const BlockProblem<T>& pb, unsigned c
   cluster_sync();  // the peer's barriers exist before anything reaches them
 
   if (warp == kConsumerWarps) {
-    produce_blocks<T, R, kSplitA>(pb, l, smem, full, empty, rank, n_items);
+    produce_blocks<T, R, kInput>(pb, l, smem, full, empty, rank, n_items);
   } else {
     RingPos q;
     for (int item = cluster_id(); item < n_items; item += cluster_count()) {

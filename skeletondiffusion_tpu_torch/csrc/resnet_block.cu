@@ -90,8 +90,8 @@ final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ r,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{{{x, w1, b1, 2 * f}, {x, wr, nullptr, 2 * f}, {}},
                                     {g1, gr, nullptr}, film, 2, rows, f, kslice, stages, r};
-  sm90mix::run_blocks<T, R, NT, true>(pb, smem_raw,
-                                      [&](auto& it) { it.final_block_in(h_out, res_out); });
+  sm90mix::run_blocks<T, R, NT, sm90mix::Input::kSplit>(
+      pb, smem_raw, [&](auto& it) { it.final_block_in(h_out, res_out); });
 }
 
 template <typename T, int NT>

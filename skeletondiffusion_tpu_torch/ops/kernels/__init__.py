@@ -28,7 +28,7 @@ plain version; given CUDA tensors it launches the kernel (built by
 
 The fused denoiser's kernels run on the product-and-mix engine of
 ``csrc/node_mix_sm90.cuh`` (host side ``node_mix_sm90``), all but the stem
-(B4) and the layer-fused stem + block (B9a), which keep the routines of
-``csrc/node_mix.cuh``; the attention kernel and the fused RMSNorm + qkv +
-attention kernel share ``csrc/joint_attention.cuh``.
+(B4), which keeps the routines of ``csrc/node_mix.cuh``; the attention
+kernel and the fused RMSNorm + qkv + attention kernel share the bodies of
+``csrc/joint_attention.cuh``.
 """

@@ -9,8 +9,7 @@ element type (bf16 on the prediction path; fp32 is instantiated too), sums in
 fp32 and round() to that type where the Pallas kernel materialises.  Port of
 ``skeletondiffusion_tpu/ops/pallas/graph_linear_fused.py::graph_linear_pallas``
 without the TPU's 128-lane feature padding and batch-tile padding; the kernel
-is ``csrc/graph_linear_fused.cu`` (routines shared with the layer-fused stem
-+ block, B9a, in ``csrc/node_mix.cuh``).
+is ``csrc/graph_linear_fused.cu`` (its routines in ``csrc/node_mix.cuh``).
 """
 from __future__ import annotations
 

@@ -15,13 +15,14 @@ plain versions composed:
 
 Ports of ``skeletondiffusion_tpu/ops/pallas/layer_fused.py``
 (``stem_block_pallas``, ``rms_qkv_core_pallas``, ``outproj_block_pallas``)
-without the TPU's padding; the kernels are ``csrc/layer_fused.cu``.
-``rms_qkv_core`` and ``outproj_block`` run on the engine of
-``csrc/node_mix_sm90.cuh``: they take the banks in the JAX layout and hand
-the kernel packed copies (``node_mix_sm90.pack_banks``, cached per bank: for
-``rms_qkv_core`` one tile of a head's q, k and v columns, for
-``outproj_block`` one tile of all F columns of W_out, W1 and W2) and the tile
-plan (``rms_qkv_core_plan``, ``outproj_block_plan``).
+without the TPU's padding; the kernels are ``csrc/layer_fused.cu``, all three
+on the engine of ``csrc/node_mix_sm90.cuh``: they take the banks in the JAX
+layout and hand the kernel packed copies (``node_mix_sm90.pack_banks``,
+cached per bank: for ``rms_qkv_core`` one tile of a head's q, k and v
+columns, for ``outproj_block`` and ``stem_block`` one tile of all F columns
+of each bank, the stem's [N, D, F] bank with its rows zero-padded to
+``node_mix_sm90.padded_width(D)``) and the tile plan
+(``rms_qkv_core_plan``, ``outproj_block_plan``, ``stem_block_plan``).
 """
 from __future__ import annotations
 
@@ -56,22 +57,20 @@ def outproj_block_plain(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> tor
                               g2)
 
 
-def _launch(kernel: str, tensors: dict, shapes: dict, ints: tuple, outs: tuple) -> None:
-    """Check the inputs, launch ``<kernel>_<bf16|f32>`` on their pointers,
-    the outputs' and ``ints``."""
-    dt = next(iter(tensors.values())).dtype
-    suffix = build.element_suffix(kernel, dt)
-    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    build.check_aligned(kernel, 32, **tensors)
-    ptrs = [t.data_ptr() for t in (*tensors.values(), *outs)]
-    status = build.c_entry("layer_fused", f"{kernel}_{suffix}", len(ptrs), len(ints))(
-        *ptrs, *ints, build.stream_of(outs[0]))
-    build.check_status(f"{kernel} at (nodes, rows, widths)={ints}", status)
-
-
 def _block_shapes(n: int, f: int) -> dict:
     return dict(film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n), w2=(n, f, f), b2=(n, f),
                 g2=(n, n))
+
+
+def stem_block_plan(dtype: torch.dtype, d: int, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the stem_block kernel (the stem d → f, its
+    contraction padded to ``node_mix_sm90.padded_width(d)``, then the
+    block's two f → f products); raises for what the kernel does not
+    take."""
+    if d <= 0 or d % 8:
+        raise ValueError(f"stem_block: D={d} must be a positive multiple of 8")
+    return node_mix_sm90.block_plan("stem_block", dtype, f,
+                                    (node_mix_sm90.padded_width(d), f, f))
 
 
 def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
@@ -86,11 +85,16 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
         return stem_block_plain(**tensors)
     n, rows, d = x.shape
     f = ws.shape[-1]
+    plan = stem_block_plan(x.dtype, d, f)
     shapes = dict(x=(n, rows, d), u=(n, rows, f), ws=(n, d, f), bs=(n, f), gs=(n, n),
                   **_block_shapes(n, f))
     r = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(r)
-    _launch("stem_block", tensors, shapes, (n, rows, d, f), (r, out))
+    whole = ("groups", f, f)  # one tile of all f columns a bank
+    node_mix_sm90.launch("layer_fused", "stem_block", tensors, shapes,
+                         {"ws": ("rows", node_mix_sm90.padded_width(d), whole), "w1": whole,
+                          "w2": whole},
+                         (n, rows, d, f, *plan), r, out)
     launches_stem_block += 1
     return r, out
 

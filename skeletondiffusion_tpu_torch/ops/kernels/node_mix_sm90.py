@@ -1,16 +1,17 @@
 """The host side of ``csrc/node_mix_sm90.cuh``, the product-and-mix engine
 of B3a (``attention_proj.rms_qkv``), B9b (``layer_fused.rms_qkv_core``), B1
-(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``), B3b
-(``attention_proj.outproj_res``), B5a and B5b
-(``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
+(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``), B9a
+(``layer_fused.stem_block``), B3b (``attention_proj.outproj_res``), B5a and
+B5b (``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
 kernels are launched with, and the weight banks packed into the contiguous
 tiles that one bulk copy brings into shared memory (``cached_pack`` also
 keeps the decode rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
 
 B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c,
-B3b, B5a and B5b, whose products contract over all input columns of each
-node into all F output columns (B5b's head into fewer: its bank and bias
-zero-padded to F, ``check_out_width``), items of a row tile × every column,
+B9a, B3b, B5a and B5b, whose products contract over all input columns of
+each node into all F output columns (B5b's head into fewer: its bank and
+bias zero-padded to F, ``check_out_width``; B9a's stem over D = 96 rows
+zero-padded to 128, ``padded_width``), items of a row tile × every column,
 their banks streamed in k-slices (``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
@@ -18,7 +19,7 @@ kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,6 +127,13 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> 
                      f"{MAX_SMEM} bytes of shared memory with two stages")
 
 
+def padded_width(k: int) -> int:
+    """A contraction width rounded up to the widest k-slice (B9a's stem: its
+    bank's rows past ``k`` zero, its input's columns zero-filled by the
+    kernel), so that a narrow pass keeps its kernel's k-slice."""
+    return -(-k // KSLICES[0]) * KSLICES[0]
+
+
 def check_out_width(kernel: str, dtype: torch.dtype, f: int, cols: int) -> None:
     """Raise ValueError unless a pass of ``cols`` output columns at width
     ``f`` (B5b's head) is one the kernels store: up to ``f`` in whole 16-byte
@@ -181,7 +189,9 @@ def cached_pack(w: torch.Tensor, spec: Tuple, pack: Callable[[torch.Tensor], tor
     return packed
 
 
-def _pack_tiles(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
+def _pack_tiles(w: torch.Tensor, columns: Tuple, k: Optional[int] = None) -> torch.Tensor:
+    if k is not None:  # bank rows past the contraction width zero
+        w = torch.nn.functional.pad(w, (0, 0, 0, k - w.shape[1]))
     idx = COLUMNS[columns[0]](*columns[1:])
     n, f, out = w.shape
     g, c = idx.shape
@@ -194,13 +204,15 @@ def _pack_tiles(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
             .contiguous().reshape(n, g, f * c))
 
 
-def pack_banks(w: torch.Tensor, columns: Tuple) -> torch.Tensor:
+def pack_banks(w: torch.Tensor, columns: Tuple, k: Optional[int] = None) -> torch.Tensor:
     """Per-node banks w [N, F, out] → [N, G, F·C] tiles, one contiguous tile
     per node and group of the columns ``COLUMNS[columns[0]](*columns[1:])``
     [G, C] (−1: a zero column): for bf16 in the tensor cores' canonical
     K-major layout (8 × 8 core matrices, [F/8][C/8][8 columns][8 k]), for
-    fp32 row-major [F][C].  Cached per bank (``cached_pack``)."""
-    return cached_pack(w, ("tiles", columns), lambda t: _pack_tiles(t, columns))
+    fp32 row-major [F][C].  With ``k``, the bank's rows are zero-padded to k
+    first (F = k in the tiles).  Cached per bank (``cached_pack``)."""
+    spec = ("tiles", columns) if k is None else ("tiles", columns, k)
+    return cached_pack(w, spec, lambda t: _pack_tiles(t, columns, k))
 
 
 def pad_columns(b: torch.Tensor, cols: int) -> torch.Tensor:
@@ -213,9 +225,14 @@ def pad_columns(b: torch.Tensor, cols: int) -> torch.Tensor:
 
 def pack(t: torch.Tensor, spec: Tuple) -> torch.Tensor:
     """``t`` as a kernel reads it: a bias zero-padded to ``spec[1]`` columns
-    for ``("pad", cols)``, else a bank packed into the tiles of the columns
-    spec (``pack_banks``)."""
-    return pad_columns(t, spec[1]) if spec[0] == "pad" else pack_banks(t, spec)
+    for ``("pad", cols)``, a bank with its rows zero-padded to ``k`` and
+    packed into the tiles of ``columns`` for ``("rows", k, columns)``, else a
+    bank packed into the tiles of the columns spec (``pack_banks``)."""
+    if spec[0] == "pad":
+        return pad_columns(t, spec[1])
+    if spec[0] == "rows":
+        return pack_banks(t, spec[2], spec[1])
+    return pack_banks(t, spec)
 
 
 def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,

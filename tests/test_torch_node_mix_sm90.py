@@ -136,16 +136,19 @@ def test_packed_banks_are_cached_until_the_bank_changes():
 
 
 def test_head_attention_ab_switches_off_the_bf16_branch(tmp_path):
-    """``scripts/torch_head_attention_ab.py`` builds its scalar variant by
-    switching off head_attention's one bf16 branch; the sources it copies
-    still hold that branch once, and the copy holds it no more."""
+    """``scripts/torch_head_attention_ab.py`` builds its CUDA-core variant by
+    switching off the bf16 tensor-core body (``kTensorCoreBody``, which B2
+    and B9b read) in a copy of the sources; the sources hold that switch
+    once, and the copy holds it no more."""
     path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_head_attention_ab.py"
     spec = importlib.util.spec_from_file_location("torch_head_attention_ab", path)
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     header = (build.CSRC_DIR / "joint_attention.cuh").read_text()
-    assert header.count(ab.BF16_BRANCH) == 1
-    copy = ab.scalar_sources(tmp_path / "src")
+    assert header.count(ab.TC_SWITCH) == 1
+    for kernel in ("joint_attention.cu", "layer_fused.cu"):
+        assert "kTensorCoreBody<T>)" in (build.CSRC_DIR / kernel).read_text(), kernel
+    copy = ab.cuda_core_sources(tmp_path / "src")
     text = (copy / "joint_attention.cuh").read_text()
-    assert ab.BF16_BRANCH not in text and "if constexpr (false)" in text
+    assert ab.TC_SWITCH not in text and "constexpr bool kTensorCoreBody = false;" in text
     assert {p.name for p in copy.iterdir()} == {p.name for p in build.CSRC_DIR.iterdir()}

@@ -1,14 +1,15 @@
-"""The host side of B1 (``resnet_block``), B9c (``outproj_block``), B3b
-(``outproj_res``), B5a (``final_block_in``) and B5b (``final_block_out``) on
-the whole-row items of ``csrc/node_mix_sm90.cuh``: their tile plans, the
-packed banks the ring streams in k-slices (B5a's from two sources, x and r;
-B5b's head bank and bias zero-padded to F), and the wrappers' refusals.  The kernels'
-walk over row tiles and two-block clusters runs only on the card, where
-``chip_smoke.py`` holds all five against their plain versions at an even, a
-ragged and an odd number of row tiles.
+"""The host side of B1 (``resnet_block``), B9c (``outproj_block``), B9a
+(``stem_block``), B3b (``outproj_res``), B5a (``final_block_in``) and B5b
+(``final_block_out``) on the whole-row items of ``csrc/node_mix_sm90.cuh``:
+their tile plans, the packed banks the ring streams in k-slices (B5a's from
+two sources, x and r; B5b's head bank and bias zero-padded to F; B9a's stem
+bank zero-padded to 128 rows, ``tests/test_torch_attention_sm90.py``), and
+the wrappers' refusals.  The kernels' walk over row tiles and two-block
+clusters runs only on the card, where ``chip_smoke.py`` holds all six against
+their plain versions at an even, a ragged and an odd number of row tiles.
 
 Widths: the bench's (F 192, the attention's 8 heads × 32 = 256, the head's
-latent 96).
+and the stem's latent 96).
 """
 import numpy as np
 import pytest
@@ -59,6 +60,11 @@ def _plans():
             resnet_block.final_block_out_plan(torch.bfloat16, F, FO), (F, F)),
         ("final_block_out", torch.float32): (
             resnet_block.final_block_out_plan(torch.float32, F, FO), (F, F)),
+        # the stem's contraction of 96 padded to 128 (engine.padded_width)
+        ("stem_block", torch.bfloat16): (layer_fused.stem_block_plan(torch.bfloat16, FO, F),
+                                         (128, F, F)),
+        ("stem_block", torch.float32): (layer_fused.stem_block_plan(torch.float32, FO, F),
+                                        (128, F, F)),
     }
 
 
@@ -75,6 +81,8 @@ def test_bench_plans_are_the_documented_ones():
         ("final_block_in", torch.float32): (8, 32, 3, 2, 215040),
         ("final_block_out", torch.bfloat16): (16, 64, 3, 2, 217088),
         ("final_block_out", torch.float32): (8, 32, 3, 2, 215040),
+        ("stem_block", torch.bfloat16): (16, 64, 3, 2, 217088),  # B9c's
+        ("stem_block", torch.float32): (8, 32, 3, 2, 217088),
     }
 
 
@@ -87,7 +95,9 @@ def test_bench_plans_are_the_documented_ones():
                                            ("final_block_in", torch.bfloat16),
                                            ("final_block_in", torch.float32),
                                            ("final_block_out", torch.bfloat16),
-                                           ("final_block_out", torch.float32)])
+                                           ("final_block_out", torch.float32),
+                                           ("stem_block", torch.bfloat16),
+                                           ("stem_block", torch.float32)])
 def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     plan, ks = _plans()[(kernel, dtype)]
     elem = torch.empty((), dtype=dtype).element_size()
@@ -280,11 +290,14 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
         "outproj_res": (attention_proj, "launches_outproj_res",
                         lambda: attention_proj.outproj_res(z(N, rows, hd), z(N, rows, f),
                                                            z(N, hd, f), z(N, N))),
+        "stem_block": (layer_fused, "launches_stem_block",
+                       lambda: layer_fused.stem_block(z(N, rows, hd), z(N, rows, f), z(2 * f),
+                                                      z(N, hd, f), z(N, f), z(N, N), *block)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
-                                    "final_block_in", "final_block_out"])
+                                    "final_block_in", "final_block_out", "stem_block"])
 @pytest.mark.parametrize("widths, match", [(dict(f=96), "multiple of 64"),
                                            (dict(f=320), "up to 256"),
                                            (dict(hd=48), "multiples of 32")],
@@ -292,9 +305,12 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
 def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kernel, widths,
                                                                match):
     """On a CUDA request the wrapper refuses a width its plan refuses before
-    it names a C entry, and counts no launch."""
+    it names a C entry, and counts no launch (B9a's stem input: its D, here
+    hd, a multiple of 8)."""
     if kernel in ("resnet_block", "final_block_in", "final_block_out") and "hd" in widths:
         widths, match = dict(f=160), "multiple of 64"
+    if kernel == "stem_block" and "hd" in widths:
+        widths, match = dict(hd=100), "multiple of 8"
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
     module, counter, call = _zeros(torch.bfloat16, **widths)[kernel]
@@ -318,11 +334,12 @@ def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
-                                    "final_block_in", "final_block_out"])
+                                    "final_block_in", "final_block_out", "stem_block"])
 def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel, dtype):
     """The C entry gets the packed tiles of the banks (the cached ones; B5b's
-    head bank and its bias zero-padded to F columns), the other tensors as they are,
-    the outputs, and the widths followed by the plan."""
+    head bank and its bias zero-padded to F columns, B9a's stem bank to 128
+    rows), the other tensors as they are (B9a's u among them), the outputs,
+    and the widths followed by the plan."""
     calls = []
 
     def recording(library, symbol, n_pointers, n_ints):
@@ -364,6 +381,12 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
             attention_proj.outproj_res_plan(dtype, HD, F)
         banks, widths = {2: WHOLE}, (N, rows, HD, F)
         fn = attention_proj.outproj_res
+    elif kernel == "stem_block":
+        args = [r(N, rows, FO), r(N, rows, F), r(2 * F), r(N, FO, F), r(N, F), r(N, N)] + block
+        module, counter, plan = layer_fused, "launches_stem_block", \
+            layer_fused.stem_block_plan(dtype, FO, F)
+        banks, widths = {3: ("rows", 128, WHOLE), 6: WHOLE, 9: WHOLE}, (N, rows, FO, F)
+        fn = layer_fused.stem_block
     else:
         args = [r(N, rows, HD), r(N, rows, F), r(2 * F), r(N, HD, F), r(N, N)] + block
         module, counter, plan = layer_fused, "launches_outproj_block", \
@@ -375,7 +398,8 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
     assert getattr(module, counter) == before + 1
     (library, symbol, pointers, ints), = calls
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
-    library_of = {"outproj_block": "layer_fused", "outproj_res": "attention_proj"}
+    library_of = {"outproj_block": "layer_fused", "outproj_res": "attention_proj",
+                  "stem_block": "layer_fused"}
     assert (library, symbol) == (library_of.get(kernel, "resnet_block"), f"{kernel}_{suffix}")
     assert ints == (*widths, *plan)
     outs = out if isinstance(out, tuple) else (out,)
