@@ -27,7 +27,7 @@ Phases, each printed with its elapsed seconds:
               one (B1, B3a, B3b, B5a and B5b also beside torch.bmm calls of
               their per-node products alone, e.g. [21, 12 800, 192]·[21, 192,
               768] for B3a: the product stage's cuBLAS time, not the
-              function; these five and B2 also at a row count with an odd
+              function; these five, B4 and B2 also at a row count with an odd
               number of their row tiles; B2 also at 32 heads, where its items
               take one row of a group of heads);
 6. main_bf16 — the bf16 path: predictions/s and launch counts per prediction,
@@ -36,7 +36,8 @@ Phases, each printed with its elapsed seconds:
               beside the bf16 path's deviation from the fp32 path;
 7. layer_fused — the per-layer kernels of the layer-fused denoiser (B9a–c),
               checked and timed as in phase 5 (all three also beside their
-              products-only torch.bmm calls and at an odd number of row tiles);
+              products-only torch.bmm calls and at an odd number of row tiles),
+              and B4's output against B9a's r bit for bit (bf16 and fp32);
 8. main_layer_fused — the bf16 path with SKELDIFF_LAYER_FUSED=1 (set for this
               phase only): predictions/s and launch counts per prediction,
               and with injected noise against the same path on the plain
@@ -51,9 +52,10 @@ Phases, each printed with its elapsed seconds:
               and its metric-space deviation (B8 against K1) held within
               1.3× either way of the same deviation of the plain versions;
 10. attn_core_fm — the feature-major attention core (L1) against its plain
-              version in bf16 and fp32 at 12 800 and 12 795 rows, timed beside
-              its bound, its plain version, scaled_dot_product_attention and
-              B2 on the same data; then the lab's entry point,
+              version in bf16 and fp32 at 12 800 and 12 795 rows, at an odd
+              number of its column tiles and at 32 heads × 1 000 rows, timed
+              beside its bound, its plain version, scaled_dot_product_attention
+              and B2 on the same data; then the lab's entry point,
               scripts/torch_attn_core_lab.py (its fp32 check and its chains of
               B2 and L1 calls), with its launch counts.
 
@@ -695,7 +697,9 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 "graph_linear_fused", stem_mod.graph_linear_fused,
                 stem_mod.graph_linear_fused_plain, [x_lat, stem["w"], stem["b"], stem["g"], u],
                 replaces="graph_linear_fused.py:70", source="graph_linear_fused.cu",
-                tensor_flops=prod(d, f) + mix(f)),
+                tensor_flops=prod(d, f) + mix(f),
+                odd_rows=tuple(odd_tile_rows(stem_mod.graph_linear_fused_plan(dt, d, f).rows)
+                               for dt in (bf16, torch.float32))),
             check_fused_kernel(
                 "resnet_block", block_mod.resnet_block, block_mod.resnet_block_plain,
                 [x, film, blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]],
@@ -751,6 +755,26 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
         ]
 
 
+def check_stem_bits(x, u, film, ws, bs, gs, block: tuple) -> None:
+    """B4's output against B9a's r on the same inputs, bit for bit, in bf16
+    and fp32 at 12 800 and a ragged 12 795 rows: B4 runs B9a's stem pass
+    alone (the same k-slices, products and mix), so the single-stage and the
+    layer-fused bf16 paths compute the same block 0."""
+    rows, parts = BATCH * SAMPLES, []
+    for dt in (torch.bfloat16, torch.float32):
+        args = [t.to(dt) for t in (x, u, film, ws, bs, gs, *block)]
+        for cut in (rows, rows - RAGGED):
+            xc, uc, *rest = cut_rows(args, rows, cut)
+            r, _ = layer_mod.stem_block(xc, uc, *rest)
+            got = stem_mod.graph_linear_fused(xc, rest[1], rest[2], rest[3], uc)
+            torch.cuda.synchronize()
+            if not (got.shape == r.shape and torch.equal(got, r)):
+                raise AssertionError(f"graph_linear_fused ({dt}, {cut} rows) differs from "
+                                     f"stem_block's r: max {(got.float() - r.float()).abs().max()}")
+            parts.append(f"{str(dt).removeprefix('torch.')} {cut} rows")
+    log("graph_linear_fused equals stem_block's r bit for bit: " + ", ".join(parts))
+
+
 def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
     """The layer-fused denoiser's kernels (B9a–c) on the bench shapes, on the
     bf16 model's own operands and activations drawn from ``gen`` (each
@@ -773,6 +797,7 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
         x_lat = torch.randn((n, rows, d), generator=gen, device="cuda").to(bf16)
         r, x = layer_mod.stem_block(x_lat, u, film0, stem["w"], stem["b"], stem["g"],
                                     *banks(blk0))
+        check_stem_bits(x_lat, u, film0, stem["w"], stem["b"], stem["g"], banks(blk0))
         core = layer_mod.rms_qkv_core(x, att["g_rms"], att["w_qkv"], att["g_qkv"], heads=heads,
                                       dim_head=dh)
         mix = lambda width: 2.0 * n * n * rows * width  # noqa: E731
@@ -916,29 +941,41 @@ def peak_extra_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+# L1's items take 16 batch columns (fp32: 8) of one head: at this count, a
+# multiple of 8 (so its TMA copies address it), both have an odd number of
+# column tiles (799 and 1 597), the last bf16 tile half past the batch.
+FM_ODD_TILE_ROWS = 12_776
+
+
 def check_attention_core_fm(gen: torch.Generator) -> dict:
     """L1 at the lab's shapes (21 joints, 8 heads × 32) in bf16 and fp32, at
-    12 800 and 12 795 rows, timed in bf16 beside its bound, its plain
-    version, scaled_dot_product_attention on [B, heads, 21, dh] views of the
-    feature-major tensor, and B2 on the same data in batch-major."""
+    12 800 rows, a ragged 12 795 (no TMA copies: the producer's own loads)
+    and FM_ODD_TILE_ROWS, and at 32 heads × 1 000 rows; timed in bf16 beside
+    its bound, its plain version, scaled_dot_product_attention on [B, heads,
+    21, dh] views of the feature-major tensor, and B2 on the same data in
+    batch-major."""
     heads, dh, n, rows = attn_lab.H, attn_lab.DH, attn_lab.N, BATCH * SAMPLES
     hd = heads * dh
     core = functools.partial(fm_mod.attention_core_fm, heads=heads, dim_head=dh)
     parts, err = [], 0.0
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
-            for cut in (rows, rows - RAGGED):
-                qkv = (0.5 * torch.randn((n, 3 * hd, cut), generator=gen, device="cuda")).to(dtype)
-                got, want = core(qkv), fm_mod.attention_core_fm_plain(qkv, heads, dh)
+            for h, cut in ((heads, rows), (heads, rows - RAGGED), (heads, FM_ODD_TILE_ROWS),
+                           (32, 1000)):
+                qkv = (0.5 * torch.randn((n, 3 * h * dh, cut), generator=gen,
+                                         device="cuda")).to(dtype)
+                got = fm_mod.attention_core_fm(qkv, heads=h, dim_head=dh)
+                want = fm_mod.attention_core_fm_plain(qkv, h, dh)
                 torch.cuda.synchronize()
+                what = f"{h} heads × {cut} rows"
                 if dtype == torch.float32:
                     mx = (got - want).abs().max().item()
                     if not (got.shape == want.shape and mx <= F32_TOL):
-                        raise AssertionError(f"attention_core_fm (fp32, {cut} rows) disagrees "
+                        raise AssertionError(f"attention_core_fm (fp32, {what}) disagrees "
                                              f"with its plain version: {mx}")
-                    parts.append(f"fp32 {cut} rows max {mx:.3e}")
+                    parts.append(f"fp32 {what} max {mx:.3e}")
                 else:
-                    parts.append(f"bf16 {cut} rows "
+                    parts.append(f"bf16 {what} "
                                  + check_bf16_errors("attention_core_fm", got, want))
                     err = max(err, (got.float() - want.float()).abs().max().item())
         qkv = (0.5 * torch.randn((n, 3 * hd, rows), generator=gen, device="cuda")).to(torch.bfloat16)

@@ -25,7 +25,8 @@
 // stores.  Shared memory (bf16, F = 192): P 21 × (32·96·2 + 16) B =
 // 129.4 KB, two stages of 12.3 KB rows + 36.9 KB weights and the barriers:
 // 227 840 B of the 232 448 a block may have; one block an SM.  Each weight
-// byte from L2 serves 64 rows (16 in the node_mix.cuh design), each input row 96
+// byte from L2 serves 64 rows (16 in the first design, whose 16-row blocks
+// read their weight tiles straight from L2), each input row 96
 // columns (256): L2 → shared memory traffic a call is 200 row pairs ×
 // 6.19 MB of weights (1.24 GB) plus 8 column groups × 103 MB of rows
 // (0.83 GB), 2.07 GB against ~5.3 GB.  The card then spends a block's time
@@ -41,8 +42,8 @@
 // multicast to both; mma.sync products into P, the tensor-core mix with the
 // residual x added in registers, 16-byte stores.  Shared memory (bf16): as
 // B1's, 217 088 B.  Each weight byte from L2 serves the cluster's 32 rows:
-// 0.83 GB of weights a call where the node_mix.cuh design, with each
-// 16-row block staging the whole W_out (2.06 MB) for itself, read 1.65 GB.
+// 0.83 GB of weights a call where the first design, with each 16-row block
+// staging the whole W_out (2.06 MB) for itself, read 1.65 GB.
 
 #include "node_mix_sm90.cuh"
 

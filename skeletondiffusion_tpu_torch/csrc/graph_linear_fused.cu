@@ -8,75 +8,89 @@
 //   out[n] = round(Σ_m G[n,m]·h[m])
 //
 // What bounds it on the H100: memory.  At N=21, B=12 800, x [·,96] and u, out
-// [·,192] in bf16 it moves ~258 MB against ~10 GFLOP of products, far below
-// the ~295 flops a byte where the bf16 tensor cores would bind.
+// [·,192] in bf16 it moves ~258 MB (0.077 ms) against ~10 GFLOP of products
+// and mix (~0.01 ms on the tensor cores).
 //
-// What the design does about it: a block owns 16 rows (8 in fp32) for all
-// 21 nodes, so x, u and out cross device memory once each and h never
-// leaves shared memory; the products run on the tensor cores and the mix in
-// fp32 from shared memory (node_mix.cuh).  The TPU version padded the
-// features to 128 lanes and the batch to a tile multiple; here they keep
-// their widths and the last tile is masked.
+// What the design does about it: the stem pass of B9a (layer_fused.cu) alone,
+// on node_mix_sm90.cuh's engine (`run_blocks`, BlockItem::stem): persistent
+// two-block clusters walk items of 16 rows (fp32: 8) × all F columns, so x,
+// u and out cross device memory once each and h never leaves shared memory.
+// The contraction of D = 96 runs as two k-slices of 64 (fp32: four of 32):
+// the producer warp's cp.async copies bring each slice of x's rows and
+// zero-fill its columns 96–127 (Input::kNarrow) against a bank packed with
+// rows 96–127 zero, half of each bank slice multicast into both blocks, so
+// each weight byte from L2 serves the cluster's 32 rows.  mma.sync products
+// with u added after the bias, then the tensor-core node mix and 16-byte
+// stores.  The same pass, k-slice and mix as B9a's first stage: the output is
+// B9a's r bit for bit.  On an H100 at the bench shapes: 0.25 ms, 3.2× the
+// bound; its F = 192 build with u holds 166 registers, no spill (PERF.md §6).
 
-#include "node_mix.cuh"
+#include "node_mix_sm90.cuh"
 
 namespace {
 
-using namespace nodemix;
+using sm90mix::bf16;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename T, int NT, bool kAddend>
+__global__ void __launch_bounds__(sm90mix::kThreads, 1)
 graph_linear_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
                     const T* __restrict__ g, const T* __restrict__ u, T* __restrict__ out,
-                    int rows, int fi, int fo) {
-  constexpr int R = RowTile<T>::kRows;
+                    int rows, int d, int kd, int f, int kslice, int stages) {
+  constexpr int R = sm90mix::BlockRows<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm = Smem<T>::carve(smem_raw, fo, fi, 1);
-  const int b0 = blockIdx.x * R;
-  const int valid = min(R, rows - b0);
-  load_influence(sm.g, g);
-
-  node_products(
-      [&](int n, T* buf) { stage_rows(buf, x + at(n, rows, b0, fi, 0), fi, valid); },
-      sm.s, fi, w, fo, fo, sm.scratch,
-      [&](int n, int r, int c, float acc) {
-        float h = acc + to_f(b[n * fo + c]);
-        if (u != nullptr && r < valid) h += to_f(u[at(n, rows, b0 + r, fo, c)]);
-        sm.p[(n * R + r) * fo + c] = from_f<T>(h);
-      });
-  node_mix(sm.p, fo, fo, sm.g, [&](int n, int r, int c, float y) {
-    if (r < valid) out[at(n, rows, b0 + r, fo, c)] = from_f<T>(y);
-  });
+  sm90mix::BlockProblem<T> pb{{{x, w, b, kd}}, {g}, nullptr, 1, rows, f, kslice, stages};
+  pb.a_cols = d;
+  sm90mix::run_blocks<T, R, NT, sm90mix::Input::kNarrow>(
+      pb, smem_raw, [&](auto& it) { it.template stem<kAddend>(u, out); });
 }
 
+// The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
+// bytes) must be the one instantiated here, with the contraction d (a
+// multiple of 8) padded to kd, the next multiple of 64; bf16 is instantiated
+// for each f = 64·NT the plan takes, with and without u.
 template <typename T>
 int launch(const void* x, const void* w, const void* b, const void* g, const void* u, void* out,
-           int n_nodes, int rows, int fi, int fo, void* stream) {
-  if (n_nodes != kNodes || rows <= 0 || fi % 32 || fo % 16 || fi <= 0 || fo <= 0)
+           int n_nodes, int rows, int d, int f, int tile_rows, int kslice, int stages,
+           int cluster, int smem_bytes, void* stream) {
+  const int kd = (d + 63) / 64 * 64;
+  const int ks[1] = {kd};
+  if (n_nodes != sm90mix::kNodes || rows <= 0 || d <= 0 || d % 8 ||
+      !sm90mix::block_plan_ok<T>(f, ks, 1, tile_rows, kslice, stages, cluster, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem<T>::bytes(fo, fi, 1, 0);
-  cudaError_t err = prepare(graph_linear_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  graph_linear_kernel<T><<<grid_for<T>(rows), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(out), rows, fi, fo);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sm90mix::with_nt<T>(f, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    auto kernel = u != nullptr ? graph_linear_kernel<T, NT, true>
+                               : graph_linear_kernel<T, NT, false>;
+    return sm90mix::launch(kernel, sm90mix::items(rows, tile_rows, 1), smem_bytes, cluster,
+                           stream, static_cast<const T*>(x), static_cast<const T*>(w),
+                           static_cast<const T*>(b), static_cast<const T*>(g),
+                           static_cast<const T*>(u), static_cast<T*>(out), rows, d, kd, f, kslice,
+                           stages);
+  }));
 }
 
 }  // namespace
 
-// x [n_nodes, rows, fi], w [n_nodes, fi, fo], b [n_nodes, fo], g [n_nodes,
-// n_nodes], u [n_nodes, rows, fo] or null, out [n_nodes, rows, fo]; all of one
-// element type, contiguous, 32-byte aligned.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for shapes not instantiated.
+// x [n_nodes, rows, d], u and out [n_nodes, rows, f] (u may be null), w
+// [n_nodes, d, f] zero-padded to [·, kd, f] (kd: d rounded up to 64) and
+// packed into one tile of all f columns, [·, 1, kd·f]
+// (ops/kernels/node_mix_sm90.py), b [n_nodes, f], g [n_nodes, n_nodes]; all
+// of one element type, contiguous, 32-byte aligned; the tile plan
+// (ops/kernels/node_mix_sm90.py::block_plan).  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for shapes and plans not
+// instantiated.
 extern "C" int graph_linear_fused_bf16(const void* x, const void* w, const void* b, const void* g,
-                                       const void* u, void* out, int n_nodes, int rows, int fi,
-                                       int fo, void* stream) {
-  return launch<nodemix::bf16>(x, w, b, g, u, out, n_nodes, rows, fi, fo, stream);
+                                       const void* u, void* out, int n_nodes, int rows, int d,
+                                       int f, int tile_rows, int kslice, int stages, int cluster,
+                                       int smem_bytes, void* stream) {
+  return launch<bf16>(x, w, b, g, u, out, n_nodes, rows, d, f, tile_rows, kslice, stages, cluster,
+                      smem_bytes, stream);
 }
 
 extern "C" int graph_linear_fused_f32(const void* x, const void* w, const void* b, const void* g,
-                                      const void* u, void* out, int n_nodes, int rows, int fi,
-                                      int fo, void* stream) {
-  return launch<float>(x, w, b, g, u, out, n_nodes, rows, fi, fo, stream);
+                                      const void* u, void* out, int n_nodes, int rows, int d,
+                                      int f, int tile_rows, int kslice, int stages, int cluster,
+                                      int smem_bytes, void* stream) {
+  return launch<float>(x, w, b, g, u, out, n_nodes, rows, d, f, tile_rows, kslice, stages,
+                       cluster, smem_bytes, stream);
 }

@@ -1,7 +1,8 @@
 // Softmax attention of one head over the skeleton's joints: the bodies
-// shared by the attention kernel (B2, joint_attention.cu) and the fused
-// RMSNorm → qkv → attention kernel (B9b, layer_fused.cu), so that both round
-// at the same points:
+// shared by the attention kernel (B2, joint_attention.cu), the fused
+// RMSNorm → qkv → attention kernel (B9b, layer_fused.cu) and the
+// feature-major attention core (L1, attention_core_fm.cu), so that all three
+// round at the same points:
 //
 //   qs      = round(q · round(dh^-1/2))
 //   s[n, m] = Σ_c qs[n, c]·k[m, c]                  fp32 sums
@@ -176,12 +177,13 @@ constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
 // Joint m's q, k and v (32 values each, 16-byte aligned) lie at q + m·ld,
 // k + m·ld and v + m·ld in shared memory; the ldmatrix rows of joints ≥ 21
 // read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
-// this warp alone, and no more), then goes to o + n·ldo with 16-byte stores
-// (64 contiguous bytes a joint).  With ld ≡ 16 bytes mod 128 the eight rows
-// of each ldmatrix and of each fragment store fall in distinct banks.
-__device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const bf16* v, int ld,
-                                                   float scale, bf16* o, size_t ldo,
-                                                   const void* zero) {
+// this warp alone, and no more): head_attention_mma_smem ends there (the
+// feature-major core, attention_core_fm.cu, stores O itself);
+// head_attention_mma then sends it to o + n·ldo with 16-byte stores (64
+// contiguous bytes a joint).  With ld ≡ 16 bytes mod 128 the eight rows of
+// each ldmatrix and of each fragment store fall in distinct banks.
+__device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, const bf16* v,
+                                                        int ld, float scale, const void* zero) {
   using sm90mix::ldmatrix_x4;
   using sm90mix::ldmatrix_x4_trans;
   using sm90mix::mma_bf16;
@@ -300,7 +302,7 @@ __device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const
       for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
   }
 
-  // O into q's rows (every lane's ldmatrix of q is long done), then out
+  // O into q's rows (every lane's ldmatrix of q is long done)
   __syncwarp();
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -314,8 +316,15 @@ __device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const
               pack_bf16(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
       }
     }
+}
+
+__device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const bf16* v, int ld,
+                                                   float scale, bf16* o, size_t ldo,
+                                                   const void* zero) {
+  head_attention_mma_smem(q, k, v, ld, scale, zero);
   __syncwarp();
-  for (int c = lane; c < 4 * N; c += 32) {
+  constexpr int N = sm90mix::kNodes;
+  for (int c = threadIdx.x & 31; c < 4 * N; c += 32) {
     const int joint = c >> 2, part = c & 3;
     *reinterpret_cast<uint4*>(o + joint * ldo + 8 * part) =
         *reinterpret_cast<const uint4*>(q + joint * ld + 8 * part);

@@ -40,8 +40,10 @@
 //   last column) against a bank packed with rows 96–127 zero, so the plan
 //   is B9c's.  The stem pass adds u after the bias (`product<true>`), as
 //   the plain version sums; after its plain mix P (r) goes to r_out, which
-//   the block's last mix reads back as its residual, as B9c reads o.
-//   Each weight byte from L2 serves the cluster's 32 rows.
+//   the block's last mix reads back as its residual, as B9c reads o.  That
+//   first stage is B4's body (BlockItem::stem, graph_linear_fused.cu), so r
+//   is B4's output bit for bit.  Each weight byte from L2 serves the
+//   cluster's 32 rows.
 // * B9c runs on node_mix_sm90.cuh's engine (`run_blocks`), as B1 does
 //   (resnet_block.cu): items of 16 rows (fp32: 8) × all 192 columns, three
 //   product passes through the k-slice ring (the out-projection from a's
@@ -73,7 +75,6 @@
 #include <cmath>
 
 #include "joint_attention.cuh"
-#include "node_mix.cuh"
 #include "node_mix_sm90.cuh"
 
 namespace {

@@ -9,9 +9,10 @@
 //   memory from the first product to the last mix: the attention layer's
 //   out-projection, B3b (outproj_res, attention_proj.cu), the ResnetBlock, B1
 //   (resnet_block, resnet_block.cu), both, B9c (outproj_block,
-//   layer_fused.cu), the stem with block 0, B9a (stem_block, layer_fused.cu),
-//   and the final block's two halves with the output head, B5a and B5b
-//   (final_block_in, final_block_out, resnet_block.cu).
+//   layer_fused.cu), the stem, B4 (graph_linear_fused, graph_linear_fused.cu),
+//   the stem with block 0, B9a (stem_block, layer_fused.cu), and the final
+//   block's two halves with the output head, B5a and B5b (final_block_in,
+//   final_block_out, resnet_block.cu).
 //
 // Both share the roles, the ring of bulk copies on mbarriers, the two-block
 // clusters with multicast weight tiles, the mma.sync products through
@@ -714,13 +715,14 @@ __device__ __forceinline__ void store_tile(const T* p, int plane, T* out, int ro
 //
 // where A[n] is node n's R input rows from device memory (x for B1's first
 // pass, a for B9c's out-projection, x‖r for both of B5a's, from x and r
-// side by side: no k-slice straddles them; B9a's stem input x, 96 wide,
-// contracted as 128 with zeros past column 96 against a bank whose rows
-// 96–127 are zero) or P[n] itself, in place (every later pass).  B9a's stem
-// pass also adds u [N, rows, f] after the bias (`product<true>`).  A pass
-// with fewer output columns than F (B5b's head) is an F-wide pass whose
-// bank and bias are zero past its columns; only its store is narrower.  The ring carries, per (pass, node, k-slice of kslice rows of the
-// bank), the k-slice of the R input rows (16-byte cp.async copies by the
+// side by side: no k-slice straddles them; the stem input x of B4 and B9a,
+// 96 wide, contracted as 128 with zeros past column 96 against a bank whose
+// rows 96–127 are zero) or P[n] itself, in place (every later pass).  The
+// stem pass also adds u [N, rows, f] after the bias (`product<true>`).  A
+// pass with fewer output columns than F (B5b's head) is an F-wide pass whose
+// bank and bias are zero past its columns; only its store is narrower.  The
+// ring carries, per (pass, node, k-slice of kslice rows of the bank), the
+// k-slice of the R input rows (16-byte cp.async copies by the
 // producer warp's 32 lanes, each lane's arrival on the stage's `full`
 // barrier once its copies land; a bulk copy a row made the loads the
 // bottleneck; none for a pass in place) and half of the k-slice of node n's
@@ -1229,15 +1231,23 @@ struct BlockItem {
     store_cols(out, cols);
   }
 
+  // The stem on pass 0 (B4's body, and B9a's first stage), u added after
+  // the bias with kAddend:
+  //   r = round(G_0·round(x·W_0 + b_0 (+ u)))   into P and r_out
+  template <bool kAddend = true>
+  __device__ void stem(const T* u, T* r_out) {
+    product<kAddend>(0, u);
+    mix(0, nullptr, [](int, float y, float) { return y; });
+    store(r_out);
+  }
+
   // The stem and block 0 on passes 0, 1 and 2 (B9a's body):
-  //   r   = round(G_0·round(x·W_0 + b_0 + u))   into P and r_out
+  //   r   = stem(x, u)                          into P and r_out
   //   out = ResnetBlock(r) on passes 1 and 2    into out
   // The block's last mix reads its residual r back from r_out, stored
   // before the barriers that end the passes between.
   __device__ void stem_block(const T* u, T* r_out, T* out) {
-    product<true>(0, u);
-    mix(0, nullptr, [](int, float y, float) { return y; });
-    store(r_out);
+    stem(u, r_out);
     resnet_block(1, r_out);
     store(out);
   }

@@ -27,8 +27,8 @@ plain version; given CUDA tensors it launches the kernel (built by
   driven by ``scripts/torch_attn_core_lab.py``
 
 The fused denoiser's kernels run on the product-and-mix engine of
-``csrc/node_mix_sm90.cuh`` (host side ``node_mix_sm90``), all but the stem
-(B4), which keeps the routines of ``csrc/node_mix.cuh``; the attention
-kernel and the fused RMSNorm + qkv + attention kernel share the bodies of
-``csrc/joint_attention.cuh``.
+``csrc/node_mix_sm90.cuh`` (host side ``node_mix_sm90``); the attention
+kernel, the fused RMSNorm + qkv + attention kernel and the feature-major
+attention core share the bodies of ``csrc/joint_attention.cuh``;
+``csrc/node_mix.cuh`` holds the element conversions they all take.
 """

@@ -15,16 +15,67 @@ the feature-major prototype of the batch-major attention core
 (``joint_attention.py``, B2).  The rounding points are those of the Pallas
 kernel run in interpret mode on the CPU: q·scale and each k·q product are
 rounded (they are stored in the input dtype), the products v·a are not, and
-the node sum is taken in fp32 and rounded once.  The kernel is
-``csrc/attention_core_fm.cu``.
+the node sum is taken in fp32 and rounded once; ``attention_core_fm_plain``
+rounds there.  The kernel, ``csrc/attention_core_fm.cu``, stages items of
+``FmPlan.cols`` batch columns × one head through a ring of shared-memory
+stages (TMA copies), transposes each into B2's per-row layout, runs B2's
+bodies and stores O back with one TMA copy an item: in bf16 both products
+on the tensor cores, which sum the products qn·k unrounded, the one
+rounding point where it differs from the plain version (it is held to it at
+the bf16 bounds, as B2 is).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import build
+from .node_mix_sm90 import MAX_SMEM, MAX_STAGES, N_NODES
 
 launches = 0
+
+DIM_HEAD = 32       # the head width the kernel is built for
+MAX_HEADS = 32
+# batch columns an item: 32 bytes of a (joint, feature) row in either type
+COLS = {torch.bfloat16: 16, torch.float32: 8}
+PAD = 16            # bytes after each column's q‖k‖v, and after each joint's columns
+
+
+class FmPlan(NamedTuple):
+    """Batch columns an item, ring stages and dynamic shared-memory bytes of
+    one launch."""
+    cols: int
+    stages: int
+    smem_bytes: int
+
+
+def _up(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def plan_bytes(elem: int, cols: int, dim_head: int, stages: int) -> int:
+    """Shared memory of one block (``fm_layout`` in
+    ``csrc/attention_core_fm.cu``): barriers and a zero row; ``stages``
+    stages of the item's q, k and v of every joint, [3][N][dh][cols]; the
+    transposed tile [N][cols][3·dh], each column followed by PAD bytes and
+    each joint's columns by PAD more; the item's O, [N][dh][cols]."""
+    part = N_NODES * dim_head * cols * elem
+    joint = cols * (3 * dim_head * elem + PAD) + PAD
+    return 128 + stages * 3 * part + _up(N_NODES * joint) + part
+
+
+def fm_plan(dtype: torch.dtype, heads: int, dim_head: int) -> FmPlan:
+    """The plan of the kernel: the type's columns an item with as many ring
+    stages (2 to 4) as fit; raises for what the kernel does not take."""
+    build.element_suffix("attention_core_fm", dtype)
+    if dim_head != DIM_HEAD or not 0 < heads <= MAX_HEADS:
+        raise ValueError(f"attention_core_fm: takes 1 to {MAX_HEADS} heads of {DIM_HEAD}, got "
+                         f"{heads} × {dim_head}")
+    elem, cols = torch.empty((), dtype=dtype).element_size(), COLS[dtype]
+    fits = [s for s in range(2, MAX_STAGES + 1)
+            if plan_bytes(elem, cols, dim_head, s) <= MAX_SMEM]
+    return FmPlan(cols, fits[-1], plan_bytes(elem, cols, dim_head, fits[-1]))
 
 
 def attention_core_fm_plain(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
@@ -51,12 +102,16 @@ def attention_core_fm(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.
     n, width, rows = qkv.shape
     hd = heads * dim_head
     suffix = build.element_suffix("attention_core_fm", qkv.dtype)
+    plan = fm_plan(qkv.dtype, heads, dim_head)
+    if n != N_NODES:
+        raise ValueError(f"attention_core_fm: takes {N_NODES} nodes, got {n}")
     build.check_kernel_inputs("attention_core_fm", {"qkv": (n, 3 * hd, rows)}, qkv.dtype,
                               qkv=qkv)
+    build.check_aligned("attention_core_fm", 16, qkv=qkv)
     out = torch.empty((n, hd, rows), dtype=qkv.dtype, device=qkv.device)
-    status = build.c_entry("attention_core_fm", f"attention_core_fm_{suffix}", 2, 4)(
-        qkv.data_ptr(), out.data_ptr(), n, rows, heads, dim_head, build.stream_of(qkv))
-    build.check_status(f"attention_core_fm at (nodes, heads, dim_head)={(n, heads, dim_head)}",
-                       status)
+    status = build.c_entry("attention_core_fm", f"attention_core_fm_{suffix}", 2, 7)(
+        qkv.data_ptr(), out.data_ptr(), n, rows, heads, dim_head, *plan, build.stream_of(qkv))
+    build.check_status(f"attention_core_fm at (nodes, heads, dim_head, plan)="
+                       f"{(n, heads, dim_head, *plan)}", status)
     launches += 1
     return out

@@ -9,7 +9,11 @@ element type (bf16 on the prediction path; fp32 is instantiated too), sums in
 fp32 and round() to that type where the Pallas kernel materialises.  Port of
 ``skeletondiffusion_tpu/ops/pallas/graph_linear_fused.py::graph_linear_pallas``
 without the TPU's 128-lane feature padding and batch-tile padding; the kernel
-is ``csrc/graph_linear_fused.cu`` (its routines in ``csrc/node_mix.cuh``).
+is ``csrc/graph_linear_fused.cu``, the stem pass of the layer-fused
+``stem_block`` (B9a) alone on the engine of ``csrc/node_mix_sm90.cuh``: the
+wrapper hands it the bank [N, D, F] packed into one tile of all F columns,
+its rows zero-padded to ``node_mix_sm90.narrow_width(D)`` (cached per bank),
+and the tile plan (``graph_linear_fused_plan``).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..graph_linear import gmix_nm, gmm_nm
-from . import build
+from . import build, node_mix_sm90
 
 launches = 0
 
@@ -45,6 +49,15 @@ def graph_linear_fused_plain(x, w, b, g, u=None) -> torch.Tensor:
     return mix_plain(g, h.to(dt)).to(dt)
 
 
+def graph_linear_fused_plan(dtype: torch.dtype, d: int, f: int) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the kernel: one pass d → f, its contraction padded to
+    ``node_mix_sm90.narrow_width(d)`` (the plan of B9a's stem pass); raises
+    for what the kernel does not take (d not a positive multiple of 8, f not
+    a multiple of 64 up to 256, a plan that does not fit)."""
+    return node_mix_sm90.block_plan("graph_linear_fused", dtype, f,
+                                    (node_mix_sm90.narrow_width("graph_linear_fused", d),))
+
+
 def graph_linear_fused(
     x: torch.Tensor,                    # [N, B, in]
     w: torch.Tensor,                    # [N, in, out] per-node banks
@@ -58,17 +71,13 @@ def graph_linear_fused(
     tensors = dict(x=x, w=w, b=b, g=g) if u is None else dict(x=x, w=w, b=b, g=g, u=u)
     if build.kernel_device(**tensors) == "cpu":
         return graph_linear_fused_plain(x, w, b, g, u)
-    n, rows, fi = x.shape
-    fo = w.shape[-1]
-    shapes = dict(x=(n, rows, fi), w=(n, fi, fo), b=(n, fo), g=(n, n), u=(n, rows, fo))
-    suffix = build.element_suffix("graph_linear_fused", x.dtype)
-    build.check_kernel_inputs("graph_linear_fused", shapes, x.dtype, **tensors)
-    build.check_aligned("graph_linear_fused", 32, **tensors)
-    out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
-    status = build.c_entry("graph_linear_fused", f"graph_linear_fused_{suffix}", 6, 4)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
-        None if u is None else u.data_ptr(), out.data_ptr(), n, rows, fi, fo,
-        build.stream_of(x))
-    build.check_status(f"graph_linear_fused at (nodes, in, out)={(n, fi, fo)}", status)
+    n, rows, d = x.shape
+    f = w.shape[-1]
+    plan = graph_linear_fused_plan(x.dtype, d, f)
+    shapes = dict(x=(n, rows, d), w=(n, d, f), b=(n, f), g=(n, n), u=(n, rows, f))
+    out = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
+    node_mix_sm90.launch("graph_linear_fused", "graph_linear_fused", {**tensors, "u": u}, shapes,
+                         {"w": ("rows", node_mix_sm90.padded_width(d), ("groups", f, f))},
+                         (n, rows, d, f, *plan), out)
     launches += 1
     return out

@@ -67,10 +67,8 @@ def stem_block_plan(dtype: torch.dtype, d: int, f: int) -> node_mix_sm90.BlockPl
     contraction padded to ``node_mix_sm90.padded_width(d)``, then the
     block's two f → f products); raises for what the kernel does not
     take."""
-    if d <= 0 or d % 8:
-        raise ValueError(f"stem_block: D={d} must be a positive multiple of 8")
     return node_mix_sm90.block_plan("stem_block", dtype, f,
-                                    (node_mix_sm90.padded_width(d), f, f))
+                                    (node_mix_sm90.narrow_width("stem_block", d), f, f))
 
 
 def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):

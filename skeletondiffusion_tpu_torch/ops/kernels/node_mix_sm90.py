@@ -1,18 +1,19 @@
 """The host side of ``csrc/node_mix_sm90.cuh``, the product-and-mix engine
 of B3a (``attention_proj.rms_qkv``), B9b (``layer_fused.rms_qkv_core``), B1
-(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``), B9a
-(``layer_fused.stem_block``), B3b (``attention_proj.outproj_res``), B5a and
-B5b (``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
+(``resnet_block.resnet_block``), B9c (``layer_fused.outproj_block``), B4
+(``graph_linear_fused.graph_linear_fused``), B9a (``layer_fused.stem_block``),
+B3b (``attention_proj.outproj_res``), B5a and B5b
+(``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
 kernels are launched with, and the weight banks packed into the contiguous
 tiles that one bulk copy brings into shared memory (``cached_pack`` also
 keeps the decode rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
 
 B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c,
-B9a, B3b, B5a and B5b, whose products contract over all input columns of
+B4, B9a, B3b, B5a and B5b, whose products contract over all input columns of
 each node into all F output columns (B5b's head into fewer: its bank and
-bias zero-padded to F, ``check_out_width``; B9a's stem over D = 96 rows
-zero-padded to 128, ``padded_width``), items of a row tile × every column,
-their banks streamed in k-slices (``block_plan``).
+bias zero-padded to F, ``check_out_width``; the stem of B4 and B9a over
+D = 96 rows zero-padded to 128, ``narrow_width``), items of a row tile ×
+every column, their banks streamed in k-slices (``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
 kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
@@ -128,10 +129,19 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> 
 
 
 def padded_width(k: int) -> int:
-    """A contraction width rounded up to the widest k-slice (B9a's stem: its
-    bank's rows past ``k`` zero, its input's columns zero-filled by the
-    kernel), so that a narrow pass keeps its kernel's k-slice."""
+    """A contraction width rounded up to the widest k-slice (the stem of B4
+    and B9a: its bank's rows past ``k`` zero, its input's columns zero-filled
+    by the kernel), so that a narrow pass keeps its kernel's k-slice."""
     return -(-k // KSLICES[0]) * KSLICES[0]
+
+
+def narrow_width(kernel: str, k: int) -> int:
+    """``padded_width(k)`` of a narrow pass's input width ``k``; raises
+    ValueError unless k is a positive multiple of 8 (the kernels' producer
+    copies and zero-fills whole 16-byte chunks)."""
+    if k <= 0 or k % 8:
+        raise ValueError(f"{kernel}: D={k} must be a positive multiple of 8")
+    return padded_width(k)
 
 
 def check_out_width(kernel: str, dtype: torch.dtype, f: int, cols: int) -> None:
@@ -235,17 +245,20 @@ def pack(t: torch.Tensor, spec: Tuple) -> torch.Tensor:
     return pack_banks(t, spec)
 
 
-def launch(library: str, kernel: str, tensors: Dict[str, torch.Tensor], shapes: Dict,
+def launch(library: str, kernel: str, tensors: Dict[str, Optional[torch.Tensor]], shapes: Dict,
            packs: Dict[str, Tuple], ints: Tuple[int, ...], *outs: torch.Tensor) -> None:
     """Check ``tensors``, pack each one named in ``packs`` by its spec
     (``pack``) and launch ``<kernel>_<bf16|f32>`` of ``csrc/<library>.cu``
-    on the tensors in their order, ``outs`` and ``ints`` (the widths, then
-    the tile plan); raises unless the launch succeeded."""
+    on the tensors in their order (None: a null pointer, an input the kernel
+    goes without), ``outs`` and ``ints`` (the widths, then the tile plan);
+    raises unless the launch succeeded."""
     dt = outs[0].dtype
     suffix = build.element_suffix(kernel, dt)
-    build.check_kernel_inputs(kernel, shapes, dt, **tensors)
-    packed = {k: pack(t, packs[k]) if k in packs else t for k, t in tensors.items()}
+    given = {k: t for k, t in tensors.items() if t is not None}
+    build.check_kernel_inputs(kernel, shapes, dt, **given)
+    packed = {k: pack(t, packs[k]) if k in packs else t for k, t in given.items()}
     build.check_aligned(kernel, 32, **packed)
-    status = build.c_entry(library, f"{kernel}_{suffix}", len(packed) + len(outs), len(ints))(
-        *(t.data_ptr() for t in (*packed.values(), *outs)), *ints, build.stream_of(outs[0]))
+    pointers = [packed[k].data_ptr() if k in packed else None for k in tensors]
+    status = build.c_entry(library, f"{kernel}_{suffix}", len(tensors) + len(outs), len(ints))(
+        *pointers, *(t.data_ptr() for t in outs), *ints, build.stream_of(outs[0]))
     build.check_status(f"{kernel} at (nodes, rows, widths, plan)={ints}", status)

@@ -23,12 +23,8 @@ versions round where the Pallas kernels round in interpret mode (B8: cx, hw3,
 bf16(G_t), r and z, bf16(h) into both products; L1: q·scale, each k·q
 product, the probabilities and the node sum once, not the v·a products).
 """
-import importlib.util
 import json
-import os
-import pathlib
 import types
-from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,22 +41,12 @@ from skeletondiffusion_tpu_torch.ops.kernels.joint_attention import attention_co
 from test_torch_kernels import _rollout_inputs
 from torch_parity import (LATENT, PRED_LEN, as_jax, assert_bf16_close, jax_models, port_models,
                           skeletons)
+from torch_parity import load_script as _script
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 N = 21
 # the merged kernel's mean deviation from the plain version may reach this
 # share of the Pallas merged kernel's own deviation from its fp32 kernel
 MEAN_SHARE = 0.1
-
-
-def _script(name: str):
-    """Import ``scripts/<name>.py`` as a module, leaving the environment as
-    it was (the JAX lab script sets cache variables when it is imported)."""
-    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    with mock.patch.dict(os.environ):
-        spec.loader.exec_module(module)
-    return module
 
 
 def _hold_merged(got, want, want_f32, what: str):
@@ -320,7 +306,10 @@ def test_attention_core_fm_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         fm_mod.attention_core_fm(qkv.transpose(1, 2).contiguous().transpose(1, 2), heads=8,
                                  dim_head=32)
-    _refusing_entry(monkeypatch)
-    with pytest.raises(RuntimeError, match=r"=\(21, 8, 16\): .*cudaError 1"):
+    # a head width the kernel is not built for: refused by its plan before a launch
+    with pytest.raises(ValueError, match="heads of 32, got 8 × 16"):
         fm_mod.attention_core_fm(torch.zeros(N, 3 * 8 * 16, 4), heads=8, dim_head=16)
+    _refusing_entry(monkeypatch)
+    with pytest.raises(RuntimeError, match=r"=\(21, 8, 32, 8, 2, 218240\): .*cudaError 1"):
+        fm_mod.attention_core_fm(torch.zeros(N, 3 * 8 * 32, 4), heads=8, dim_head=32)
     assert fm_mod.launches == before

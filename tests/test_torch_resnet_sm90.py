@@ -1,12 +1,14 @@
 """The host side of B1 (``resnet_block``), B9c (``outproj_block``), B9a
-(``stem_block``), B3b (``outproj_res``), B5a (``final_block_in``) and B5b
-(``final_block_out``) on the whole-row items of ``csrc/node_mix_sm90.cuh``:
-their tile plans, the packed banks the ring streams in k-slices (B5a's from
-two sources, x and r; B5b's head bank and bias zero-padded to F; B9a's stem
-bank zero-padded to 128 rows, ``tests/test_torch_attention_sm90.py``), and
-the wrappers' refusals.  The kernels' walk over row tiles and two-block
-clusters runs only on the card, where ``chip_smoke.py`` holds all six against
-their plain versions at an even, a ragged and an odd number of row tiles.
+(``stem_block``), B4 (``graph_linear_fused``), B3b (``outproj_res``), B5a
+(``final_block_in``) and B5b (``final_block_out``) on the whole-row items of
+``csrc/node_mix_sm90.cuh``: their tile plans (B4's, B9a's stem pass alone),
+the packed banks the ring streams in k-slices (B5a's from two sources, x and
+r; B5b's head bank and bias zero-padded to F; the stem bank of B9a and B4
+zero-padded to 128 rows, ``tests/test_torch_attention_sm90.py``), and the
+wrappers' refusals.  The kernels' walk over row tiles and two-block clusters
+runs only on the card, where ``chip_smoke.py`` holds all seven against their
+plain versions at an even, a ragged and an odd number of row tiles, and B4's
+output against B9a's r bit for bit.
 
 Widths: the bench's (F 192, the attention's 8 heads × 32 = 256, the head's
 and the stem's latent 96).
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, layer_fused, resnet_block
+from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, graph_linear_fused
+from skeletondiffusion_tpu_torch.ops.kernels import layer_fused, resnet_block
 from skeletondiffusion_tpu_torch.ops.kernels import node_mix_sm90 as engine
 
 N, F, HD, FO = 21, 192, 256, 96
@@ -65,6 +68,11 @@ def _plans():
                                          (128, F, F)),
         ("stem_block", torch.float32): (layer_fused.stem_block_plan(torch.float32, FO, F),
                                         (128, F, F)),
+        # B9a's stem pass alone
+        ("graph_linear_fused", torch.bfloat16): (
+            graph_linear_fused.graph_linear_fused_plan(torch.bfloat16, FO, F), (128,)),
+        ("graph_linear_fused", torch.float32): (
+            graph_linear_fused.graph_linear_fused_plan(torch.float32, FO, F), (128,)),
     }
 
 
@@ -83,6 +91,8 @@ def test_bench_plans_are_the_documented_ones():
         ("final_block_out", torch.float32): (8, 32, 3, 2, 215040),
         ("stem_block", torch.bfloat16): (16, 64, 3, 2, 217088),  # B9c's
         ("stem_block", torch.float32): (8, 32, 3, 2, 217088),
+        ("graph_linear_fused", torch.bfloat16): (16, 64, 3, 2, 217088),  # B9a's
+        ("graph_linear_fused", torch.float32): (8, 32, 3, 2, 212992),  # one fp32 influence
     }
 
 
@@ -97,7 +107,9 @@ def test_bench_plans_are_the_documented_ones():
                                            ("final_block_out", torch.bfloat16),
                                            ("final_block_out", torch.float32),
                                            ("stem_block", torch.bfloat16),
-                                           ("stem_block", torch.float32)])
+                                           ("stem_block", torch.float32),
+                                           ("graph_linear_fused", torch.bfloat16),
+                                           ("graph_linear_fused", torch.float32)])
 def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     plan, ks = _plans()[(kernel, dtype)]
     elem = torch.empty((), dtype=dtype).element_size()
@@ -124,7 +136,15 @@ def test_block_plans_fit_and_match_the_kernels_layout(kernel, dtype):
     (lambda: layer_fused.outproj_block_plan(torch.float32, 0, F), "multiples of 32"),
     (lambda: attention_proj.outproj_res_plan(torch.bfloat16, 48, F), "multiples of 32"),
     (lambda: attention_proj.outproj_res_plan(torch.float32, HD, 160), "multiple of 64"),
-], ids=["f96", "f320", "f32-f256", "hd48", "hd0", "outproj_res-hd48", "outproj_res-f160"])
+    (lambda: graph_linear_fused.graph_linear_fused_plan(torch.bfloat16, 100, F),
+     "multiple of 8"),
+    (lambda: graph_linear_fused.graph_linear_fused_plan(torch.bfloat16, 0, F), "multiple of 8"),
+    (lambda: graph_linear_fused.graph_linear_fused_plan(torch.bfloat16, FO, 160),
+     "multiple of 64"),
+    (lambda: graph_linear_fused.graph_linear_fused_plan(torch.float32, FO, 320), "up to 256"),
+    (lambda: graph_linear_fused.graph_linear_fused_plan(torch.float32, FO, 256), "does not fit"),
+], ids=["f96", "f320", "f32-f256", "hd48", "hd0", "outproj_res-hd48", "outproj_res-f160",
+        "stem-d100", "stem-d0", "stem-f160", "stem-f320", "stem-f32-f256"])
 def test_block_plans_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
@@ -293,11 +313,16 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
         "stem_block": (layer_fused, "launches_stem_block",
                        lambda: layer_fused.stem_block(z(N, rows, hd), z(N, rows, f), z(2 * f),
                                                       z(N, hd, f), z(N, f), z(N, N), *block)),
+        "graph_linear_fused": (graph_linear_fused, "launches",
+                               lambda: graph_linear_fused.graph_linear_fused(
+                                   z(N, rows, hd), z(N, hd, f), z(N, f), z(N, N),
+                                   z(N, rows, f))),
     }
 
 
 @pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
-                                    "final_block_in", "final_block_out", "stem_block"])
+                                    "final_block_in", "final_block_out", "stem_block",
+                                    "graph_linear_fused"])
 @pytest.mark.parametrize("widths, match", [(dict(f=96), "multiple of 64"),
                                            (dict(f=320), "up to 256"),
                                            (dict(hd=48), "multiples of 32")],
@@ -305,11 +330,11 @@ def _zeros(dtype, rows=4, f=F, hd=HD):
 def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kernel, widths,
                                                                match):
     """On a CUDA request the wrapper refuses a width its plan refuses before
-    it names a C entry, and counts no launch (B9a's stem input: its D, here
-    hd, a multiple of 8)."""
+    it names a C entry, and counts no launch (the stem input of B9a and B4:
+    its D, here hd, a multiple of 8)."""
     if kernel in ("resnet_block", "final_block_in", "final_block_out") and "hd" in widths:
         widths, match = dict(f=160), "multiple of 64"
-    if kernel == "stem_block" and "hd" in widths:
+    if kernel in ("stem_block", "graph_linear_fused") and "hd" in widths:
         widths, match = dict(hd=100), "multiple of 8"
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
@@ -334,12 +359,14 @@ def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel", ["resnet_block", "outproj_block", "outproj_res",
-                                    "final_block_in", "final_block_out", "stem_block"])
+                                    "final_block_in", "final_block_out", "stem_block",
+                                    "graph_linear_fused", "graph_linear_fused_no_u"])
 def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel, dtype):
     """The C entry gets the packed tiles of the banks (the cached ones; B5b's
-    head bank and its bias zero-padded to F columns, B9a's stem bank to 128
-    rows), the other tensors as they are (B9a's u among them), the outputs,
-    and the widths followed by the plan."""
+    head bank and its bias zero-padded to F columns, the stem bank of B9a and
+    B4 to 128 rows), the other tensors as they are (the stem's u among them;
+    B4 without u: a null pointer), the outputs, and the widths followed by
+    the plan."""
     calls = []
 
     def recording(library, symbol, n_pointers, n_ints):
@@ -387,6 +414,13 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
             layer_fused.stem_block_plan(dtype, FO, F)
         banks, widths = {3: ("rows", 128, WHOLE), 6: WHOLE, 9: WHOLE}, (N, rows, FO, F)
         fn = layer_fused.stem_block
+    elif kernel.startswith("graph_linear_fused"):
+        args = [r(N, rows, FO), r(N, FO, F), r(N, F), r(N, N)]
+        args += [None] if kernel.endswith("no_u") else [r(N, rows, F)]
+        module, counter, plan = graph_linear_fused, "launches", \
+            graph_linear_fused.graph_linear_fused_plan(dtype, FO, F)
+        banks, widths = {1: ("rows", 128, WHOLE)}, (N, rows, FO, F)
+        fn = graph_linear_fused.graph_linear_fused
     else:
         args = [r(N, rows, HD), r(N, rows, F), r(2 * F), r(N, HD, F), r(N, N)] + block
         module, counter, plan = layer_fused, "launches_outproj_block", \
@@ -399,11 +433,62 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
     (library, symbol, pointers, ints), = calls
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     library_of = {"outproj_block": "layer_fused", "outproj_res": "attention_proj",
-                  "stem_block": "layer_fused"}
-    assert (library, symbol) == (library_of.get(kernel, "resnet_block"), f"{kernel}_{suffix}")
+                  "stem_block": "layer_fused", "graph_linear_fused": "graph_linear_fused",
+                  "graph_linear_fused_no_u": "graph_linear_fused"}
+    entry = "graph_linear_fused" if kernel.startswith("graph_linear_fused") else kernel
+    assert (library, symbol) == (library_of.get(kernel, "resnet_block"), f"{entry}_{suffix}")
     assert ints == (*widths, *plan)
     outs = out if isinstance(out, tuple) else (out,)
-    want = [engine.pack(a, banks[i]).data_ptr() if i in banks else a.data_ptr()
+    want = [engine.pack(a, banks[i]).data_ptr() if i in banks else
+            None if a is None else a.data_ptr()
             for i, a in enumerate(args)] + [o.data_ptr() for o in outs]
     assert list(pointers) == want
     assert len({p for p in pointers}) == len(pointers)  # the outputs are new tensors
+
+
+# ---- B4: the stem pass of B9a alone ------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graph_linear_fused_plan_is_stem_blocks_first_pass(dtype):
+    """B4 runs B9a's stem pass alone: the same rows, k-slice and cluster, so
+    the same k-slices reach the same products in the same order and its
+    output is B9a's r bit for bit (held on the card by chip_smoke); in bf16
+    also the same stages and shared memory (the fp32 plan keeps one
+    influence where B9a keeps three)."""
+    stem = graph_linear_fused.graph_linear_fused_plan(dtype, FO, F)
+    block = layer_fused.stem_block_plan(dtype, FO, F)
+    assert (stem.rows, stem.kslice, stem.cluster) == (block.rows, block.kslice, block.cluster)
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert stem.smem_bytes == engine.block_plan_bytes(elem, stem.rows, F, stem.kslice,
+                                                      stem.stages, 1) <= engine.MAX_SMEM
+    if dtype == torch.bfloat16:
+        assert stem == block
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graph_linear_fused_hands_the_kernel_stem_blocks_packed_bank(monkeypatch, dtype):
+    """B4's wrapper and B9a's pack the stem bank W_s alike and share the
+    cached copy: the two kernels read the same tiles."""
+    seen = {}
+
+    def recording(library, symbol, n_pointers, n_ints):
+        def entry(*args):
+            seen[library] = args[:n_pointers]
+            return 0
+        return entry
+
+    monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
+    monkeypatch.setattr(build, "c_entry", recording)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "check_aligned", lambda *a, **k: None)
+    rng = np.random.default_rng(2)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)  # noqa
+    rows = 4
+    x, u, ws, bs, gs = r(N, rows, FO), r(N, rows, F), r(N, FO, F), r(N, F), r(N, N)
+    block = [r(N, F, F), r(N, F), r(N, N), r(N, F, F), r(N, F), r(N, N)]
+    graph_linear_fused.graph_linear_fused(x, ws, bs, gs, u)
+    layer_fused.stem_block(x, u, r(2 * F), ws, bs, gs, *block)
+    b4, b9a = seen["graph_linear_fused"], seen["layer_fused"]
+    # B4: x, w, b, g, u, out; B9a: x, u, film, ws, bs, gs, …
+    assert b4[1] == b9a[3] == engine.pack(ws, ("rows", 128, WHOLE)).data_ptr()
+    assert (b4[0], b4[2], b4[3], b4[4]) == (b9a[0], b9a[4], b9a[5], b9a[1])

@@ -12,6 +12,11 @@ bound ``BF16_SPREAD``, and the kernel tests ``KernelInputs``, ``pad_to`` and
 """
 from __future__ import annotations
 
+import importlib.util
+import os
+import pathlib
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -276,6 +281,17 @@ def hold_bf16_predictor(jsk, sk, m, seed: int) -> dict:
         # and no farther from the JAX bf16 path than the bf16 rounding noise
         assert vs_jax_bf16.mean() <= BF16_SPREAD * jax_err.mean(), what
     return ratios
+
+
+def load_script(name: str):
+    """Import ``scripts/<name>.py`` as a module, leaving the environment as
+    it was (the JAX lab script sets cache variables when it is imported)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    with mock.patch.dict(os.environ):
+        spec.loader.exec_module(module)
+    return module
 
 
 # ---- kernel tests: inputs at the flagship's widths, 21 nodes -------------
