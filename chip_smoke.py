@@ -44,9 +44,10 @@ Phases, each printed with its elapsed seconds:
               versions and against the single-stage kernel path of phase 6,
               each beside the bf16 path's deviation from the fp32 path;
 9. decode_bf16 — the merged-gate bf16 rollout (B8) against its plain version
-              at 12 800 and 12 795 rows × 120 steps, its mean deviation also
-              against the plain version's own from the fp32 plain rollout,
-              timed beside its bound and its plain version; then the slice's
+              at 12 800, 12 795 and 12 760 rows (an odd number of its tiles
+              and clusters) × 120 steps, its mean deviation also against the
+              plain version's own from the fp32 plain rollout, timed beside
+              its bound, its plain version and K1; then the slice's
               entry point, scripts/torch_decode_bf16_check.py (a fresh
               AutoEncoder from seed 0, 12 800 rows), with its launch counts,
               and its metric-space deviation (B8 against K1) held within
@@ -128,7 +129,8 @@ RAGGED = 5  # rows cut from the bench batch for the ragged-tile call
 # fp32); at this count both have an odd number of tiles (399 and 1 595), so
 # the last cluster's second block has no rows, and the bf16 tile before it
 # is ragged (24 rows).  K1's clusters take four 8-row tiles: 1 595 tiles in
-# 399 clusters, the last cluster's fourth block without rows.  B1's, B9c's,
+# 399 clusters, the last cluster's fourth block without rows; B8's take two:
+# 798 clusters, the last one's second block without rows.  B1's, B9c's,
 # B9a's, B3b's, B5a's, B5b's and B2's counts come from their plans
 # (odd_tile_rows).
 ODD_TILE_ROWS = 12_760
@@ -842,17 +844,19 @@ def check_bf16_errors(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
     return f"max {mx:.3e} mean {mean:.3e} |ref| {ref:.3f}"
 
 
-def check_gru_rollout_bf16(predictor, gen: torch.Generator) -> dict:
+def check_gru_rollout_bf16(predictor, gen: torch.Generator, k1_ms: float) -> dict:
     """B8 at the decode's shapes on the flagship decoder's own rollout inputs
-    (cx, W_hh and W_fc in bf16), at 12 800 and 12 795 rows, 120 steps: the
-    bf16 criteria against its plain version, and a mean deviation of at most
-    B8_MEAN_SHARE× the plain version's own from K1's plain version on the
-    same inputs in fp32."""
+    (cx, W_hh and W_fc in bf16), at 12 800, 12 795 and ODD_TILE_ROWS rows
+    (1 595 of its 8-row tiles: the last two-block cluster's second block
+    without rows), 120 steps: the bf16 criteria against its plain version,
+    and a mean deviation of at most B8_MEAN_SHARE× the plain version's own
+    from K1's plain version on the same inputs in fp32; timed beside K1's
+    ``k1_ms`` from the same call."""
     inp32, inp = rollout_inputs(predictor, gen, (None, torch.bfloat16))
     rows = BATCH * SAMPLES
     parts, err = [], 0.0
     with torch.no_grad():
-        for cut in (rows, rows - RAGGED):
+        for cut in (rows, rows - RAGGED, ODD_TILE_ROWS):
             args, args32 = ({k: v[:, :cut].contiguous() if k in ("cx", "h0") else v
                              for k, v in a.items()} for a in (inp, inp32))
             got = rollout_mod.gru_rollout(**args, ph=PRED_LEN, compute_dtype=torch.bfloat16)
@@ -881,7 +885,8 @@ def check_gru_rollout_bf16(predictor, gen: torch.Generator) -> dict:
     bnd, by = bound_ms(compulsory, 2.0 * n * n * f * rows * PRED_LEN,
                        float(tensor_row_step) * rows * PRED_LEN)
     log(f"gru_rollout_bf16: {'; '.join(parts)}; {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"library none, bound {bnd:.3f} ms ({by})")
+        f"library none, bound {bnd:.3f} ms ({by}); K1 {k1_ms:.3f} ms in this call "
+        f"(B8 / K1 {ms / k1_ms:.3f})")
     return {"name": "gru_rollout_bf16", "route": "cuda",
             "source": "skeletondiffusion_tpu_torch/csrc/gru_rollout_merged.cu",
             "replaces": "skeletondiffusion_tpu/ops/pallas/gru_rollout.py:377",
@@ -1117,7 +1122,8 @@ def main() -> int:
     phase("main_layer_fused", t)
 
     t = time.perf_counter()
-    rollout_bf16 = check_gru_rollout_bf16(predictor, gen)
+    k1_ms = next(k["ms"] for k in kernels if k["name"] == "gru_rollout")
+    rollout_bf16 = check_gru_rollout_bf16(predictor, gen, k1_ms)
     launches = run_decode_check(card_name)
     rollout_bf16["launches"] = launches["gru_rollout_bf16"]
     kernels.append(rollout_bf16)

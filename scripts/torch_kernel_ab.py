@@ -11,9 +11,9 @@ port's nvcc flags (this tree's into the usual build directory, the other's
 into ``build/kernel_ab/parent/``, at once).  Each kernel is called through
 this tree's wrappers with one tree's libraries, then the other's, on random
 inputs from a seed (21 nodes, 12 800 rows, D 96, F 192, 8 heads × 32; the
-rollouts 120 steps); B4 and L1, whose C entries this tree changed, are
-called through the parent's own C signatures (B4's bank unpacked, no tile
-plan; L1 without its plan) for the parent.  Times are CUDA events over
+rollouts 120 steps); B8, whose C entry this tree changed, is called
+through the parent's own C signature (W_hh unpacked, no plan) for the
+parent.  Times are CUDA events over
 ``reps`` calls after a warm-up, in rounds ordered parent, new, new, parent,
 …; the card's name and power limit, then one JSON line: ms per kernel, side
 and round, the best of each side, and new / parent of the best.  Needs one
@@ -117,20 +117,17 @@ def kernels(parent_libs: dict) -> dict:
     cx, w_hh, w_fc = rnd(N, B, 3 * D, scale=0.5), bank(D, 3 * D), bank(D, 3)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def parent_stem():
-        out = torch.empty((N, B, F), dtype=bf, device="cuda")
-        ptrs = [t.data_ptr() for t in (x_lat, ws, bs, gs, u, out)]
-        check(raw(parent_libs["graph_linear_fused"], "graph_linear_fused_bf16", 6, 4)(
-            *ptrs, N, B, D, F, stream()))
-
-    def parent_core_fm():
-        out = torch.empty((N, HD, B), dtype=bf, device="cuda")
-        check(raw(parent_libs["attention_core_fm"], "attention_core_fm_bf16", 2, 4)(
-            qkv_fm.data_ptr(), out.data_ptr(), N, B, H, DH, stream()))
+    def parent_rollout_bf16():
+        out = torch.empty((PH, N, B, 3), dtype=torch.float32, device="cuda")
+        args = dict(cx=cx, h0=roll["h0"], w_hh=w_hh, b_hh=roll["b_hh"], g0=roll["g0"],
+                    g_add=roll["g_add"], w_fc=w_fc, b_fc=roll["b_fc"], g_fc=roll["g_fc"])
+        ptrs = [t.data_ptr() for t in args.values()] + [out.data_ptr()]
+        check(raw(parent_libs["gru_rollout_merged"], "gru_rollout_bf16", 10, 5)(
+            *ptrs, N, B, D, 3, PH, stream()))
 
     return {
         "graph_linear_fused": (20, lambda: graph_linear_fused.graph_linear_fused(
-            x_lat, ws, bs, gs, u), parent_stem),
+            x_lat, ws, bs, gs, u), None),
         "resnet_block": (20, lambda: resnet_block.resnet_block(x, film, *blk), None),
         "rms_qkv": (20, lambda: attention_proj.rms_qkv(x, g_rms, w_qkv, g_qkv), None),
         "attention_core": (20, lambda: joint_attention.attention_core(qkv, heads=H, dim_head=DH),
@@ -149,12 +146,12 @@ def kernels(parent_libs: dict) -> dict:
         "outproj_block": (20, lambda: layer_fused.outproj_block(a, x, film, w_out, g_out, *blk),
                           None),
         "attention_core_fm": (20, lambda: attention_core_fm.attention_core_fm(
-            qkv_fm, heads=H, dim_head=DH), parent_core_fm),
+            qkv_fm, heads=H, dim_head=DH), None),
         "gru_rollout": (2, functools.partial(gru_rollout.gru_rollout, cx.float(), w_hh=w_hh.float(),
                                              w_fc=w_fc.float(), ph=PH, **roll), None),
         "gru_rollout_bf16": (2, functools.partial(gru_rollout.gru_rollout, cx, w_hh=w_hh,
                                                   w_fc=w_fc, ph=PH, compute_dtype=bf, **roll),
-                             None),
+                             parent_rollout_bf16),
     }
 
 

@@ -16,8 +16,10 @@ without the TPU's 128-lane padding, in its two forms:
   version is the step loop of ``ops/graph_gru.py``;
 * ``compute_dtype=torch.bfloat16`` (``_rollout_kernel_merged``, the
   merged-gate kernel): bf16 operands for every product and mix, fp32 carries
-  and sums; the kernel is ``csrc/gru_rollout_merged.cu``, the plain version
-  ``gru_rollout_merged_plain``.
+  and sums; the kernel is ``csrc/gru_rollout_merged.cu``, which streams
+  W_hh through shared memory from a copy packed once per bank
+  (``pack_rollout_bank_bf16``) and is launched with ``rollout_bf16_plan``;
+  the plain version is ``gru_rollout_merged_plain``.
 
 ``decode_rollout`` is the decoder's whole decode (the counterpart of the JAX
 package's ``decode_rollout``): the hoisted input gates and initial hidden
@@ -119,6 +121,73 @@ def pack_rollout_bank(w_hh: torch.Tensor) -> torch.Tensor:
     return node_mix_sm90.cached_pack(w_hh, ("rollout", ROLLOUT_SLICE), _pack_rollout)
 
 
+# The bf16 kernel's tiling (csrc/gru_rollout_merged.cu): rows a block (the
+# products' n8), hidden columns a slice (its r, z and n columns: 48 gate
+# columns), bank rows a ring stage (one mma k-step), stages, blocks a cluster
+# (each weight byte read from L2 serves 16 rows).
+ROLLOUT_BF16_ROWS = 8
+ROLLOUT_BF16_SLICE = 16
+ROLLOUT_BF16_K_ROWS = 16
+ROLLOUT_BF16_STAGES = 2
+ROLLOUT_BF16_CLUSTER = 2
+GATE_ROW_PAD = 8         # bf16 values after each row of a gate buffer's plane
+HB_ROW_PAD = 8           # bf16 values after each row of bf16(h)
+PLANE_PAD = 16           # bytes after each node's plane of both
+
+
+def rollout_bf16_plan_bytes(n: int, h: int, f: int) -> int:
+    """Shared memory of one block (``Layout`` in ``csrc/gru_rollout_merged.cu``):
+    barriers and a zero row, the ring's stages of ROLLOUT_BF16_K_ROWS bank rows ×
+    n nodes × the 3·slice gate columns of a slice, h in fp32 (a float4 per
+    consumer lane, 3 tiles of 8 nodes, per slice and row), bf16(h) [n][rows][h
+    + 8], the slice's hw3 and cx [n][rows][3·slice + 8], W_fcᵀ's mma fragments
+    (12 lanes × 8 bytes per node and k-step), G_t, G_add, G_fc rows padded to
+    24, the head's outputs [n][rows][f] in fp32."""
+    rows, s = ROLLOUT_BF16_ROWS, ROLLOUT_BF16_SLICE
+    ring = ROLLOUT_BF16_STAGES * n * ROLLOUT_BF16_K_ROWS * 3 * s * 2
+    h32 = 4 * (h // s) * rows * 3 * 32 * 4
+    hb = n * (rows * 2 * (h + HB_ROW_PAD) + PLANE_PAD)
+    gates = 2 * n * (rows * 2 * (3 * s + GATE_ROW_PAD) + PLANE_PAD)
+    fc = 8 * n * (h // ROLLOUT_BF16_K_ROWS) * 12
+    return 128 + ring + h32 + hb + gates + fc + 4 * 3 * n * G_ROW + 4 * n * rows * f
+
+
+def rollout_bf16_plan(n: int, h: int, f: int) -> RolloutPlan:
+    """The bf16 rollout's plan at n nodes, hidden width h and f outputs.  The
+    kernel is built for 21 nodes, h = 96 and 3 outputs (232 112 bytes) and
+    refuses other shapes itself."""
+    return RolloutPlan(ROLLOUT_BF16_ROWS, ROLLOUT_BF16_SLICE, ROLLOUT_BF16_STAGES,
+                       ROLLOUT_BF16_CLUSTER, rollout_bf16_plan_bytes(n, h, f))
+
+
+def _pack_rollout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
+    n, h, h3 = w_hh.shape
+    s, kr = ROLLOUT_BF16_SLICE, ROLLOUT_BF16_K_ROWS
+    # [slice J][k-step][node][k][gate a][column c] = W_hh[node][16·ks + k][a·h + J·s + c]
+    t = w_hh.reshape(n, h // kr, kr, 3, h // s, s).permute(4, 1, 0, 2, 3, 5)
+    t = t.reshape(h // s, h // kr, n, kr, 3 * s // 8, 8)
+    # in rows k with bit 2 set, the 16-byte chunks swapped in pairs (c ↔ c ^ 1)
+    chunk = torch.arange(3 * s // 8)
+    swap = torch.stack([chunk, chunk ^ 1]).to(w_hh.device)  # [bit 2 of k][position] → chunk
+    t = torch.stack([t[:, :, :, k, swap[(k >> 2) & 1]] for k in range(kr)], dim=3)
+    return t.contiguous().reshape(h // s, h * n * 3 * s)
+
+
+def pack_rollout_bank_bf16(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [N, H, 3H] → [H/slice, H·N·3·slice] for the bf16 kernel: for each
+    slice of ROLLOUT_BF16_SLICE hidden columns and each k-step of
+    ROLLOUT_BF16_K_ROWS bank rows, one contiguous ring stage [node][k][r | z |
+    n columns of the slice]; in bank row k the 16-byte chunk c lies at chunk
+    c ^ 1 where bit 2 of k is set (an ldmatrix of 8 rows then hits distinct
+    banks).  Cached per bank (``node_mix_sm90.cached_pack``)."""
+    n, h, h3 = w_hh.shape
+    if h % ROLLOUT_BF16_SLICE or h3 != 3 * h:
+        raise ValueError(f"gru_rollout_bf16: W_hh of shape {tuple(w_hh.shape)} is not "
+                         f"[N, H, 3H] with H a multiple of {ROLLOUT_BF16_SLICE}")
+    return node_mix_sm90.cached_pack(w_hh, ("rollout_bf16", ROLLOUT_BF16_SLICE),
+                                     _pack_rollout_bf16)
+
+
 def gru_rollout_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *, ph: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch → [ph, N, B, F]."""
     h, g = h0, g0
@@ -203,19 +272,20 @@ def gru_rollout(
         raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
     if merged:
-        ptrs = [t.data_ptr() for t in tensors.values()]
-        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 5)
-        status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, build.stream_of(cx))
+        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10)
+        width, pack, plan = ROLLOUT_BF16_SLICE, pack_rollout_bank_bf16, rollout_bf16_plan(n, h, f)
+        aligned = dict(cx=cx)
     else:
-        # the bank packed into ring stages (the kernel takes H = 96 only and
-        # refuses other widths), the output head's bank as it is
-        if h % ROLLOUT_SLICE == 0:
-            tensors["w_hh"] = pack_rollout_bank(w_hh)
-        build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], w_fc=w_fc, b_hh=b_hh)
-        ptrs = [t.data_ptr() for t in tensors.values()]
         entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10)
-        status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, *rollout_plan(n, h),
-                       build.stream_of(cx))
+        width, pack, plan = ROLLOUT_SLICE, pack_rollout_bank, rollout_plan(n, h)
+        aligned = dict(w_fc=w_fc, b_hh=b_hh)
+    # the bank packed into ring stages (the kernels take H = 96 only and
+    # refuse other widths), the output head's bank as it is
+    if h % width == 0:
+        tensors["w_hh"] = pack(w_hh)
+    build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], **aligned)
+    ptrs = [t.data_ptr() for t in tensors.values()]
+    status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, *plan, build.stream_of(cx))
     build.check_status(f"{kernel} at (nodes, hidden, outputs)={(n, h, f)}", status)
     if merged:
         launches_bf16 += 1

@@ -6,7 +6,8 @@ B3b (``attention_proj.outproj_res``), B5a and B5b
 (``resnet_block.final_block_in``, ``final_block_out``): the tile plans the
 kernels are launched with, and the weight banks packed into the contiguous
 tiles that one bulk copy brings into shared memory (``cached_pack`` also
-keeps the decode rollout's packed bank, ``gru_rollout.pack_rollout_bank``).
+keeps the decode rollouts' packed banks, ``gru_rollout.pack_rollout_bank``
+and ``pack_rollout_bank_bf16``).
 
 B3a and B9b take items of a row tile × a column group (``plan``); B1, B9c,
 B4, B9a, B3b, B5a and B5b, whose products contract over all input columns of

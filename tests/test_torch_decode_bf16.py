@@ -33,10 +33,16 @@ import torch
 
 from skeletondiffusion_tpu.ops.pallas.gru_rollout import decode_rollout as jax_decode_rollout
 from skeletondiffusion_tpu.ops.pallas.gru_rollout import gru_rollout_pallas
+from skeletondiffusion_tpu.models import AutoEncoder as JaxAutoEncoder
+from skeletondiffusion_tpu.skeleton import create_skeleton as jax_create_skeleton
+from skeletondiffusion_tpu_torch.models import AutoEncoder
+from skeletondiffusion_tpu_torch.ops.graph_linear import gmix_nm, l1_normalize_rows
 from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
 from skeletondiffusion_tpu_torch.ops.kernels import build
 from skeletondiffusion_tpu_torch.ops.kernels import gru_rollout as rollout_mod
 from skeletondiffusion_tpu_torch.ops.kernels.joint_attention import attention_core_plain
+from skeletondiffusion_tpu_torch.skeleton import create_skeleton
+from skeletondiffusion_tpu_torch.weights import load_autoencoder_params
 
 from test_torch_kernels import _rollout_inputs
 from torch_parity import (LATENT, PRED_LEN, as_jax, assert_bf16_close, jax_models, port_models,
@@ -128,6 +134,65 @@ def test_each_rounding_point_of_the_merged_rollout_is_needed(merged_reference, d
     assert share > MEAN_SHARE, drop
 
 
+def _chunked_mix(g, x, chunk=16):
+    """G·x over the input nodes, [n_out, m]·[m, B, F] → [n_out, B, F], summed
+    in fp32 a tensor-core k-step (``chunk`` input rows) at a time."""
+    n, b, f = x.shape
+    acc = torch.zeros(g.shape[0], b * f)
+    for k0 in range(0, n, chunk):
+        acc = acc + g[:, k0:k0 + chunk] @ x[k0:k0 + chunk].reshape(-1, b * f)
+    return acc.reshape(g.shape[0], b, f)
+
+
+def _rollout_as_b8_sums(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *, ph):
+    """The merged rollout with B8's order of sums (``csrc/gru_rollout_merged.cu``)
+    and the plain version's rounding points: hw3 from the bias plus one k-step
+    of 16 bank rows at a time; r and z mixed once as [gc | gc]·[cx ; hw3] over
+    2N input rows, k-steps of 16 (the third ends in zero rows); n's two parts
+    mixed apart (a k16 step, then the k8 step over nodes 16–20); the head's
+    product by k-steps, then its bias; sums fp32 throughout."""
+    bf = rollout_mod._bf16
+    cx, w_hh, w_fc = bf(cx), bf(w_hh), bf(w_fc)
+    hid = h0.shape[-1]
+    h, g, ys = h0.float(), g0.float(), []
+    for _ in range(ph):
+        gc, hb = bf(g), bf(h)
+        p = b_hh[:, None, :].expand(-1, h.shape[1], -1)
+        for k0 in range(0, hid, 16):
+            p = p + torch.bmm(hb[..., k0:k0 + 16], w_hh[:, k0:k0 + 16])
+        hw3 = bf(p)
+        g2 = torch.cat([gc, gc], dim=1)
+        rz = bf(torch.sigmoid(_chunked_mix(g2, torch.cat([cx[..., :2 * hid],
+                                                           hw3[..., :2 * hid]]))))
+        r, z = rz[..., :hid], rz[..., hid:]
+        n = torch.tanh(_chunked_mix(gc, cx[..., 2 * hid:])
+                       + r * _chunked_mix(gc, hw3[..., 2 * hid:]))
+        h = n - n * z + z * h
+        hb = bf(h)
+        q = torch.zeros(h.shape[0], h.shape[1], w_fc.shape[-1])
+        for k0 in range(0, hid, 16):
+            q = q + torch.bmm(hb[..., k0:k0 + 16], w_fc[:, k0:k0 + 16])
+        ys.append(torch.tanh(gmix_nm(g_fc, q + b_fc[:, None, :])))
+        g = l1_normalize_rows(g + g_add)
+    return torch.stack(ys)
+
+
+def test_b8_order_of_sums_meets_the_bound_against_pallas(merged_reference):
+    """A PyTorch model of B8's order of sums (tensor-core k-steps, r and z over
+    [gc | gc]·[cx ; hw3], bias first) meets the bf16 criteria against the
+    Pallas merged kernel in interpret mode, its mean deviation within
+    MEAN_SHARE of the Pallas kernel's own from fp32, as the plain version's."""
+    tin, want, own = merged_reference
+    got = _rollout_as_b8_sums(**tin, ph=PRED_LEN)
+    plain = rollout_mod.gru_rollout_merged_plain(**tin, ph=PRED_LEN)
+    assert got.shape == want.shape
+    assert_bf16_close(got.numpy(), want, "B8's order of sums")
+    share = np.abs(got.numpy() - want).mean() / own
+    print(f"B8's order of sums: mean |Δ| {share:.4f}× the Pallas merged kernel's own deviation "
+          f"from fp32; the plain version {np.abs(plain.numpy() - want).mean() / own:.4f}×")
+    assert share <= MEAN_SHARE
+
+
 @pytest.fixture(scope="module")
 def decoder_pair():
     jsk, sk = skeletons()
@@ -158,6 +223,61 @@ def test_decode_rollout_matches_jax(decoder_pair, dtype):
             np.testing.assert_array_equal(decoder(x_last2, z, PRED_LEN).numpy(), got.numpy())
     else:
         _hold_merged(got.numpy(), want["bfloat16"], want[None], "decode")
+
+
+# ---- the decode check's mean on the JAX check's own model ------------------
+
+# rows of the JAX decode check's inputs taken (of its 12 800), all 120 steps
+CHECK_ROWS = 48
+# the port's plain decode and the JAX decode (Pallas in interpret mode) give
+# the same bf16-vs-fp32 metric-space mean on the same model and rows within
+# this share of the JAX mean: they round alike, and their fp32 decodes agree
+# to 1e-5 (test_decode_rollout_matches_jax)
+CHECK_MEAN_SHARE = 0.03
+
+
+def test_decode_check_mean_equals_the_jax_decodes_on_its_model():
+    """``scripts/decode_bf16_check.py``'s model (the flax AutoEncoder at hidden
+    and latent 96 from key 0) carried through the weight bridge, and its
+    inputs (keys 1 and 2), first CHECK_ROWS rows × 120 steps: the port's plain
+    bf16 decode deviates from its fp32 decode by the same metric-space mean
+    as the JAX package's decodes on the CPU (~0.93 mm, not the TPU-era 0.55
+    mm of that script's docstring, whose "fp32" reference ran single-pass bf16
+    dots)."""
+    import jax
+
+    kw = dict(dataset_name="amass", motion_repr_type="SkeletonRescalePose", num_joints=22,
+              pose_box_size=1.5, obs_length=30, pred_length=120, if_consider_hip=False)
+    jsk, sk = jax_create_skeleton(**kw), create_skeleton(**kw)
+    n, ph, lat = jsk.num_nodes, 120, 96
+    jae = JaxAutoEncoder(num_nodes=n, encoder_hidden_size=96, decoder_hidden_size=96,
+                         latent_size=lat, node_types=jsk.nodes_type_id)
+    params = jae.init(jax.random.key(0), jnp.zeros((1, ph, n, 3)), jnp.zeros((1, 30, n, 3)),
+                      ph=ph, method=JaxAutoEncoder.autoencode)
+    x_last2 = np.array(jax.random.normal(jax.random.key(1), (12800, 2, n, 3)) * 0.2)[:CHECK_ROWS]
+    z = np.array(jax.random.normal(jax.random.key(2), (12800, n, lat)))[:CHECK_ROWS]
+    dec = params["params"]["decoder"]
+    jax_out = {dt: jax_decode_rollout(dec, jsk.nodes_type_id, jnp.asarray(x_last2),
+                                      jnp.asarray(z), ph, batch_tile=8, compute_dtype=dt,
+                                      interpret=True)
+               for dt in (None, "bfloat16")}
+    jm = {dt: np.asarray(jsk.transform_to_metric_space(o)) for dt, o in jax_out.items()}
+    jax_mean = (np.linalg.norm(jm[None] - jm["bfloat16"], axis=-1) * 1000.0).mean()
+
+    ae = AutoEncoder(n, 96, 96, lat, torch.Generator().manual_seed(0),
+                     node_types=sk.nodes_type_id)
+    load_autoencoder_params(ae, jax.device_get(params))
+    with torch.no_grad():
+        port_out = {dt: rollout_mod.decode_rollout(ae.decoder, torch.from_numpy(x_last2),
+                                                   torch.from_numpy(z), ph, compute_dtype=dt)
+                    for dt in (None, torch.bfloat16)}
+    pm = {dt: sk.transform_to_metric_space(o) for dt, o in port_out.items()}
+    port_mean = (torch.linalg.vector_norm(pm[None] - pm[torch.bfloat16], dim=-1)
+                 * 1000.0).mean().item()
+    print(f"decode check at {CHECK_ROWS} rows × {ph} steps: bf16-vs-fp32 mean {jax_mean:.4f} mm "
+          f"(JAX, interpret mode), {port_mean:.4f} mm (port, plain)")
+    assert abs(port_mean - jax_mean) <= CHECK_MEAN_SHARE * jax_mean
+    assert jax_mean > 0.8  # the CPU's JAX decodes are nowhere near the TPU's 0.55 mm
 
 
 # ---- L1: the feature-major attention core -----------------------------------
