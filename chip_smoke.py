@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fp32 and bf16 prediction paths on one NVIDIA GPU
-and hold its hand-written CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's fp32 and bf16 prediction paths and its evaluation
+path on one NVIDIA GPU and hold its hand-written CUDA kernels against their
+plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
@@ -58,9 +59,28 @@ Phases, each printed with its elapsed seconds:
               beside its bound, its plain version, scaled_dot_product_attention
               and B2 on the same data; then the lab's entry point,
               scripts/torch_attn_core_lab.py (its fp32 check and its chains of
-              B2 and L1 calls), with its launch counts.
+              B2 and L1 calls), with its launch counts;
+11. eval    — the evaluation path: the port's make_synthetic_amass_motion
+              (seed 0, observe 30, predict 120, 60 fps) writes the synthetic
+              AMASS tree into a temporary directory, with its mm-GT and mean
+              motions from the port's finalize_dataset, and AMASSDataset
+              reads its test split (2 datasets × 25 clips × 480 frames:
+              550 segments, three batches of 256, the last padded).  Then
+              compute_metrics (probabilistic table, CMD, APDE): the bf16
+              predictor (B4, B1, B3a, B2, B3b, B5a, B5b, K2 and K1; the
+              launches counted, three times a prediction's) prints the
+              12-metric table, seconds a batch (median and each), the eval
+              loop's preds/s and each batch's device time split by CUDA
+              events into predictor, metrics and the rest (host data,
+              transfer, preprocess, idle); the fp32 eval with injected noise
+              on the kernels against the same eval on the plain versions,
+              every metric within 1e-4·max(1, |value|); ZeroVelocity through
+              compute_metrics on the card against the CPU, every metric
+              within 1e-5·max(1, |value|).
 
-The fp32 parts run with TF32 off for matmuls and cuDNN.  Any failure exits
+The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
+in the kernels' JSON line also carries ``eval_launches``, its launches in
+the bf16 eval.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit, and before that one JSON line lists every kernel.
@@ -76,13 +96,21 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import torch
 
+from skeletondiffusion_tpu_torch.data import AMASSDataset, make_synthetic_amass_motion
 from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
-from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
+from skeletondiffusion_tpu_torch.eval_pipeline import (
+    SkeletonDiffusionPredictor,
+    ZeroVelocityPredictor,
+    compute_metrics,
+)
+from skeletondiffusion_tpu_torch.metrics import suite as suite_mod
+from skeletondiffusion_tpu_torch.metrics.multimodal import motion_for_cmd
 from skeletondiffusion_tpu_torch.models import AutoEncoder
 from skeletondiffusion_tpu_torch.ops.kernels import attention_proj as proj_mod
 from skeletondiffusion_tpu_torch.ops.kernels import build
@@ -95,6 +123,7 @@ from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
+from skeletondiffusion_tpu_torch.utils.logging import AverageTimer
 
 # the entry points of the decode check and the attention lab
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
@@ -146,6 +175,22 @@ BF16_E2E_MAX = 1.3
 # tests hold the plain version to the Pallas kernel): leaving out any one of
 # the merged kernel's rounding points reads 0.26–0.59× there.
 B8_MEAN_SHARE = 0.1
+
+# The eval phase: the synthetic AMASS test split (2 datasets × 25 clips × 480
+# frames, a segment every 30 frames) has 550 segments, three batches of 256,
+# the last padded.  The fp32 eval on the kernels against the same eval on the
+# plain versions, per metric: |Δ| ≤ EVAL_KERNEL_TOL · max(1, |plain|) (the
+# predictions differ by ≤ E2E_TOL; the metrics are means of their distances).
+# ZeroVelocity on the card against the CPU: |Δ| ≤ EVAL_DEVICE_TOL ·
+# max(1, |CPU|), the same float32 reductions in another order.  Relative for
+# values ≥ 1; below, absolute, since some metrics are differences of nearly
+# equal float32 values without a relative digit: ZeroVelocity's StretchMean
+# on the rigid synthetic skeleton, 100·|mean limb length − the target's| /
+# the target's, reads 3.37e-5 on the card and 3.23e-5 on the CPU (H100 80GB
+# HBM3, 700 W).
+EVAL_SEGMENTS = 550
+EVAL_KERNEL_TOL = 1e-4
+EVAL_DEVICE_TOL = 1e-5
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
 # tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
@@ -394,37 +439,44 @@ def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str, expect
     return counts[-1]
 
 
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain PyTorch version, as one
+    context (an ``ExitStack`` of patches)."""
+    stack = contextlib.ExitStack()
+    for patch in [
+        plain_rollouts(),
+        mock.patch.object(posterior_mod, "posterior_step", posterior_mod.posterior_step_plain),
+        mock.patch.object(stem_mod, "graph_linear_fused", stem_mod.graph_linear_fused_plain),
+        mock.patch.object(block_mod, "resnet_block", block_mod.resnet_block_plain),
+        mock.patch.object(block_mod, "final_block_in", block_mod.final_block_in_plain),
+        mock.patch.object(block_mod, "final_block_out", block_mod.final_block_out_plain),
+        mock.patch.object(proj_mod, "rms_qkv", proj_mod.rms_qkv_plain),
+        mock.patch.object(proj_mod, "outproj_res", proj_mod.outproj_res_plain),
+        mock.patch.object(attn_mod, "attention_core", attn_mod.attention_core_plain),
+        mock.patch.object(layer_mod, "stem_block", layer_mod.stem_block_plain),
+        mock.patch.object(layer_mod, "rms_qkv_core", layer_mod.rms_qkv_core_plain),
+        mock.patch.object(layer_mod, "outproj_block", layer_mod.outproj_block_plain),
+    ]:
+        stack.enter_context(patch)
+    return stack
+
+
 def injected_run(skeleton, predictor, obs: torch.Tensor, start: torch.Tensor,
                  steps: torch.Tensor, plain: bool):
     """The metric-space prediction with injected sampler noise, and the
     sampler's state after each step; ``plain`` replaces every kernel wrapper
-    with its plain PyTorch version."""
+    with its plain PyTorch version (``plain_kernels``)."""
     states = []
-    step = posterior_mod.posterior_step_plain if plain else posterior_mod.posterior_step
 
-    def recording(*args):
-        states.append(step(*args))
-        return states[-1]
+    with plain_kernels() if plain else contextlib.nullcontext():
+        step = posterior_mod.posterior_step
 
-    patches = [mock.patch.object(posterior_mod, "posterior_step", recording)]
-    if plain:
-        patches += [
-            plain_rollouts(),
-            mock.patch.object(stem_mod, "graph_linear_fused", stem_mod.graph_linear_fused_plain),
-            mock.patch.object(block_mod, "resnet_block", block_mod.resnet_block_plain),
-            mock.patch.object(block_mod, "final_block_in", block_mod.final_block_in_plain),
-            mock.patch.object(block_mod, "final_block_out", block_mod.final_block_out_plain),
-            mock.patch.object(proj_mod, "rms_qkv", proj_mod.rms_qkv_plain),
-            mock.patch.object(proj_mod, "outproj_res", proj_mod.outproj_res_plain),
-            mock.patch.object(attn_mod, "attention_core", attn_mod.attention_core_plain),
-            mock.patch.object(layer_mod, "stem_block", layer_mod.stem_block_plain),
-            mock.patch.object(layer_mod, "rms_qkv_core", layer_mod.rms_qkv_core_plain),
-            mock.patch.object(layer_mod, "outproj_block", layer_mod.outproj_block_plain),
-        ]
-    with contextlib.ExitStack() as stack:
-        for patch in patches:
-            stack.enter_context(patch)
-        pred, _ = predictor(None, obs, start_noise=start, step_noise=steps)
+        def recording(*args):
+            states.append(step(*args))
+            return states[-1]
+
+        with mock.patch.object(posterior_mod, "posterior_step", recording):
+            pred, _ = predictor(None, obs, start_noise=start, step_noise=steps)
     return skeleton.transform_to_metric_space(pred), torch.stack(states)
 
 
@@ -1030,6 +1082,190 @@ def run_attention_lab(card_name: str) -> dict:
     return counts
 
 
+def build_eval_split(skeleton, root: str):
+    """The synthetic AMASS tree written by the port's generator under
+    ``root`` (mm-GT and mean motions by its ``finalize_dataset``), and its
+    test split; returns (dataset, path of the APDE ground-truth CSV)."""
+    data_root = make_synthetic_amass_motion(root, obs_length=OBS_LEN, pred_length=PRED_LEN,
+                                            seed=SEED)
+    pre = os.path.join(data_root, "processed", "AMASS", "hmp")
+    ann = os.path.join(data_root, "annotations", "AMASS", "hmp")
+    dataset = AMASSDataset(
+        datasets=["DFaust", "GRAB"], split="test", precomputed_folder=pre, skeleton=skeleton,
+        obs_length=OBS_LEN, pred_length=PRED_LEN,
+        segments_path=os.path.join(ann, "segments_test.csv"), if_consider_hip=False,
+        if_load_mmgt=True, if_compute_cmd=True, silent=True,
+    )
+    return dataset, os.path.join(ann, "mmapd_GT.csv")
+
+
+class EvalClock:
+    """The predictor with CUDA events before and after each call, and (inside
+    ``metrics()``) before and after each batch's metric suite."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.device = predictor.device
+        self.pred_length = predictor.pred_length
+        self.marks = []
+        self.last_batch = None  # the last (suite, args, kwargs) of compute_batch
+
+    @staticmethod
+    def _event():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def __call__(self, *args, **kwargs):
+        start = self._event()
+        out = self.predictor(*args, **kwargs)
+        self.marks.append([start, self._event()])
+        return out
+
+    @contextlib.contextmanager
+    def metrics(self):
+        compute_batch = suite_mod.MetricSuite.compute_batch
+
+        def timed(suite, *args, **kwargs):
+            self.last_batch = (suite, args, kwargs)
+            start = self._event()
+            out = compute_batch(suite, *args, **kwargs)
+            self.marks[-1] += [start, self._event()]
+            return out
+
+        with mock.patch.object(suite_mod.MetricSuite, "compute_batch", timed):
+            yield
+
+    def split(self) -> list:
+        """Per batch (ms): its period on the device, from its predictor call
+        to the next batch's (the last one's: to its metrics' end), the
+        predictor, the metrics, and the rest (host data, the transfer, the
+        preprocess and the device's idle time)."""
+        torch.cuda.synchronize()
+        out = []
+        for i, (p0, p1, m0, m1) in enumerate(self.marks):
+            period = p0.elapsed_time(self.marks[i + 1][0] if i + 1 < len(self.marks) else m1)
+            pred, met = p0.elapsed_time(p1), m0.elapsed_time(m1)
+            out.append({"period": period, "predictor": pred, "metrics": met,
+                        "rest": period - pred - met})
+        return out
+
+
+class InjectedNoise:
+    """The predictor with injected sampler noise, drawn per batch from a
+    generator seeded with the batch's index: two runs over a split see the
+    same noise."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.device = predictor.device
+        self.pred_length = predictor.pred_length
+        self.calls = 0
+
+    def __call__(self, generator, obs, num_samples=None, pred_length=None):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 + self.calls)
+        self.calls += 1
+        start, steps = injected_noise(self.predictor.skeleton, gen)
+        return self.predictor(None, obs, num_samples=num_samples, pred_length=pred_length,
+                              start_noise=start, step_noise=steps)
+
+
+def check_counts(label: str, counts: dict, expected: dict) -> None:
+    expected = {name: expected.get(name, 0) for name in COUNTERS}
+    if counts != expected:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {expected}")
+
+
+def hold_metrics(label: str, got: dict, want: dict, tol) -> None:
+    """Every metric of ``want`` in ``got``, finite, |Δ| ≤ ``tol(want)``."""
+    worst = []
+    for name, w in want.items():
+        g = got[name]
+        err = abs(g - w)
+        worst.append((err / tol(w), name, err))
+        if not (math.isfinite(g) and math.isfinite(w) and err <= tol(w)):
+            raise AssertionError(f"{label}: {name} {g!r} against {w!r} (|Δ| {err:.3e}, "
+                                 f"tol {tol(w):.3e})")
+    share, name, err = max(worst)
+    log(f"{label}: {len(want)} metrics agree; largest |Δ| {err:.3e} ({name}, "
+        f"{share:.3f} of its tolerance)")
+
+
+def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16: dict) -> dict:
+    """The evaluation path over the synthetic AMASS test split: the bf16 eval
+    with kernels (metric table, seconds per batch, preds/s, its time split),
+    the fp32 eval on kernels against plain versions with injected noise, and
+    ZeroVelocity on the card against the CPU.  Returns the bf16 eval's
+    launches."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dataset, apde_csv = build_eval_split(skeleton, root)
+        n = len(dataset)
+        batches = -(-n // BATCH)
+        log(f"eval split: {n} segments, {batches} batches of {BATCH} (the last padded), mm-GT "
+            f"up to {dataset.max_mmgt_count} futures a segment; written and read in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if n != EVAL_SEGMENTS:
+            raise AssertionError(f"eval split has {n} segments, expected {EVAL_SEGMENTS}")
+        args = dict(batch_size=BATCH, num_samples=SAMPLES, stats_mode="probabilistic", seed=SEED,
+                    if_compute_cmd=True, if_compute_apde=True, mmapd_gt_path=apde_csv,
+                    silent=True)
+
+        compute_metrics(predictor_bf16, dataset, skeleton, ndebug=True, **args)  # warm-up
+        clock, timer = EvalClock(predictor_bf16), AverageTimer()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with clock.metrics():
+            results = compute_metrics(clock, dataset, skeleton, timer=timer, **args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts("eval bf16", counts, {k: v * batches for k, v in expected_bf16.items()})
+        if not all(math.isfinite(v) for v in results.values()) or len(results) != 12:
+            raise AssertionError(f"eval bf16: metric table {results}")
+        log("eval bf16 metric table:\n" + suite_mod.draw_table(results))
+        split = clock.split()
+        log(f"eval bf16: {n / wall:.2f} preds/s ({n} segments × {SAMPLES} samples in "
+            f"{wall:.3f} s) on {card_name}; seconds a batch median "
+            f"{statistics.median(timer.times):.4f}, each "
+            f"{[round(x, 4) for x in timer.times]} (the last: the trailing drain); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        log("eval bf16 split per batch, ms (CUDA events): " + "; ".join(
+            f"period {b['period']:.2f} = predictor {b['predictor']:.2f} + metrics "
+            f"{b['metrics']:.2f} + host data, transfer, preprocess and idle {b['rest']:.2f}"
+            for b in split))
+        suite, batch_args, batch_kwargs = clock.last_batch
+        parts = {name: cuda_ms(lambda name=name: suite.metric(name, *batch_args, **batch_kwargs),
+                               reps=3) for name in suite.stats_funcs}
+        parts["CMD curve"] = cuda_ms(lambda: motion_for_cmd(batch_args[0]), reps=3)
+        clock.last_batch = None
+        log(f"eval bf16 metric suite at batch {BATCH} × {SAMPLES}, ms a call (CUDA events): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.2f}")
+
+        reset_counts()
+        kernel = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
+        check_counts("eval fp32", read_counts(),
+                     {"gru_rollout": batches, "posterior_step": batches * TIMESTEPS})
+        with plain_kernels():
+            plain = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
+        hold_metrics("eval fp32 with injected noise, kernels vs plain versions", kernel, plain,
+                     lambda w: EVAL_KERNEL_TOL * max(1.0, abs(w)))
+
+        zero, seconds = {}, {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            zero[d] = compute_metrics(ZeroVelocityPredictor(skeleton, SAMPLES, PRED_LEN, device=d),
+                                      dataset, skeleton, **args)
+            seconds[d] = time.perf_counter() - t0
+        log(f"eval ZeroVelocity: {seconds['cuda']:.2f} s on the card, {seconds['cpu']:.2f} s on "
+            f"the CPU ({os.cpu_count()} cores)")
+        hold_metrics("eval ZeroVelocity, card vs CPU", zero["cuda"], zero["cpu"],
+                     lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
+    return counts
+
+
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
     """Kernel time per prediction of the entries launched on a path: ms a
     launch × the path's ``launches``."""
@@ -1088,12 +1324,12 @@ def main() -> int:
     phase("denoiser", t)
 
     t = time.perf_counter()
-    expected = {"gru_rollout": 1, "posterior_step_x0_bf16": TIMESTEPS,
-                "graph_linear_fused": TIMESTEPS, "resnet_block": 8 * TIMESTEPS,
-                "rms_qkv": 7 * TIMESTEPS, "attention_core": 7 * TIMESTEPS,
-                "outproj_res": 7 * TIMESTEPS, "final_block_in": TIMESTEPS,
-                "final_block_out": TIMESTEPS}
-    launches = run_main_path(skeleton, predictor_bf16, obs, card_name, expected,
+    expected_bf16 = {"gru_rollout": 1, "posterior_step_x0_bf16": TIMESTEPS,
+                     "graph_linear_fused": TIMESTEPS, "resnet_block": 8 * TIMESTEPS,
+                     "rms_qkv": 7 * TIMESTEPS, "attention_core": 7 * TIMESTEPS,
+                     "outproj_res": 7 * TIMESTEPS, "final_block_in": TIMESTEPS,
+                     "final_block_out": TIMESTEPS}
+    launches = run_main_path(skeleton, predictor_bf16, obs, card_name, expected_bf16,
                              "main path bf16")
     compare_bf16(skeleton, predictor_bf16, predictor, obs, gen)
     for k in fused:
@@ -1135,6 +1371,12 @@ def main() -> int:
     core_fm["launches"] = launches["attention_core_fm"]
     kernels.append(core_fm)
     phase("attn_core_fm", t)
+
+    t = time.perf_counter()
+    launches = run_eval(skeleton, predictor_bf16, predictor, card_name, expected_bf16)
+    for k in kernels:
+        k["eval_launches"] = launches[k["name"]]
+    phase("eval", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

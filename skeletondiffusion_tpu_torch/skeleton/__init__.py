@@ -5,10 +5,17 @@ motion-representation class as ``skeletondiffusion_tpu.skeleton`` does, e.g.
 ``create_skeleton(dataset_name='amass', motion_repr_type='SkeletonRescalePose',
 num_joints=22, pose_box_size=1.5, obs_length=30, pred_length=120)``.
 """
-from .kinematic import AMASSKinematic, get_kinematic_class
-from .motion import SkeletonRescalePose, get_motion_representation_class
+from .kinematic import AMASSKinematic, Kinematic, get_kinematic_class
+from .motion import (
+    MotionRepresentation,
+    SkeletonCenterPose,
+    SkeletonRescalePose,
+    center_kpts_around_hip,
+    get_motion_representation_class,
+)
 
-__all__ = ["AMASSKinematic", "SkeletonRescalePose", "create_skeleton"]
+__all__ = ["AMASSKinematic", "Kinematic", "MotionRepresentation", "SkeletonCenterPose",
+           "SkeletonRescalePose", "center_kpts_around_hip", "create_skeleton"]
 
 
 def create_skeleton(**kwargs):

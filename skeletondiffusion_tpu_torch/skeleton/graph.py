@@ -10,7 +10,7 @@ JAX package.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -81,3 +81,13 @@ def reachability_matrix(
             reach[j, i] = reach[i, j]
     return reach
 
+
+def parents_from_limbseq(limbseq: Sequence[Tuple[int, int]], num_joints: int) -> List[Optional[int]]:
+    """Parent index per joint (root = -1); mirrors `kinematic/base.py:29-37`."""
+    parents: List[Optional[int]] = [None] * num_joints
+    parents[0] = -1
+    for a, b in limbseq:
+        if not a < b:
+            raise ValueError("limbseq tuples must be (parent_idx < child_idx)")
+        parents[b] = a
+    return parents

@@ -1,6 +1,8 @@
 """AMASS kinematic skeleton: joint dictionary, limb sequence, node graph (with
 the hip-triangle reconnection applied when the root is dropped), mirror
-node types and the adjacency/reachability matrices, host-side numpy.
+node types, parents, left/right flags, limb-angle groups, the
+adjacency/reachability matrices (host-side numpy) and limb-length
+extraction (torch).
 
 Port of ``skeletondiffusion_tpu/skeleton/kinematic.py`` (reference
 `src/data/skeleton/kinematic/{base,amass}.py`) restricted to the 22-joint
@@ -8,11 +10,12 @@ AMASS skeleton.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from .graph import get_adj_matrix, reachability_matrix
+from .graph import get_adj_matrix, parents_from_limbseq, reachability_matrix
 
 NODE_HIP = {0: "GlobalRoot"}  # reference `motion/base.py:5`
 
@@ -25,6 +28,8 @@ class Kinematic:
     limbseq: np.ndarray
     node_dict: Dict[int, str]
     node_limbseq: List[List[int]]
+    left_right_limb_list: List[bool]
+    limb_angles_idx: List[List[int]]
 
     def __init__(self, if_consider_hip: bool = False, **kwargs):
         self.if_consider_hip = if_consider_hip
@@ -36,6 +41,25 @@ class Kinematic:
     @property
     def num_nodes(self) -> int:
         return len(self.node_dict)
+
+    @property
+    def left_right_limb(self) -> List[bool]:
+        return list(self.left_right_limb_list)
+
+    @property
+    def left_right_limb_nodes(self) -> List[bool]:
+        """``left_right_limb`` in node order (with the hip dropped, node i is
+        not joint i)."""
+        by_name = dict(zip(self.joint_dict_orig.values(), self.left_right_limb_list))
+        return [by_name[self.node_dict[i]] for i in range(self.num_nodes)]
+
+    def parents(self, mode: str = "original") -> List[Optional[int]]:
+        """Parent per joint (``"original"``) or per node; reference
+        `kinematic/base.py:29-37`.  Node pairs are read as (min, max)."""
+        if mode == "original":
+            return parents_from_limbseq(self.limbseq, self.num_joints)
+        return parents_from_limbseq([sorted(pair) for pair in self.node_limbseq],
+                                    self.num_nodes)
 
     @property
     def nodes_type_id(self) -> np.ndarray:
@@ -59,6 +83,19 @@ class Kinematic:
         return reachability_matrix(
             self.adj_matrix, list(self.node_dict.values()), factor=factor, stop_at=stop_at
         )
+
+    def get_limbseq(self) -> np.ndarray:
+        """Reference `kinematic/base.py:81-83`."""
+        return np.asarray(self.limbseq if self.if_consider_hip else self.node_limbseq)
+
+    def extract_limb_length(self, kpts: torch.Tensor, mode: str = "metric") -> torch.Tensor:
+        """Per-limb bone lengths ``[..., n_limbs]``; reference
+        `kinematic/base.py:130-135`.  ``mode='metric'`` uses the joint limbs
+        (hip included), otherwise the node-graph limbs."""
+        limbseq = torch.as_tensor(np.asarray(self.limbseq if mode == "metric"
+                                             else self.node_limbseq), device=kpts.device)
+        return torch.linalg.vector_norm(kpts[..., limbseq[:, 0], :] - kpts[..., limbseq[:, 1], :],
+                                        dim=-1)
 
     def _build_node_graph(self, hip_triangle: List[List[str]]):
         """Drop the root joint and reconnect the hip triangle."""
@@ -100,7 +137,17 @@ class AMASSKinematic(Kinematic):
             [0, 2], [2, 5], [5, 8], [8, 11],                    # right leg
             [0, 1], [1, 4], [4, 7], [7, 10],                    # left leg
         ])
+        self.left_right_limb_list = [
+            not (name[0] == "L" and name[1].isupper()) for name in self.joint_dict_orig.values()
+        ]
         self._build_node_graph([["LHip", "RHip"], ["LHip", "Spine1"], ["RHip", "Spine1"]])
+        if not self.if_consider_hip:
+            # limb-angle groups of the MAE metric (reference
+            # `kinematic/amass.py:73-80`)
+            self.limb_angles_idx = [
+                [0, 2, 3, 4, 5, 6], [0, 3], [4, 7, 8, 9, 10],
+                [4, 11, 12, 13, 14], [0, 15, 16, 17], [18, 19, 20],
+            ]
 
 
 def get_kinematic_class(dataset_name: str):
