@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fp32 and bf16 prediction paths and its evaluation
-path on one NVIDIA GPU and hold its hand-written CUDA kernels against their
-plain PyTorch versions.
+"""Drive the PyTorch port's fp32 and bf16 prediction paths, its evaluation
+path and its two-stage training path on one NVIDIA GPU and hold its
+hand-written CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
@@ -76,11 +76,30 @@ Phases, each printed with its elapsed seconds:
               on the kernels against the same eval on the plain versions,
               every metric within 1e-4·max(1, |value|); ZeroVelocity through
               compute_metrics on the card against the CPU, every metric
-              within 1e-5·max(1, |value|).
+              within 1e-5·max(1, |value|);
+12. train   — the two-stage training path on the same tree's train split
+              (4 datasets × 25 clips, a segment every 60 frames jittered by
+              ±30): DataLoader → cycled_batches → prefetch_iterator →
+              preprocess_batch with mirroring (0.5) and rotation (1.0) on
+              the card, batch 64.  Stage 1: 10 AutoEncoder steps (hidden and
+              latent 96, the curriculum of epoch 11: random horizons up to
+              120, the differentiable decode), ms a step; K1's decode after a
+              step against the plain decode of the new weights; a step at the
+              full horizon after a restore from a checkpoint against the
+              uninterrupted one (1e-6 relative) and on the CPU (loss 1e-4,
+              gradient norm 1e-3 relative).  Stage 2: 10 bf16 steps (k = 50,
+              input space, the k-best decode on K1: 3 200 rows a step) on
+              the trained AutoEncoder, ms a step, the k-best decode's ms and
+              the launches a step; the resume check; one fp32 step with K1
+              against the same step with the plain decode (losses within
+              1e-4·max(1, |v|), argmins equal wherever the plain gap exceeds
+              that) and against the CPU; one validation step at 256 × 50 on
+              the EMA weights (the bf16 prediction path, its launches).
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
-the bf16 eval.  Any failure exits
+the bf16 eval, and ``train_launches``, its launches in stage 2's steps and
+validation step.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit, and before that one JSON line lists every kernel.
@@ -88,6 +107,7 @@ name and power limit, and before that one JSON line lists every kernel.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -102,7 +122,16 @@ from unittest import mock
 
 import torch
 
-from skeletondiffusion_tpu_torch.data import AMASSDataset, make_synthetic_amass_motion
+from skeletondiffusion_tpu_torch.data import (
+    AMASSDataset,
+    DataLoader,
+    make_synthetic_amass_motion,
+)
+from skeletondiffusion_tpu_torch.data.batch import (
+    cycled_batches,
+    prefetch_iterator,
+    preprocess_batch,
+)
 from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
 from skeletondiffusion_tpu_torch.eval_pipeline import (
     SkeletonDiffusionPredictor,
@@ -123,7 +152,11 @@ from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
+from skeletondiffusion_tpu_torch.train.checkpoint import CheckpointManager
+from skeletondiffusion_tpu_torch.train.trainer_autoencoder import AutoEncoderTrainer
+from skeletondiffusion_tpu_torch.train.trainer_diffusion import TrainerDiffusion
 from skeletondiffusion_tpu_torch.utils.logging import AverageTimer
+from skeletondiffusion_tpu_torch.utils.reproducibility import iteration_generator
 
 # the entry points of the decode check and the attention lab
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
@@ -191,6 +224,24 @@ B8_MEAN_SHARE = 0.1
 EVAL_SEGMENTS = 550
 EVAL_KERNEL_TOL = 1e-4
 EVAL_DEVICE_TOL = 1e-5
+
+# The train phase: the flagship's training batch (64 observations, k = 50
+# samples each for the k-best choice), a few steps of each stage on the
+# synthetic tree's train split (4 datasets × 25 clips × 480 frames), read
+# with the flagship loader's augmentations.  The AutoEncoder's curriculum is
+# that of AE_ITERS_PER_EPOCH iterations an epoch.  An fp32 step on the card
+# against the same step on the CPU: loss within TRAIN_LOSS_TOL and gradient
+# norm within TRAIN_GNORM_TOL, relative (the same float32 sums in another
+# order, over 3 200 rows); the step after a restore from a checkpoint against
+# the uninterrupted one within RESUME_TOL, relative (the backward's
+# scatter-adds may sum in another order).
+TRAIN_BATCH, TRAIN_K, TRAIN_STEPS = 64, 50, 10
+TRAIN_DATASETS = ("ACCAD", "CMU", "BMLmovi", "KIT")
+TRAIN_MIRRORING, TRAIN_ROTATIONS = 0.5, 1.0
+AE_ITERS_PER_EPOCH = 580
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GNORM_TOL = 1e-3
+RESUME_TOL = 1e-6
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
 # tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
@@ -1082,12 +1133,17 @@ def run_attention_lab(card_name: str) -> dict:
     return counts
 
 
-def build_eval_split(skeleton, root: str):
+def build_synthetic_tree(root: str) -> str:
     """The synthetic AMASS tree written by the port's generator under
-    ``root`` (mm-GT and mean motions by its ``finalize_dataset``), and its
-    test split; returns (dataset, path of the APDE ground-truth CSV)."""
-    data_root = make_synthetic_amass_motion(root, obs_length=OBS_LEN, pred_length=PRED_LEN,
-                                            seed=SEED)
+    ``root`` (mm-GT and mean motions by its ``finalize_dataset``); returns
+    its data root."""
+    return make_synthetic_amass_motion(root, obs_length=OBS_LEN, pred_length=PRED_LEN,
+                                       seed=SEED)
+
+
+def build_eval_split(skeleton, data_root: str):
+    """The synthetic tree's test split; returns (dataset, path of the APDE
+    ground-truth CSV)."""
     pre = os.path.join(data_root, "processed", "AMASS", "hmp")
     ann = os.path.join(data_root, "annotations", "AMASS", "hmp")
     dataset = AMASSDataset(
@@ -1191,79 +1247,419 @@ def hold_metrics(label: str, got: dict, want: dict, tol) -> None:
         f"{share:.3f} of its tolerance)")
 
 
-def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16: dict) -> dict:
+def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16: dict,
+             data_root: str) -> dict:
     """The evaluation path over the synthetic AMASS test split: the bf16 eval
     with kernels (metric table, seconds per batch, preds/s, its time split),
     the fp32 eval on kernels against plain versions with injected noise, and
     ZeroVelocity on the card against the CPU.  Returns the bf16 eval's
     launches."""
-    with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    dataset, apde_csv = build_eval_split(skeleton, data_root)
+    n = len(dataset)
+    batches = -(-n // BATCH)
+    log(f"eval split: {n} segments, {batches} batches of {BATCH} (the last padded), mm-GT "
+        f"up to {dataset.max_mmgt_count} futures a segment; read in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n != EVAL_SEGMENTS:
+        raise AssertionError(f"eval split has {n} segments, expected {EVAL_SEGMENTS}")
+    args = dict(batch_size=BATCH, num_samples=SAMPLES, stats_mode="probabilistic", seed=SEED,
+                if_compute_cmd=True, if_compute_apde=True, mmapd_gt_path=apde_csv,
+                silent=True)
+
+    compute_metrics(predictor_bf16, dataset, skeleton, ndebug=True, **args)  # warm-up
+    clock, timer = EvalClock(predictor_bf16), AverageTimer()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with clock.metrics():
+        results = compute_metrics(clock, dataset, skeleton, timer=timer, **args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("eval bf16", counts, {k: v * batches for k, v in expected_bf16.items()})
+    if not all(math.isfinite(v) for v in results.values()) or len(results) != 12:
+        raise AssertionError(f"eval bf16: metric table {results}")
+    log("eval bf16 metric table:\n" + suite_mod.draw_table(results))
+    split = clock.split()
+    log(f"eval bf16: {n / wall:.2f} preds/s ({n} segments × {SAMPLES} samples in "
+        f"{wall:.3f} s) on {card_name}; seconds a batch median "
+        f"{statistics.median(timer.times):.4f}, each "
+        f"{[round(x, 4) for x in timer.times]} (the last: the trailing drain); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log("eval bf16 split per batch, ms (CUDA events): " + "; ".join(
+        f"period {b['period']:.2f} = predictor {b['predictor']:.2f} + metrics "
+        f"{b['metrics']:.2f} + host data, transfer, preprocess and idle {b['rest']:.2f}"
+        for b in split))
+    suite, batch_args, batch_kwargs = clock.last_batch
+    parts = {name: cuda_ms(lambda name=name: suite.metric(name, *batch_args, **batch_kwargs),
+                           reps=3) for name in suite.stats_funcs}
+    parts["CMD curve"] = cuda_ms(lambda: motion_for_cmd(batch_args[0]), reps=3)
+    clock.last_batch = None
+    log(f"eval bf16 metric suite at batch {BATCH} × {SAMPLES}, ms a call (CUDA events): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f}")
+
+    reset_counts()
+    kernel = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
+    check_counts("eval fp32", read_counts(),
+                 {"gru_rollout": batches, "posterior_step": batches * TIMESTEPS})
+    with plain_kernels():
+        plain = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
+    hold_metrics("eval fp32 with injected noise, kernels vs plain versions", kernel, plain,
+                 lambda w: EVAL_KERNEL_TOL * max(1.0, abs(w)))
+
+    zero, seconds = {}, {}
+    for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        dataset, apde_csv = build_eval_split(skeleton, root)
-        n = len(dataset)
-        batches = -(-n // BATCH)
-        log(f"eval split: {n} segments, {batches} batches of {BATCH} (the last padded), mm-GT "
-            f"up to {dataset.max_mmgt_count} futures a segment; written and read in "
-            f"{time.perf_counter() - t0:.1f} s")
-        if n != EVAL_SEGMENTS:
-            raise AssertionError(f"eval split has {n} segments, expected {EVAL_SEGMENTS}")
-        args = dict(batch_size=BATCH, num_samples=SAMPLES, stats_mode="probabilistic", seed=SEED,
-                    if_compute_cmd=True, if_compute_apde=True, mmapd_gt_path=apde_csv,
-                    silent=True)
-
-        compute_metrics(predictor_bf16, dataset, skeleton, ndebug=True, **args)  # warm-up
-        clock, timer = EvalClock(predictor_bf16), AverageTimer()
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        with clock.metrics():
-            results = compute_metrics(clock, dataset, skeleton, timer=timer, **args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        check_counts("eval bf16", counts, {k: v * batches for k, v in expected_bf16.items()})
-        if not all(math.isfinite(v) for v in results.values()) or len(results) != 12:
-            raise AssertionError(f"eval bf16: metric table {results}")
-        log("eval bf16 metric table:\n" + suite_mod.draw_table(results))
-        split = clock.split()
-        log(f"eval bf16: {n / wall:.2f} preds/s ({n} segments × {SAMPLES} samples in "
-            f"{wall:.3f} s) on {card_name}; seconds a batch median "
-            f"{statistics.median(timer.times):.4f}, each "
-            f"{[round(x, 4) for x in timer.times]} (the last: the trailing drain); launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
-        log("eval bf16 split per batch, ms (CUDA events): " + "; ".join(
-            f"period {b['period']:.2f} = predictor {b['predictor']:.2f} + metrics "
-            f"{b['metrics']:.2f} + host data, transfer, preprocess and idle {b['rest']:.2f}"
-            for b in split))
-        suite, batch_args, batch_kwargs = clock.last_batch
-        parts = {name: cuda_ms(lambda name=name: suite.metric(name, *batch_args, **batch_kwargs),
-                               reps=3) for name in suite.stats_funcs}
-        parts["CMD curve"] = cuda_ms(lambda: motion_for_cmd(batch_args[0]), reps=3)
-        clock.last_batch = None
-        log(f"eval bf16 metric suite at batch {BATCH} × {SAMPLES}, ms a call (CUDA events): "
-            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.2f}")
-
-        reset_counts()
-        kernel = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
-        check_counts("eval fp32", read_counts(),
-                     {"gru_rollout": batches, "posterior_step": batches * TIMESTEPS})
-        with plain_kernels():
-            plain = compute_metrics(InjectedNoise(predictor), dataset, skeleton, **args)
-        hold_metrics("eval fp32 with injected noise, kernels vs plain versions", kernel, plain,
-                     lambda w: EVAL_KERNEL_TOL * max(1.0, abs(w)))
-
-        zero, seconds = {}, {}
-        for d in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            zero[d] = compute_metrics(ZeroVelocityPredictor(skeleton, SAMPLES, PRED_LEN, device=d),
-                                      dataset, skeleton, **args)
-            seconds[d] = time.perf_counter() - t0
-        log(f"eval ZeroVelocity: {seconds['cuda']:.2f} s on the card, {seconds['cpu']:.2f} s on "
-            f"the CPU ({os.cpu_count()} cores)")
-        hold_metrics("eval ZeroVelocity, card vs CPU", zero["cuda"], zero["cpu"],
-                     lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
+        zero[d] = compute_metrics(ZeroVelocityPredictor(skeleton, SAMPLES, PRED_LEN, device=d),
+                                  dataset, skeleton, **args)
+        seconds[d] = time.perf_counter() - t0
+    log(f"eval ZeroVelocity: {seconds['cuda']:.2f} s on the card, {seconds['cpu']:.2f} s on "
+        f"the CPU ({os.cpu_count()} cores)")
+    hold_metrics("eval ZeroVelocity, card vs CPU", zero["cuda"], zero["cpu"],
+                 lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
     return counts
+
+
+# ---- the train phase ---------------------------------------------------------------
+
+
+def train_split(skeleton, data_root: str):
+    """The synthetic tree's train split as the flagship's loader config reads
+    AMASS (`configs/config_train_autoencoder/dataset/amass.yaml`: a segment
+    every 60 frames, jittered by up to ±30)."""
+    return AMASSDataset(
+        datasets=list(TRAIN_DATASETS), split="train", skeleton=skeleton,
+        precomputed_folder=os.path.join(data_root, "processed", "AMASS", "hmp"),
+        obs_length=OBS_LEN, pred_length=PRED_LEN, if_consider_hip=False, stride=60,
+        augmentation=30, rng_seed=SEED, silent=True)
+
+
+def train_batches(skeleton, loader, epoch: int, steps: int):
+    """An epoch of ``steps`` batches as the training loops read them:
+    ``cycled_batches`` (the loader restarts when a pass runs dry) →
+    ``prefetch_iterator`` (pinned, non-blocking copies to the card) →
+    ``preprocess_batch`` with the flagship's augmentations on the card.
+    Yields (iteration, the train step's generator, (x, y))."""
+    batches = prefetch_iterator(cycled_batches(loader, steps), device="cuda")
+    for it, batch in enumerate(batches):
+        aug = iteration_generator(SEED, epoch, it, 0, "cuda")
+        x, y, _ = preprocess_batch(skeleton, aug, batch["obs"], batch["pred"], train=True,
+                                   da_mirroring=TRAIN_MIRRORING, da_rotations=TRAIN_ROTATIONS)
+        yield it, iteration_generator(SEED, epoch, it, 1, "cuda"), (x, y)
+
+
+def relative(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def params_relative(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    """The largest |Δ| over the two modules' parameters, each tensor's over
+    its own max |value|."""
+    return max(((p - q).abs().max() / q.abs().max().clamp_min(1e-30)).item()
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def make_ae_trainer(ae: AutoEncoder) -> AutoEncoderTrainer:
+    """Stage 1 with the flagship's optimizer and curriculum
+    (`configs/config_train_autoencoder/model/autoencoder.yaml`)."""
+    return AutoEncoderTrainer(ae, lr=5e-3, iter_per_epoch=AE_ITERS_PER_EPOCH,
+                              prediction_horizon_train=PRED_LEN,
+                              prediction_horizon_eval=PRED_LEN, curriculum_it=10,
+                              prediction_horizon_train_min=10,
+                              prediction_horizon_train_min_from_epoch=200,
+                              random_prediction_horizon=True, seed=SEED)
+
+
+def make_diffusion_trainer(skeleton, engine, ae: AutoEncoder, if_use_ema: bool = True
+                           ) -> TrainerDiffusion:
+    """Stage 2 with the flagship's objective and optimizer
+    (`configs/config_train_diffusion/model/skeleton_diffusion.yaml`)."""
+    return TrainerDiffusion(engine, ae, lr=1e-3, weight_decay=0.0,
+                            train_pick_best_sample_among_k=TRAIN_K,
+                            similarity_space="input_space", if_use_ema=if_use_ema,
+                            ema_update_every=10, step_start_ema=100,
+                            prediction_horizon_eval=PRED_LEN, num_prob_samples=SAMPLES,
+                            skeleton=skeleton)
+
+
+def timed(fn):
+    """(fn(), its ms on the host clock, the card synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def check_decode_after_step(ae: AutoEncoder, x: torch.Tensor, y: torch.Tensor,
+                            label: str) -> float:
+    """K1's decode with the AutoEncoder's current weights against the plain
+    decode of the same weights: a packed W_hh left from before the step would
+    show here."""
+    with torch.no_grad():
+        z = ae.encode(y)
+        got = ae.decode(x, z, PRED_LEN)
+        args = rollout_mod.rollout_args(ae.decoder, x[:, -2:], z)
+        want = rollout_mod.gru_rollout_plain(**args, ph=PRED_LEN).permute(2, 0, 1, 3)
+    err = (got - want).abs().max().item()
+    log(f"train, decode after {label}: K1 vs the plain decode of the new weights max_abs_err "
+        f"{err:.3e} (tol {K1_TOL:.0e})")
+    if not err <= K1_TOL:
+        raise AssertionError(f"K1 after {label} disagrees with the plain decode: {err}")
+    return err
+
+
+def hold_resume(label: str, loss_a: float, loss_b: float, a: torch.nn.Module,
+                b: torch.nn.Module) -> None:
+    loss_err, param_err = relative(loss_b, loss_a), params_relative(b, a)
+    log(f"train, {label}: restored run's next step against the uninterrupted one: loss "
+        f"{loss_b!r} vs {loss_a!r} (relative {loss_err:.3e}), parameters after it relative "
+        f"{param_err:.3e} (tol {RESUME_TOL:.0e})")
+    if not (loss_err <= RESUME_TOL and param_err <= RESUME_TOL):
+        raise AssertionError(f"{label}: the resumed step is not the uninterrupted one: loss "
+                             f"{loss_err}, parameters {param_err}")
+
+
+def hold_card_vs_cpu(label: str, card: tuple, cpu: tuple) -> None:
+    """(loss, gradient norm) of one fp32 step on the card against the CPU."""
+    loss_err, gnorm_err = relative(card[0], cpu[0]), relative(card[1], cpu[1])
+    log(f"train, {label}, card vs CPU: loss {card[0]!r} vs {cpu[0]!r} (relative "
+        f"{loss_err:.3e}, tol {TRAIN_LOSS_TOL:.0e}), grad norm {card[1]!r} vs {cpu[1]!r} "
+        f"(relative {gnorm_err:.3e}, tol {TRAIN_GNORM_TOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL):
+        raise AssertionError(f"{label}: the card's step disagrees with the CPU's: loss "
+                             f"{loss_err}, grad norm {gnorm_err}")
+
+
+def run_stage1(skeleton, loader, ckpt_dir: str) -> AutoEncoder:
+    """TRAIN_STEPS AutoEncoder steps at the curriculum of epoch 11 (after
+    its cosine cycle: a random horizon up to 120), timed, K1 after the
+    first and the last; then the resume and card-vs-CPU checks of one step at
+    the full horizon.  Returns the trained AutoEncoder."""
+    gen = torch.Generator().manual_seed(SEED)
+    ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT, gen,
+                     node_types=skeleton.nodes_type_id).cuda()
+    tr = make_ae_trainer(ae)
+    epoch, first = 11, 10 * AE_ITERS_PER_EPOCH
+    tr.epoch_started(epoch)
+    ms, phs, losses = [], [], []
+    reset_counts()
+    for it, _, batch in train_batches(skeleton, loader, epoch, TRAIN_STEPS):
+        (loss, ph), t = timed(lambda: tr.train_step(batch, epoch, first + it))
+        ms.append(t)
+        phs.append(ph)
+        losses.append(loss.item())
+        if it in (0, TRAIN_STEPS - 1):
+            launched = {k: v for k, v in read_counts().items() if v}
+            if launched:
+                raise AssertionError(f"train stage 1: the training steps launched {launched}")
+            check_decode_after_step(ae, *batch, f"AE step {it + 1}")
+            reset_counts()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train stage 1: losses {losses}")
+    log(f"train stage 1 (AutoEncoder, batch {TRAIN_BATCH}, hidden and latent {HIDDEN}, "
+        f"differentiable decode; 0 kernel launches a step): horizons {phs}, ms a step "
+        f"{[round(t, 1) for t in ms]} (median {statistics.median(ms):.1f} ms, "
+        f"{statistics.median([t / p for t, p in zip(ms, phs)]):.3f} ms per horizon frame); "
+        f"losses {[round(v, 5) for v in losses]}")
+
+    # one more step at the full horizon: uninterrupted, after a restore, on the CPU
+    ckpt = CheckpointManager(ckpt_dir, n_saved=1)
+    ckpt.save_latest({"trainer": tr.state_dict()}, step=TRAIN_STEPS)
+    x, y = batch
+
+    def full_step(trainer):
+        device = next(trainer.model.parameters()).device
+        loss = trainer.loss(x.to(device), y.to(device), PRED_LEN)
+        return loss.item(), trainer.optimizer_step(loss).item()
+
+    def restored(device: str) -> AutoEncoderTrainer:
+        fresh = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT,
+                            torch.Generator().manual_seed(SEED + 5),
+                            node_types=skeleton.nodes_type_id).to(device)
+        trainer = make_ae_trainer(fresh)
+        trainer.load_state_dict(ckpt.restore(map_location=device)["trainer"])
+        return trainer
+
+    (loss_a, gnorm_a), t_full = timed(lambda: full_step(tr))
+    log(f"train stage 1: a step at the full horizon {PRED_LEN}: {t_full:.1f} ms")
+    again = restored("cuda")
+    loss_b, _ = full_step(again)
+    hold_resume("stage 1 resume", loss_a, loss_b, tr.model, again.model)
+    cpu = restored("cpu")
+    cpu_step, t_cpu = timed(lambda: full_step(cpu))
+    log(f"train stage 1: the same step on the CPU ({os.cpu_count()} cores): {t_cpu:.0f} ms")
+    hold_card_vs_cpu("stage 1 fp32 step", (loss_a, gnorm_a), cpu_step)
+    check_decode_after_step(ae, x, y, f"AE step {TRAIN_STEPS + 1}")
+    return ae
+
+
+def train_denoiser(skeleton, device, compute_dtype=None, seed: int = SEED + 7):
+    """(engine, denoiser) of the flagship on ``device``, its weights drawn
+    from ``seed``, the influences moved off their init and the weights
+    spread as ``build_model`` does: at its init scale x̂₀ is ~1e-2, the 50
+    samples of an item decode to nearly the same motion and the k-best
+    choice is a near-tie everywhere."""
+    gen = torch.Generator().manual_seed(seed)
+    engine, den = create_diffusion(skeleton, gen, latent_size=LATENT,
+                                   diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH,
+                                   device=device, compute_dtype=compute_dtype)
+    perturb_influence(den, gen)
+    spread_weights(den, gen)
+    return engine, den
+
+
+def kbest_gaps(sim: torch.Tensor) -> torch.Tensor:
+    """Per item, the second-smallest similarity minus the smallest."""
+    two = sim.topk(2, dim=-1, largest=False).values
+    return two[:, 1] - two[:, 0]
+
+
+def check_kbest_against_plain(tr: TrainerDiffusion, batch, t, noise) -> None:
+    """One fp32 stage-2 step with K1 against the same step (same state, t and
+    noise) with the plain decode: the losses within 1e-4·max(1, |v|), the
+    argmins equal wherever the plain similarities' gap between the best and
+    the second-best sample exceeds that bound (a near-tie may go either way:
+    the step is then compared at the kernel's choice)."""
+    start = copy.deepcopy(tr.state_dict())
+    loss_k = tr.train_step(batch, t=t, noise=noise).item()
+    kernel = tr.last_choice
+    tr.load_state_dict(start)
+    with plain_rollouts():
+        loss_p = tr.train_step(batch, t=t, noise=noise).item()
+    plain = tr.last_choice
+    gaps = kbest_gaps(plain["similarity"])
+    bound = TRAIN_LOSS_TOL
+    differ = kernel["index"] != plain["index"]
+    sim_err = (kernel["similarity"] - plain["similarity"]).abs().max().item()
+    if bool((differ & (gaps > bound)).any()):
+        raise AssertionError(f"k-best: K1 and the plain decode choose different samples "
+                             f"beyond a near-tie: items {differ.nonzero().flatten().tolist()}")
+    # the per-sample losses do not depend on the decode: at the kernel's
+    # choice the plain step's loss is the kernel step's
+    weights = tr.diffusion.process.loss_weight[t]
+    at_kernel = (plain["losses"].gather(1, kernel["index"][:, None])[:, 0] * weights).mean()
+    err = abs(loss_k - loss_p)
+    log(f"train, k-best with K1 vs the plain decode (fp32 step, {TRAIN_BATCH} × {TRAIN_K} "
+        f"samples decoded over {PRED_LEN} steps): similarities max |Δ| {sim_err:.3e}; argmins "
+        f"differ for {int(differ.sum())} items (gaps there "
+        f"{[f'{g:.2e}' for g in gaps[differ].tolist()]}); smallest gap "
+        f"{gaps.min().item():.3e}, "
+        f"median {gaps.median().item():.3e}; loss {loss_k!r} vs {loss_p!r} (|Δ| {err:.3e}, "
+        f"at the kernel's choice {abs(loss_k - at_kernel.item()):.3e}; tol "
+        f"{bound:.0e}·max(1, |v|))")
+    if not abs(loss_k - at_kernel.item()) <= bound * max(1.0, abs(loss_p)):
+        raise AssertionError(f"k-best: the K1 step's loss {loss_k} against {at_kernel.item()}")
+    if not (bool(differ.any()) or err <= bound * max(1.0, abs(loss_p))):
+        raise AssertionError(f"k-best: the K1 step's loss {loss_k} against the plain {loss_p}")
+
+
+def run_stage2(skeleton, loader, ae: AutoEncoder, ckpt_dir: str, card_name: str,
+               expected_bf16: dict) -> dict:
+    """TRAIN_STEPS bf16 stage-2 steps on the trained AutoEncoder, timed with
+    their launches; the k-best decode's time; the fp32 checks (K1 against
+    the plain decode, the card against the CPU); the resume check; one
+    validation step at BATCH × SAMPLES on the EMA weights.  Returns the
+    launches of the steps and the validation step together."""
+    engine, _ = train_denoiser(skeleton, "cuda", torch.bfloat16)
+    tr = make_diffusion_trainer(skeleton, engine, ae)
+    epoch = 1
+    tr.epoch_started(epoch)
+    ms, losses = [], []
+    reset_counts()
+    for it, gen, batch in train_batches(skeleton, loader, epoch, TRAIN_STEPS):
+        loss, t = timed(lambda: tr.train_step(batch, gen))
+        ms.append(t)
+        losses.append(loss.item())
+    counts = read_counts()
+    check_counts("train stage 2 steps", counts, {"gru_rollout": TRAIN_STEPS})
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train stage 2: losses {losses}")
+    x, y = batch
+    with torch.no_grad():
+        z_past, z = tr.embed(x, y)
+        _, _, samples = tr.diffusion.loss(z, x_cond=z_past, n_train_samples=TRAIN_K,
+                                          generator=gen)
+    decode_ms = cuda_ms(lambda: tr.similarity(samples, x, y), reps=3)
+    log(f"train stage 2 (bf16 denoiser, batch {TRAIN_BATCH} × k {TRAIN_K}, input space): ms a "
+        f"step {[round(v, 1) for v in ms]} (median {statistics.median(ms):.1f} ms); the k-best "
+        f"decode and comparison {decode_ms:.2f} ms a step ({TRAIN_BATCH * TRAIN_K} rows); "
+        f"launches a step {({k: v // TRAIN_STEPS for k, v in counts.items() if v})}; "
+        f"losses {[round(v, 5) for v in losses]}; on {card_name}")
+
+    # resume: save, restore into fresh objects, the next step on both
+    ckpt = CheckpointManager(ckpt_dir, n_saved=1)
+    ckpt.save_latest({"trainer": tr.state_dict()}, step=TRAIN_STEPS)
+    step_gen = lambda: iteration_generator(SEED, epoch, TRAIN_STEPS, 1, "cuda")  # noqa: E731
+    loss_a = tr.train_step(batch, step_gen()).item()
+    engine_b, _ = train_denoiser(skeleton, "cuda", torch.bfloat16, seed=SEED + 8)
+    again = make_diffusion_trainer(skeleton, engine_b, ae)
+    again.load_state_dict(ckpt.restore(map_location="cuda")["trainer"])
+    loss_b = again.train_step(batch, step_gen()).item()
+    hold_resume("stage 2 (bf16) resume", loss_a, loss_b, tr.denoiser, again.denoiser)
+
+    # fp32 steps: the same weights, optimizer state and injected t and noise
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    t = torch.randint(0, TIMESTEPS, (TRAIN_BATCH,), generator=gen, device="cuda")
+    noise = torch.randn((TRAIN_BATCH * TRAIN_K, skeleton.num_nodes, LATENT), generator=gen,
+                        device="cuda")
+    state = copy.deepcopy({k: v for k, v in tr.state_dict().items() if k != "ema"})
+    engine32, _ = train_denoiser(skeleton, "cuda")
+    tr32 = make_diffusion_trainer(skeleton, engine32, ae, if_use_ema=False)
+    tr32.load_state_dict({**state, "ema": None})
+    check_kbest_against_plain(tr32, batch, t, noise)
+    tr32.load_state_dict({**state, "ema": None})
+    card_step = (tr32.train_step(batch, t=t, noise=noise).item(), tr32.last_grad_norm.item())
+    card_sim = tr32.last_choice["similarity"].cpu()
+    engine_cpu, _ = train_denoiser(skeleton, "cpu")
+    cpu = make_diffusion_trainer(skeleton, engine_cpu, copy.deepcopy(ae).cpu(),
+                                 if_use_ema=False)
+    cpu.load_state_dict({**state, "ema": None})
+    # the CPU step takes the card's k-best choice (K1's against the plain
+    # decode is held above): it compares the denoiser's forward and backward
+    with mock.patch.object(cpu, "similarity", lambda *args: card_sim):
+        cpu_step, t_cpu = timed(lambda: (cpu.train_step(tuple(v.cpu() for v in batch),
+                                                        t=t.cpu(), noise=noise.cpu()).item(),
+                                         cpu.last_grad_norm.item()))
+    log(f"train stage 2: an fp32 step on the CPU ({os.cpu_count()} cores): {t_cpu:.0f} ms")
+    hold_card_vs_cpu("stage 2 fp32 step", card_step, cpu_step)
+
+    # validation on the EMA weights, through the prediction path
+    val_loader = DataLoader(loader.dataset, batch_size=BATCH, shuffle=False, seed=SEED)
+    val = next(iter(val_loader))
+    obs, fut, _ = preprocess_batch(skeleton, None, torch.from_numpy(val["obs"]).cuda(),
+                                   torch.from_numpy(val["pred"]).cuda(), train=False)
+    val_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tr.validation_step((obs, fut), val_gen)  # warm-up
+    reset_counts()
+    (out, _, _, _), val_ms = timed(lambda: tr.validation_step((obs, fut), val_gen))
+    val_counts = read_counts()
+    check_counts("train validation step", val_counts, expected_bf16)
+    want = (BATCH, SAMPLES, PRED_LEN, skeleton.num_nodes, 3)
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"validation step: output {tuple(out.shape)} (want {want}) or "
+                             f"not finite")
+    log(f"train validation step on the EMA weights (EMA step {tr.ema.step}; batch {BATCH} × "
+        f"{SAMPLES} samples, fused operands prepared at the call): {val_ms:.1f} ms; launches "
+        f"{ {k: v for k, v in val_counts.items() if v} }")
+    return {k: counts[k] + val_counts[k] for k in counts}
+
+
+def run_train(skeleton, data_root: str, card_name: str, expected_bf16: dict) -> dict:
+    """The two-stage training path on the synthetic train split; returns the
+    launches of stage 2 and its validation step."""
+    dataset = train_split(skeleton, data_root)
+    loader = DataLoader(dataset, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                        seed=SEED)
+    log(f"train split: {len(dataset)} samples of {len(dataset.segments)} segments "
+        f"({', '.join(TRAIN_DATASETS)}), {len(loader)} batches of {TRAIN_BATCH} a pass: "
+        f"{TRAIN_STEPS} steps restart the loader once")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ae = run_stage1(skeleton, loader, os.path.join(ckpt_dir, "ae"))
+        return run_stage2(skeleton, loader, ae, os.path.join(ckpt_dir, "diffusion"), card_name,
+                          expected_bf16)
 
 
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
@@ -1372,11 +1768,21 @@ def main() -> int:
     kernels.append(core_fm)
     phase("attn_core_fm", t)
 
-    t = time.perf_counter()
-    launches = run_eval(skeleton, predictor_bf16, predictor, card_name, expected_bf16)
-    for k in kernels:
-        k["eval_launches"] = launches[k["name"]]
-    phase("eval", t)
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        data_root = build_synthetic_tree(root)
+        log(f"synthetic AMASS tree written in {time.perf_counter() - t:.1f} s")
+        launches = run_eval(skeleton, predictor_bf16, predictor, card_name, expected_bf16,
+                            data_root)
+        for k in kernels:
+            k["eval_launches"] = launches[k["name"]]
+        phase("eval", t)
+
+        t = time.perf_counter()
+        launches = run_train(skeleton, data_root, card_name, expected_bf16)
+        for k in kernels:
+            k["train_launches"] = launches[k["name"]]
+        phase("train", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -4,14 +4,13 @@ The host stacks raw numpy segments (``collate``, ``DataLoader``: copies of
 ``skeletondiffusion_tpu/data/batch.py:107``, `:254`), a background thread
 ships each batch to the device through pinned memory
 (``prefetch_iterator``), and ``preprocess_batch`` applies the input-space
-transform and the optional noisy observation there, batched.
-
-The training augmentations (mirroring, rotation), ``bounded_batches`` and
-``cycled_batches`` wait for the training slice and raise
-``NotImplementedError``.
+transform, the training augmentations (mirroring, rotation) and the optional
+noisy observation there, batched.  ``bounded_batches`` and
+``cycled_batches`` size a training epoch.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -20,6 +19,55 @@ import torch
 # the collated keys that ``prefetch_iterator`` moves to the device; the rest
 # (the real-item count, segment ids, metadata) stay on the host
 DEVICE_KEYS = ("obs", "pred", "mm_gt", "mm_idx", "mm_mask")
+
+
+def draw_augmentation(generator: torch.Generator, batch: int,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """The per-item draws of the training augmentations, from ``generator``
+    (on ``device``) in this order: the x and the y mirroring's uniforms, the
+    rotation's uniform and its integer degree in [0, 360).  ``preprocess_batch``
+    compares the uniforms with the augmentation probabilities."""
+    def uniform():
+        return torch.rand(batch, generator=generator, device=device)
+
+    u_x, u_y, u_rot = uniform(), uniform(), uniform()
+    degrees = torch.randint(0, 360, (batch,), generator=generator, device=device)
+    return {"mirror_x": u_x, "mirror_y": u_y, "rotate": u_rot, "degrees": degrees}
+
+
+def augment(draws: Dict[str, torch.Tensor], tensors: List[Optional[torch.Tensor]],
+            da_mirroring: float = 0.0, da_rotations: float = 0.0) -> List[Optional[torch.Tensor]]:
+    """Mirroring and rotation of ``skeletondiffusion_tpu/data/batch.py:47-84``
+    on the draws of ``draw_augmentation``: x, then y, mirrored where the
+    item's uniform is below ``da_mirroring``; one z-rotation by its degree
+    where its rotation uniform is below ``da_rotations`` (scipy's
+    ``R.from_euler('z', d)``).  The same transform goes to every tensor of
+    an item ([B, ..., 3], None passes through)."""
+    ref = next(t for t in tensors if t is not None)
+    b = ref.shape[0]
+
+    def each(fn, tensors):
+        return [None if t is None else fn(t) for t in tensors]
+
+    def per_item(v: torch.Tensor, x: torch.Tensor, tail: int) -> torch.Tensor:
+        return v.reshape(b, *([1] * (x.ndim - 1 - tail)), *v.shape[1:])
+
+    if da_mirroring > 0:
+        for axis, key in ((0, "mirror_x"), (1, "mirror_y")):
+            flip = (draws[key] < da_mirroring).to(ref.device)
+            sign = torch.ones((b, 3), dtype=ref.dtype, device=ref.device)
+            sign[:, axis] = torch.where(flip, -1.0, 1.0).to(ref.dtype)
+            tensors = each(lambda x, sign=sign: x * per_item(sign, x, 1), tensors)
+    if da_rotations > 0:
+        theta = draws["degrees"].to(ref.device, torch.float32) * (np.pi / 180.0)
+        theta = torch.where((draws["rotate"] < da_rotations).to(ref.device), theta, 0.0)
+        c, s = torch.cos(theta), torch.sin(theta)
+        zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+        rot = torch.stack([torch.stack([c, -s, zeros], -1), torch.stack([s, c, zeros], -1),
+                           torch.stack([zeros, zeros, ones], -1)], dim=-2)  # [B,3,3]
+        tensors = each(lambda x: torch.einsum("...ij,...nj->...ni", per_item(rot, x, 2), x),
+                       tensors)
+    return tensors
 
 
 def preprocess_batch(
@@ -34,21 +82,29 @@ def preprocess_batch(
     if_noisy_obs: bool = False,
     noise_level: float = 0.25,
     noise_std: float = 0.02,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """Raw metric-space (obs [B,To,J,3], pred [B,Tp,J,3], optional mm_gt
-    [B,M,Tp,J,3]) → input-space tensors; ``skeletondiffusion_tpu/data/batch.py:22``.
+    [B,M,Tp,J,3]) → augmented input-space tensors;
+    ``skeletondiffusion_tpu/data/batch.py:22``.
 
+    With ``train`` and a positive ``da_mirroring`` or ``da_rotations`` the
+    augmentations (``augment``) run on ``draws``, by default drawn from
+    ``generator`` on the tensors' device (``draw_augmentation``).
     ``if_noisy_obs`` adds N(0, ``noise_std``²) to a share ``noise_level`` of
     the non-root joints of the observation (reference
-    `motion_dataset.py:11-19,187-188`), drawn from ``generator`` (on the
-    tensors' device): the noise and the mask, in that order.
+    `motion_dataset.py:11-19,187-188`), drawn from ``generator`` after the
+    augmentations' draws: the noise and the mask, in that order.
     """
-    if train and (da_mirroring > 0 or da_rotations > 0):
-        raise NotImplementedError("mirroring and rotation augmentations wait for the "
-                                  "training slice")
+    augmenting = train and (da_mirroring > 0 or da_rotations > 0)
+    if generator is None and (if_noisy_obs or (augmenting and draws is None)):
+        raise ValueError("the augmentations and if_noisy_obs draw from a torch.Generator; "
+                         "got None")
+    if augmenting:
+        if draws is None:
+            draws = draw_augmentation(generator, obs.shape[0], obs.device)
+        obs, pred, mm_gt = augment(draws, [obs, pred, mm_gt], da_mirroring, da_rotations)
     if if_noisy_obs:
-        if generator is None:
-            raise ValueError("if_noisy_obs draws from a torch.Generator; got None")
         body = obs[..., 1:, :]
         noise = torch.randn(body.shape, generator=generator, device=obs.device,
                             dtype=obs.dtype) * noise_std
@@ -211,15 +267,36 @@ def prefetch_iterator(iterable, prefetch: int = 2, device=None):
 
 
 def bounded_batches(loader, n: Optional[int]):
-    """``skeletondiffusion_tpu/data/batch.py::bounded_batches``; waits for the
-    training slice."""
-    raise NotImplementedError("bounded_batches waits for the training slice")
+    """At most ``n`` batches (``None``: one pass);
+    ``skeletondiffusion_tpu/data/batch.py:251``.  A training loop bounds the
+    iterable before ``prefetch_iterator`` instead of breaking out of it: a
+    break leaves the producer having drawn a timing-dependent number of
+    further batches (and dataset RNG values), which breaks a bit-faithful
+    resume."""
+    return iter(loader) if n is None else itertools.islice(iter(loader), n)
 
 
 def cycled_batches(loader, n: Optional[int]):
-    """``skeletondiffusion_tpu/data/batch.py::cycled_batches``; waits for the
-    training slice."""
-    raise NotImplementedError("cycled_batches waits for the training slice")
+    """Exactly ``n`` batches, restarting the loader when it runs dry (ignite's
+    ``epoch_length``, which the reference's trainers pass as
+    ``num_iter_perepoch``); ``skeletondiffusion_tpu/data/batch.py:261``.
+    Each restart is a fresh ``DataLoader`` pass (re-shuffled from its
+    checkpointed RNG), so a resume stays bit-faithful.  ``n=None`` is one
+    pass; an empty loader raises ``ValueError``."""
+    if n is None:
+        yield from loader
+        return
+    count = 0
+    while count < n:
+        empty = True
+        for b in loader:
+            empty = False
+            yield b
+            count += 1
+            if count >= n:
+                return
+        if empty:
+            raise ValueError("cycled_batches: empty loader")
 
 
 class DataLoader:

@@ -268,9 +268,9 @@ class MotionDataset(BaseDataset):
     """Skeleton-aware dataset; reference `motion_dataset.py:31-193`.
 
     Augmentation probabilities (``da_mirroring``/``da_rotations``) and the
-    noisy-obs option are STORED here; the noise is applied on the device by
-    ``preprocess_batch`` (the augmentations wait for the training slice) —
-    the returned samples are raw metric space.
+    noisy-obs option are STORED here; the augmentations and the noise are
+    applied on the device by ``preprocess_batch`` — the returned samples are
+    raw metric space.
     """
 
     def __init__(
@@ -368,10 +368,10 @@ class MotionDataset(BaseDataset):
     # da_rotations, if_noisy_obs, noise_level, noise_std) and the
     # eval()/train() toggles mirror the reference dataset's API
     # (`base_dataset.py`), where augmentation runs inside __getitem__.  Here
-    # the noise runs on the device in preprocess_batch (data/batch.py, from
-    # compute_metrics' arguments) — these fields record the configuration on
-    # the dataset for inspection; setting them does not change the
-    # preprocessing.
+    # the augmentations and the noise run on the device in preprocess_batch
+    # (data/batch.py, from its caller's arguments) — these fields record the
+    # configuration on the dataset for inspection; setting them does not
+    # change the preprocessing.
     def eval(self):
         self.in_eval = True
 

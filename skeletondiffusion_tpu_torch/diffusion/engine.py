@@ -3,9 +3,11 @@ denoiser.
 
 Port of the plain branch of ``GaussianDiffusion.p_sample_loop`` in
 ``skeletondiffusion_tpu/diffusion/engine.py`` (`:250-287`; reference
-`src/core/diffusion/base.py:324-390`) for the configuration every shipped
-config uses: conditioned, pred_x0 objective, x̂₀ clipped to [−1, 1], identity
-output activation.  The latent is carried node-major ``[N, B, D]``, the
+`src/core/diffusion/base.py:324-390`) and of its training losses
+(``feed_model``, ``p_losses``, ``loss``; `:80-186`, reference
+`base.py:243-307`) for the configuration every shipped config uses:
+conditioned, pred_x0 objective, x̂₀ clipped to [−1, 1] when sampling,
+identity output activation.  The latent is carried node-major ``[N, B, D]``, the
 denoiser's layout, and each reverse step after the denoiser is one call of
 the posterior-step kernel wrapper (``ops/kernels/posterior_step.py``) with
 the step's ``[N, 3N]`` table.  Randomness comes only from an explicit
@@ -28,7 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.denoiser import Denoiser
 from ..ops.kernels import posterior_step as posterior_kernel
 from ..ops.kernels.denoiser_fused import fused_denoiser_core_nm, prep_fused_denoiser
-from .process import NonisotropicProcess
+from .process import NonisotropicProcess, Timestep
 
 
 class GaussianDiffusion:
@@ -66,6 +68,61 @@ class GaussianDiffusion:
             self.fused = prep_fused_denoiser(self.denoiser)
         return self
 
+    # ---- training ------------------------------------------------------------
+    def feed_model(self, x: torch.Tensor, t: Timestep, x_cond: torch.Tensor) -> torch.Tensor:
+        """The denoiser on latents x [B,N,D] at step ``t`` (an int or [B])
+        conditioned on x_cond [B,N,D] → [B,N,D] float32; reference
+        `base.py:243-255`."""
+        u_cond = self.denoiser.cond_embedding(x_cond)
+        return self.denoiser(x.transpose(0, 1), t, u_cond).transpose(0, 1)
+
+    def p_losses(
+        self,
+        x_start: torch.Tensor,
+        t: torch.Tensor,
+        x_cond: torch.Tensor,
+        n_train_samples: int = 1,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-sample losses ``(loss [b·k], loss_weight [b], model_out
+        [b·k,N,D])``; reference `base.py:262-300`.  With ``n_train_samples``
+        k > 1 the batch is fanned out k-fold in the repeat_interleave layout
+        (sample j of item i is row i·k + j).  ``noise`` [b·k,N,D] is injected
+        white noise, else drawn from ``generator``."""
+        loss_weight = self.process.loss_weight[t]
+        if n_train_samples > 1:
+            x_start, t, x_cond = (v.repeat_interleave(n_train_samples, dim=0)
+                                  for v in (x_start, t, x_cond))
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        x = self.process.q_sample(x_start, t, noise)
+        model_out = self.feed_model(x, t, x_cond)
+        loss = self.process.loss_terms(model_out, x_start, t)  # pred_x0: the target is x₀
+        return loss.reshape(loss.shape[0], -1).mean(dim=-1), loss_weight, model_out
+
+    def loss(
+        self,
+        x: torch.Tensor,
+        x_cond: torch.Tensor,
+        n_train_samples: int = 1,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``p_losses`` at t ~ U[0, T) per item (reference `base.py:302-307`);
+        ``t`` [b] and ``noise`` are injected, or drawn from ``generator`` in
+        that order."""
+        if x.shape[-1] != self.seq_length:
+            raise ValueError(f"latents of width {x.shape[-1]}, expected {self.seq_length}")
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x.shape[0],), generator=generator,
+                              device=x.device)
+        return self.p_losses(x, t, x_cond, n_train_samples=n_train_samples, noise=noise,
+                             generator=generator)
+
+    # ---- sampling ----------------------------------------------------------------
     @torch.no_grad()
     def sample(
         self,

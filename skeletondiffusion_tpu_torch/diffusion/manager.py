@@ -61,6 +61,7 @@ def create_diffusion(
     beta_schedule_factor: float = 3.0,
     diffusion_covariance_type: str = "skeleton-diffusion",
     gamma_scheduler: str = "cosine",
+    loss_reduction_type: str = "l1",
     diffusion_activation: str = "identity",
     diffusion_arch: Optional[Dict[str, Any]] = None,
     device: DeviceLike = "cuda",
@@ -108,6 +109,7 @@ def create_diffusion(
         beta_schedule_factor=beta_schedule_factor,
         diffusion_covariance_type=diffusion_covariance_type,
         gamma_scheduler=gamma_scheduler,
+        loss_reduction_type=loss_reduction_type,
         device=device,
     )
     engine = GaussianDiffusion(

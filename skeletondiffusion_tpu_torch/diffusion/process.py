@@ -3,19 +3,24 @@
 Port of ``NonisotropicProcess`` from ``skeletondiffusion_tpu/diffusion/process.py``
 (reference `src/core/diffusion/nonisotropic.py:72-210`): every per-timestep
 coefficient is precomputed host-side in float64 numpy and stored as a float32
-tensor on the target device.  The port needs the reverse process: the
-posterior mean/variance, the noise combination and the ``[T, N, 3N]`` step
-tables that the posterior-step kernel consumes.
+tensor on the target device.  The reverse process (the posterior
+mean/variance, the noise combination and the ``[T, N, 3N]`` step tables that
+the posterior-step kernel consumes) and the training half (``q_sample``, the
+x₀/noise conversions and the Mahalanobis loss terms) take a timestep shared
+by the batch (an int) or one per item (a ``[B]`` tensor).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from .schedules import compute_covariance_schedules, make_beta_schedule
+
+Timestep = Union[int, torch.Tensor]  # one step for the batch, or [B] per item
 
 
 @dataclasses.dataclass
@@ -44,6 +49,7 @@ class NonisotropicProcess:
     loss_weight: torch.Tensor                               # [T]
     num_timesteps: int
     objective: str
+    loss_reduction_type: str = "l1"
 
     def to(self, device: DeviceLike) -> "NonisotropicProcess":
         device = resolve_device(device)
@@ -53,9 +59,49 @@ class NonisotropicProcess:
             if isinstance(getattr(self, f.name), torch.Tensor)
         })
 
-    def _matmul(self, table: torch.Tensor, t: int, x: torch.Tensor) -> torch.Tensor:
-        """table[t] @ x for one timestep shared by the batch: [N,N]·[B,N,D]."""
-        return torch.einsum("ij,bjd->bid", table[t], x)
+    def _matmul(self, table: torch.Tensor, t: Timestep, x: torch.Tensor) -> torch.Tensor:
+        """table[t] @ x: one [N,N] matrix for a timestep shared by the batch,
+        or the gathered [B,N,N] matrices for per-item ``t`` [B]."""
+        if isinstance(t, int) or t.ndim == 0:
+            return torch.einsum("ij,bjd->bid", table[t], x)
+        return torch.einsum("bij,bjd->bid", table[t], x)
+
+    @staticmethod
+    def _extract(values: torch.Tensor, t: Timestep, ndim: int) -> torch.Tensor:
+        """values[t], broadcast over an ``ndim`` tensor for per-item ``t``."""
+        out = values[t]
+        if isinstance(t, int) or t.ndim == 0:
+            return out
+        return out.reshape(out.shape[0], *([1] * (ndim - 1)))
+
+    # ---- forward process and training loss ------------------------------------
+    def q_sample(self, x_start: torch.Tensor, t: Timestep, noise: torch.Tensor) -> torch.Tensor:
+        """x_t = √ᾱ_t·x_0 + U√Λ̄_t·ε (white ε); reference `nonisotropic.py:152-159`."""
+        return (self._extract(self.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+                + self._matmul(self.Umm_sqrt_Lambda_bar_t, t, noise))
+
+    def predict_start_from_noise(self, x_t: torch.Tensor, t: Timestep,
+                                 noise: torch.Tensor) -> torch.Tensor:
+        """Reference `nonisotropic.py:161-165`, with the buffer it misses."""
+        return (self._extract(self.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+                - self._matmul(self.Umm_sqrt_Lambda_bar_t_sqrt_recip_alphas_cumprod, t, noise))
+
+    def predict_noise_from_start(self, x_t: torch.Tensor, t: Timestep,
+                                 x0: torch.Tensor) -> torch.Tensor:
+        """Reference `nonisotropic.py:167-171`."""
+        return (self._matmul(self.inv_sqrt_Lambda_bar_mmUt, t, x_t)
+                - self._matmul(self.inv_sqrt_Lambda_bar_sqrt_alphas_cumprod_mmUt, t, x0))
+
+    def loss_terms(self, model_out: torch.Tensor, target: torch.Tensor,
+                   t: Timestep) -> torch.Tensor:
+        """Elementwise Mahalanobis distance |Λ̄_t^{-1/2}Uᵀ(x̂ − x)| (``l1``)
+        or its square (``mse``); reference `nonisotropic.py:177-190`."""
+        loss = torch.abs(self._matmul(self.mahalanobis_S_sqrt_recip, t, model_out - target))
+        if self.loss_reduction_type == "l1":
+            return loss
+        if self.loss_reduction_type == "mse":
+            return loss ** 2
+        raise NotImplementedError(self.loss_reduction_type)
 
     def q_posterior(self, x_start: torch.Tensor, x_t: torch.Tensor, t: int):
         """Reference `nonisotropic.py:196-206`: the mean in ambient
@@ -93,6 +139,7 @@ def build_nonisotropic_process(
     beta_schedule_factor: float = 3.0,
     diffusion_covariance_type: str = "skeleton-diffusion",
     gamma_scheduler: str = "cosine",
+    loss_reduction_type: str = "l1",
     device: DeviceLike = "cuda",
 ) -> NonisotropicProcess:
     """Float64 host precompute of every [T,N]/[T,N,N] buffer; reference
@@ -163,4 +210,5 @@ def build_nonisotropic_process(
         loss_weight=f32(loss_weight),
         num_timesteps=timesteps,
         objective=objective,
+        loss_reduction_type=loss_reduction_type,
     )

@@ -14,6 +14,14 @@ float32 rollout kernel, which is what the JAX package runs on its prediction
 path whatever the AutoEncoder's dtype (`eval_pipeline.py:164-170`).  The
 decode's hoisting lives in ``ops/kernels/gru_rollout.decode_rollout``, which
 also runs the opt-in merged-gate bf16 rollout.
+
+The rollout kernel has no backward.  Training decodes with
+``Decoder.forward_with_grad`` (``AutoEncoder.decode_with_grad``): the same
+hoisting, then the plain step loop under autograd, which is what the JAX
+package differentiates (the flax ``nn.scan``); the kernel's wrapper refuses
+inputs that require gradients.  The training methods (``encode`` with the
+curriculum's ``last_index``, ``get_train_embeddings``, ``autoencode``,
+``autoencoder_loss``) are those of `autoencoder.py:238-283` there.
 """
 from __future__ import annotations
 
@@ -42,10 +50,12 @@ class Encoder(nn.Module):
         self.rnn = StaticGraphGRU(input_size, hidden_size, compute_dtype=compute_dtype, **common)
         self.fc = StaticGraphLinear(hidden_size, output_size, learn_influence=True, **common)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B,T,N,F] → [B,N,latent]."""
+    def forward(self, x: torch.Tensor, last_index: Optional[int] = None) -> torch.Tensor:
+        """x [B,T,N,F] → [B,N,latent] from the hidden state after frame
+        ``last_index`` (default the last): the curriculum's encode of
+        ``x[:, :last_index + 1]``."""
         x_nm = x.permute(1, 2, 0, 3)  # [T,N,B,F]
-        h = self.rnn(x_nm, self.initial_hidden1(x_nm[0]))
+        h = self.rnn(x_nm, self.initial_hidden1(x_nm[0]), last_index=last_index)
         return torch.tanh(self.fc(h)).transpose(0, 1)
 
 
@@ -78,30 +88,78 @@ class Decoder(nn.Module):
                                     node_types)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
-        """x [B,≥2,N,3] observed poses, z [B,N,latent] → [B,ph,N,3]."""
+        """x [B,≥2,N,3] observed poses, z [B,N,latent] → [B,ph,N,3], on the
+        rollout kernel (no backward)."""
         return rollout_kernel.decode_rollout(self, x[:, -2:], z, ph)
+
+    def forward_with_grad(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
+        """The same decode as the plain step loop, differentiable."""
+        ys = rollout_kernel.gru_rollout_plain(**rollout_kernel.rollout_args(self, x[:, -2:], z),
+                                              ph=ph)  # [ph,N,B,3]
+        return ys.permute(2, 0, 1, 3)
 
 
 class AutoEncoder(nn.Module):
     """seq→latent→seq; reference `autoencoder.py:8-98` (GRU both sides, z
-    activation tanh)."""
+    activation tanh).  ``loss_pose_type`` (``l1`` or ``mse``) is the
+    training loss's and the k-best choice's in input space."""
 
     def __init__(self, num_nodes: int, encoder_hidden_size: int, decoder_hidden_size: int,
                  latent_size: int, generator: torch.Generator,
                  node_types: Optional[np.ndarray] = None, input_size: int = 3,
-                 output_size: int = 3, compute_dtype: Optional[torch.dtype] = None):
+                 output_size: int = 3, compute_dtype: Optional[torch.dtype] = None,
+                 loss_pose_type: str = "l1"):
         super().__init__()
+        self.loss_pose_type = loss_pose_type
         self.encoder = Encoder(num_nodes, input_size, encoder_hidden_size, latent_size,
                                generator, node_types, compute_dtype=compute_dtype)
         self.decoder = Decoder(num_nodes, input_size, latent_size, decoder_hidden_size,
                                output_size, generator, node_types)
 
+    def encode(self, x: torch.Tensor, last_index: Optional[int] = None) -> torch.Tensor:
+        """The encoder's latent [B,N,latent] (the reference's forward)."""
+        return self.encoder(x, last_index=last_index)
+
     def get_past_embedding(self, past: torch.Tensor) -> torch.Tensor:
         """Detached encoder + z activation (the reference applies tanh on an
         already-tanh'd encoder output, `autoencoder.py:51-55` — kept)."""
-        return torch.tanh(self.encoder(past)).detach()
+        return torch.tanh(self.encode(past)).detach()
+
+    def get_train_embeddings(self, y: torch.Tensor, past: torch.Tensor,
+                             y_last_index: Optional[int] = None):
+        """(z_past detached, z with gradient); reference `autoencoder.py:61-64`."""
+        return self.get_past_embedding(past), self.encode(y, last_index=y_last_index)
 
     def decode(self, x: torch.Tensor, h: torch.Tensor, ph: int) -> torch.Tensor:
         """``ph`` future frames from latent ``h``, seeded by the last two
-        observed poses of ``x``."""
+        observed poses of ``x``, on the rollout kernel."""
         return self.decoder(x[:, -2:], h, ph)
+
+    def decode_with_grad(self, x: torch.Tensor, h: torch.Tensor, ph: int) -> torch.Tensor:
+        """``decode`` as the differentiable step loop (training)."""
+        return self.decoder.forward_with_grad(x[:, -2:], h, ph)
+
+    def autoencode(self, y: torch.Tensor, past: torch.Tensor, ph: int,
+                   y_last_index: Optional[int] = None):
+        """(decode of the future's latent, z_past, z), on the rollout kernel;
+        reference `autoencoder.py:66-78`."""
+        z_past, z = self.get_train_embeddings(y, past, y_last_index=y_last_index)
+        return self.decode(past, z, ph), z_past, z
+
+
+def autoencoder_loss(y_pred: torch.Tensor, y: torch.Tensor, loss_type: str = "l1",
+                     reduction: str = "mean") -> torch.Tensor:
+    """L1/MSE summed over xyz, mean over joints and time; reference
+    `autoencoder.py:80-98`.  ``reduction='none'`` keeps the leading axes."""
+    if loss_type == "mse":
+        out = (y_pred - y) ** 2
+    elif loss_type in ("l1", "L1"):
+        out = torch.abs(y_pred - y)
+    else:
+        raise NotImplementedError(loss_type)
+    loss = out.sum(-1).mean(-1).mean(-1)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "none":
+        return loss
+    raise NotImplementedError(reduction)

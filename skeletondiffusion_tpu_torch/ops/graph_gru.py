@@ -127,9 +127,14 @@ class StaticGraphGRU(nn.Module):
         self.cell0 = StaticGraphGRUCell(input_size, hidden_size, num_nodes, generator, node_types,
                                         compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-        """Hidden state after the last frame, [N,B,H]."""
+    def forward(self, x: torch.Tensor, h0: torch.Tensor,
+                last_index: Optional[int] = None) -> torch.Tensor:
+        """Hidden state after frame ``last_index`` (default the last), [N,B,H];
+        the GRU is causal, so the frames after it are not run."""
+        steps = x.shape[0] if last_index is None else last_index + 1
+        if not 0 < steps <= x.shape[0]:
+            raise ValueError(f"last_index {last_index} outside a sequence of {x.shape[0]} frames")
         h, g = h0, l1_normalize_rows(self.G0)
-        for t in range(x.shape[0]):
+        for t in range(steps):
             h, g = self.cell0(self.cell0.input_gates(x[t]), h, g)
         return h

@@ -250,13 +250,23 @@ def gru_rollout(
     """Full rollout → [ph, N, B, F] float32.  ``compute_dtype=None`` is the
     fp32 rollout (every tensor float32); ``torch.bfloat16`` the merged-gate
     rollout (cx, w_hh and w_fc bfloat16, the rest float32).  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel or raise.
+
+    The kernels have no backward, so the wrapper refuses to build a graph on
+    either device: with gradients enabled and an input that requires them it
+    raises.  A decode that trains runs the step loop under autograd
+    (``models.autoencoder.Decoder.forward_with_grad``)."""
     global launches, launches_bf16
     if compute_dtype not in (None, torch.bfloat16):
         raise TypeError(f"gru_rollout: compute_dtype must be None or bfloat16, got {compute_dtype}")
     merged = compute_dtype == torch.bfloat16
     tensors = dict(cx=cx, h0=h0, w_hh=w_hh, b_hh=b_hh, g0=g0, g_add=g_add, w_fc=w_fc,
                    b_fc=b_fc, g_fc=g_fc)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        needs = sorted(k for k, t in tensors.items() if t.requires_grad)
+        raise RuntimeError(f"gru_rollout has no backward, and {needs} require grad: decode "
+                           "under torch.no_grad(), or train through "
+                           "Decoder.forward_with_grad")
     if build.kernel_device(**tensors) == "cpu":
         plain = gru_rollout_merged_plain if merged else gru_rollout_plain
         return plain(**tensors, ph=ph)

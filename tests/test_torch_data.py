@@ -3,7 +3,9 @@ transforms and tables) against the JAX package's on the same synthetic
 trees: the generators' files from the same seed, segments, mm-GT neighbour
 lists, mean motions (≤ 1e-6), batches with their pad rows and dedup gather
 tables (equal), ``preprocess_batch(train=False)`` (≤ 1e-6), and the
-statistics of the noisy-observation branch."""
+statistics of the noisy-observation branch, the training augmentations on
+JAX's draws (≤ 1e-6) and on the port's own (their statistics), and
+``bounded_batches`` / ``cycled_batches`` (the same batches)."""
 import ast
 import csv
 import json
@@ -227,15 +229,124 @@ def test_prefetch_ships_device_keys_and_raises_producer_errors(datasets):
         list(tbatch.prefetch_iterator(failing(), device="cpu"))
 
 
-def test_training_parts_wait_for_the_training_slice():
-    sk = create_skeleton(**skeleton_kw())
+def jax_augmentation_draws(rng, batch: int) -> dict:
+    """The draws JAX ``preprocess_batch`` makes from ``rng`` for its
+    augmentations (`data/batch.py:44-72`), as ``draw_augmentation`` returns
+    its own."""
+    k_mx, k_my, k_rotp, k_deg, _, _ = jax.random.split(rng, 6)
+    draws = {"mirror_x": jax.random.uniform(k_mx, (batch,)),
+             "mirror_y": jax.random.uniform(k_my, (batch,)),
+             "rotate": jax.random.uniform(k_rotp, (batch,)),
+             "degrees": jax.random.randint(k_deg, (batch,), 0, 360)}
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
+@pytest.mark.parametrize("mirroring,rotations", [(0.5, 0.0), (0.0, 1.0), (0.5, 0.7)],
+                         ids=["mirroring", "rotation", "mirroring_and_rotation"])
+def test_train_augmentations_match_jax(datasets, mirroring, rotations):
+    """``preprocess_batch(train=True)`` on JAX's draws (injected) equals the
+    JAX one on the key they come from, obs, pred and the mm-GT futures
+    (≤ 1e-6), for mirroring, rotation and both, with the noisy observation
+    on top."""
+    jds, ds, jsk, sk = datasets
+    jds.mm_lazy = ds.mm_lazy = True
+    batch = next(iter(tbatch.DataLoader(ds, batch_size=16, pad_last=True, dedup_mm=True)))
+    jds.mm_lazy = ds.mm_lazy = False
+    mm = batch["mm_gt"][batch["mm_idx"]]
+    for seed in range(3):
+        rng = jax.random.key(seed)
+        kw = dict(train=True, da_mirroring=mirroring, da_rotations=rotations)
+        want = jbatch.preprocess_batch(jsk, rng, jnp.asarray(batch["obs"]),
+                                       jnp.asarray(batch["pred"]), jnp.asarray(mm), **kw)
+        draws = jax_augmentation_draws(rng, 16)
+        got = tbatch.preprocess_batch(sk, None, torch.from_numpy(batch["obs"]),
+                                      torch.from_numpy(batch["pred"]), torch.from_numpy(mm),
+                                      draws=draws, **kw)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+        # the draws did something, and the items they left alone are as the
+        # untrained preprocess gives them
+        flips = (draws["mirror_x"] < mirroring) | (draws["mirror_y"] < mirroring)
+        turns = (draws["rotate"] < rotations) & (draws["degrees"] % 360 != 0)
+        moved = flips | turns
+        assert int(moved.sum()) > 0
+        plain = tbatch.preprocess_batch(sk, None, torch.from_numpy(batch["obs"]),
+                                        torch.from_numpy(batch["pred"]), train=False)[0]
+        assert torch.equal(got[0][~moved], plain[~moved])
+
+
+def test_train_augmentation_draws_from_the_generator():
+    """The port's own draws (it cannot repeat JAX's): the same generator seed
+    repeats them, another does not; each item is mirrored in x and in y with
+    probability ``da_mirroring`` and turned with ``da_rotations`` by a whole
+    degree in [0, 360) about z, which keeps every pose's z and its distances;
+    the noisy observation draws after the augmentations."""
+    sk = create_skeleton(**skeleton_kw("SkeletonVanilla"))
+    b = 4000
+    draws = tbatch.draw_augmentation(torch.Generator().manual_seed(0), b)
+    again = tbatch.draw_augmentation(torch.Generator().manual_seed(0), b)
+    other = tbatch.draw_augmentation(torch.Generator().manual_seed(1), b)
+    assert all(torch.equal(draws[k], again[k]) for k in draws)
+    assert not torch.equal(draws["degrees"], other["degrees"])
+    for key in ("mirror_x", "mirror_y", "rotate"):
+        assert abs((draws[key] < 0.3).float().mean().item() - 0.3) < 0.03, key
+    deg = draws["degrees"]
+    assert int(deg.min()) == 0 and int(deg.max()) == 359 and deg.dtype == torch.int64
+    pose = torch.randn(b, 1, 22, 3, generator=torch.Generator().manual_seed(2))
+    mirrored, = tbatch.augment(draws, [pose], da_mirroring=0.3)
+    sign = mirrored / pose
+    assert torch.equal(sign[:, 0, 0, 0] < 0, draws["mirror_x"] < 0.3)
+    assert torch.equal(sign[:, 0, 0, 1] < 0, draws["mirror_y"] < 0.3)
+    assert torch.equal(mirrored[..., 2], pose[..., 2])
+    turned, = tbatch.augment(draws, [pose], da_rotations=0.5)
+    assert torch.equal(turned[..., 2], pose[..., 2])
+    torch.testing.assert_close(torch.cdist(turned[:, 0], turned[:, 0]),
+                               torch.cdist(pose[:, 0], pose[:, 0]), rtol=0, atol=2e-5)
+    still = draws["rotate"] >= 0.5
+    assert torch.equal(turned[still], pose[still])
     obs, pred = torch.zeros(2, OBS, 22, 3), torch.zeros(2, PRED, 22, 3)
-    with pytest.raises(NotImplementedError):
-        tbatch.preprocess_batch(sk, None, obs, pred, train=True, da_mirroring=0.5)
-    with pytest.raises(NotImplementedError):
-        tbatch.bounded_batches([], 1)
-    with pytest.raises(NotImplementedError):
-        tbatch.cycled_batches([], 1)
+    noisy = [tbatch.preprocess_batch(sk, torch.Generator().manual_seed(3), obs, pred,
+                                     da_mirroring=m, if_noisy_obs=True)[0] for m in (0.0, 0.5)]
+    assert not torch.equal(noisy[0], noisy[1])  # the noise comes after four draws
+
+
+def _numbered_loader(n_items: int, batch: int):
+    class Items:
+        def __len__(self):
+            return n_items
+
+        def __getitem__(self, i):
+            return (np.full((1,), i), np.zeros(1), {"segment_idx": i, "metadata": ()})
+
+    return Items
+
+
+@pytest.mark.parametrize("n", [None, 2, 3, 7], ids=["none", "below", "equal", "above"])
+def test_bounded_and_cycled_batches_match_jax(n):
+    """Both packages' ``bounded_batches`` and ``cycled_batches`` over their
+    shuffled loaders of 11 items in batches of 4 (3 a pass, the last one
+    short): the same batches and the same number, n below, equal to and
+    above the loader's length; one pass for None."""
+    items = _numbered_loader(11, 4)()
+    for fn in ("bounded_batches", "cycled_batches"):
+        loaders = [mod.DataLoader(items, batch_size=4, shuffle=True, seed=5)
+                   for mod in (jbatch, tbatch)]
+        want = [b["obs"][:, 0].tolist() for b in getattr(jbatch, fn)(loaders[0], n)]
+        got = [b["obs"][:, 0].tolist() for b in getattr(tbatch, fn)(loaders[1], n)]
+        assert got == want, fn
+        full = len(loaders[1])
+        expect = full if n is None else (min(n, full) if fn == "bounded_batches" else n)
+        assert len(got) == expect, fn
+        assert loaders[1].state_dict()["epoch"] == loaders[0].state_dict()["epoch"]
+
+
+def test_cycled_batches_refuses_an_empty_loader():
+    empty = tbatch.DataLoader(_numbered_loader(0, 4)(), batch_size=4)
+    with pytest.raises(ValueError, match="empty loader"):
+        list(tbatch.cycled_batches(empty, 3))
+    assert list(tbatch.bounded_batches(empty, 3)) == []
+    assert list(tbatch.cycled_batches(empty, 0)) == []
 
 
 @pytest.mark.parametrize("repr_type,hip", [("SkeletonVanilla", False), ("SkeletonVanilla", True),

@@ -1,7 +1,8 @@
-"""The port stands alone: ``skeletondiffusion_tpu_torch``, ``chip_smoke.py``
-and the port's scripts (``scripts/torch_*.py``) import neither ``jax`` nor
-``skeletondiffusion_tpu``, nor ``flax``, ``pandas`` or ``yaml``, which the
-card's machine does not have, and
+"""The port stands alone: ``skeletondiffusion_tpu_torch`` (its training
+modules under ``train/`` included), ``chip_smoke.py`` and the port's scripts
+(``scripts/torch_*.py``) import neither ``jax`` nor ``skeletondiffusion_tpu``,
+nor ``flax``, ``optax``, ``orbax``, ``pandas`` or ``yaml``, which the card's
+machine does not have, and
 ``chip_smoke.py`` refuses to report a result without a CUDA device or
 without the rest of the repository."""
 import ast
@@ -23,11 +24,14 @@ import skeletondiffusion_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "pandas", "yaml", "skeletondiffusion_tpu"))
+train = {"checkpoint", "ema", "schedulers", "trainer_autoencoder", "trainer_diffusion"}
+assert all(f"{pkg.__name__}.train.{m}" in sys.modules for m in train), train
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("clean")
 """
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "skeletondiffusion_tpu")
+CHECK = f"FORBIDDEN = {FORBIDDEN!r}\n" + CHECK
 
 
 def _env():
@@ -43,6 +47,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert out.stdout.strip() == "clean"
 
 
+def test_train_modules_are_checked():
+    """The statement check below walks the training modules too."""
+    names = {p.name for p in (PACKAGE / "train").glob("*.py")}
+    assert {"checkpoint.py", "ema.py", "schedulers.py", "trainer_autoencoder.py",
+            "trainer_diffusion.py"} <= names
+    assert (PACKAGE / "utils" / "reproducibility.py").exists()
+
+
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
                                         for p in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py",
                                                   *(REPO / "scripts").glob("torch_*.py")]))
@@ -55,9 +67,7 @@ def test_no_jax_import_statement(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names = [node.module or ""]
         for name in names:
-            root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "pandas", "yaml",
-                                "skeletondiffusion_tpu"), (path, name)
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
 def test_chip_smoke_fails_without_cuda():
