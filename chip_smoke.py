@@ -94,7 +94,22 @@ Phases, each printed with its elapsed seconds:
               against the same step with the plain decode (losses within
               1e-4·max(1, |v|), argmins equal wherever the plain gap exceeds
               that) and against the CPU; one validation step at 256 × 50 on
-              the EMA weights (the bf16 prediction path, its launches).
+              the EMA weights (the bf16 prediction path, its launches);
+13. cli     — the entry points on the same tree at the width of configs/**
+              (AMASS-22, latent and hidden 96, the denoiser of
+              skeleton_diffusion.yaml in bf16, observe 30, predict 120):
+              cli.train_autoencoder.main for 2 epochs × 3 iterations with
+              validation each epoch; cli.train_diffusion.main on that
+              AutoEncoder for 2 epochs × 3 iterations with validation, then
+              resumed to a 3rd epoch; cli.eval.main (probabilistic, batch 256)
+              on the stage-2 experiment, its results against compute_metrics
+              on prepare_model's predictor with the same seed (1e-5·max(1, |v|))
+              and against the results YAML it wrote, read back with yaml_lite,
+              its launches a batch equal to the eval phase's; and
+              InferenceSession.predict on one observation ([50, 120, 21, 3])
+              against the session's predictor with the same generator.  Seconds
+              an epoch of each stage and the CLI's preds/s beside the eval
+              phase's.
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
@@ -122,6 +137,10 @@ from unittest import mock
 
 import torch
 
+from skeletondiffusion_tpu_torch.cli import eval as eval_cli
+from skeletondiffusion_tpu_torch.cli import train_autoencoder as train_ae_cli
+from skeletondiffusion_tpu_torch.cli import train_diffusion as train_diff_cli
+from skeletondiffusion_tpu_torch.cli.common import build_dataset, build_skeleton
 from skeletondiffusion_tpu_torch.data import (
     AMASSDataset,
     DataLoader,
@@ -138,6 +157,7 @@ from skeletondiffusion_tpu_torch.eval_pipeline import (
     ZeroVelocityPredictor,
     compute_metrics,
 )
+from skeletondiffusion_tpu_torch.inference import InferenceSession
 from skeletondiffusion_tpu_torch.metrics import suite as suite_mod
 from skeletondiffusion_tpu_torch.metrics.multimodal import motion_for_cmd
 from skeletondiffusion_tpu_torch.models import AutoEncoder
@@ -155,6 +175,8 @@ from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 from skeletondiffusion_tpu_torch.train.checkpoint import CheckpointManager
 from skeletondiffusion_tpu_torch.train.trainer_autoencoder import AutoEncoderTrainer
 from skeletondiffusion_tpu_torch.train.trainer_diffusion import TrainerDiffusion
+from skeletondiffusion_tpu_torch.utils import yaml_lite
+from skeletondiffusion_tpu_torch.utils.config import flatten_config, load_config
 from skeletondiffusion_tpu_torch.utils.logging import AverageTimer
 from skeletondiffusion_tpu_torch.utils.reproducibility import iteration_generator
 
@@ -1253,7 +1275,7 @@ def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16:
     with kernels (metric table, seconds per batch, preds/s, its time split),
     the fp32 eval on kernels against plain versions with injected noise, and
     ZeroVelocity on the card against the CPU.  Returns the bf16 eval's
-    launches."""
+    launches and its preds/s."""
     t0 = time.perf_counter()
     dataset, apde_csv = build_eval_split(skeleton, data_root)
     n = len(dataset)
@@ -1319,7 +1341,7 @@ def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16:
         f"the CPU ({os.cpu_count()} cores)")
     hold_metrics("eval ZeroVelocity, card vs CPU", zero["cuda"], zero["cpu"],
                  lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
-    return counts
+    return counts, n / wall
 
 
 # ---- the train phase ---------------------------------------------------------------
@@ -1662,6 +1684,187 @@ def run_train(skeleton, data_root: str, card_name: str, expected_bf16: dict) -> 
                           expected_bf16)
 
 
+# ---- the cli phase -------------------------------------------------------------------
+
+# The entry points' overrides: the synthetic tree's datasets, small epochs, and
+# validation every epoch (one batch of the capped train-split pass).  Nothing
+# in configs/** is edited.
+CLI_EPOCHS, CLI_ITERS = 2, 3
+CLI_DATA = [f"dataset.data_loader_train.datasets=[{', '.join(TRAIN_DATASETS)}]",
+            f"dataset.data_loader_train_eval.datasets=[{', '.join(TRAIN_DATASETS)}]",
+            "dataset.data_loader_valid.datasets=[HumanEva]"]
+CLI_TRAIN = [f"model.num_iter_perepoch={CLI_ITERS}", "model.if_run_validation=True",
+             "model.eval_frequency=1", "model.num_iteration_eval=1"]
+CLI_EVAL_TOL = 1e-5
+
+
+def run_main(main, tree: str, args: list):
+    """An entry point's ``main(args)`` with its config tree → (its result,
+    ms)."""
+    with mock.patch.dict(os.environ, {"SKELDIFF_CONFIG_DIR": os.path.join("configs", tree)}):
+        return timed(lambda: main(args))
+
+
+def epoch_seconds(exp: str) -> list:
+    """The seconds between the per-epoch records of an experiment's
+    metrics.jsonl (an epoch's steps, its validation and its checkpoints)."""
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        stamps = [r["time"] for r in map(json.loads, f) if r["prefix"] == "train"]
+    return [round(b - a, 3) for a, b in zip(stamps, stamps[1:])]
+
+
+def validation_seconds(exp: str) -> list:
+    """Each epoch's validation (its valid and train-split passes): from the
+    epoch's per-parameter norms record to its train_eval record."""
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    starts = [r["time"] for r in records if r["prefix"] == "hist"]
+    ends = [r["time"] for r in records if r["prefix"] == "train_eval"]
+    return [round(b - a, 3) for a, b in zip(starts, ends)]
+
+
+@contextlib.contextmanager
+def checkpoint_writes():
+    """Every checkpoint file written in the block: (name, MB, s)."""
+    writes, write = [], CheckpointManager._write
+
+    def timed_write(self, state, name):
+        t0 = time.perf_counter()
+        write(self, state, name)
+        writes.append((name, os.path.getsize(self.path(name)) / 1e6, time.perf_counter() - t0))
+
+    with mock.patch.object(CheckpointManager, "_write", timed_write):
+        yield writes
+
+
+def log_writes(label: str, writes: list) -> None:
+    log(f"{label}: {len(writes)} checkpoint files of "
+        f"{sorted({round(mb, 1) for _, mb, _ in writes})} MB, "
+        f"{sum(s for _, _, s in writes):.3f} s in all")
+
+
+def check_experiment(label: str, exp: str, epochs: int) -> None:
+    """The experiment folder after ``epochs`` epochs: the host state, a
+    scored checkpoint for each epoch, finite epoch losses, validation."""
+    with open(os.path.join(exp, "host_state.json")) as f:
+        host = json.load(f)
+    with open(os.path.join(exp, "checkpoints", "index.json")) as f:
+        scored = sorted(e["step"] for e in json.load(f) if e["score"] is not None)
+    if (host["epoch"], host["global_step"], scored) != (epochs, epochs * CLI_ITERS,
+                                                        list(range(1, epochs + 1))):
+        raise AssertionError(f"{label}: host state {host['epoch'], host['global_step']}, "
+                             f"scored checkpoints {scored}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["prefix"] == "train"]
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: epoch losses {losses}")
+    if not any(r["prefix"] == "valid" for r in records):
+        raise AssertionError(f"{label}: no validation record")
+
+
+def run_cli_training(data_root: str, out: str, card_name: str) -> str:
+    """Stage 1, stage 2 and its resume through the training CLIs; returns
+    the stage-2 experiment folder."""
+    common = [f"dataset_main_path={data_root}", *CLI_DATA, *CLI_TRAIN]
+    with checkpoint_writes() as ae_writes:
+        ae_dir, ae_ms = run_main(train_ae_cli.main, "config_train_autoencoder", common + [
+            f"output_log_path={out}/ae", f"model.num_epochs={CLI_EPOCHS}"])
+    check_experiment("cli stage 1", ae_dir, CLI_EPOCHS)
+    args = common + [f"output_log_path={out}/diffusion",
+                     f"model.pretrained_autoencoder_path={ae_dir}/checkpoints"]
+    with checkpoint_writes() as diff_writes:
+        diff_dir, diff_ms = run_main(train_diff_cli.main, "config_train_diffusion",
+                                     args + [f"model.num_epochs={CLI_EPOCHS}"])
+    check_experiment("cli stage 2", diff_dir, CLI_EPOCHS)
+    with checkpoint_writes() as resume_writes:
+        _, resume_ms = run_main(train_diff_cli.main, "config_train_diffusion",
+                                args + [f"model.num_epochs={CLI_EPOCHS + 1}",
+                                        "if_resume_training=True"])
+    check_experiment("cli stage 2 resumed", diff_dir, CLI_EPOCHS + 1)
+    cfg = yaml_lite.read(os.path.join(diff_dir, "config.yaml"))
+    got = (cfg["latent_size"], cfg["autoenc_arch"]["encoder_hidden_size"], cfg["compute_dtype"],
+           cfg["diffusion_arch"]["depth"], cfg["train_pick_best_sample_among_k"])
+    if got != (LATENT, HIDDEN, "bfloat16", ARCH["depth"], TRAIN_K):
+        raise AssertionError(f"cli stage 2 config: {got}")
+    log(f"cli training on {card_name}: stage 1 {CLI_EPOCHS} epochs × {CLI_ITERS} iterations in "
+        f"{ae_ms / 1e3:.2f} s ({ae_ms / 1e3 / CLI_EPOCHS:.2f} s an epoch; between epoch records "
+        f"{epoch_seconds(ae_dir)} s); stage 2 (bf16, k {TRAIN_K}) {CLI_EPOCHS} epochs in "
+        f"{diff_ms / 1e3:.2f} s ({diff_ms / 1e3 / CLI_EPOCHS:.2f} s an epoch), resumed to epoch "
+        f"{CLI_EPOCHS + 1} in {resume_ms / 1e3:.2f} s; between stage-2 epoch records "
+        f"{epoch_seconds(diff_dir)} s (the resume's included)")
+    log(f"cli training, validation an epoch: stage 1 {validation_seconds(ae_dir)} s, stage 2 "
+        f"{validation_seconds(diff_dir)} s (the resume's included)")
+    log_writes("cli stage 1", ae_writes)
+    log_writes("cli stage 2", diff_writes)
+    log_writes("cli stage 2 resumed", resume_writes)
+    return diff_dir
+
+
+def run_cli(data_root: str, out: str, card_name: str, expected_bf16: dict,
+            eval_preds_s: float) -> None:
+    """Both training CLIs (stage 2 resumed), the eval CLI held against
+    compute_metrics and its results YAML, and InferenceSession."""
+    diff_dir = run_cli_training(data_root, out, card_name)
+
+    eval_args = [f"dataset_main_path={data_root}", "dataset=amass", f"checkpoint_path={diff_dir}",
+                 "stats_mode=probabilistic", f"batch_size={BATCH}"]
+    reset_counts()
+    results, cli_ms = run_main(eval_cli.main, "config_eval", eval_args)
+    counts = read_counts()
+    batches = -(-EVAL_SEGMENTS // BATCH)
+    check_counts("cli eval", counts, {k: v * batches for k, v in expected_bf16.items()})
+    if len(results) != 12 or not all(math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"cli eval: metric table {results}")
+    path = os.path.join(diff_dir, f"eval_amass_{BATCH}", "test",
+                        f"{eval_cli.device_label(torch.device('cuda'))}_seed0",
+                        "results_probabilistic.yaml")
+    written = yaml_lite.read(path)
+    if written != {k: float(v) for k, v in results.items()}:
+        raise AssertionError(f"cli eval: {path} reads {written}, the CLI returned {results}")
+
+    cfg = eval_cli.merge_experiment_cfg(flatten_config(load_config(
+        os.path.join("configs", "config_eval"), eval_args)))
+    skeleton = build_skeleton(cfg)
+    predictor, prepare_ms = timed(lambda: eval_cli.prepare_model(cfg, skeleton,
+                                                                 torch.device("cuda")))
+    dataset, dataset_ms = timed(lambda: build_dataset(cfg, skeleton, "test", "data_loader_test",
+                                                      if_compute_cmd=True))
+    direct, direct_ms = timed(lambda: compute_metrics(
+        predictor, dataset, skeleton, batch_size=BATCH, num_samples=SAMPLES,
+        stats_mode="probabilistic", seed=0, if_compute_cmd=True, if_compute_apde=True,
+        mmapd_gt_path=os.path.join(cfg["annotations_folder"], "mmapd_GT.csv")))
+    hold_metrics("cli eval vs compute_metrics on prepare_model's predictor", results, direct,
+                 lambda w: CLI_EVAL_TOL * max(1.0, abs(w)))
+    n = len(dataset)
+    log(f"cli eval on {card_name}: {n} segments × {SAMPLES} samples; the CLI's whole call "
+        f"{cli_ms / 1e3:.3f} s ({n / cli_ms * 1e3:.2f} preds/s, reading the split and the "
+        f"checkpoints included), compute_metrics on its prepare_model {direct_ms / 1e3:.3f} s "
+        f"({n / direct_ms * 1e3:.2f} preds/s), the eval phase {eval_preds_s:.2f} preds/s; "
+        f"prepare_model {prepare_ms / 1e3:.3f} s, reading the test split "
+        f"{dataset_ms / 1e3:.3f} s; "
+        f"launches a batch { {k: v // batches for k, v in counts.items() if v} } (the eval "
+        f"phase's); {path} read back equal")
+
+    session, session_ms = timed(lambda: InferenceSession(
+        diff_dir, "amass", overrides=[f"dataset_main_path={data_root}"]))
+    obs_raw = dataset[0][0]
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(SEED + 11)  # noqa: E731
+    got = session.predict(obs_raw, generator=seeded())
+    with torch.no_grad():
+        obs = session.skeleton.tranform_to_input_space(torch.as_tensor(obs_raw).cuda()[None])
+        pred, _ = session.predictor(seeded(), obs)
+        want = session.skeleton.transform_to_metric_space(pred)[0].cpu().numpy()
+    shape = (SAMPLES, PRED_LEN, skeleton.num_nodes, 3)
+    err = float(abs(got - want).max())
+    if got.shape != shape or not math.isfinite(float(abs(got).max())) or \
+            not err <= CLI_EVAL_TOL * max(1.0, float(abs(want).max())):
+        raise AssertionError(f"InferenceSession.predict: shape {got.shape} (want {shape}), "
+                             f"max |Δ| from its predictor {err}")
+    log(f"cli InferenceSession on {card_name}: built in {session_ms / 1e3:.2f} s; predict on one "
+        f"observation {got.shape}, max |Δ| from the predictor's own output {err:.3e}")
+
+
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
     """Kernel time per prediction of the entries launched on a path: ms a
     launch × the path's ``launches``."""
@@ -1772,8 +1975,8 @@ def main() -> int:
         t = time.perf_counter()
         data_root = build_synthetic_tree(root)
         log(f"synthetic AMASS tree written in {time.perf_counter() - t:.1f} s")
-        launches = run_eval(skeleton, predictor_bf16, predictor, card_name, expected_bf16,
-                            data_root)
+        launches, eval_preds_s = run_eval(skeleton, predictor_bf16, predictor, card_name,
+                                          expected_bf16, data_root)
         for k in kernels:
             k["eval_launches"] = launches[k["name"]]
         phase("eval", t)
@@ -1783,6 +1986,10 @@ def main() -> int:
         for k in kernels:
             k["train_launches"] = launches[k["name"]]
         phase("train", t)
+
+        t = time.perf_counter()
+        run_cli(data_root, os.path.join(root, "cli"), card_name, expected_bf16, eval_preds_s)
+        phase("cli", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

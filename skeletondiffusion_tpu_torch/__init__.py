@@ -10,7 +10,9 @@ test split and its loader (``data``), the metric suite (``metrics``) and
 ``eval_pipeline.compute_metrics``; and two-stage training (``train``: the
 AutoEncoder with its horizon curriculum, the latent diffusion with the
 k-best objective decoded on the rollout kernel, EMA, schedules,
-checkpoints).  Entry points take an explicit
+checkpoints); and the entry points (``cli``: both training CLIs and the
+eval CLI on ``configs/**``, read by ``utils/yaml_lite``; ``inference``).
+Library entry points take an explicit
 ``device`` (default ``"cuda"``); the CPU runs each kernel's plain PyTorch
 version and is what the parity tests use.
 

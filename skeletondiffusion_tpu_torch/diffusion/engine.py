@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..models.denoiser import Denoiser
@@ -44,6 +45,7 @@ class GaussianDiffusion:
         *,
         channels: int,
         latent_size: int = 96,
+        remat: bool = False,
     ):
         if process.objective != "pred_x0":
             raise NotImplementedError(f"objective={process.objective}: the port samples pred_x0")
@@ -54,6 +56,7 @@ class GaussianDiffusion:
         self.num_timesteps = process.num_timesteps
         self.step_tables = process.posterior_step_tables()  # [T, N, 3N]
         self.fused: Optional[dict] = None  # prep_fused_denoiser operands, on the device
+        self.remat = remat  # recompute the training forward in the backward
 
     @property
     def device(self) -> torch.device:
@@ -72,9 +75,15 @@ class GaussianDiffusion:
     def feed_model(self, x: torch.Tensor, t: Timestep, x_cond: torch.Tensor) -> torch.Tensor:
         """The denoiser on latents x [B,N,D] at step ``t`` (an int or [B])
         conditioned on x_cond [B,N,D] → [B,N,D] float32; reference
-        `base.py:243-255`."""
+        `base.py:243-255`.  With ``remat`` and gradients enabled the
+        denoiser's activations are recomputed in the backward instead of kept
+        (``torch.utils.checkpoint``; JAX: ``jax.checkpoint``)."""
         u_cond = self.denoiser.cond_embedding(x_cond)
-        return self.denoiser(x.transpose(0, 1), t, u_cond).transpose(0, 1)
+        if self.remat and torch.is_grad_enabled():
+            out = checkpoint(self.denoiser, x.transpose(0, 1), t, u_cond, use_reentrant=False)
+        else:
+            out = self.denoiser(x.transpose(0, 1), t, u_cond)
+        return out.transpose(0, 1)
 
     def p_losses(
         self,

@@ -62,26 +62,53 @@ def create_diffusion(
     diffusion_covariance_type: str = "skeleton-diffusion",
     gamma_scheduler: str = "cosine",
     loss_reduction_type: str = "l1",
+    diffusion_loss_type: str = "mse",
     diffusion_activation: str = "identity",
     diffusion_arch: Optional[Dict[str, Any]] = None,
-    device: DeviceLike = "cuda",
+    sampling_timesteps: Optional[int] = None,
+    ddim_sampling_eta: float = 0.0,
     compute_dtype: Optional[Union[str, torch.dtype]] = None,
-    **kwargs,
+    remat_denoiser: bool = False,
+    device: DeviceLike = "cuda",
 ) -> Tuple[GaussianDiffusion, Denoiser]:
     """Build (engine, denoiser) on ``device``; the denoiser's weights are
-    drawn from ``generator``.  Reference `diffusion_manager.py:8-31`.  The
-    port samples what every shipped config trains: the conditioned
-    nonisotropic process with identity output activation.
-    ``compute_dtype`` (``"bfloat16"`` or a torch dtype; None = float32) is
-    the denoiser's, as the JAX factory passes it."""
+    drawn from ``generator``.  Reference `diffusion_manager.py:8-31`.
+
+    Every key of the CLIs' ``DIFFUSION_CFG_KEYS`` is a parameter here, as in
+    the JAX factory (`skeletondiffusion_tpu/diffusion/manager.py:44-69`), and
+    each is either honoured with the JAX meaning or raises
+    ``NotImplementedError`` where its value would change the result: the port
+    builds the conditioned nonisotropic process with identity output
+    activation, sampled ancestrally over all ``diffusion_timesteps``.  Two
+    keys are accepted as no-ops, as they are in the JAX nonisotropic branch:
+    ``diffusion_loss_type`` (read only by the isotropic process there,
+    `manager.py:118-129`) and ``ddim_sampling_eta`` (read only by the DDIM
+    sampler, which ``sampling_timesteps`` below the step count selects, and
+    which raises here).  ``compute_dtype`` (``"bfloat16"`` or a torch dtype;
+    None = float32) is the denoiser's.  ``remat_denoiser`` recomputes the
+    denoiser's forward in the backward (``torch.utils.checkpoint``, the
+    counterpart of ``jax.checkpoint`` at `manager.py:140`): the same
+    gradients for less memory."""
     device = resolve_device(device)
     if isinstance(compute_dtype, str):
         compute_dtype = {"bfloat16": torch.bfloat16, "float32": None}[compute_dtype]
+    variants = "ROADMAP Queue A item 4, diffusion and model variants"
     if diffusion_type != "NonisotropicGaussianDiffusion":
-        raise NotImplementedError(f"{diffusion_type}: the port has the nonisotropic process")
+        raise NotImplementedError(f"{diffusion_type}: the port has the nonisotropic process "
+                                  f"({variants})")
     if not diffusion_conditioning or diffusion_activation != "identity":
         raise NotImplementedError("the port samples the conditioned model with identity "
-                                  "output activation")
+                                  f"output activation ({variants})")
+    if loss_reduction_type not in ("l1", "mse"):  # JAX refuses it at the first loss
+        raise NotImplementedError(f"loss_reduction_type={loss_reduction_type!r} (l1 or mse)")
+    if sampling_timesteps and sampling_timesteps > diffusion_timesteps:
+        raise ValueError(f"sampling_timesteps={sampling_timesteps} exceeds "
+                         f"diffusion_timesteps={diffusion_timesteps}")
+    if sampling_timesteps and sampling_timesteps < diffusion_timesteps:
+        raise NotImplementedError(
+            f"sampling_timesteps={sampling_timesteps} < diffusion_timesteps="
+            f"{diffusion_timesteps} selects DDIM sampling in the JAX package; the port samples "
+            f"ancestrally over every step ({variants}: ddim_sample)")
     model = build_denoiser(
         skeleton.num_nodes, generator, latent_size=latent_size, node_types=skeleton.nodes_type_id,
         diffusion_arch=diffusion_arch, compute_dtype=compute_dtype,
@@ -117,5 +144,6 @@ def create_diffusion(
         model.to(device),
         channels=skeleton.num_nodes,
         latent_size=latent_size,
+        remat=remat_denoiser,
     )
     return engine, model

@@ -1,5 +1,6 @@
 """The port stands alone: ``skeletondiffusion_tpu_torch`` (its training
-modules under ``train/`` included), ``chip_smoke.py`` and the port's scripts
+modules under ``train/``, its entry points under ``cli/``, ``inference.py``
+and the ``utils/`` modules included), ``chip_smoke.py`` and the port's scripts
 (``scripts/torch_*.py``) import neither ``jax`` nor ``skeletondiffusion_tpu``,
 nor ``flax``, ``optax``, ``orbax``, ``pandas`` or ``yaml``, which the card's
 machine does not have, and
@@ -26,6 +27,10 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 train = {"checkpoint", "ema", "schedulers", "trainer_autoencoder", "trainer_diffusion"}
 assert all(f"{pkg.__name__}.train.{m}" in sys.modules for m in train), train
+entry = {"cli.common", "cli.eval", "cli.train_autoencoder", "cli.train_diffusion", "inference",
+         "utils.config", "utils.yaml_lite", "utils.logging", "utils.store", "utils.debug",
+         "utils.torch_port"}
+assert all(f"{pkg.__name__}.{m}" in sys.modules for m in entry), entry
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("clean")
@@ -45,6 +50,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_entry_point_modules_are_checked():
+    """The statement check below walks the entry points and the YAML reader
+    that stands in for PyYAML."""
+    assert {"common.py", "eval.py", "train_autoencoder.py", "train_diffusion.py"} <= {
+        p.name for p in (PACKAGE / "cli").glob("*.py")}
+    assert {"config.py", "yaml_lite.py", "logging.py", "store.py", "debug.py",
+            "torch_port.py"} <= {p.name for p in (PACKAGE / "utils").glob("*.py")}
+    assert (PACKAGE / "inference.py").exists()
 
 
 def test_train_modules_are_checked():
