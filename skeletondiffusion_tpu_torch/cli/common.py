@@ -1,5 +1,6 @@
 """Shared CLI plumbing: the skeleton, the datasets, the AutoEncoder and the
-device from a flattened config.
+device from a flattened config, the frozen stage-1 AutoEncoder, and the epoch
+loop both training CLIs run.
 
 Port of ``skeletondiffusion_tpu/cli/common.py`` (`:19-124`; the reference's
 `src/train_utils.py` and `src/inference_utils.py` factories).  In place of
@@ -7,16 +8,23 @@ Port of ``skeletondiffusion_tpu/cli/common.py`` (`:19-124`; the reference's
 """
 from __future__ import annotations
 
+import os
 from functools import partial
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
-from ..data import AMASSDataset
-from ..data.batch import preprocess_batch
+from ..data import AMASSDataset, DataLoader
+from ..data.batch import bounded_batches, cycled_batches, prefetch_iterator, preprocess_batch
 from ..device import resolve_device
 from ..models import AutoEncoder
 from ..skeleton import create_skeleton
+from ..train.checkpoint import CheckpointManager, load_host_state, save_host_state
+from ..utils.config import save_config, snapshot_code
+from ..utils.debug import configure_debug
+from ..utils.logging import MetricsLogger
+from ..utils.reproducibility import iteration_generator, set_seed
 
 # the dataset classes the port reads (the JAX package's DATASET_CLASSES has
 # H36M, FreeMan, 3DPW and the zero-shot AMASS too)
@@ -148,3 +156,186 @@ def setup_device(cfg: Dict[str, Any]) -> torch.device:
             f"device_mesh.n_devices={n}: the port runs on one device (ROADMAP Queue A item 6, "
             "torch.distributed)")
     return resolve_device(cfg.get("device", "cuda"))
+
+
+def load_frozen_autoencoder(cfg: Dict, skeleton, device: torch.device) -> AutoEncoder:
+    """The stage-1 AutoEncoder of ``pretrained_autoencoder_path`` (the
+    experiment directory, its ``checkpoints`` directory — the best
+    checkpoint — or one checkpoint file), on ``device``; reference
+    `train_diffusion.py:47-51`, `src/utils/load.py:19-25`.  Only the model is
+    read, not the stored optimizer state."""
+    path = cfg["pretrained_autoencoder_path"]
+    if os.path.isfile(path):
+        directory, file = os.path.dirname(path), path
+    else:
+        directory = os.path.join(path, "checkpoints")
+        directory = directory if os.path.isdir(directory) else path
+        file = None
+    ckpt = CheckpointManager(directory)
+    restored = ckpt.restore_partial({"model": None}, file or ckpt.best_path(),
+                                    map_location=device)
+    model = build_autoencoder(cfg, skeleton, torch.Generator().manual_seed(0))
+    model.load_state_dict(restored["model"])
+    return model.to(device)
+
+
+# ---- the training CLIs' run: set-up, epoch loop, validation data, resume ------------
+
+
+class TrainRun(NamedTuple):
+    """What both training CLIs set up before they build their trainer."""
+    out_dir: str
+    seed: int
+    skeleton: Any
+    device: torch.device
+    dataset: Any
+    loader: DataLoader
+    iter_per_epoch: int
+    check_loss: Callable
+
+
+def train_loader(cfg: Dict, skeleton, seed: int):
+    dataset = build_dataset(cfg, skeleton, "train", "data_loader_train", rng_seed=seed)
+    loader = DataLoader(
+        dataset, cfg["batch_size"], shuffle=cfg["data_loader_train"].get("shuffle", True),
+        drop_last=cfg["data_loader_train"].get("drop_last", True), seed=seed,
+    )
+    if len(loader) == 0:
+        raise ValueError(
+            f"train loader yields zero batches: {len(dataset)} segments < batch_size "
+            f"{cfg['batch_size']} with drop_last — reduce model.batch_size or enlarge the dataset")
+    return dataset, loader
+
+
+def start_run(cfg: Dict) -> TrainRun:
+    """The experiment folder (``config.yaml`` and the code snapshot), the
+    debug checks, the seed, the skeleton, the device and the training
+    loader."""
+    out_dir = cfg["output_log_path"]
+    os.makedirs(out_dir, exist_ok=True)
+    save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    snapshot_code(out_dir)
+    check_loss = configure_debug(cfg.get("if_debug_nans", False),
+                                 cfg.get("if_enable_checks", False))
+    seed = set_seed(cfg["seed"])
+    skeleton = build_skeleton(cfg)
+    device = setup_device(cfg)
+    dataset, loader = train_loader(cfg, skeleton, seed)
+    return TrainRun(out_dir, seed, skeleton, device, dataset, loader,
+                    cfg.get("num_iter_perepoch") or len(loader), check_loss)
+
+
+def resume(cfg: Dict, run: TrainRun, ckpt: CheckpointManager, trainer) -> Tuple[int, Optional[int]]:
+    """The trainer's state from the checkpoint ``load_path`` (default: the
+    latest) and the host state beside it → (first epoch, global step or
+    None).  The loader's shuffle and the dataset's jitter RNGs are restored
+    too, so a resumed run repeats the uninterrupted one (reference
+    `src/utils/reproducibility.py:47-79`)."""
+    trainer.load_state_dict(ckpt.restore(cfg.get("load_path") or None, map_location=run.device))
+    host = load_host_state(run.out_dir) or {}
+    if trainer.lr_scheduler is not None and "lr_scheduler" in host:
+        trainer.lr_scheduler.load_state_dict(host["lr_scheduler"])
+    if "loader" in host:
+        run.loader.load_state_dict(host["loader"])
+    if "dataset" in host:
+        run.dataset.load_state_dict(host["dataset"])
+    # the recomputed (epoch − 1)·iter_per_epoch drifts when an epoch yields
+    # fewer batches: trust the checkpointed step counter
+    return host.get("epoch", 0) + 1, host.get("global_step")
+
+
+def host_state(epoch: int, it_global: int, trainer, run: TrainRun) -> Dict:
+    host = {"epoch": epoch, "global_step": it_global, "loader": run.loader.state_dict(),
+            "dataset": run.dataset.state_dict()}
+    if trainer.lr_scheduler is not None:
+        host["lr_scheduler"] = trainer.lr_scheduler.state_dict()
+    return host
+
+
+def run_epochs(cfg: Dict, run: TrainRun, trainer, step: Callable, module: nn.Module,
+               validate: Callable, *, n_saved: int, save_frequency: Optional[int],
+               eval_frequency: int) -> str:
+    """The epoch loop of both training CLIs (JAX `cli/train_autoencoder.py`,
+    `cli/train_diffusion.py`): ``step((x, y), epoch, it, it_global) → (loss,
+    extra records)`` for ``iter_per_epoch`` iterations an epoch, the metrics
+    log of ``module``, both validations every ``eval_frequency`` epochs, the
+    top-k checkpoints (scored by validation, else every ``save_frequency``
+    epochs and the last), the latest checkpoint and the host state every
+    epoch.  Returns the experiment's output path."""
+    logger = MetricsLogger(run.out_dir)
+    preprocess = make_train_preprocess(run.skeleton, cfg["data_loader_train"])
+    ckpt = CheckpointManager(os.path.join(run.out_dir, "checkpoints"), n_saved=n_saved)
+    start_epoch, resumed_step = 1, None
+    if cfg.get("if_resume_training"):
+        start_epoch, resumed_step = resume(cfg, run, ckpt, trainer)
+
+    it_global = (resumed_step if resumed_step is not None
+                 else (start_epoch - 1) * run.iter_per_epoch)
+    eval_datasets = {}  # built once, reused every validation epoch
+    for epoch in range(start_epoch, cfg["num_epochs"] + 1):
+        trainer.epoch_started(epoch)
+        losses = []
+        # an epoch is exactly iter_per_epoch iterations (ignite's
+        # epoch_length), cycling the loader when a pass is shorter; bounded
+        # before the prefetch so that no batch is drawn past the epoch
+        batches = prefetch_iterator(cycled_batches(run.loader, run.iter_per_epoch),
+                                    device=run.device)
+        for it, batch in enumerate(batches):
+            # the augmentations draw from stream 0 (the step's own draws
+            # from stream 1)
+            x, y, _ = preprocess(iteration_generator(run.seed, epoch, it, 0, run.device),
+                                 batch["obs"], batch["pred"])
+            loss, extra = step((x, y), epoch, it, it_global)
+            run.check_loss(loss)
+            losses.append(loss)
+            # per-iteration loss and lr, parameter and gradient norms
+            # (reference `src/utils/tensorboard.py:58-122`)
+            if it_global % cfg.get("log_every_iters", 10) == 0:
+                logger.log(it_global, {"loss": float(loss), "lr": trainer.current_lr(), **extra,
+                                       "epoch": epoch}, prefix="train_iter")
+            logger.log_param_norms(it_global, module, grad_norm=trainer.last_grad_norm)
+            it_global += 1
+        logger.log(epoch, {"loss": float(torch.stack(losses).mean()), "lr": trainer.current_lr(),
+                           **extra})
+        logger.log_param_histograms(epoch, module)
+
+        # the reference runs both eval engines every eval_frequency epochs:
+        # the valid split and a capped pass over the train split
+        # (`train_autoencoder.py:108-113`, `train_diffusion.py:113-120`)
+        score = None
+        if cfg.get("if_run_validation") and epoch % eval_frequency == 0:
+            score = -validate(cfg, run.skeleton, trainer, logger, epoch, run.device,
+                              dataset_cache=eval_datasets)
+            validate(cfg, run.skeleton, trainer, logger, epoch, run.device, split="train",
+                     loader_key="data_loader_train_eval",
+                     max_batches=cfg.get("num_iteration_eval") or None, prefix="train_eval",
+                     dataset_cache=eval_datasets)
+        state = trainer.state_dict()
+        if (score is not None or epoch == cfg["num_epochs"]
+                or (save_frequency and epoch % save_frequency == 0)):
+            ckpt.save(state, step=epoch, score=score)
+        ckpt.save_latest(state, step=epoch)
+        save_host_state(run.out_dir, host_state(epoch, it_global, trainer, run))
+    logger.close()
+    return run.out_dir
+
+
+def eval_dataset(cfg: Dict, skeleton, split: str, loader_key: str, dataset_cache):
+    """The split's dataset, built once a run (``dataset_cache``)."""
+    if loader_key not in cfg:
+        loader_key = "data_loader_valid"
+    if dataset_cache is not None and (split, loader_key) in dataset_cache:
+        return dataset_cache[(split, loader_key)]
+    dataset = build_dataset(cfg, skeleton, split, loader_key)
+    if dataset_cache is not None:
+        dataset_cache[(split, loader_key)] = dataset
+    return dataset
+
+
+def eval_batches(cfg: Dict, skeleton, dataset, device: torch.device, max_batches=None):
+    """The split's batches (x, y) in input space on ``device``."""
+    loader = DataLoader(dataset, cfg["batch_size_eval"], shuffle=False)
+    preprocess = make_eval_preprocess(skeleton)
+    for batch in prefetch_iterator(bounded_batches(loader, max_batches), device=device):
+        x, y, _ = preprocess(batch["obs"], batch["pred"])
+        yield x, y

@@ -25,8 +25,13 @@ from ..utils.config import flatten_config, load_config
 from ..utils.debug import profile_trace
 from ..utils.logging import AverageTimer
 from ..utils.store import ResultStorer
-from .common import build_dataset, build_skeleton, diffusion_kwargs, setup_device
-from .train_diffusion import load_frozen_autoencoder
+from .common import (
+    build_dataset,
+    build_skeleton,
+    diffusion_kwargs,
+    load_frozen_autoencoder,
+    setup_device,
+)
 
 
 def merge_experiment_cfg(cfg: Dict) -> Dict:

@@ -15,109 +15,22 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..data import DataLoader
-from ..data.batch import bounded_batches, cycled_batches, prefetch_iterator
 from ..metrics.multimodal import ade, fde, mpjpe
-from ..train.checkpoint import CheckpointManager, load_host_state, save_host_state
 from ..train.trainer_autoencoder import AutoEncoderTrainer
-from ..utils.config import flatten_config, load_config, save_config, snapshot_code
-from ..utils.debug import configure_debug
-from ..utils.logging import MetricsLogger
-from ..utils.reproducibility import derived_seed, iteration_generator, set_seed
-from .common import (
-    build_autoencoder,
-    build_dataset,
-    build_skeleton,
-    make_eval_preprocess,
-    make_train_preprocess,
-    setup_device,
-)
-
-
-def resume(cfg: Dict, out_dir: str, ckpt: CheckpointManager, trainer, loader, dataset,
-           device: torch.device):
-    """The trainer's state from the checkpoint ``load_path`` (default: the
-    latest) and the host state beside it → (first epoch, global step or
-    None).  The loader's shuffle and the dataset's jitter RNGs are restored
-    too, so a resumed run repeats the uninterrupted one (reference
-    `src/utils/reproducibility.py:47-79`)."""
-    trainer.load_state_dict(ckpt.restore(cfg.get("load_path") or None, map_location=device))
-    host = load_host_state(out_dir) or {}
-    if trainer.lr_scheduler is not None and "lr_scheduler" in host:
-        trainer.lr_scheduler.load_state_dict(host["lr_scheduler"])
-    if "loader" in host:
-        loader.load_state_dict(host["loader"])
-    if "dataset" in host:
-        dataset.load_state_dict(host["dataset"])
-    # the recomputed (epoch − 1)·iter_per_epoch drifts when an epoch yields
-    # fewer batches: trust the checkpointed step counter
-    return host.get("epoch", 0) + 1, host.get("global_step")
-
-
-def host_state(epoch: int, it_global: int, trainer, loader, dataset) -> Dict:
-    host = {"epoch": epoch, "global_step": it_global, "loader": loader.state_dict(),
-            "dataset": dataset.state_dict()}
-    if trainer.lr_scheduler is not None:
-        host["lr_scheduler"] = trainer.lr_scheduler.state_dict()
-    return host
-
-
-def train_loader(cfg: Dict, skeleton, seed: int):
-    dataset = build_dataset(cfg, skeleton, "train", "data_loader_train", rng_seed=seed)
-    loader = DataLoader(
-        dataset, cfg["batch_size"], shuffle=cfg["data_loader_train"].get("shuffle", True),
-        drop_last=cfg["data_loader_train"].get("drop_last", True), seed=seed,
-    )
-    if len(loader) == 0:
-        raise ValueError(
-            f"train loader yields zero batches: {len(dataset)} segments < batch_size "
-            f"{cfg['batch_size']} with drop_last — reduce model.batch_size or enlarge the dataset")
-    return dataset, loader
-
-
-def eval_dataset(cfg: Dict, skeleton, split: str, loader_key: str, dataset_cache):
-    """The split's dataset, built once a run (``dataset_cache``)."""
-    if loader_key not in cfg:
-        loader_key = "data_loader_valid"
-    if dataset_cache is not None and (split, loader_key) in dataset_cache:
-        return dataset_cache[(split, loader_key)]
-    dataset = build_dataset(cfg, skeleton, split, loader_key)
-    if dataset_cache is not None:
-        dataset_cache[(split, loader_key)] = dataset
-    return dataset
-
-
-def eval_batches(cfg: Dict, skeleton, dataset, device: torch.device, max_batches=None):
-    """The split's batches (x, y) in input space on ``device``."""
-    loader = DataLoader(dataset, cfg["batch_size_eval"], shuffle=False)
-    preprocess = make_eval_preprocess(skeleton)
-    for batch in prefetch_iterator(bounded_batches(loader, max_batches), device=device):
-        x, y, _ = preprocess(batch["obs"], batch["pred"])
-        yield x, y
+from ..utils.config import flatten_config, load_config
+from ..utils.reproducibility import derived_seed
+from .common import build_autoencoder, eval_batches, eval_dataset, run_epochs, start_run
 
 
 def train(cfg: Dict) -> str:
     """Returns the experiment's output path."""
-    out_dir = cfg["output_log_path"]
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    snapshot_code(out_dir)
-    logger = MetricsLogger(out_dir)
-    check_loss = configure_debug(cfg.get("if_debug_nans", False),
-                                 cfg.get("if_enable_checks", False))
-    seed = set_seed(cfg["seed"])
-    skeleton = build_skeleton(cfg)
-    device = setup_device(cfg)
-
-    dataset, loader = train_loader(cfg, skeleton, seed)
-    iter_per_epoch = cfg.get("num_iter_perepoch") or len(loader)
-    preprocess = make_train_preprocess(skeleton, cfg["data_loader_train"])
-
-    model = build_autoencoder(cfg, skeleton, torch.Generator().manual_seed(derived_seed(seed, 0)))
+    run = start_run(cfg)
+    model = build_autoencoder(cfg, run.skeleton,
+                              torch.Generator().manual_seed(derived_seed(run.seed, 0)))
     trainer = AutoEncoderTrainer(
-        model=model.to(device),
+        model=model.to(run.device),
         lr=cfg["lr"],
-        iter_per_epoch=iter_per_epoch,
+        iter_per_epoch=run.iter_per_epoch,
         prediction_horizon_train=cfg["prediction_horizon_train"],
         prediction_horizon_eval=cfg["prediction_horizon_eval"],
         curriculum_it=cfg.get("curriculum_it", 0),
@@ -127,61 +40,18 @@ def train(cfg: Dict) -> str:
         prediction_horizon_train_min_from_epoch=cfg.get("prediction_horizon_train_min_from_epoch", 200),
         random_prediction_horizon=cfg.get("random_prediction_horizon", True),
         loss_pose_type=cfg.get("loss_pose_type", "l1"),
-        seed=seed,
+        seed=run.seed,
     )
-
-    ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"), n_saved=20)
-    start_epoch, resumed_step = 1, None
-    if cfg.get("if_resume_training"):
-        start_epoch, resumed_step = resume(cfg, out_dir, ckpt, trainer, loader, dataset, device)
-
     print(f"AutoEncoder parameters: {sum(p.numel() for p in model.parameters()):,}")
 
-    save_frequency = cfg.get("save_frequency", 50)
-    it_global = resumed_step if resumed_step is not None else (start_epoch - 1) * iter_per_epoch
-    eval_datasets = {}  # built once, reused every validation epoch
-    for epoch in range(start_epoch, cfg["num_epochs"] + 1):
-        trainer.epoch_started(epoch)
-        losses = []
-        # an epoch is exactly iter_per_epoch iterations (ignite's
-        # epoch_length), cycling the loader when a pass is shorter; bounded
-        # before the prefetch so that no batch is drawn past the epoch
-        batches = prefetch_iterator(cycled_batches(loader, iter_per_epoch), device=device)
-        for it, batch in enumerate(batches):
-            x, y, _ = preprocess(iteration_generator(seed, epoch, it, 0, device), batch["obs"],
-                                 batch["pred"])
-            loss, ph = trainer.train_step((x, y), epoch=epoch, iteration=it_global)
-            check_loss(loss)
-            losses.append(loss)
-            # per-iteration loss and lr, parameter and gradient norms
-            # (reference `src/utils/tensorboard.py:58-122`)
-            if it_global % cfg.get("log_every_iters", 10) == 0:
-                logger.log(it_global, {"loss": float(loss), "lr": trainer.current_lr(), "ph": ph,
-                                       "epoch": epoch}, prefix="train_iter")
-            logger.log_param_norms(it_global, trainer.model, grad_norm=trainer.last_grad_norm)
-            it_global += 1
-        logger.log(epoch, {"loss": float(torch.stack(losses).mean()), "lr": trainer.current_lr(),
-                           "ph": ph})
-        logger.log_param_histograms(epoch, trainer.model)
+    def step(xy, epoch, it, it_global):
+        loss, ph = trainer.train_step(xy, epoch=epoch, iteration=it_global)
+        return loss, {"ph": ph}
 
-        # the reference runs both eval engines every eval_frequency epochs:
-        # the valid split and a capped pass over the train split
-        # (`train_autoencoder.py:108-113`, `src/train_utils.py:56-96`)
-        score = None
-        if cfg.get("if_run_validation") and epoch % cfg.get("eval_frequency", save_frequency) == 0:
-            score = -validate(cfg, skeleton, trainer, logger, epoch, device,
-                              dataset_cache=eval_datasets)
-            validate(cfg, skeleton, trainer, logger, epoch, device, split="train",
-                     loader_key="data_loader_train_eval",
-                     max_batches=cfg.get("num_iteration_eval") or None, prefix="train_eval",
-                     dataset_cache=eval_datasets)
-        state = trainer.state_dict()
-        if score is not None or epoch % save_frequency == 0 or epoch == cfg["num_epochs"]:
-            ckpt.save(state, step=epoch, score=score)
-        ckpt.save_latest(state, step=epoch)
-        save_host_state(out_dir, host_state(epoch, it_global, trainer, loader, dataset))
-    logger.close()
-    return out_dir
+    save_frequency = cfg.get("save_frequency", 50)
+    return run_epochs(cfg, run, trainer, step, trainer.model, validate, n_saved=20,
+                      save_frequency=save_frequency,
+                      eval_frequency=cfg.get("eval_frequency", save_frequency))
 
 
 def validate(cfg, skeleton, trainer, logger, epoch, device, split="valid",

@@ -17,64 +17,28 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..data.batch import cycled_batches, prefetch_iterator
 from ..diffusion.manager import create_diffusion
 from ..metrics.body_realism import limb_length_variance
 from ..metrics.multimodal import ade, apd, mpjpe
-from ..train.checkpoint import CheckpointManager, save_host_state
 from ..train.trainer_diffusion import TrainerDiffusion
-from ..utils.config import (
-    flatten_config,
-    load_and_merge_autoenc_cfg,
-    load_config,
-    save_config,
-    snapshot_code,
-)
-from ..utils.debug import configure_debug
-from ..utils.logging import MetricsLogger
-from ..utils.reproducibility import derived_seed, iteration_generator, set_seed
+from ..utils.config import flatten_config, load_and_merge_autoenc_cfg, load_config
+from ..utils.reproducibility import derived_seed, iteration_generator
 from .common import (
-    build_autoencoder,
-    build_skeleton,
+    TrainRun,
     diffusion_kwargs,
-    make_train_preprocess,
-    setup_device,
-)
-from .train_autoencoder import (
     eval_batches,
     eval_dataset,
-    host_state,
-    resume,
-    train_loader,
+    load_frozen_autoencoder,
+    run_epochs,
+    start_run,
 )
 
 
-def load_frozen_autoencoder(cfg: Dict, skeleton, device: torch.device):
-    """The stage-1 AutoEncoder of ``pretrained_autoencoder_path`` (the
-    experiment directory, its ``checkpoints`` directory — the best
-    checkpoint — or one checkpoint file), on ``device``; reference
-    `train_diffusion.py:47-51`, `src/utils/load.py:19-25`.  Only the model is
-    read, not the stored optimizer state."""
-    path = cfg["pretrained_autoencoder_path"]
-    if os.path.isfile(path):
-        directory, file = os.path.dirname(path), path
-    else:
-        directory = os.path.join(path, "checkpoints")
-        directory = directory if os.path.isdir(directory) else path
-        file = None
-    ckpt = CheckpointManager(directory)
-    restored = ckpt.restore_partial({"model": None}, file or ckpt.best_path(),
-                                    map_location=device)
-    model = build_autoencoder(cfg, skeleton, torch.Generator().manual_seed(0))
-    model.load_state_dict(restored["model"])
-    return model.to(device)
-
-
-def build_trainer(cfg: Dict, skeleton, device: torch.device, seed: int) -> TrainerDiffusion:
-    autoencoder = load_frozen_autoencoder(cfg, skeleton, device)
+def build_trainer(cfg: Dict, run: TrainRun) -> TrainerDiffusion:
+    autoencoder = load_frozen_autoencoder(cfg, run.skeleton, run.device)
     diffusion, denoiser = create_diffusion(
-        skeleton, torch.Generator().manual_seed(derived_seed(seed, 1)),
-        latent_size=cfg["latent_size"], device=device, **diffusion_kwargs(cfg))
+        run.skeleton, torch.Generator().manual_seed(derived_seed(run.seed, 1)),
+        latent_size=cfg["latent_size"], device=run.device, **diffusion_kwargs(cfg))
     print(f"Denoiser parameters: {sum(p.numel() for p in denoiser.parameters()):,}")
     return TrainerDiffusion(
         diffusion,
@@ -93,71 +57,20 @@ def build_trainer(cfg: Dict, skeleton, device: torch.device, seed: int) -> Train
         lr_scheduler_kwargs=cfg.get("lr_scheduler_kwargs"),
         prediction_horizon_eval=cfg["prediction_horizon_eval"],
         num_prob_samples=cfg.get("num_prob_samples", 50),
-        skeleton=skeleton,
+        skeleton=run.skeleton,
     )
 
 
 def train(cfg: Dict) -> str:
-    out_dir = cfg["output_log_path"]
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    snapshot_code(out_dir)
-    logger = MetricsLogger(out_dir)
-    check_loss = configure_debug(cfg.get("if_debug_nans", False),
-                                 cfg.get("if_enable_checks", False))
-    seed = set_seed(cfg["seed"])
-    skeleton = build_skeleton(cfg)
-    device = setup_device(cfg)
+    run = start_run(cfg)
+    trainer = build_trainer(cfg, run)
 
-    dataset, loader = train_loader(cfg, skeleton, seed)
-    iter_per_epoch = cfg.get("num_iter_perepoch") or len(loader)
-    preprocess = make_train_preprocess(skeleton, cfg["data_loader_train"])
-    trainer = build_trainer(cfg, skeleton, device, seed)
+    def step(xy, epoch, it, it_global):
+        # the step's timesteps and noise draw from stream 1
+        return trainer.train_step(xy, iteration_generator(run.seed, epoch, it, 1, run.device)), {}
 
-    ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"), n_saved=10)
-    start_epoch, resumed_step = 1, None
-    if cfg.get("if_resume_training"):
-        start_epoch, resumed_step = resume(cfg, out_dir, ckpt, trainer, loader, dataset, device)
-
-    it_global = resumed_step if resumed_step is not None else (start_epoch - 1) * iter_per_epoch
-    eval_datasets = {}  # built once, reused every validation epoch
-    for epoch in range(start_epoch, cfg["num_epochs"] + 1):
-        trainer.epoch_started(epoch)
-        losses = []
-        batches = prefetch_iterator(cycled_batches(loader, iter_per_epoch), device=device)
-        for it, batch in enumerate(batches):
-            # independent generators for the augmentations (stream 0) and
-            # the step's timesteps and noise (stream 1)
-            x, y, _ = preprocess(iteration_generator(seed, epoch, it, 0, device), batch["obs"],
-                                 batch["pred"])
-            loss = trainer.train_step((x, y), iteration_generator(seed, epoch, it, 1, device))
-            check_loss(loss)
-            losses.append(loss)
-            if it_global % cfg.get("log_every_iters", 10) == 0:
-                logger.log(it_global, {"loss": float(loss), "lr": trainer.current_lr(),
-                                       "epoch": epoch}, prefix="train_iter")
-            logger.log_param_norms(it_global, trainer.denoiser, grad_norm=trainer.last_grad_norm)
-            it_global += 1
-        logger.log(epoch, {"loss": float(torch.stack(losses).mean()), "lr": trainer.current_lr()})
-        logger.log_param_histograms(epoch, trainer.denoiser)
-
-        # the reference runs both eval engines every eval_frequency epochs
-        # (`train_diffusion.py:113-120`, `src/train_utils.py:97-137`)
-        score = None
-        if cfg.get("if_run_validation") and epoch % cfg.get("eval_frequency", 25) == 0:
-            score = -validate(cfg, skeleton, trainer, logger, epoch, device,
-                              dataset_cache=eval_datasets)
-            validate(cfg, skeleton, trainer, logger, epoch, device, split="train",
-                     loader_key="data_loader_train_eval",
-                     max_batches=cfg.get("num_iteration_eval") or None, prefix="train_eval",
-                     dataset_cache=eval_datasets)
-        state = trainer.state_dict()
-        if score is not None or epoch == cfg["num_epochs"]:
-            ckpt.save(state, step=epoch, score=score)
-        ckpt.save_latest(state, step=epoch)
-        save_host_state(out_dir, host_state(epoch, it_global, trainer, loader, dataset))
-    logger.close()
-    return out_dir
+    return run_epochs(cfg, run, trainer, step, trainer.denoiser, validate, n_saved=10,
+                      save_frequency=None, eval_frequency=cfg.get("eval_frequency", 25))
 
 
 def validate(cfg, skeleton, trainer, logger, epoch, device, split="valid",

@@ -152,4 +152,8 @@ class AMASSKinematic(Kinematic):
 
 def get_kinematic_class(dataset_name: str):
     """Dataset → (kinematic class, its name)."""
-    return {"amass": (AMASSKinematic, "AMASS")}[dataset_name.lower()]
+    if dataset_name.lower() != "amass":
+        raise NotImplementedError(
+            f"dataset {dataset_name!r}: the port has the AMASS skeleton only (ROADMAP Queue A "
+            "item 5, the other skeletons)")
+    return AMASSKinematic, "AMASS"

@@ -152,11 +152,15 @@ def load_config(
     return cfg
 
 
-def flatten_config(cfg: Dict[str, Any], groups=("task", "dataset", "model", "method_specs", "cov_matrix")) -> Dict[str, Any]:
-    """The group sub-dicts merged into the top level (reference
+# the config groups whose keys flatten_config lifts to the top level
+GROUPS = ("task", "dataset", "model", "method_specs", "cov_matrix")
+
+
+def flatten_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``GROUPS`` sub-dicts merged into the top level (reference
     `src/utils/config.py:66-74`): group keys win over the top level's."""
-    out = {k: v for k, v in cfg.items() if k not in groups}
-    for g in groups:
+    out = {k: v for k, v in cfg.items() if k not in GROUPS}
+    for g in GROUPS:
         if isinstance(cfg.get(g), dict):
             out.update(cfg[g])
     return out

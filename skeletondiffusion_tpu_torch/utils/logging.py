@@ -27,12 +27,16 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+# the steps between two norm records (the reference logs per-weight scalars
+# every 100 iterations, `src/utils/tensorboard.py:58-96`)
+NORMS_EVERY = 100
+
+
 class MetricsLogger:
-    def __init__(self, log_dir: str, norms_every: int = 100):
+    def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self._fh = open(self.path, "a")
-        self.norms_every = norms_every
         self._tb = None
         try:  # optional: used where the tensorboard package is installed
             from torch.utils.tensorboard import SummaryWriter
@@ -53,9 +57,8 @@ class MetricsLogger:
     def log_param_norms(self, step: int, module: nn.Module, grad_norm=None):
         """The global norms of ``module``'s parameters and, as the trainer
         computed it before clipping, of their gradients (``grad_norm``, a
-        device scalar), every ``norms_every`` steps (the reference logs
-        per-weight scalars every 100 iterations, `tensorboard.py:58-96`)."""
-        if step % self.norms_every != 0:
+        device scalar), every ``NORMS_EVERY`` steps."""
+        if step % NORMS_EVERY != 0:
             return
         vals = {"param_global_norm": float(_global_norm(module.parameters()))}
         if grad_norm is not None:

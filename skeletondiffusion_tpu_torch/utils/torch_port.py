@@ -49,7 +49,7 @@ def _gru_cell(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def port_denoiser(sd: Dict[str, np.ndarray], depth: int = 4) -> Dict:
+def port_denoiser(sd: Dict[str, np.ndarray], depth: int) -> Dict:
     """A reference ``Denoiser`` state_dict → the port's parameter tree."""
     p: Dict[str, Dict] = {
         "init_lin": _glin(sd, "init_lin"),

@@ -27,8 +27,8 @@ from skeletondiffusion_tpu.models import AutoEncoder as JaxAutoEncoder
 from skeletondiffusion_tpu.ops.pallas import denoiser_fused as jax_fused
 from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
 
-from torch_parity import (OBS_LEN, TIMESTEPS, WIDE, assert_bf16_close, hold_bf16_predictor,
-                          wide_model_pair)
+from torch_parity import (BF16_SPREAD, OBS_LEN, TIMESTEPS, WIDE, assert_bf16_close,
+                          bf16_predictor_ratios, hold_bf16_predictor, wide_model_pair)
 
 N, L, B, S = 21, WIDE["latent"], 2, 4
 ROWS = B * S
@@ -116,3 +116,17 @@ def test_bf16_encoder_matches_flax(models):
 def test_bf16_predictor_matches_jax_fused_chain(models):
     jsk, sk, m = models
     hold_bf16_predictor(jsk, sk, m, seed=8)
+
+
+def test_bf16_predictor_spread_depends_on_the_inputs(models):
+    """``BF16_SPREAD`` holds on the inputs of seed 8 (above) but not on every
+    input: on those of seed 21 the port's bf16 predictions lie up to 1.54×
+    as far from the JAX fp32 chain as the JAX bf16 chain's do, while the
+    means stay within the bound.  Whether that maximum is an artefact of the
+    random weights is ROADMAP Queue C item 1; when it changes, so does this
+    reading."""
+    jsk, sk, m = models
+    ratios = bf16_predictor_ratios(jsk, sk, m, seed=21)
+    assert ratios["predictions"]["vs_fp32_max"] > BF16_SPREAD
+    for what, r in ratios.items():
+        assert r["vs_fp32_mean"] <= BF16_SPREAD and r["vs_jax_bf16_mean"] <= BF16_SPREAD, what

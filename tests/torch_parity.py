@@ -167,7 +167,10 @@ def assert_bf16_close(got, want, what: str = ""):
 #   ``test_torch_layer_fused.py``: 0.836 / 0.819, max 0.948 / 0.952, mean
 #   1.007 / 0.918.
 #
-# The worst, 1.271, passes 1.4 with 10% to spare.  The remaining excess over
+# The worst, 1.271, passes 1.4 with 10% to spare on these inputs (seeds 8
+# and 9); the bound depends on them: at seed 21 the predictions' max reads
+# 1.540 (``test_torch_fused.py::test_bf16_predictor_spread_depends_on_the_inputs``,
+# ROADMAP Queue C item 1).  The remaining excess over
 # 1× is not a rounding point of the plain modules (that test finds none that
 # differs); the predictor's denoiser is the fused kernel chain, whose plain
 # versions match the Pallas kernels' rounding points but not their order of
@@ -236,11 +239,13 @@ def jax_fused_chain(jsk, m, obs, start, steps, compiled: bool = False):
             np.asarray(jsk.transform_to_metric_space(pred.reshape(b, s, PRED_LEN, n, 3))))
 
 
-def hold_bf16_predictor(jsk, sk, m, seed: int) -> dict:
+def bf16_predictor_ratios(jsk, sk, m, seed: int) -> dict:
     """The port's bf16 predictor with injected noise against the JAX fused
-    chain (``jax_fused_chain``) on the same inputs, both taking the denoiser
-    path the environment selects: each deviation within ``BF16_SPREAD`` of
-    the JAX chain's own bf16-vs-fp32 deviation.  Returns the ratios."""
+    chain (``jax_fused_chain``) on the inputs of ``seed``, both taking the
+    denoiser path the environment selects: for the latents and the
+    predictions, each deviation over the JAX chain's own bf16-vs-fp32
+    deviation (``vs_jax_bf16_mean``: port bf16 against JAX bf16;
+    ``vs_fp32_max`` and ``vs_fp32_mean``: port bf16 against JAX fp32)."""
     from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
 
     n, latent, s = jsk.num_nodes, WIDE["latent"], SAMPLES_E2E
@@ -275,11 +280,18 @@ def hold_bf16_predictor(jsk, sk, m, seed: int) -> dict:
               f"{jax_err.mean():.3e}; port bf16 vs JAX fp32 max {port_err.max():.3e} mean "
               f"{port_err.mean():.3e}; ratios "
               + ", ".join(f"{k} {v:.3f}" for k, v in ratios[what].items()))
-        # the port's bf16 path is as close to fp32 as the JAX package's is
-        assert port_err.max() <= BF16_SPREAD * jax_err.max(), what
-        assert port_err.mean() <= BF16_SPREAD * jax_err.mean(), what
-        # and no farther from the JAX bf16 path than the bf16 rounding noise
-        assert vs_jax_bf16.mean() <= BF16_SPREAD * jax_err.mean(), what
+    return ratios
+
+
+def hold_bf16_predictor(jsk, sk, m, seed: int) -> dict:
+    """``bf16_predictor_ratios`` held: the port's bf16 path is as close to
+    fp32 as the JAX package's is, and no farther from the JAX bf16 path than
+    the bf16 rounding noise, each within ``BF16_SPREAD``.  Returns the
+    ratios."""
+    ratios = bf16_predictor_ratios(jsk, sk, m, seed)
+    for what, r in ratios.items():
+        for name in ("vs_fp32_max", "vs_fp32_mean", "vs_jax_bf16_mean"):
+            assert r[name] <= BF16_SPREAD, (what, name, r[name])
     return ratios
 
 
