@@ -110,11 +110,30 @@ Phases, each printed with its elapsed seconds:
               against the session's predictor with the same generator.  Seconds
               an epoch of each stage and the CLI's preds/s beside the eval
               phase's.
+14. variants — the diffusion variants at the same width: the isotropic
+              process (isotropic_diffusion.yaml's), DDIM at 5 of its 10
+              steps and the nonisotropic process with pred_noise, each on
+              the fp32 path (preds/s, launches; latents and predictions
+              with injected noise against its plain path: the plain
+              denoiser, the q_posterior step, the plain decode; 1e-4) and
+              the bf16 path (preds/s, launches; against its plain versions
+              within BF16_E2E_MAX × the plain versions' fp32 deviation; for
+              pred_noise each step's denoiser output, on the same inputs,
+              the same way); tanh and the
+              unconditioned, self-conditioned and attention-free denoisers
+              on the card against the CPU (4 × 50 samples,
+              1e-4·max(1, |v|)), one timed call each on both paths with the
+              path it took; the plain decode against K1 (12 800 rows), the
+              predictor on it, and in bf16 its metric-space deviation beside
+              B8's; cli.train_diffusion model=isotropic_diffusion on the cli
+              phase's stage 1 (2 epochs × 3 iterations) and its eval CLI
+              against compute_metrics (1e-5·max(1, |v|)).
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
-the bf16 eval, and ``train_launches``, its launches in stage 2's steps and
-validation step.  Any failure exits
+the bf16 eval, ``train_launches``, its launches in stage 2's steps and
+validation step, and ``variant_launches``, its launches in one prediction of
+each sampler variant on each path.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit, and before that one JSON line lists every kernel.
@@ -151,6 +170,7 @@ from skeletondiffusion_tpu_torch.data.batch import (
     prefetch_iterator,
     preprocess_batch,
 )
+from skeletondiffusion_tpu_torch.diffusion.engine import posterior_update_plain
 from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
 from skeletondiffusion_tpu_torch.eval_pipeline import (
     SkeletonDiffusionPredictor,
@@ -161,6 +181,7 @@ from skeletondiffusion_tpu_torch.inference import InferenceSession
 from skeletondiffusion_tpu_torch.metrics import suite as suite_mod
 from skeletondiffusion_tpu_torch.metrics.multimodal import motion_for_cmd
 from skeletondiffusion_tpu_torch.models import AutoEncoder
+from skeletondiffusion_tpu_torch.models.autoencoder import Decoder
 from skeletondiffusion_tpu_torch.ops.kernels import attention_proj as proj_mod
 from skeletondiffusion_tpu_torch.ops.kernels import build
 from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
@@ -362,9 +383,13 @@ def spread_weights(module: torch.nn.Module, gen: torch.Generator) -> None:
                 p.add_(noise / p.shape[-2] ** 0.5)
 
 
-def build_model(device: torch.device, compute_dtype=None):
+def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
+                **variant):
     """(skeleton, predictor) of the flagship from seed ``SEED``; the weights
-    do not depend on ``compute_dtype`` (the denoiser's and the encoder's)."""
+    do not depend on ``compute_dtype`` (the denoiser's and the AutoEncoder's)
+    or on the device.  ``variant`` holds create_diffusion keys that replace
+    the flagship's (the process, the objective, DDIM, the activation, the
+    conditioning, ``diffusion_arch``)."""
     skeleton = create_skeleton(
         dataset_name="amass", motion_repr_type="SkeletonRescalePose", num_joints=22,
         pose_box_size=1.5, obs_length=OBS_LEN, pred_length=PRED_LEN, if_consider_hip=False,
@@ -372,16 +397,16 @@ def build_model(device: torch.device, compute_dtype=None):
     gen = torch.Generator().manual_seed(SEED)
     ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT, gen,
                      node_types=skeleton.nodes_type_id, compute_dtype=compute_dtype)
+    keys = dict(diffusion_conditioning=True, diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH)
+    keys.update(variant)
     diffusion, denoiser = create_diffusion(
-        skeleton, gen, latent_size=LATENT, diffusion_conditioning=True,
-        diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH, device=device,
-        compute_dtype=compute_dtype,
-    )
+        skeleton, gen, latent_size=LATENT, device=device, compute_dtype=compute_dtype, **keys)
     perturb_influence(ae, gen)
     perturb_influence(denoiser, gen)
     spread_weights(denoiser, gen)
     predictor = SkeletonDiffusionPredictor(
-        skeleton, ae, diffusion, num_samples=SAMPLES, pred_length=PRED_LEN, device=device,
+        skeleton, ae, diffusion, num_samples=SAMPLES, pred_length=PRED_LEN,
+        use_fused_decode=use_fused_decode, device=device,
     )
     return skeleton, predictor
 
@@ -576,27 +601,33 @@ def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Genera
                                  f"the {what}: {err}")
 
 
-def hold_bf16(label: str, runs: dict, pairs) -> None:
+def hold_bf16(label: str, runs: dict, pairs,
+              states: str = "sampler states after each step",
+              deviation_of: str | None = None) -> None:
     """For each (name of the run held, name of the run it is held against)
     in ``pairs``, the sampler's state after each step and the metric-space
-    predictions of the two runs with injected noise, beside the held run's
-    deviation from the ``"fp32"`` run (same weights and noise).
+    predictions of the two runs with injected noise, beside the deviation of
+    ``deviation_of`` (default: the held run) from the ``"fp32"`` run (same
+    weights and noise).
 
     The mean deviation must be below the bf16-vs-fp32 one.  The max may reach
     BF16_E2E_MAX times the bf16-vs-fp32 max: two bf16 paths that round at the
     same points but sum in another order disagree now and then on which side
     of a rounding point a value lands, and the flip, a whole bf16 step of an
     O(1) x̂₀, is carried through the later layers and steps, where the
-    bf16-vs-fp32 deviation of the same value can stay below one step."""
+    bf16-vs-fp32 deviation of the same value can stay below one step.  Where
+    ``deviation_of`` is the run held against, the bound does not grow with
+    the held run's own error."""
     for held, against in pairs:
-        for what, unit, scale, i in (("sampler states after each step", "", 1.0, 1),
+        ref = deviation_of or held
+        for what, unit, scale, i in ((states, "", 1.0, 1),
                                      ("prediction, metric space", " mm", 1e3, 0)):
             a, b, c = runs[held][i], runs[against][i], runs["fp32"][i]
-            kp, bf = (a - b).abs() * scale, (a - c).abs() * scale
+            kp, bf = (a - b).abs() * scale, (runs[ref][i] - c).abs() * scale
             kp_max, kp_mean, bf_max, bf_mean = (kp.max().item(), kp.mean().item(),
                                                 bf.max().item(), bf.mean().item())
             log(f"{label} with injected noise: {what}: {held} vs {against} max "
-                f"{kp_max:.4e}{unit} mean {kp_mean:.4e}{unit}; {held} vs fp32 path max "
+                f"{kp_max:.4e}{unit} mean {kp_mean:.4e}{unit}; {ref} vs fp32 path max "
                 f"{bf_max:.4e}{unit} mean {bf_mean:.4e}{unit} (max ratio {kp_max / bf_max:.3f}, "
                 f"bound {BF16_E2E_MAX}; |fp32| ≤ {c.abs().max().item() * scale:.4f}{unit})")
             if not (kp_mean < bf_mean and kp_max <= BF16_E2E_MAX * bf_max):
@@ -1798,14 +1829,15 @@ def run_cli_training(data_root: str, out: str, card_name: str) -> str:
     log_writes("cli stage 1", ae_writes)
     log_writes("cli stage 2", diff_writes)
     log_writes("cli stage 2 resumed", resume_writes)
-    return diff_dir
+    return ae_dir, diff_dir
 
 
 def run_cli(data_root: str, out: str, card_name: str, expected_bf16: dict,
-            eval_preds_s: float) -> None:
+            eval_preds_s: float) -> str:
     """Both training CLIs (stage 2 resumed), the eval CLI held against
-    compute_metrics and its results YAML, and InferenceSession."""
-    diff_dir = run_cli_training(data_root, out, card_name)
+    compute_metrics and its results YAML, and InferenceSession.  Returns the
+    stage-1 experiment folder."""
+    ae_dir, diff_dir = run_cli_training(data_root, out, card_name)
 
     eval_args = [f"dataset_main_path={data_root}", "dataset=amass", f"checkpoint_path={diff_dir}",
                  "stats_mode=probabilistic", f"batch_size={BATCH}"]
@@ -1863,6 +1895,321 @@ def run_cli(data_root: str, out: str, card_name: str, expected_bf16: dict,
                              f"max |Δ| from its predictor {err}")
     log(f"cli InferenceSession on {card_name}: built in {session_ms / 1e3:.2f} s; predict on one "
         f"observation {got.shape}, max |Δ| from the predictor's own output {err:.3e}")
+    return ae_dir
+
+
+# ---- the variants phase ---------------------------------------------------------------
+
+# The diffusion variants at the flagship's width: the isotropic process
+# (configs/config_train_diffusion/model/isotropic_diffusion.yaml's process and
+# loss), DDIM at DDIM_STEPS of its 10 steps, and the nonisotropic process with
+# pred_noise, each on the fp32 and bf16 paths.  The fp32 predictor against its
+# plain path (the plain denoiser, the q_posterior step of the JAX engine's
+# form, the plain decode) within E2E_TOL; the bf16 kernel path against its
+# plain versions within BF16_E2E_MAX × the plain versions' fp32 deviation
+# (``hold_bf16``); for pred_noise also each step's denoiser output against
+# its plain version on the same inputs, held the same way
+# (``denoiser_steps_held``): the sampler's later arithmetic (it divides by
+# √ᾱ_t, then clips) can magnify a small output deviation into a large latent
+# one.
+# The module variants (tanh, no conditioning, self-conditioning, no attention)
+# on the card against the same module on the CPU, fp32, on VARIANT_CUT
+# observations × 50 samples: |Δ| ≤ VARIANT_TOL·max(1, |CPU|).
+ISOTROPIC = {"diffusion_type": "IsotropicGaussianDiffusion", "diffusion_loss_type": "l1"}
+DDIM_STEPS = 5
+VARIANT_CUT = 4
+VARIANT_TOL = 1e-4
+MODULE_VARIANTS = {
+    "tanh": {"diffusion_activation": "tanh"},
+    "unconditioned": {"diffusion_conditioning": False},
+    "self-conditioned": {"diffusion_arch": {**ARCH, "self_condition": True}},
+    "attention-free": {"diffusion_arch": {**ARCH, "use_attention": False}},
+}
+
+
+def fused_launches(steps: int, x0_entry: str) -> dict:
+    """A bf16 prediction's launches with the single-stage kernel chain over
+    ``steps`` denoiser calls, K2's ``x0_entry`` after each (none for DDIM)
+    and K1."""
+    out = {"gru_rollout": 1, "graph_linear_fused": steps, "resnet_block": 8 * steps,
+           "rms_qkv": 7 * steps, "attention_core": 7 * steps, "outproj_res": 7 * steps,
+           "final_block_in": steps, "final_block_out": steps}
+    if x0_entry:
+        out[x0_entry] = steps
+    return out
+
+
+def variant_run(skeleton, predictor, obs, start, steps, plain: bool):
+    """(metric-space prediction, latents) with injected sampler noise;
+    ``plain`` replaces every kernel wrapper by its plain version and, on the
+    fp32 path, takes the plain path: the posterior step as ``q_posterior`` +
+    ``combine_mean_var_noise`` and the plain decode."""
+    engine = predictor.diffusion
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_kernels())
+            if engine.fused is None:
+                step = lambda x0, img, eps, t: posterior_update_plain(  # noqa: E731
+                    engine.process, x0, img, eps, t)
+                stack.enter_context(mock.patch.object(engine, "posterior_step", step))
+                stack.enter_context(mock.patch.object(predictor, "use_fused_decode", False))
+        pred, latents = predictor(None, obs, start_noise=start, step_noise=steps)
+    return skeleton.transform_to_metric_space(pred), latents
+
+
+@contextlib.contextmanager
+def denoiser_steps_held(label: str, p16, p32):
+    """Inside the block, each step's denoiser output of the bf16 kernel
+    path (the noise prediction for pred_noise) is held against its plain
+    versions on the same inputs, beside the plain versions' deviation from
+    the fp32 denoiser on them: the mean below it, the max within
+    BF16_E2E_MAX × its max."""
+    e16, e32 = p16.diffusion, p32.diffusion
+    model_output, embed = e16.model_output, e16.embed_condition
+    u32, worst = [], []
+
+    def embedding(x_cond):
+        u32.append(e32.embed_condition(x_cond.float()))
+        return embed(x_cond)
+
+    def recording(img, t, u_cond, fused=True):
+        out = model_output(img, t, u_cond, fused)
+        with plain_kernels():
+            plain = model_output(img, t, u_cond, fused).float()
+        ref = e32.model_output(img.float(), t, u32[0])
+        kp, bf = (out.float() - plain).abs(), (plain - ref).abs()
+        row = (t, kp.max().item(), kp.mean().item(), bf.max().item(), bf.mean().item())
+        if not (row[2] < row[4] and row[1] <= BF16_E2E_MAX * row[3]):
+            raise AssertionError(f"{label}: denoiser output at t={t}: kernels vs plain max "
+                                 f"{row[1]}, mean {row[2]}, against the plain path's fp32 "
+                                 f"deviation (max {row[3]}, mean {row[4]})")
+        worst.append(row)
+        return out
+
+    with mock.patch.object(e16, "model_output", recording), \
+            mock.patch.object(e16, "embed_condition", embedding):
+        yield
+    t, kp_max, kp_mean, bf_max, bf_mean = max(worst, key=lambda r: r[1] / r[3])
+    log(f"{label} bf16 path, denoiser output at each of {len(worst)} steps on the kernel "
+        f"path's inputs: kernels vs plain against plain vs fp32; largest max ratio at t={t}: "
+        f"max {kp_max:.4e} mean {kp_mean:.4e} against max {bf_max:.4e} mean {bf_mean:.4e} "
+        f"(max ratio {kp_max / bf_max:.3f}, bound {BF16_E2E_MAX})")
+
+
+def variant_noise(skeleton, predictor, gen: torch.Generator, rows: int):
+    """Start noise [rows, N, D] and step noise for the predictor's sampler."""
+    engine = predictor.diffusion
+    steps = engine.sampling_timesteps if engine.is_ddim_sampling else engine.num_timesteps
+    n = skeleton.num_nodes
+    return (torch.randn((rows, n, LATENT), generator=gen, device="cuda"),
+            torch.randn((rows, steps - 1, n, LATENT), generator=gen, device="cuda"))
+
+
+def check_variant(label: str, skeleton, p32, p16, obs, gen, card_name: str,
+                  expected32: dict, expected16: dict) -> dict:
+    """A sampler variant on both paths: preds/s and launches (``run_main_path``),
+    the fp32 predictor against its plain path, the bf16 kernel path against
+    its plain versions (end to end; pred_noise a step at a time too).
+    Returns the launches of one prediction per path."""
+    launches = {"fp32": run_main_path(skeleton, p32, obs, card_name, expected32,
+                                      f"{label} fp32"),
+                "bf16": run_main_path(skeleton, p16, obs, card_name, expected16,
+                                      f"{label} bf16")}
+    start, steps = variant_noise(skeleton, p32, gen, BATCH * SAMPLES)
+    runs = {"fp32": variant_run(skeleton, p32, obs, start, steps, plain=False),
+            "fp32 plain": variant_run(skeleton, p32, obs, start, steps, plain=True)}
+    # without K2 (DDIM) the fp32 sampler runs the same code on both paths:
+    # its latents agree by construction and only the decode is held
+    ddim = p32.diffusion.is_ddim_sampling
+    same = "; the sampler runs no kernel: 0 by construction" if ddim else ""
+    for i, what in ((1, "latents"), (0, "prediction, metric space")):
+        got, want = runs["fp32"][i], runs["fp32 plain"][i]
+        err = (got - want).abs().max().item()
+        log(f"{label} fp32 with injected noise vs its plain path: {what}: max_abs_err "
+            f"{err:.3e} (tol {E2E_TOL:.0e}, |plain| ≤ {want.abs().max().item():.3f}"
+            f"{same if i else ''})")
+        if not err <= E2E_TOL:
+            raise AssertionError(f"{label}: fp32 path disagrees with its plain path in the "
+                                 f"{what}: {err}")
+    # where x̂₀ is derived from the output (pred_noise divides by √ᾱ_t, then
+    # clips), the output is held a step at a time as well
+    x0_out = p16.diffusion.objective == "pred_x0"
+    with contextlib.nullcontext() if x0_out else denoiser_steps_held(label, p16, p32):
+        runs["kernels"] = variant_run(skeleton, p16, obs, start, steps, plain=False)
+    runs["plain"] = variant_run(skeleton, p16, obs, start, steps, plain=True)
+    torch.cuda.synchronize()
+    hold_bf16(f"{label} bf16 path", runs, [("kernels", "plain")], states="latents",
+              deviation_of="plain")
+    log(f"{label}: denoiser path fp32 {'kernel chain' if p32.use_fused_denoiser else 'plain'}, "
+        f"bf16 {'kernel chain' if p16.use_fused_denoiser else 'plain'}")
+    return launches
+
+
+def check_module_variant(label: str, variant: dict, obs, gen, card_name: str) -> None:
+    """A module variant: the fp32 predictor on the card against the same
+    model on the CPU on a cut batch; one full-width prediction with injected
+    noise on each path, timed, with the path it took."""
+    t = time.perf_counter()
+    skeleton, p32 = build_model(torch.device("cuda"), **variant)
+    _, cpu = build_model(torch.device("cpu"), **variant)
+    seconds = {"builds": time.perf_counter() - t}
+    rows = VARIANT_CUT * SAMPLES
+    start, steps = variant_noise(skeleton, p32, gen, rows)
+    with torch.no_grad():
+        card_pred, _ = p32(None, obs[:VARIANT_CUT], start_noise=start, step_noise=steps)
+        t = time.perf_counter()
+        cpu_pred, _ = cpu(None, obs[:VARIANT_CUT].cpu(), start_noise=start.cpu(),
+                          step_noise=steps.cpu())
+        seconds["CPU run"] = time.perf_counter() - t
+    card_m = skeleton.transform_to_metric_space(card_pred).cpu()
+    cpu_m = skeleton.transform_to_metric_space(cpu_pred)
+    err = (card_m - cpu_m).abs().max().item()
+    tol = VARIANT_TOL * max(1.0, cpu_m.abs().max().item())
+    if not (bool(torch.isfinite(card_m).all()) and err <= tol):
+        raise AssertionError(f"{label}: card vs CPU max |Δ| {err} (tol {tol})")
+    parts = []
+    for dtype in (None, torch.bfloat16):
+        t = time.perf_counter()
+        _, pred = (skeleton, p32) if dtype is None else build_model(torch.device("cuda"), dtype,
+                                                                    **variant)
+        seconds["builds"] += time.perf_counter() - t
+        start, steps = variant_noise(skeleton, pred, gen, BATCH * SAMPLES)
+        pred(None, obs, start_noise=start, step_noise=steps)  # warm-up
+        reset_counts()
+        (out, _), ms = timed(lambda: pred(None, obs, start_noise=start, step_noise=steps))
+        counts = {k: v for k, v in read_counts().items() if v}
+        # the JAX predictor's conditions: of these, only tanh keeps the chain in bf16
+        chain = dtype is not None and label == "tanh"
+        if pred.use_fused_denoiser != chain or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: kernel chain {pred.use_fused_denoiser} (want "
+                                 f"{chain}) or prediction not finite")
+        path = "kernel chain" if chain else "plain denoiser"
+        parts.append(f"{'bf16' if dtype else 'fp32'} ({path}) {BATCH / ms * 1e3:.2f} preds/s, "
+                     f"launches {counts}")
+    log(f"{label} on {card_name}: card vs CPU on {VARIANT_CUT} × {SAMPLES} max |Δ| {err:.3e} "
+        f"(tol {tol:.1e}); one injected-noise prediction of {BATCH} × {SAMPLES}: "
+        + "; ".join(parts) + "; seconds " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+
+
+def check_plain_decode(skeleton, predictor, obs, gen, card_name: str) -> None:
+    """``use_fused_decode=False``: the plain decode in fp32 against K1 at
+    12 800 rows (≤ K1_TOL); the predictor on it, timed; in bf16 (the
+    Decoder's compute_dtype) on the decode check's model and inputs, its
+    metric-space deviation from the fp32 decode beside B8's."""
+    ae = predictor.autoencoder
+    rows, n = BATCH * SAMPLES, skeleton.num_nodes
+    x = 0.3 * torch.randn((rows, 2, n, 3), generator=gen, device="cuda")
+    z = torch.tanh(torch.randn((rows, n, LATENT), generator=gen, device="cuda"))
+    with torch.no_grad():
+        k1, k1_ms = timed(lambda: ae.decode(x, z, PRED_LEN))
+        plain, plain_ms = timed(lambda: ae.decode_plain(x, z, PRED_LEN))
+    err = (k1 - plain).abs().max().item()
+    if not err <= K1_TOL:
+        raise AssertionError(f"plain decode vs K1: {err}")
+    p_plain = SkeletonDiffusionPredictor(skeleton, ae, predictor.diffusion, num_samples=SAMPLES,
+                                         pred_length=PRED_LEN, use_fused_decode=False,
+                                         device=predictor.device)
+    launches = run_main_path(skeleton, p_plain, obs, card_name, {"posterior_step": TIMESTEPS},
+                             "main path fp32, plain decode")
+    sk, dec32, x_last2, zc = decode_check.setup()
+    dec16 = Decoder(sk.num_nodes, 3, decode_check.LAT, decode_check.HIDDEN, 3, torch.Generator(),
+                    node_types=sk.nodes_type_id, compute_dtype=torch.bfloat16)
+    dec16.load_state_dict(dec32.state_dict())
+    dec16.cuda()
+    with torch.no_grad():
+        fp32 = decode_check.decode(dec32, x_last2, zc, decode_check.PH)
+        plain16 = dec16.forward_plain(x_last2, zc, decode_check.PH)
+    d_plain = decode_check.deviation_mm(sk, fp32, plain16)
+    d_b8 = decode_check.decode_deviation(sk, dec32, x_last2, zc, decode_check.PH)
+    log(f"plain decode (use_fused_decode=False) on {card_name}: fp32 vs K1 at {rows} rows max "
+        f"{err:.3e} (tol {K1_TOL:.0e}); {plain_ms:.1f} ms against K1's {k1_ms:.1f} ms; "
+        f"launches { {k: v for k, v in launches.items() if v} }; bf16 plain decode "
+        f"vs the fp32 decode (the decode check's model and inputs, {x_last2.shape[0]} rows) mean "
+        f"{d_plain.mean().item():.4f} mm max {d_plain.max().item():.4f} mm, B8 vs K1 mean "
+        f"{d_b8.mean().item():.4f} mm max {d_b8.max().item():.4f} mm")
+    if not bool(torch.isfinite(d_plain).all()):
+        raise AssertionError("bf16 plain decode not finite")
+
+
+def run_cli_isotropic(data_root: str, out: str, ae_dir: str, card_name: str,
+                      expected_bf16: dict) -> None:
+    """``cli.train_diffusion model=isotropic_diffusion`` on the cli phase's
+    stage-1 experiment, then the eval CLI on it held against compute_metrics
+    on its prepare_model (CLI_EVAL_TOL)."""
+    args = [f"dataset_main_path={data_root}", *CLI_DATA, *CLI_TRAIN, "model=isotropic_diffusion",
+            f"output_log_path={out}/isotropic",
+            f"model.pretrained_autoencoder_path={ae_dir}/checkpoints",
+            f"model.num_epochs={CLI_EPOCHS}"]
+    exp, train_ms = run_main(train_diff_cli.main, "config_train_diffusion", args)
+    check_experiment("cli isotropic stage 2", exp, CLI_EPOCHS)
+    cfg = yaml_lite.read(os.path.join(exp, "config.yaml"))
+    if (cfg["diffusion_type"], cfg["diffusion_loss_type"], cfg["latent_size"]) != (
+            "IsotropicGaussianDiffusion", "l1", LATENT):
+        raise AssertionError(f"cli isotropic config: {cfg['diffusion_type']}")
+    eval_args = [f"dataset_main_path={data_root}", "dataset=amass", f"checkpoint_path={exp}",
+                 "stats_mode=probabilistic", f"batch_size={BATCH}"]
+    reset_counts()
+    results, eval_ms = run_main(eval_cli.main, "config_eval", eval_args)
+    counts = read_counts()
+    batches = -(-EVAL_SEGMENTS // BATCH)
+    check_counts("cli isotropic eval", counts, {k: v * batches for k, v in expected_bf16.items()})
+    ecfg = eval_cli.merge_experiment_cfg(flatten_config(load_config(
+        os.path.join("configs", "config_eval"), eval_args)))
+    skeleton = build_skeleton(ecfg)
+    predictor = eval_cli.prepare_model(ecfg, skeleton, torch.device("cuda"))
+    dataset = build_dataset(ecfg, skeleton, "test", "data_loader_test", if_compute_cmd=True)
+    direct = compute_metrics(
+        predictor, dataset, skeleton, batch_size=BATCH, num_samples=SAMPLES,
+        stats_mode="probabilistic", seed=0, if_compute_cmd=True, if_compute_apde=True,
+        mmapd_gt_path=os.path.join(ecfg["annotations_folder"], "mmapd_GT.csv"))
+    hold_metrics("cli isotropic eval vs compute_metrics", results, direct,
+                 lambda w: CLI_EVAL_TOL * max(1.0, abs(w)))
+    log(f"cli isotropic on {card_name}: cli.train_diffusion model=isotropic_diffusion "
+        f"(compute_dtype {cfg.get('compute_dtype')}, k {cfg['train_pick_best_sample_among_k']}) "
+        f"{CLI_EPOCHS} epochs × {CLI_ITERS} iterations in {train_ms / 1e3:.2f} s "
+        f"(between epoch records {epoch_seconds(exp)} s, validation {validation_seconds(exp)} s); "
+        f"cli.eval (bf16 kernel chain on the isotropic tables) {eval_ms / 1e3:.3f} s "
+        f"({len(dataset) / eval_ms * 1e3:.2f} preds/s); ADE {results['ADE']:.4f}, APD "
+        f"{results['APD']:.4f}; launches a batch "
+        f"{ {k: v // batches for k, v in counts.items() if v} }")
+
+
+def run_variants(skeleton, predictor, obs, gen, card_name: str, data_root: str, out: str,
+                 ae_dir: str, expected_bf16: dict) -> dict:
+    """The variants phase (``predictor``: the flagship's fp32 one); returns
+    the launches of one prediction of each sampler variant on each path."""
+    cuda = torch.device("cuda")
+    k2_32, k2_16 = {"gru_rollout": 1, "posterior_step": TIMESTEPS}, "posterior_step_x0_bf16"
+    launches = {}
+    t = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t
+        log(f"[variants part] {name}: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+
+    for label, variant, exp32, exp16 in (
+            ("isotropic", ISOTROPIC, k2_32, fused_launches(TIMESTEPS, k2_16)),
+            (f"ddim{DDIM_STEPS}", {**ISOTROPIC, "sampling_timesteps": DDIM_STEPS},
+             {"gru_rollout": 1}, fused_launches(DDIM_STEPS, "")),
+            ("pred_noise", {"diffusion_objective": "pred_noise"}, k2_32,
+             fused_launches(TIMESTEPS, "posterior_step"))):
+        _, p32 = build_model(cuda, **variant)
+        _, p16 = build_model(cuda, torch.bfloat16, **variant)
+        part(f"{label} builds")
+        for path, counts in check_variant(label, skeleton, p32, p16, obs, gen, card_name,
+                                          exp32, exp16).items():
+            launches[f"{label}_{path}"] = counts
+        part(f"{label} checks")
+        del p32, p16
+    for label, variant in MODULE_VARIANTS.items():
+        check_module_variant(label, variant, obs, gen, card_name)
+        part(label)
+    check_plain_decode(skeleton, predictor, obs, gen, card_name)
+    part("plain decode")
+    run_cli_isotropic(data_root, out, ae_dir, card_name, expected_bf16)
+    part("cli isotropic")
+    return launches
 
 
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
@@ -1988,8 +2335,16 @@ def main() -> int:
         phase("train", t)
 
         t = time.perf_counter()
-        run_cli(data_root, os.path.join(root, "cli"), card_name, expected_bf16, eval_preds_s)
+        ae_dir = run_cli(data_root, os.path.join(root, "cli"), card_name, expected_bf16,
+                         eval_preds_s)
         phase("cli", t)
+
+        t = time.perf_counter()
+        launches = run_variants(skeleton, predictor, obs, gen, card_name, data_root,
+                                os.path.join(root, "cli"), ae_dir, expected_bf16)
+        for k in kernels:
+            k["variant_launches"] = {v: c[k["name"]] for v, c in launches.items()}
+        phase("variants", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -71,7 +71,7 @@ def stage1_parts(tr, batch) -> dict:
     clock = Clock()
     z = tr.model.encode(y)
     clock.mark("encode future")
-    pred = tr.model.decode_with_grad(x, z, cs.PRED_LEN)
+    pred = tr.model.decode_plain(x, z, cs.PRED_LEN)
     clock.mark("decode (differentiable)")
     loss = autoencoder_loss(pred, y, loss_type=tr.loss_pose_type)
     clock.mark("loss")

@@ -119,7 +119,7 @@ def build_autoencoder(cfg: Dict[str, Any], skeleton, generator: torch.Generator)
             or cfg.get("z_activation", "tanh") != "tanh"):
         raise NotImplementedError(
             "the port's AutoEncoder is the one-layer StaticGraphGRU pair with a tanh latent "
-            f"(ROADMAP Queue A item 4, diffusion and model variants); got {cfg['autoenc_arch']}")
+            f"(ROADMAP Queue A item 4b, the model variants); got {cfg['autoenc_arch']}")
     return AutoEncoder(
         skeleton.num_nodes,
         generator=generator,

@@ -55,8 +55,11 @@ def merge_experiment_cfg(cfg: Dict) -> Dict:
 def prepare_model(cfg: Dict, skeleton, device: torch.device) -> SkeletonDiffusionPredictor:
     """The predictor of the experiment's best checkpoint (the EMA weights
     when ``if_use_ema``); reference `src/eval_prepare_model.py:54-85`.
-    ``cfg`` holds the stored experiment config (``merge_experiment_cfg``).
-    A bf16 ``compute_dtype`` gives the fused kernel chain."""
+    ``cfg`` holds the stored experiment config (``merge_experiment_cfg``):
+    every key of ``DIFFUSION_CFG_KEYS`` (the process, the objective, DDIM's
+    ``sampling_timesteps``, ``diffusion_conditioning``) passes through, as in
+    the JAX CLI (`cli/eval.py:62-88`).  A bf16 ``compute_dtype`` gives the
+    fused kernel chain where the denoiser allows it."""
     autoencoder = load_frozen_autoencoder(cfg, skeleton, device)
     diffusion, denoiser = create_diffusion(skeleton, torch.Generator().manual_seed(0),
                                            latent_size=cfg["latent_size"], device=device,
@@ -74,9 +77,9 @@ def prepare_model(cfg: Dict, skeleton, device: torch.device) -> SkeletonDiffusio
         weights = ckpt.restore_partial({"denoiser": None}, ckpt.best_path(),
                                        map_location=device)["denoiser"]
     denoiser.load_state_dict(weights)
-    return SkeletonDiffusionPredictor(skeleton, autoencoder, diffusion,
-                                      num_samples=cfg.get("num_samples", 50),
-                                      pred_length=cfg["pred_length"], device=device)
+    return SkeletonDiffusionPredictor(
+        skeleton, autoencoder, diffusion, num_samples=cfg.get("num_samples", 50),
+        pred_length=cfg["pred_length"], device=device)
 
 
 def fid_classifier(cfg: Dict, split: str) -> Optional[ClassifierForFID]:

@@ -1,4 +1,5 @@
-"""Stage-2 CLI: train the nonisotropic latent diffusion on a frozen stage-1
+"""Stage-2 CLI: train the latent diffusion (``model=skeleton_diffusion``, the
+nonisotropic process, or ``model=isotropic_diffusion``) on a frozen stage-1
 AutoEncoder.
 
     python -m skeletondiffusion_tpu_torch.cli.train_diffusion model.pretrained_autoencoder_path=<ae exp>/checkpoints ...

@@ -5,11 +5,11 @@ Port of ``skeletondiffusion_tpu/eval_pipeline.py`` (reference `eval.py:28-120`,
 `src/eval_prepare_model.py:89-134`, `src/eval_utils.py:44-99`):
 
 - ``SkeletonDiffusionPredictor`` (`:29-180`): past embedding (graph-GRU
-  encoder) → S-fold fan-out → nonisotropic ancestral sampling
-  (posterior-step kernel) → graph-GRU decode rollout (rollout kernel).  With
-  a bf16 denoiser the sampler takes the fused branch: the denoiser runs as
-  its chain of kernels (``ops/kernels/denoiser_fused.py``) on operands
-  prepared once here;
+  encoder) → S-fold fan-out → the engine's sampler (ancestral on the
+  posterior-step kernel, or DDIM) → graph-GRU decode rollout (rollout
+  kernel, or the plain decode).  With a bf16 denoiser that the kernel chain
+  takes, the sampler runs the denoiser as its chain of kernels
+  (``ops/kernels/denoiser_fused.py``) on operands prepared once here;
 - ``ZeroVelocityPredictor`` (`:193`), the algorithmic baseline;
 - ``process_evaluation_pair`` (`:212`) and the two long-term helpers
   (`:223`, `:281`);
@@ -36,22 +36,32 @@ from .ops.kernels.denoiser_fused import prep_fused_denoiser
 class SkeletonDiffusionPredictor:
     """The trained model pair (AE + diffusion) as a prediction function.
 
-    With a denoiser whose ``compute_dtype`` is bfloat16 the sampler runs the
-    fused kernel chain, under the JAX predictor's conditions
+    The sampler runs the fused kernel chain when the denoiser's
+    ``compute_dtype`` is bfloat16 and the JAX predictor's conditions hold
     (`eval_pipeline.py:72-87`: attention, no self-conditioning, the
-    nonisotropic pred_x0 process with clipping — all the port builds) minus
-    the TPU's shape limits; its weight operands are prepared once, at
-    construction (re-preparing per call cost the JAX package 42 ms).  The
-    decode stays the float32 rollout kernel.
+    conditioning hoisted), minus the TPU's shape limits; its weight operands
+    are prepared once, at construction (re-preparing per call cost the JAX
+    package 42 ms).  The chain serves every sampler of the engine (any
+    process, objective and activation, DDIM), as the JAX predictor rebinds
+    its denoiser for any process (`eval_pipeline.py:94-108`).
+    ``use_fused_denoiser`` says whether it was prepared; otherwise the plain
+    denoiser runs, in its dtype.
 
-    Otherwise this is the float32 path.  On the GPU its products must run in
-    full fp32: set ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    Whether the sampler is conditioned on the past embedding is the
+    engine's (``diffusion.condition``; the JAX predictor's
+    ``diffusion_conditioning``, `eval_pipeline.py:43,154-157`): without it
+    the sampler draws one latent per sample.  ``use_fused_decode`` (`:44,54-66,164-177`): None or
+    True decodes on the float32 rollout kernel; False runs the plain decode
+    in the Decoder's compute dtype (``AutoEncoder.decode_plain``).
+
+    On the GPU the float32 products must run in full fp32: set
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False`` (PyTorch's defaults for
     matmuls, not for cuDNN) — TF32 keeps about three decimal digits.
 
     ``device`` (default ``"cuda"``) is where the modules are moved and the
     prediction runs; asking for CUDA without a GPU raises.  On the CPU the
-    two kernels run their plain PyTorch versions.
+    kernels run their plain PyTorch versions.
     """
 
     def __init__(
@@ -61,14 +71,20 @@ class SkeletonDiffusionPredictor:
         diffusion: GaussianDiffusion,
         num_samples: int = 50,
         pred_length: int = 100,
+        use_fused_decode: Optional[bool] = None,
         device: DeviceLike = "cuda",
     ):
         self.device = resolve_device(device)
         self.skeleton = skeleton
         self.autoencoder = autoencoder.to(self.device).eval()
         self.diffusion = diffusion.to(self.device)
-        if diffusion.denoiser.compute_dtype == torch.bfloat16:
-            self.diffusion.fused = prep_fused_denoiser(diffusion.denoiser)
+        den = diffusion.denoiser
+        self.use_fused_denoiser = (den.compute_dtype == torch.bfloat16 and den.use_attention
+                                   and not den.self_condition and diffusion.condition)
+        if self.use_fused_denoiser:
+            self.diffusion.fused = prep_fused_denoiser(den)
+        self.diffusion_conditioning = diffusion.condition
+        self.use_fused_decode = use_fused_decode is not False
         self.num_samples = num_samples
         self.pred_length = pred_length
 
@@ -87,16 +103,19 @@ class SkeletonDiffusionPredictor:
 
         ``generator`` draws the sampler noise (a ``torch.Generator`` on the
         predictor's device); ``start_noise`` [B·S,N,D] and ``step_noise``
-        [B·S,T-1,N,D] inject it instead, as the JAX predictor's ``_predict``
-        takes them.
+        [B·S,T-1,N,D] (DDIM: [B·S,S'-1,N,D] for S' sampling steps) inject it
+        instead, as the JAX predictor's ``_predict`` takes them.
         """
         S = num_samples or self.num_samples
         ph = pred_length or self.pred_length
         obs = obs.to(self.device)
         B = obs.shape[0]
-        x_cond = self.autoencoder.get_past_embedding(obs).repeat_interleave(S, dim=0)
-        latents, _ = self.diffusion.sample(x_cond, generator, start_noise, step_noise)
-        pred = self.autoencoder.decode(obs[:, -2:].repeat_interleave(S, dim=0), latents, ph)
+        x_cond = (self.autoencoder.get_past_embedding(obs).repeat_interleave(S, dim=0)
+                  if self.diffusion_conditioning else None)
+        latents, _ = self.diffusion.sample(x_cond, generator, start_noise, step_noise,
+                                           batch_size=B * S)
+        decode = self.autoencoder.decode if self.use_fused_decode else self.autoencoder.decode_plain
+        pred = decode(obs[:, -2:].repeat_interleave(S, dim=0), latents, ph)
         pred = pred.reshape(B, S, ph, *pred.shape[2:])
         return pred, latents.reshape(B, S, *latents.shape[1:])
 

@@ -8,18 +8,21 @@ frames; the decoder hoists its constant input gates and runs the whole
 rollout (hidden state, evolving influence G ← l1norm(G + ΔG), output head) in
 one call of the rollout kernel wrapper (``ops/kernels/gru_rollout.py``).
 Submodule and parameter names are the flax ones.  ``compute_dtype`` runs the
-encoder's graph-GRU cell in that dtype (its products, mixes and gates; the
-hidden state stays float32), as the flax encoder does; the decode stays the
-float32 rollout kernel, which is what the JAX package runs on its prediction
-path whatever the AutoEncoder's dtype (`eval_pipeline.py:164-170`).  The
-decode's hoisting lives in ``ops/kernels/gru_rollout.decode_rollout``, which
-also runs the opt-in merged-gate bf16 rollout.
+encoder's graph-GRU cell and the decoder's cell and output head in that dtype
+(their products, mixes and gates; the hidden states and the decoder's initial
+hidden state stay float32), as the flax modules do.  The decode
+(``Decoder.forward``) stays the float32 rollout kernel whatever the dtype,
+which is what the JAX package runs on its prediction path
+(`eval_pipeline.py:164-170`); its hoisting lives in
+``ops/kernels/gru_rollout.decode_rollout``, which also runs the opt-in
+merged-gate bf16 rollout.  The plain decode (``Decoder.forward_plain``,
+``AutoEncoder.decode_plain``) is the step loop in the compute dtype, the flax
+``Decoder``'s ``nn.scan`` (`autoencoder.py:124-192`).
 
-The rollout kernel has no backward.  Training decodes with
-``Decoder.forward_with_grad`` (``AutoEncoder.decode_with_grad``): the same
-hoisting, then the plain step loop under autograd, which is what the JAX
-package differentiates (the flax ``nn.scan``); the kernel's wrapper refuses
-inputs that require gradients.  The training methods (``encode`` with the
+The rollout kernel has no backward.  Training decodes with the plain decode
+under autograd (``AutoEncoder.decode_plain``), which is what the JAX
+package differentiates; the kernel's wrapper refuses inputs that require
+gradients.  The training methods (``encode`` with the
 curriculum's ``last_index``, ``get_train_embeddings``, ``autoencode``,
 ``autoencoder_loss``) are those of `autoencoder.py:238-283` there.
 """
@@ -32,7 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.graph_gru import StaticGraphGRU, StaticGraphGRUCell
-from ..ops.graph_linear import StaticGraphLinear
+from ..ops.graph_linear import StaticGraphLinear, l1_normalize_rows
 from ..ops.kernels import gru_rollout as rollout_kernel
 
 
@@ -64,12 +67,14 @@ class _RolloutStep(nn.Module):
     tanh(graph-linear) output head."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int, num_nodes: int,
-                 generator: torch.Generator, node_types: Optional[np.ndarray] = None):
+                 generator: torch.Generator, node_types: Optional[np.ndarray] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cell = StaticGraphGRUCell(input_size, hidden_size, num_nodes, generator, node_types,
-                                       learn_additive_graph_influence=True)
+                                       learn_additive_graph_influence=True,
+                                       compute_dtype=compute_dtype)
         self.fc = StaticGraphLinear(hidden_size, output_size, num_nodes, generator, node_types,
-                                    learn_influence=True)
+                                    learn_influence=True, compute_dtype=compute_dtype)
 
 
 class Decoder(nn.Module):
@@ -78,25 +83,37 @@ class Decoder(nn.Module):
 
     def __init__(self, num_nodes: int, feature_size: int, input_size: int, hidden_size: int,
                  output_size: int, generator: torch.Generator,
-                 node_types: Optional[np.ndarray] = None):
+                 node_types: Optional[np.ndarray] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         in_size = feature_size + input_size
         self.initial_hidden_h = StaticGraphLinear(in_size, hidden_size, num_nodes, generator,
                                                   node_types, learn_influence=True)
         self.G0 = nn.Parameter(torch.eye(num_nodes))
         self.rollout = _RolloutStep(in_size, hidden_size, output_size, num_nodes, generator,
-                                    node_types)
+                                    node_types, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
         """x [B,≥2,N,3] observed poses, z [B,N,latent] → [B,ph,N,3], on the
-        rollout kernel (no backward)."""
+        float32 rollout kernel (no backward)."""
         return rollout_kernel.decode_rollout(self, x[:, -2:], z, ph)
 
-    def forward_with_grad(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
-        """The same decode as the plain step loop, differentiable."""
-        ys = rollout_kernel.gru_rollout_plain(**rollout_kernel.rollout_args(self, x[:, -2:], z),
-                                              ph=ph)  # [ph,N,B,3]
-        return ys.permute(2, 0, 1, 3)
+    def forward_plain(self, x: torch.Tensor, z: torch.Tensor, ph: int) -> torch.Tensor:
+        """The same decode as the plain step loop in the compute dtype,
+        differentiable: h₀ = initial_hidden_h([x_{T-2}, z]) in float32, the
+        constant input gates of [x_{T-1}, z] hoisted, then per step the cell
+        (h float32, G ← l1norm(G + ΔG) float32) and y = tanh(fc(h)) widened
+        to float32."""
+        x_t, x_t_1, z_nm = x[:, -1].transpose(0, 1), x[:, -2].transpose(0, 1), z.transpose(0, 1)
+        h = self.initial_hidden_h(torch.cat([x_t_1, z_nm], dim=-1))
+        cell, fc = self.rollout.cell, self.rollout.fc
+        cx = cell.input_gates(torch.cat([x_t, z_nm], dim=-1))
+        g = l1_normalize_rows(self.G0)
+        ys = []
+        for _ in range(ph):
+            h, g = cell(cx, h, g)
+            ys.append(torch.tanh(fc(h)).float())
+        return torch.stack(ys).permute(2, 0, 1, 3)
 
 
 class AutoEncoder(nn.Module):
@@ -114,7 +131,7 @@ class AutoEncoder(nn.Module):
         self.encoder = Encoder(num_nodes, input_size, encoder_hidden_size, latent_size,
                                generator, node_types, compute_dtype=compute_dtype)
         self.decoder = Decoder(num_nodes, input_size, latent_size, decoder_hidden_size,
-                               output_size, generator, node_types)
+                               output_size, generator, node_types, compute_dtype=compute_dtype)
 
     def encode(self, x: torch.Tensor, last_index: Optional[int] = None) -> torch.Tensor:
         """The encoder's latent [B,N,latent] (the reference's forward)."""
@@ -135,9 +152,10 @@ class AutoEncoder(nn.Module):
         observed poses of ``x``, on the rollout kernel."""
         return self.decoder(x[:, -2:], h, ph)
 
-    def decode_with_grad(self, x: torch.Tensor, h: torch.Tensor, ph: int) -> torch.Tensor:
-        """``decode`` as the differentiable step loop (training)."""
-        return self.decoder.forward_with_grad(x[:, -2:], h, ph)
+    def decode_plain(self, x: torch.Tensor, h: torch.Tensor, ph: int) -> torch.Tensor:
+        """``decode`` as the plain step loop in the compute dtype
+        (``Decoder.forward_plain``), differentiable."""
+        return self.decoder.forward_plain(x[:, -2:], h, ph)
 
     def autoencode(self, y: torch.Tensor, past: torch.Tensor, ph: int,
                    y_last_index: Optional[int] = None):

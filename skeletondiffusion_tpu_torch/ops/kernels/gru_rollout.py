@@ -255,7 +255,7 @@ def gru_rollout(
     The kernels have no backward, so the wrapper refuses to build a graph on
     either device: with gradients enabled and an input that requires them it
     raises.  A decode that trains runs the step loop under autograd
-    (``models.autoencoder.Decoder.forward_with_grad``)."""
+    (``models.autoencoder.Decoder.forward_plain``)."""
     global launches, launches_bf16
     if compute_dtype not in (None, torch.bfloat16):
         raise TypeError(f"gru_rollout: compute_dtype must be None or bfloat16, got {compute_dtype}")
@@ -266,7 +266,7 @@ def gru_rollout(
         needs = sorted(k for k, t in tensors.items() if t.requires_grad)
         raise RuntimeError(f"gru_rollout has no backward, and {needs} require grad: decode "
                            "under torch.no_grad(), or train through "
-                           "Decoder.forward_with_grad")
+                           "Decoder.forward_plain")
     if build.kernel_device(**tensors) == "cpu":
         plain = gru_rollout_merged_plain if merged else gru_rollout_plain
         return plain(**tensors, ph=ph)
@@ -317,7 +317,9 @@ def rollout_args(decoder, x_last2: torch.Tensor, z: torch.Tensor,
     z_nm = z.transpose(0, 1)
     h0 = decoder.initial_hidden_h(torch.cat([x_t_1, z_nm], dim=-1))
     cell, fc = decoder.rollout.cell, decoder.rollout.fc
-    cx = cell.input_gates(torch.cat([x_t, z_nm], dim=-1))
+    # in float32 whatever the cell's compute dtype: the rollouts take fp32 gates
+    cx = (gmm_nm(torch.cat([x_t, z_nm], dim=-1), cell.weight_ih[cell.type_index])
+          + cell.bias_ih[cell.type_index][:, None, :])
     w_hh, b_hh = cell.hidden_banks()
     w_fc = fc.weight[fc.type_index]
     if compute_dtype == torch.bfloat16:

@@ -11,7 +11,7 @@ Where the JAX trainer decodes the full horizon and masks the loss to the
 first ``ph`` frames (one compiled program for every ``ph``), this one runs
 what the reference runs: the future encoder up to frame ``ph − 1`` and a
 ``ph``-step decode, the differentiable step loop
-(``AutoEncoder.decode_with_grad``; the rollout kernel has no backward), and
+(``AutoEncoder.decode_plain``; the rollout kernel has no backward), and
 the loss on ``y[:, :ph]``.  The values and the gradients are the same (the
 GRU is causal; `tests/test_train_objective_parity.py`).  Validation decodes
 on the rollout kernel.
@@ -85,7 +85,7 @@ class AutoEncoderTrainer:
         ``y[:, :ph]``, decode ``ph`` frames from that latent, L1 (or MSE) on
         ``y[:, :ph]``.  Differentiable."""
         z = self.model.encode(y, last_index=ph - 1)
-        pred = self.model.decode_with_grad(x, z, ph)
+        pred = self.model.decode_plain(x, z, ph)
         return autoencoder_loss(pred, y[:, :ph], loss_type=self.loss_pose_type)
 
     def optimizer_step(self, loss: torch.Tensor) -> torch.Tensor:

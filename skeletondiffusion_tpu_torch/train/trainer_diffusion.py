@@ -1,11 +1,13 @@
-"""Stage-2 trainer: the nonisotropic latent diffusion with the k-best relaxed
-objective.
+"""Stage-2 trainer: the latent diffusion (either process, any objective) with
+the k-best relaxed objective.
 
 Port of ``skeletondiffusion_tpu/train/trainer_diffusion.py`` (reference
 `src/core/trainer.py:106-313`): the frozen AutoEncoder embeds the past and
 the future, the diffusion loss fans every item out to k samples, each
-sample's x̂₀ is compared with the ground truth in the configured space, and
-only the loss of the closest sample is kept.  The comparison runs under
+sample's raw model output is decoded as if it were x̂₀, whatever the
+objective (`trainer_diffusion.py:134-147` there, reference `trainer.py:228-231`),
+and compared with the ground truth in the configured space, and only the loss
+of the closest sample is kept.  The comparison runs under
 ``torch.no_grad()``; in input and metric space it decodes all k samples of
 every item on the rollout kernel (64 × 50 rows at the flagship's batch).
 Adam with coupled weight decay (``torch.optim.Adam(weight_decay=·)``, the
@@ -61,6 +63,8 @@ class TrainerDiffusion:
             raise ValueError(f"similarity_space {similarity_space!r}")
         if similarity_space == "metric_space" and skeleton is None:
             raise ValueError("metric_space similarity needs the skeleton")
+        if not diffusion.condition:  # the JAX trainer asserts it (`trainer_diffusion.py:65`)
+            raise ValueError("stage-2 training requires conditioning")
         self.diffusion = diffusion
         self.denoiser = diffusion.denoiser
         self.autoencoder = autoencoder.requires_grad_(False)  # frozen
@@ -179,9 +183,8 @@ class TrainerDiffusion:
         """The prediction path on the EMA weights (the live ones without
         EMA), prepared now."""
         den = self.denoiser if self.ema is None else self.ema.module
-        engine = GaussianDiffusion(self.diffusion.process, den, channels=self.diffusion.channels,
-                                   latent_size=self.diffusion.seq_length)
-        return SkeletonDiffusionPredictor(self.skeleton, self.autoencoder, engine,
+        return SkeletonDiffusionPredictor(self.skeleton, self.autoencoder,
+                                          self.diffusion.with_denoiser(den),
                                           num_samples=self.num_prob_samples,
                                           pred_length=self.ph_eval, device=self.diffusion.device)
 

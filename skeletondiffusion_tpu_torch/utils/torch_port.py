@@ -49,8 +49,11 @@ def _gru_cell(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def port_denoiser(sd: Dict[str, np.ndarray], depth: int) -> Dict:
-    """A reference ``Denoiser`` state_dict → the port's parameter tree."""
+def port_denoiser(sd: Dict[str, np.ndarray], depth: int, use_attention: bool = True) -> Dict:
+    """A reference ``Denoiser`` state_dict → the port's parameter tree;
+    without ``use_attention`` each attention residual's RMSNorm and graph
+    linear (``layers.i.1.fn.norm``, ``layers.i.1.fn.fn``) go to
+    ``attn{i}_norm`` and ``attn{i}_lin``."""
     p: Dict[str, Dict] = {
         "init_lin": _glin(sd, "init_lin"),
         "time_mlp0": _dense(sd, "time_mlp.1"),
@@ -66,7 +69,9 @@ def port_denoiser(sd: Dict[str, np.ndarray], depth: int) -> Dict:
         if f"layers.{i}.0.res_linear.weight" in sd:
             res["res_linear"] = _glin(sd, f"layers.{i}.0.res_linear")
         p[f"res{i}"] = res
-        if i != n_pairs - 1:
+        if i == n_pairs - 1:
+            continue
+        if use_attention:
             p[f"attn{i}"] = {
                 "norm": {"g": sd[f"layers.{i}.1.fn.norm.g"]},
                 "attn": {
@@ -74,6 +79,9 @@ def port_denoiser(sd: Dict[str, np.ndarray], depth: int) -> Dict:
                     "to_out": _glin(sd, f"layers.{i}.1.fn.fn.to_out"),
                 },
             }
+        else:
+            p[f"attn{i}_norm"] = {"g": sd[f"layers.{i}.1.fn.norm.g"]}
+            p[f"attn{i}_lin"] = _glin(sd, f"layers.{i}.1.fn.fn")
     p["final_res_block"] = {
         "mlp": _dense(sd, "final_res_block.mlp.1"),
         "block1": {"proj": _glin(sd, "final_res_block.block1.proj")},
@@ -105,12 +113,14 @@ def port_autoencoder(sd: Dict[str, np.ndarray]) -> Dict:
 
 def load_reference_denoiser(module: Denoiser, sd: Dict[str, np.ndarray]) -> Denoiser:
     """Load a reference ``Denoiser`` state_dict into ``module`` (its depth
-    read from the module)."""
-    return load_denoiser_params(module, port_denoiser(sd, depth=module.n_pairs // 2))
+    and whether it has attention read from the module)."""
+    return load_denoiser_params(module, port_denoiser(sd, depth=module.n_pairs // 2,
+                                                      use_attention=module.use_attention))
 
 
 def load_reference_autoencoder(module: AutoEncoder, sd: Dict[str, np.ndarray]) -> AutoEncoder:
     """Load a reference ``AutoEncoder`` state_dict into ``module``."""
     if any(k.startswith("encoder.rnn.layers.1.") for k in sd):
-        raise NotImplementedError("the port's encoder has one recurrent layer")
+        raise NotImplementedError(
+            "the port's encoder has one recurrent layer (ROADMAP Queue A item 4b)")
     return load_autoencoder_params(module, port_autoencoder(sd))

@@ -6,7 +6,10 @@ layouts (graph-linear and recurrent banks ``[types, in, out]``, Dense
 for how those relate to the reference's own torch layouts).  So a flax tree,
 given as nested dicts of numpy arrays, flattens with ``.`` into the module's
 ``state_dict``, and it is loaded with ``strict=True``: no parameter is left
-at its init and no array is left unused.
+at its init and no array is left unused.  The variants' parameters carry the
+flax names as well: a self-conditioned denoiser's wider ``init_lin``, an
+attention-free one's ``attn{i}_norm`` and ``attn{i}_lin``, the narrower
+layers of an unconditioned one.
 """
 from __future__ import annotations
 

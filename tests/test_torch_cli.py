@@ -415,7 +415,11 @@ BASE = dict(diffusion_type="NonisotropicGaussianDiffusion", diffusion_conditioni
             diffusion_arch={"depth": 1, "attn_heads": 2, "attn_dim_head": 4,
                             "learn_influence": True})
 REACH = {"covariance_matrix_type": "reachability"}
-# (key, value, extra base keys): honoured with the JAX meaning
+ISO = {"diffusion_type": "IsotropicGaussianDiffusion"}
+SMALL_ARCH = {"depth": 1, "attn_heads": 2, "attn_dim_head": 4, "learn_influence": True}
+# (key, value, extra base keys): honoured with the JAX meaning.  The entries
+# after remat_denoiser were refusals before the port had the diffusion
+# variants (ROADMAP Queue A item 4a).
 HONOURED = [
     ("diffusion_type", "NonisotropicGaussianDiffusion", {}),
     ("covariance_matrix_type", "reachability", {}),
@@ -438,22 +442,41 @@ HONOURED = [
     ("sampling_timesteps", 4, {}),
     ("compute_dtype", "bfloat16", {}),
     ("remat_denoiser", True, {}),
+    ("diffusion_type", "IsotropicGaussianDiffusion", {}),
+    ("diffusion_conditioning", False, {}),
+    ("diffusion_objective", "pred_noise", {}),
+    ("diffusion_activation", "tanh", {}),
+    ("diffusion_arch", {**SMALL_ARCH, "self_condition": True}, {}),
+    ("diffusion_arch", {**SMALL_ARCH, "use_attention": False}, {}),
+    ("sampling_timesteps", 2, ISO),
+    ("ddim_sampling_eta", 1.0, {**ISO, "sampling_timesteps": 2}),
+    ("diffusion_loss_type", "l1", ISO),
+    ("diffusion_objective", "pred_v", ISO),
 ]
 # accepted and without effect, as in the JAX nonisotropic branch
 NO_OPS = [("diffusion_loss_type", "snr"), ("diffusion_loss_type", "l1"),
           ("ddim_sampling_eta", 1.0)]
+# refused, as the JAX package refuses them
 RAISES = [
-    ("diffusion_type", "IsotropicGaussianDiffusion", NotImplementedError),
     ("covariance_matrix_type", "identity", NotImplementedError),
-    ("diffusion_conditioning", False, NotImplementedError),
-    ("diffusion_objective", "pred_noise", NotImplementedError),
-    ("diffusion_activation", "tanh", NotImplementedError),
-    ("diffusion_arch", {"depth": 1, "self_condition": True}, NotImplementedError),
-    ("sampling_timesteps", 2, NotImplementedError),
+    ("sampling_timesteps", 2, NotImplementedError),  # DDIM on the nonisotropic process
     ("sampling_timesteps", 5, ValueError),
     ("sigma_n_scale", "trace", NotImplementedError),
     ("loss_reduction_type", "huber", NotImplementedError),
+    ("diffusion_objective", "pred_v", NotImplementedError),
+    ("diffusion_activation", "relu", ValueError),
+    ("diffusion_type", "LatentDiffusion", NotImplementedError),
+    ("diffusion_arch", {"depth": 1, "norm_type": "layer"}, NotImplementedError),
 ]
+
+
+def honoured_ids():
+    """A key's first case is named by the key, a later one by key=value."""
+    seen, ids = set(), []
+    for key, value, _ in HONOURED:
+        ids.append(key if key not in seen else f"{key}={value}")
+        seen.add(key)
+    return ids
 
 
 def test_create_diffusion_takes_every_cfg_key_by_name():
@@ -473,24 +496,43 @@ def port_build(**kwargs):
                             **{**BASE, **kwargs})
 
 
-def process_fingerprint(process, loss_terms):
-    """The process's step tables and loss weights, and its loss on fixed
-    inputs, as numpy arrays."""
+def fingerprint_inputs():
     rng = np.random.default_rng(5)
-    out, target = (rng.standard_normal((3, 21, 8), dtype=np.float32) for _ in range(2))
-    t = np.array([0, 1, 2])
-    return [np.asarray(process.posterior_step_tables(), dtype=np.float64),
-            np.asarray(process.loss_weight, dtype=np.float64),
-            np.asarray(loss_terms(out, target, t), dtype=np.float64)]
+    return [rng.standard_normal((3, 21, 8), dtype=np.float32) for _ in range(3)]
 
 
 def port_fingerprint(engine):
-    return process_fingerprint(
-        engine.process,
-        lambda o, y, t: engine.process.loss_terms(*map(torch.from_numpy, (o, y, t))).numpy())
+    """One posterior step from each of t = 0, 1, 2 on the engine's step
+    tables (the plain version of the sampler's kernel), the loss weights and
+    the loss on fixed inputs, as numpy arrays."""
+    from skeletondiffusion_tpu_torch.ops.kernels.posterior_step import posterior_step_plain
+
+    x0, xt, noise = (torch.from_numpy(a).transpose(0, 1) for a in fingerprint_inputs())
+    steps = [posterior_step_plain(x0, xt, noise, engine.step_tables[t]).transpose(0, 1)
+             for t in range(3)]
+    out, target, _ = map(torch.from_numpy, fingerprint_inputs())
+    return [np.asarray(torch.stack(steps), dtype=np.float64),
+            np.asarray(engine.process.loss_weight, dtype=np.float64),
+            np.asarray(engine.process.loss_terms(out, target, torch.tensor([0, 1, 2])),
+                       dtype=np.float64)]
 
 
-@pytest.mark.parametrize("key,value,extra", HONOURED, ids=[h[0] for h in HONOURED])
+def jax_fingerprint(process):
+    """``port_fingerprint`` of a JAX process: the step as the JAX engine
+    takes it (clip, q_posterior, combine_mean_var_noise, no noise at t=0)."""
+    x0, xt, noise = map(jnp.asarray, fingerprint_inputs())
+    steps = []
+    for t in range(3):
+        mean, _, log_var = process.q_posterior(jnp.clip(x0, -1, 1), xt, jnp.asarray(t))
+        steps.append(process.combine_mean_var_noise(mean, log_var, noise if t else 0 * noise))
+    out, target, _ = map(jnp.asarray, fingerprint_inputs())
+    return [np.asarray(jnp.stack(steps), dtype=np.float64),
+            np.asarray(process.loss_weight, dtype=np.float64),
+            np.asarray(process.loss_terms(out, target, jnp.asarray([0, 1, 2])),
+                       dtype=np.float64)]
+
+
+@pytest.mark.parametrize("key,value,extra", HONOURED, ids=honoured_ids())
 def test_create_diffusion_honours_key_as_jax(key, value, extra):
     from torch_parity import skeletons
 
@@ -498,22 +540,25 @@ def test_create_diffusion_honours_key_as_jax(key, value, extra):
     engine, den = port_build(**extra, **{key: value})
     jax_kwargs = {**BASE, **extra, key: value}
     jengine, jden = jax_create_diffusion(jsk, **jax_kwargs)
-    want = process_fingerprint(
-        jengine.process,
-        lambda o, y, t: jengine.process.loss_terms(jnp.asarray(o), jnp.asarray(y),
-                                                   jnp.asarray(t)))
-    for got, ref in zip(port_fingerprint(engine), want):
+    for got, ref in zip(port_fingerprint(engine), jax_fingerprint(jengine.process)):
         assert np.isfinite(got).all(), key
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6, err_msg=key)  # float32 sums
     n, latent = jsk.num_nodes, BASE["latent_size"]
+    cond = jnp.zeros((1, n, latent)) if jax_kwargs["diffusion_conditioning"] else None
     jparams = jden.init(jax.random.key(0), jnp.zeros((1, n, latent)), jnp.zeros((1,), jnp.int32),
-                        jnp.zeros((1, n, latent)))
+                        cond)
     assert {k: tuple(v.shape) for k, v in flatten_params(jax.device_get(jparams)).items()} == \
         {k: tuple(v.shape) for k, v in den.state_dict().items()}, key
     assert den.compute_dtype == (torch.bfloat16 if jden.compute_dtype == "bfloat16" else None)
+    assert (den.cond_dim, den.self_condition, den.use_attention) == (
+        jden.cond_dim, jden.self_condition, jden.use_attention)
     assert engine.remat == bool(jax_kwargs.get("remat_denoiser", False))
-    assert engine.num_timesteps == jengine.num_timesteps
-    assert not jengine.is_ddim_sampling
+    assert (engine.num_timesteps, engine.objective, engine.activation, engine.condition,
+            engine.sampling_timesteps, engine.is_ddim_sampling) == (
+        jengine.num_timesteps, jengine.objective, jengine.activation, jengine.condition,
+        jengine.sampling_timesteps, jengine.is_ddim_sampling)
+    assert engine.ddim_sampling_eta == jengine.ddim_sampling_eta
+    assert type(engine.process).__name__ == type(jengine.process).__name__
 
 
 @pytest.mark.parametrize("key,value", NO_OPS, ids=[f"{k}={v}" for k, v in NO_OPS])
@@ -531,9 +576,21 @@ def test_create_diffusion_refuses_key(key, value, error):
         port_build(**{key: value})
 
 
-def test_sampling_timesteps_below_the_steps_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+def test_ddim_on_the_nonisotropic_process_raises_as_jax():
+    """DDIM is the isotropic process's sampler (JAX `engine.py:308` asserts it
+    when sampling; the port refuses the engine at once)."""
+    with pytest.raises(NotImplementedError, match="isotropic process"):
         port_build(sampling_timesteps=2)
+    jengine, _ = jax_create_diffusion(skeletons_jax(), **{**BASE, "sampling_timesteps": 2})
+    with pytest.raises(AssertionError, match="isotropic"):
+        jengine.ddim_sample(None, jax.random.key(0), (1, 21, 8),
+                            x_cond=jnp.zeros((1, 21, 8)))
+
+
+def skeletons_jax():
+    from torch_parity import skeletons
+
+    return skeletons()[0]
 
 
 def test_remat_denoiser_gives_bit_identical_gradients():

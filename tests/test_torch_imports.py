@@ -1,10 +1,10 @@
 """The port stands alone: ``skeletondiffusion_tpu_torch`` (its training
-modules under ``train/``, its entry points under ``cli/``, ``inference.py``
-and the ``utils/`` modules included), ``chip_smoke.py`` and the port's scripts
-(``scripts/torch_*.py``) import neither ``jax`` nor ``skeletondiffusion_tpu``,
-nor ``flax``, ``optax``, ``orbax``, ``pandas`` or ``yaml``, which the card's
-machine does not have, and
-``chip_smoke.py`` refuses to report a result without a CUDA device or
+modules under ``train/``, its entry points under ``cli/``, ``inference.py``,
+the ``utils/`` modules and the diffusion variants' modules included),
+``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``) import
+neither ``jax`` nor ``skeletondiffusion_tpu``, nor ``flax``, ``optax``,
+``orbax``, ``pandas`` or ``yaml``, which the card's machine does not have,
+and ``chip_smoke.py`` refuses to report a result without a CUDA device or
 without the rest of the repository."""
 import ast
 import os
@@ -31,6 +31,9 @@ entry = {"cli.common", "cli.eval", "cli.train_autoencoder", "cli.train_diffusion
          "utils.config", "utils.yaml_lite", "utils.logging", "utils.store", "utils.debug",
          "utils.torch_port"}
 assert all(f"{pkg.__name__}.{m}" in sys.modules for m in entry), entry
+variants = {"diffusion.process": "IsotropicProcess", "diffusion.engine": "posterior_update_plain",
+            "models.autoencoder": "Decoder", "models.denoiser": "Denoiser"}
+assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in variants.items()), variants
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("clean")
