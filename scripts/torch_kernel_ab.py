@@ -11,9 +11,9 @@ port's nvcc flags (this tree's into the usual build directory, the other's
 into ``build/kernel_ab/parent/``, at once).  Each kernel is called through
 this tree's wrappers with one tree's libraries, then the other's, on random
 inputs from a seed (21 nodes, 12 800 rows, D 96, F 192, 8 heads × 32; the
-rollouts 120 steps); B8, whose C entry this tree changed, is called
-through the parent's own C signature (W_hh unpacked, no plan) for the
-parent.  Times are CUDA events over
+rollouts 120 steps), both trees' libraries built at 21 nodes.  A kernel
+whose C entry changed between the trees needs a call through the other
+tree's own C signature here.  Times are CUDA events over
 ``reps`` calls after a warm-up, in rounds ordered parent, new, new, parent,
 …; the card's name and power limit, then one JSON line: ms per kernel, side
 and round, the best of each side, and new / parent of the best.  Needs one
@@ -55,7 +55,7 @@ def build_parent(parent: pathlib.Path) -> dict:
 
 def use(libraries: dict) -> None:
     build._libraries.clear()
-    build._libraries.update(libraries)
+    build._libraries.update({(name, build.DEFAULT_NODES): lib for name, lib in libraries.items()})
     build.c_entry.cache_clear()
 
 
@@ -71,21 +71,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def raw(lib, symbol: str, n_pointers: int, n_ints: int):
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def check(status: int) -> None:
-    if status != 0:
-        raise RuntimeError(f"kernel launch failed with cudaError {status}")
-
-
-def kernels(parent_libs: dict) -> dict:
-    """name → (reps, call with this tree's libraries in use, call of the
-    parent's libraries or None when the wrapper's call serves both)."""
+def kernels() -> dict:
+    """name → (reps, the wrapper's call, made with whichever tree's
+    libraries are in use)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
 
@@ -115,43 +103,27 @@ def kernels(parent_libs: dict) -> dict:
                 g0=infl(torch.float32), g_add=0.01 * infl(torch.float32), b_fc=bias(3).float(),
                 g_fc=infl(torch.float32))
     cx, w_hh, w_fc = rnd(N, B, 3 * D, scale=0.5), bank(D, 3 * D), bank(D, 3)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-
-    def parent_rollout_bf16():
-        out = torch.empty((PH, N, B, 3), dtype=torch.float32, device="cuda")
-        args = dict(cx=cx, h0=roll["h0"], w_hh=w_hh, b_hh=roll["b_hh"], g0=roll["g0"],
-                    g_add=roll["g_add"], w_fc=w_fc, b_fc=roll["b_fc"], g_fc=roll["g_fc"])
-        ptrs = [t.data_ptr() for t in args.values()] + [out.data_ptr()]
-        check(raw(parent_libs["gru_rollout_merged"], "gru_rollout_bf16", 10, 5)(
-            *ptrs, N, B, D, 3, PH, stream()))
-
     return {
         "graph_linear_fused": (20, lambda: graph_linear_fused.graph_linear_fused(
-            x_lat, ws, bs, gs, u), None),
-        "resnet_block": (20, lambda: resnet_block.resnet_block(x, film, *blk), None),
-        "rms_qkv": (20, lambda: attention_proj.rms_qkv(x, g_rms, w_qkv, g_qkv), None),
-        "attention_core": (20, lambda: joint_attention.attention_core(qkv, heads=H, dim_head=DH),
-                           None),
-        "outproj_res": (20, lambda: attention_proj.outproj_res(a, x, w_out, g_out), None),
+            x_lat, ws, bs, gs, u)),
+        "resnet_block": (20, lambda: resnet_block.resnet_block(x, film, *blk)),
+        "rms_qkv": (20, lambda: attention_proj.rms_qkv(x, g_rms, w_qkv, g_qkv)),
+        "attention_core": (20, lambda: joint_attention.attention_core(qkv, heads=H, dim_head=DH)),
+        "outproj_res": (20, lambda: attention_proj.outproj_res(a, x, w_out, g_out)),
         "final_block_in": (20, lambda: resnet_block.final_block_in(x, r, film, w1f, b1f, g1f,
-                                                                   wr, gr), None),
-        "final_block_out": (20, lambda: resnet_block.final_block_out(x, r, *blk[3:], wh, bh, gh),
-                            None),
-        "posterior_step_x0_bf16": (20, lambda: posterior_step.posterior_step(x0, xt, eps, m),
-                                   None),
-        "stem_block": (20, lambda: layer_fused.stem_block(x_lat, u, film, ws, bs, gs, *blk),
-                       None),
+                                                                   wr, gr)),
+        "final_block_out": (20, lambda: resnet_block.final_block_out(x, r, *blk[3:], wh, bh, gh)),
+        "posterior_step_x0_bf16": (20, lambda: posterior_step.posterior_step(x0, xt, eps, m)),
+        "stem_block": (20, lambda: layer_fused.stem_block(x_lat, u, film, ws, bs, gs, *blk)),
         "rms_qkv_core": (20, lambda: layer_fused.rms_qkv_core(x, g_rms, w_qkv, g_qkv, heads=H,
-                                                              dim_head=DH), None),
-        "outproj_block": (20, lambda: layer_fused.outproj_block(a, x, film, w_out, g_out, *blk),
-                          None),
+                                                              dim_head=DH)),
+        "outproj_block": (20, lambda: layer_fused.outproj_block(a, x, film, w_out, g_out, *blk)),
         "attention_core_fm": (20, lambda: attention_core_fm.attention_core_fm(
-            qkv_fm, heads=H, dim_head=DH), None),
+            qkv_fm, heads=H, dim_head=DH)),
         "gru_rollout": (2, functools.partial(gru_rollout.gru_rollout, cx.float(), w_hh=w_hh.float(),
-                                             w_fc=w_fc.float(), ph=PH, **roll), None),
+                                             w_fc=w_fc.float(), ph=PH, **roll)),
         "gru_rollout_bf16": (2, functools.partial(gru_rollout.gru_rollout, cx, w_hh=w_hh,
-                                                  w_fc=w_fc, ph=PH, compute_dtype=bf, **roll),
-                             parent_rollout_bf16),
+                                                  w_fc=w_fc, ph=PH, compute_dtype=bf, **roll)),
     }
 
 
@@ -167,15 +139,14 @@ def main() -> int:
     build.build_all()
     new = {s.stem: build.library(s.stem) for s in build.sources()}
     parent = build_parent(args.parent.resolve())
-    calls = kernels(parent)
+    calls = kernels()
     times = {k: {"parent": [], "new": []} for k in calls}
     order = ["parent", "new", "new", "parent"]
     with torch.no_grad():
         for rnd_ in range(args.rounds):
             side = order[rnd_ % 4]
             use(new if side == "new" else parent)
-            for name, (reps, fn_new, fn_parent) in calls.items():
-                fn = fn_parent if side == "parent" and fn_parent is not None else fn_new
+            for name, (reps, fn) in calls.items():
                 times[name][side].append(cuda_ms(fn, reps))
     best = {k: {s: min(v) for s, v in t.items() if v} for k, t in times.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

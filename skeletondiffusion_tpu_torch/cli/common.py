@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data import AMASSDataset, DataLoader
+from ..data import DATASET_CLASSES, DataLoader
 from ..data.batch import bounded_batches, cycled_batches, prefetch_iterator, preprocess_batch
 from ..device import resolve_device
 from ..models import AutoEncoder
@@ -25,10 +25,6 @@ from ..utils.config import save_config, snapshot_code
 from ..utils.debug import configure_debug
 from ..utils.logging import MetricsLogger
 from ..utils.reproducibility import iteration_generator, set_seed
-
-# the dataset classes the port reads (the JAX package's DATASET_CLASSES has
-# H36M, FreeMan, 3DPW and the zero-shot AMASS too)
-DATASET_CLASSES = {"AMASSDataset": AMASSDataset}
 
 # the stored-config keys create_diffusion consumes — ONE list shared by the
 # train and eval CLIs so a new key can't silently reach only one of them
@@ -65,8 +61,7 @@ def build_skeleton(cfg: Dict[str, Any]):
 def build_dataset(cfg: Dict[str, Any], skeleton, split: str, loader_key: str, **extra):
     if cfg["dataset_type"] not in DATASET_CLASSES:
         raise NotImplementedError(
-            f"{cfg['dataset_type']}: the port reads {sorted(DATASET_CLASSES)} only (ROADMAP "
-            "Queue A item 5, the other skeletons)")
+            f"{cfg['dataset_type']}: the port reads {sorted(DATASET_CLASSES)}")
     ds_cls = DATASET_CLASSES[cfg["dataset_type"]]
     loader_cfg = dict(cfg[loader_key])
     loader_cfg.pop("shuffle", None)
@@ -79,12 +74,16 @@ def build_dataset(cfg: Dict[str, Any], skeleton, split: str, loader_key: str, **
         pred_length=cfg["pred_length"],
         if_consider_hip=cfg["if_consider_hip"],
         dtype=cfg.get("dtype", "float32"),
+        annotations_folder=cfg.get("annotations_folder"),
         silent=cfg.get("silent", False),
         **loader_cfg,
         **extra,
     )
-    kwargs.pop("subjects", None)
-    kwargs.pop("actions", None)
+    if cfg["dataset_type"] != "H36MDataset":
+        kwargs.pop("subjects", None)
+    if cfg["dataset_type"] == "AMASSDataset":
+        kwargs.pop("actions", None)
+        kwargs.pop("annotations_folder", None)
     # the hmp pipeline assumes raw metric-space coordinates: the on-device
     # augmentations, the noisy observation, the skeleton's input transforms
     # and the mm-GT and CMD statistics are incoherent on standardized data

@@ -84,9 +84,7 @@ def prepare_model(cfg: Dict, skeleton, device: torch.device) -> SkeletonDiffusio
 
 def fid_classifier(cfg: Dict, split: str) -> Optional[ClassifierForFID]:
     """The pretrained H36M classifier when ``if_compute_fid`` asks for FID
-    (the H36M test split only; reference `config_metrics.py:59,83-87`).
-    Unreachable until the port has the H36M skeleton (ROADMAP Queue A item
-    5): ``build_skeleton`` refuses dataset=h36m before this runs."""
+    (the H36M test split only; reference `config_metrics.py:59,83-87`)."""
     if not (cfg.get("if_compute_fid") and cfg.get("dataset_name") == "h36m" and split == "test"):
         return None
     path = os.path.join(cfg["precomputed_folder"], "h36m_classifier.pth")

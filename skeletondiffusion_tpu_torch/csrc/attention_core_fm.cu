@@ -63,6 +63,10 @@ namespace {
 using sm90mix::bf16;
 
 constexpr int kN = sm90mix::kNodes;
+// the tensor map's box, the transposed tile and O's staging are sized for the
+// AMASS skeleton; ops/kernels/build.py builds this lab kernel at 21 nodes
+// only (other counts: ROADMAP Queue B item 9)
+static_assert(kN == 21, "the feature-major core is built for 21 nodes");
 constexpr int kDimHead = 32;
 constexpr int kMaxHeads = 32;
 constexpr int kWarps = 8;                  // consumer warps a block

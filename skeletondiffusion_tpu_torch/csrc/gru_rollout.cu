@@ -74,6 +74,14 @@
 // all 132 SMs would work (13 rounds) at 16 rows a weight byte from L2; a
 // round's step took the same time (PERF.md §6, PR 10).
 // The TPU kernel padded H to 128 lanes; here H stays at its real width.
+//
+// The node count N is the build's (node_mix.cuh, -DSKD_NODES: 16 for H36M,
+// 17 for FreeMan, 21 for AMASS); the figures above are at 21.  The product
+// threads (12 a node), the ring stages (4 bank rows × N nodes × 96 columns),
+// W_fc's stage, the cx copies, h, P and the G rows (padded to whole float4s)
+// follow N.  The product threads and the head's two items a thread fit the
+// 256 consumers up to 21 nodes; more would need a second pass (AMASS-MANO's
+// 51 nodes: ROADMAP Queue A item 5).
 
 #include "node_mix_sm90.cuh"
 
@@ -81,31 +89,34 @@ namespace {
 
 using sm90mix::RingPos;
 
-constexpr int kN = 21, kH = 96, kF = 3;
+constexpr int kN = nodemix::kNodes, kH = 96, kF = 3;
 constexpr int kRows = 8;                        // batch rows a block
 constexpr int kCluster = 4;                     // blocks a cluster, one multicast a stage
 constexpr int kSlice = 32;                      // hidden columns a slice
 constexpr int kSlices = kH / kSlice;            // 3
 constexpr int kGateCols = 3 * kSlice;           // a node's r|z|n columns of a slice
 constexpr int kKRows = 4;                       // bank rows a stage
-constexpr int kStageFloats = kKRows * kN * kGateCols;  // 8 064
+constexpr int kStageFloats = kKRows * kN * kGateCols;  // 8 064 at 21 nodes
 constexpr int kStageBytes = 4 * kStageFloats;          // 32 256
 constexpr int kFcBytes = 4 * kN * kH * kF;             // 24 192, W_fc in one stage
 constexpr int kKSteps = kH / kKRows;                   // stages a slice
 constexpr int kMaxRing = 6;                     // full/empty pairs before the cx barriers
-constexpr int kGRow = 24;                       // G rows padded to whole float4s
+constexpr int kGRow = (kN + 3) / 4 * 4;         // G rows padded to whole float4s (24 at 21)
 constexpr int kHRow = kH + 4;                   // floats between rows of h: one bank quad on
 constexpr int kHPlane = kRows * kHRow + 4;      // floats between node planes of h
 constexpr int kArea = kRows * kSlice;           // 256: one gate area of a node's P
 constexpr int kPPlane = 4 * kArea;              // r, z, n_h, n_x
 constexpr int kNodeThreads = 12;                // product threads a node
-constexpr int kProdThreads = kN * kNodeThreads;  // 252
+constexpr int kProdThreads = kN * kNodeThreads;  // 252 at 21 nodes
 constexpr int kConsumers = sm90mix::kConsumers;  // 256: 8 warps, two warpgroups
 constexpr int kThreads = kConsumers + 128;      // and a third warpgroup: producer, cx loader
 constexpr int kProducerWarp = 8, kLoaderWarp = 9;
 constexpr int kConsumerRegs = 232, kOtherRegs = 40;  // setmaxnreg: 256·232 + 128·40 = 384·168
 constexpr int kCxChunks = kN * 3 * kRows * (kSlice / 4);  // 16-byte chunks of a slice's cx
 static_assert(kConsumers == kRows * kSlice, "the mix takes a thread per (row, column)");
+static_assert(kProdThreads <= kConsumers, "a product thread a node's 8 gate columns: N ≤ 21");
+static_assert(kN * kRows * kF <= 2 * kConsumers, "the head's mix takes two items a thread");
+static_assert(kN * kRows <= kConsumers, "the head's products take a thread per (node, row)");
 static_assert(kGateCols == kNodeThreads * 8, "a product thread takes 8 gate columns");
 static_assert(kStageBytes % (16 * kCluster) == 0 && kFcBytes % (16 * kCluster) == 0,
               "a block's quarter of a stage is whole 16-byte chunks");

@@ -99,7 +99,11 @@ namespace {
 using bf16 = __nv_bfloat16;
 using sm90mix::RingPos;
 
-constexpr int kN = 21, kH = 96, kF = 3;
+constexpr int kN = nodemix::kNodes, kH = 96, kF = 3;
+// the warps' node tiles, the junk row and the stages are laid out for the
+// AMASS skeleton; ops/kernels/build.py builds this source at 21 nodes only
+// (other counts: ROADMAP Queue B item 9)
+static_assert(kN == 21, "the bf16 rollout is built for 21 nodes");
 constexpr int kRows = 8;                        // batch rows a block (the products' n8)
 constexpr int kCluster = 2;                     // blocks a cluster, one multicast a stage
 constexpr int kSlice = 16;                      // hidden columns a slice

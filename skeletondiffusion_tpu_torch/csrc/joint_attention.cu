@@ -30,6 +30,10 @@
 // rows and stored with 16-byte stores; in fp32 head_attention, a lane a query
 // joint.  The stages in flight (bench: three of 63 KB) overlap each item's
 // loads with the items before it; no consumer waits on its own global load.
+//
+// N is the build's node count (node_mix.cuh, -DSKD_NODES): a stage holds the
+// item's rows of all N joints, one bulk copy a joint (16 for H36M, 17 for
+// FreeMan, 21 for AMASS; up to 32, a lane a query joint in fp32).
 
 #include <cmath>
 

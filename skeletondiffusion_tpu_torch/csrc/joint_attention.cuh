@@ -165,18 +165,20 @@ constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
 // The attention of one (row, head) by the whole calling warp, bf16, on the
 // tensor cores (mma.sync m16n8k16, fp32 sums):
 //
-//   S = qs·kᵀ   queries 21 → 32 (two m16 tiles) × keys 21 → 24 (three n8
-//               tiles) × dh 32 (two k-steps): 12 mma, q and k through
-//               ldmatrix, q scaled in its fragments (qs = round(q·round(scale)))
-//   p = round(softmax(S)) in the accumulators: keys ≥ 21 masked to −∞, each
+//   S = qs·kᵀ   queries N → 16·MT (MT = ⌈N/16⌉ m16 tiles) × keys N → 8·KT
+//               (KT = ⌈N/8⌉ n8 tiles) × dh 32 (two k-steps): at N = 21 two
+//               × three tiles, 12 mma, q and k through ldmatrix, q scaled in
+//               its fragments (qs = round(q·round(scale)))
+//   p = round(softmax(S)) in the accumulators: keys ≥ N masked to −∞, each
 //               row's max and sum over its quad of lanes by shuffles
-//   O = p·v     p reused from registers as the A operand (keys 21 → 32, two
-//               k-steps) × dh 32 (four n8 tiles): 16 mma, v through
-//               ldmatrix.trans
+//   O = p·v     p reused from registers as the A operand (keys N → 16·MT,
+//               MT k-steps) × dh 32 (four n8 tiles): 16 mma at N = 21, v
+//               through ldmatrix.trans
 //
-// Joint m's q, k and v (32 values each, 16-byte aligned) lie at q + m·ld,
-// k + m·ld and v + m·ld in shared memory; the ldmatrix rows of joints ≥ 21
-// read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
+// N is the build's node count (16 for H36M, 17 for FreeMan, 21 for AMASS;
+// up to 32).  Joint m's q, k and v (32 values each, 16-byte aligned) lie at
+// q + m·ld, k + m·ld and v + m·ld in shared memory; the ldmatrix rows of
+// joints ≥ N read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
 // this warp alone, and no more): head_attention_mma_smem ends there (the
 // feature-major core, attention_core_fm.cu, stores O itself);
 // head_attention_mma then sends it to o + n·ldo with 16-byte stores (64
@@ -190,6 +192,8 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
   using sm90mix::pack_bf16;
   using sm90mix::smem_u32;
   constexpr int N = sm90mix::kNodes;
+  constexpr int MT = (N + 15) / 16;  // query m16 tiles, and p·v's k-steps
+  constexpr int KT = (N + 7) / 8;    // key n8 tiles of S
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t zrow = smem_u32(zero);
   auto row = [&](const bf16* base, int joint, int col) {
@@ -198,9 +202,9 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
 
   // qs: A fragments [m-tile][k-step], this lane's row 16·mt + lane%16, k half lane/16
   const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
-  uint32_t qa[2][2][4];
+  uint32_t qa[MT][2][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
       ldmatrix_x4(qa[mt][ks], row(q, 16 * mt + (lane & 15), 16 * ks + 8 * (lane >> 4)));
@@ -211,14 +215,14 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
       }
     }
   // k: B fragments of n-tile nt, dh 0-7, 8-15, 16-23, 24-31 (keys 8·nt + lane%8)
-  uint32_t kb[3][4];
+  uint32_t kb[KT][4];
 #pragma unroll
-  for (int nt = 0; nt < 3; ++nt) ldmatrix_x4(kb[nt], row(k, 8 * nt + (lane & 7), 8 * (lane >> 3)));
-  float s[2][3][4];
+  for (int nt = 0; nt < KT; ++nt) ldmatrix_x4(kb[nt], row(k, 8 * nt + (lane & 7), 8 * (lane >> 3)));
+  float s[MT][KT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 3; ++nt) {
+    for (int nt = 0; nt < KT; ++nt) {
       s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
       mma_bf16(s[mt][nt], qa[mt][0], kb[nt][0], kb[nt][1]);
       mma_bf16(s[mt][nt], qa[mt][1], kb[nt][2], kb[nt][3]);
@@ -227,12 +231,12 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
   // softmax of this lane's rows 16·mt + g (elements 0, 1) and + 8 (2, 3),
   // columns 8·nt + 2t + e, over the quad that holds the row
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < 3; ++nt)
+      for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[mt][nt][2 * hf + e];
@@ -243,7 +247,7 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       float sum = 0.0f;
 #pragma unroll
-      for (int nt = 0; nt < 3; ++nt)
+      for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[mt][nt][2 * hf + e];
@@ -254,7 +258,7 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float rcp = __frcp_rn(sum);
 #pragma unroll
-      for (int nt = 0; nt < 3; ++nt)
+      for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[mt][nt][2 * hf + e];
@@ -262,27 +266,29 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
         }
     }
 
-  // p, rounded, as A fragments [m-tile][k-step]: keys 0-15 from n-tiles 0, 1,
-  // keys 16-23 from n-tile 2, keys 24-31 zero
-  uint32_t pa[2][2][4];
+  // p, rounded, as A fragments [m-tile][k-step]: k-step kk's keys 16·kk …
+  // from n-tiles 2·kk and 2·kk + 1, zero past the last n-tile (keys ≥ 8·KT)
+  uint32_t pa[MT][MT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < MT; ++kk) {
       pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
       pa[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+      if (2 * kk + 1 < KT) {
+        pa[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      } else {
+        pa[mt][kk][2] = pa[mt][kk][3] = 0u;
+      }
     }
-    pa[mt][0][2] = pack_bf16(s[mt][1][0], s[mt][1][1]);
-    pa[mt][0][3] = pack_bf16(s[mt][1][2], s[mt][1][3]);
-    pa[mt][1][2] = pa[mt][1][3] = 0u;
-  }
-  float acc[2][4][4];
+  float acc[MT][4][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < MT; ++kk) {
     // v: B fragments of dh n-tiles j, j + 1 from one ldmatrix.trans (keys
     // 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 8·j (+ 8 for lanes ≥ 16))
     uint32_t vb[4][2];
@@ -297,7 +303,7 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
       vb[2 * jp + 1][1] = r[3];
     }
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
   }
@@ -305,7 +311,7 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
   // O into q's rows (every lane's ldmatrix of q is long done)
   __syncwarp();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int joint = 16 * mt + 8 * hf + g;

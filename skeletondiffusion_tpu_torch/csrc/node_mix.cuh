@@ -3,6 +3,12 @@
 // between an element and fp32, and the offset of an element of a node-major
 // activation [N, B, F] (element (n, b, f) at (n·B + b)·F + f).
 //
+// The node count is the one constant of it every kernel sizes its tiles,
+// shared memory and loops by.  It is a build parameter: ops/kernels/build.py
+// compiles each source once for each node count a run asks for, with
+// -DSKD_NODES=<N> (16 for H36M, 17 for FreeMan, 21 for AMASS and 3DPW
+// without the hip); a library refuses every other count at its C entries.
+//
 // The product-and-mix engine of the fused denoiser's kernels is
 // node_mix_sm90.cuh; the attention bodies are joint_attention.cuh.
 
@@ -17,7 +23,15 @@ namespace nodemix {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kNodes = 21;  // the AMASS skeleton without its hip
+#ifndef SKD_NODES
+#define SKD_NODES 21  // the AMASS skeleton without its hip
+#endif
+
+constexpr int kNodes = SKD_NODES;
+// the node mixes cover the nodes with two m16 tiles, attention gives each
+// query joint a lane: 51 nodes (AMASS-MANO) need a redesign (ROADMAP Queue A
+// item 5)
+static_assert(kNodes >= 2 && kNodes <= 32, "the kernels take 2 to 32 nodes");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }

@@ -18,7 +18,8 @@
 // clusters with multicast weight tiles, the mma.sync products through
 // ldmatrix and the tensor-core node mix described here for the first.
 //
-// Over node-major activations [N, B, F] (N = 21 nodes), for one tile of R rows
+// Over node-major activations [N, B, F] (N = nodemix::kNodes, 2 to 32 nodes,
+// set per build: 16 for H36M, 17 for FreeMan, 21 for AMASS), for one tile of R rows
 // and one group of C output columns (an item of the first kind):
 //
 //   h[n]   = round(x[n] / sqrt(max(Σ x[n]², 1e-24)) · g_rms)   each row
@@ -64,10 +65,11 @@
 // rings and indexing.
 //
 // Mix (bf16): on the tensor cores, in place in P: for 8 positions (row,
-// column) at a time, Yᵀ = G·P with G [32 × 32] (21 × 21 zero-padded, held in
+// column) at a time, Yᵀ = G·P with G [32 × 32] (N × N zero-padded, held in
 // registers as mma A fragments from its bf16 values, which are exact) and P's
-// 21 node values of those positions through one ldmatrix.trans (rows of the
-// nodes past 21 point at a zero row).  fp32: FMAs, a thread per position.
+// N node values of those positions through one ldmatrix.trans (rows of the
+// nodes past N point at a zero row); at N ≤ 16 only the first m16 tile and
+// k-step are multiplied.  fp32: FMAs, a thread per position.
 //
 // P lives in shared memory as [N][R][C] in the element type, each node's
 // plane padded by 16 bytes (the mix's ldmatrix rows, one per node, then fall
@@ -90,8 +92,10 @@ using bf16 = __nv_bfloat16;
 using nodemix::from_f;
 using nodemix::to_f;
 
-constexpr int kNodes = 21;
-constexpr int kGStride = 24;          // fp32 G rows padded to whole float4s
+constexpr int kNodes = nodemix::kNodes;                // the build's node count
+constexpr int kGStride = (kNodes + 3) / 4 * 4;         // fp32 G rows padded to whole float4s
+constexpr int kMixTiles = (kNodes + 15) / 16;          // m16 tiles (and k-steps) of a node mix
+constexpr int kNodeRows = (kNodes + 7) / 8;            // groups of 8 nodes (a fragment's rows)
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
@@ -517,22 +521,26 @@ template <int R, int C>
 __device__ __forceinline__ void mix_mma(bf16* p, int plane, const unsigned char* zero,
                                         const uint32_t (&ga)[2][2][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // ldmatrix.trans row `lane` is node `lane` (nodes past 21: the zero row)
+  // ldmatrix.trans row `lane` is node `lane` (nodes past N: the zero row)
   const uint32_t row = lane < kNodes ? smem_u32(p) + lane * plane * 2 : 0u;
   const uint32_t zrow = smem_u32(zero);
   for (int t = warp; t < R * C / 8; t += kConsumerWarps) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, lane < kNodes ? row + t * 16 : zrow);
-    float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_bf16(d0, ga[0][0], b[0], b[1]);
-    mma_bf16(d0, ga[0][1], b[2], b[3]);
-    mma_bf16(d1, ga[1][0], b[0], b[1]);
-    mma_bf16(d1, ga[1][1], b[2], b[3]);
+    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int mt = 0; mt < kMixTiles; ++mt) {
+      mma_bf16(d[mt], ga[mt][0], b[0], b[1]);
+      if constexpr (kMixTiles > 1) mma_bf16(d[mt], ga[mt][1], b[2], b[3]);
+    }
     const int n = lane >> 2;
     bf16* col = p + t * 8 + 2 * (lane & 3);
-    *reinterpret_cast<uint32_t*>(col + n * plane) = pack_bf16(d0[0], d0[1]);
-    *reinterpret_cast<uint32_t*>(col + (n + 8) * plane) = pack_bf16(d0[2], d0[3]);
-    if (16 + n < kNodes) *reinterpret_cast<uint32_t*>(col + (16 + n) * plane) = pack_bf16(d1[0], d1[1]);
+    // this lane's rows: nodes n + 8·k, k < kNodeRows
+#pragma unroll
+    for (int k = 0; k < kNodeRows; ++k)
+      if (n + 8 * k < kNodes)
+        *reinterpret_cast<uint32_t*>(col + (n + 8 * k) * plane) =
+            pack_bf16(d[k >> 1][2 * (k & 1)], d[k >> 1][2 * (k & 1) + 1]);
   }
 }
 
@@ -706,7 +714,7 @@ __device__ __forceinline__ void store_tile(const T* p, int plane, T* out, int ro
 // ---- whole-row-tile items: the ResnetBlock kernels (B1, B9c) ------------------------
 
 // A ResnetBlock's second product contracts over all F columns of h, for each
-// node, so its item is a row tile × every column: P holds all 21 nodes'
+// node, so its item is a row tile × every column: P holds all N nodes'
 // R × F products and stays in shared memory from the first product to the
 // last mix.  An item runs up to kMaxPasses product passes, each followed by
 // a node mix with the kernel's epilogue:
@@ -1107,7 +1115,7 @@ struct BlockItem {
 
   // bf16: a warp takes the 16-byte chunks warp, warp + 8, … (NT of them) of
   // every row, a row at a time: for each chunk (8 positions) the node values
-  // through one ldmatrix.trans (rows of the nodes past 21: the zero row),
+  // through one ldmatrix.trans (rows of the nodes past N: the zero row),
   // Yᵀ = G·P with G's mma A fragments in registers; this lane's residual
   // pairs of the next row are loaded before the current row's products
   // (kAhead), or of the current row (B5b: there the kernel spilled the
@@ -1121,12 +1129,12 @@ struct BlockItem {
     const uint32_t row = lane < kNodes ? smem_u32(pp) + lane * l.plane * 2 : smem_u32(smem + kZeroOffset);
     const uint32_t step = lane < kNodes ? 2 * kPStride : 0u;  // the zero row stays put
     const int nl = lane >> 2, cl = 2 * (lane & 3);
-    // this lane's residual pairs of row r: chunks warp + 8u, nodes nl, nl + 8, nl + 16
-    auto residual = [&](int r, uint32_t (&v)[NT][3]) {
+    // this lane's residual pairs of row r: chunks warp + 8u, nodes nl + 8k
+    auto residual = [&](int r, uint32_t (&v)[NT][kNodeRows]) {
 #pragma unroll
       for (int u = 0; u < NT; ++u)
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < kNodeRows; ++k) {
           const int n = nl + 8 * k;
           v[u][k] = 0u;
           if (res != nullptr && r < valid && n < kNodes)
@@ -1134,7 +1142,7 @@ struct BlockItem {
                 res + (static_cast<size_t>(n) * pb.rows + b0 + r) * kF + (warp + 8 * u) * 8 + cl);
         }
     };
-    uint32_t cur[NT][3], next[NT][3];
+    uint32_t cur[NT][kNodeRows], next[NT][kNodeRows];
     if constexpr (kAhead) residual(0, cur);
     for (int r = 0; r < R; ++r) {
       if constexpr (kAhead) {
@@ -1149,30 +1157,31 @@ struct BlockItem {
         ldmatrix_x4_trans(bm, row + r * step + (lane < kNodes ? 16 * (warp + 8 * u) : 0));
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[u][0][e] = d[u][1][e] = 0.0f;
-        mma_bf16(d[u][0], ga[0][0], bm[0], bm[1]);
-        mma_bf16(d[u][0], ga[0][1], bm[2], bm[3]);
-        mma_bf16(d[u][1], ga[1][0], bm[0], bm[1]);
-        mma_bf16(d[u][1], ga[1][1], bm[2], bm[3]);
+#pragma unroll
+        for (int mt = 0; mt < kMixTiles; ++mt) {
+          mma_bf16(d[u][mt], ga[mt][0], bm[0], bm[1]);
+          if constexpr (kMixTiles > 1) mma_bf16(d[u][mt], ga[mt][1], bm[2], bm[3]);
+        }
       }
 #pragma unroll
       for (int u = 0; u < NT; ++u) {
         const int c = (warp + 8 * u) * 8 + cl;
         bf16* col = pp + r * kPStride + c;
-        const float y[3][2] = {{d[u][0][0], d[u][0][1]}, {d[u][0][2], d[u][0][3]},
-                               {d[u][1][0], d[u][1][1]}};
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < kNodeRows; ++k) {
           const int n = nl + 8 * k;
           if (n < kNodes) {
             const float2 rv =
                 __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cur[u][k]));
+            // node n's pair: tile k / 2, rows 8·(k % 2) on
+            const float y0 = d[u][k >> 1][2 * (k & 1)], y1 = d[u][k >> 1][2 * (k & 1) + 1];
             *reinterpret_cast<uint32_t*>(col + n * l.plane) =
-                pack_bf16(epi(c, y[k][0], rv.x), epi(c + 1, y[k][1], rv.y));
+                pack_bf16(epi(c, y0, rv.x), epi(c + 1, y1, rv.y));
           }
         }
         if constexpr (kAhead) {
 #pragma unroll
-          for (int k = 0; k < 3; ++k) cur[u][k] = next[u][k];
+          for (int k = 0; k < kNodeRows; ++k) cur[u][k] = next[u][k];
         }
       }
     }
@@ -1281,8 +1290,8 @@ struct BlockItem {
   }
 };
 
-// Rows of a ResnetBlock item: P of 21 × 16 × 200 bf16 (fp32: × 8 × 196) is
-// 135 KB (132 KB); 32 rows would need 270 KB.
+// Rows of a ResnetBlock item: at 21 nodes P of 21 × 16 × 200 bf16 (fp32: × 8
+// × 196) is 135 KB (132 KB); 32 rows would need 270 KB.
 template <typename T>
 struct BlockRows;
 template <>

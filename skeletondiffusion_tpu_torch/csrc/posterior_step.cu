@@ -24,11 +24,16 @@
 // Pallas kernel reads it in its own dtype and widens it, `:53`); x_t, the
 // noise and the output stay float32.  It moves 5/6 of the bytes of the
 // float32 entry.
+//
+// N is the build's node count (node_mix.cuh, -DSKD_NODES: 16 for H36M, 17
+// for FreeMan, 21 for AMASS); the library refuses every other count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "node_mix.cuh"
 
 namespace {
 
@@ -103,13 +108,8 @@ int launch(const X0* x0, const float* xt, const float* eps, const float* m, floa
   const float4* b = reinterpret_cast<const float4*>(xt);
   const float4* e = reinterpret_cast<const float4*>(eps);
   float4* o = reinterpret_cast<float4*>(out);
-  switch (n_nodes) {
-    case 21:
-      posterior_step_kernel<21><<<grid, kThreads, 0, s>>>(x0, b, e, m, o, cols4);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_nodes != nodemix::kNodes) return static_cast<int>(cudaErrorInvalidValue);
+  posterior_step_kernel<nodemix::kNodes><<<grid, kThreads, 0, s>>>(x0, b, e, m, o, cols4);
   return static_cast<int>(cudaGetLastError());
 }
 

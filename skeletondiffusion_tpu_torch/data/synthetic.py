@@ -13,6 +13,10 @@ Produces under ``<root>/datasets``:
     processed/AMASS/hmp/mean_motion_test.txt  CMD class statistics
     annotations/AMASS/hmp/segments_test.csv   eval segment windows
     annotations/AMASS/hmp/mmapd_GT.csv        APDE ground-truth stub
+
+``make_synthetic_skeleton_tree`` writes the same layout for Human3.6M,
+FreeMan and 3DPW on their shipped annotations (the port's own: the JAX
+package has no such generator).
 """
 from __future__ import annotations
 
@@ -346,4 +350,149 @@ def make_synthetic_amass(
         datasets=list(test_datasets),
         obs_length=obs_length, pred_length=pred_length, dtype="float32",
     )
+    return ds_root
+
+
+# ---------------------------------------------------------------------------
+# Human3.6M, FreeMan and 3DPW trees on the shipped annotations
+# ---------------------------------------------------------------------------
+
+# dataset → (its folder under annotations/ and processed/, the npz's name,
+# the joints of its clips: 3DPW ships 24 SMPL joints, cut to 22 on load, the
+# mm-GT threshold of its configs/config_eval/dataset/*.yaml)
+SKELETON_TREES = {
+    "h36m": ("Human36M", "h36m", 17, 0.5),
+    "freeman": ("FreeMan", "freeman", 18, 0.5),
+    "3dpw": ("3DPW", "3dpw", 24, 0.4),
+}
+H36M_TRAIN_SUBJECTS = ("S1", "S5", "S6", "S7", "S8")
+
+
+def _copy_table(src: str, dst: str, max_rows=None) -> List[dict]:
+    """Copy a CSV, cut to its first ``max_rows`` rows; returns the rows."""
+    with open(src, newline="") as fh:
+        reader = csv.reader(fh)
+        header, rows = next(reader), list(reader)
+    rows = rows[:max_rows]
+    with open(dst, "w", newline="") as fh:
+        writer = csv.writer(fh, lineterminator="\n")
+        writer.writerow(header)
+        writer.writerows(rows)
+    return [dict(zip(header, row)) for row in rows]
+
+
+def _random_walk(rng: np.random.Generator, frames: int, joints: int):
+    """[frames, joints, 3] float32: a random pose drifting by small random
+    steps (a smooth motion, so mean motions and mm-GT neighbors are not
+    those of white noise)."""
+    pose = 0.3 * rng.standard_normal((1, joints, 3))
+    steps = 0.01 * rng.standard_normal((frames, joints, 3))
+    return (pose + np.cumsum(steps, axis=0)).astype(np.float32)
+
+
+def make_synthetic_skeleton_tree(
+    root: str,
+    dataset_name: str,
+    annotations: str,
+    *,
+    obs_length: int,
+    pred_length: int,
+    max_segments=None,
+    max_sequences=None,
+    train_frames: int = 300,
+    train_actions: int = 3,
+    seed: int = 0,
+) -> str:
+    """The dataset tree of the Human3.6M (``h36m``), FreeMan (``freeman``) or
+    3DPW zero-shot (``3dpw``) loader on the annotations shipped in
+    ``annotations`` (``datasets/annotations/<folder>/hmp`` of the
+    repository), with random clips in place of the captures; returns
+    ``<root>/datasets``.
+
+    The annotation files are copied (each segment CSV and ``mmapd_GT.csv``
+    cut to its first ``max_segments`` rows, FreeMan's split lists to their
+    first ``max_sequences`` sequences), and every clip they name gets a
+    random walk as long as its last segment needs (``train_frames`` for a
+    listed FreeMan sequence that no CSV names).  Human3.6M also gets the
+    training subjects' clips: ``train_actions`` actions of the test CSV,
+    ``train_frames`` frames each.  3DPW's clips go to the npz split of the
+    CSV that names them (the zero-shot test merges every split).  Then the
+    test split's mm-GT neighbors and CMD mean motions, as the preprocessing
+    writes them (``finalize_dataset``, at the configs' mm-GT threshold)."""
+    from ..skeleton import create_skeleton
+    from .loaders import D3PWZeroShotDataset, FreeManDataset, H36MDataset
+    from .mmgt import finalize_dataset
+
+    folder, npz_name, joints, multimodal_threshold = SKELETON_TREES[dataset_name]
+    ds_root = os.path.join(root, "datasets")
+    pre = os.path.join(ds_root, "processed", folder, "hmp")
+    ann = os.path.join(ds_root, "annotations", folder, "hmp")
+    os.makedirs(pre, exist_ok=True)
+    os.makedirs(ann, exist_ok=True)
+    tables = {}
+    for name in sorted(os.listdir(annotations)):
+        src, dst = os.path.join(annotations, name), os.path.join(ann, name)
+        if name.endswith(".csv"):
+            tables[name] = _copy_table(src, dst, max_segments)
+        elif name.endswith(".txt") and name != "seq_actions_labels.txt":
+            with open(src) as fh:
+                seqs = [line.strip() for line in fh if line.strip()][:max_sequences]
+            with open(dst, "w") as fh:
+                fh.write("\n".join(seqs) + "\n")
+            tables[name] = [{"name": s, "pred_end": str(train_frames - 1)} for s in seqs]
+        elif os.path.isfile(src):
+            with open(src, "rb") as fh, open(dst, "wb") as out:
+                out.write(fh.read())
+
+    rng = np.random.default_rng(seed)
+    frames: Dict[Tuple, int] = {}
+
+    def need(key, end):
+        frames[key] = max(frames.get(key, 0), int(end) + 1)
+
+    for name, rows in tables.items():
+        if name == "mmapd_GT.csv":
+            continue
+        for row in rows:
+            if dataset_name == "h36m":
+                need((row["subject"], H36MDataset.rename_action(row["action"])), row["pred_end"])
+            elif dataset_name == "3dpw":
+                split = {"segments_train.csv": "train", "segments_valid.csv": "validation"}
+                need((split.get(name, "test"), row["name"]), row["pred_end"])
+            else:
+                need((row["name"],), row["pred_end"])
+    if dataset_name == "h36m":
+        rows = tables["segments_test.csv"]
+        actions = list(dict.fromkeys(H36MDataset.rename_action(r["action"]) for r in rows))
+        for subject in H36M_TRAIN_SUBJECTS:
+            for action in actions[:train_actions]:
+                need((subject, action), train_frames - 1)
+    if dataset_name == "3dpw":  # a sequence of a train or valid CSV stays in that split
+        for split, seq in [k for k in frames if k[0] != "test"]:
+            frames.pop(("test", seq), None)
+
+    positions: Dict = {}
+    for key, length in frames.items():
+        *outer, inner = key
+        level = positions
+        for k in outer:
+            level = level.setdefault(k, {})
+        level[inner] = _random_walk(rng, length, joints)
+    np.savez(os.path.join(pre, f"data_3d_{npz_name}.npz"), positions_3d=positions)
+
+    skeleton = create_skeleton(
+        dataset_name=dataset_name, motion_repr_type="SkeletonRescalePose",
+        num_joints=22 if dataset_name == "3dpw" else joints, pose_box_size=1.5,
+        obs_length=obs_length, pred_length=pred_length, if_consider_hip=False,
+    )
+    cls, kwargs = {
+        "h36m": (H36MDataset, dict(subjects=None)),
+        "freeman": (FreeManDataset, dict(annotations_folder=ann)),
+        "3dpw": (D3PWZeroShotDataset, dict(if_zero_shot=True)),
+    }[dataset_name]
+    test_csv = "segments_test_zero_shot.csv" if dataset_name == "3dpw" else "segments_test.csv"
+    finalize_dataset(cls, skeleton, precomputed_folder=pre + "/",
+                     segments_path=os.path.join(ann, test_csv),
+                     multimodal_threshold=multimodal_threshold, obs_length=obs_length,
+                     pred_length=pred_length, **kwargs)
     return ds_root

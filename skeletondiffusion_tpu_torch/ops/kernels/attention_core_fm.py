@@ -103,8 +103,7 @@ def attention_core_fm(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.
     hd = heads * dim_head
     suffix = build.element_suffix("attention_core_fm", qkv.dtype)
     plan = fm_plan(qkv.dtype, heads, dim_head)
-    if n != N_NODES:
-        raise ValueError(f"attention_core_fm: takes {N_NODES} nodes, got {n}")
+    build.check_nodes("attention_core_fm", "attention_core_fm", n)
     build.check_kernel_inputs("attention_core_fm", {"qkv": (n, 3 * hd, rows)}, qkv.dtype,
                               qkv=qkv)
     build.check_aligned("attention_core_fm", 16, qkv=qkv)

@@ -46,16 +46,18 @@ def outproj_res_plain(a, x, w_out, g_out) -> torch.Tensor:
     return (mix_plain(g_out, product_plain(a, w_out).to(dt)) + x.float()).to(dt)
 
 
-def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int) -> node_mix_sm90.TilePlan:
-    """The tile plan of the rms_qkv kernel at input width ``f`` and output
-    width ``fo``; raises for what the kernel does not take."""
+def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int,
+                 nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.TilePlan:
+    """The tile plan of the rms_qkv kernel at input width ``f``, output
+    width ``fo`` and ``nodes`` nodes; raises for what the kernel does not
+    take."""
     build.element_suffix("rms_qkv", dtype)
     if f <= 0 or f % 32:
         raise ValueError(f"rms_qkv: F={f} must be a positive multiple of 32")
     if fo <= 0 or fo % 8:
         raise ValueError(f"rms_qkv: the output width {fo} must be a positive multiple of 8")
     rows, cols = QKV_TILES[dtype]
-    return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f)
+    return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f, nodes)
 
 
 def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
@@ -67,7 +69,7 @@ def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
         return rms_qkv_plain(**tensors)
     n, rows, f = x.shape
     fo = w_qkv.shape[-1]
-    plan = rms_qkv_plan(x.dtype, f, fo)
+    plan = rms_qkv_plan(x.dtype, f, fo, n)
     out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
     node_mix_sm90.launch("attention_proj", "rms_qkv", tensors, shapes,
@@ -76,10 +78,11 @@ def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
     return out
 
 
-def outproj_res_plan(dtype: torch.dtype, hd: int, f: int) -> node_mix_sm90.BlockPlan:
-    """The tile plan of the outproj_res kernel (the out-projection hd → f);
-    raises for what the kernel does not take."""
-    return node_mix_sm90.block_plan("outproj_res", dtype, f, (hd,))
+def outproj_res_plan(dtype: torch.dtype, hd: int, f: int,
+                     nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the outproj_res kernel (the out-projection hd → f)
+    at ``nodes`` nodes; raises for what the kernel does not take."""
+    return node_mix_sm90.block_plan("outproj_res", dtype, f, (hd,), nodes)
 
 
 def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
@@ -92,9 +95,7 @@ def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
         return outproj_res_plain(**tensors)
     n, rows, hd = a.shape
     f = x.shape[-1]
-    if n != node_mix_sm90.N_NODES:
-        raise ValueError(f"outproj_res: the kernel takes {node_mix_sm90.N_NODES} nodes, got {n}")
-    plan = outproj_res_plan(x.dtype, hd, f)
+    plan = outproj_res_plan(x.dtype, hd, f, n)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n))
     out = torch.empty_like(x)
     node_mix_sm90.launch("attention_proj", "outproj_res", tensors, shapes,

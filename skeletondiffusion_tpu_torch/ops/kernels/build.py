@@ -1,13 +1,17 @@
 """Builds ``skeletondiffusion_tpu_torch/csrc/*.cu`` with ``nvcc`` into one
-shared library per source, with a plain C interface, and loads them with
-``ctypes``.
+shared library per source and skeleton node count, with a plain C interface,
+and loads them with ``ctypes``.
 
-The libraries go to ``build/torch_kernels/<hash of sources and flags>/`` beside
-the package (``.gitignore`` lists ``build/``).  Missing libraries are built
-together at first use, one ``nvcc`` process per source started at once; no
-PyTorch headers are compiled, so a build takes seconds.  ``nvcc``'s ``-Xptxas
--v`` report (registers, shared memory, spills) is kept next to each library
-as ``<name>.log``.
+The node count is a build parameter of every kernel (``-DSKD_NODES=<n>``,
+read by ``csrc/node_mix.cuh``): 16 for H36M, 17 for FreeMan, 21 for AMASS and
+3DPW.  A library takes its own count only.  The libraries go to
+``build/torch_kernels/<hash of sources and flags>-n<nodes>/`` beside the
+package (``.gitignore`` lists ``build/``).  Missing libraries are built
+together at first use of a node count, one ``nvcc`` process per source
+started at once (``build_all`` takes several counts in one go); no PyTorch
+headers are compiled, so a build takes seconds.  ``nvcc``'s ``-Xptxas -v``
+report (registers, shared memory, spills) is kept next to each library as
+``<name>.log``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Mapping, Union
+from typing import Dict, Iterable, List, Mapping, Tuple, Union
 
 import torch
 
@@ -33,8 +37,21 @@ NVCC_FLAGS = [
 ]
 NVCC_TIMEOUT_S = 600
 
+# The skeletons' node counts: the AMASS body (and 3DPW) without its hip, the
+# default; the kernels take 2 to MAX_NODES (two m16 tiles of a node mix, a
+# lane a query joint)
+DEFAULT_NODES = 21
+MAX_NODES = 32
+# sources whose kernels are laid out for fewer counts: the fp32 rollout (K1)
+# up to 21 nodes, the bf16 rollout (B8) and the feature-major attention core
+# (L1) at 21 only
+NODE_RANGE = {"gru_rollout": (2, 21), "gru_rollout_merged": (21, 21),
+              "attention_core_fm": (21, 21)}
+MORE_NODES = ("ROADMAP.md Queue A item 5 (AMASS-MANO, 51 nodes: B2 past 32 joints, the "
+              "node mix past two m16 tiles, K1 past 21 nodes)")
+
 _lock = threading.Lock()
-_libraries: Dict[str, ctypes.CDLL] = {}
+_libraries: Dict[Tuple[str, int], ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
@@ -42,17 +59,40 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    """Directory named by a hash of the flags and every source's name and bytes."""
+def node_range(name: str) -> Tuple[int, int]:
+    """The node counts ``csrc/<name>.cu`` is built for, lowest and highest."""
+    return NODE_RANGE.get(name, (2, MAX_NODES))
+
+
+def check_nodes(kernel: str, name: str, nodes: int) -> None:
+    """Raise ValueError unless the kernels of ``csrc/<name>.cu`` take
+    ``nodes`` nodes (the message names the ROADMAP item of larger counts)."""
+    lo, hi = node_range(name)
+    if not lo <= nodes <= hi:
+        # B8 and L1 stay at the AMASS count; the others grow with AMASS-MANO
+        later = "ROADMAP.md Queue B item 9" if lo == hi else MORE_NODES
+        counts = f"{lo}" if lo == hi else f"{lo} to {hi}"
+        raise ValueError(f"{kernel}: the kernel takes {counts} nodes, got {nodes} ({later})")
+
+
+def sources_for(nodes: int) -> List[Path]:
+    """The sources built at ``nodes`` nodes."""
+    return [src for src in sources()
+            if node_range(src.stem)[0] <= nodes <= node_range(src.stem)[1]]
+
+
+def build_dir(nodes: int = DEFAULT_NODES) -> Path:
+    """Directory named by a hash of the flags and every source's name and
+    bytes, and by the node count."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16]
+    return BUILD_ROOT / f"{digest.hexdigest()[:16]}-n{nodes}"
 
 
-def library_path(name: str) -> Path:
-    return build_dir() / f"lib{name}.so"
+def library_path(name: str, nodes: int = DEFAULT_NODES) -> Path:
+    return build_dir(nodes) / f"lib{name}.so"
 
 
 def nvcc() -> str:
@@ -66,22 +106,28 @@ def nvcc() -> str:
     return found
 
 
-def compile_sources(srcs: List[Path], out_dir: Path) -> float:
-    """nvcc each source into ``out_dir/lib<stem>.so``, all at once; returns
-    the seconds taken.  Each source's compiler output goes to
-    ``out_dir/<stem>.log``."""
-    out_dir.mkdir(parents=True, exist_ok=True)
+def compile_sources(srcs: List[Path], out_dir: Path, nodes: int = DEFAULT_NODES) -> float:
+    """nvcc each source into ``out_dir/lib<stem>.so`` at ``nodes`` nodes,
+    all at once; returns the seconds taken.  Each source's compiler output
+    goes to ``out_dir/<stem>.log``."""
+    return _compile([(src, out_dir, nodes) for src in srcs])
+
+
+def _compile(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
+    """nvcc every (source, output directory, node count) at once."""
     compiler = nvcc()
     start = time.perf_counter()
     jobs = []
-    for src in srcs:
+    for src, out_dir, nodes in jobs_in:
+        out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
         log = open(out_dir / f"{src.stem}.log", "w")
-        proc = subprocess.Popen([compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=log, stderr=subprocess.STDOUT)
-        jobs.append((src, tmp, log, proc))
+        proc = subprocess.Popen(
+            [compiler, *NVCC_FLAGS, f"-DSKD_NODES={nodes}", "-o", str(tmp), str(src)],
+            stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((src, out_dir, nodes, tmp, log, proc))
     failed = []
-    for src, tmp, log, proc in jobs:
+    for src, out_dir, nodes, tmp, log, proc in jobs:
         try:
             proc.wait(timeout=NVCC_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -91,33 +137,37 @@ def compile_sources(srcs: List[Path], out_dir: Path) -> float:
         if proc.returncode == 0:
             os.replace(tmp, out_dir / f"lib{src.stem}.so")
         else:
-            failed.append(f"{src.name}:\n{(out_dir / f'{src.stem}.log').read_text()}")
+            failed.append(f"{src.name} at {nodes} nodes:\n"
+                          f"{(out_dir / f'{src.stem}.log').read_text()}")
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     return time.perf_counter() - start
 
 
-def build_all() -> float:
-    """Build every library that is missing; returns the seconds taken (0.0
-    when nothing was missing)."""
-    missing = [src for src in sources() if not library_path(src.stem).is_file()]
-    return compile_sources(missing, build_dir()) if missing else 0.0
+def build_all(node_counts: Iterable[int] = (DEFAULT_NODES,)) -> float:
+    """Build every library of each node count that is missing, all at once;
+    returns the seconds taken (0.0 when nothing was missing)."""
+    missing = [(src, build_dir(n), n) for n in node_counts for src in sources_for(n)
+               if not library_path(src.stem, n).is_file()]
+    return _compile(missing) if missing else 0.0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``."""
+def library(name: str, nodes: int = DEFAULT_NODES) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` at ``nodes`` nodes."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"the {name} kernel needs a CUDA device; none is available")
+    check_nodes(name, name, nodes)
     with _lock:
-        if name not in _libraries:
-            build_all()
-            _libraries[name] = ctypes.CDLL(str(library_path(name)))
-        return _libraries[name]
+        if (name, nodes) not in _libraries:
+            build_all((nodes,))
+            _libraries[(name, nodes)] = ctypes.CDLL(str(library_path(name, nodes)))
+        return _libraries[(name, nodes)]
 
 
-def ptxas_report(name: str) -> str:
-    """nvcc's -Xptxas -v lines for ``csrc/<name>.cu`` (empty before a build)."""
-    log = build_dir() / f"{name}.log"
+def ptxas_report(name: str, nodes: int = DEFAULT_NODES) -> str:
+    """nvcc's -Xptxas -v lines for ``csrc/<name>.cu`` at ``nodes`` nodes
+    (empty before a build)."""
+    log = build_dir(nodes) / f"{name}.log"
     return log.read_text() if log.is_file() else ""
 
 
@@ -171,10 +221,11 @@ def element_suffix(kernel: str, dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def c_entry(name: str, symbol: str, n_pointers: int, n_ints: int):
-    """The C function ``symbol`` of ``csrc/<name>.cu`` taking ``n_pointers``
-    pointers, ``n_ints`` ints and the stream, returning a cudaError."""
-    fn = getattr(library(name), symbol)
+def c_entry(name: str, symbol: str, n_pointers: int, n_ints: int, nodes: int = DEFAULT_NODES):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` built at ``nodes``
+    nodes, taking ``n_pointers`` pointers, ``n_ints`` ints and the stream,
+    returning a cudaError."""
+    fn = getattr(library(name, nodes), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

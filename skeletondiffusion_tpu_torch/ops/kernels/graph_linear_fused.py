@@ -49,13 +49,16 @@ def graph_linear_fused_plain(x, w, b, g, u=None) -> torch.Tensor:
     return mix_plain(g, h.to(dt)).to(dt)
 
 
-def graph_linear_fused_plan(dtype: torch.dtype, d: int, f: int) -> node_mix_sm90.BlockPlan:
-    """The tile plan of the kernel: one pass d → f, its contraction padded to
-    ``node_mix_sm90.narrow_width(d)`` (the plan of B9a's stem pass); raises
-    for what the kernel does not take (d not a positive multiple of 8, f not
-    a multiple of 64 up to 256, a plan that does not fit)."""
+def graph_linear_fused_plan(dtype: torch.dtype, d: int, f: int,
+                            nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the kernel at ``nodes`` nodes: one pass d → f, its
+    contraction padded to ``node_mix_sm90.narrow_width(d)`` (the plan of
+    B9a's stem pass); raises for what the kernel does not take (d not a
+    positive multiple of 8, f not a multiple of 64 up to 256, a node count
+    out of range, a plan that does not fit)."""
     return node_mix_sm90.block_plan("graph_linear_fused", dtype, f,
-                                    (node_mix_sm90.narrow_width("graph_linear_fused", d),))
+                                    (node_mix_sm90.narrow_width("graph_linear_fused", d),),
+                                    nodes)
 
 
 def graph_linear_fused(
@@ -73,7 +76,7 @@ def graph_linear_fused(
         return graph_linear_fused_plain(x, w, b, g, u)
     n, rows, d = x.shape
     f = w.shape[-1]
-    plan = graph_linear_fused_plan(x.dtype, d, f)
+    plan = graph_linear_fused_plan(x.dtype, d, f, n)
     shapes = dict(x=(n, rows, d), w=(n, d, f), b=(n, f), g=(n, n), u=(n, rows, f))
     out = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
     node_mix_sm90.launch("graph_linear_fused", "graph_linear_fused", {**tensors, "u": u}, shapes,

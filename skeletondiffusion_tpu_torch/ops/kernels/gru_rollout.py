@@ -49,7 +49,12 @@ ROLLOUT_CLUSTER = 4
 ROLLOUT_MAX_STAGES = 6   # mbarrier pairs the kernel reserves
 H_ROW_PAD = 4            # floats after each row of h
 H_PLANE_PAD = 4          # floats after each node's plane of h
-G_ROW = 24               # influence rows padded to whole float4s
+G_ROW = 24               # influence rows of the bf16 rollout (21 nodes) padded to whole float4s
+
+
+def g_row(n: int) -> int:
+    """The fp32 rollout's influence rows padded to whole float4s (``kGRow``)."""
+    return -(-n // 4) * 4
 
 
 class RolloutPlan(NamedTuple):
@@ -70,13 +75,14 @@ def rollout_plan_bytes(n: int, h: int, stages: int) -> int:
     stage = 4 * ROLLOUT_K_ROWS * n * 3 * ROLLOUT_SLICE
     h_bytes = 4 * n * (ROLLOUT_ROWS * (h + H_ROW_PAD) + H_PLANE_PAD)
     p_bytes = 4 * n * 4 * ROLLOUT_ROWS * ROLLOUT_SLICE
-    return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * G_ROW
+    return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * g_row(n)
 
 
 def rollout_plan(n: int, h: int) -> RolloutPlan:
     """The fp32 rollout's plan at n nodes and hidden width h: as many ring
-    stages as fit (at most ROLLOUT_MAX_STAGES).  The kernel is built for 21
-    nodes, h = 96 and 3 outputs and refuses other shapes itself."""
+    stages as fit (at most ROLLOUT_MAX_STAGES).  The kernel is built for each
+    node count up to 21 (``build.NODE_RANGE``; the wrapper refuses others),
+    h = 96 and 3 outputs, and refuses other shapes itself."""
     fits = [s for s in range(2, ROLLOUT_MAX_STAGES + 1)
             if rollout_plan_bytes(n, h, s) <= node_mix_sm90.MAX_SMEM]
     stages = fits[-1] if fits else 2
@@ -84,12 +90,12 @@ def rollout_plan(n: int, h: int) -> RolloutPlan:
                        rollout_plan_bytes(n, h, stages))
 
 
-def resident_clusters(plan: RolloutPlan) -> int:
-    """How many of the fp32 rollout kernel's clusters fit on the card at once
-    under ``plan`` (the blocks of one round are that × ``plan.cluster``); needs
-    a CUDA device."""
+def resident_clusters(plan: RolloutPlan, nodes: int = build.DEFAULT_NODES) -> int:
+    """How many of the fp32 rollout kernel's clusters, built at ``nodes``
+    nodes, fit on the card at once under ``plan`` (the blocks of one round
+    are that × ``plan.cluster``); needs a CUDA device."""
     clusters = ctypes.c_int(0)
-    status = build.c_entry("gru_rollout", "gru_rollout_f32_clusters", 1, 2)(
+    status = build.c_entry("gru_rollout", "gru_rollout_f32_clusters", 1, 2, nodes)(
         ctypes.addressof(clusters), plan.stages, plan.smem_bytes, None)
     build.check_status(f"gru_rollout's occupancy query at plan {tuple(plan)}", status)
     return clusters.value
@@ -281,12 +287,13 @@ def gru_rollout(
     if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
         raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
+    build.check_nodes(kernel, "gru_rollout_merged" if merged else "gru_rollout", n)
     if merged:
-        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10)
+        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10, n)
         width, pack, plan = ROLLOUT_BF16_SLICE, pack_rollout_bank_bf16, rollout_bf16_plan(n, h, f)
         aligned = dict(cx=cx)
     else:
-        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10)
+        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n)
         width, pack, plan = ROLLOUT_SLICE, pack_rollout_bank, rollout_plan(n, h)
         aligned = dict(w_fc=w_fc, b_hh=b_hh)
     # the bank packed into ring stages (the kernels take H = 96 only and

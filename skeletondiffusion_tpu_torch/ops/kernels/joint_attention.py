@@ -43,22 +43,25 @@ class AttentionPlan(NamedTuple):
     smem_bytes: int
 
 
-def plan_bytes(elem: int, rows: int, group_heads: int, dim_head: int, stages: int) -> int:
+def plan_bytes(elem: int, rows: int, group_heads: int, dim_head: int, stages: int,
+               nodes: int = N_NODES) -> int:
     """Shared memory of one block (``attention_layout`` in
     ``csrc/joint_attention.cu``): barriers and a zero row, then ``stages``
     stages of every node's ``rows`` rows of the group's q‖k‖v, each node
     followed by NODE_PAD bytes."""
     node = elem * rows * 3 * group_heads * dim_head + NODE_PAD
-    stage = -(-N_NODES * node // 128) * 128
+    stage = -(-nodes * node // 128) * 128
     return 128 + stages * stage
 
 
-def attention_plan(dtype: torch.dtype, heads: int, dim_head: int) -> AttentionPlan:
-    """The plan of the attention kernel: two rows of all heads an item if a
-    ring of two such stages fits, else one row of the largest group of heads
-    that does, with as many stages (2 to 4) as fit; raises for what the
-    kernel does not take."""
+def attention_plan(dtype: torch.dtype, heads: int, dim_head: int,
+                   nodes: int = N_NODES) -> AttentionPlan:
+    """The plan of the attention kernel at ``nodes`` joints: two rows of all
+    heads an item if a ring of two such stages fits, else one row of the
+    largest group of heads that does, with as many stages (2 to 4) as fit;
+    raises for what the kernel does not take."""
     build.element_suffix("attention_core", dtype)
+    build.check_nodes("attention_core", "joint_attention", nodes)
     if dim_head != DIM_HEAD or not 0 < heads <= MAX_HEADS:
         raise ValueError(f"attention_core: takes 1 to {MAX_HEADS} heads of {DIM_HEAD}, got "
                          f"{heads} × {dim_head}")
@@ -67,10 +70,10 @@ def attention_plan(dtype: torch.dtype, heads: int, dim_head: int) -> AttentionPl
         for group in ([heads] if rows > 1 else
                       [g for g in range(heads, 0, -1) if heads % g == 0]):
             fits = [s for s in range(2, MAX_STAGES + 1)
-                    if plan_bytes(elem, rows, group, dim_head, s) <= MAX_SMEM]
+                    if plan_bytes(elem, rows, group, dim_head, s, nodes) <= MAX_SMEM]
             if fits:
                 return AttentionPlan(rows, group, fits[-1],
-                                     plan_bytes(elem, rows, group, dim_head, fits[-1]))
+                                     plan_bytes(elem, rows, group, dim_head, fits[-1], nodes))
     raise AssertionError("one row of one head always fits")
 
 
@@ -96,13 +99,11 @@ def attention_core(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.Ten
     n, rows, width = qkv.shape
     hd = heads * dim_head
     suffix = build.element_suffix("attention_core", qkv.dtype)
-    plan = attention_plan(qkv.dtype, heads, dim_head)
-    if n != N_NODES:
-        raise ValueError(f"attention_core: takes {N_NODES} nodes, got {n}")
+    plan = attention_plan(qkv.dtype, heads, dim_head, n)
     build.check_kernel_inputs("attention_core", {"qkv": (n, rows, 3 * hd)}, qkv.dtype, qkv=qkv)
     build.check_aligned("attention_core", 16, qkv=qkv)
     out = torch.empty((n, rows, hd), dtype=qkv.dtype, device=qkv.device)
-    status = build.c_entry("joint_attention", f"attention_core_{suffix}", 2, 8)(
+    status = build.c_entry("joint_attention", f"attention_core_{suffix}", 2, 8, n)(
         qkv.data_ptr(), out.data_ptr(), n, rows, heads, dim_head, *plan, build.stream_of(qkv))
     build.check_status(f"attention_core at (nodes, heads, dim_head, plan)="
                        f"{(n, heads, dim_head, *plan)}", status)

@@ -62,13 +62,14 @@ def _block_shapes(n: int, f: int) -> dict:
                 g2=(n, n))
 
 
-def stem_block_plan(dtype: torch.dtype, d: int, f: int) -> node_mix_sm90.BlockPlan:
+def stem_block_plan(dtype: torch.dtype, d: int, f: int,
+                    nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
     """The tile plan of the stem_block kernel (the stem d → f, its
     contraction padded to ``node_mix_sm90.padded_width(d)``, then the
-    block's two f → f products); raises for what the kernel does not
-    take."""
+    block's two f → f products) at ``nodes`` nodes; raises for what the
+    kernel does not take."""
     return node_mix_sm90.block_plan("stem_block", dtype, f,
-                                    (node_mix_sm90.narrow_width("stem_block", d), f, f))
+                                    (node_mix_sm90.narrow_width("stem_block", d), f, f), nodes)
 
 
 def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
@@ -83,7 +84,7 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
         return stem_block_plain(**tensors)
     n, rows, d = x.shape
     f = ws.shape[-1]
-    plan = stem_block_plan(x.dtype, d, f)
+    plan = stem_block_plan(x.dtype, d, f, n)
     shapes = dict(x=(n, rows, d), u=(n, rows, f), ws=(n, d, f), bs=(n, f), gs=(n, n),
                   **_block_shapes(n, f))
     r = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
@@ -97,16 +98,16 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
     return r, out
 
 
-def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int,
-                      dim_head: int) -> node_mix_sm90.TilePlan:
-    """The tile plan of the rms_qkv_core kernel at input width ``f``; raises
-    for what the kernel does not take."""
+def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int, dim_head: int,
+                      nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.TilePlan:
+    """The tile plan of the rms_qkv_core kernel at input width ``f`` and
+    ``nodes`` nodes; raises for what the kernel does not take."""
     build.element_suffix("rms_qkv_core", dtype)
     if dim_head != CORE_DIM_HEAD or heads <= 0:
         raise ValueError(f"rms_qkv_core: takes heads of {CORE_DIM_HEAD}, got {heads} × {dim_head}")
     if f <= 0 or f % 32:
         raise ValueError(f"rms_qkv_core: F={f} must be a positive multiple of 32")
-    return node_mix_sm90.plan("rms_qkv_core", dtype, CORE_ROWS[dtype], 3 * dim_head, f)
+    return node_mix_sm90.plan("rms_qkv_core", dtype, CORE_ROWS[dtype], 3 * dim_head, f, nodes)
 
 
 def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
@@ -119,7 +120,7 @@ def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.
         return rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, heads, dim_head)
     n, rows, f = x.shape
     hd = heads * dim_head
-    plan = rms_qkv_core_plan(x.dtype, f, heads, dim_head)
+    plan = rms_qkv_core_plan(x.dtype, f, heads, dim_head, n)
     out = torch.empty((n, rows, hd), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
     node_mix_sm90.launch("layer_fused", "rms_qkv_core", tensors, shapes,
@@ -129,11 +130,12 @@ def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.
     return out
 
 
-def outproj_block_plan(dtype: torch.dtype, hd: int, f: int) -> node_mix_sm90.BlockPlan:
+def outproj_block_plan(dtype: torch.dtype, hd: int, f: int,
+                       nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
     """The tile plan of the outproj_block kernel (out-projection hd → f, then
-    the block's two f → f products); raises for what the kernel does not
-    take."""
-    return node_mix_sm90.block_plan("outproj_block", dtype, f, (hd, f, f))
+    the block's two f → f products) at ``nodes`` nodes; raises for what the
+    kernel does not take."""
+    return node_mix_sm90.block_plan("outproj_block", dtype, f, (hd, f, f), nodes)
 
 
 def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
@@ -147,7 +149,7 @@ def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Ten
         return outproj_block_plain(**tensors)
     n, rows, hd = a.shape
     f = x.shape[-1]
-    plan = outproj_block_plan(x.dtype, hd, f)
+    plan = outproj_block_plan(x.dtype, hd, f, n)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n),
                   **_block_shapes(n, f))
     out = torch.empty_like(x)

@@ -17,7 +17,10 @@ D = 96 rows zero-padded to 128, ``narrow_width``), items of a row tile ×
 every column, their banks streamed in k-slices (``block_plan``).
 
 Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
-kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.
+kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.  The
+plans take the skeleton's node count (``nodes``, 2 to ``build.MAX_NODES``;
+21 unless given), the kernels' build parameter: P and the fp32 influences
+have a plane or row a node.
 """
 from __future__ import annotations
 
@@ -29,8 +32,7 @@ from . import build
 
 MAX_SMEM = 232448     # bytes of dynamic shared memory a block may have (227 KB)
 MAX_STAGES = 4        # mbarrier pairs the kernels reserve
-N_NODES = 21
-G_STRIDE = 24         # fp32 influence rows padded to whole float4s
+N_NODES = build.DEFAULT_NODES
 MAX_F = 256           # the widest input row the kernels normalise (in registers)
 PLANE_PAD = 16        # bytes after each node's plane of products
 CLUSTER = 2           # blocks a cluster: adjacent row tiles that share each weight tile
@@ -50,29 +52,40 @@ def _up(n: int) -> int:
     return (n + 127) & ~127
 
 
-def plan_bytes(elem: int, rows: int, cols: int, f: int, stages: int) -> int:
+def g_stride(nodes: int) -> int:
+    """fp32 influence rows padded to whole float4s (``kGStride``)."""
+    return -(-nodes // 4) * 4
+
+
+def plan_bytes(elem: int, rows: int, cols: int, f: int, stages: int,
+               nodes: int = N_NODES) -> int:
     """Shared memory of one block (``layout`` in ``node_mix_sm90.cuh``):
     barriers and a zero row, the fp32 influence (fp32 only), ``stages`` ×
     (input rows + weight tile), the products of all nodes."""
-    g_mix = _up(4 * N_NODES * G_STRIDE) if elem == 4 else 0
+    g_mix = _up(4 * nodes * g_stride(nodes)) if elem == 4 else 0
     stage = _up(rows * f * elem) + _up(f * cols * elem)
     plane = rows * cols * elem + PLANE_PAD
-    return 128 + g_mix + stages * stage + _up(N_NODES * plane)
+    return 128 + g_mix + stages * stage + _up(nodes * plane)
 
 
-def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int) -> TilePlan:
-    """The plan of ``rows`` × ``cols`` tiles at input width ``f``: as many
-    ring stages (2 to 4) as fit; raises ValueError when two do not, or when
-    f exceeds MAX_F."""
+def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int,
+         nodes: int = N_NODES) -> TilePlan:
+    """The plan of ``rows`` × ``cols`` tiles at input width ``f`` and
+    ``nodes`` nodes: as many ring stages (2 to 4) as fit; raises ValueError
+    when two do not, or when f exceeds MAX_F or the node count the kernels'
+    range."""
     elem = torch.empty((), dtype=dtype).element_size()
+    build.check_nodes(kernel, kernel, nodes)
     if f > MAX_F:
         raise ValueError(f"{kernel}: F={f} exceeds {MAX_F}, the widest row the kernels "
                          f"normalise")
-    fits = [s for s in range(2, MAX_STAGES + 1) if plan_bytes(elem, rows, cols, f, s) <= MAX_SMEM]
+    fits = [s for s in range(2, MAX_STAGES + 1)
+            if plan_bytes(elem, rows, cols, f, s, nodes) <= MAX_SMEM]
     if not fits:
         raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} in {dtype} does not fit "
                          f"{MAX_SMEM} bytes of shared memory with two stages")
-    return TilePlan(rows, cols, fits[-1], CLUSTER, plan_bytes(elem, rows, cols, f, fits[-1]))
+    return TilePlan(rows, cols, fits[-1], CLUSTER,
+                    plan_bytes(elem, rows, cols, f, fits[-1], nodes))
 
 
 # rows of a ResnetBlock item, and the k-slices of its banks, widest first
@@ -91,25 +104,28 @@ class BlockPlan(NamedTuple):
     smem_bytes: int
 
 
-def block_plan_bytes(elem: int, rows: int, f: int, kslice: int, stages: int, mixes: int) -> int:
+def block_plan_bytes(elem: int, rows: int, f: int, kslice: int, stages: int, mixes: int,
+                     nodes: int = N_NODES) -> int:
     """Shared memory of one ResnetBlock block (``block_layout`` in
     ``node_mix_sm90.cuh``): barriers and a zero row, the fp32 influences
     (fp32 only), FiLM's fp32 scale + 1 and shift, ``stages`` × (a k-slice of
     the input rows, rows padded by 16 bytes + a k-slice of the bank), the
     products of all nodes (rows padded by 16 bytes, planes by PLANE_PAD)."""
     pad = 16 // elem
-    g_mix = _up(4 * N_NODES * G_STRIDE * mixes) if elem == 4 else 0
+    g_mix = _up(4 * nodes * g_stride(nodes) * mixes) if elem == 4 else 0
     stage = _up(rows * (kslice + pad) * elem) + _up(kslice * f * elem)
     plane = rows * (f + pad) * elem + PLANE_PAD
-    return 128 + g_mix + _up(8 * f) + stages * stage + _up(N_NODES * plane)
+    return 128 + g_mix + _up(8 * f) + stages * stage + _up(nodes * plane)
 
 
-def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> BlockPlan:
+def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...],
+               nodes: int = N_NODES) -> BlockPlan:
     """The plan of a kernel whose passes contract over ``ks`` into ``f``
-    columns: the widest k-slice that divides every width and fits two ring
-    stages beside the products, with as many stages (2 to 4) as fit; raises
-    ValueError for what the kernel does not take."""
+    columns at ``nodes`` nodes: the widest k-slice that divides every width
+    and fits two ring stages beside the products, with as many stages (2 to
+    4) as fit; raises ValueError for what the kernel does not take."""
     build.element_suffix(kernel, dtype)
+    build.check_nodes(kernel, kernel, nodes)
     elem = torch.empty((), dtype=dtype).element_size()
     if f <= 0 or f % 64 or f > MAX_F:
         raise ValueError(f"{kernel}: F={f} must be a positive multiple of 64 up to {MAX_F}")
@@ -121,10 +137,10 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...]) -> 
         if any(k % kslice for k in ks):
             continue
         fits = [s for s in range(2, MAX_STAGES + 1)
-                if block_plan_bytes(elem, rows, f, kslice, s, len(ks)) <= MAX_SMEM]
+                if block_plan_bytes(elem, rows, f, kslice, s, len(ks), nodes) <= MAX_SMEM]
         if fits:
             return BlockPlan(rows, kslice, fits[-1], CLUSTER,
-                             block_plan_bytes(elem, rows, f, kslice, fits[-1], len(ks)))
+                             block_plan_bytes(elem, rows, f, kslice, fits[-1], len(ks), nodes))
     raise ValueError(f"{kernel}: a {rows}-row tile at F={f} in {dtype} does not fit "
                      f"{MAX_SMEM} bytes of shared memory with two stages")
 
@@ -250,9 +266,10 @@ def launch(library: str, kernel: str, tensors: Dict[str, Optional[torch.Tensor]]
            packs: Dict[str, Tuple], ints: Tuple[int, ...], *outs: torch.Tensor) -> None:
     """Check ``tensors``, pack each one named in ``packs`` by its spec
     (``pack``) and launch ``<kernel>_<bf16|f32>`` of ``csrc/<library>.cu``
-    on the tensors in their order (None: a null pointer, an input the kernel
-    goes without), ``outs`` and ``ints`` (the widths, then the tile plan);
-    raises unless the launch succeeded."""
+    built at ``ints[0]`` nodes on the tensors in their order (None: a null
+    pointer, an input the kernel goes without), ``outs`` and ``ints`` (the
+    node count and widths, then the tile plan); raises unless the launch
+    succeeded."""
     dt = outs[0].dtype
     suffix = build.element_suffix(kernel, dt)
     given = {k: t for k, t in tensors.items() if t is not None}
@@ -260,6 +277,7 @@ def launch(library: str, kernel: str, tensors: Dict[str, Optional[torch.Tensor]]
     packed = {k: pack(t, packs[k]) if k in packs else t for k, t in given.items()}
     build.check_aligned(kernel, 32, **packed)
     pointers = [packed[k].data_ptr() if k in packed else None for k in tensors]
-    status = build.c_entry(library, f"{kernel}_{suffix}", len(tensors) + len(outs), len(ints))(
+    status = build.c_entry(library, f"{kernel}_{suffix}", len(tensors) + len(outs), len(ints),
+                           ints[0])(
         *pointers, *(t.data_ptr() for t in outs), *ints, build.stream_of(outs[0]))
     build.check_status(f"{kernel} at (nodes, rows, widths, plan)={ints}", status)

@@ -44,6 +44,7 @@ def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
     if build.kernel_device(x0=x0, xt=xt, noise=noise, m_t=m_t) == "cpu":
         return posterior_step_plain(x0, xt, noise, m_t)
     n, b, d = xt.shape
+    build.check_nodes("posterior_step", "posterior_step", n)
     shapes = {"x0": (n, b, d), "xt": (n, b, d), "noise": (n, b, d), "m_t": (n, 3 * n)}
     x0_bf16 = x0.dtype == torch.bfloat16
     dtypes = {"x0": x0.dtype if x0_bf16 else torch.float32, "xt": torch.float32,
@@ -57,7 +58,7 @@ def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
                          "(float32) or 8-byte (bfloat16) aligned (vector loads)")
     out = torch.empty_like(xt)
     entry = build.c_entry("posterior_step", "posterior_step_x0_bf16" if x0_bf16
-                          else "posterior_step_f32", 5, 2)
+                          else "posterior_step_f32", 5, 2, n)
     status = entry(x0.data_ptr(), xt.data_ptr(), noise.data_ptr(), m_t.data_ptr(),
                    out.data_ptr(), n, b * d, build.stream_of(xt))
     build.check_status(f"posterior_step at {n} nodes", status)

@@ -68,22 +68,27 @@ def final_block_out_plain(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
     return mix_plain(gh, product_plain(o, wh, bh).to(dt)).to(dt)
 
 
-def resnet_block_plan(dtype: torch.dtype, f: int) -> node_mix_sm90.BlockPlan:
-    """The tile plan of the resnet_block kernel at width ``f``; raises for
-    what the kernel does not take."""
-    return node_mix_sm90.block_plan("resnet_block", dtype, f, (f, f))
+def resnet_block_plan(dtype: torch.dtype, f: int,
+                      nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
+    """The tile plan of the resnet_block kernel at width ``f`` and ``nodes``
+    nodes; raises for what the kernel does not take."""
+    return node_mix_sm90.block_plan("resnet_block", dtype, f, (f, f), nodes)
 
 
-def final_block_in_plan(dtype: torch.dtype, f: int) -> node_mix_sm90.BlockPlan:
+def final_block_in_plan(dtype: torch.dtype, f: int,
+                        nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
     """The tile plan of the final_block_in kernel at width ``f`` (both passes
-    contract over x‖r, 2F wide); raises for what the kernel does not take."""
-    return node_mix_sm90.block_plan("final_block_in", dtype, f, (2 * f, 2 * f))
+    contract over x‖r, 2F wide) and ``nodes`` nodes; raises for what the
+    kernel does not take."""
+    return node_mix_sm90.block_plan("final_block_in", dtype, f, (2 * f, 2 * f), nodes)
 
 
-def final_block_out_plan(dtype: torch.dtype, f: int, fo: int) -> node_mix_sm90.BlockPlan:
+def final_block_out_plan(dtype: torch.dtype, f: int, fo: int,
+                         nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.BlockPlan:
     """The tile plan of the final_block_out kernel at width ``f`` with a head
-    of ``fo`` columns; raises for what the kernel does not take."""
-    plan = node_mix_sm90.block_plan("final_block_out", dtype, f, (f, f))
+    of ``fo`` columns, at ``nodes`` nodes; raises for what the kernel does
+    not take."""
+    plan = node_mix_sm90.block_plan("final_block_out", dtype, f, (f, f), nodes)
     node_mix_sm90.check_out_width("final_block_out", dtype, f, fo)
     return plan
 
@@ -97,7 +102,7 @@ def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
     if build.kernel_device(**tensors) == "cpu":
         return resnet_block_plain(**tensors)
     n, rows, f = x.shape
-    plan = resnet_block_plan(x.dtype, f)
+    plan = resnet_block_plan(x.dtype, f, n)
     shapes = dict(x=(n, rows, f), film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n),
                   w2=(n, f, f), b2=(n, f), g2=(n, n))
     out = torch.empty_like(x)
@@ -117,7 +122,7 @@ def final_block_in(x, r, film, w1, b1, g1, wr, gr):
     if build.kernel_device(**tensors) == "cpu":
         return final_block_in_plain(**tensors)
     n, rows, f = x.shape
-    plan = final_block_in_plan(x.dtype, f)
+    plan = final_block_in_plan(x.dtype, f, n)
     shapes = dict(x=(n, rows, f), r=(n, rows, f), film=(2 * f,), w1=(n, 2 * f, f), b1=(n, f),
                   g1=(n, n), wr=(n, 2 * f, f), gr=(n, n))
     h, res = torch.empty_like(x), torch.empty_like(x)
@@ -138,7 +143,7 @@ def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
         return final_block_out_plain(**tensors)
     n, rows, f = h.shape
     fo = wh.shape[-1]
-    plan = final_block_out_plan(h.dtype, f, fo)
+    plan = final_block_out_plan(h.dtype, f, fo, n)
     shapes = dict(h=(n, rows, f), res=(n, rows, f), w2=(n, f, f), b2=(n, f), g2=(n, n),
                   wh=(n, f, fo), bh=(n, fo), gh=(n, n))
     out = torch.empty((n, rows, fo), dtype=h.dtype, device=h.device)

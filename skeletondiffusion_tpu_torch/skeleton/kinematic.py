@@ -1,12 +1,14 @@
-"""AMASS kinematic skeleton: joint dictionary, limb sequence, node graph (with
-the hip-triangle reconnection applied when the root is dropped), mirror
-node types, parents, left/right flags, limb-angle groups, the
+"""Kinematic skeletons of AMASS (22 joints; 3DPW zero-shot reuses it),
+Human3.6M (17 or 25) and FreeMan (18): joint dictionary, limb sequence, node
+graph (with the hip-triangle reconnection applied when the root is dropped),
+mirror node types, parents, left/right flags, limb-angle groups, the
 adjacency/reachability matrices (host-side numpy) and limb-length
 extraction (torch).
 
 Port of ``skeletondiffusion_tpu/skeleton/kinematic.py`` (reference
-`src/data/skeleton/kinematic/{base,amass}.py`) restricted to the 22-joint
-AMASS skeleton.
+`src/data/skeleton/kinematic/{base,amass,h36m,freeman}.py`) without the
+52-joint AMASS-MANO body, whose 51 nodes the kernels do not take yet
+(ROADMAP Queue A item 5).
 """
 from __future__ import annotations
 
@@ -115,12 +117,16 @@ class Kinematic:
 
 class AMASSKinematic(Kinematic):
     """SMPL-H body skeleton, 22 joints; reference
-    `src/data/skeleton/kinematic/amass.py:7-86`."""
+    `src/data/skeleton/kinematic/amass.py:7-86`.  Also the 3DPW zero-shot
+    skeleton (`kinematic/__init__.py:7-8`)."""
 
     def __init__(self, num_joints: int = 22, **kwargs):
         super().__init__(**kwargs)
         if num_joints != 22:
-            raise NotImplementedError(f"num_joints={num_joints}: the port has the 22-joint body")
+            raise NotImplementedError(
+                f"num_joints={num_joints}: the port has the 22-joint body; the 52-joint "
+                "AMASS-MANO body (51 nodes) waits for kernels past 32 nodes (ROADMAP Queue A "
+                "item 5)")
         self.joint_dict_orig = {
             0: "GlobalRoot", 1: "LHip", 2: "RHip", 3: "Spine1",
             4: "LKnee", 5: "RKnee", 6: "Spine3",
@@ -150,10 +156,104 @@ class AMASSKinematic(Kinematic):
             ]
 
 
+class H36MKinematic(Kinematic):
+    """Human3.6M skeleton, 17-joint (default) or 25-joint variant; reference
+    `src/data/skeleton/kinematic/h36m.py:68-111`."""
+
+    # 32-joint raw capture → deduplicated conversions (`h36m.py:23,44`)
+    CONVERSION_IDX_32TO17 = [0, 1, 2, 3, 6, 7, 8, 12, 13, 14, 15, 17, 18, 19, 25, 26, 27]
+    CONVERSION_IDX_32TO25 = [
+        0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 14, 15, 17, 18, 19, 21, 22, 25, 26, 27, 29, 30,
+    ]
+
+    def __init__(self, num_joints: int = 17, **kwargs):
+        super().__init__(**kwargs)
+        if num_joints not in (17, 25):
+            raise ValueError(f"num_joints={num_joints}: Human3.6M has 17 or 25 joints")
+        if num_joints == 17:
+            self.joint_dict_orig = {
+                0: "GlobalRoot", 1: "RHip", 2: "RKnee", 3: "RAnkle",
+                4: "LHip", 5: "LKnee", 6: "LAnkle",
+                7: "Torso", 8: "Neck", 9: "Nose", 10: "Head",
+                11: "LShoulder", 12: "LElbow", 13: "LWrist",
+                14: "RShoulder", 15: "RElbow", 16: "RWrist",
+            }
+            limbseq = [
+                [0, 1], [0, 4], [1, 2], [2, 3], [4, 5], [5, 6],
+                [0, 7], [7, 8], [8, 9], [9, 10], [8, 11], [8, 14],
+                [11, 12], [12, 13], [14, 15], [15, 16],
+            ]
+        else:
+            self.joint_dict_orig = {
+                0: "GlobalRoot",
+                1: "RHip", 2: "RKnee", 3: "RAnkle", 4: "RFoot", 5: "RToes",
+                6: "LHip", 7: "LKnee", 8: "LAnkle", 9: "LFoot", 10: "LToes",
+                11: "Torso", 12: "Neck", 13: "Nose", 14: "Head",
+                15: "LShoulder", 16: "LElbow", 17: "LWrist",
+                18: "LSmallFinger", 19: "LThumb",
+                20: "RShoulder", 21: "RElbow", 22: "RWrist",
+                23: "RSmallFinger", 24: "RThumb",
+            }
+            limbseq = [
+                [0, 1], [0, 6], [1, 2], [2, 3], [3, 4], [4, 5],
+                [6, 7], [7, 8], [8, 9], [9, 10], [0, 11], [11, 12], [12, 13], [13, 14],
+                [12, 15], [12, 20], [15, 16], [16, 17], [17, 18], [17, 19],
+                [20, 21], [21, 22], [22, 23], [22, 24],
+            ]
+        self.limbseq = np.asarray(limbseq)
+        self.left_right_limb_list = [
+            not (name[0] == "L" and name[1].isupper()) for name in self.joint_dict_orig.values()
+        ]
+        self._build_node_graph([["RHip", "LHip"], ["RHip", "Torso"], ["LHip", "Torso"]])
+        if not self.if_consider_hip:
+            if num_joints != 17:
+                raise ValueError("the 25-joint Human3.6M skeleton keeps its hip "
+                                 "(if_consider_hip=True)")
+            self.limb_angles_idx = [[3, 4], [0, 2, 7, 8, 9], [1, 7, 10, 12, 13], [7, 11, 14, 15]]
+
+
+class FreeManKinematic(Kinematic):
+    """FreeMan's 18 joints (COCO-style and a synthesized hip root); reference
+    `src/data/skeleton/kinematic/freeman.py:5-43`."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.joint_dict_orig = {
+            0: "GlobalRoot", 1: "LHip", 2: "RHip",
+            3: "LKnee", 4: "RKnee", 5: "LAnkle", 6: "RAnkle",
+            7: "Nose", 8: "LEye", 9: "REye", 10: "LEar", 11: "REar",
+            12: "LShoulder", 13: "RShoulder", 14: "LElbow", 15: "RElbow",
+            16: "LWrist", 17: "RWrist",
+        }
+        self.limbseq = np.asarray([
+            [0, 1], [0, 2], [1, 3], [2, 4], [3, 5], [4, 6],
+            [0, 7], [7, 8], [7, 9], [8, 10], [9, 11],
+            [7, 12], [7, 13], [12, 14], [13, 15], [14, 16], [15, 17],
+        ])
+        self.left_right_limb_list = [
+            not (name[0] == "L" and name[1].isupper()) for name in self.joint_dict_orig.values()
+        ]
+        self._build_node_graph([["RHip", "LHip"], ["RHip", "Nose"], ["LHip", "Nose"]])
+        if not self.if_consider_hip:
+            self.limb_angles_idx = [[0, 1, 7, 9], [0, 4, 6], [1, 8, 10], [3, 5],
+                                    [2, 11, 13, 15], [1, 12, 14, 16]]
+
+
+KINEMATICS = {
+    "amass": (AMASSKinematic, "AMASS"),
+    "3dpw": (AMASSKinematic, "AMASS"),
+    "h36m": (H36MKinematic, "H36M"),
+    "freeman": (FreeManKinematic, "FreeMan"),
+}
+
+
 def get_kinematic_class(dataset_name: str):
-    """Dataset → (kinematic class, its name)."""
-    if dataset_name.lower() != "amass":
-        raise NotImplementedError(
-            f"dataset {dataset_name!r}: the port has the AMASS skeleton only (ROADMAP Queue A "
-            "item 5, the other skeletons)")
-    return AMASSKinematic, "AMASS"
+    """Dataset → (kinematic class, its name); 3DPW zero-shot reuses AMASS
+    (reference `src/data/skeleton/kinematic/__init__.py:6-9`)."""
+    name = dataset_name.lower()
+    if name not in KINEMATICS:
+        later = (" waits for kernels past 32 nodes (ROADMAP Queue A item 5)"
+                 if name == "amass-mano" else " is not a dataset of the reference")
+        raise NotImplementedError(f"dataset {dataset_name!r}{later}; the port has "
+                                  f"{sorted(KINEMATICS)}")
+    return KINEMATICS[name]

@@ -1,15 +1,20 @@
 """Motion representations: the input-space ↔ metric-space transforms as torch
 functions of a statically configured object.
 
-Port of ``MotionRepresentation``, ``SkeletonCenterPose`` and
-``SkeletonRescalePose`` from ``skeletondiffusion_tpu/skeleton/motion.py``
-(`:20-145`; reference `src/data/skeleton/motion/{base,centerpose,rescalepose}.py`).
+Port of ``MotionRepresentation``, ``SkeletonCenterPose``,
+``SkeletonRescalePose``, ``get_dct_matrix`` and
+``SkeletonDiscreteCosineTransform`` from
+``skeletondiffusion_tpu/skeleton/motion.py`` (`:20-205`; reference
+`src/data/skeleton/motion/{base,centerpose,rescalepose,dct}.py`).
 Layout ``[..., T, J, 3]`` with the global root (hip) at joint 0 in metric
 space, any leading shape.  With ``if_consider_hip=False`` (the hmp task) the
 input space drops the root and works on ``J-1`` nodes.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .kinematic import NODE_HIP
@@ -123,11 +128,57 @@ class SkeletonRescalePose(SkeletonCenterPose):
         return kpts * self.pose_box_size
 
 
+def get_dct_matrix(N: int) -> tuple[np.ndarray, np.ndarray]:
+    """The orthonormal DCT-II matrix of N points and its inverse, float64;
+    reference `motion/dct.py`."""
+    k = np.arange(N)[:, None]
+    i = np.arange(N)[None, :]
+    w = np.where(k == 0, math.sqrt(1.0 / N), math.sqrt(2.0 / N))
+    dct_m = w * np.cos(np.pi * (i + 0.5) * k / N)
+    return dct_m, np.linalg.inv(dct_m)
+
+
+class SkeletonDiscreteCosineTransform(SkeletonCenterPose):
+    """CenterPose, then a DCT-II over the time axis of the observed and the
+    future segments, each with its own length; the inverse DCT back to metric
+    space.  No shipped config uses it.  Reference `motion/dct.py:39-80`."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        as_f32 = lambda m: torch.from_numpy(m.astype(np.float32))  # noqa: E731
+        dct_fut, idct_fut = get_dct_matrix(self.pred_length)
+        dct_past, idct_past = get_dct_matrix(self.obs_length)
+        self.dct_m_fut, self.idct_m_fut = as_f32(dct_fut), as_f32(idct_fut)
+        self.dct_m_past, self.idct_m_past = as_f32(dct_past), as_f32(idct_past)
+
+    @staticmethod
+    def _apply(m: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("dn,...ncf->...dcf", m.to(data.device, data.dtype), data)
+
+    def tranform_to_input_space_pose_only(self, data: torch.Tensor) -> torch.Tensor:
+        """Reference `dct.py:50-59`: each segment's DCT after centring."""
+        data = super().tranform_to_input_space_pose_only(data)
+        if data.shape[-3] == self.pred_length:
+            return self._apply(self.dct_m_fut, data)
+        obs, fut = data[..., : self.obs_length, :, :], data[..., self.obs_length :, :, :]
+        return torch.cat([self._apply(self.dct_m_past, obs), self._apply(self.dct_m_fut, fut)],
+                         dim=-3)
+
+    def transform_to_metric_space_pose_only(self, kpts: torch.Tensor) -> torch.Tensor:
+        """Reference `dct.py:75-80`: the inverse DCT of a future or an
+        observed segment."""
+        if kpts.shape[-3] not in (self.pred_length, self.obs_length):
+            raise ValueError(f"a segment of {kpts.shape[-3]} frames is neither the observed "
+                             f"({self.obs_length}) nor the future ({self.pred_length})")
+        idct = self.idct_m_fut if kpts.shape[-3] == self.pred_length else self.idct_m_past
+        return self._apply(idct, kpts)
+
+
 def get_motion_representation_class(motion_repr_type: str):
-    """Reference `motion/__init__.py:8-9`; the DCT representation is not
-    ported."""
+    """Reference `motion/__init__.py:8-9`."""
     return {
         "SkeletonVanilla": MotionRepresentation,
         "SkeletonCenterPose": SkeletonCenterPose,
         "SkeletonRescalePose": SkeletonRescalePose,
+        "SkeletonDiscreteCosineTransform": SkeletonDiscreteCosineTransform,
     }[motion_repr_type]

@@ -638,8 +638,9 @@ def test_build_dataset_refuses_what_the_port_lacks(tree):
     cfg = flatten_config(load_config(str(CONFIGS / "config_train_autoencoder"),
                                      [f"dataset_main_path={tree}", *TASK, *LOADERS]))
     sk = build_skeleton(cfg)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_dataset({**cfg, "dataset_type": "H36MDataset"}, sk, "train", "data_loader_train")
+    # every dataset class of the JAX package reads since the skeletons' slice
+    with pytest.raises(NotImplementedError, match="the port reads"):
+        build_dataset({**cfg, "dataset_type": "MANODataset"}, sk, "train", "data_loader_train")
     loader = {**cfg["data_loader_train"], "normalize_data": True}
     with pytest.raises(ValueError, match="normalize_data"):
         build_dataset({**cfg, "data_loader_train": loader}, sk, "train", "data_loader_train")
@@ -648,8 +649,9 @@ def test_build_dataset_refuses_what_the_port_lacks(tree):
 def test_fid_classifier_reads_the_reference_weights_and_h36m_is_refused(tmp_path):
     """The FID hook reads ``h36m_classifier.pth`` (the reference's
     ``{"model": state_dict}``) into the port's classifier, for the H36M test
-    split only.  The eval CLI cannot reach it yet: ``build_skeleton`` refuses
-    h36m (ROADMAP Queue A item 5)."""
+    split only.  ``build_skeleton`` builds the H36M skeleton since the
+    skeletons' slice and refuses AMASS-MANO, whose 51 nodes the kernels do
+    not take yet (ROADMAP Queue A item 5)."""
     from skeletondiffusion_tpu_torch.metrics.fid import ClassifierForFID, port_classifier
 
     g = np.load(REPO / "tests" / "goldens" / "fid_classifier.npz")
@@ -666,8 +668,10 @@ def test_fid_classifier_reads_the_reference_weights_and_h36m_is_refused(tmp_path
     assert eval_cli.fid_classifier({**cfg, "precomputed_folder": str(tmp_path / "no")},
                                    "test") is None
     amass = flatten_config(load_config(str(CONFIGS / "config_eval"), ["dataset=amass", *TASK]))
+    h36m = flatten_config(load_config(str(CONFIGS / "config_eval"), ["dataset=h36m", *TASK]))
+    assert build_skeleton(h36m).num_nodes == 16
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_skeleton({**amass, "dataset_name": "h36m"})
+        build_skeleton({**amass, "dataset_name": "amass-mano", "num_joints": 52})
 
 
 def test_eval_launcher_runs_as_a_module(tree, tmp_path):

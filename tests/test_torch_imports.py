@@ -1,6 +1,7 @@
 """The port stands alone: ``skeletondiffusion_tpu_torch`` (its training
 modules under ``train/``, its entry points under ``cli/``, ``inference.py``,
-the ``utils/`` modules and the diffusion variants' modules included),
+the ``utils/`` modules, the diffusion variants' modules and the H36M,
+FreeMan and 3DPW skeletons, loaders and synthetic trees included),
 ``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``) import
 neither ``jax`` nor ``skeletondiffusion_tpu``, nor ``flax``, ``optax``,
 ``orbax``, ``pandas`` or ``yaml``, which the card's machine does not have,
@@ -34,6 +35,12 @@ assert all(f"{pkg.__name__}.{m}" in sys.modules for m in entry), entry
 variants = {"diffusion.process": "IsotropicProcess", "diffusion.engine": "posterior_update_plain",
             "models.autoencoder": "Decoder", "models.denoiser": "Denoiser"}
 assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in variants.items()), variants
+skeletons = [("skeleton.kinematic", "H36MKinematic"), ("skeleton.kinematic", "FreeManKinematic"),
+             ("skeleton.motion", "SkeletonDiscreteCosineTransform"),
+             ("data.loaders", "H36MDataset"), ("data.loaders", "FreeManDataset"),
+             ("data.loaders", "D3PWZeroShotDataset"),
+             ("data.synthetic", "make_synthetic_skeleton_tree"), ("ops.kernels.build", "NODE_RANGE")]
+assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in skeletons), skeletons
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("clean")

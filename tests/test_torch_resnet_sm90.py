@@ -346,14 +346,15 @@ def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kern
 
 
 def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
-    """B3b's kernel takes 21 nodes; the wrapper refuses others before it
-    names a C entry, and counts no launch."""
+    """B3b's kernel is built for 2 to 32 nodes; the wrapper refuses others
+    (naming the ROADMAP item) before it names a C entry, and counts no
+    launch."""
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
     before = attention_proj.launches_outproj_res
-    with pytest.raises(ValueError, match="takes 21 nodes, got 20"):
-        attention_proj.outproj_res(z(20, 4, HD), z(20, 4, F), z(20, HD, F), z(20, 20))
+    with pytest.raises(ValueError, match="takes 2 to 32 nodes, got 33 .*ROADMAP"):
+        attention_proj.outproj_res(z(33, 4, HD), z(33, 4, F), z(33, HD, F), z(33, 33))
     assert attention_proj.launches_outproj_res == before
 
 
@@ -369,7 +370,7 @@ def test_wrappers_hand_the_kernel_packed_banks_and_the_plan(monkeypatch, kernel,
     the plan."""
     calls = []
 
-    def recording(library, symbol, n_pointers, n_ints):
+    def recording(library, symbol, n_pointers, n_ints, nodes=21):
         def entry(*args):
             calls.append((library, symbol, args[:n_pointers], args[n_pointers:-1]))
             return 0
@@ -471,7 +472,7 @@ def test_graph_linear_fused_hands_the_kernel_stem_blocks_packed_bank(monkeypatch
     cached copy: the two kernels read the same tiles."""
     seen = {}
 
-    def recording(library, symbol, n_pointers, n_ints):
+    def recording(library, symbol, n_pointers, n_ints, nodes=21):
         def entry(*args):
             seen[library] = args[:n_pointers]
             return 0

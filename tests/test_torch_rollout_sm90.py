@@ -115,7 +115,7 @@ def _inputs(rng, b):
 def test_wrapper_hands_the_kernel_the_packed_bank_and_the_plan(monkeypatch):
     calls = []
 
-    def recording(library, symbol, n_pointers, n_ints):
+    def recording(library, symbol, n_pointers, n_ints, nodes=21):
         def entry(*args):
             calls.append((library, symbol, args[:n_pointers], args[n_pointers:-1]))
             return 0
@@ -170,7 +170,7 @@ def test_resident_clusters_asks_the_c_entry_under_the_plan(monkeypatch):
 
     calls = []
 
-    def entry_of(library, symbol, n_pointers, n_ints):
+    def entry_of(library, symbol, n_pointers, n_ints, nodes=21):
         def entry(out, stages, smem_bytes, stream):
             calls.append((library, symbol, n_pointers, n_ints, stages, smem_bytes))
             ctypes.c_int.from_address(out).value = 30
@@ -306,7 +306,7 @@ def test_pack_rollout_bank_bf16_refuses_other_widths(shape):
 def test_bf16_wrapper_hands_the_kernel_the_packed_bank_and_the_plan(monkeypatch):
     calls = []
 
-    def recording(library, symbol, n_pointers, n_ints):
+    def recording(library, symbol, n_pointers, n_ints, nodes=21):
         def entry(*args):
             calls.append((library, symbol, args[:n_pointers], args[n_pointers:-1]))
             return 0

@@ -48,6 +48,14 @@ def skeletons():
     return jax_create_skeleton(**SKELETON_KW), create_skeleton(**SKELETON_KW)
 
 
+def skeletons_of(dataset: str, joints: int, obs: int = OBS_LEN, pred: int = PRED_LEN):
+    """(JAX skeleton, port skeleton) of ``dataset`` with ``joints`` joints
+    (h36m 17, freeman 18, 3dpw 22), the hip dropped."""
+    kw = dict(SKELETON_KW, dataset_name=dataset, num_joints=joints, obs_length=obs,
+              pred_length=pred)
+    return jax_create_skeleton(**kw), create_skeleton(**kw)
+
+
 def perturb_influence(tree, rng: np.random.Generator):
     """Move every influence matrix off its identity/zero init (as training
     does), so that the node mixes are exercised."""
@@ -180,22 +188,29 @@ BF16_SPREAD = 1.4
 SAMPLES_E2E, BATCH_E2E = 4, 2
 
 
-def wide_model_pair():
-    """(JAX skeleton, port skeleton, {dtype: models}): the JAX models and the
-    port's with the same weights, at the flagship's widths (``WIDE``) with
+def model_pair(jsk, sk, width=WIDE) -> dict:
+    """{dtype: models}: the JAX models and the port's with the same weights
+    on the skeleton pair (jsk, sk) at ``width`` (latent, hidden, arch) with
     spread denoiser weights, for float32 (None) and bfloat16."""
-    jsk, sk = skeletons()
     out = {}
     for dtype in (None, "bfloat16"):
         jae, ae_params, jengine, jden, den_params = jax_models(
-            jsk, seed=3, latent=WIDE["latent"], hidden=WIDE["hidden"], arch=WIDE["arch"],
+            jsk, seed=3, latent=width["latent"], hidden=width["hidden"], arch=width["arch"],
             compute_dtype=dtype, spread=True)
-        ae, engine, den = port_models(sk, ae_params, den_params, latent=WIDE["latent"],
-                                      hidden=WIDE["hidden"], arch=WIDE["arch"],
+        ae, engine, den = port_models(sk, ae_params, den_params, latent=width["latent"],
+                                      hidden=width["hidden"], arch=width["arch"],
                                       compute_dtype=dtype)
         out[dtype] = dict(jae=jae, ae_params=as_jax(ae_params), jengine=jengine, jden=jden,
-                          den_params=as_jax(den_params), ae=ae, engine=engine, den=den)
-    return jsk, sk, out
+                          den_params=as_jax(den_params), ae=ae, engine=engine, den=den,
+                          latent=width["latent"])
+    return out
+
+
+def wide_model_pair():
+    """(JAX skeleton, port skeleton, {dtype: models}): ``model_pair`` of the
+    AMASS skeleton at the flagship's widths (``WIDE``)."""
+    jsk, sk = skeletons()
+    return jsk, sk, model_pair(jsk, sk)
 
 
 def jax_fused_chain(jsk, m, obs, start, steps, compiled: bool = False):
@@ -239,36 +254,46 @@ def jax_fused_chain(jsk, m, obs, start, steps, compiled: bool = False):
             np.asarray(jsk.transform_to_metric_space(pred.reshape(b, s, PRED_LEN, n, 3))))
 
 
-def bf16_predictor_ratios(jsk, sk, m, seed: int) -> dict:
-    """The port's bf16 predictor with injected noise against the JAX fused
-    chain (``jax_fused_chain``) on the inputs of ``seed``, both taking the
-    denoiser path the environment selects: for the latents and the
-    predictions, each deviation over the JAX chain's own bf16-vs-fp32
-    deviation (``vs_jax_bf16_mean``: port bf16 against JAX bf16;
-    ``vs_fp32_max`` and ``vs_fp32_mean``: port bf16 against JAX fp32)."""
+def predictor_runs(jsk, sk, m, seed: int, dtypes=("bfloat16",)) -> dict:
+    """The JAX fused chain (``jax_fused_chain``) in fp32 and bf16 and the
+    port's predictors of ``dtypes`` (the models of ``m``, on the CPU) with
+    the same injected noise on the inputs of ``seed``, each taking the
+    denoiser path the environment selects: {"jax": {dtype: (latents,
+    predictions)}, "port": {dtype: (latents, predictions)}}, metric space."""
     from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
 
-    n, latent, s = jsk.num_nodes, WIDE["latent"], SAMPLES_E2E
+    n, latent, s = jsk.num_nodes, m[None]["latent"], SAMPLES_E2E
     rows = BATCH_E2E * s
     rng = np.random.default_rng(seed)
     obs = 0.3 * rng.standard_normal((BATCH_E2E, OBS_LEN, n, 3), dtype=np.float32)
     start = rng.standard_normal((rows, n, latent), dtype=np.float32)
     steps = rng.standard_normal((rows, TIMESTEPS - 1, n, latent), dtype=np.float32)
-    chain = {d: jax_fused_chain(jsk, m[d], *map(jnp.asarray, (obs, start, steps)),
-                                compiled=d is None)
-             for d in (None, "bfloat16")}
+    runs = {"jax": {d: jax_fused_chain(jsk, m[d], *map(jnp.asarray, (obs, start, steps)),
+                                       compiled=d is None)
+                    for d in (None, "bfloat16")}, "port": {}}
+    for d in dtypes:
+        pred = SkeletonDiffusionPredictor(sk, m[d]["ae"], m[d]["engine"], num_samples=s,
+                                          pred_length=PRED_LEN, device="cpu")
+        assert (pred.diffusion.fused is not None) == (d == "bfloat16")  # the fused branch
+        got, got_lat = pred(None, torch.from_numpy(obs), start_noise=torch.from_numpy(start),
+                            step_noise=torch.from_numpy(steps))
+        got = sk.transform_to_metric_space(got).numpy()
+        assert got.shape == (BATCH_E2E, s, PRED_LEN, n, 3) and np.isfinite(got).all()
+        runs["port"][d] = (got_lat.numpy(), got)
+    return runs
 
-    bf16 = m["bfloat16"]
-    pred = SkeletonDiffusionPredictor(sk, bf16["ae"], bf16["engine"], num_samples=s,
-                                      pred_length=PRED_LEN, device="cpu")
-    assert pred.diffusion.fused is not None  # the fused branch is taken
-    got, got_lat = pred(None, torch.from_numpy(obs), start_noise=torch.from_numpy(start),
-                        step_noise=torch.from_numpy(steps))
-    got = sk.transform_to_metric_space(got).numpy()
-    assert got.shape == (BATCH_E2E, s, PRED_LEN, n, 3) and np.isfinite(got).all()
 
+def bf16_predictor_ratios(jsk, sk, m, seed: int, runs=None) -> dict:
+    """The port's bf16 predictor with injected noise against the JAX fused
+    chain (``predictor_runs``, or ``runs`` made by it) on the inputs of
+    ``seed``: for the latents and the predictions, each deviation over the
+    JAX chain's own bf16-vs-fp32 deviation (``vs_jax_bf16_mean``: port bf16
+    against JAX bf16; ``vs_fp32_max`` and ``vs_fp32_mean``: port bf16 against
+    JAX fp32)."""
+    runs = runs or predictor_runs(jsk, sk, m, seed)
+    chain, (got_lat, got) = runs["jax"], runs["port"]["bfloat16"]
     ratios = {}
-    for what, mine, i in (("latents", got_lat.numpy(), 0), ("predictions", got, 1)):
+    for what, mine, i in (("latents", got_lat, 0), ("predictions", got, 1)):
         ref, fp32 = chain["bfloat16"][i], chain[None][i]
         vs_jax_bf16, jax_err, port_err = (np.abs(mine - ref), np.abs(ref - fp32),
                                           np.abs(mine - fp32))
@@ -283,12 +308,12 @@ def bf16_predictor_ratios(jsk, sk, m, seed: int) -> dict:
     return ratios
 
 
-def hold_bf16_predictor(jsk, sk, m, seed: int) -> dict:
+def hold_bf16_predictor(jsk, sk, m, seed: int, runs=None) -> dict:
     """``bf16_predictor_ratios`` held: the port's bf16 path is as close to
     fp32 as the JAX package's is, and no farther from the JAX bf16 path than
     the bf16 rounding noise, each within ``BF16_SPREAD``.  Returns the
     ratios."""
-    ratios = bf16_predictor_ratios(jsk, sk, m, seed)
+    ratios = bf16_predictor_ratios(jsk, sk, m, seed, runs)
     for what, r in ratios.items():
         for name in ("vs_fp32_max", "vs_fp32_mean", "vs_jax_bf16_mean"):
             assert r[name] <= BF16_SPREAD, (what, name, r[name])
@@ -316,9 +341,10 @@ class KernelInputs:
     """Random inputs made with numpy from a seed, rounded to the dtype under
     test, handed to the port as torch tensors and to JAX as arrays."""
 
-    def __init__(self, dtype: str, seed: int):
+    def __init__(self, dtype: str, seed: int, nodes: int = KERNEL_NODES):
         self.rng = np.random.default_rng(seed)
         self.tdt, self.jdt = DTYPES[dtype]
+        self.nodes = nodes
 
     def _make(self, a: np.ndarray):
         t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.tdt)
@@ -328,13 +354,13 @@ class KernelInputs:
         return self._make(scale * self.rng.standard_normal(shape))
 
     def bank(self, fi, fo):
-        return self._make(self.rng.standard_normal((KERNEL_NODES, fi, fo)) / np.sqrt(fi))
+        return self._make(self.rng.standard_normal((self.nodes, fi, fo)) / np.sqrt(fi))
 
     def bias(self, fo):
-        return self._make(0.1 * self.rng.standard_normal((KERNEL_NODES, fo)))
+        return self._make(0.1 * self.rng.standard_normal((self.nodes, fo)))
 
     def influence(self):
-        g = np.eye(KERNEL_NODES) + 0.2 * self.rng.random((KERNEL_NODES, KERNEL_NODES))
+        g = np.eye(self.nodes) + 0.2 * self.rng.random((self.nodes, self.nodes))
         return self._make(l1_normalize_rows(torch.from_numpy(g)).numpy())
 
     def film(self, f):
