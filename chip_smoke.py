@@ -9,9 +9,9 @@ Phases, each printed with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds skeletondiffusion_tpu_torch/csrc/*.cu at each node
-              count of NODE_COUNTS (21 AMASS, 16 H36M, 17 FreeMan; the bf16
-              rollout B8 and the lab core L1 at 21 only), one nvcc a source
-              and count, all at once (ptxas report);
+              count of NODE_COUNTS (21 AMASS, 16 H36M, 17 FreeMan, 51
+              AMASS-MANO; the bf16 rollout B8 and the lab core L1 at 21
+              only), one nvcc a source and count, all at once (ptxas report);
 3. kernels  — the AMASS flagship model at full width (21 nodes, latent and
               hidden 96, denoiser depth 4 × 8 heads × 32, 10 diffusion steps,
               observe 30, predict 120) is built from a seed; K1 and K2 run on
@@ -152,9 +152,22 @@ Phases, each printed with its elapsed seconds:
               cli.eval dataset=h36m with FID against compute_metrics.  The
               kernels' JSON line lists each kernel once per node count
               ("nodes"), with eval_launches of its dataset; the 21-node
-              entries also carry eval_3dpw_launches.  Before these, three
-              kernels given 33 nodes and the AMASS-MANO skeleton must raise,
-              naming ROADMAP Queue A item 5.
+              entries also carry eval_3dpw_launches.  Before these, four
+              kernels given 52 nodes must raise, naming shapes no skeleton of
+              the reference has (ROADMAP Queue B item 9), and at 51 nodes B8
+              and L1 (Queue B item 9) and the fp32 engine's plans (Queue B
+              item 10).
+16. mano    — the same at AMASS-MANO's 51 nodes (observe 30, predict 120):
+              K1, K2 and every kernel of phases 5 and 7 against its plain
+              version (bf16; B2 and K1, K2 in fp32 too; the fp32 engine's
+              tiles do not fit at 51 nodes), the fp32, bf16 and layer-fused
+              paths as phase 15 runs and holds them; compute_metrics with the
+              bf16 predictor over the shipped AMASS-MANO test split cut to
+              MANO_EVAL_CUT segments (APDE on the tree's mmapd_GT.csv);
+              cli.train_autoencoder, cli.train_diffusion and cli.eval with
+              dataset=amass-mano as phase 15's H36M CLIs, without FID.  The
+              kernels' JSON line lists the 51-node entries with eval_launches
+              of the MANO eval.
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
@@ -238,9 +251,11 @@ BATCH, SAMPLES, OBS_LEN, PRED_LEN = 256, 50, 30, 120
 # dataset → (joints with the hip, observed and predicted frames of the hmp
 # task: 0.5 s and 2 s at the dataset's fps); the model drops the hip, so
 # AMASS runs 21 nodes, H36M 16 and FreeMan 17
-SKELETONS = {"amass": (22, OBS_LEN, PRED_LEN), "h36m": (17, 25, 100), "freeman": (18, 15, 60)}
-# the node counts the kernels are built for: AMASS (and 3DPW), H36M, FreeMan
-NODE_COUNTS = (21, 16, 17)
+SKELETONS = {"amass": (22, OBS_LEN, PRED_LEN), "h36m": (17, 25, 100), "freeman": (18, 15, 60),
+             "amass-mano": (52, OBS_LEN, PRED_LEN)}
+# the node counts the kernels are built for: AMASS (and 3DPW), H36M, FreeMan,
+# AMASS-MANO
+NODE_COUNTS = (21, 16, 17, 51)
 LATENT, HIDDEN, TIMESTEPS = 96, 96, 10
 ARCH = {"depth": 4, "attn_heads": 8, "attn_dim_head": 32, "learn_influence": True}
 SEED = 0
@@ -330,8 +345,13 @@ RESUME_TOL = 1e-6
 # each device); the H36M CLIs on a tree of SKELETON_CLI_SEGMENTS segments a
 # CSV, CLI_ITERS iterations an epoch.
 ANNOTATIONS = pathlib.Path(__file__).resolve().parent / "datasets" / "annotations"
-SKELETON_EVALS = {"h36m": "Human36M", "freeman": "FreeMan", "3dpw": "3DPW"}
+SKELETON_EVALS = {"h36m": "Human36M", "freeman": "FreeMan", "3dpw": "3DPW",
+                  "amass-mano": "AMASS-MANO"}
 SKELETON_EVAL_CUT = None
+# The mano phase: AMASS-MANO's test split (12 727 segments) cut to its first
+# MANO_EVAL_CUT segments (16 batches of 256), to keep the script within half
+# its time limit: a batch's prediction at 51 nodes takes ~1.7 s.
+MANO_EVAL_CUT = 4096
 SKELETON_CPU_SEGMENTS = 2 * BATCH
 SKELETON_CLI_SEGMENTS = 512
 FID_GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "fid_classifier.npz"
@@ -522,12 +542,21 @@ def rollout_inputs(predictor, gen: torch.Generator, compute_dtypes=(None,)) -> l
         return [rollout_mod.rollout_args(dec, x, z, dt) for dt in compute_dtypes]
 
 
+def odd_cluster_rows(plan) -> int:
+    """The largest row count up to the bench's whose ``plan.rows``-row tiles
+    fill an odd number of ``plan.cluster``-block clusters, the last one short
+    of its last block: ODD_TILE_ROWS for K1's 8-row tiles."""
+    clusters = -(-BATCH * SAMPLES // (plan.rows * plan.cluster))
+    odd = clusters - 1 if clusters % 2 == 0 else clusters - 2
+    return ((odd - 1) * plan.cluster + plan.cluster - 1) * plan.rows
+
+
 def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
     """K1 at the decode's shapes: cx [N, 12800, 288] (N = 21 on AMASS), the
     predictor's steps (120 on AMASS), against its plain version at 12 800
-    rows, a ragged 12 795 and ODD_TILE_ROWS (an odd number of its 8-row tiles
-    and of its 4-block clusters: the last cluster's fourth block has no
-    rows)."""
+    rows, a ragged 12 795 and ``odd_cluster_rows`` (an odd number of its
+    tiles and of its 4-block clusters: the last cluster's fourth block has
+    no rows; 12 760 with the 8-row tiles, 12 790 with AMASS-MANO's 2)."""
     inp, = rollout_inputs(predictor, gen)
     rows, ph = BATCH * SAMPLES, predictor.pred_length
     n, _, h3 = inp["cx"].shape
@@ -537,7 +566,7 @@ def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
     rounds = -(-rows // (plan.rows * plan.cluster * resident))
     parts, err = [], 0.0
     with torch.no_grad():
-        for cut in (rows, rows - RAGGED, ODD_TILE_ROWS):
+        for cut in (rows, rows - RAGGED, odd_cluster_rows(plan)):
             args = {k: v[:, :cut].contiguous() if k in ("cx", "h0") else v for k, v in inp.items()}
             got = rollout_mod.gru_rollout(**args, ph=ph)
             want = rollout_mod.gru_rollout_plain(**args, ph=ph)
@@ -886,13 +915,33 @@ def products_only(*pairs):
     return lambda: [torch.bmm(x, w) for x, w in pairs]
 
 
+def engine_dtypes(n: int) -> tuple:
+    """The element types the engine's kernels (B4, B1, B3a, B3b, B5a, B5b,
+    B9a–c) take at ``n`` nodes: bf16 and fp32, or bf16 alone past
+    build.NARROW_NODES, where the fp32 tiles do not fit (their plans refuse,
+    ROADMAP Queue B item 10; ``check_refusals``)."""
+    return (torch.bfloat16,) if build.wide(n) else (torch.bfloat16, torch.float32)
+
+
+def odd_qkv_rows(plan_of, n: int) -> tuple:
+    """B3a's and B9b's odd-tile row counts at ``n`` nodes for each of
+    ``engine_dtypes``: ODD_TILE_ROWS with the 21-node tiles, else from the
+    plan's rows (``plan_of(dtype)``)."""
+    if not build.wide(n):
+        return (ODD_TILE_ROWS, ODD_TILE_ROWS)
+    return tuple(odd_tile_rows(plan_of(dt).rows) for dt in engine_dtypes(n))
+
+
 def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
     """The fused denoiser's kernels and K2's bf16-x̂₀ entry on the bench
     shapes, on the bf16 model's own operands and activations drawn from
-    ``gen`` (each kernel's input is what the one before it produced)."""
+    ``gen`` (each kernel's input is what the one before it produced); the
+    engine's kernels in fp32 too where their fp32 plans fit
+    (``engine_dtypes``)."""
     bf16 = torch.bfloat16
     diff, den = predictor.diffusion, predictor.diffusion.denoiser
     pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
+    dts, f32 = engine_dtypes(n), not build.wide(n)
     f, d = den.dim + den.cond_dim, den.dim
     heads, dh = den.attn_heads, den.attn_dim_head
     hd = heads * dh
@@ -933,7 +982,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 replaces="graph_linear_fused.py:70", source="graph_linear_fused.cu",
                 tensor_flops=prod(d, f) + mix(f),
                 odd_rows=tuple(odd_tile_rows(stem_mod.graph_linear_fused_plan(dt, d, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "resnet_block", block_mod.resnet_block, block_mod.resnet_block_plain,
                 [x, film, blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]],
@@ -941,13 +990,13 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 tensor_flops=2 * (prod(f, f) + mix(f)),
                 products=products_only((x, blk["w1"]), (x, blk["w2"])),
                 odd_rows=tuple(odd_tile_rows(block_mod.resnet_block_plan(dt, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "rms_qkv", proj_mod.rms_qkv, proj_mod.rms_qkv_plain,
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="attention_proj.py:114",
                 source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd),
-                products=products_only((x, att["w_qkv"])),
-                odd_rows=(ODD_TILE_ROWS, ODD_TILE_ROWS)),
+                products=products_only((x, att["w_qkv"])), f32=f32,
+                odd_rows=odd_qkv_rows(lambda dt: proj_mod.rms_qkv_plan(dt, f, 3 * hd, n), n)),
             check_fused_kernel(
                 "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
                                                     dim_head=dh),
@@ -963,7 +1012,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 source="attention_proj.cu", tensor_flops=prod(hd, f) + mix(f),
                 products=products_only((core, att["w_out"])),
                 odd_rows=tuple(odd_tile_rows(proj_mod.outproj_res_plan(dt, hd, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "final_block_in", block_mod.final_block_in, block_mod.final_block_in_plain,
                 [x, r, film_f, fin["w1"], fin["b1"], fin["g1"], fin["wr"], fin["gr"]],
@@ -971,7 +1020,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 tensor_flops=2 * (prod(2 * f, f) + mix(f)),
                 products=products_only((xr, fin["w1"]), (xr, fin["wr"])),
                 odd_rows=tuple(odd_tile_rows(block_mod.final_block_in_plan(dt, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "final_block_out", block_mod.final_block_out, block_mod.final_block_out_plain,
                 [h, res, fin["w2"], fin["b2"], fin["g2"], head["w"], head["b"], head["g"]],
@@ -979,7 +1028,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 tensor_flops=prod(f, f) + mix(f) + prod(f, d) + mix(d),
                 products=products_only((h, fin["w2"]), (o, head["w"])),
                 odd_rows=tuple(odd_tile_rows(block_mod.final_block_out_plan(dt, f, d, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "posterior_step_x0_bf16", posterior_mod.posterior_step,
                 posterior_mod.posterior_step_plain, [x0, xt, eps, m_t],
@@ -993,9 +1042,10 @@ def check_stem_bits(x, u, film, ws, bs, gs, block: tuple) -> None:
     """B4's output against B9a's r on the same inputs, bit for bit, in bf16
     and fp32 at 12 800 and a ragged 12 795 rows: B4 runs B9a's stem pass
     alone (the same k-slices, products and mix), so the single-stage and the
-    layer-fused bf16 paths compute the same block 0."""
+    layer-fused bf16 paths compute the same block 0 (bf16 alone where the
+    fp32 plans do not fit, ``engine_dtypes``)."""
     rows, parts = BATCH * SAMPLES, []
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in engine_dtypes(x.shape[0]):
         args = [t.to(dt) for t in (x, u, film, ws, bs, gs, *block)]
         for cut in (rows, rows - RAGGED):
             xc, uc, *rest = cut_rows(args, rows, cut)
@@ -1016,6 +1066,7 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
     bf16 = torch.bfloat16
     diff, den = predictor.diffusion, predictor.diffusion.denoiser
     pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
+    dts, f32 = engine_dtypes(n), not build.wide(n)
     f, d = den.dim + den.cond_dim, den.dim
     heads, dh = den.attn_heads, den.attn_dim_head
     hd = heads * dh
@@ -1045,7 +1096,7 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 tensor_flops=prod(d, f) + mix(f) + block,
                 products=products_only((x_lat, stem["w"]), (r, blk0["w1"]), (r, blk0["w2"])),
                 odd_rows=tuple(odd_tile_rows(layer_mod.stem_block_plan(dt, d, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
             check_fused_kernel(
                 "rms_qkv_core",
                 functools.partial(layer_mod.rms_qkv_core, heads=heads, dim_head=dh),
@@ -1053,8 +1104,9 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="layer_fused.py:285",
                 source="layer_fused.cu",
                 tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh,
-                products=products_only((x, att["w_qkv"])),
-                odd_rows=(ODD_TILE_ROWS, ODD_TILE_ROWS)),
+                products=products_only((x, att["w_qkv"])), f32=f32,
+                odd_rows=odd_qkv_rows(
+                    lambda dt: layer_mod.rms_qkv_core_plan(dt, f, heads, dh, n), n)),
             check_fused_kernel(
                 "outproj_block", layer_mod.outproj_block, layer_mod.outproj_block_plain,
                 [core, x, film1, att["w_out"], att["g_out"], *banks(blk1)],
@@ -1062,7 +1114,7 @@ def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
                 tensor_flops=prod(hd, f) + mix(f) + block,
                 products=products_only((core, att["w_out"]), (x, blk1["w1"]), (x, blk1["w2"])),
                 odd_rows=tuple(odd_tile_rows(layer_mod.outproj_block_plan(dt, hd, f, n).rows)
-                               for dt in (bf16, torch.float32))),
+                               for dt in dts), f32=f32),
         ]
 
 
@@ -2382,14 +2434,16 @@ def run_skeleton_eval(dataset: str, predictor_bf16, card_name: str, root: str) -
     preds/s; ZeroVelocity on the card against the CPU on a tree of the first
     SKELETON_CPU_SEGMENTS segments; the eval batch's device time split
     (``EvalClock``: predictor, metric suite, FID features, the rest).
-    Returns the launches."""
+    AMASS-MANO's split is cut to MANO_EVAL_CUT segments.  Returns the
+    launches."""
     skeleton = predictor_bf16.skeleton
     obs_len, pred_len = SKELETONS["amass" if dataset == "3dpw" else dataset][1:]
     ann = str(ANNOTATIONS / SKELETON_EVALS[dataset] / "hmp")
     t0 = time.perf_counter()
+    cut = MANO_EVAL_CUT if dataset == "amass-mano" else SKELETON_EVAL_CUT
     data_root = make_synthetic_skeleton_tree(os.path.join(root, dataset), dataset, ann,
                                              obs_length=obs_len, pred_length=pred_len,
-                                             max_segments=SKELETON_EVAL_CUT, seed=SEED)
+                                             max_segments=cut, seed=SEED)
     cfg = eval_config(dataset, data_root, zero_shot_segments(dataset, data_root))
     if (cfg["obs_length"], cfg["pred_length"]) != (obs_len, pred_len):
         raise AssertionError(f"{dataset}: the config's lengths {cfg['obs_length']}, "
@@ -2495,10 +2549,11 @@ def run_skeleton_cli(root: str, card_name: str) -> None:
 
 
 def check_refusals() -> None:
-    """Past 32 nodes every kernel refuses on the card, naming the ROADMAP
-    item of AMASS-MANO (51 nodes), before it launches; so does the
-    AMASS-MANO skeleton itself."""
-    n, rows = 33, 64
+    """Past 51 nodes every predictor kernel refuses on the card before it
+    launches, naming the ROADMAP item of shapes no skeleton of the reference
+    has; so do B8 and L1 at 51 nodes (they stay at 21) and the fp32 engine's
+    plans at 51 (their tiles do not fit, ROADMAP Queue B item 10)."""
+    n, rows = 52, 64
     x = torch.zeros((n, rows, 192), dtype=torch.bfloat16, device="cuda")
     calls = {"rms_qkv": lambda: proj_mod.rms_qkv(x, x[0, 0], torch.zeros(
                  (n, 192, 768), dtype=torch.bfloat16, device="cuda"), x[:, 0, :n]),
@@ -2507,29 +2562,36 @@ def check_refusals() -> None:
                  dim_head=32),
              "posterior_step": lambda: posterior_mod.posterior_step(
                  *(torch.zeros((n, rows, 96), device="cuda") for _ in range(3)),
-                 torch.zeros((n, 3 * n), device="cuda"))}
+                 torch.zeros((n, 3 * n), device="cuda")),
+             "gru_rollout": lambda: rollout_mod.gru_rollout(
+                 *(torch.zeros(s, device="cuda") for s in (
+                     (n, rows, 288), (n, rows, 96), (n, 96, 288), (n, 288), (n, n), (n, n),
+                     (n, 96, 3), (n, 3), (n, n))), ph=2)}
+    m = 51
+    at51 = {"gru_rollout_bf16": lambda: build.check_nodes("gru_rollout_bf16",
+                                                          "gru_rollout_merged", m),
+            "attention_core_fm": lambda: build.check_nodes("attention_core_fm",
+                                                           "attention_core_fm", m),
+            "resnet_block fp32": lambda: block_mod.resnet_block_plan(torch.float32, 192, m),
+            "rms_qkv fp32": lambda: proj_mod.rms_qkv_plan(torch.float32, 192, 768, m),
+            "rms_qkv_core fp32": lambda: layer_mod.rms_qkv_core_plan(torch.float32, 192, 8, 32,
+                                                                     m)}
     before = read_counts()
-    for name, call in calls.items():
+    for name, call, want in [*((k, c, "no skeleton of the reference") for k, c in calls.items()),
+                             *((k, c, "Queue B item 9" if "fp32" not in k else "Queue B item 10")
+                               for k, c in at51.items())]:
         try:
             call()
         except ValueError as e:
-            if "Queue A item 5" not in str(e):
+            if want not in str(e):
                 raise
         else:
-            raise AssertionError(f"{name} took {n} nodes")
-    try:
-        create_skeleton(dataset_name="amass-mano", motion_repr_type="SkeletonRescalePose",
-                        num_joints=52, pose_box_size=1.5, obs_length=OBS_LEN,
-                        pred_length=PRED_LEN, if_consider_hip=False)
-    except NotImplementedError as e:
-        if "Queue A item 5" not in str(e):
-            raise
-    else:
-        raise AssertionError("the AMASS-MANO skeleton was built")
+            raise AssertionError(f"{name} took {n if name in calls else m} nodes")
     if read_counts() != before:
         raise AssertionError("a refused call counted a launch")
-    log(f"refusals: {', '.join(calls)} at {n} nodes and the AMASS-MANO skeleton raise, "
-        "naming ROADMAP Queue A item 5")
+    log(f"refusals: {', '.join(calls)} at {n} nodes raise, naming shapes no skeleton of the "
+        f"reference has (ROADMAP Queue B item 9); at {m} nodes B8 and L1 raise (Queue B "
+        f"item 9) and the fp32 engine's plans (Queue B item 10)")
 
 
 def run_skeletons(device: torch.device, card_name: str, predictor_bf16_amass):
@@ -2560,6 +2622,76 @@ def run_skeletons(device: torch.device, card_name: str, predictor_bf16_amass):
         run_skeleton_cli(root, card_name)
         log(f"skeletons: h36m cli {time.perf_counter() - t:.1f} s")
     return entries, evals["3dpw"]
+
+
+def run_mano_cli(root: str, card_name: str) -> None:
+    """``cli.train_autoencoder`` and ``cli.train_diffusion`` with
+    ``dataset=amass-mano`` at the width of configs/** (CLI_EPOCHS epochs ×
+    CLI_ITERS iterations, validation each epoch on the tree's validation
+    clips), then ``cli.eval dataset=amass-mano`` on the stage-2 experiment
+    against ``compute_metrics`` on its ``prepare_model`` with the same seed,
+    on a tree of SKELETON_CLI_SEGMENTS segments a CSV."""
+    data_root = make_synthetic_skeleton_tree(
+        os.path.join(root, "mano_cli"), "amass-mano", str(ANNOTATIONS / "AMASS-MANO" / "hmp"),
+        obs_length=OBS_LEN, pred_length=PRED_LEN, max_segments=SKELETON_CLI_SEGMENTS,
+        seed=SEED + 1)
+    common = ["dataset=amass-mano", f"dataset_main_path={data_root}", *CLI_TRAIN]
+    ae_dir, ae_ms = run_main(train_ae_cli.main, "config_train_autoencoder", common + [
+        f"output_log_path={root}/mano_ae", f"model.num_epochs={CLI_EPOCHS}"])
+    check_experiment("amass-mano cli stage 1", ae_dir, CLI_EPOCHS)
+    diff_dir, diff_ms = run_main(train_diff_cli.main, "config_train_diffusion", [
+        f"dataset_main_path={data_root}", *CLI_TRAIN, f"output_log_path={root}/mano_diffusion",
+        f"model.pretrained_autoencoder_path={ae_dir}/checkpoints",
+        f"model.num_epochs={CLI_EPOCHS}"])
+    check_experiment("amass-mano cli stage 2", diff_dir, CLI_EPOCHS)
+    cfg = yaml_lite.read(os.path.join(diff_dir, "config.yaml"))
+    if (cfg["dataset_name"], cfg["num_joints"], cfg["latent_size"]) != ("amass-mano", 52, LATENT):
+        raise AssertionError(f"amass-mano cli stage 2 config: {cfg['dataset_name']}, "
+                             f"{cfg['num_joints']}, {cfg['latent_size']}")
+    extra = [f"checkpoint_path={diff_dir}", f"batch_size={BATCH}",
+             f"results_path={root}/mano_results.yaml"]
+    got, eval_ms = run_main(eval_cli.main, "config_eval", [
+        "dataset=amass-mano", f"dataset_main_path={data_root}", "stats_mode=probabilistic",
+        *extra])
+    ecfg = eval_cli.merge_experiment_cfg(eval_config("amass-mano", data_root, extra))
+    skeleton = build_skeleton(ecfg)
+    predictor = eval_cli.prepare_model(ecfg, skeleton, torch.device("cuda"))
+    ds = build_dataset(ecfg, skeleton, "test", "data_loader_test", if_compute_cmd=True)
+    want = compute_metrics(predictor, ds, skeleton, batch_size=BATCH,
+                           num_samples=ecfg["num_samples"], stats_mode="probabilistic",
+                           seed=ecfg.get("seed", 0), if_compute_cmd=True,
+                           if_compute_apde=bool(ecfg.get("if_compute_apde")),
+                           mmapd_gt_path=os.path.join(ecfg["annotations_folder"], "mmapd_GT.csv"),
+                           pred_length=ecfg["pred_length"], silent=True)
+    if skeleton.num_nodes != 51 or not predictor.use_fused_denoiser:
+        raise AssertionError(f"amass-mano eval cli: {skeleton.num_nodes} nodes, fused denoiser "
+                             f"{predictor.use_fused_denoiser}")
+    hold_metrics("amass-mano eval cli vs compute_metrics on prepare_model", got, want,
+                 lambda w: CLI_EVAL_TOL * max(1.0, abs(w)))
+    log(f"amass-mano cli on {card_name}: stage 1 {CLI_EPOCHS} epochs × {CLI_ITERS} iterations in "
+        f"{ae_ms / 1e3:.2f} s, stage 2 (bf16, k {TRAIN_K}) in {diff_ms / 1e3:.2f} s, the eval "
+        f"cli over {len(ds)} segments in {eval_ms / 1e3:.2f} s")
+
+
+def run_mano(device: torch.device, card_name: str):
+    """The mano phase: AMASS-MANO's kernels and paths at 51 nodes
+    (``run_skeleton_paths``), its bf16 evaluation on the shipped test split
+    cut to MANO_EVAL_CUT segments (``run_skeleton_eval``), and its CLIs
+    (``run_mano_cli``).  Returns the kernels' entries at 51 nodes, each with
+    its launches on its path and in the eval."""
+    t = time.perf_counter()
+    entries, _, predictor_bf16 = run_skeleton_paths("amass-mano", device, card_name)
+    log(f"mano: kernels and paths {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        launches = run_skeleton_eval("amass-mano", predictor_bf16, card_name, root)
+        for k in entries:
+            k["eval_launches"] = launches[k["name"]]
+        log(f"mano: eval {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_mano_cli(root, card_name)
+        log(f"mano: cli {time.perf_counter() - t:.1f} s")
+    return entries
 
 
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
@@ -2696,6 +2828,10 @@ def main() -> int:
         k["eval_3dpw_launches"] = launches[k["name"]]
     kernels += skeleton_kernels
     phase("skeletons", t)
+
+    t = time.perf_counter()
+    kernels += run_mano(device, card_name)
+    phase("mano", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

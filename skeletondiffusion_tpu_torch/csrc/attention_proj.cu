@@ -51,12 +51,14 @@ namespace {
 
 using namespace nodemix;
 
-// B3a's tiles: rows an item, output columns a group.
+// B3a's tiles: rows an item, output columns a group.  Past 21 nodes
+// (AMASS-MANO's 51) 16 rows × 64 columns: P of 51 × 16 × 64 bf16 is 105 KB
+// (32 × 96 would be 313 KB, 16 × 96 needs 244 KB with two stages).
 template <typename T>
 struct QkvTile;
 template <>
 struct QkvTile<bf16> {
-  static constexpr int kRows = 32, kCols = 96;
+  static constexpr int kRows = kWide ? 16 : 32, kCols = kWide ? 64 : 96;
 };
 template <>
 struct QkvTile<float> {

@@ -33,7 +33,10 @@
 //
 // N is the build's node count (node_mix.cuh, -DSKD_NODES): a stage holds the
 // item's rows of all N joints, one bulk copy a joint (16 for H36M, 17 for
-// FreeMan, 21 for AMASS; up to 32, a lane a query joint in fp32).
+// FreeMan, 21 for AMASS, 51 for AMASS-MANO).  At 51 joints two rows of all 8
+// heads (315 264 B a two-stage ring) do not fit: the plan takes one row of
+// all heads, two stages of 79 232 B (bf16), and the bodies take the query
+// joints in turns (joint_attention.cuh).
 
 #include <cmath>
 

@@ -19,7 +19,7 @@
 //   rounding point where it differs from the Pallas kernel and the plain
 //   version (held to them at the bf16 bounds; PERF.md §6).
 // * head_attention, their fp32 body: a lane per query joint on the CUDA
-//   cores.  Its bf16 branch rounds every product as the Pallas kernel does
+//   cores (past 32 joints a lane takes joints lane and lane + 32 in turn).  Its bf16 branch rounds every product as the Pallas kernel does
 //   (bit-exact to the plain version); the kernels run it in bf16 only when
 //   kTensorCoreBody is switched off (scripts/torch_head_attention_ab.py).
 
@@ -64,20 +64,18 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Lane n < N of the calling warp computes query joint n of one (row, head):
-// joint m's q, k and v (DH values each, 16-byte aligned) start at q + m·ld,
-// k + m·ld and v + m·ld (shared memory, read as broadcasts); the DH outputs
-// go to o + n·ldo with 16-byte stores.  Lanes n ≥ N return at once.
+// Query joint n of one (row, head): joint m's q, k and v (DH values each,
+// 16-byte aligned) start at q + m·ld, k + m·ld and v + m·ld (shared memory,
+// read as broadcasts); the DH outputs go to o + n·ldo with 16-byte stores.
 //
 // In bf16, q·round(scale) and the q·k products are bf16x2 instructions:
 // each gives the product rounded to bf16, as round_to<bf16> of the fp32
 // product does (the fp32 product of two bf16 values is exact), and the
 // products are summed in the same order, so both forms give the same bits.
 template <typename T, int N, int DH>
-__device__ __forceinline__ void head_attention(const T* q_base, const T* k_base, const T* v_base,
-                                               int ld, float scale, T* o_base, size_t ldo) {
-  const int n = threadIdx.x & 31;
-  if (n >= N) return;
+__device__ __forceinline__ void head_attention_joint(int n, const T* q_base, const T* k_base,
+                                                     const T* v_base, int ld, float scale,
+                                                     T* o_base, size_t ldo) {
   float p[N];
   if constexpr (std::is_same_v<T, bf16>) {
     const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
@@ -158,6 +156,17 @@ __device__ __forceinline__ void head_attention(const T* q_base, const T* k_base,
   for (int c = 0; c < DH; c += 8) store8(o + c, acc + c);
 }
 
+// The calling warp computes every query joint of one (row, head): lane n the
+// joints n, n + 32, … below N (one joint a lane up to 32 joints; lanes n ≥ N
+// return at once).
+template <typename T, int N, int DH>
+__device__ __forceinline__ void head_attention(const T* q_base, const T* k_base, const T* v_base,
+                                               int ld, float scale, T* o_base, size_t ldo) {
+#pragma unroll 1
+  for (int n = threadIdx.x & 31; n < N; n += 32)
+    head_attention_joint<T, N, DH>(n, q_base, k_base, v_base, ld, scale, o_base, ldo);
+}
+
 // The body the kernels run for element type T (see the head of this file).
 template <typename T>
 constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
@@ -175,8 +184,13 @@ constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
 //               MT k-steps) × dh 32 (four n8 tiles): 16 mma at N = 21, v
 //               through ldmatrix.trans
 //
-// N is the build's node count (16 for H36M, 17 for FreeMan, 21 for AMASS;
-// up to 32).  Joint m's q, k and v (32 values each, 16-byte aligned) lie at
+// Up to 32 joints S holds every query tile at once; past 32 (AMASS-MANO's
+// 51: MT = 4, KT = 7) the body takes the query m16 tiles one at a time, each
+// with its own S (7 × 4 fp32 a lane), softmax, p·v and store of O, so that S
+// is live for one tile (all four would be 112 registers a lane).
+//
+// N is the build's node count (16 for H36M, 17 for FreeMan, 21 for AMASS, 51
+// for AMASS-MANO).  Joint m's q, k and v (32 values each, 16-byte aligned) lie at
 // q + m·ld, k + m·ld and v + m·ld in shared memory; the ldmatrix rows of
 // joints ≥ N read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
 // this warp alone, and no more): head_attention_mma_smem ends there (the
@@ -194,134 +208,140 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
   constexpr int N = sm90mix::kNodes;
   constexpr int MT = (N + 15) / 16;  // query m16 tiles, and p·v's k-steps
   constexpr int KT = (N + 7) / 8;    // key n8 tiles of S
+  constexpr int MG = MT > 2 ? 1 : MT;  // query tiles a pass
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t zrow = smem_u32(zero);
   auto row = [&](const bf16* base, int joint, int col) {
     return joint < N ? smem_u32(base + joint * ld + col) : zrow;
   };
 
-  // qs: A fragments [m-tile][k-step], this lane's row 16·mt + lane%16, k half lane/16
-  const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
-  uint32_t qa[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      ldmatrix_x4(qa[mt][ks], row(q, 16 * mt + (lane & 15), 16 * ks + 8 * (lane >> 4)));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162 qs = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qa[mt][ks][i]), sc);
-        qa[mt][ks][i] = *reinterpret_cast<const uint32_t*>(&qs);
-      }
-    }
   // k: B fragments of n-tile nt, dh 0-7, 8-15, 16-23, 24-31 (keys 8·nt + lane%8)
   uint32_t kb[KT][4];
 #pragma unroll
   for (int nt = 0; nt < KT; ++nt) ldmatrix_x4(kb[nt], row(k, 8 * nt + (lane & 7), 8 * (lane >> 3)));
-  float s[MT][KT][4];
+  const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
+  // the query tiles m0 … m0 + MG − 1 of a pass
+#pragma unroll 1
+  for (int m0 = 0; m0 < MT; m0 += MG) {
+    // qs: A fragments [m-tile][k-step], this lane's row 16·mt + lane%16, k half lane/16
+    uint32_t qa[MG][2][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MG; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < KT; ++nt) {
-      s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
-      mma_bf16(s[mt][nt], qa[mt][0], kb[nt][0], kb[nt][1]);
-      mma_bf16(s[mt][nt], qa[mt][1], kb[nt][2], kb[nt][3]);
-    }
+      for (int ks = 0; ks < 2; ++ks) {
+        ldmatrix_x4(qa[mt][ks], row(q, 16 * (m0 + mt) + (lane & 15), 16 * ks + 8 * (lane >> 4)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 qs = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qa[mt][ks][i]), sc);
+          qa[mt][ks][i] = *reinterpret_cast<const uint32_t*>(&qs);
+        }
+      }
+    float s[MG][KT][4];
+#pragma unroll
+    for (int mt = 0; mt < MG; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt) {
+        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
+        mma_bf16(s[mt][nt], qa[mt][0], kb[nt][0], kb[nt][1]);
+        mma_bf16(s[mt][nt], qa[mt][1], kb[nt][2], kb[nt][3]);
+      }
 
-  // softmax of this lane's rows 16·mt + g (elements 0, 1) and + 8 (2, 3),
-  // columns 8·nt + 2t + e, over the quad that holds the row
+    // softmax of this lane's rows 16·mt + g (elements 0, 1) and + 8 (2, 3),
+    // columns 8·nt + 2t + e, over the quad that holds the row
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MG; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float mx = -INFINITY;
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < KT; ++nt)
+        for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[mt][nt][2 * hf + e];
-          if (8 * nt + 2 * t + e >= N) x = -INFINITY;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      float sum = 0.0f;
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            if (8 * nt + 2 * t + e >= N) x = -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float sum = 0.0f;
 #pragma unroll
-      for (int nt = 0; nt < KT; ++nt)
+        for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[mt][nt][2 * hf + e];
-          x = expf(x - mx);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float rcp = __frcp_rn(sum);
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            x = expf(x - mx);
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float rcp = __frcp_rn(sum);
 #pragma unroll
-      for (int nt = 0; nt < KT; ++nt)
+        for (int nt = 0; nt < KT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[mt][nt][2 * hf + e];
-          x = sm90mix::quotient(x, sum, rcp);  // x / sum, rounded as IEEE division
-        }
-    }
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            x = sm90mix::quotient(x, sum, rcp);  // x / sum, rounded as IEEE division
+          }
+      }
 
-  // p, rounded, as A fragments [m-tile][k-step]: k-step kk's keys 16·kk …
-  // from n-tiles 2·kk and 2·kk + 1, zero past the last n-tile (keys ≥ 8·KT)
-  uint32_t pa[MT][MT][4];
+    // p, rounded, as A fragments [m-tile][k-step]: k-step kk's keys 16·kk …
+    // from n-tiles 2·kk and 2·kk + 1, zero past the last n-tile (keys ≥ 8·KT)
+    uint32_t pa[MG][MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MG; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        if (2 * kk + 1 < KT) {
+          pa[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        } else {
+          pa[mt][kk][2] = pa[mt][kk][3] = 0u;
+        }
+      }
+    float acc[MG][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MG; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < MT; ++kk) {
-      pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-      pa[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-      if (2 * kk + 1 < KT) {
-        pa[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      } else {
-        pa[mt][kk][2] = pa[mt][kk][3] = 0u;
+      // v: B fragments of dh n-tiles j, j + 1 from one ldmatrix.trans (keys
+      // 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 8·j (+ 8 for lanes ≥ 16))
+      uint32_t vb[4][2];
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, row(v, 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                 16 * jp + 8 * (lane >> 4)));
+        vb[2 * jp][0] = r[0];
+        vb[2 * jp][1] = r[1];
+        vb[2 * jp + 1][0] = r[2];
+        vb[2 * jp + 1][1] = r[3];
       }
+#pragma unroll
+      for (int mt = 0; mt < MG; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
     }
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < MT; ++kk) {
-    // v: B fragments of dh n-tiles j, j + 1 from one ldmatrix.trans (keys
-    // 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 8·j (+ 8 for lanes ≥ 16))
-    uint32_t vb[4][2];
-#pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, row(v, 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
-                               16 * jp + 8 * (lane >> 4)));
-      vb[2 * jp][0] = r[0];
-      vb[2 * jp][1] = r[1];
-      vb[2 * jp + 1][0] = r[2];
-      vb[2 * jp + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
-  }
 
-  // O into q's rows (every lane's ldmatrix of q is long done)
-  __syncwarp();
+    // O into the pass's q rows (every lane's ldmatrix of them is long done;
+    // no later pass reads them)
+    __syncwarp();
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MG; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int joint = 16 * mt + 8 * hf + g;
-      if (joint < N) {
+      for (int hf = 0; hf < 2; ++hf) {
+        const int joint = 16 * (m0 + mt) + 8 * hf + g;
+        if (joint < N) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<uint32_t*>(q + joint * ld + 8 * j + 2 * t) =
-              pack_bf16(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<uint32_t*>(q + joint * ld + 8 * j + 2 * t) =
+                pack_bf16(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+        }
       }
-    }
+  }
 }
 
 __device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const bf16* v, int ld,

@@ -127,12 +127,14 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
   });
 }
 
-// B9b's rows an item (the columns are a head's q‖k‖v).
+// B9b's rows an item (the columns are a head's q‖k‖v).  Past 21 nodes
+// (AMASS-MANO's 51) 8 rows, a half-empty m16 tile of the products: P of 51 ×
+// 8 × 96 bf16 is 79 KB (16 rows need 244 KB with two stages).
 template <typename T>
 struct CoreTile;
 template <>
 struct CoreTile<bf16> {
-  static constexpr int kRows = 32;
+  static constexpr int kRows = kWide ? 8 : 32;
 };
 template <>
 struct CoreTile<float> {

@@ -7,7 +7,10 @@
 // shared memory and loops by.  It is a build parameter: ops/kernels/build.py
 // compiles each source once for each node count a run asks for, with
 // -DSKD_NODES=<N> (16 for H36M, 17 for FreeMan, 21 for AMASS and 3DPW
-// without the hip); a library refuses every other count at its C entries.
+// without the hip, 51 for AMASS-MANO); a library refuses every other count at
+// its C entries.  Up to kNarrowNodes the kernels keep the tiles they were
+// designed with at 21 nodes; past it (kWide) they take the tiles of 51 nodes,
+// chosen at compile time from kNodes.
 //
 // The product-and-mix engine of the fused denoiser's kernels is
 // node_mix_sm90.cuh; the attention bodies are joint_attention.cuh.
@@ -28,10 +31,13 @@ using bf16 = __nv_bfloat16;
 #endif
 
 constexpr int kNodes = SKD_NODES;
-// the node mixes cover the nodes with two m16 tiles, attention gives each
-// query joint a lane: 51 nodes (AMASS-MANO) need a redesign (ROADMAP Queue A
-// item 5)
-static_assert(kNodes >= 2 && kNodes <= 32, "the kernels take 2 to 32 nodes");
+// the node mixes cover the nodes with up to four m16 tiles, attention gives
+// each lane up to two query joints
+static_assert(kNodes >= 2 && kNodes <= 51, "the kernels take 2 to 51 nodes");
+// the largest node count of the 21-node tiles (ops/kernels/build.py's
+// NARROW_NODES); past it the kernels take AMASS-MANO's
+constexpr int kNarrowNodes = 21;
+constexpr bool kWide = kNodes > kNarrowNodes;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }

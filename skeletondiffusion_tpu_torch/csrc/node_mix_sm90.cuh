@@ -18,8 +18,9 @@
 // clusters with multicast weight tiles, the mma.sync products through
 // ldmatrix and the tensor-core node mix described here for the first.
 //
-// Over node-major activations [N, B, F] (N = nodemix::kNodes, 2 to 32 nodes,
-// set per build: 16 for H36M, 17 for FreeMan, 21 for AMASS), for one tile of R rows
+// Over node-major activations [N, B, F] (N = nodemix::kNodes, 2 to 51 nodes,
+// set per build: 16 for H36M, 17 for FreeMan, 21 for AMASS, 51 for
+// AMASS-MANO), for one tile of R rows
 // and one group of C output columns (an item of the first kind):
 //
 //   h[n]   = round(x[n] / sqrt(max(Σ x[n]², 1e-24)) · g_rms)   each row
@@ -65,11 +66,21 @@
 // rings and indexing.
 //
 // Mix (bf16): on the tensor cores, in place in P: for 8 positions (row,
-// column) at a time, Yᵀ = G·P with G [32 × 32] (N × N zero-padded, held in
-// registers as mma A fragments from its bf16 values, which are exact) and P's
-// N node values of those positions through one ldmatrix.trans (rows of the
-// nodes past N point at a zero row); at N ≤ 16 only the first m16 tile and
-// k-step are multiplied.  fp32: FMAs, a thread per position.
+// column) at a time, Yᵀ = G·P with G [16·T × 16·T] (N × N zero-padded to T =
+// ⌈N/16⌉ m16 tiles, held in registers as mma A fragments from its bf16
+// values, which are exact) and P's N node values of those positions through
+// one ldmatrix.trans a 32 nodes (rows of the nodes past N point at a zero
+// row): T = 1 at N ≤ 16, 2 up to 32, 4 at AMASS-MANO's 51 (two
+// ldmatrix.trans, 16 mma a step).  fp32: FMAs, a thread per position.
+//
+// Tiles past 21 nodes (nodemix::kWide).  P holds all N nodes' products of a
+// tile, so its rows shrink with N: at 51 nodes the whole-row kernels take 8
+// rows in bf16 (`BlockRows`; 16 would need 356–383 KB), B3a 16 rows × 64
+// columns and B9b 8 rows × a head's 96.  An 8-row tile runs the products
+// as a half-empty m16 tile: the A rows 8–15 of the ldmatrix read the zero
+// row and the accumulators of those rows are dropped.  The fp32 tiles stay
+// as they are and do not fit at 51 nodes: their plans refuse (ROADMAP Queue
+// B item 10).
 //
 // P lives in shared memory as [N][R][C] in the element type, each node's
 // plane padded by 16 bytes (the mix's ldmatrix rows, one per node, then fall
@@ -95,6 +106,8 @@ using nodemix::to_f;
 constexpr int kNodes = nodemix::kNodes;                // the build's node count
 constexpr int kGStride = (kNodes + 3) / 4 * 4;         // fp32 G rows padded to whole float4s
 constexpr int kMixTiles = (kNodes + 15) / 16;          // m16 tiles (and k-steps) of a node mix
+constexpr int kGaTiles = kMixTiles > 2 ? kMixTiles : 2;  // the A fragments' tiles held
+constexpr int kMixLd = (kMixTiles + 1) / 2;            // ldmatrix.x4.trans a step (32 nodes each)
 constexpr int kNodeRows = (kNodes + 7) / 8;            // groups of 8 nodes (a fragment's rows)
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kConsumers = 32 * kConsumerWarps;
@@ -400,14 +413,23 @@ __device__ __forceinline__ void normalize_tile(unsigned char* xs, const RowGain<
   }
 }
 
-// Warp layout of the bf16 products: R/16 row tiles × (8·16/R) column parts,
-// each warp 16 rows × kNt n8 tiles.
+// The largest divisor of n that is at most m.
+constexpr int divisor_at_most(int n, int m) {
+  int d = m;
+  while (n % d) --d;
+  return d;
+}
+
+// Warp layout of the bf16 products: R/16 row tiles (one at R = 8, rows 8–15
+// empty) × column parts, each warp 16 rows × kNt n8 tiles; the warps past
+// kWm·kWn (B9b's 8 × 96 tile: 6 of 8 warps) take no products.
 template <int R, int C>
 struct MmaTiles {
-  static constexpr int kWm = R / 16;
-  static constexpr int kWn = kConsumerWarps / kWm;
+  static constexpr int kWm = R >= 16 ? R / 16 : 1;
+  static constexpr int kWn = divisor_at_most(C / 8, kConsumerWarps / kWm);
   static constexpr int kNt = C / (8 * kWn);
-  static_assert(kWm * kWn == kConsumerWarps && kNt * 8 * kWn == C, "bf16 tile");
+  static_assert((R == 8 || R % 16 == 0) && kWm * kWn <= kConsumerWarps && kNt * 8 * kWn == C,
+                "bf16 tile");
 };
 
 // Where this lane's row of the A fragments lies (16·wm + lane%16 of the
@@ -428,8 +450,9 @@ __device__ __forceinline__ ARow a_row(const unsigned char* xs, int f, int wm) {
               r & swizzle_mask(f * static_cast<int>(sizeof(T)) / 16), lane >> 4};
 }
 
-// Rounded sums of one warp's tile → P (row-major [R][C] of one node).
-template <int C, int kNt>
+// Rounded sums of one warp's tile → P (row-major [R][C] of one node); at
+// R = 8 the m16 tile's rows 8–15 are dropped.
+template <int R, int C, int kNt>
 __device__ __forceinline__ void store_products(const float (&acc)[kNt][4], bf16* pn, int wm,
                                                int col0) {
   const int lane = threadIdx.x & 31;
@@ -438,17 +461,22 @@ __device__ __forceinline__ void store_products(const float (&acc)[kNt][4], bf16*
   for (int j = 0; j < kNt; ++j) {
     const int c = col0 + 8 * j + 2 * (lane & 3);
     *reinterpret_cast<uint32_t*>(pn + r * C + c) = pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(pn + (r + 8) * C + c) = pack_bf16(acc[j][2], acc[j][3]);
+    if constexpr (R > 8)
+      *reinterpret_cast<uint32_t*>(pn + (r + 8) * C + c) = pack_bf16(acc[j][2], acc[j][3]);
   }
 }
 
 // P[n] = round(h·W) with mma.sync: A and B through ldmatrix from the stage.
-// The weight tile is [F/8][C/8] core matrices of 8 columns × 8 k.
+// The weight tile is [F/8][C/8] core matrices of 8 columns × 8 k.  At R = 8
+// the A rows 8–15 read `zero`, a 16-byte zero row.
 template <int R, int C>
 __device__ __forceinline__ void product_mma(const unsigned char* xs, const bf16* ws, int f,
-                                            bf16* pn) {
+                                            bf16* pn, const unsigned char* zero) {
   using L = MmaTiles<R, C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (L::kWm * L::kWn < kConsumerWarps) {
+    if (warp >= L::kWm * L::kWn) return;
+  }
   const int wm = warp % L::kWm, wn = warp / L::kWm;
   float acc[L::kNt][4];
 #pragma unroll
@@ -461,7 +489,11 @@ __device__ __forceinline__ void product_mma(const unsigned char* xs, const bf16*
   // products of the current (f is a multiple of 32)
   uint32_t a[2][4], b[2][L::kNt][2];
   auto load = [&](int buf, int ks) {
-    ldmatrix_x4(a[buf], a0.at(ks));
+    if constexpr (R < 16) {
+      ldmatrix_x4(a[buf], (lane & 15) < R ? a0.at(ks) : smem_u32(zero));
+    } else {
+      ldmatrix_x4(a[buf], a0.at(ks));
+    }
 #pragma unroll
     for (int j = 0; j < L::kNt; ++j) ldmatrix_x2(b[buf][j], b0 + (2 * ks * (C / 8) + j) * 128);
   };
@@ -477,7 +509,7 @@ __device__ __forceinline__ void product_mma(const unsigned char* xs, const bf16*
     if (ks + 2 < ksteps) load(0, ks + 2);
     multiply(1);
   }
-  store_products<C, L::kNt>(acc, pn, wm, wn * L::kNt * 8);
+  store_products<R, C, L::kNt>(acc, pn, wm, wn * L::kNt * 8);
 }
 
 // P[n] = h·W in fp32 FMAs (weight tile row-major [F][C]), a thread per output.
@@ -494,17 +526,18 @@ __device__ __forceinline__ void product_fma(const unsigned char* xs, const float
   }
 }
 
-// G [N, N] bf16 → this lane's mma A fragments of Gpad [32 × 32]:
+// G [N, N] bf16 → this lane's mma A fragments of Gpad [16·kGaTiles]²:
 // ga[mt][ks] covers out-nodes 16·mt …, in-nodes 16·ks ….
-__device__ __forceinline__ void load_mix_fragments(uint32_t (&ga)[2][2][4], const bf16* g) {
+__device__ __forceinline__ void load_mix_fragments(uint32_t (&ga)[kGaTiles][kGaTiles][4],
+                                                   const bf16* g) {
   const int lane = threadIdx.x & 31;
   auto at = [&](int n, int m) {
     return (n < kNodes && m < kNodes) ? g[n * kNodes + m] : __float2bfloat16_rn(0.0f);
   };
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kGaTiles; ++mt)
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
+    for (int ks = 0; ks < kGaTiles; ++ks)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int n = 16 * mt + (lane >> 2) + 8 * (i & 1);
@@ -516,23 +549,36 @@ __device__ __forceinline__ void load_mix_fragments(uint32_t (&ga)[2][2][4], cons
       }
 }
 
+// The node mix's products of one step: d[mt] += G's tile (mt, ks)·b's
+// k-step ks, where ldmatrix.x4.trans j gave k-steps 2j and 2j + 1.
+__device__ __forceinline__ void mix_step(float (&d)[kGaTiles][4],
+                                         const uint32_t (&ga)[kGaTiles][kGaTiles][4],
+                                         const uint32_t (&b)[kMixLd][4]) {
+#pragma unroll
+  for (int mt = 0; mt < kMixTiles; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < kMixTiles; ++ks)
+      mma_bf16(d[mt], ga[mt][ks], b[ks >> 1][2 * (ks & 1)], b[ks >> 1][2 * (ks & 1) + 1]);
+}
+
 // Y = G·P in place on the tensor cores, 8 positions a step per warp.
 template <int R, int C>
 __device__ __forceinline__ void mix_mma(bf16* p, int plane, const unsigned char* zero,
-                                        const uint32_t (&ga)[2][2][4]) {
+                                        const uint32_t (&ga)[kGaTiles][kGaTiles][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // ldmatrix.trans row `lane` is node `lane` (nodes past N: the zero row)
-  const uint32_t row = lane < kNodes ? smem_u32(p) + lane * plane * 2 : 0u;
+  // row `lane` of ldmatrix.trans j is node 32·j + lane (nodes past N: the zero row)
+  uint32_t row[kMixLd];
+#pragma unroll
+  for (int j = 0; j < kMixLd; ++j)
+    row[j] = 32 * j + lane < kNodes ? smem_u32(p) + (32 * j + lane) * plane * 2 : 0u;
   const uint32_t zrow = smem_u32(zero);
   for (int t = warp; t < R * C / 8; t += kConsumerWarps) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, lane < kNodes ? row + t * 16 : zrow);
-    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    uint32_t b[kMixLd][4];
 #pragma unroll
-    for (int mt = 0; mt < kMixTiles; ++mt) {
-      mma_bf16(d[mt], ga[mt][0], b[0], b[1]);
-      if constexpr (kMixTiles > 1) mma_bf16(d[mt], ga[mt][1], b[2], b[3]);
-    }
+    for (int j = 0; j < kMixLd; ++j)
+      ldmatrix_x4_trans(b[j], 32 * j + lane < kNodes ? row[j] + t * 16 : zrow);
+    float d[kGaTiles][4] = {};
+    mix_step(d, ga, b);
     const int n = lane >> 2;
     bf16* col = p + t * 8 + 2 * (lane & 3);
     // this lane's rows: nodes n + 8·k, k < kNodeRows
@@ -654,7 +700,7 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
     }
     __syncwarp();
   } else {
-    uint32_t ga[2][2][4];
+    uint32_t ga[kGaTiles][kGaTiles][4];
     if (!is_f32<T>()) load_mix_fragments(ga, reinterpret_cast<const bf16*>(pb.g));
     RowGain<T> gain;
     gain.load(pb.g_rms, pb.f);
@@ -674,7 +720,7 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
         if constexpr (is_f32<T>()) {
           product_fma<R, C>(xs, ws, pb.f, p + n * l.plane);
         } else {
-          product_mma<R, C>(xs, ws, pb.f, p + n * l.plane);
+          product_mma<R, C>(xs, ws, pb.f, p + n * l.plane, smem + kZeroOffset);
         }
         __syncwarp();
         if (lane == 0) {  // the stage may be refilled once both blocks are done with it
@@ -938,7 +984,9 @@ struct BlockItem {
     consumer_sync();
   }
 
-  // bf16: a warp takes the 16 rows × columns 8·NT·warp … of width 8·NT.
+  // bf16: a warp takes the 16 rows × columns 8·NT·warp … of width 8·NT (at
+  // R = 8 a half-empty m16 tile: its A rows 8–15 read the zero row, their
+  // sums are dropped).
   // A k-slice's fragments (A through ldmatrix from the stage or from P, B
   // from the stage) go to registers and the stage is released at once; the
   // next k-slice's are loaded before this one's products.  The bias pairs
@@ -946,7 +994,8 @@ struct BlockItem {
   template <bool kAddend>
   __device__ __forceinline__ void product_node_mma(const BlockPass<T>& ps, int n, bool in_place,
                                                    const T* addend) {
-    static_assert(R == 16 && NT >= 1 && NT <= kMaxNt, "a warp's tile: 16 rows × 8·NT columns");
+    static_assert((R == 16 || R == 8) && NT >= 1 && NT <= kMaxNt,
+                  "a warp's tile: 16 rows (8 of them empty at R = 8) × 8·NT columns");
     constexpr int kMaxKs = 4;  // k-steps of a k-slice (kslice ≤ 64)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     constexpr int f = kF;
@@ -978,17 +1027,24 @@ struct BlockItem {
     auto load = [&](int buf, int sl) {
       const unsigned char* st = wait_stage();
       // this lane's A row (lane % 16) and k half (lane / 16) of a k-step
-      const uint32_t arow =
+      uint32_t arow =
           (in_place ? smem_u32(pn) + sizeof(T) * ((lane & 15) * kPStride + sl * pb.kslice)
                     : smem_u32(st) + sizeof(T) * (lane & 15) * l.a_stride) +
           (lane >> 4) * 16;
+      uint32_t astep = 32;  // bytes between the A addresses of two k-steps
+      if constexpr (R < 16) {
+        if ((lane & 15) >= R) {  // the empty rows of the m16 tile
+          arow = smem_u32(smem + kZeroOffset);
+          astep = 0;
+        }
+      }
       // lanes 0-7: rows of core (2ks, nb); lanes 8-15: of core (2ks + 1, nb)
       const uint32_t bw = smem_u32(st + l.a_bytes) + ((lane >> 3) & 1) * (f / 8) * 128 +
                           (lane & 7) * 16 + warp * NT * 128;
 #pragma unroll
       for (int ks = 0; ks < kMaxKs; ++ks) {
         if (ks < ksteps) {
-          ldmatrix_x4(a[buf][ks], arow + ks * 32);
+          ldmatrix_x4(a[buf][ks], arow + ks * astep);
 #pragma unroll
           for (int j = 0; j < NT; ++j)
             ldmatrix_x2(b[buf][ks][j], bw + (2 * ks * (f / 8) + j) * 128);
@@ -1027,7 +1083,7 @@ struct BlockItem {
         }
       }
       *reinterpret_cast<uint32_t*>(out) = pack_bf16(v[0], v[1]);
-      *reinterpret_cast<uint32_t*>(out + 8 * kPStride) = pack_bf16(v[2], v[3]);
+      if constexpr (R > 8) *reinterpret_cast<uint32_t*>(out + 8 * kPStride) = pack_bf16(v[2], v[3]);
     }
   }
 
@@ -1115,19 +1171,30 @@ struct BlockItem {
 
   // bf16: a warp takes the 16-byte chunks warp, warp + 8, … (NT of them) of
   // every row, a row at a time: for each chunk (8 positions) the node values
-  // through one ldmatrix.trans (rows of the nodes past N: the zero row),
-  // Yᵀ = G·P with G's mma A fragments in registers; this lane's residual
-  // pairs of the next row are loaded before the current row's products
-  // (kAhead), or of the current row (B5b: there the kernel spilled the
-  // pairs held ahead, and each row waited on their round trips to L2).
+  // through ldmatrix.trans (one a 32 nodes; rows of the nodes past N: the
+  // zero row), Yᵀ = G·P with G's mma A fragments in registers; this lane's
+  // residual pairs of the next row are loaded before the current row's
+  // products (kAhead), or of the current row (B5b: there the kernel spilled
+  // the pairs held ahead, and each row waited on their round trips to L2).
+  // Up to 32 nodes the products of all NT chunks of a row are held before
+  // their stores; past 32 (four m16 tiles of sums a chunk) one chunk's.
   template <bool kAhead, typename Epi>
   __device__ __forceinline__ void mix_tc(int i, const T* res, Epi epi) {
+    constexpr int kChunksHeld = kMixTiles > 2 ? 1 : NT;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    uint32_t ga[2][2][4];
+    uint32_t ga[kGaTiles][kGaTiles][4];
     load_mix_fragments(ga, reinterpret_cast<const bf16*>(pb.g[i]));
     bf16* pp = reinterpret_cast<bf16*>(p());
-    const uint32_t row = lane < kNodes ? smem_u32(pp) + lane * l.plane * 2 : smem_u32(smem + kZeroOffset);
-    const uint32_t step = lane < kNodes ? 2 * kPStride : 0u;  // the zero row stays put
+    // row `lane` of ldmatrix.trans j: node 32·j + lane, or the zero row, which stays put
+    uint32_t row[kMixLd], step[kMixLd];
+    bool live[kMixLd];
+#pragma unroll
+    for (int j = 0; j < kMixLd; ++j) {
+      live[j] = 32 * j + lane < kNodes;
+      row[j] = live[j] ? smem_u32(pp) + (32 * j + lane) * l.plane * 2
+                       : smem_u32(smem + kZeroOffset);
+      step[j] = live[j] ? 2 * kPStride : 0u;
+    }
     const int nl = lane >> 2, cl = 2 * (lane & 3);
     // this lane's residual pairs of row r: chunks warp + 8u, nodes nl + 8k
     auto residual = [&](int r, uint32_t (&v)[NT][kNodeRows]) {
@@ -1150,38 +1217,43 @@ struct BlockItem {
       } else {
         residual(r, cur);
       }
-      float d[NT][2][4];
 #pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        uint32_t bm[4];
-        ldmatrix_x4_trans(bm, row + r * step + (lane < kNodes ? 16 * (warp + 8 * u) : 0));
+      for (int u0 = 0; u0 < NT; u0 += kChunksHeld) {
+        float d[kChunksHeld][kGaTiles][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) d[u][0][e] = d[u][1][e] = 0.0f;
+        for (int uu = 0; uu < kChunksHeld; ++uu) {
+          const int u = u0 + uu;
+          uint32_t bm[kMixLd][4];
 #pragma unroll
-        for (int mt = 0; mt < kMixTiles; ++mt) {
-          mma_bf16(d[u][mt], ga[mt][0], bm[0], bm[1]);
-          if constexpr (kMixTiles > 1) mma_bf16(d[u][mt], ga[mt][1], bm[2], bm[3]);
+          for (int j = 0; j < kMixLd; ++j)
+            ldmatrix_x4_trans(bm[j], row[j] + r * step[j] + (live[j] ? 16 * (warp + 8 * u) : 0));
+#pragma unroll
+          for (int mt = 0; mt < kGaTiles; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[uu][mt][e] = 0.0f;
+          mix_step(d[uu], ga, bm);
         }
-      }
 #pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        const int c = (warp + 8 * u) * 8 + cl;
-        bf16* col = pp + r * kPStride + c;
+        for (int uu = 0; uu < kChunksHeld; ++uu) {
+          const int u = u0 + uu;
+          const int c = (warp + 8 * u) * 8 + cl;
+          bf16* col = pp + r * kPStride + c;
 #pragma unroll
-        for (int k = 0; k < kNodeRows; ++k) {
-          const int n = nl + 8 * k;
-          if (n < kNodes) {
-            const float2 rv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cur[u][k]));
-            // node n's pair: tile k / 2, rows 8·(k % 2) on
-            const float y0 = d[u][k >> 1][2 * (k & 1)], y1 = d[u][k >> 1][2 * (k & 1) + 1];
-            *reinterpret_cast<uint32_t*>(col + n * l.plane) =
-                pack_bf16(epi(c, y0, rv.x), epi(c + 1, y1, rv.y));
+          for (int k = 0; k < kNodeRows; ++k) {
+            const int n = nl + 8 * k;
+            if (n < kNodes) {
+              const float2 rv =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cur[u][k]));
+              // node n's pair: tile k / 2, rows 8·(k % 2) on
+              const float y0 = d[uu][k >> 1][2 * (k & 1)], y1 = d[uu][k >> 1][2 * (k & 1) + 1];
+              *reinterpret_cast<uint32_t*>(col + n * l.plane) =
+                  pack_bf16(epi(c, y0, rv.x), epi(c + 1, y1, rv.y));
+            }
           }
-        }
-        if constexpr (kAhead) {
+          if constexpr (kAhead) {
 #pragma unroll
-          for (int k = 0; k < kNodeRows; ++k) cur[u][k] = next[u][k];
+            for (int k = 0; k < kNodeRows; ++k) cur[u][k] = next[u][k];
+          }
         }
       }
     }
@@ -1291,12 +1363,14 @@ struct BlockItem {
 };
 
 // Rows of a ResnetBlock item: at 21 nodes P of 21 × 16 × 200 bf16 (fp32: × 8
-// × 196) is 135 KB (132 KB); 32 rows would need 270 KB.
+// × 196) is 135 KB (132 KB); 32 rows would need 270 KB.  Past 21 nodes
+// (AMASS-MANO's 51: P of 51 × 8 × 200 bf16 is 164 KB) 8 rows, a half-empty m16
+// tile; fp32 keeps 8 rows, which do not fit at 51 nodes (its plans refuse).
 template <typename T>
 struct BlockRows;
 template <>
 struct BlockRows<bf16> {
-  static constexpr int kRows = 16;  // the mma tile's M
+  static constexpr int kRows = nodemix::kWide ? 8 : 16;  // the mma tile's M (half of it)
 };
 template <>
 struct BlockRows<float> {

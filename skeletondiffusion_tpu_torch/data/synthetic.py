@@ -251,31 +251,35 @@ def make_synthetic_amass_motion(
         segments_path=segments_path, if_consider_hip=False, if_load_mmgt=True,
         silent=True,
     )
-    # every segment's mm-GT futures through the input and metric transforms
-    # at once (elementwise, so the same values as one segment at a time)
-    mm_sets = [mm_ds[i][2]["mm_gt"] for i in range(len(mm_ds))]
-    counts = [m.shape[0] for m in mm_sets]
-    if mm_sets:
+    write_mmapd_gt(mm_ds, skeleton, os.path.join(ann, "mmapd_GT.csv"))
+    return ds_root
+
+
+
+def write_mmapd_gt(dataset, skeleton, path: str, chunk: int = 256) -> None:
+    """``mmapd_GT.csv`` at ``path``: each segment's APD of its mm-GT future
+    set in metric space (0 for fewer than two futures), as the reference
+    ships it per dataset; ``dataset`` loads the mm-GT (``if_load_mmgt``).
+    The futures go through the input and metric transforms ``chunk``
+    segments at a time (elementwise: the same values as one at a time)."""
+    gt_apds = []
+    for start in range(0, len(dataset), chunk):
+        mm_sets = [dataset[i][2]["mm_gt"] for i in range(start, min(start + chunk, len(dataset)))]
         flat_in = torch.from_numpy(np.concatenate(mm_sets, axis=0))
         all_fut = skeleton.transform_to_metric_space(
             skeleton.tranform_to_input_space(flat_in)).numpy()
-    else:  # test split produced zero segments: write an empty mmapd_GT.csv
-        all_fut = np.zeros((0,), dtype=np.float64)
-    gt_apds = []
-    off = 0
-    for c in counts:
-        flat = all_fut[off:off + c].reshape(c, -1).astype(np.float64)
-        off += c
-        if c < 2:
-            gt_apds.append(0.0)
-            continue
-        d = np.linalg.norm(flat[:, None] - flat[None], axis=-1)
-        iu = np.triu_indices(c, k=1)
-        gt_apds.append(float(d[iu].mean()))
-    write_csv(os.path.join(ann, "mmapd_GT.csv"),
-              [{"id": i, "gt_APD": v} for i, v in enumerate(gt_apds)])
-    return ds_root
-
+        off = 0
+        for m in mm_sets:
+            c = m.shape[0]
+            flat = all_fut[off:off + c].reshape(c, -1).astype(np.float64)
+            off += c
+            if c < 2:
+                gt_apds.append(0.0)
+                continue
+            d = np.linalg.norm(flat[:, None] - flat[None], axis=-1)
+            iu = np.triu_indices(c, k=1)
+            gt_apds.append(float(d[iu].mean()))
+    write_csv(path, [{"id": i, "gt_APD": v} for i, v in enumerate(gt_apds)])
 
 def make_synthetic_amass(
     root: str,
@@ -298,7 +302,9 @@ def make_synthetic_amass(
     """Build the dataset tree of random clips; returns ``<root>/datasets``.
     Defaults match the 0.1 s/0.25 s @60 fps smoke task (observe 6, predict
     15).  ``num_joints``, ``dataset_name`` and ``dataset_dir`` are the JAX
-    generator's; the port's skeleton has the 22-joint AMASS body only."""
+    generator's: ``num_joints=52, dataset_name="amass-mano",
+    dataset_dir="AMASS-MANO"`` writes the AMASS-MANO tree (the same npz name
+    in its own folder, reference `amass.py:48`)."""
     assert clip_len >= obs_length + pred_length + segment_stride, (
         clip_len, obs_length, pred_length)
 
@@ -364,7 +370,13 @@ SKELETON_TREES = {
     "h36m": ("Human36M", "h36m", 17, 0.5),
     "freeman": ("FreeMan", "freeman", 18, 0.5),
     "3dpw": ("3DPW", "3dpw", 24, 0.4),
+    "amass-mano": ("AMASS-MANO", "amass", 52, 0.4),
 }
+# AMASS-MANO's training and validation datasets
+# (configs/config_train_autoencoder/dataset/amass-mano.yaml)
+AMASS_MANO_TRAIN = ("ACCAD", "BMLhandball", "BMLmovi", "BMLrub", "EKUT", "CMU",
+                    "EyesJapanDataset", "KIT", "PosePrior", "TCDHands", "TotalCapture")
+AMASS_MANO_VALID = ("HumanEva", "HDM05", "SFU", "MoSh")
 H36M_TRAIN_SUBJECTS = ("S1", "S5", "S6", "S7", "S8")
 
 
@@ -403,8 +415,9 @@ def make_synthetic_skeleton_tree(
     train_actions: int = 3,
     seed: int = 0,
 ) -> str:
-    """The dataset tree of the Human3.6M (``h36m``), FreeMan (``freeman``) or
-    3DPW zero-shot (``3dpw``) loader on the annotations shipped in
+    """The dataset tree of the Human3.6M (``h36m``), FreeMan (``freeman``),
+    3DPW zero-shot (``3dpw``) or AMASS-MANO (``amass-mano``) loader on the
+    annotations shipped in
     ``annotations`` (``datasets/annotations/<folder>/hmp`` of the
     repository), with random clips in place of the captures; returns
     ``<root>/datasets``.
@@ -415,12 +428,14 @@ def make_synthetic_skeleton_tree(
     random walk as long as its last segment needs (``train_frames`` for a
     listed FreeMan sequence that no CSV names).  Human3.6M also gets the
     training subjects' clips: ``train_actions`` actions of the test CSV,
-    ``train_frames`` frames each.  3DPW's clips go to the npz split of the
+    ``train_frames`` frames each, and AMASS-MANO ``train_actions`` clips of
+    ``train_frames`` frames in each training and validation dataset of its
+    config.  3DPW's clips go to the npz split of the
     CSV that names them (the zero-shot test merges every split).  Then the
     test split's mm-GT neighbors and CMD mean motions, as the preprocessing
     writes them (``finalize_dataset``, at the configs' mm-GT threshold)."""
     from ..skeleton import create_skeleton
-    from .loaders import D3PWZeroShotDataset, FreeManDataset, H36MDataset
+    from .loaders import AMASSDataset, D3PWZeroShotDataset, FreeManDataset, H36MDataset
     from .mmgt import finalize_dataset
 
     folder, npz_name, joints, multimodal_threshold = SKELETON_TREES[dataset_name]
@@ -459,6 +474,8 @@ def make_synthetic_skeleton_tree(
             elif dataset_name == "3dpw":
                 split = {"segments_train.csv": "train", "segments_valid.csv": "validation"}
                 need((split.get(name, "test"), row["name"]), row["pred_end"])
+            elif dataset_name == "amass-mano":
+                need((row["dataset"], int(row["file_idx"])), row["pred_end"])
             else:
                 need((row["name"],), row["pred_end"])
     if dataset_name == "h36m":
@@ -467,6 +484,10 @@ def make_synthetic_skeleton_tree(
         for subject in H36M_TRAIN_SUBJECTS:
             for action in actions[:train_actions]:
                 need((subject, action), train_frames - 1)
+    if dataset_name == "amass-mano":
+        for dataset in (*AMASS_MANO_TRAIN, *AMASS_MANO_VALID):
+            for clip in range(train_actions):
+                need((dataset, clip), train_frames - 1)
     if dataset_name == "3dpw":  # a sequence of a train or valid CSV stays in that split
         for split, seq in [k for k in frames if k[0] != "test"]:
             frames.pop(("test", seq), None)
@@ -489,10 +510,19 @@ def make_synthetic_skeleton_tree(
         "h36m": (H36MDataset, dict(subjects=None)),
         "freeman": (FreeManDataset, dict(annotations_folder=ann)),
         "3dpw": (D3PWZeroShotDataset, dict(if_zero_shot=True)),
+        "amass-mano": (AMASSDataset, {}),
     }[dataset_name]
+    if dataset_name == "amass-mano":  # the test CSV's datasets
+        kwargs["datasets"] = list(dict.fromkeys(r["dataset"] for r in tables["segments_test.csv"]))
     test_csv = "segments_test_zero_shot.csv" if dataset_name == "3dpw" else "segments_test.csv"
     finalize_dataset(cls, skeleton, precomputed_folder=pre + "/",
                      segments_path=os.path.join(ann, test_csv),
                      multimodal_threshold=multimodal_threshold, obs_length=obs_length,
                      pred_length=pred_length, **kwargs)
+    if not os.path.exists(os.path.join(ann, "mmapd_GT.csv")):  # AMASS-MANO ships none
+        mm_ds = cls(split="test", precomputed_folder=pre + "/", skeleton=skeleton,
+                    obs_length=obs_length, pred_length=pred_length,
+                    segments_path=os.path.join(ann, test_csv), if_consider_hip=False,
+                    if_load_mmgt=True, silent=True, **kwargs)
+        write_mmapd_gt(mm_ds, skeleton, os.path.join(ann, "mmapd_GT.csv"))
     return ds_root

@@ -29,8 +29,10 @@ from .graph_linear_fused import mix_plain, product_plain
 launches_rms_qkv = 0
 launches_outproj_res = 0
 
-# rows an item and output columns a group of the rms_qkv kernel
+# rows an item and output columns a group of the rms_qkv kernel, up to
+# build.NARROW_NODES and past it (``QkvTile`` in csrc/attention_proj.cu)
 QKV_TILES = {torch.bfloat16: (32, 96), torch.float32: (8, 96)}
+QKV_TILES_WIDE = {torch.bfloat16: (16, 64), torch.float32: (8, 96)}
 
 
 def rms_qkv_plain(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
@@ -56,7 +58,7 @@ def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int,
         raise ValueError(f"rms_qkv: F={f} must be a positive multiple of 32")
     if fo <= 0 or fo % 8:
         raise ValueError(f"rms_qkv: the output width {fo} must be a positive multiple of 8")
-    rows, cols = QKV_TILES[dtype]
+    rows, cols = (QKV_TILES_WIDE if build.wide(nodes) else QKV_TILES)[dtype]
     return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f, nodes)
 
 

@@ -4,7 +4,7 @@ and loads them with ``ctypes``.
 
 The node count is a build parameter of every kernel (``-DSKD_NODES=<n>``,
 read by ``csrc/node_mix.cuh``): 16 for H36M, 17 for FreeMan, 21 for AMASS and
-3DPW.  A library takes its own count only.  The libraries go to
+3DPW, 51 for AMASS-MANO.  A library takes its own count only.  The libraries go to
 ``build/torch_kernels/<hash of sources and flags>-n<nodes>/`` beside the
 package (``.gitignore`` lists ``build/``).  Missing libraries are built
 together at first use of a node count, one ``nvcc`` process per source
@@ -38,17 +38,20 @@ NVCC_FLAGS = [
 NVCC_TIMEOUT_S = 600
 
 # The skeletons' node counts: the AMASS body (and 3DPW) without its hip, the
-# default; the kernels take 2 to MAX_NODES (two m16 tiles of a node mix, a
-# lane a query joint)
+# default.  The libraries build for 2 to MAX_NODES (AMASS-MANO's 51: a node
+# mix of up to four m16 tiles, up to two query joints a lane); whether a
+# launch fits shared memory is its plan's to say, and a plan that does not
+# fit raises (at F = 192 the bf16 plans fit every count; the fp32 engine's
+# refuse 51, ROADMAP Queue B item 10).  Up to NARROW_NODES the kernels keep
+# the tiles of their 21-node designs; past it they take AMASS-MANO's
+# (``csrc/node_mix.cuh::kWide``).
 DEFAULT_NODES = 21
-MAX_NODES = 32
-# sources whose kernels are laid out for fewer counts: the fp32 rollout (K1)
-# up to 21 nodes, the bf16 rollout (B8) and the feature-major attention core
-# (L1) at 21 only
-NODE_RANGE = {"gru_rollout": (2, 21), "gru_rollout_merged": (21, 21),
-              "attention_core_fm": (21, 21)}
-MORE_NODES = ("ROADMAP.md Queue A item 5 (AMASS-MANO, 51 nodes: B2 past 32 joints, the "
-              "node mix past two m16 tiles, K1 past 21 nodes)")
+MAX_NODES = 51
+NARROW_NODES = 21
+# sources whose kernels are laid out for fewer counts: the bf16 rollout (B8)
+# and the feature-major attention core (L1) at 21 only
+NODE_RANGE = {"gru_rollout_merged": (21, 21), "attention_core_fm": (21, 21)}
+MORE_NODES = "no skeleton of the reference has more than 51 nodes: ROADMAP.md Queue B item 9"
 
 _lock = threading.Lock()
 _libraries: Dict[Tuple[str, int], ctypes.CDLL] = {}
@@ -57,6 +60,12 @@ _libraries: Dict[Tuple[str, int], ctypes.CDLL] = {}
 def sources() -> List[Path]:
     """The kernel sources, one library each (headers ``*.cuh`` are included)."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def wide(nodes: int) -> bool:
+    """Whether the kernels take AMASS-MANO's tiles at ``nodes`` nodes (past
+    NARROW_NODES)."""
+    return nodes > NARROW_NODES
 
 
 def node_range(name: str) -> Tuple[int, int]:
@@ -69,7 +78,7 @@ def check_nodes(kernel: str, name: str, nodes: int) -> None:
     ``nodes`` nodes (the message names the ROADMAP item of larger counts)."""
     lo, hi = node_range(name)
     if not lo <= nodes <= hi:
-        # B8 and L1 stay at the AMASS count; the others grow with AMASS-MANO
+        # B8 and L1 stay at the AMASS count; the others take every skeleton's
         later = "ROADMAP.md Queue B item 9" if lo == hi else MORE_NODES
         counts = f"{lo}" if lo == hi else f"{lo} to {hi}"
         raise ValueError(f"{kernel}: the kernel takes {counts} nodes, got {nodes} ({later})")

@@ -41,10 +41,13 @@ launches_bf16 = 0
 
 # The fp32 kernel's tiling (csrc/gru_rollout.cu): rows a block, hidden columns
 # a slice, bank rows a ring stage, blocks a cluster (each weight byte read from
-# L2 serves 32 rows).
+# L2 serves 32 rows); past build.NARROW_NODES (AMASS-MANO's 51) its second
+# design's 2 rows a block and 2 bank rows a stage (``rollout_tiling``).
 ROLLOUT_ROWS = 8
 ROLLOUT_SLICE = 32
 ROLLOUT_K_ROWS = 4
+ROLLOUT_ROWS_WIDE = 2
+ROLLOUT_K_ROWS_WIDE = 2
 ROLLOUT_CLUSTER = 4
 ROLLOUT_MAX_STAGES = 6   # mbarrier pairs the kernel reserves
 H_ROW_PAD = 4            # floats after each row of h
@@ -67,27 +70,38 @@ class RolloutPlan(NamedTuple):
     smem_bytes: int
 
 
+def rollout_tiling(n: int):
+    """(rows a block, bank rows a ring stage) of the fp32 rollout at n nodes."""
+    if build.wide(n):
+        return ROLLOUT_ROWS_WIDE, ROLLOUT_K_ROWS_WIDE
+    return ROLLOUT_ROWS, ROLLOUT_K_ROWS
+
+
 def rollout_plan_bytes(n: int, h: int, stages: int) -> int:
     """Shared memory of one block (``layout`` in ``csrc/gru_rollout.cu``):
-    barriers, ``stages`` ring stages of ``ROLLOUT_K_ROWS`` bank rows × n
-    nodes × the 3·slice gate columns of a slice, h [n][rows·(h + pad) + pad], the
+    barriers, ``stages`` ring stages of k-rows bank rows × n nodes × the
+    3·slice gate columns of a slice, h [n][rows·(h + pad) + pad], the
     slice's gate buffer [n][4 areas][rows][slice] and G_t, G_add, G_fc."""
-    stage = 4 * ROLLOUT_K_ROWS * n * 3 * ROLLOUT_SLICE
-    h_bytes = 4 * n * (ROLLOUT_ROWS * (h + H_ROW_PAD) + H_PLANE_PAD)
-    p_bytes = 4 * n * 4 * ROLLOUT_ROWS * ROLLOUT_SLICE
+    rows, k_rows = rollout_tiling(n)
+    stage = 4 * k_rows * n * 3 * ROLLOUT_SLICE
+    h_bytes = 4 * n * (rows * (h + H_ROW_PAD) + H_PLANE_PAD)
+    p_bytes = 4 * n * 4 * rows * ROLLOUT_SLICE
     return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * g_row(n)
 
 
 def rollout_plan(n: int, h: int) -> RolloutPlan:
     """The fp32 rollout's plan at n nodes and hidden width h: as many ring
-    stages as fit (at most ROLLOUT_MAX_STAGES).  The kernel is built for each
-    node count up to 21 (``build.NODE_RANGE``; the wrapper refuses others),
-    h = 96 and 3 outputs, and refuses other shapes itself."""
+    stages as fit (at most ROLLOUT_MAX_STAGES); raises ValueError when two do
+    not.  The kernel is built for h = 96 and 3 outputs and refuses other
+    shapes itself."""
     fits = [s for s in range(2, ROLLOUT_MAX_STAGES + 1)
             if rollout_plan_bytes(n, h, s) <= node_mix_sm90.MAX_SMEM]
-    stages = fits[-1] if fits else 2
-    return RolloutPlan(ROLLOUT_ROWS, ROLLOUT_SLICE, stages, ROLLOUT_CLUSTER,
-                       rollout_plan_bytes(n, h, stages))
+    if not fits:
+        raise ValueError(f"gru_rollout: {n} nodes at hidden {h} do not fit "
+                         f"{node_mix_sm90.MAX_SMEM} bytes of shared memory with two stages "
+                         f"({build.MORE_NODES})")
+    return RolloutPlan(rollout_tiling(n)[0], ROLLOUT_SLICE, fits[-1], ROLLOUT_CLUSTER,
+                       rollout_plan_bytes(n, h, fits[-1]))
 
 
 def resident_clusters(plan: RolloutPlan, nodes: int = build.DEFAULT_NODES) -> int:

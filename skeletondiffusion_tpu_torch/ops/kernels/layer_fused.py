@@ -38,8 +38,10 @@ launches_stem_block = 0
 launches_rms_qkv_core = 0
 launches_outproj_block = 0
 
-# rows an item of the rms_qkv_core kernel (its columns are a head's q‖k‖v)
+# rows an item of the rms_qkv_core kernel (its columns are a head's q‖k‖v),
+# up to build.NARROW_NODES and past it (``CoreTile`` in csrc/layer_fused.cu)
 CORE_ROWS = {torch.bfloat16: 32, torch.float32: 8}
+CORE_ROWS_WIDE = {torch.bfloat16: 8, torch.float32: 8}
 CORE_DIM_HEAD = 32
 
 
@@ -107,7 +109,8 @@ def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int, dim_head: int,
         raise ValueError(f"rms_qkv_core: takes heads of {CORE_DIM_HEAD}, got {heads} × {dim_head}")
     if f <= 0 or f % 32:
         raise ValueError(f"rms_qkv_core: F={f} must be a positive multiple of 32")
-    return node_mix_sm90.plan("rms_qkv_core", dtype, CORE_ROWS[dtype], 3 * dim_head, f, nodes)
+    rows = (CORE_ROWS_WIDE if build.wide(nodes) else CORE_ROWS)[dtype]
+    return node_mix_sm90.plan("rms_qkv_core", dtype, rows, 3 * dim_head, f, nodes)
 
 
 def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:

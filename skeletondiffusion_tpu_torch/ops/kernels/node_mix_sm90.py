@@ -20,7 +20,10 @@ Pure PyTorch; the plan is what the kernels' ``layout`` computes, and a
 kernel refuses (``cudaErrorInvalidValue``) a plan it was not built for.  The
 plans take the skeleton's node count (``nodes``, 2 to ``build.MAX_NODES``;
 21 unless given), the kernels' build parameter: P and the fp32 influences
-have a plane or row a node.
+have a plane or row a node.  Past ``build.NARROW_NODES`` the bf16 tiles
+shrink (``block_rows``; B3a's and B9b's in their modules); a plan that does
+not fit raises, naming ROADMAP Queue B item 10 (the fp32 tiles at 51
+nodes).
 """
 from __future__ import annotations
 
@@ -82,15 +85,24 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int,
     fits = [s for s in range(2, MAX_STAGES + 1)
             if plan_bytes(elem, rows, cols, f, s, nodes) <= MAX_SMEM]
     if not fits:
-        raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} in {dtype} does not fit "
-                         f"{MAX_SMEM} bytes of shared memory with two stages")
+        raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} and {nodes} nodes in "
+                         f"{dtype} does not fit {MAX_SMEM} bytes of shared memory with two "
+                         f"stages ({NO_FIT})")
     return TilePlan(rows, cols, fits[-1], CLUSTER,
                     plan_bytes(elem, rows, cols, f, fits[-1], nodes))
 
 
-# rows of a ResnetBlock item, and the k-slices of its banks, widest first
+# rows of a ResnetBlock item up to build.NARROW_NODES and past it, and the
+# k-slices of its banks, widest first
 BLOCK_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+BLOCK_ROWS_WIDE = {torch.bfloat16: 8, torch.float32: 8}
 KSLICES = (64, 32)
+NO_FIT = "ROADMAP.md Queue B item 10"
+
+
+def block_rows(dtype: torch.dtype, nodes: int = N_NODES) -> int:
+    """Rows of a whole-row item (``BlockRows`` in ``node_mix_sm90.cuh``)."""
+    return (BLOCK_ROWS_WIDE if build.wide(nodes) else BLOCK_ROWS)[dtype]
 
 
 class BlockPlan(NamedTuple):
@@ -132,7 +144,7 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...],
     if any(k <= 0 or k % KSLICES[-1] for k in ks):
         raise ValueError(f"{kernel}: the contraction widths {ks} must be positive multiples of "
                          f"{KSLICES[-1]}")
-    rows = BLOCK_ROWS[dtype]
+    rows = block_rows(dtype, nodes)
     for kslice in KSLICES:
         if any(k % kslice for k in ks):
             continue
@@ -141,8 +153,8 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...],
         if fits:
             return BlockPlan(rows, kslice, fits[-1], CLUSTER,
                              block_plan_bytes(elem, rows, f, kslice, fits[-1], len(ks), nodes))
-    raise ValueError(f"{kernel}: a {rows}-row tile at F={f} in {dtype} does not fit "
-                     f"{MAX_SMEM} bytes of shared memory with two stages")
+    raise ValueError(f"{kernel}: a {rows}-row tile at F={f} and {nodes} nodes in {dtype} does "
+                     f"not fit {MAX_SMEM} bytes of shared memory with two stages ({NO_FIT})")
 
 
 def padded_width(k: int) -> int:

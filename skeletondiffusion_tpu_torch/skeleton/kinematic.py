@@ -1,14 +1,13 @@
-"""Kinematic skeletons of AMASS (22 joints; 3DPW zero-shot reuses it),
-Human3.6M (17 or 25) and FreeMan (18): joint dictionary, limb sequence, node
+"""Kinematic skeletons of AMASS (22 joints, or 52 with the MANO hands of
+AMASS-MANO; 3DPW zero-shot reuses the 22), Human3.6M (17 or 25) and FreeMan
+(18): joint dictionary, limb sequence, node
 graph (with the hip-triangle reconnection applied when the root is dropped),
 mirror node types, parents, left/right flags, limb-angle groups, the
 adjacency/reachability matrices (host-side numpy) and limb-length
 extraction (torch).
 
 Port of ``skeletondiffusion_tpu/skeleton/kinematic.py`` (reference
-`src/data/skeleton/kinematic/{base,amass,h36m,freeman}.py`) without the
-52-joint AMASS-MANO body, whose 51 nodes the kernels do not take yet
-(ROADMAP Queue A item 5).
+`src/data/skeleton/kinematic/{base,amass,h36m,freeman}.py`).
 """
 from __future__ import annotations
 
@@ -116,17 +115,16 @@ class Kinematic:
 
 
 class AMASSKinematic(Kinematic):
-    """SMPL-H body skeleton, 22 joints; reference
+    """SMPL-H body skeleton: 22 joints, or 52 with the MANO hands (AMASS-MANO,
+    51 nodes without the hip); reference
     `src/data/skeleton/kinematic/amass.py:7-86`.  Also the 3DPW zero-shot
     skeleton (`kinematic/__init__.py:7-8`)."""
 
     def __init__(self, num_joints: int = 22, **kwargs):
         super().__init__(**kwargs)
-        if num_joints != 22:
-            raise NotImplementedError(
-                f"num_joints={num_joints}: the port has the 22-joint body; the 52-joint "
-                "AMASS-MANO body (51 nodes) waits for kernels past 32 nodes (ROADMAP Queue A "
-                "item 5)")
+        if num_joints not in (22, 52):
+            raise ValueError(f"num_joints={num_joints}: the SMPL-H body has 22 joints, or 52 "
+                             "with the MANO hands")
         self.joint_dict_orig = {
             0: "GlobalRoot", 1: "LHip", 2: "RHip", 3: "Spine1",
             4: "LKnee", 5: "RKnee", 6: "Spine3",
@@ -136,15 +134,33 @@ class AMASSKinematic(Kinematic):
             16: "LShoulder", 17: "RShoulder",
             18: "LElbow", 19: "RElbow", 20: "LWrist", 21: "RWrist",
         }
-        self.limbseq = np.asarray([
+        limbseq = [
             [0, 3], [3, 6], [6, 9], [9, 12], [12, 15],          # spine/head
             [9, 14], [14, 17], [17, 19], [19, 21],              # right arm
             [9, 13], [13, 16], [16, 18], [18, 20],              # left arm
             [0, 2], [2, 5], [5, 8], [8, 11],                    # right leg
             [0, 1], [1, 4], [4, 7], [7, 10],                    # left leg
-        ])
+        ]
+        if num_joints == 52:
+            # the MANO hands: 5 fingers × 3 segments a side, named as the
+            # reference names them (`kinematic/amass.py:30-52`)
+            base = 22
+            for side in ("left", "right"):
+                for finger in ("index", "middle", "pinky", "ring", "thumb"):
+                    for seg in (1, 2, 3):
+                        self.joint_dict_orig[base] = f"{side}_{finger}{seg}"
+                        base += 1
+            # finger bones wrist → {finger}1 → {finger}2 → {finger}3, in the
+            # reference's limb order (`kinematic/amass.py:54-58`)
+            for wrist, start in ((20, 22), (21, 37)):
+                roots = [start + 3 * f for f in range(5)]
+                limbseq += [[wrist, r] for r in roots]
+                for r in roots:
+                    limbseq += [[r, r + 1], [r + 1, r + 2]]
+        self.limbseq = np.asarray(limbseq)
         self.left_right_limb_list = [
-            not (name[0] == "L" and name[1].isupper()) for name in self.joint_dict_orig.values()
+            not ((name[0] == "L" and name[1].isupper()) or "left" in name)
+            for name in self.joint_dict_orig.values()
         ]
         self._build_node_graph([["LHip", "RHip"], ["LHip", "Spine1"], ["RHip", "Spine1"]])
         if not self.if_consider_hip:
@@ -241,6 +257,7 @@ class FreeManKinematic(Kinematic):
 
 KINEMATICS = {
     "amass": (AMASSKinematic, "AMASS"),
+    "amass-mano": (AMASSKinematic, "AMASS"),
     "3dpw": (AMASSKinematic, "AMASS"),
     "h36m": (H36MKinematic, "H36M"),
     "freeman": (FreeManKinematic, "FreeMan"),
@@ -252,8 +269,6 @@ def get_kinematic_class(dataset_name: str):
     (reference `src/data/skeleton/kinematic/__init__.py:6-9`)."""
     name = dataset_name.lower()
     if name not in KINEMATICS:
-        later = (" waits for kernels past 32 nodes (ROADMAP Queue A item 5)"
-                 if name == "amass-mano" else " is not a dataset of the reference")
-        raise NotImplementedError(f"dataset {dataset_name!r}{later}; the port has "
-                                  f"{sorted(KINEMATICS)}")
+        raise NotImplementedError(f"dataset {dataset_name!r} is not a dataset of the "
+                                  f"reference; the port has {sorted(KINEMATICS)}")
     return KINEMATICS[name]

@@ -106,8 +106,8 @@ def _cuda_request(monkeypatch, entry):
 @pytest.mark.parametrize("shape, heads, dim_head, error, match", [
     ((N, 4, 3 * 33 * DH), 33, DH, ValueError, "1 to 32 heads"),
     ((N, 4, 3 * H * 16), H, 16, ValueError, "heads of 32"),
-    # 20 joints are a build of the kernel now; past 32 the ROADMAP item
-    ((33, 4, 3 * HD), H, DH, ValueError, "takes 2 to 32 nodes, got 33 .*ROADMAP"),
+    # 20 joints are a build of the kernel now; past 51 the ROADMAP item
+    ((52, 4, 3 * HD), H, DH, ValueError, "takes 2 to 51 nodes, got 52 .*ROADMAP"),
     ((N, 4, 3 * HD + 8), H, DH, ValueError, "qkv has shape"),
 ], ids=["heads33", "dh16", "nodes20", "width"])
 def test_attention_core_refuses_before_launching(monkeypatch, shape, heads, dim_head, error,

@@ -650,8 +650,8 @@ def test_fid_classifier_reads_the_reference_weights_and_h36m_is_refused(tmp_path
     """The FID hook reads ``h36m_classifier.pth`` (the reference's
     ``{"model": state_dict}``) into the port's classifier, for the H36M test
     split only.  ``build_skeleton`` builds the H36M skeleton since the
-    skeletons' slice and refuses AMASS-MANO, whose 51 nodes the kernels do
-    not take yet (ROADMAP Queue A item 5)."""
+    skeletons' slice and AMASS-MANO's 51 nodes since its own; a joint count
+    the SMPL-H body does not have is refused."""
     from skeletondiffusion_tpu_torch.metrics.fid import ClassifierForFID, port_classifier
 
     g = np.load(REPO / "tests" / "goldens" / "fid_classifier.npz")
@@ -670,8 +670,9 @@ def test_fid_classifier_reads_the_reference_weights_and_h36m_is_refused(tmp_path
     amass = flatten_config(load_config(str(CONFIGS / "config_eval"), ["dataset=amass", *TASK]))
     h36m = flatten_config(load_config(str(CONFIGS / "config_eval"), ["dataset=h36m", *TASK]))
     assert build_skeleton(h36m).num_nodes == 16
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_skeleton({**amass, "dataset_name": "amass-mano", "num_joints": 52})
+    assert build_skeleton({**amass, "dataset_name": "amass-mano", "num_joints": 52}).num_nodes == 51
+    with pytest.raises(ValueError, match="22 joints, or 52"):
+        build_skeleton({**amass, "dataset_name": "amass-mano", "num_joints": 53})
 
 
 def test_eval_launcher_runs_as_a_module(tree, tmp_path):

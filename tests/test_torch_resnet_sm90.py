@@ -346,15 +346,15 @@ def test_wrappers_raise_before_launching_what_the_plans_refuse(monkeypatch, kern
 
 
 def test_outproj_res_refuses_other_node_counts_before_launching(monkeypatch):
-    """B3b's kernel is built for 2 to 32 nodes; the wrapper refuses others
+    """B3b's kernel is built for 2 to 51 nodes; the wrapper refuses others
     (naming the ROADMAP item) before it names a C entry, and counts no
     launch."""
     monkeypatch.setattr(build, "kernel_device", lambda **tensors: "cuda")
     monkeypatch.setattr(build, "c_entry", lambda *a: pytest.fail("launched"))
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
     before = attention_proj.launches_outproj_res
-    with pytest.raises(ValueError, match="takes 2 to 32 nodes, got 33 .*ROADMAP"):
-        attention_proj.outproj_res(z(33, 4, HD), z(33, 4, F), z(33, HD, F), z(33, 33))
+    with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*ROADMAP"):
+        attention_proj.outproj_res(z(52, 4, HD), z(52, 4, F), z(52, HD, F), z(52, 52))
     assert attention_proj.launches_outproj_res == before
 
 

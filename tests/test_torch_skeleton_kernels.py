@@ -284,20 +284,25 @@ def test_plans_at_the_skeletons_node_counts(n):
 
 
 def test_past_32_nodes_the_wrappers_refuse_naming_the_roadmap_item(monkeypatch):
+    """The kernels take up to AMASS-MANO's 51 nodes since its slice (they
+    took 32 before); past 51 every wrapper refuses, naming the ROADMAP item
+    of other shapes, and counts no launch."""
     _cuda_request(monkeypatch, lambda *a: pytest.fail("launched"))
-    for module, counter, call in _zeros(33):
+    for module, counter, call in _zeros(52):
         before = getattr(module, counter)
-        with pytest.raises(ValueError, match="takes 2 to 32 nodes, got 33 .*Queue A item 5"):
+        with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
             call()
         assert getattr(module, counter) == before
 
 
 def test_the_fp32_rollout_refuses_past_21_nodes(monkeypatch):
-    """K1's product threads (12 a node) fill the 256 consumers at 21 nodes."""
+    """K1's first design fills the 256 consumers at 21 nodes; past 21 its
+    second design (2 rows a block) takes up to 51, and past 51 the wrapper
+    refuses."""
     _cuda_request(monkeypatch, lambda *a: pytest.fail("launched"))
-    n, b, h = 22, 8, 96
+    n, b, h = 52, 8, 96
     z = torch.zeros
-    with pytest.raises(ValueError, match="takes 2 to 21 nodes, got 22 .*Queue A item 5"):
+    with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
         gru_rollout.gru_rollout(z(n, b, 3 * h), z(n, b, h), z(n, h, 3 * h), z(n, 3 * h),
                                 z(n, n), z(n, n), z(n, h, 3), z(n, 3), z(n, n), ph=4)
 
@@ -354,7 +359,7 @@ def test_build_all_builds_each_source_once_for_each_node_count(tmp_path, monkeyp
 def test_library_refuses_a_node_count_before_building(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(build, "build_all", lambda *a: pytest.fail("built"))
-    with pytest.raises(ValueError, match="got 40"):
-        build.library("resnet_block", 40)
+    with pytest.raises(ValueError, match="got 52"):
+        build.library("resnet_block", 52)
     with pytest.raises(ValueError, match="takes 21 nodes, got 16"):
         build.library("gru_rollout_merged", 16)

@@ -2,8 +2,9 @@
 variant), FreeMan (18 → 17) and 3DPW zero-shot (the AMASS body, 22 → 21)
 skeletons against the JAX package and ``tests/goldens/skeleton_tables.npz``:
 every kinematic table exact, the 16- and 17-node covariances (and
-``cov_toy16.npz``), the DCT representation, and the refusal of AMASS-MANO
-(51 nodes, ROADMAP Queue A item 5)."""
+``cov_toy16.npz``), the DCT representation; AMASS-MANO's 51 nodes build (its
+tables are held in tests/test_torch_mano.py), and the kernels refuse counts
+past 51."""
 import json
 import os
 
@@ -163,7 +164,17 @@ def test_dct_representation_matches_jax():
 
 
 def test_amass_mano_is_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        create_skeleton(**_kw("amass-mano", 52, False))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        create_skeleton(**_kw("amass", 52, False))
+    """AMASS-MANO was refused until its slice: now 52 joints build 51 nodes
+    under both dataset names, as in JAX, other joint counts raise, and the
+    kernels refuse node counts past 51, naming the ROADMAP item of other
+    shapes."""
+    from skeletondiffusion_tpu_torch.ops.kernels import build
+
+    for name in ("amass-mano", "amass"):
+        assert create_skeleton(**_kw(name, 52, False)).num_nodes == 51
+    with pytest.raises(ValueError, match="22 joints, or 52"):
+        create_skeleton(**_kw("amass-mano", 51, False))
+    build.check_nodes("attention_core", "joint_attention", 51)
+    for name in ("joint_attention", "gru_rollout", "posterior_step", "resnet_block"):
+        with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
+            build.check_nodes(name, name, 52)
