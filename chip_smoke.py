@@ -17,8 +17,10 @@ Phases, each printed with its elapsed seconds:
               observe 30, predict 120) is built from a seed; K1 and K2 run on
               inputs of the main path's shapes (batch 256 × 50 samples =
               12 800 rows; K1 also at 12 795 rows and at an odd number of its
-              tiles and clusters) and are compared with their plain versions
-              and timed;
+              tiles and clusters; K2 with an fp32 and a bf16 x̂₀, every t of
+              the model's tables and of diagonal ones, at 12 795 and 12 790
+              rows and at a ragged last column tile, and its CUDA-core design
+              beside it) and are compared with their plain versions and timed;
 4. main     — the fp32 path: batch 256 × 50 samples through the predictor and
               the metric-space transform: predictions/s, launch counts per
               prediction, and the same prediction with injected noise against
@@ -213,6 +215,7 @@ from skeletondiffusion_tpu_torch.data.batch import (
 )
 from skeletondiffusion_tpu_torch.diffusion.engine import posterior_update_plain
 from skeletondiffusion_tpu_torch.diffusion.manager import create_diffusion
+from skeletondiffusion_tpu_torch.diffusion.process import build_isotropic_process
 from skeletondiffusion_tpu_torch.eval_pipeline import (
     SkeletonDiffusionPredictor,
     ZeroVelocityPredictor,
@@ -263,7 +266,8 @@ TIMED_CALLS = 3
 
 # Tolerances, max |kernel − plain| on the same inputs.  Both sides are fp32 and
 # differ only in the order of their sums: K2 sums 63 products of O(1) terms per
-# output (~63·2^-24·|terms| ≲ 1e-5), K1 sums 96- and 21-term dots per step and
+# output (~63·2^-24·|terms| ≲ 1e-5; 153 at 51 nodes, on the tensor cores in
+# 3×TF32, which truncate as they accumulate: ≲ 2e-5), K1 sums 96- and 21-term dots per step and
 # squashes every step through σ/tanh, which keeps the 120-step error at the
 # per-step level; the end-to-end comparison adds the denoiser's amplification
 # of the K2 differences over 10 steps, then the decode.
@@ -357,9 +361,10 @@ SKELETON_CLI_SEGMENTS = 512
 FID_GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "fid_classifier.npz"
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
-# tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
+# tensor cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_BYTES_S = 3.35e12
 
 # Launches a prediction on each path (10 steps; the denoiser's depth 4: 8
@@ -425,11 +430,13 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(bytes_moved: float, flops: float, tensor_flops: float = 0.0):
+def bound_ms(bytes_moved: float, flops: float, tensor_flops: float = 0.0,
+             tf32_flops: float = 0.0):
     """The least time for the work: bytes at the HBM rate against fp32 flops
-    outside the tensor cores plus bf16 flops on them."""
+    outside the tensor cores plus bf16 and TF32 flops on them."""
     t_bytes = bytes_moved / PEAK_BYTES_S
-    t_ops = flops / PEAK_FP32_FLOP_S + tensor_flops / PEAK_BF16_FLOP_S
+    t_ops = (flops / PEAK_FP32_FLOP_S + tensor_flops / PEAK_BF16_FLOP_S
+             + tf32_flops / PEAK_TF32_FLOP_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -496,38 +503,82 @@ def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
     return skeleton, predictor
 
 
+def k2_tf32_flops(n: int, cols: int, x0_bf16: bool) -> float:
+    """TF32 flops of K2's route on the tensor cores: 3×TF32 takes three
+    products a term (hi·lo, lo·hi, hi·hi), two for a bf16 x̂₀'s terms (no
+    lo part), over the [N, 3N]·[3N, cols] contraction."""
+    return 2.0 * n * n * cols * (3 + 3 + (2 if x0_bf16 else 3))
+
+
 def check_posterior_step(predictor, gen: torch.Generator) -> dict:
-    """K2 at the sampler's shapes [N, 12800, 96] (N = 21 on AMASS), every t
-    of the table."""
+    """K2 at the sampler's shapes [N, 12800, 96] (N = 21 on AMASS), both
+    entries (x̂₀ fp32 and bf16), every t of the predictor's tables and of an
+    isotropic process's diagonal ones, at 12 800, 12 795 and 12 790 rows and
+    at [N, 12 799, 8] (a last 32-column tile 24 columns wide), against the
+    plain version; the times of both entries, of the plain version, of
+    ``torch.matmul`` on the stacked inputs and of the source's CUDA-core
+    design.  Returns the fp32 entry's line (the bf16 entry's comes from
+    ``check_denoiser_kernels``)."""
     n, rows = predictor.skeleton.num_nodes, BATCH * SAMPLES
     shape = (n, rows, LATENT)
     x0 = 1.5 * torch.randn(shape, generator=gen, device="cuda")  # some |x̂₀| > 1: clip matters
     xt = torch.randn(shape, generator=gen, device="cuda")
     eps = torch.randn(shape, generator=gen, device="cuda")
-    tables = predictor.diffusion.step_tables
-    err = 0.0
-    for t in range(tables.shape[0]):
-        got = posterior_mod.posterior_step(x0, xt, eps, tables[t])
-        want = posterior_mod.posterior_step_plain(x0, xt, eps, tables[t])
-        torch.cuda.synchronize()
-        err = max(err, (got - want).abs().max().item())
-    m_t = tables[TIMESTEPS // 2]
-    ms = cuda_ms(lambda: posterior_mod.posterior_step(x0, xt, eps, m_t), reps=20)
-    plain_ms = cuda_ms(lambda: posterior_mod.posterior_step_plain(x0, xt, eps, m_t), reps=20)
-    stacked = torch.cat([x0.clamp(-1, 1), xt, eps]).reshape(3 * n, -1)
-    library_ms = cuda_ms(lambda: torch.matmul(m_t, stacked), reps=20)
-    elems = x0.numel()
-    bnd, by = bound_ms(4.0 * (4 * elems + m_t.numel()), 2.0 * n * 3 * n * rows * LATENT)
-    log(f"posterior_step: max_abs_err {err:.3e} (tol {K2_TOL:.0e}), {ms:.4f} ms/step, "
-        f"plain {plain_ms:.4f} ms, library matmul {library_ms:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by})")
-    if not err <= K2_TOL:
-        raise AssertionError(f"posterior_step kernel disagrees with its plain version: {err}")
-    return {"name": "posterior_step", "route": "cuda", "nodes": n,
-            "source": "skeletondiffusion_tpu_torch/csrc/posterior_step.cu",
-            "replaces": "skeletondiffusion_tpu/ops/pallas/posterior_step.py:93",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-            "bound_by": by, "library_ms": library_ms}
+    tables = {"tables": predictor.diffusion.step_tables,
+              "diagonal tables": build_isotropic_process(n, TIMESTEPS, device="cuda")
+              .posterior_step_tables()}
+    ragged = [1.5 * torch.randn((n, rows - 1, 8), generator=gen, device="cuda"),
+              *(torch.randn((n, rows - 1, 8), generator=gen, device="cuda") for _ in range(2))]
+    entries = {}
+    for label, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        a, b = x0.to(dt), ragged[0].to(dt)
+        errs = {}
+        for cut in (rows, rows - RAGGED, rows - 2 * RAGGED):
+            args = [t[:, :cut].contiguous() for t in (a, xt, eps)]
+            for kind, table in tables.items():
+                for t in range(table.shape[0]):
+                    got = posterior_mod.posterior_step(*args, table[t])
+                    want = posterior_mod.posterior_step_plain(*args, table[t])
+                    torch.cuda.synchronize()
+                    key = f"{cut} rows, {kind}"
+                    errs[key] = max(errs.get(key, 0.0), (got - want).abs().max().item())
+        for kind, table in tables.items():
+            got = posterior_mod.posterior_step(b, *ragged[1:], table[TIMESTEPS // 2])
+            want = posterior_mod.posterior_step_plain(b, *ragged[1:], table[TIMESTEPS // 2])
+            torch.cuda.synchronize()
+            errs[f"{rows - 1}×8, {kind}"] = (got - want).abs().max().item()
+        err = max(errs.values())
+        if not err <= K2_TOL:
+            raise AssertionError(f"posterior_step ({label} x̂₀) disagrees with its plain version: "
+                                 f"{errs}")
+        m_t = tables["tables"][TIMESTEPS // 2]
+        ms = cuda_ms(lambda: posterior_mod.posterior_step(a, xt, eps, m_t), reps=20)
+        plain_ms = cuda_ms(lambda: posterior_mod.posterior_step_plain(a, xt, eps, m_t), reps=20)
+        stacked = torch.cat([a.float().clamp(-1, 1), xt, eps]).reshape(3 * n, -1)
+        library_ms = cuda_ms(lambda: torch.matmul(m_t, stacked), reps=20)
+        core = posterior_mod.posterior_step_cuda_core(a, xt, eps, m_t)
+        core_err = (core - posterior_mod.posterior_step_plain(a, xt, eps, m_t)).abs().max().item()
+        if not core_err <= K2_TOL:
+            raise AssertionError(f"posterior_step's CUDA-core design ({label} x̂₀) disagrees with "
+                                 f"the plain version: {core_err}")
+        core_ms = cuda_ms(lambda: posterior_mod.posterior_step_cuda_core(a, xt, eps, m_t),
+                          reps=20)
+        moved = (a.element_size() + 12) * x0.numel() + 4 * m_t.numel()
+        bnd, by = bound_ms(moved, 0.0, tf32_flops=k2_tf32_flops(n, rows * LATENT, label == "bf16"))
+        core_bnd, core_by = bound_ms(moved, 2.0 * n * 3 * n * rows * LATENT)
+        log(f"posterior_step's CUDA-core design ({label} x̂₀, {n} nodes): {core_ms:.4f} ms, "
+            f"max_abs_err {core_err:.3e}, bound {core_bnd:.4f} ms ({core_by}, FP32 FMAs)")
+        log(f"posterior_step ({label} x̂₀, {n} nodes): max_abs_err {err:.3e} (tol {K2_TOL:.0e}; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"), plan {posterior_mod.posterior_plan(n, dt)._asdict()}; {ms:.4f} ms/step, "
+            f"plain {plain_ms:.4f} ms, library matmul {library_ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        entries[label] = {"name": "posterior_step", "route": "cuda", "nodes": n,
+                          "source": "skeletondiffusion_tpu_torch/csrc/posterior_step.cu",
+                          "replaces": "skeletondiffusion_tpu/ops/pallas/posterior_step.py:93",
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                          "bound_by": by, "library_ms": library_ms, "cuda_core_ms": core_ms}
+    return entries["fp32"]
 
 
 def rollout_inputs(predictor, gen: torch.Generator, compute_dtypes=(None,)) -> list:
@@ -822,7 +873,8 @@ def odd_tile_rows(tile_rows: int) -> int:
 
 
 def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, source: str,
-                       tensor_flops: float = 0.0, flops: float = 0.0, library=None,
+                       tensor_flops: float = 0.0, flops: float = 0.0, tf32_flops: float = 0.0,
+                       library=None,
                        products=None, f32: bool = True, odd_rows: tuple = ()) -> dict:
     """One kernel at the bench shapes: bf16 against its plain version, its
     fp32 instantiation, a ragged row count, with ``odd_rows`` (bf16, fp32)
@@ -859,7 +911,7 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
     library_ms = cuda_ms(library, reps=20) if library is not None else None
     products_ms = cuda_ms(products, reps=20) if products is not None else None
     moved = sum(t.numel() * t.element_size() for t in (*args, *got) if torch.is_tensor(t))
-    bnd, by = bound_ms(moved, flops, tensor_flops)
+    bnd, by = bound_ms(moved, flops, tensor_flops, tf32_flops)
     log(f"{name}: bf16 vs plain {'; '.join(parts)}; fp32 vs plain "
         f"{'—' if f32_err is None else f'{f32_err:.3e}'} (tol {F32_TOL:.0e}); {cut} rows "
         f"{r_err:.3e}{odd}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -1033,7 +1085,7 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
                 "posterior_step_x0_bf16", posterior_mod.posterior_step,
                 posterior_mod.posterior_step_plain, [x0, xt, eps, m_t],
                 replaces="posterior_step.py:93", source="posterior_step.cu",
-                flops=2.0 * n * 3 * n * rows * d, f32=False,
+                tf32_flops=k2_tf32_flops(n, rows * d, True), f32=False,
                 library=lambda: torch.matmul(m_t, stacked)),
         ]
 
@@ -2552,7 +2604,8 @@ def check_refusals() -> None:
     """Past 51 nodes every predictor kernel refuses on the card before it
     launches, naming the ROADMAP item of shapes no skeleton of the reference
     has; so do B8 and L1 at 51 nodes (they stay at 21) and the fp32 engine's
-    plans at 51 (their tiles do not fit, ROADMAP Queue B item 10)."""
+    plans at 51 (their tiles do not fit, ROADMAP Queue B item 10); K2
+    refuses a bf16 x̂₀ whose rows a tensor map cannot address."""
     n, rows = 52, 64
     x = torch.zeros((n, rows, 192), dtype=torch.bfloat16, device="cuda")
     calls = {"rms_qkv": lambda: proj_mod.rms_qkv(x, x[0, 0], torch.zeros(
@@ -2576,8 +2629,15 @@ def check_refusals() -> None:
             "rms_qkv fp32": lambda: proj_mod.rms_qkv_plan(torch.float32, 192, 768, m),
             "rms_qkv_core fp32": lambda: layer_mod.rms_qkv_core_plan(torch.float32, 192, 8, 32,
                                                                      m)}
+    # K2's tensor maps want rows of whole 16 bytes: a bf16 x̂₀ of B·D = 12
+    # columns is refused
+    calls["posterior_step bf16 12 columns"] = lambda: posterior_mod.posterior_step(
+        torch.zeros((21, 3, 4), dtype=torch.bfloat16, device="cuda"),
+        *(torch.zeros((21, 3, 4), device="cuda") for _ in range(2)),
+        torch.zeros((21, 63), device="cuda"))
     before = read_counts()
-    for name, call, want in [*((k, c, "no skeleton of the reference") for k, c in calls.items()),
+    for name, call, want in [*((k, c, "multiple of 8" if "12 columns" in k
+                                else "no skeleton of the reference") for k, c in calls.items()),
                              *((k, c, "Queue B item 9" if "fp32" not in k else "Queue B item 10")
                                for k, c in at51.items())]:
         try:
@@ -2586,12 +2646,14 @@ def check_refusals() -> None:
             if want not in str(e):
                 raise
         else:
-            raise AssertionError(f"{name} took {n if name in calls else m} nodes")
+            raise AssertionError(f"{name} was not refused")
     if read_counts() != before:
         raise AssertionError("a refused call counted a launch")
-    log(f"refusals: {', '.join(calls)} at {n} nodes raise, naming shapes no skeleton of the "
+    at52 = [k for k in calls if "12 columns" not in k]
+    log(f"refusals: {', '.join(at52)} at {n} nodes raise, naming shapes no skeleton of the "
         f"reference has (ROADMAP Queue B item 9); at {m} nodes B8 and L1 raise (Queue B "
-        f"item 9) and the fp32 engine's plans (Queue B item 10)")
+        f"item 9) and the fp32 engine's plans (Queue B item 10); K2 refuses a bf16 x̂₀ of "
+        f"12 columns (a TMA row is whole 16 bytes)")
 
 
 def run_skeletons(device: torch.device, card_name: str, predictor_bf16_amass):

@@ -11,9 +11,13 @@ port's nvcc flags (this tree's into the usual build directory, the other's
 into ``build/kernel_ab/parent/``, at once).  Each kernel is called through
 this tree's wrappers with one tree's libraries, then the other's, on random
 inputs from a seed (21 nodes, 12 800 rows, D 96, F 192, 8 heads × 32; the
-rollouts 120 steps), both trees' libraries built at 21 nodes.  A kernel
-whose C entry changed between the trees needs a call through the other
-tree's own C signature here.  Times are CUDA events over
+rollouts 120 steps), both trees' libraries built at 21 nodes.  K2, the
+posterior step, runs at every count of ``--nodes`` (both entries, x̂₀ fp32
+and bf16, [N, 12 800, 96]), each tree's library called through its own C
+entry (the parent's posterior_step.cu built at each count too): its plan
+ints are this tree's alone.  A kernel whose C entry changed between the
+trees needs a call through the other tree's own C signature here.  Times
+are CUDA events over
 ``reps`` calls after a warm-up, in rounds ordered parent, new, new, parent,
 …; the card's name and power limit, then one JSON line: ms per kernel, side
 and round, the best of each side, and new / parent of the best.  Needs one
@@ -39,6 +43,7 @@ from skeletondiffusion_tpu_torch.ops.kernels import (  # noqa: E402
     layer_fused, posterior_step, resnet_block)
 
 N, H, DH, B, D, F, PH = 21, 8, 32, 12800, 96, 192, 120
+K2_NODES = (21, 16, 17, 51)  # chip_smoke.NODE_COUNTS
 HD = H * DH
 OUT = REPO / "build" / "kernel_ab"
 
@@ -51,6 +56,43 @@ def build_parent(parent: pathlib.Path) -> dict:
         raise SystemExit(f"no kernel sources under {csrc}")
     build.compile_sources(srcs, OUT / "parent")
     return {s.stem: ctypes.CDLL(str(OUT / "parent" / f"lib{s.stem}.so")) for s in srcs}
+
+
+def k2_calls(nodes: list, parent: pathlib.Path) -> dict:
+    """``posterior_step[_x0_bf16]@<n>`` → {side: call} for K2 at each count:
+    this tree's C entry with its plan, the other tree's through its old
+    signature (x0, xt, eps, m, out, n, cols, stream)."""
+    psrc = parent / "skeletondiffusion_tpu_torch" / "csrc" / "posterior_step.cu"
+    build.compile_jobs([(psrc, OUT / f"parent-n{n}", n) for n in nodes])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    calls = {}
+    for n in nodes:
+        x0, xt, eps = (torch.randn((n, B, D), generator=gen, device="cuda") for _ in range(3))
+        m = 0.3 * torch.randn((n, 3 * n), generator=gen, device="cuda")
+        libs = {"new": ctypes.CDLL(str(build.library_path("posterior_step", n))),
+                "parent": ctypes.CDLL(str(OUT / f"parent-n{n}" / "libposterior_step.so"))}
+        for x in (1.5 * x0, (1.5 * x0).to(torch.bfloat16)):
+            symbol = "posterior_step_x0_bf16" if x.dtype == torch.bfloat16 else "posterior_step_f32"
+            plan = posterior_step.posterior_plan(n, x.dtype)
+            sides = {}
+            for side, lib in libs.items():
+                fn = getattr(lib, symbol)
+                ints = 5 if side == "new" else 2
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                extra = (plan.warps, plan.stages, plan.smem) if side == "new" else ()
+
+                def call(fn=fn, x=x, xt=xt, eps=eps, m=m, n=n, extra=extra):
+                    out = torch.empty_like(xt)
+                    build.check_status(f"posterior_step at {n} nodes",
+                                       fn(x.data_ptr(), xt.data_ptr(), eps.data_ptr(),
+                                          m.data_ptr(), out.data_ptr(), n, B * D, *extra,
+                                          build.stream_of(xt)))
+                    return out
+                sides[side] = call
+            name = "posterior_step_x0_bf16" if x.dtype == torch.bfloat16 else "posterior_step"
+            calls[f"{name}@{n}"] = sides
+    return calls
 
 
 def use(libraries: dict) -> None:
@@ -96,8 +138,6 @@ def kernels() -> dict:
     qkv = rnd(N, B, 3 * HD)
     w1f, b1f, g1f, wr, gr = bank(2 * F, F), bias(F), infl(), bank(2 * F, F), infl()
     wh, bh, gh = bank(F, D), bias(D), infl()
-    x0, xt, eps = rnd(N, B, D), rnd(N, B, D, dtype=torch.float32), rnd(N, B, D, dtype=torch.float32)
-    m = 0.3 * torch.randn((N, 3 * N), generator=gen, device="cuda")
     qkv_fm = qkv.permute(0, 2, 1).contiguous()
     roll = dict(h0=rnd(N, B, D, scale=0.5, dtype=torch.float32), b_hh=bias(3 * D).float(),
                 g0=infl(torch.float32), g_add=0.01 * infl(torch.float32), b_fc=bias(3).float(),
@@ -113,7 +153,6 @@ def kernels() -> dict:
         "final_block_in": (20, lambda: resnet_block.final_block_in(x, r, film, w1f, b1f, g1f,
                                                                    wr, gr)),
         "final_block_out": (20, lambda: resnet_block.final_block_out(x, r, *blk[3:], wh, bh, gh)),
-        "posterior_step_x0_bf16": (20, lambda: posterior_step.posterior_step(x0, xt, eps, m)),
         "stem_block": (20, lambda: layer_fused.stem_block(x_lat, u, film, ws, bs, gs, *blk)),
         "rms_qkv_core": (20, lambda: layer_fused.rms_qkv_core(x, g_rms, w_qkv, g_qkv, heads=H,
                                                               dim_head=DH)),
@@ -132,15 +171,18 @@ def main() -> int:
     parser.add_argument("--parent", type=pathlib.Path, required=True,
                         help="root of the other checkout (its skeletondiffusion_tpu_torch/csrc)")
     parser.add_argument("--rounds", type=int, default=4)
+    parser.add_argument("--nodes", type=int, nargs="+", default=list(K2_NODES),
+                        help="node counts of K2's A/B (the other kernels run at 21)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    build.build_all()
+    build.build_all(sorted({build.DEFAULT_NODES, *args.nodes}))
     new = {s.stem: build.library(s.stem) for s in build.sources()}
     parent = build_parent(args.parent.resolve())
     calls = kernels()
-    times = {k: {"parent": [], "new": []} for k in calls}
+    k2 = k2_calls(args.nodes, args.parent.resolve())
+    times = {k: {"parent": [], "new": []} for k in [*calls, *k2]}
     order = ["parent", "new", "new", "parent"]
     with torch.no_grad():
         for rnd_ in range(args.rounds):
@@ -148,6 +190,8 @@ def main() -> int:
             use(new if side == "new" else parent)
             for name, (reps, fn) in calls.items():
                 times[name][side].append(cuda_ms(fn, reps))
+            for name, sides in k2.items():
+                times[name][side].append(cuda_ms(sides[side], 20))
     best = {k: {s: min(v) for s, v in t.items() if v} for k, t in times.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()

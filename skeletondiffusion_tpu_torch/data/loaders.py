@@ -5,8 +5,7 @@ of clips [T, J, 3], plus the ``segments_*.csv`` split definitions.
 Port of ``skeletondiffusion_tpu/data/loaders.py`` (`:18-333`; reference
 `src/data/loaders/{amass,h36m,freeman,amass_zeroshot}.py`), with the segment
 CSVs read through the standard ``csv`` module.  AMASS-MANO (52 joints, 51
-nodes) reads through ``AMASSDataset`` once its skeleton is ported (ROADMAP
-Queue A item 5).
+nodes) reads through ``AMASSDataset``.
 """
 from __future__ import annotations
 

@@ -119,10 +119,10 @@ def compile_sources(srcs: List[Path], out_dir: Path, nodes: int = DEFAULT_NODES)
     """nvcc each source into ``out_dir/lib<stem>.so`` at ``nodes`` nodes,
     all at once; returns the seconds taken.  Each source's compiler output
     goes to ``out_dir/<stem>.log``."""
-    return _compile([(src, out_dir, nodes) for src in srcs])
+    return compile_jobs([(src, out_dir, nodes) for src in srcs])
 
 
-def _compile(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
+def compile_jobs(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
     """nvcc every (source, output directory, node count) at once."""
     compiler = nvcc()
     start = time.perf_counter()
@@ -158,7 +158,7 @@ def build_all(node_counts: Iterable[int] = (DEFAULT_NODES,)) -> float:
     returns the seconds taken (0.0 when nothing was missing)."""
     missing = [(src, build_dir(n), n) for n in node_counts for src in sources_for(n)
                if not library_path(src.stem, n).is_file()]
-    return _compile(missing) if missing else 0.0
+    return compile_jobs(missing) if missing else 0.0
 
 
 def library(name: str, nodes: int = DEFAULT_NODES) -> ctypes.CDLL:

@@ -4,9 +4,13 @@ depth 1 with 4 heads × 32, 1 diffusion step, observe 6, predict 10, 2
 observations × 4 samples): the port's fp32 predictor (the plain denoiser,
 the posterior step's and the rollout's plain versions) within 1e-4 of the
 JAX fused chain in fp32 (its Pallas kernels in interpret mode, the core
-jitted).  The bf16 chain at 51 nodes is held on the card (chip_smoke's
-mano phase: each bf16 kernel against its plain version, the bf16 paths
-against their plain paths); its CPU interpret run takes minutes here."""
+jitted).  The port's bf16 predictor (the plain versions, K2's on a bf16
+x̂₀) against the JAX fused chain's bf16 and fp32 runs of
+``tests/goldens/mano_bf16.npz`` (2 diffusion steps), within
+``BF16_SPREAD`` of the JAX chain's own bf16-vs-fp32 deviation; the JAX
+bf16 chain takes minutes in interpret mode, so the file keeps its runs.
+On the card chip_smoke's mano phase holds each bf16 kernel against its
+plain version and the bf16 paths against their plain paths."""
 from unittest import mock
 
 import jax.numpy as jnp
@@ -15,9 +19,9 @@ import pytest
 import torch
 
 import torch_parity
-from torch_parity import ARCH, jax_fused_chain, model_pair, skeletons_of
+from torch_parity import (MANO_GOLDEN, MANO_SMALL, hold_bf16_predictor, jax_fused_chain,
+                          model_pair, port_predictor_run, predictor_inputs, skeletons_of)
 
-SMALL = dict(latent=32, hidden=16, arch={**ARCH, "attn_heads": 4, "attn_dim_head": 32})
 E2E_TOL = 1e-4
 
 
@@ -27,7 +31,7 @@ def runs():
 
     with mock.patch.object(torch_parity, "TIMESTEPS", 1):
         jsk, sk = skeletons_of("amass-mano", 52)
-        m = model_pair(jsk, sk, SMALL)[None]
+        m = model_pair(jsk, sk, MANO_SMALL)[None]
         n, s, b = sk.num_nodes, torch_parity.SAMPLES_E2E, torch_parity.BATCH_E2E
         rng = np.random.default_rng(51)
         obs = 0.3 * rng.standard_normal((b, torch_parity.OBS_LEN, n, 3), dtype=np.float32)
@@ -48,3 +52,24 @@ def test_fp32_predictor_matches_jax(runs):
         assert got[i].shape == want[i].shape and got[i].shape[-2] == 51
         assert np.isfinite(got[i]).all()
         np.testing.assert_allclose(got[i], want[i], rtol=0, atol=E2E_TOL, err_msg=what)
+
+
+def test_bf16_predictor_holds_the_jax_golden():
+    """The port's bf16 predictor at 51 nodes against the JAX fused chain's
+    bf16 and fp32 runs kept in ``tests/goldens/mano_bf16.npz`` (its seeds
+    and step count; the same weights and injected noise here), within
+    ``BF16_SPREAD`` of the JAX chain's own bf16-vs-fp32 deviation
+    (``hold_bf16_predictor``).  Regenerate the file with
+    ``JAX_PLATFORMS=cpu python3 scripts/mano_bf16_golden.py`` (~2 min:
+    the JAX bf16 chain in interpret mode) after a change to the JAX
+    package's chain or to ``torch_parity``'s models or inputs."""
+    golden = np.load(MANO_GOLDEN)
+    with mock.patch.object(torch_parity, "TIMESTEPS", int(golden["timesteps"])):
+        jsk, sk = skeletons_of("amass-mano", 52)
+        m = model_pair(jsk, sk, MANO_SMALL, seed=int(golden["weight_seed"]))
+        inputs = predictor_inputs(sk.num_nodes, m[None]["latent"], int(golden["input_seed"]))
+        runs = {"jax": {None: (golden["fp32_latents"], golden["fp32_predictions"]),
+                        "bfloat16": (golden["bf16_latents"], golden["bf16_predictions"])},
+                "port": {"bfloat16": port_predictor_run(sk, m["bfloat16"], inputs, fused=True)}}
+    assert sk.num_nodes == 51 and runs["port"]["bfloat16"][0].shape == golden["bf16_latents"].shape
+    hold_bf16_predictor(jsk, sk, m, int(golden["input_seed"]), runs=runs)

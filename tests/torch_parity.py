@@ -187,15 +187,23 @@ BF16_SPREAD = 1.4
 
 SAMPLES_E2E, BATCH_E2E = 4, 2
 
+# AMASS-MANO's small widths (tests/test_torch_mano_paths.py) and its bf16
+# golden: the JAX fused chain's bf16 and fp32 runs at 51 nodes, written by
+# scripts/mano_bf16_golden.py (interpret mode, ~2 min)
+MANO_SMALL = dict(latent=32, hidden=16, arch={**ARCH, "attn_heads": 4, "attn_dim_head": 32})
+MANO_GOLDEN = pathlib.Path(__file__).resolve().parent / "goldens" / "mano_bf16.npz"
+MANO_GOLDEN_STEPS, MANO_GOLDEN_INPUT_SEED, MANO_GOLDEN_WEIGHT_SEED = 2, 52, 3
 
-def model_pair(jsk, sk, width=WIDE) -> dict:
+
+def model_pair(jsk, sk, width=WIDE, seed: int = 3) -> dict:
     """{dtype: models}: the JAX models and the port's with the same weights
-    on the skeleton pair (jsk, sk) at ``width`` (latent, hidden, arch) with
-    spread denoiser weights, for float32 (None) and bfloat16."""
+    (from ``seed``) on the skeleton pair (jsk, sk) at ``width`` (latent,
+    hidden, arch) with spread denoiser weights, for float32 (None) and
+    bfloat16."""
     out = {}
     for dtype in (None, "bfloat16"):
         jae, ae_params, jengine, jden, den_params = jax_models(
-            jsk, seed=3, latent=width["latent"], hidden=width["hidden"], arch=width["arch"],
+            jsk, seed=seed, latent=width["latent"], hidden=width["hidden"], arch=width["arch"],
             compute_dtype=dtype, spread=True)
         ae, engine, den = port_models(sk, ae_params, den_params, latent=width["latent"],
                                       hidden=width["hidden"], arch=width["arch"],
@@ -254,32 +262,47 @@ def jax_fused_chain(jsk, m, obs, start, steps, compiled: bool = False):
             np.asarray(jsk.transform_to_metric_space(pred.reshape(b, s, PRED_LEN, n, 3))))
 
 
+def predictor_inputs(n: int, latent: int, seed: int) -> tuple:
+    """(observations, start noise, step noise) of ``seed`` for BATCH_E2E
+    observations × SAMPLES_E2E samples and TIMESTEPS steps, numpy."""
+    rows = BATCH_E2E * SAMPLES_E2E
+    rng = np.random.default_rng(seed)
+    obs = 0.3 * rng.standard_normal((BATCH_E2E, OBS_LEN, n, 3), dtype=np.float32)
+    start = rng.standard_normal((rows, n, latent), dtype=np.float32)
+    steps = rng.standard_normal((rows, TIMESTEPS - 1, n, latent), dtype=np.float32)
+    return obs, start, steps
+
+
+def port_predictor_run(sk, models: dict, inputs: tuple, fused: bool) -> tuple:
+    """The port's predictor of ``models`` (one dtype of ``model_pair``; the
+    fused denoiser branch if ``fused``, as bf16 takes it) on the CPU with the
+    injected noise of ``inputs`` (``predictor_inputs``): (latents,
+    metric-space predictions), numpy."""
+    from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
+
+    obs, start, steps = inputs
+    pred = SkeletonDiffusionPredictor(sk, models["ae"], models["engine"],
+                                      num_samples=SAMPLES_E2E, pred_length=PRED_LEN, device="cpu")
+    assert (pred.diffusion.fused is not None) == fused
+    got, got_lat = pred(None, torch.from_numpy(obs), start_noise=torch.from_numpy(start),
+                        step_noise=torch.from_numpy(steps))
+    got = sk.transform_to_metric_space(got).numpy()
+    assert got.shape == (BATCH_E2E, SAMPLES_E2E, PRED_LEN, sk.num_nodes, 3)
+    assert np.isfinite(got).all()
+    return got_lat.numpy(), got
+
+
 def predictor_runs(jsk, sk, m, seed: int, dtypes=("bfloat16",)) -> dict:
     """The JAX fused chain (``jax_fused_chain``) in fp32 and bf16 and the
     port's predictors of ``dtypes`` (the models of ``m``, on the CPU) with
     the same injected noise on the inputs of ``seed``, each taking the
     denoiser path the environment selects: {"jax": {dtype: (latents,
     predictions)}, "port": {dtype: (latents, predictions)}}, metric space."""
-    from skeletondiffusion_tpu_torch.eval_pipeline import SkeletonDiffusionPredictor
-
-    n, latent, s = jsk.num_nodes, m[None]["latent"], SAMPLES_E2E
-    rows = BATCH_E2E * s
-    rng = np.random.default_rng(seed)
-    obs = 0.3 * rng.standard_normal((BATCH_E2E, OBS_LEN, n, 3), dtype=np.float32)
-    start = rng.standard_normal((rows, n, latent), dtype=np.float32)
-    steps = rng.standard_normal((rows, TIMESTEPS - 1, n, latent), dtype=np.float32)
-    runs = {"jax": {d: jax_fused_chain(jsk, m[d], *map(jnp.asarray, (obs, start, steps)),
-                                       compiled=d is None)
+    inputs = predictor_inputs(jsk.num_nodes, m[None]["latent"], seed)
+    runs = {"jax": {d: jax_fused_chain(jsk, m[d], *map(jnp.asarray, inputs), compiled=d is None)
                     for d in (None, "bfloat16")}, "port": {}}
     for d in dtypes:
-        pred = SkeletonDiffusionPredictor(sk, m[d]["ae"], m[d]["engine"], num_samples=s,
-                                          pred_length=PRED_LEN, device="cpu")
-        assert (pred.diffusion.fused is not None) == (d == "bfloat16")  # the fused branch
-        got, got_lat = pred(None, torch.from_numpy(obs), start_noise=torch.from_numpy(start),
-                            step_noise=torch.from_numpy(steps))
-        got = sk.transform_to_metric_space(got).numpy()
-        assert got.shape == (BATCH_E2E, s, PRED_LEN, n, 3) and np.isfinite(got).all()
-        runs["port"][d] = (got_lat.numpy(), got)
+        runs["port"][d] = port_predictor_run(sk, m[d], inputs, fused=d == "bfloat16")
     return runs
 
 
