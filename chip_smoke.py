@@ -133,7 +133,12 @@ Phases, each printed with its elapsed seconds:
               predictor on it, and in bf16 its metric-space deviation beside
               B8's; cli.train_diffusion model=isotropic_diffusion on the cli
               phase's stage 1 (2 epochs × 3 iterations) and its eval CLI
-              against compute_metrics (1e-5·max(1, |v|)).
+              against compute_metrics (1e-5·max(1, |v|)); the AutoEncoder
+              variants (an LSTM encoder and decoder, a two-layer GRU encoder,
+              z_activation identity) on the card against the CPU (fp32, 4 ×
+              50 samples, 1e-4·max(1, |v|)), each timed on both paths with
+              the bf16 chain and K2, K1 launched for the GRU decoders and
+              never for the LSTM one.
 15. skeletons — the flagship model at full width on the H36M (16 nodes,
               observe 25, predict 100) and FreeMan (17 nodes, observe 15,
               predict 60) skeletons: K1, K2 and every kernel of phases 5
@@ -170,6 +175,14 @@ Phases, each printed with its elapsed seconds:
               dataset=amass-mano as phase 15's H36M CLIs, without FID.  The
               kernels' JSON line lists the 51-node entries with eval_launches
               of the MANO eval.
+17. capstone — scripts/torch_convergence_capstone.py through its main at
+              full width on a temporary root (its full-size synthetic motion
+              tree, both training CLIs, the three stage-2 variants, the
+              ZeroVelocity and variant evals) with CAPSTONE_CUT's minimal
+              schedule: every phase done, every key of the JAX script's
+              report, and K1, K2 and the single-stage bf16 chain launched
+              between the counters' reset and read (``capstone_launches`` in
+              the kernels' JSON line, 21-node entries).
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
@@ -352,7 +365,8 @@ ANNOTATIONS = pathlib.Path(__file__).resolve().parent / "datasets" / "annotation
 SKELETON_EVALS = {"h36m": "Human36M", "freeman": "FreeMan", "3dpw": "3DPW",
                   "amass-mano": "AMASS-MANO"}
 SKELETON_EVAL_CUT = None
-# The mano phase: AMASS-MANO's test split (12 727 segments) cut to its first
+# The mano phase: AMASS-MANO's test split (12 726 segments; the CSV has 12 727
+# lines with its header) cut to its first
 # MANO_EVAL_CUT segments (16 batches of 256), to keep the script within half
 # its time limit: a batch's prediction at 51 nodes takes ~1.7 s.
 MANO_EVAL_CUT = 4096
@@ -474,13 +488,15 @@ def spread_weights(module: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
-                dataset: str = "amass", **variant):
+                dataset: str = "amass", ae_variant: dict | None = None, **variant):
     """(skeleton, predictor) of the flagship from seed ``SEED``, on the
     skeleton of ``dataset`` (SKELETONS: its joints and task lengths); the
     weights do not depend on ``compute_dtype`` (the denoiser's and the
     AutoEncoder's) or on the device.  ``variant`` holds create_diffusion keys
     that replace the flagship's (the process, the objective, DDIM, the
-    activation, the conditioning, ``diffusion_arch``)."""
+    activation, the conditioning, ``diffusion_arch``); ``ae_variant`` the
+    AutoEncoder's model-variant keys (``recurrent_arch_enc``,
+    ``recurrent_arch_decoder``, ``enc_num_layers``, ``z_activation``)."""
     joints, obs_len, pred_len = SKELETONS[dataset]
     skeleton = create_skeleton(
         dataset_name=dataset, motion_repr_type="SkeletonRescalePose", num_joints=joints,
@@ -488,7 +504,8 @@ def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
     )
     gen = torch.Generator().manual_seed(SEED)
     ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT, gen,
-                     node_types=skeleton.nodes_type_id, compute_dtype=compute_dtype)
+                     node_types=skeleton.nodes_type_id, compute_dtype=compute_dtype,
+                     **(ae_variant or {}))
     keys = dict(diffusion_conditioning=True, diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH)
     keys.update(variant)
     diffusion, denoiser = create_diffusion(
@@ -2284,6 +2301,54 @@ def check_module_variant(label: str, variant: dict, obs, gen, card_name: str) ->
         + "; ".join(parts) + "; seconds " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
 
 
+# The AutoEncoder's model variants (ROADMAP Queue A item 4b) at full width:
+# the bf16 chain and K2 on every one, K1 on the GRU decoders only (an LSTM
+# decoder decodes with its plain step loop, as the JAX predictor does).
+AE_VARIANTS = {
+    "LSTM encoder and decoder": {"recurrent_arch_enc": "StaticGraphLSTM",
+                                 "recurrent_arch_decoder": "StaticGraphLSTM"},
+    "two-layer GRU encoder": {"enc_num_layers": 2},
+    "z_activation identity": {"z_activation": "identity"},
+}
+
+
+def check_ae_variant(label: str, ae_variant: dict, obs, gen, card_name: str) -> dict:
+    """An AutoEncoder variant: the fp32 predictor on the card against the
+    same model on the CPU on a cut batch (VARIANT_TOL·max(1, |v|)); one
+    timed full-width prediction on each path, its launches held: the bf16
+    chain and K2, K1 once for a GRU decoder and never for an LSTM one.
+    Returns the bf16 prediction's launches."""
+    lstm = ae_variant.get("recurrent_arch_decoder") == "StaticGraphLSTM"
+    k1 = {"gru_rollout": 0 if lstm else 1}
+    skeleton, p32 = build_model(torch.device("cuda"), ae_variant=ae_variant)
+    _, cpu = build_model(torch.device("cpu"), ae_variant=ae_variant)
+    rows = VARIANT_CUT * SAMPLES
+    start, steps = variant_noise(skeleton, p32, gen, rows)
+    with torch.no_grad():
+        card_pred, _ = p32(None, obs[:VARIANT_CUT], start_noise=start, step_noise=steps)
+        cpu_pred, _ = cpu(None, obs[:VARIANT_CUT].cpu(), start_noise=start.cpu(),
+                          step_noise=steps.cpu())
+    card_m = skeleton.transform_to_metric_space(card_pred).cpu()
+    cpu_m = skeleton.transform_to_metric_space(cpu_pred)
+    err = (card_m - cpu_m).abs().max().item()
+    tol = VARIANT_TOL * max(1.0, cpu_m.abs().max().item())
+    if not (bool(torch.isfinite(card_m).all()) and err <= tol):
+        raise AssertionError(f"{label}: card vs CPU max |Δ| {err} (tol {tol})")
+    del cpu
+    _, p16 = build_model(torch.device("cuda"), torch.bfloat16, ae_variant=ae_variant)
+    if p16.use_fused_decode == lstm or not p16.use_fused_denoiser:
+        raise AssertionError(f"{label}: K1 decode {p16.use_fused_decode}, kernel chain "
+                             f"{p16.use_fused_denoiser}")
+    run_main_path(skeleton, p32, obs, card_name, {**k1, "posterior_step": TIMESTEPS},
+                  f"{label} fp32")
+    launches = run_main_path(skeleton, p16, obs, card_name,
+                             {**fused_launches(TIMESTEPS, "posterior_step_x0_bf16"), **k1},
+                             f"{label} bf16")
+    log(f"{label} on {card_name}: card vs CPU on {VARIANT_CUT} × {SAMPLES} max |Δ| {err:.3e} "
+        f"(tol {tol:.1e}); decode {'plain step loop' if lstm else 'K1'}")
+    return launches
+
+
 def check_plain_decode(skeleton, predictor, obs, gen, card_name: str) -> None:
     """``use_fused_decode=False``: the plain decode in fp32 against K1 at
     12 800 rows (≤ K1_TOL); the predictor on it, timed; in bf16 (the
@@ -2397,6 +2462,9 @@ def run_variants(skeleton, predictor, obs, gen, card_name: str, data_root: str, 
         del p32, p16
     for label, variant in MODULE_VARIANTS.items():
         check_module_variant(label, variant, obs, gen, card_name)
+        part(label)
+    for label, ae_variant in AE_VARIANTS.items():
+        launches[label] = check_ae_variant(label, ae_variant, obs, gen, card_name)
         part(label)
     check_plain_decode(skeleton, predictor, obs, gen, card_name)
     part("plain decode")
@@ -2756,6 +2824,59 @@ def run_mano(device: torch.device, card_name: str):
     return entries
 
 
+# The capstone phase: scripts/torch_convergence_capstone.py at full width
+# (the flagship's configs, observe 30, predict 120, its full-size synthetic
+# motion tree) on a minimal schedule set through the script's own overrides.
+CAPSTONE_CUT = ["--ae-epochs", "2", "--ae-iters", "4", "--diff-epochs", "2", "--diff-iters", "4",
+                "--diff-warmup", "1", "--eval-freq", "1"]
+# the kernels the capstone's run must launch: K1 (the AutoEncoder's
+# validation, stage 2's k-best decode, the evals), K2 and the single-stage
+# bf16 chain (stage 2's validation, the evals)
+CAPSTONE_KERNELS = tuple(EXPECTED_BF16)
+
+
+def run_capstone(card_name: str) -> dict:
+    """The convergence capstone's twin through its ``main`` on a temporary
+    root (``CAPSTONE_CUT``): the run ends with every phase done, its report
+    has every key of the JAX script's report, and K1, K2 and the bf16 chain
+    were launched.  Returns the launches of the run."""
+    import torch_convergence_capstone as capstone
+
+    jax_keys = {"description", "smoke", "partial_variants_missing", "config", "metrics",
+                "valid_ade_trajectory_k50_motion", "valid_ade_trajectory_autoencoder",
+                "kept_checkpoints_k50_motion", "final_lr", "curriculum_ph_max",
+                "limb_stretch_flagship_mm", "checks", "margins", "last_phase_done",
+                "timings_sec"}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "torch_convergence.json")
+        reset_counts()
+        t = time.perf_counter()
+        try:
+            report = capstone.main(["--root", root, "--out-json", out, *CAPSTONE_CUT])
+        finally:
+            os.chdir(cwd)
+        seconds = time.perf_counter() - t
+        counts = read_counts()
+        with open(out) as f:
+            banked = json.load(f)
+    missing = jax_keys - set(report)
+    if report["last_phase_done"] != "all" or missing or banked != json.loads(json.dumps(report)):
+        raise AssertionError(f"capstone: last phase {report['last_phase_done']}, keys missing "
+                             f"{sorted(missing)}, or the banked report differs")
+    if report["partial_variants_missing"] or len(report["metrics"]) != 4:
+        raise AssertionError(f"capstone: runs {sorted(report['metrics'])}")
+    idle = [k for k in CAPSTONE_KERNELS if not counts[k]]
+    if idle:
+        raise AssertionError(f"capstone: {idle} never launched: {counts}")
+    log(f"capstone on {card_name}: scripts/torch_convergence_capstone.py {' '.join(CAPSTONE_CUT)} "
+        f"in {seconds:.1f} s (phases {report['timings_sec']}); flagship/ZV ADE ratio "
+        f"{report['margins']['flagship_over_zv_ade_ratio']}, checks judged "
+        f"{sum(v is not None for v in report['checks'].values())} of {len(report['checks'])}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
     """Kernel time per prediction of the entries launched on a path: ms a
     launch × the path's ``launches``."""
@@ -2894,6 +3015,12 @@ def main() -> int:
     t = time.perf_counter()
     kernels += run_mano(device, card_name)
     phase("mano", t)
+
+    t = time.perf_counter()
+    launches = run_capstone(card_name)
+    for k in kernels:
+        k["capstone_launches"] = launches[k["name"]] if k.get("nodes", 21) == 21 else 0
+    phase("capstone", t)
 
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -22,6 +22,14 @@ fp32 path started at every step from the kernel chain's state before it
 (single-stage and layer-fused): the same readings a step at a time.
 
     python3 scripts/torch_bf16_chain_split.py [--datasets h36m freeman amass]
+    python3 scripts/torch_bf16_chain_split.py --checkpoint <stage-2 experiment dir>
+
+``--checkpoint`` reads a trained AMASS model in place of the seeded
+weights: the experiment's best checkpoint through the eval CLI's
+``prepare_model`` (fp32 and bf16 ``compute_dtype``), observed on the first
+batch of its dataset's test split (``dataset_main_path`` of the stored
+config); it adds chip_smoke's ``hold_bf16`` readings of the single-stage and
+layer-fused bf16 paths on those weights.
 
 Needs one CUDA device.  Prints a line a run, the card's name and power
 limit, then one JSON line.
@@ -110,12 +118,65 @@ def share_differing(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a != b).float().mean().item()
 
 
-def split(dataset: str, device: torch.device) -> dict:
+def seeded_models(dataset: str, device: torch.device) -> tuple:
+    """(skeleton, fp32 predictor, bf16 predictor, observation) of chip_smoke's
+    seeded flagship, observing random poses."""
     skeleton, p32 = smoke.build_model(device, dataset=dataset)
     _, p16 = smoke.build_model(device, torch.bfloat16, dataset=dataset)
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     n, obs_len = skeleton.num_nodes, smoke.SKELETONS[dataset][1]
     obs = 0.3 * torch.randn((smoke.BATCH, obs_len, n, 3), generator=gen, device="cuda")
+    return skeleton, p32, p16, obs
+
+
+def trained_models(checkpoint: str, device: torch.device) -> tuple:
+    """(skeleton, fp32 predictor, bf16 predictor, observation) of the trained
+    AMASS experiment ``checkpoint`` through the eval CLI's ``prepare_model``,
+    observing the first ``BATCH`` segments of its test split."""
+    from skeletondiffusion_tpu_torch.cli.common import build_dataset, build_skeleton, eval_batches
+    from skeletondiffusion_tpu_torch.cli.eval import merge_experiment_cfg, prepare_model
+    from skeletondiffusion_tpu_torch.utils.config import flatten_config, load_config
+    from skeletondiffusion_tpu_torch.utils import yaml_lite
+
+    stored = yaml_lite.read(f"{checkpoint}/config.yaml")
+    argv = ["dataset=amass", f"checkpoint_path={checkpoint}",
+            f"dataset_main_path={stored['dataset_main_path']}",
+            "dataset.data_loader_test.datasets=[DFaust, GRAB]",
+            f"task.history_sec={stored['obs_length'] / stored['fps']}",
+            f"task.prediction_horizon_sec={stored['pred_length'] / stored['fps']}",
+            f"num_samples={smoke.SAMPLES}"]
+    predictors = {}
+    for dtype in ("null", "bfloat16"):
+        cfg = merge_experiment_cfg(flatten_config(load_config(
+            str(REPO / "configs" / "config_eval"), argv + [f"compute_dtype={dtype}"])))
+        skeleton = build_skeleton(cfg)
+        predictors[dtype] = prepare_model(cfg, skeleton, device)
+    dataset = build_dataset(cfg, skeleton, "test", "data_loader_test")
+    obs, _ = next(eval_batches(dict(cfg, batch_size_eval=smoke.BATCH), skeleton, dataset,
+                               device, max_batches=1))
+    return skeleton, predictors["null"], predictors["bfloat16"], obs
+
+
+def trained_holds(skeleton, p32, p16, obs) -> dict:
+    """chip_smoke's ``hold_bf16`` of the single-stage and layer-fused bf16
+    paths (``compare_bf16``, ``compare_layer_fused``) on these predictors:
+    whether each held (its ratios are on the lines it prints)."""
+    out = {}
+    for label, compare in (("single-stage", smoke.compare_bf16),
+                           ("layer-fused", smoke.compare_layer_fused)):
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + 1)
+        try:
+            compare(skeleton, p16, p32, obs, gen)
+            out[label] = "held"
+        except AssertionError as err:
+            out[label] = f"not held: {err}"
+        print(f"trained model, hold_bf16 of the {label} path: {out[label]}", flush=True)
+    return out
+
+
+def split(dataset: str, skeleton, p32, p16, obs) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    n = skeleton.num_nodes
     start, steps = smoke.injected_noise(skeleton, gen)
     every = set(SWAPS)
     x0 = {"fp32": [], "plain": [], "kernels": []}
@@ -200,16 +261,27 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--datasets", nargs="+", default=["h36m", "freeman", "amass"],
                         choices=sorted(smoke.SKELETONS))
+    parser.add_argument("--checkpoint", default=None,
+                        help="a trained AMASS stage-2 experiment directory: its weights "
+                             "in place of the seeded ones (the amass dataset only)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_bf16_chain_split: needs a CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counts = sorted({smoke.SKELETONS[d][0] - 1 for d in args.datasets})
+    datasets = ["amass"] if args.checkpoint else args.datasets
+    counts = sorted({smoke.SKELETONS[d][0] - 1 for d in datasets})
     smoke.build.build_all(counts)
     device = torch.device("cuda")
-    result = {d: split(d, device) for d in args.datasets}
+    result = {}
+    for d in datasets:
+        models = (trained_models(args.checkpoint, device) if args.checkpoint
+                  else seeded_models(d, device))
+        result[d] = split(d, *models)
+        if args.checkpoint:
+            result[d]["checkpoint"] = args.checkpoint
+            result[d]["hold_bf16"] = trained_holds(*models)
     print(smoke.card())
     print(json.dumps(result))
     return 0

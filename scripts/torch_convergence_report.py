@@ -1,0 +1,175 @@
+#!/usr/bin/env python
+"""Render docs/torch_convergence.json (scripts/torch_convergence_capstone.py
+output) into docs/torch_convergence.md: the headline metric table, the
+checks (a)-(d) with their margins, the validation-ADE trajectories and the
+timings beside the card that produced them.
+
+    python3 scripts/torch_convergence_report.py [--json docs/torch_convergence.json]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHECK_LABELS = {
+    "flagship_beats_zero_velocity_ade": "(a) flagship min-ADE < 0.6 x ZeroVelocity",
+    "flagship_beats_zero_velocity_fde": "(a) flagship min-FDE < 0.6 x ZeroVelocity",
+    "apd_ordering_motion_gt_latent": "(b) APD k50-motion > k50-latent",
+    "apd_ordering_latent_gt_k1": "(b) APD k50-latent > k1",
+    "apd_ordering_motion_gt_k1": "(b) APD k50-motion > k1 (outer comparison)",
+    "ema_val_ade_improved": "(c) EMA validation ADE improved over training",
+    "topk_checkpoints_rotated": "(c) top-k checkpoint rotation exercised",
+    "ae_lr_reached_floor": "(d) stage-1 LR reached its min-lr floor",
+    "diff_lr_reached_floor": "(d) stage-2 LR reached its min-lr floor",
+    "curriculum_fully_annealed": "(d) prediction-horizon curriculum fully annealed",
+    "ae_val_ade_improved": "stage-1 validation ADE improved over training",
+}
+
+METRIC_COLS = ("ADE", "FDE", "MMADE", "MMFDE", "APD", "CMD",
+               "StretchMean", "StretchRMSE")
+
+
+def fmt(v, nd=4):
+    return f"{v:.{nd}f}" if isinstance(v, (int, float)) else str(v)
+
+
+def trajectory_table(rows, every=1):
+    out = ["| epoch-step | valid ADE |", "|---|---|"]
+    for i, (step, ade) in enumerate(rows):
+        if i % every == 0 or i == len(rows) - 1:
+            out.append(f"| {step} | {fmt(ade)} |")
+    return "\n".join(out)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--json", default=os.path.join(REPO, "docs", "torch_convergence.json"))
+    ap.add_argument("--out", default=os.path.join(REPO, "docs", "torch_convergence.md"))
+    args = ap.parse_args()
+    with open(args.json) as f:
+        r = json.load(f)
+
+    cfg = r["config"]
+    lines = [
+        "# Convergence capstone of the PyTorch port",
+        "",
+        f"Produced by `scripts/torch_convergence_capstone.py` (smoke={r['smoke']}); "
+        "two-stage training of the flagship architecture through the port's CLIs "
+        "on procedural rigid-skeleton synthetic AMASS motion "
+        "(`skeletondiffusion_tpu_torch/data/synthetic.py::make_synthetic_amass_motion`), "
+        "evaluated with the port's eval CLI (probabilistic suite, CMD + APDE).",
+        "",
+        f"- shapes: obs {cfg['obs_len']} / pred {cfg['pred_len']} @ 60 fps "
+        f"(the reference's AMASS task, `configs/config_eval/task/hmp.yaml`)",
+        f"- schedule: stage-1 {cfg['ae_epochs']} epochs x "
+        f"{cfg['ae_iters_per_epoch'] or 'all'} iterations (LR gamma {cfg['ae_gamma']}), "
+        f"stage-2 {cfg['diff_epochs']} epochs x 3 objective variants "
+        f"({', '.join(cfg['diff_sched'])}; warm-up {cfg['diff_warmup']}), k={cfg['k']}, "
+        f"{cfg['num_samples']} samples/obs at eval, validation every "
+        f"{cfg['eval_freq']} epochs",
+        "",
+        "## Checks (a)-(d) with raw margins",
+        "",
+        "| check | result | margin |",
+        "|---|---|---|",
+    ]
+    # the margin beside each boolean: a pass by 1% reads differently from a
+    # pass by 5x
+    margin_of = {
+        "flagship_beats_zero_velocity_ade":
+            ("flagship_over_zv_ade_ratio", "flagship/ZV ADE ratio (pass < 0.6)"),
+        "flagship_beats_zero_velocity_fde":
+            ("flagship_over_zv_fde_ratio", "flagship/ZV FDE ratio (pass < 0.6)"),
+        "apd_ordering_motion_gt_latent":
+            ("apd_motion_over_latent_ratio", "APD ratio (pass > 1)"),
+        "apd_ordering_latent_gt_k1":
+            ("apd_latent_over_k1_ratio", "APD ratio (pass > 1)"),
+        "apd_ordering_motion_gt_k1":
+            ("apd_motion_over_k1_ratio", "APD ratio (pass > 1)"),
+        "ema_val_ade_improved":
+            ("ema_val_ade_first_to_best_ratio", "best/first val-ADE (pass < 1)"),
+        "ae_val_ade_improved":
+            ("ae_val_ade_first_to_best_ratio", "best/first val-ADE (pass < 1)"),
+        "curriculum_fully_annealed":
+            ("curriculum_ph_max_over_pred_len", "ph_max/pred_len (pass >= 0.9)"),
+    }
+    margins = r.get("margins", {})
+    for key, ok in r["checks"].items():
+        verdict = "not judged (variant skipped)" if ok is None else ("PASS" if ok else "FAIL")
+        mkey = margin_of.get(key)
+        mval = margins.get(mkey[0]) if mkey else None
+        mtxt = f"{fmt(mval)} — {mkey[1]}" if mkey and mval is not None else "—"
+        lines.append(f"| {CHECK_LABELS.get(key, key)} | {verdict} | {mtxt} |")
+    if r.get("partial_variants_missing"):
+        lines += ["", f"**PARTIAL RUN** — stage-2 variants not trained yet: "
+                      f"{', '.join(r['partial_variants_missing'])} "
+                      "(re-run `scripts/torch_convergence_capstone.py` to complete them)."]
+
+    lines += ["", "## Final test-split metric table (DFaust+GRAB synthetic split)", ""]
+    header = "| run | " + " | ".join(METRIC_COLS) + " |"
+    lines += [header, "|" + "---|" * (len(METRIC_COLS) + 1)]
+    for name in ("zero_velocity", "k1", "k50_latent", "k50_motion"):
+        if name not in r["metrics"]:
+            continue
+        m = r["metrics"][name]
+        lines.append(
+            f"| {name} | " + " | ".join(fmt(m.get(c, "-")) for c in METRIC_COLS) + " |")
+    lines += [
+        "",
+        "ZeroVelocity is the reference's algorithmic baseline "
+        "(`configs/config_eval/method_specs/zerovelocity_alg_baseline.yaml`); "
+        "its APD is 0 by construction. The reference's README ablation orders APD "
+        "k50-motion > k50-latent > k1 (reference `README.md:279-294`); checks (b) "
+        "above hold this run against that direction.",
+    ]
+    stretch = r.get("limb_stretch_flagship_mm")
+    if stretch:
+        lines += [
+            "",
+            f"**Limb realism (free sanity signal):** the procedural data's FK is "
+            f"rigid, so ground-truth limb stretch is exactly 0 mm by construction; "
+            f"the flagship predicts StretchMean {fmt(stretch['StretchMean'])} mm / "
+            f"StretchRMSE {fmt(stretch['StretchRMSE'])} mm — directly comparable to "
+            "the reference's headline table rows (reference `README.md:281-283`).",
+        ]
+    lines += [
+        "",
+        "## Stage-2 flagship: EMA validation ADE across training",
+        "",
+        trajectory_table(r["valid_ade_trajectory_k50_motion"]),
+        "",
+        "## Stage-1 autoencoder: validation ADE across training",
+        "",
+        trajectory_table(r["valid_ade_trajectory_autoencoder"],
+                         every=max(1, len(r["valid_ade_trajectory_autoencoder"]) // 12)),
+        "",
+        "## Asymptotes exercised",
+        "",
+        f"- final LR: autoencoder {r['final_lr']['autoencoder']}, "
+        f"diffusion {r['final_lr']['diffusion']} (floor 1e-4, reference "
+        "`src/core/utils/scheduler.py:5-50` semantics)",
+        f"- curriculum max logged horizon: {r['curriculum_ph_max']} / "
+        f"{cfg['pred_len']} frames (post-anneal the horizon is randomized in "
+        "[ph_min, ph_train), reference `src/core/trainer.py:66-76`)",
+        f"- kept checkpoints (top-k by val ADE + latest): "
+        f"{', '.join(r['kept_checkpoints_k50_motion'])}",
+        "",
+        f"## Timings ({r.get('card', 'card not recorded')})",
+        "",
+        "| phase | seconds |",
+        "|---|---|",
+    ]
+    for k, v in r.get("timings_sec", {}).items():
+        lines.append(f"| {k} | {v} |")
+    lines.append("")
+
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines))
+    print("wrote", args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -109,22 +109,18 @@ def compute_dtype(cfg: Dict[str, Any]) -> Optional[torch.dtype]:
 
 
 def build_autoencoder(cfg: Dict[str, Any], skeleton, generator: torch.Generator) -> AutoEncoder:
-    """The AutoEncoder of ``cfg``, its weights drawn from ``generator``."""
+    """The AutoEncoder of ``cfg`` (``autoenc_arch``: the hidden sizes,
+    ``enc_num_layers``, ``recurrent_arch_enc``, ``recurrent_arch_decoder``;
+    ``z_activation``), its weights drawn from ``generator``."""
     arch = dict(cfg["autoenc_arch"])
     arch.pop("arch", None)
-    gru = "StaticGraphGRU"
-    if (arch.pop("enc_num_layers", 1) != 1 or arch.pop("recurrent_arch_enc", gru) != gru
-            or arch.pop("recurrent_arch_decoder", gru) != gru
-            or cfg.get("z_activation", "tanh") != "tanh"):
-        raise NotImplementedError(
-            "the port's AutoEncoder is the one-layer StaticGraphGRU pair with a tanh latent "
-            f"(ROADMAP Queue A item 4b, the model variants); got {cfg['autoenc_arch']}")
     return AutoEncoder(
         skeleton.num_nodes,
         generator=generator,
         latent_size=cfg["latent_size"],
         node_types=skeleton.nodes_type_id,
         output_size=cfg.get("output_size", 3),
+        z_activation=cfg.get("z_activation", "tanh"),
         loss_pose_type=cfg.get("loss_pose_type", "l1"),
         compute_dtype=compute_dtype(cfg),
         **arch,

@@ -50,9 +50,12 @@ class SkeletonDiffusionPredictor:
     Whether the sampler is conditioned on the past embedding is the
     engine's (``diffusion.condition``; the JAX predictor's
     ``diffusion_conditioning``, `eval_pipeline.py:43,154-157`): without it
-    the sampler draws one latent per sample.  ``use_fused_decode`` (`:44,54-66,164-177`): None or
-    True decodes on the float32 rollout kernel; False runs the plain decode
-    in the Decoder's compute dtype (``AutoEncoder.decode_plain``).
+    the sampler draws one latent per sample.  ``use_fused_decode``
+    (`:44,54-66,164-177`): None decodes a GRU decoder on the float32
+    rollout kernel and an LSTM one as the plain step loop, as the JAX
+    predictor takes its fused rollout for a GRU decoder only; True asks for
+    the kernel (an LSTM decoder raises); False runs the plain decode in the
+    Decoder's compute dtype (``AutoEncoder.decode_plain``).
 
     On the GPU the float32 products must run in full fp32: set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -84,7 +87,10 @@ class SkeletonDiffusionPredictor:
         if self.use_fused_denoiser:
             self.diffusion.fused = prep_fused_denoiser(den)
         self.diffusion_conditioning = diffusion.condition
-        self.use_fused_decode = use_fused_decode is not False
+        if use_fused_decode and not autoencoder.decodes_on_kernel:
+            raise ValueError("use_fused_decode=True: the rollout kernel runs a graph-GRU "
+                             "decoder, and this AutoEncoder's decoder is an LSTM")
+        self.use_fused_decode = use_fused_decode is not False and autoencoder.decodes_on_kernel
         self.num_samples = num_samples
         self.pred_length = pred_length
 

@@ -30,6 +30,12 @@ def l1_normalize_rows(g: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return g / torch.clamp(g.abs().sum(dim=1, keepdim=True), min=eps)
 
 
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-node matmul in the batch-major layout: [B,N,i]·[N,i,o] → [B,N,o]
+    (reference `graph_structural.py:7-8`, the weight as [N,in,out])."""
+    return torch.einsum("bni,nio->bno", x, w)
+
+
 def gmm_nm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Node-major per-node matmul: [N,B,i]·[N,i,o] → [N,B,o]."""
     return torch.bmm(x, w)
@@ -118,3 +124,33 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel + self.bias
+
+
+class DynamicGraphLinear(nn.Module):
+    """Graph linear whose influence matrix is chosen per call: an explicit
+    ``g``, or the sub-graph ``G[t][:, t]`` of the learnable full-size G for a
+    node-id vector ``t``; reference `graph_structural.py:46-54`, JAX
+    `graph_linear.py:152-183`.  Batch-major ``[B, N, F]``; one weight bank
+    and bias for every node.  Parameters ``weight`` [1,in,out], ``G``
+    [max_nodes, max_nodes] (identity init, not normalized at use) and
+    ``bias`` [1,out]."""
+
+    def __init__(self, in_features: int, out_features: int, max_nodes: int,
+                 generator: torch.Generator, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(graph_linear_weight(1, in_features, out_features, generator))
+        self.G = nn.Parameter(torch.eye(max_nodes))
+        self.bias = (nn.Parameter(graph_linear_bias(1, in_features, out_features, generator))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
+                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if g is None and t is None:
+            raise ValueError("Either Graph Influence Matrix or Node Type Vector is needed")
+        if g is None:
+            t = torch.as_tensor(t, device=self.G.device)
+            g = self.G[t][:, t]
+        out = x @ self.weight[0]
+        if self.bias is not None:
+            out = out + self.bias[0]
+        return torch.einsum("nm,bmo->bno", g, out)

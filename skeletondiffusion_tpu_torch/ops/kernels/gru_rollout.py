@@ -332,7 +332,11 @@ def rollout_args(decoder, x_last2: torch.Tensor, z: torch.Tensor,
     + b_ih (fp32, hoisted out of the loop), the gathered banks and the
     normalized influences; cx and the banks rounded to bf16 for the merged
     rollout.  ``decoder`` is the port's ``models.autoencoder.Decoder``;
-    x_last2 [B, 2, N, 3] are the last two observed poses, z [B, N, L]."""
+    x_last2 [B, 2, N, 3] are the last two observed poses, z [B, N, L].  The
+    rollouts are graph-GRU rollouts: an LSTM decoder raises."""
+    if decoder.is_lstm:
+        raise ValueError("the rollout kernels run a graph-GRU decoder; an LSTM decoder "
+                         "decodes with its plain step loop (Decoder.forward_plain)")
     x_t = x_last2[:, -1].transpose(0, 1)
     x_t_1 = x_last2[:, -2].transpose(0, 1)
     z_nm = z.transpose(0, 1)

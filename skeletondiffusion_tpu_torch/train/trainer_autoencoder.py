@@ -14,7 +14,7 @@ what the reference runs: the future encoder up to frame ``ph − 1`` and a
 (``AutoEncoder.decode_plain``; the rollout kernel has no backward), and
 the loss on ``y[:, :ph]``.  The values and the gradients are the same (the
 GRU is causal; `tests/test_train_objective_parity.py`).  Validation decodes
-on the rollout kernel.
+a GRU decoder on the rollout kernel.
 
 Two details where torch's own optimizer already matches the reference's:
 ``torch.optim.AdamW(amsgrad=True)`` keeps the max of the raw second moment
@@ -119,8 +119,8 @@ class AutoEncoderTrainer:
 
     @torch.no_grad()
     def validation_step(self, batch):
-        """Autoencode at the eval horizon on the rollout kernel → (pred, y,
-        x, z)."""
+        """Autoencode at the eval horizon (the rollout kernel for a GRU
+        decoder, the plain step loop for an LSTM one) → (pred, y, x, z)."""
         x, y = batch
         pred, _, z = self.model.autoencode(y, x, ph=self.ph_eval)
         return pred, y, x, z

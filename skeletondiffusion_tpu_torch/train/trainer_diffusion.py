@@ -101,7 +101,8 @@ class TrainerDiffusion:
     @torch.no_grad()
     def decode(self, x: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
         """Decode latents [R,N,D] seeded by x [R,≥2,N,3] over the eval
-        horizon, on the rollout kernel."""
+        horizon: on the rollout kernel for a GRU decoder, as the plain step
+        loop for an LSTM one (``AutoEncoder.decode``)."""
         return self.autoencoder.decode(x, latents, self.ph_eval)
 
     @torch.no_grad()

@@ -6,9 +6,10 @@ The reference distributes trained checkpoints as torch ``state_dict``s
 arrays, given as ``{name: np.ndarray}`` (as in ``tests/goldens/*_fwd.npz``),
 into the port's parameter names and layouts, which are the flax ones, and
 loads them through ``weights.py`` with ``strict=True``.  It is a copy of
-what the port needs from ``skeletondiffusion_tpu/utils/torch_port.py``
-(`:25-123`; the port's recurrent cells are GRUs, so the LSTM's unused
-``bias_ih`` rule is left out).  Layouts translated:
+``skeletondiffusion_tpu/utils/torch_port.py`` (`:25-123`): every
+AutoEncoder variant (the LSTM cells, whose reference ``bias_ih`` never
+enters the forward pass and has no parameter here, and an encoder of
+several layers).  Layouts translated:
 
 * graph-linear ``weight`` [types, out, in] → [types, in, out];
 * recurrent ``weight_ih`` / ``weight_hh`` [types, gates·H, in] → [types, in, gates·H];
@@ -40,10 +41,14 @@ def _dense(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
     return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
 
 
-def _gru_cell(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+def _rnn_cell(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
     out = {name: np.swapaxes(sd[f"{prefix}.{name}"], -1, -2)
            for name in ("weight_ih", "weight_hh")}
-    for extra in ("bias_ih", "bias_hh", "G_add"):
+    # an LSTM cell (4H gates) has no bias_ih: the reference defines it but
+    # never uses it (`recurrent.py:149-150`)
+    hidden = out["weight_hh"].shape[-2]
+    is_lstm = out["weight_hh"].shape[-1] == 4 * hidden
+    for extra in (("bias_hh", "G_add") if is_lstm else ("bias_ih", "bias_hh", "G_add")):
         if f"{prefix}.{extra}" in sd:
             out[extra] = sd[f"{prefix}.{extra}"]
     return out
@@ -92,23 +97,28 @@ def port_denoiser(sd: Dict[str, np.ndarray], depth: int, use_attention: bool = T
     return p
 
 
-def port_autoencoder(sd: Dict[str, np.ndarray]) -> Dict:
-    """A reference ``AutoEncoder`` state_dict (GRU, one layer each side) →
-    the port's parameter tree."""
-    return {
-        "encoder": {
-            "initial_hidden1": _glin(sd, "encoder.initial_hidden1"),
-            "fc": _glin(sd, "encoder.fc"),
-            "rnn": {"cell0": _gru_cell(sd, "encoder.rnn.layers.0"),
-                    "G0": sd["encoder.rnn.layers.0.G"]},
-        },
-        "decoder": {
-            "initial_hidden_h": _glin(sd, "decoder.initial_hidden_h"),
-            "rollout": {"cell": _gru_cell(sd, "decoder.rnn.layers.0"),
-                        "fc": _glin(sd, "decoder.fc")},
-            "G0": sd["decoder.rnn.layers.0.G"],
-        },
+def port_autoencoder(sd: Dict[str, np.ndarray], enc_num_layers: int = 1) -> Dict:
+    """A reference ``AutoEncoder`` state_dict (GRU or LSTM cells,
+    ``enc_num_layers`` encoder layers) → the port's parameter tree."""
+    enc: Dict[str, Dict] = {
+        "initial_hidden1": _glin(sd, "encoder.initial_hidden1"),
+        "fc": _glin(sd, "encoder.fc"),
+        "rnn": {},
     }
+    for i in range(enc_num_layers):
+        enc["rnn"][f"cell{i}"] = _rnn_cell(sd, f"encoder.rnn.layers.{i}")
+        enc["rnn"][f"G{i}"] = sd[f"encoder.rnn.layers.{i}.G"]
+    if "encoder.initial_hidden_c.weight" in sd:
+        enc["initial_hidden_c"] = _glin(sd, "encoder.initial_hidden_c")
+    dec: Dict[str, Dict] = {
+        "initial_hidden_h": _glin(sd, "decoder.initial_hidden_h"),
+        "rollout": {"cell": _rnn_cell(sd, "decoder.rnn.layers.0"),
+                    "fc": _glin(sd, "decoder.fc")},
+        "G0": sd["decoder.rnn.layers.0.G"],
+    }
+    if "decoder.initial_hidden_c.weight" in sd:
+        dec["initial_hidden_c"] = _glin(sd, "decoder.initial_hidden_c")
+    return {"encoder": enc, "decoder": dec}
 
 
 def load_reference_denoiser(module: Denoiser, sd: Dict[str, np.ndarray]) -> Denoiser:
@@ -119,8 +129,7 @@ def load_reference_denoiser(module: Denoiser, sd: Dict[str, np.ndarray]) -> Deno
 
 
 def load_reference_autoencoder(module: AutoEncoder, sd: Dict[str, np.ndarray]) -> AutoEncoder:
-    """Load a reference ``AutoEncoder`` state_dict into ``module``."""
-    if any(k.startswith("encoder.rnn.layers.1.") for k in sd):
-        raise NotImplementedError(
-            "the port's encoder has one recurrent layer (ROADMAP Queue A item 4b)")
-    return load_autoencoder_params(module, port_autoencoder(sd))
+    """Load a reference ``AutoEncoder`` state_dict into ``module`` (its
+    encoder's number of layers read from the module)."""
+    return load_autoencoder_params(
+        module, port_autoencoder(sd, enc_num_layers=module.encoder.rnn.num_layers))

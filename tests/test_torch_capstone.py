@@ -1,0 +1,144 @@
+"""The port's convergence capstone twins against the JAX scripts:
+
+- ``scripts/torch_convergence_capstone.py::analyze`` gives the same checks,
+  margins and report as ``scripts/convergence_capstone.py::analyze`` on the
+  fabricated good, bad and partial roots of ``tests/test_capstone_analyze.py``
+  (the JAX script loaded from its file, as that test loads it);
+- the twin's ``--smoke`` run end to end on the CPU, cut to one epoch and one
+  iteration a stage, in a process where ``jax`` and ``flax`` cannot be
+  imported, writes every key of the JAX report, then the bf16 twin's
+  ``--eval-only`` half on its checkpoint, and the report twin renders it;
+- ``scripts/torch_bf16_converged_quality.py::delta_table`` equals the JAX
+  script's.
+"""
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
+
+import pytest
+
+from test_capstone_analyze import CONFIG, _fabricate
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load(name: str):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    with mock.patch.dict(os.environ):  # the JAX scripts set environment defaults
+        spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def scripts():
+    return load("convergence_capstone"), load("torch_convergence_capstone")
+
+
+def reports(scripts, root, diff_dirs, results, ae_dir):
+    return [m.analyze(root, ae_dir, diff_dirs, results, smoke=False, timings={}, config=CONFIG)
+            for m in scripts]
+
+
+def same_evidence(jax_report: dict, torch_report: dict) -> None:
+    assert set(torch_report) == set(jax_report)
+    for key in jax_report:
+        if key != "description":
+            assert json.dumps(torch_report[key]) == json.dumps(jax_report[key]), key
+
+
+@pytest.mark.parametrize("good", [True, False])
+def test_analyze_matches_the_jax_script(scripts, tmp_path, good):
+    ae_dir, diff_dirs, results = _fabricate(str(tmp_path), good=good)
+    jax_report, torch_report = reports(scripts, str(tmp_path), diff_dirs, results, ae_dir)
+    same_evidence(jax_report, torch_report)
+    assert all(torch_report["checks"].values()) if good else not any(
+        torch_report["checks"].values())
+
+
+def test_analyze_matches_the_jax_script_on_partial_runs(scripts, tmp_path):
+    """A variant missing, then nothing after stage 1: the same None checks
+    and margins."""
+    ae_dir, diff_dirs, results = _fabricate(str(tmp_path), good=True)
+    del results["k50_latent"]
+    diff_dirs.pop("k50_latent")
+    same_evidence(*reports(scripts, str(tmp_path), diff_dirs, results, ae_dir))
+    same_evidence(*reports(scripts, str(tmp_path), {}, {}, ae_dir))
+
+
+def test_kept_checkpoints_reads_the_ports_files(scripts, tmp_path):
+    """The port keeps its checkpoints as ``<name>.pt`` files beside an
+    index; the JAX layout's directories count too."""
+    _, twin = scripts
+    for name in ("ckpt_5.pt", "ckpt_10.pt", "latest_10.pt", "index.json"):
+        (tmp_path / name).write_text("")
+    (tmp_path / "ckpt_3").mkdir()
+    assert twin.kept_checkpoints(str(tmp_path)) == ["ckpt_10", "ckpt_3", "ckpt_5", "latest_10"]
+    assert twin.kept_checkpoints(str(tmp_path / "missing")) == []
+
+
+def test_delta_table_matches_the_jax_script():
+    jax_mod, twin = load("bf16_converged_quality"), load("torch_bf16_converged_quality")
+    a = {"ADE": 0.2917752265930176, "FDE": 0.3836730122566223, "APD": 8.761171340942383,
+         "CMD": 0.0, "only_a": 1.0}
+    b = {"ADE": 0.2914469540119171, "FDE": 0.3840879499912262, "APD": 8.754274368286133,
+         "CMD": 1e-9, "only_b": 2.0}
+    assert twin.delta_table(a, b) == jax_mod.delta_table(a, b)
+    assert twin.POSITION_METRICS == jax_mod.POSITION_METRICS
+
+
+BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None; "
+
+
+def run_blocked(script: str, args: list, cwd) -> subprocess.CompletedProcess:
+    """``script`` run as ``__main__`` in a fresh interpreter where importing
+    jax or flax raises."""
+    code = (BLOCK_JAX + "import runpy; sys.argv = " + repr([script, *args]) +
+            f"; runpy.run_path({os.path.join(REPO, 'scripts', script)!r}, run_name='__main__')")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True, text=True,
+                          timeout=600)
+
+
+def test_smoke_run_writes_the_jax_report_without_jax(scripts, tmp_path):
+    root, out = tmp_path / "root", tmp_path / "torch_convergence.json"
+    cut = ["--ae-epochs", "1", "--ae-iters", "1", "--diff-epochs", "1", "--diff-iters", "1",
+           "--diff-warmup", "1", "--eval-freq", "1"]
+    proc = run_blocked("torch_convergence_capstone.py",
+                       ["--smoke", "--root", str(root), "--out-json", str(out), *cut], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    report = json.loads(out.read_text())
+    # every key the JAX script's report has (analyze's, and those bank adds)
+    ae_dir, diff_dirs, results = _fabricate(str(tmp_path / "fab"), good=True)
+    jax_keys = set(scripts[0].analyze(str(tmp_path), ae_dir, diff_dirs, results, smoke=True,
+                                      timings={}, config=CONFIG))
+    assert jax_keys | {"last_phase_done", "timings_sec"} <= set(report)
+    assert report["last_phase_done"] == "all" and report["smoke"] is True
+    assert report["partial_variants_missing"] == [] and report["card"] == "cpu"
+    assert set(report["metrics"]) == {"zero_velocity", "k50_motion", "k1", "k50_latent"}
+    assert set(report["checks"]) == set(scripts[0].analyze(
+        str(tmp_path), ae_dir, diff_dirs, results, smoke=True, timings={},
+        config=CONFIG)["checks"])
+    assert all(v is not None for v in report["checks"].values())
+    assert report["config"]["ae_epochs"] == 1 and report["config"]["diff_sched"] == [
+        "model.num_iter_perepoch=1"]
+    for phase in ("data", "train_autoencoder", "train_diffusion_k50_motion", "eval_zv", "total"):
+        assert report["timings_sec"][phase] >= 0, phase
+
+    bf16_out = tmp_path / "torch_bf16_eval_quality.json"
+    proc = run_blocked("torch_bf16_converged_quality.py",
+                       ["--smoke", "--eval-only", "--root", str(root), "--out", str(bf16_out)],
+                       tmp_path)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    converged = json.loads(bf16_out.read_text())["converged"]
+    assert set(converged["eval_dtype_sensitivity"]) == set(report["metrics"]["k50_motion"])
+    assert converged["card"] == "cpu" and "train_dtype_sensitivity" not in converged
+
+    md = tmp_path / "torch_convergence.md"
+    proc = run_blocked("torch_convergence_report.py", ["--json", str(out), "--out", str(md)],
+                       tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    text = md.read_text()
+    assert "## Timings (cpu)" in text and "flagship/ZV ADE ratio" in text
