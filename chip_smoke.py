@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fp32 and bf16 prediction paths, its evaluation
-path and its two-stage training path on one NVIDIA GPU and hold its
+"""Drive the PyTorch port's fp32 and bf16 prediction paths, its serving
+export, its evaluation path and its two-stage training path (in one process
+and over a data axis of two ranks) on one NVIDIA GPU and hold its
 hand-written CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
@@ -139,7 +140,27 @@ Phases, each printed with its elapsed seconds:
               50 samples, 1e-4·max(1, |v|)), each timed on both paths with
               the bf16 chain and K2, K1 launched for the GRU decoders and
               never for the LSTM one.
-15. skeletons — the flagship model at full width on the H36M (16 nodes,
+15. parallel — two ranks on the one card over gloo (parallel/dryrun.py's
+              run_ranks): the bf16 eval of phase 11 over a data axis of
+              two (each rank its 128 rows of every batch with the whole
+              batch's noise, the metric values gathered) against phase 11's
+              table at 1e-5·max(1, |v|), with its launches; one fp32 stage-2
+              step of the flagship (batch 64 × k 50, injected t and noise)
+              against the same step in one process at the train phase's
+              bounds;
+16. serving — the serving export (serving.py): the bf16 predictor of phase 6
+              exported as torch.export programs at buckets 64 and 256, the
+              fp32 one of phase 4 at 256 (export seconds, artifact size), by
+              a process started after the build that traces on the host
+              while phases 3–15 drive the card, then loaded by a fresh
+              process started in its place, which waits for this phase;
+              a fresh process that imports no model class loads both and
+              runs each bucket with a seeded generator: each kernel's
+              launches a call equal the live path's, the output equals the
+              live predictor's for the same generator state bit for bit
+              (else the reason is printed and it is held within the path's
+              bounds), served vs live preds/s (median of 3);
+17. skeletons — the flagship model at full width on the H36M (16 nodes,
               observe 25, predict 100) and FreeMan (17 nodes, observe 15,
               predict 60) skeletons: K1, K2 and every kernel of phases 5
               and 7 against its plain version as there (bf16, fp32, ragged
@@ -164,18 +185,18 @@ Phases, each printed with its elapsed seconds:
               the reference has (ROADMAP Queue B item 9), and at 51 nodes B8
               and L1 (Queue B item 9) and the fp32 engine's plans (Queue B
               item 10).
-16. mano    — the same at AMASS-MANO's 51 nodes (observe 30, predict 120):
+18. mano    — the same at AMASS-MANO's 51 nodes (observe 30, predict 120):
               K1, K2 and every kernel of phases 5 and 7 against its plain
               version (bf16; B2 and K1, K2 in fp32 too; the fp32 engine's
               tiles do not fit at 51 nodes), the fp32, bf16 and layer-fused
-              paths as phase 15 runs and holds them; compute_metrics with the
+              paths as phase 17 runs and holds them; compute_metrics with the
               bf16 predictor over the shipped AMASS-MANO test split cut to
               MANO_EVAL_CUT segments (APDE on the tree's mmapd_GT.csv);
               cli.train_autoencoder, cli.train_diffusion and cli.eval with
-              dataset=amass-mano as phase 15's H36M CLIs, without FID.  The
+              dataset=amass-mano as phase 17's H36M CLIs, without FID.  The
               kernels' JSON line lists the 51-node entries with eval_launches
               of the MANO eval.
-17. capstone — scripts/torch_convergence_capstone.py through its main at
+19. capstone — scripts/torch_convergence_capstone.py through its main at
               full width on a temporary root (its full-size synthetic motion
               tree, both training CLIs, the three stage-2 variants, the
               ZeroVelocity and variant evals) with CAPSTONE_CUT's minimal
@@ -187,8 +208,9 @@ Phases, each printed with its elapsed seconds:
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
 the bf16 eval, ``train_launches``, its launches in stage 2's steps and
-validation step, and ``variant_launches``, its launches in one prediction of
-each sampler variant on each path.  Any failure exits
+validation step, ``variant_launches``, its launches in one prediction of
+each sampler variant on each path, and ``serving_launches``, its launches in
+one call of the served bf16 and fp32 programs at batch 256.  Any failure exits
 non-zero; so does a machine without a CUDA device.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit, and before that one JSON line lists every kernel.
@@ -202,6 +224,8 @@ import json
 import math
 import os
 import pathlib
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -249,6 +273,8 @@ from skeletondiffusion_tpu_torch.ops.kernels import layer_fused as layer_mod
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
+from skeletondiffusion_tpu_torch.parallel import dryrun
+from skeletondiffusion_tpu_torch.serving import export_predictor
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 from skeletondiffusion_tpu_torch.train.checkpoint import CheckpointManager
 from skeletondiffusion_tpu_torch.train.trainer_autoencoder import AutoEncoderTrainer
@@ -1517,7 +1543,7 @@ def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16:
     with kernels (metric table, seconds per batch, preds/s, its time split),
     the fp32 eval on kernels against plain versions with injected noise, and
     ZeroVelocity on the card against the CPU.  Returns the bf16 eval's
-    launches and its preds/s."""
+    launches, its preds/s and its metric table."""
     t0 = time.perf_counter()
     dataset, apde_csv = build_eval_split(skeleton, data_root)
     n = len(dataset)
@@ -1583,7 +1609,7 @@ def run_eval(skeleton, predictor_bf16, predictor, card_name: str, expected_bf16:
         f"the CPU ({os.cpu_count()} cores)")
     hold_metrics("eval ZeroVelocity, card vs CPU", zero["cuda"], zero["cpu"],
                  lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
-    return counts, n / wall
+    return counts, n / wall, results
 
 
 # ---- the train phase ---------------------------------------------------------------
@@ -2877,6 +2903,333 @@ def run_capstone(card_name: str) -> dict:
     return counts
 
 
+# ---- the serving phase ----------------------------------------------------------
+
+SERVING_BUCKETS = {"bf16": [64, 256], "fp32": [256]}
+SERVING_TIMEOUT_S = 900
+# the fresh process of the serving phase: the serving module, the kernel
+# wrappers it registers as ops and torch.export.load, no model class.  It
+# loads every artifact under args["root"], then waits for a line on its
+# standard input (the main process sends it when the serving phase begins,
+# so that nothing else runs on the card meanwhile), runs one call of each
+# bucket with a generator seeded with SEED + 50 on the phase's observations
+# (its output saved beside the artifact) between a reset and a read of the
+# launch counters, times TIMED_CALLS more calls and prints one JSON line
+SERVE = r"""
+import json, sys, time
+import torch
+from skeletondiffusion_tpu_torch.serving import ServingModel
+from skeletondiffusion_tpu_torch.ops.kernels import (graph_linear_fused, gru_rollout,
+    joint_attention, attention_proj, posterior_step, resnet_block)
+COUNTERS = {"gru_rollout": (gru_rollout, "launches"),
+            "posterior_step": (posterior_step, "launches"),
+            "posterior_step_x0_bf16": (posterior_step, "launches_x0_bf16"),
+            "graph_linear_fused": (graph_linear_fused, "launches"),
+            "resnet_block": (resnet_block, "launches_block"),
+            "rms_qkv": (attention_proj, "launches_rms_qkv"),
+            "attention_core": (joint_attention, "launches"),
+            "outproj_res": (attention_proj, "launches_outproj_res"),
+            "final_block_in": (resnet_block, "launches_final_in"),
+            "final_block_out": (resnet_block, "launches_final_out")}
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+args = json.loads(sys.argv[1])
+out, models = {}, {}
+for name in args["names"]:
+    t0 = time.perf_counter()
+    models[name] = ServingModel(f"{args['root']}/{name}", device="cuda")
+    out[name] = {"load_s": time.perf_counter() - t0}
+sys.stdin.readline()
+obs = 0.3 * torch.randn(args["obs_shape"], device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(args["seed"] - 1))
+gen = lambda i: torch.Generator(device="cuda").manual_seed(args["seed"] + i)
+for name, model in models.items():
+    for rows in model.batch_sizes:
+        model(gen(1), obs[:rows])  # warm-up
+        torch.cuda.synchronize()
+        for m, a in COUNTERS.values():
+            setattr(m, a, 0)
+        pred = model(gen(0), obs[:rows])
+        torch.cuda.synchronize()
+        launches = {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
+        torch.save(pred.cpu(), f"{args['root']}/{name}/served_{rows}.pt")
+        times = []
+        for i in range(args["calls"]):
+            t0 = time.perf_counter()
+            model(gen(1 + i), obs[:rows])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name][rows] = {"launches": launches, "times": times}
+heavy = [m for m in ("models", "diffusion", "eval_pipeline")
+         if f"skeletondiffusion_tpu_torch.{m}" in sys.modules]
+assert not heavy, heavy
+print(json.dumps(out))
+"""
+
+
+def live_calls(predictor, obs: torch.Tensor) -> tuple:
+    """The live predictor's output for the serving phase's generator seed,
+    and its seconds a call (TIMED_CALLS calls after a warm-up), as the served
+    programs are timed."""
+    gen = lambda i: torch.Generator(device="cuda").manual_seed(SEED + 50 + i)  # noqa: E731
+    predictor(gen(1), obs)
+    torch.cuda.synchronize()
+    pred, _ = predictor(gen(0), obs)
+    times = []
+    for i in range(TIMED_CALLS):
+        t0 = time.perf_counter()
+        predictor(gen(1 + i), obs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return pred.cpu(), times
+
+
+def hold_served(label: str, served: torch.Tensor, live: torch.Tensor, live_fp32) -> None:
+    """The served prediction equals the live one bit for bit; otherwise it is
+    printed why and held within the path's bounds: fp32 within E2E_TOL, bf16
+    within hold_bf16's (mean below, max within BF16_E2E_MAX of the live bf16
+    path's deviation from the live fp32 path on the same noise)."""
+    if torch.equal(served, live):
+        log(f"serving, {label}: the served prediction equals the live one bit for bit")
+        return
+    d = (served - live).abs()
+    log(f"serving, {label}: the served prediction differs from the live one (max |Δ| "
+        f"{d.max().item():.3e}, mean {d.mean().item():.3e}, input space): the program's "
+        "glue between the kernels does not run as the live path's, so it is held within the "
+        "path's bounds")
+    if live_fp32 is None:
+        if not d.max().item() <= E2E_TOL:
+            raise AssertionError(f"serving, {label}: max |Δ| {d.max().item()} > {E2E_TOL}")
+        return
+    bf = (live - live_fp32).abs()
+    if not (d.mean() < bf.mean() and d.max() <= BF16_E2E_MAX * bf.max()):
+        raise AssertionError(f"serving, {label}: |Δ| max {d.max().item()} mean "
+                             f"{d.mean().item()} against the bf16 path's own deviation "
+                             f"(max {bf.max().item()}, mean {bf.mean().item()})")
+
+
+def export_serving(root: str) -> None:
+    """Export the flagship's bf16 predictor at SERVING_BUCKETS["bf16"] and
+    its fp32 one at SERVING_BUCKETS["fp32"] (``build_model``: the weights
+    of the main process's predictors) under ``root``; print one JSON line
+    of each artifact's manifest and size.  Run in a process of its own
+    (``start_serving``): the export traces on the host while the
+    main process drives the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        _, predictor = build_model(torch.device("cuda"), dtype)
+        art = os.path.join(root, name)
+        export_predictor(predictor, art, SERVING_BUCKETS[name])
+        with open(os.path.join(art, "manifest.json")) as f:
+            manifest = json.load(f)
+        out[name] = {"manifest": manifest, "dir": art,
+                     "size": sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))}
+    print(json.dumps(out))
+
+
+def start_serving(root: str) -> subprocess.Popen:
+    """The serving phase's two processes, chained, started after the build:
+    ``export_serving(root)`` (its output to ``root/export.log``), then, in
+    its place, the fresh process of ``SERVE``, which loads the artifacts and
+    waits for the serving phase.  Both run on the host while the main
+    process drives the card."""
+    repo = str(build.PACKAGE_DIR.parent)
+    args = {"root": root, "seed": SEED + 50, "calls": TIMED_CALLS,
+            "names": list(SERVING_BUCKETS), "obs_shape": [BATCH, OBS_LEN, 21, 3]}
+    script = ('"$PY" -c "import sys, chip_smoke; chip_smoke.export_serving(sys.argv[1])" '
+              '"$ROOT" > "$ROOT/export.log" 2>&1 && exec "$PY" -c "$SERVE" "$ARGS"')
+    # a session of their own: stop_serving ends the export's process too
+    return subprocess.Popen(
+        ["bash", "-c", script], cwd=repo, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=repo, PY=sys.executable, ROOT=root, SERVE=SERVE,
+                 ARGS=json.dumps(args)))
+
+
+def stop_serving(server: subprocess.Popen) -> None:
+    """Kill what is left of ``start_serving``'s processes."""
+    if server.poll() is None:
+        os.killpg(server.pid, signal.SIGKILL)
+        server.communicate()
+
+
+def run_serving(predictor_bf16, predictor, card_name: str, root: str,
+                server: subprocess.Popen) -> dict:
+    """Let ``server`` (``start_serving``) run the served programs, hold each
+    bucket's served prediction against the live predictor's for the same
+    generator state, each kernel's launches a call against the live path's,
+    and time both.  Returns the served programs' launches a call at the
+    largest bucket: {"bf16": counts, "fp32": counts}."""
+    skeleton = predictor.skeleton
+    t0 = time.perf_counter()
+    try:
+        out, err = server.communicate("go\n", timeout=SERVING_TIMEOUT_S)
+    finally:
+        stop_serving(server)
+    with open(os.path.join(root, "export.log")) as f:
+        export_lines = f.read().strip().splitlines()
+    if server.returncode != 0:
+        raise AssertionError("serving: the export or the fresh process failed:\n"
+                             + "\n".join(export_lines[-20:]) + "\n" + err[-4000:])
+    artifacts = json.loads(export_lines[-1])
+    served = json.loads(out.strip().splitlines()[-1])
+    log(f"serving: the fresh process (no model class imported; its artifacts exported and "
+        f"loaded beside the earlier phases) ran the programs in {time.perf_counter() - t0:.1f} s")
+    for name, art in artifacts.items():
+        m = art["manifest"]
+        log(f"serving, {name}: exported {m['path']} at buckets {m['batch_sizes']} in "
+            f"{ {b: round(v, 2) for b, v in m['export_seconds'].items()} } s; artifact "
+            f"{art['size'] / 2**20:.1f} MiB; loaded in {served[name]['load_s']:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 49)
+    obs = 0.3 * torch.randn((BATCH, OBS_LEN, skeleton.num_nodes, 3), generator=gen,
+                            device="cuda")
+    launches = {}
+    for name, pred, expected in (("bf16", predictor_bf16, EXPECTED_BF16),
+                                 ("fp32", predictor, EXPECTED_FP32)):
+        for rows in SERVING_BUCKETS[name]:
+            got = served[name][str(rows)]
+            want = {k: expected.get(k, 0) for k in got["launches"]}
+            if got["launches"] != want:
+                raise AssertionError(f"serving, {name} at {rows}: launches a call "
+                                     f"{got['launches']}, the live path's {want}")
+            live, live_times = live_calls(pred, obs[:rows])
+            live_fp32 = live_calls(predictor, obs[:rows])[0] if name == "bf16" else None
+            hold_served(f"{name} at {rows} rows", torch.load(
+                os.path.join(artifacts[name]["dir"], f"served_{rows}.pt")), live, live_fp32)
+            p50, live_p50 = statistics.median(got["times"]), statistics.median(live_times)
+            log(f"serving, {name} at {rows} rows: served {rows / p50:.2f} preds/s, live "
+                f"{rows / live_p50:.2f} preds/s (batch {rows} × {SAMPLES} samples, median of "
+                f"{TIMED_CALLS} calls: served {[round(t, 4) for t in got['times']]} s, live "
+                f"{[round(t, 4) for t in live_times]} s; served/live "
+                f"{live_p50 / p50:.4f}) on {card_name}; launches a call "
+                f"{ {k: v for k, v in got['launches'].items() if v} }, the live path's")
+        launches[name] = served[name][str(SERVING_BUCKETS[name][-1])]["launches"]
+    return launches
+
+
+# ---- the parallel phase ----------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_LR = 1e-3  # the flagship config's
+# a rank's gradient after the all-reduce against the mean of the same halves'
+# gradients in one process: the same products on the same rows, then one fp32
+# sum of two terms (gloo's) against the host's
+PARALLEL_SPLIT_TOL = 1e-6
+
+
+def parallel_eval_rank(mesh, data_root: str) -> tuple:
+    """A rank of the parallel phase's eval: the bf16 flagship of
+    ``build_model`` on its rows of the eval phase's split, through
+    ``compute_metrics(..., mesh=mesh)``; (the metric table, its launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    skeleton, predictor = build_model(mesh.device, torch.bfloat16)
+    dataset, apde_csv = build_eval_split(skeleton, data_root)
+    reset_counts()
+    results = compute_metrics(predictor, dataset, skeleton, batch_size=BATCH,
+                              num_samples=SAMPLES, stats_mode="probabilistic", seed=SEED,
+                              if_compute_cmd=True, if_compute_apde=True,
+                              mmapd_gt_path=apde_csv, silent=True, mesh=mesh)
+    torch.cuda.synchronize()
+    return results, read_counts()
+
+
+def parallel_ranks(mesh, data_root: str, spec: dict, step_args: tuple) -> tuple:
+    """One rank of the parallel phase: the eval (``parallel_eval_rank``), then
+    the fp32 stage-2 step (``dryrun.stage2_step``)."""
+    t0 = time.perf_counter()
+    evaluated = parallel_eval_rank(mesh, data_root)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = dryrun.stage2_step(mesh, spec, *step_args)
+    return evaluated, eval_s, step, time.perf_counter() - t0
+
+
+def vector_relative(a: dict, b: dict) -> float:
+    """‖a − b‖ / ‖b‖ over every tensor of two dicts with the same keys."""
+    diff = math.sqrt(sum(float(((a[k] - v) ** 2).sum()) for k, v in b.items()))
+    return diff / max(math.sqrt(sum(float((v ** 2).sum()) for v in b.values())), 1e-30)
+
+
+def flagship_spec() -> dict:
+    """The flagship (fp32) as ``dryrun`` builds it, with the train phase's k
+    and similarity space."""
+    return {"seed": SEED, "latent": LATENT, "hidden": HIDDEN, "timesteps": TIMESTEPS,
+            "arch": {**ARCH, "use_attention": True, "self_condition": False,
+                     "norm_type": "none"},
+            "skeleton": dict(dataset_name="amass", motion_repr_type="SkeletonRescalePose",
+                             num_joints=22, pose_box_size=1.5, obs_length=OBS_LEN,
+                             pred_length=PRED_LEN, if_consider_hip=False),
+            "trainer": dict(lr=PARALLEL_LR, train_pick_best_sample_among_k=TRAIN_K,
+                            similarity_space="input_space")}
+
+
+def run_parallel(data_root: str, eval_results: dict, card_name: str) -> None:
+    """Two ranks on the one card over gloo (``dryrun.run_ranks``): the bf16
+    eval of the eval phase over a data axis of two, held against that
+    phase's single-process table at EVAL_DEVICE_TOL·max(1, |v|), with its
+    launches; and one fp32 stage-2 step of the flagship on TRAIN_BATCH × k
+    TRAIN_K rows with injected t and noise, held against the same step in
+    one process on the whole batch at the train phase's bounds (loss
+    TRAIN_LOSS_TOL, gradient norm TRAIN_GNORM_TOL, relative), and its
+    loss and gradient against the mean of the two halves' steps taken in
+    this process (the rows a rank takes, one call each) within
+    PARALLEL_SPLIT_TOL."""
+    spec = flagship_spec()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    x = 0.3 * torch.randn((TRAIN_BATCH, OBS_LEN, 21, 3), generator=gen)
+    y = 0.3 * torch.randn((TRAIN_BATCH, PRED_LEN, 21, 3), generator=gen)
+    t = torch.randint(0, TIMESTEPS, (TRAIN_BATCH,), generator=gen)
+    noise = torch.randn((TRAIN_BATCH * TRAIN_K, 21, LATENT), generator=gen)
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(parallel_ranks, PARALLEL_RANKS, data_root, spec, (x, y, t, noise),
+                             device="cuda", timeout_s=600)
+    log(f"parallel: {PARALLEL_RANKS} ranks on one card (gloo) ran in "
+        f"{time.perf_counter() - t0:.1f} s: eval {[round(r[1], 1) for r in ranks]} s, stage-2 "
+        f"step {[round(r[3], 1) for r in ranks]} s")
+    batches = -(-EVAL_SEGMENTS // BATCH)
+    for rank, ((results, counts), _, _, _) in enumerate(ranks):
+        check_counts(f"parallel eval, rank {rank}", counts,
+                     {k: v * batches for k, v in EXPECTED_BF16.items()})
+        hold_metrics(f"parallel eval, rank {rank} of {PARALLEL_RANKS} against the eval "
+                     "phase's single process", results, eval_results,
+                     lambda w: EVAL_DEVICE_TOL * max(1.0, abs(w)))
+    one = dryrun.stage2_step(None, spec, x, y, t, noise, device="cuda")
+    # the same rows a call as a rank, in this process: the mean of the halves'
+    # gradients is what the all-reduce must give
+    half = TRAIN_BATCH // PARALLEL_RANKS
+    halves = [dryrun.stage2_step(None, spec, x[r * half:(r + 1) * half],
+                                 y[r * half:(r + 1) * half], t[r * half:(r + 1) * half],
+                                 noise[r * half * TRAIN_K:(r + 1) * half * TRAIN_K],
+                                 device="cuda") for r in range(PARALLEL_RANKS)]
+    split = {k: sum(h["grads"][k] for h in halves) / PARALLEL_RANKS for k in one["grads"]}
+    split_loss = sum(h["loss"] for h in halves) / PARALLEL_RANKS
+    for rank, (_, _, step, _) in enumerate(ranks):
+        loss_err = relative(step["loss"], one["loss"])
+        gnorm_err = relative(step["grad_norm"], one["grad_norm"])
+        split_err = vector_relative(step["grads"], split)
+        whole_err = vector_relative(step["grads"], one["grads"])
+        worst = max((step["params"][k] - v).abs().max().item() for k, v in one["params"].items())
+        log(f"parallel stage-2 step (fp32, batch {TRAIN_BATCH} × k {TRAIN_K}), rank {rank}: "
+            f"against the mean of the two halves' steps in one process (the same rows a call): "
+            f"loss relative {relative(step['loss'], split_loss):.3e}, gradient ‖Δ‖/‖g‖ "
+            f"{split_err:.3e} (tol {PARALLEL_SPLIT_TOL:.0e}); against one process on the whole "
+            f"batch: loss {step['loss']!r} vs {one['loss']!r} (relative {loss_err:.3e}, tol "
+            f"{TRAIN_LOSS_TOL:.0e}), grad norm {step['grad_norm']!r} vs {one['grad_norm']!r} "
+            f"(relative {gnorm_err:.3e}, tol {TRAIN_GNORM_TOL:.0e}), gradient ‖Δ‖/‖g‖ "
+            f"{whole_err:.3e} and parameters after the step max |Δ| {worst:.3e} (not held: the "
+            f"whole batch's products run other cuBLAS tilings, the gradient is a mean of "
+            f"{TRAIN_BATCH * TRAIN_K} rows' terms that mostly cancel, and Adam's first step "
+            f"g/(|g| + ε) is ±lr = {PARALLEL_LR} for any gradient above ε)")
+        if not (loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+                and split_err <= PARALLEL_SPLIT_TOL
+                and relative(step["loss"], split_loss) <= PARALLEL_SPLIT_TOL):
+            raise AssertionError(f"parallel stage-2 step, rank {rank}: loss {loss_err}, grad "
+                                 f"norm {gnorm_err}, gradient against the halves {split_err}")
+
+
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
     """Kernel time per prediction of the entries launched on a path: ms a
     launch × the path's ``launches``."""
@@ -2914,7 +3267,20 @@ def main() -> int:
     log(f"build: nvcc {seconds:.2f} s, every source at each of {NODE_COUNTS} nodes at once, "
         f"into {', '.join(str(build.build_dir(n)) for n in NODE_COUNTS)}")
     phase("build", t)
+    # the serving phase's export and load run on the host beside the next phases
+    serving_root = tempfile.mkdtemp()
+    server = start_serving(serving_root)
+    try:
+        return run_phases(t_all, card_name, device, serving_root, server)
+    finally:
+        stop_serving(server)
+        shutil.rmtree(serving_root, ignore_errors=True)
 
+
+def run_phases(t_all: float, card_name: str, device: torch.device, serving_root: str,
+               server: subprocess.Popen) -> int:
+    """The phases after the build (``main``), the serving phase's processes
+    (``start_serving``) running meanwhile."""
     t = time.perf_counter()
     skeleton, predictor = build_model(device)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2981,8 +3347,8 @@ def main() -> int:
         t = time.perf_counter()
         data_root = build_synthetic_tree(root)
         log(f"synthetic AMASS tree written in {time.perf_counter() - t:.1f} s")
-        launches, eval_preds_s = run_eval(skeleton, predictor_bf16, predictor, card_name,
-                                          expected_bf16, data_root)
+        launches, eval_preds_s, eval_results = run_eval(
+            skeleton, predictor_bf16, predictor, card_name, expected_bf16, data_root)
         for k in kernels:
             k["eval_launches"] = launches[k["name"]]
         phase("eval", t)
@@ -3005,6 +3371,16 @@ def main() -> int:
             k["variant_launches"] = {v: c[k["name"]] for v, c in launches.items()}
         phase("variants", t)
 
+        t = time.perf_counter()
+        run_parallel(data_root, eval_results, card_name)
+        phase("parallel", t)
+
+    t = time.perf_counter()
+    launches = run_serving(predictor_bf16, predictor, card_name, serving_root, server)
+    for k in kernels:
+        k["serving_launches"] = {name: c.get(k["name"], 0) for name, c in launches.items()}
+    phase("serving", t)
+
     t = time.perf_counter()
     skeleton_kernels, launches = run_skeletons(device, card_name, predictor_bf16)
     for k in kernels:
@@ -3022,6 +3398,8 @@ def main() -> int:
         k["capstone_launches"] = launches[k["name"]] if k.get("nodes", 21) == 21 else 0
     phase("capstone", t)
 
+    for k in kernels:  # the served programs are the 21-node flagship's
+        k.setdefault("serving_launches", {"bf16": 0, "fp32": 0})
     log(json.dumps({"kernels": kernels}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     log(card())

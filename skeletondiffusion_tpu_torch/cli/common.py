@@ -3,8 +3,11 @@ device from a flattened config, the frozen stage-1 AutoEncoder, and the epoch
 loop both training CLIs run.
 
 Port of ``skeletondiffusion_tpu/cli/common.py`` (`:19-124`; the reference's
-`src/train_utils.py` and `src/inference_utils.py` factories).  In place of
-``setup_mesh``, ``setup_device`` picks the one device the run uses.
+`src/train_utils.py` and `src/inference_utils.py` factories).
+``setup_mesh`` joins the process group torchrun describes and builds the
+run's data axis (``parallel/mesh.py``; None in one process), and
+``setup_device`` picks the device: the rank's own on a data axis, else the
+``device`` override.
 """
 from __future__ import annotations
 
@@ -13,12 +16,15 @@ from functools import partial
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data import DATASET_CLASSES, DataLoader
 from ..data.batch import bounded_batches, cycled_batches, prefetch_iterator, preprocess_batch
 from ..device import resolve_device
 from ..models import AutoEncoder
+from ..parallel import (DataMesh, coordination_barrier, create_mesh,
+                        maybe_initialize_distributed, replicate, shard_batch)
 from ..skeleton import create_skeleton
 from ..train.checkpoint import CheckpointManager, load_host_state, save_host_state
 from ..utils.config import save_config, snapshot_code
@@ -141,15 +147,27 @@ def make_eval_preprocess(skeleton):
     return partial(preprocess_batch, skeleton, None, train=False)
 
 
-def setup_device(cfg: Dict[str, Any]) -> torch.device:
-    """The run's device: the override ``device=…`` (default ``cuda``; asking
-    for CUDA without a GPU raises).  One device: ``device_mesh.n_devices``
-    null or 1."""
-    n = (cfg.get("device_mesh") or {}).get("n_devices")
-    if n is not None and n > 1:
-        raise NotImplementedError(
-            f"device_mesh.n_devices={n}: the port runs on one device (ROADMAP Queue A item 6, "
-            "torch.distributed)")
+def setup_mesh(cfg: Dict[str, Any]) -> Optional[DataMesh]:
+    """The run's data axis, or None in one process: the process group of
+    ``RANK``/``WORLD_SIZE``/``MASTER_*`` (torchrun) joined, an axis of
+    ``device_mesh.n_devices`` ranks (default: the group's size; it must be
+    the group's size), each on the ``device`` override's kind of device.
+    ``device_mesh.model_parallel`` above 1 raises (``parallel.TENSOR_PARALLEL``)."""
+    maybe_initialize_distributed()
+    mesh_cfg = cfg.get("device_mesh") or {}
+    model_parallel = mesh_cfg.get("model_parallel") or 1
+    n = mesh_cfg.get("n_devices") or (dist.get_world_size() if dist.is_initialized() else 1)
+    if n <= 1 and model_parallel == 1:
+        return None
+    return create_mesh(n, model_parallel=model_parallel, device=cfg.get("device", "cuda"))
+
+
+def setup_device(cfg: Dict[str, Any], mesh: Optional[DataMesh] = None) -> torch.device:
+    """The run's device: the rank's own on a data axis (``setup_mesh``),
+    else the override ``device=…`` (default ``cuda``; asking for CUDA
+    without a GPU raises)."""
+    if mesh is not None:
+        return mesh.device
     return resolve_device(cfg.get("device", "cuda"))
 
 
@@ -187,6 +205,12 @@ class TrainRun(NamedTuple):
     loader: DataLoader
     iter_per_epoch: int
     check_loss: Callable
+    mesh: Optional[DataMesh] = None  # the data axis; rank 0 writes the experiment
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the experiment's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
 
 def train_loader(cfg: Dict, skeleton, seed: int):
@@ -207,17 +231,20 @@ def start_run(cfg: Dict) -> TrainRun:
     debug checks, the seed, the skeleton, the device and the training
     loader."""
     out_dir = cfg["output_log_path"]
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    snapshot_code(out_dir)
+    mesh = setup_mesh(cfg)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        save_config(cfg, os.path.join(out_dir, "config.yaml"))
+        snapshot_code(out_dir)
     check_loss = configure_debug(cfg.get("if_debug_nans", False),
                                  cfg.get("if_enable_checks", False))
     seed = set_seed(cfg["seed"])
     skeleton = build_skeleton(cfg)
-    device = setup_device(cfg)
+    device = setup_device(cfg, mesh)
+    # every rank loads the whole batch (the same seed) and keeps its rows
     dataset, loader = train_loader(cfg, skeleton, seed)
     return TrainRun(out_dir, seed, skeleton, device, dataset, loader,
-                    cfg.get("num_iter_perepoch") or len(loader), check_loss)
+                    cfg.get("num_iter_perepoch") or len(loader), check_loss, mesh)
 
 
 def resume(cfg: Dict, run: TrainRun, ckpt: CheckpointManager, trainer) -> Tuple[int, Optional[int]]:
@@ -256,8 +283,16 @@ def run_epochs(cfg: Dict, run: TrainRun, trainer, step: Callable, module: nn.Mod
     log of ``module``, both validations every ``eval_frequency`` epochs, the
     top-k checkpoints (scored by validation, else every ``save_frequency``
     epochs and the last), the latest checkpoint and the host state every
-    epoch.  Returns the experiment's output path."""
-    logger = MetricsLogger(run.out_dir)
+    epoch.  Returns the experiment's output path.
+
+    On a data axis (``run.mesh``) every rank preprocesses the whole batch and
+    steps on its rows (the trainer all-reduces the gradients and the loss);
+    rank 0 alone validates, logs and writes checkpoints, and the others wait
+    for it at the end of each epoch."""
+    trainer.mesh = run.mesh
+    if run.mesh is not None:  # every rank starts from rank 0's weights
+        replicate(run.mesh, module)
+    logger = MetricsLogger(run.out_dir) if run.writes else NullLogger()
     preprocess = make_train_preprocess(run.skeleton, cfg["data_loader_train"])
     ckpt = CheckpointManager(os.path.join(run.out_dir, "checkpoints"), n_saved=n_saved)
     start_epoch, resumed_step = 1, None
@@ -280,6 +315,8 @@ def run_epochs(cfg: Dict, run: TrainRun, trainer, step: Callable, module: nn.Mod
             # from stream 1)
             x, y, _ = preprocess(iteration_generator(run.seed, epoch, it, 0, run.device),
                                  batch["obs"], batch["pred"])
+            if run.mesh is not None:
+                x, y = shard_batch(run.mesh, (x, y))
             loss, extra = step((x, y), epoch, it, it_global)
             run.check_loss(loss)
             losses.append(loss)
@@ -298,21 +335,30 @@ def run_epochs(cfg: Dict, run: TrainRun, trainer, step: Callable, module: nn.Mod
         # the valid split and a capped pass over the train split
         # (`train_autoencoder.py:108-113`, `train_diffusion.py:113-120`)
         score = None
-        if cfg.get("if_run_validation") and epoch % eval_frequency == 0:
+        if run.writes and cfg.get("if_run_validation") and epoch % eval_frequency == 0:
             score = -validate(cfg, run.skeleton, trainer, logger, epoch, run.device,
                               dataset_cache=eval_datasets)
             validate(cfg, run.skeleton, trainer, logger, epoch, run.device, split="train",
                      loader_key="data_loader_train_eval",
                      max_batches=cfg.get("num_iteration_eval") or None, prefix="train_eval",
                      dataset_cache=eval_datasets)
-        state = trainer.state_dict()
-        if (score is not None or epoch == cfg["num_epochs"]
-                or (save_frequency and epoch % save_frequency == 0)):
-            ckpt.save(state, step=epoch, score=score)
-        ckpt.save_latest(state, step=epoch)
-        save_host_state(run.out_dir, host_state(epoch, it_global, trainer, run))
+        if run.writes:
+            state = trainer.state_dict()
+            if (score is not None or epoch == cfg["num_epochs"]
+                    or (save_frequency and epoch % save_frequency == 0)):
+                ckpt.save(state, step=epoch, score=score)
+            ckpt.save_latest(state, step=epoch)
+            save_host_state(run.out_dir, host_state(epoch, it_global, trainer, run))
+        coordination_barrier()
     logger.close()
     return run.out_dir
+
+
+class NullLogger:
+    """The metrics log of the ranks that do not write (rank 0 does)."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def eval_dataset(cfg: Dict, skeleton, split: str, loader_key: str, dataset_cache):

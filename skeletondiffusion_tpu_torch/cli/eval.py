@@ -31,6 +31,7 @@ from .common import (
     diffusion_kwargs,
     load_frozen_autoencoder,
     setup_device,
+    setup_mesh,
 )
 
 
@@ -121,7 +122,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             )
 
     skeleton = build_skeleton(cfg)
-    device = setup_device(cfg)
+    mesh = setup_mesh(cfg)
+    device = setup_device(cfg, mesh)
     split = cfg.get("dataset_split", "test")
     loader_key = f"data_loader_{split}"
     if loader_key not in cfg:
@@ -175,7 +177,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             timer=timer,
             ndebug=bool(int(os.environ.get("NDEBUG", "0"))),
             fid_classifier=fid_classifier(cfg, split),
+            mesh=mesh,
         )
+    if mesh is not None and mesh.rank != 0:
+        return results  # every rank holds the table; rank 0 prints and writes it
     if prof_dir is not None:
         print("profiler trace written to", prof_dir)
     print(draw_table(results))

@@ -79,6 +79,27 @@ def normalize_cov(
     return Sigma_N, Lambda_N
 
 
+def verify_noise_scale(process, n_samples: int = 2000, seed: int = 0):
+    """Diagnostic: empirical per-step noise energy √Λ_t·ε vs the isotropic
+    (1−α_t)·N reference scale, numpy from ``seed``; port of the JAX
+    package's (reference `src/core/diffusion/utils.py:89-95`).  ``process``
+    is a ``NonisotropicProcess`` (its Λ_t [T, N] and β_t, tensors or
+    arrays)."""
+    rng = np.random.default_rng(seed)
+    Lambda_t = np.asarray(_host(process.Lambda_t))  # [T,N]
+    T, N = Lambda_t.shape
+    noise = rng.standard_normal((n_samples, T, N))
+    zeta = np.sqrt(Lambda_t)[None] * noise
+    current = (zeta**2).sum(-1).mean(0)
+    alphas = 1 - np.asarray(_host(process.betas))
+    return current, (1 - alphas) * N
+
+
+def _host(a):
+    """A tensor's values as numpy (arrays as they are)."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else a
+
+
 def get_cov_from_corr(
     correlation_matrix: np.ndarray,
     if_sigma_n_scale: bool = True,

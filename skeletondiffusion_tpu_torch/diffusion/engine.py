@@ -39,9 +39,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import sampler_noise
 from ..device import DeviceLike, resolve_device
 from ..models.denoiser import Denoiser
 from ..ops.kernels import posterior_step as posterior_kernel
+from ..ops.kernels.build import without_grad
 from ..ops.kernels.denoiser_fused import fused_denoiser_core_nm, prep_fused_denoiser
 from .process import IsotropicProcess, NonisotropicProcess, Timestep
 
@@ -250,6 +252,22 @@ class GaussianDiffusion:
                              generator=generator)
 
     # ---- sampling ----------------------------------------------------------------
+    @property
+    def noise_draws(self) -> int:
+        """Step-noise draws of one ``sample`` call after its start latent:
+        T−1 ancestral steps; DDIM's step pairs but the last with η > 0, none
+        with η = 0."""
+        if self.is_ddim_sampling:
+            return self.sampling_timesteps - 1 if self.ddim_sampling_eta else 0
+        return self.num_timesteps - 1
+
+    def draw_noise(self, generator: torch.Generator, rows: int) -> dict:
+        """``sample``'s noise for ``rows`` rows drawn from ``generator`` in the
+        sampler's own order (``sampler_noise.draw``), as ``start_noise`` and
+        ``step_noise`` to inject."""
+        return sampler_noise.draw(generator, self.channels, rows, self.seq_length,
+                                  self.noise_draws, self.device)
+
     def _start(self, batch: int, generator, start_noise) -> torch.Tensor:
         """The node-major start latent: ``start_noise`` [B,N,D] or drawn."""
         if start_noise is not None:
@@ -267,7 +285,7 @@ class GaussianDiffusion:
             raise ValueError("pass a torch.Generator or inject step_noise")
         return torch.randn(img.shape, generator=generator, device=img.device)
 
-    @torch.no_grad()
+    @without_grad
     def sample(
         self,
         x_cond: Optional[torch.Tensor],
@@ -291,7 +309,7 @@ class GaussianDiffusion:
             raise ValueError("an unconditioned model samples batch_size rows")
         return batch_size
 
-    @torch.no_grad()
+    @without_grad
     def p_sample_loop(
         self,
         x_cond: Optional[torch.Tensor],
@@ -327,7 +345,7 @@ class GaussianDiffusion:
         times = list(reversed(times.astype(int).tolist()))
         return list(zip(times[:-1], times[1:]))
 
-    @torch.no_grad()
+    @without_grad
     def ddim_sample(
         self,
         x_cond: Optional[torch.Tensor],

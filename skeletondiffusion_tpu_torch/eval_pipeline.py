@@ -24,13 +24,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import sampler_noise
 from .data.batch import DataLoader, prefetch_iterator, preprocess_batch
 from .device import DeviceLike, resolve_device
 from .diffusion.engine import GaussianDiffusion
 from .metrics.multimodal import best_sample_index
 from .metrics.suite import MetricSuite
 from .models.autoencoder import AutoEncoder
+from .ops.kernels.build import without_grad
 from .ops.kernels.denoiser_fused import prep_fused_denoiser
+from .parallel.mesh import DataMesh, all_gather_host, shard_batch
 
 
 class SkeletonDiffusionPredictor:
@@ -94,7 +97,14 @@ class SkeletonDiffusionPredictor:
         self.num_samples = num_samples
         self.pred_length = pred_length
 
-    @torch.no_grad()
+    def draw_noise(self, generator: torch.Generator, batch: int,
+                   num_samples: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The sampler noise of ``batch`` observations × ``num_samples``
+        drawn from ``generator`` as a call would draw it, to inject
+        (``GaussianDiffusion.draw_noise``)."""
+        return self.diffusion.draw_noise(generator, batch * (num_samples or self.num_samples))
+
+    @without_grad
     def __call__(
         self,
         generator: Optional[torch.Generator],
@@ -137,6 +147,10 @@ class ZeroVelocityPredictor:
         self.skeleton = skeleton
         self.num_samples = num_samples
         self.pred_length = pred_length
+
+    def draw_noise(self, generator, batch: int, num_samples: Optional[int] = None) -> Dict:
+        """The baseline draws nothing."""
+        return {}
 
     def __call__(self, generator: Optional[torch.Generator], obs: torch.Tensor,
                  num_samples: Optional[int] = None, pred_length: Optional[int] = None):
@@ -278,6 +292,7 @@ def compute_metrics(
     silent: bool = False,
     ndebug: bool = False,
     fid_classifier: Optional[torch.nn.Module] = None,
+    mesh: Optional[DataMesh] = None,
     **config,
 ) -> Dict[str, float]:
     """The eval loop; reference `eval.py:28-120` (``compute_metrics``), as the
@@ -299,10 +314,23 @@ def compute_metrics(
     stays one batch behind the device: batch i's values are copied into
     pinned memory behind an event while batch i + 1 is dispatched, and read
     after the event; ``SKELDIFF_EVAL_PIPELINE=0`` drains every batch before
-    the next.  The JAX package's ``mesh`` (data parallelism) is not ported.
+    the next.
+
+    ``mesh``: a data axis (``parallel.create_mesh``; the JAX package's
+    ``mesh``).  Every rank loads and preprocesses each whole batch, draws its
+    sampler noise (and FID's h0) for the whole batch from the generators
+    above and keeps its rows; the predictor and the metrics run on the
+    rank's rows, whose per-item values are gathered on the host
+    (``parallel.all_gather_host``) into every rank's accumulators in
+    dataset order.  So the result is the single-process one, on every rank.
+    The batch size must split evenly over the axis; the long-term test and
+    ``store`` are refused on it.
     """
-    if config.pop("mesh", None) is not None:
-        raise NotImplementedError("compute_metrics: mesh (data parallelism) is not ported")
+    if mesh is not None and (if_long_term_test or store is not None):
+        raise NotImplementedError("compute_metrics over a data axis: the long-term test and "
+                                  "store run in one process")
+    if mesh is not None:
+        mesh.rows(batch_size)
     if config and not silent:
         print(f"compute_metrics: ignoring unconsumed config keys: {sorted(config)}")
     device = predictor.device
@@ -331,8 +359,13 @@ def compute_metrics(
             B, S, T = pred_m.shape[:3]
             p = pred_m.reshape(B * S, T, -1).transpose(1, 2)
             g = target_m.reshape(target_m.shape[0], T, -1).transpose(1, 2)
-            h0p, h0g = (torch.randn((clf.hidden_layer, n, clf.hidden_size), generator=gen_fid,
-                                    device=device) for n in (p.shape[0], g.shape[0]))
+            ranks = 1 if mesh is None else mesh.size  # the whole batch's h0, this rank's rows
+            h0p, h0g = (torch.randn((clf.hidden_layer, n * ranks, clf.hidden_size),
+                                    generator=gen_fid, device=device)
+                        for n in (p.shape[0], g.shape[0]))
+            if mesh is not None:
+                h0p, h0g = (h[:, mesh.rank * n:(mesh.rank + 1) * n]
+                            for h, n in ((h0p, p.shape[0]), (h0g, g.shape[0])))
             return {"fp": clf.get_fid_features(p, h0p), "fg": clf.get_fid_features(g, h0g)}
     # dedup_mm: the loader ships UNIQUE mm-GT futures + a gather table; the
     # dense [B,M,T,J,3] form only ever exists on the device.  mm_lazy: items
@@ -363,6 +396,9 @@ def compute_metrics(
         if pending["event"] is not None:
             pending["event"].synchronize()
         host = {k: v.numpy() for k, v in pending["host"].items()}
+        if mesh is not None:  # every rank's rows, in dataset order
+            parts = all_gather_host(mesh, host)
+            host = {k: np.concatenate([part[k] for part in parts]) for k in host}
         c = pending["count"]
         suite.update({k: v for k, v in host.items() if k not in ("fp", "fg")},
                      class_idxs=pending["class_idxs"], count=c)
@@ -393,12 +429,23 @@ def compute_metrics(
                 )
                 mm_m = skeleton.transform_to_metric_space(mm_gt) if mm_gt is not None else None
                 obs_m = skeleton.transform_to_metric_space(obs)
+            elif mesh is not None:
+                noise = predictor.draw_noise(gen, obs.shape[0], num_samples)
+                lo, hi = mesh.rows(obs.shape[0])
+                obs, target, mm_gt, mm_mask = shard_batch(
+                    mesh, (obs, target, mm_gt, batch.get("mm_mask")))
+                pred, _ = predictor(None, obs, num_samples=num_samples,
+                                    **sampler_noise.rows_of(noise, lo * num_samples,
+                                                            hi * num_samples))
+                target_m, pred_m, obs_m, mm_m = process_evaluation_pair(
+                    skeleton, target, pred, obs, mm_gt)
             else:
                 pred, _ = predictor(gen, obs, num_samples=num_samples)
                 target_m, pred_m, obs_m, mm_m = process_evaluation_pair(
                     skeleton, target, pred, obs, mm_gt)
-            vals = suite.compute_batch(pred_m, target_m, mm_gt=mm_m,
-                                       mm_mask=batch.get("mm_mask"))
+            if mesh is None:
+                mm_mask = batch.get("mm_mask")
+            vals = suite.compute_batch(pred_m, target_m, mm_gt=mm_m, mm_mask=mm_mask)
             if fid_acc is not None:
                 vals.update(fid_feats(pred_m, target_m))
             class_idxs = None

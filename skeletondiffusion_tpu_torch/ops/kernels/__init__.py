@@ -4,6 +4,10 @@ Each wrapper module holds the kernel's plain PyTorch version beside it and a
 plain-integer ``launches`` counter.  A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel (built by
 ``build.py`` with ``nvcc`` at first use) or raises — it never falls back.
+The wrappers on the predictor paths call their kernels through
+``torch.library`` custom ops (``skd::<name>``, ``build.kernel_op``), so that
+``torch.export`` keeps each launch as one node (``serving.py``); B8 and L1,
+off those paths, are called directly.
 
 * ``gru_rollout``     — the 120-step graph-GRU decode in fp32
   (``csrc/gru_rollout.cu``) and, with ``compute_dtype=torch.bfloat16``, the

@@ -62,22 +62,44 @@ def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int,
     return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f, nodes)
 
 
-def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
-    """x [N,B,F], g_rms [F], w_qkv [N,F,3·hd], g_qkv [N,N] → [N,B,3·hd].  CPU
-    tensors run ``rms_qkv_plain``; CUDA tensors launch the kernel or raise."""
-    global launches_rms_qkv
-    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
-    if build.kernel_device(**tensors) == "cpu":
-        return rms_qkv_plain(**tensors)
+def _rms_qkv_checked(x, g_rms, w_qkv, g_qkv):
     n, rows, f = x.shape
     fo = w_qkv.shape[-1]
     plan = rms_qkv_plan(x.dtype, f, fo, n)
-    out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, fo), g_qkv=(n, n))
+    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
+    node_mix_sm90.check("rms_qkv", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _rms_qkv_launch(x, g_rms, w_qkv, g_qkv):
+    global launches_rms_qkv
+    tensors, shapes, plan = _rms_qkv_checked(x, g_rms, w_qkv, g_qkv)
+    n, rows, f = x.shape
+    fo = w_qkv.shape[-1]
+    out = torch.empty((n, rows, fo), dtype=x.dtype, device=x.device)
     node_mix_sm90.launch("attention_proj", "rms_qkv", tensors, shapes,
                          {"w_qkv": ("groups", fo, plan.cols)}, (n, rows, f, fo, *plan), out)
     launches_rms_qkv += 1
     return out
+
+
+def _rms_qkv_fake(x, g_rms, w_qkv, g_qkv):
+    if build.on_cuda(x, g_rms, w_qkv, g_qkv):
+        _rms_qkv_checked(x, g_rms, w_qkv, g_qkv)
+    return x.new_empty((*x.shape[:2], w_qkv.shape[-1]))
+
+
+rms_qkv_op = build.kernel_op(
+    "rms_qkv", "(Tensor x, Tensor g_rms, Tensor w_qkv, Tensor g_qkv) -> Tensor",
+    rms_qkv_plain, _rms_qkv_launch, _rms_qkv_fake)
+
+
+def rms_qkv(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
+    """x [N,B,F], g_rms [F], w_qkv [N,F,3·hd], g_qkv [N,N] → [N,B,3·hd],
+    through the op ``skd::rms_qkv``.  CPU tensors run ``rms_qkv_plain``;
+    CUDA tensors launch the kernel or raise."""
+    return rms_qkv_op(x, g_rms, w_qkv, g_qkv)
 
 
 def outproj_res_plan(dtype: torch.dtype, hd: int, f: int,
@@ -87,20 +109,41 @@ def outproj_res_plan(dtype: torch.dtype, hd: int, f: int,
     return node_mix_sm90.block_plan("outproj_res", dtype, f, (hd,), nodes)
 
 
-def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
-    """a [N,B,hd], x [N,B,F], w_out [N,hd,F], g_out [N,N] → [N,B,F].  CPU
-    tensors run ``outproj_res_plain``; CUDA tensors launch the kernel or
-    raise."""
-    global launches_outproj_res
-    tensors = dict(a=a, x=x, w_out=w_out, g_out=g_out)
-    if build.kernel_device(**tensors) == "cpu":
-        return outproj_res_plain(**tensors)
+def _outproj_res_checked(a, x, w_out, g_out):
     n, rows, hd = a.shape
     f = x.shape[-1]
     plan = outproj_res_plan(x.dtype, hd, f, n)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n))
+    tensors = dict(a=a, x=x, w_out=w_out, g_out=g_out)
+    node_mix_sm90.check("outproj_res", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _outproj_res_launch(a, x, w_out, g_out):
+    global launches_outproj_res
+    tensors, shapes, plan = _outproj_res_checked(a, x, w_out, g_out)
+    n, rows, hd = a.shape
+    f = x.shape[-1]
     out = torch.empty_like(x)
     node_mix_sm90.launch("attention_proj", "outproj_res", tensors, shapes,
                          {"w_out": ("groups", f, f)}, (n, rows, hd, f, *plan), out)
     launches_outproj_res += 1
     return out
+
+
+def _outproj_res_fake(a, x, w_out, g_out):
+    if build.on_cuda(a, x, w_out, g_out):
+        _outproj_res_checked(a, x, w_out, g_out)
+    return torch.empty_like(x)
+
+
+outproj_res_op = build.kernel_op(
+    "outproj_res", "(Tensor a, Tensor x, Tensor w_out, Tensor g_out) -> Tensor",
+    outproj_res_plain, _outproj_res_launch, _outproj_res_fake)
+
+
+def outproj_res(a, x, w_out, g_out) -> torch.Tensor:
+    """a [N,B,hd], x [N,B,F], w_out [N,hd,F], g_out [N,N] → [N,B,F], through
+    the op ``skd::outproj_res``.  CPU tensors run ``outproj_res_plain``;
+    CUDA tensors launch the kernel or raise."""
+    return outproj_res_op(a, x, w_out, g_out)

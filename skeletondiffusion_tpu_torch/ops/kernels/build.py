@@ -12,6 +12,10 @@ started at once (``build_all`` takes several counts in one go); no PyTorch
 headers are compiled, so a build takes seconds.  ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills) is kept next to each library as
 ``<name>.log``.
+
+``kernel_op`` registers a kernel entry as a ``torch.library`` custom op in
+the ``skd`` namespace, so that ``torch.export`` keeps each launch as one
+node of the program it captures (``serving.py``).
 """
 from __future__ import annotations
 
@@ -19,12 +23,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Mapping, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Mapping, Tuple, Union
 
 import torch
 
@@ -250,3 +255,48 @@ def check_status(kernel: str, status: int) -> None:
     so ``kernel`` names the shapes of the call."""
     if status != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {status}")
+
+
+OP_NAMESPACE = "skd"
+
+
+def kernel_op(name: str, schema: str, plain: Callable, launch: Callable, fake: Callable):
+    """Register ``skd::<name>`` with ``schema`` (``"(Tensor x, int k) ->
+    Tensor"``, every argument positional) and return it: its CPU and CUDA
+    implementation runs ``plain`` when every tensor lies on the CPU and
+    ``launch`` (the kernel, counted) when they lie on one CUDA device
+    (``kernel_device``: mixed devices raise; nothing falls back), and
+    ``fake`` gives the output shapes to ``torch.export``'s tracer.  The ops
+    have no backward: a backward through one raises."""
+    names = re.findall(r"(\w+)\s*(?=[,)])", schema.split("->")[0])
+
+    def impl(*args):
+        tensors = {k: a for k, a in zip(names, args) if isinstance(a, torch.Tensor)}
+        return plain(*args) if kernel_device(**tensors) == "cpu" else launch(*args)
+
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", impl, mutates_args=(),
+                                 device_types=("cpu", "cuda"), schema=schema)
+    op.register_fake(fake)
+    return op
+
+
+def on_cuda(*args) -> bool:
+    """Whether a fake implementation was given tensors on one CUDA device
+    (``kernel_device``: mixed devices raise, as the kernel's op does): it
+    then runs the launch's shape and plan checks, as the kernel would."""
+    tensors = {f"argument {i}": a for i, a in enumerate(args) if isinstance(a, torch.Tensor)}
+    return kernel_device(**tensors) == "cuda"
+
+
+def without_grad(fn: Callable) -> Callable:
+    """``fn`` under ``torch.no_grad()`` when gradients are on, as it is when
+    they are off (the same result either way).  A prediction that
+    ``torch.export`` traces with gradients off (``serving.py``) then holds no
+    grad-mode switch, whose removal pass took about a third of an export."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if torch.is_grad_enabled():
+            with torch.no_grad():
+                return fn(*args, **kwargs)
+        return fn(*args, **kwargs)
+    return wrapper

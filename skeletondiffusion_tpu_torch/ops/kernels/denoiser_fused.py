@@ -29,21 +29,23 @@ tile.  On the CPU every wrapper runs its plain PyTorch version.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import torch
 
-from ...models.denoiser import Denoiser
-from ..graph_linear import StaticGraphLinear
-from . import attention_proj, graph_linear_fused, joint_attention, layer_fused, resnet_block
+from . import attention_proj, build, graph_linear_fused, joint_attention, layer_fused, resnet_block
+
+if TYPE_CHECKING:  # the module runs on the modules it is given and imports none of them
+    from ...models.denoiser import Denoiser
+    from ..graph_linear import StaticGraphLinear
 
 
-def _influence(lin: StaticGraphLinear, n: int) -> torch.Tensor:
+def _influence(lin: "StaticGraphLinear", n: int) -> torch.Tensor:
     g = lin.influence()
     return torch.eye(n, device=lin.weight.device) if g is None else g
 
 
-def _banks(lin: StaticGraphLinear, dt: torch.dtype, rows: Optional[slice] = None) -> Dict:
+def _banks(lin: "StaticGraphLinear", dt: torch.dtype, rows: Optional[slice] = None) -> Dict:
     """Per-node weight bank (rows ``rows`` of its input side), bias and
     row-normalized G of a graph linear, cast to ``dt`` and contiguous."""
     w = lin.weight[lin.type_index]
@@ -57,7 +59,7 @@ def _banks(lin: StaticGraphLinear, dt: torch.dtype, rows: Optional[slice] = None
 
 
 @torch.no_grad()
-def prep_fused_denoiser(den: Denoiser) -> Dict:
+def prep_fused_denoiser(den: "Denoiser") -> Dict:
     """Every weight-side operand of the fused forward, in the denoiser's
     compute dtype (float32 when it has none); FiLM projections and the time
     MLP stay float32 module references (they depend on t)."""
@@ -99,9 +101,9 @@ def _film(mlp, tt: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return mlp(tt).reshape(-1).to(dt).contiguous()
 
 
-@torch.no_grad()
+@build.without_grad
 def fused_denoiser_core_nm(
-    den: Denoiser,
+    den: "Denoiser",
     x_nm: torch.Tensor,              # [N, B, D] node-major latents (float32)
     time: Union[int, torch.Tensor],  # one step for the whole batch
     u: torch.Tensor,                 # [N, B, F] hoisted conditioning product

@@ -61,6 +61,39 @@ def graph_linear_fused_plan(dtype: torch.dtype, d: int, f: int,
                                     nodes)
 
 
+def _checked(x, w, b, g, u):
+    """(tensors, shapes, widths, plan) of a launch, or raise."""
+    n, rows, d = x.shape
+    f = w.shape[-1]
+    plan = graph_linear_fused_plan(x.dtype, d, f, n)
+    shapes = dict(x=(n, rows, d), w=(n, d, f), b=(n, f), g=(n, n), u=(n, rows, f))
+    tensors = dict(x=x, w=w, b=b, g=g, u=u)
+    node_mix_sm90.check("graph_linear_fused", tensors, shapes, x.dtype)
+    return tensors, shapes, (n, rows, d, f), plan
+
+
+def _launch(x, w, b, g, u):
+    global launches
+    tensors, shapes, (n, rows, d, f), plan = _checked(x, w, b, g, u)
+    out = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
+    node_mix_sm90.launch("graph_linear_fused", "graph_linear_fused", tensors, shapes,
+                         {"w": ("rows", node_mix_sm90.padded_width(d), ("groups", f, f))},
+                         (n, rows, d, f, *plan), out)
+    launches += 1
+    return out
+
+
+def _fake(x, w, b, g, u):
+    if build.on_cuda(x, w, b, g, u):
+        _checked(x, w, b, g, u)
+    return x.new_empty((*x.shape[:2], w.shape[-1]))
+
+
+graph_linear_fused_op = build.kernel_op(
+    "graph_linear_fused", "(Tensor x, Tensor w, Tensor b, Tensor g, Tensor? u) -> Tensor",
+    graph_linear_fused_plain, _launch, _fake)
+
+
 def graph_linear_fused(
     x: torch.Tensor,                    # [N, B, in]
     w: torch.Tensor,                    # [N, in, out] per-node banks
@@ -68,19 +101,7 @@ def graph_linear_fused(
     g: torch.Tensor,                    # [N, N] row-normalized influence
     u: Optional[torch.Tensor] = None,   # [N, B, out] partial product to add
 ) -> torch.Tensor:
-    """→ [N, B, out] in the inputs' dtype.  CPU tensors run
+    """→ [N, B, out] in the inputs' dtype, through the op
+    ``skd::graph_linear_fused``.  CPU tensors run
     ``graph_linear_fused_plain``; CUDA tensors launch the kernel or raise."""
-    global launches
-    tensors = dict(x=x, w=w, b=b, g=g) if u is None else dict(x=x, w=w, b=b, g=g, u=u)
-    if build.kernel_device(**tensors) == "cpu":
-        return graph_linear_fused_plain(x, w, b, g, u)
-    n, rows, d = x.shape
-    f = w.shape[-1]
-    plan = graph_linear_fused_plan(x.dtype, d, f, n)
-    shapes = dict(x=(n, rows, d), w=(n, d, f), b=(n, f), g=(n, n), u=(n, rows, f))
-    out = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
-    node_mix_sm90.launch("graph_linear_fused", "graph_linear_fused", {**tensors, "u": u}, shapes,
-                         {"w": ("rows", node_mix_sm90.padded_width(d), ("groups", f, f))},
-                         (n, rows, d, f, *plan), out)
-    launches += 1
-    return out
+    return graph_linear_fused_op(x, w, b, g, u)

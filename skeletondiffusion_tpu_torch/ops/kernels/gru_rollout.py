@@ -253,6 +253,76 @@ def gru_rollout_merged_plain(cx, h0, w_hh, b_hh, g0, g_add, w_fc, b_fc, g_fc, *,
     return torch.stack(ys)
 
 
+def _checked(tensors: dict, ph: int, merged: bool) -> str:
+    """The kernel's name, after the checks of a launch: shapes, dtypes,
+    contiguity, no gradient, the batch and step range, the node count."""
+    cx, h0, w_fc = tensors["cx"], tensors["h0"], tensors["w_fc"]
+    n, b, h = h0.shape
+    f = w_fc.shape[-1]
+    shapes = dict(cx=(n, b, 3 * h), h0=(n, b, h), w_hh=(n, h, 3 * h), b_hh=(n, 3 * h),
+                  g0=(n, n), g_add=(n, n), w_fc=(n, h, f), b_fc=(n, f), g_fc=(n, n))
+    kernel = "gru_rollout_bf16" if merged else "gru_rollout"
+    dtypes = {k: (torch.bfloat16 if merged and k in ("cx", "w_hh", "w_fc") else torch.float32)
+              for k in tensors}
+    build.check_kernel_inputs(kernel, shapes, dtypes, **tensors)
+    if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
+        raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
+    build.check_nodes(kernel, "gru_rollout_merged" if merged else "gru_rollout", n)
+    return kernel
+
+
+def _launch(tensors: dict, ph: int, merged: bool) -> torch.Tensor:
+    global launches, launches_bf16
+    kernel = _checked(tensors, ph, merged)
+    cx, h0, w_hh, w_fc, b_hh = (tensors[k] for k in ("cx", "h0", "w_hh", "w_fc", "b_hh"))
+    n, b, h = h0.shape
+    f = w_fc.shape[-1]
+    out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
+    if merged:
+        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10, n)
+        width, pack, plan = ROLLOUT_BF16_SLICE, pack_rollout_bank_bf16, rollout_bf16_plan(n, h, f)
+        aligned = dict(cx=cx)
+    else:
+        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n)
+        width, pack, plan = ROLLOUT_SLICE, pack_rollout_bank, rollout_plan(n, h)
+        aligned = dict(w_fc=w_fc, b_hh=b_hh)
+    # the bank packed into ring stages (the kernels take H = 96 only and
+    # refuse other widths), the output head's bank as it is
+    tensors = dict(tensors)
+    if h % width == 0:
+        tensors["w_hh"] = pack(w_hh)
+    build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], **aligned)
+    ptrs = [t.data_ptr() for t in tensors.values()]
+    status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, *plan, build.stream_of(cx))
+    build.check_status(f"{kernel} at (nodes, hidden, outputs)={(n, h, f)}", status)
+    if merged:
+        launches_bf16 += 1
+    else:
+        launches += 1
+    return out
+
+
+ROLLOUT_ARGS = ("cx", "h0", "w_hh", "b_hh", "g0", "g_add", "w_fc", "b_fc", "g_fc")
+
+
+def _fake(*args):
+    tensors, ph = dict(zip(ROLLOUT_ARGS, args[:-1])), args[-1]
+    if build.on_cuda(*args[:-1]):
+        _checked(tensors, ph, merged=False)
+        rollout_plan(tensors["h0"].shape[0], tensors["h0"].shape[-1])
+    n, b, _ = tensors["h0"].shape
+    return args[0].new_empty((ph, n, b, tensors["w_fc"].shape[-1]), dtype=torch.float32)
+
+
+# the fp32 rollout (K1), the one on the predictor paths, as an op; the bf16
+# rollout (B8, the decode check's) is called directly
+gru_rollout_op = build.kernel_op(
+    "gru_rollout", "(Tensor cx, Tensor h0, Tensor w_hh, Tensor b_hh, Tensor g0, Tensor g_add, "
+    "Tensor w_fc, Tensor b_fc, Tensor g_fc, int ph) -> Tensor",
+    lambda *args: gru_rollout_plain(*args[:-1], ph=args[-1]),
+    lambda *args: _launch(dict(zip(ROLLOUT_ARGS, args[:-1])), args[-1], merged=False), _fake)
+
+
 def gru_rollout(
     cx: torch.Tensor,     # [N, B, 3H] hoisted input gates (before the G mix)
     h0: torch.Tensor,     # [N, B, H]
@@ -268,18 +338,17 @@ def gru_rollout(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Full rollout → [ph, N, B, F] float32.  ``compute_dtype=None`` is the
-    fp32 rollout (every tensor float32); ``torch.bfloat16`` the merged-gate
-    rollout (cx, w_hh and w_fc bfloat16, the rest float32).  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise.
+    fp32 rollout (every tensor float32), through the op ``skd::gru_rollout``;
+    ``torch.bfloat16`` the merged-gate rollout (cx, w_hh and w_fc bfloat16,
+    the rest float32).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise.
 
     The kernels have no backward, so the wrapper refuses to build a graph on
     either device: with gradients enabled and an input that requires them it
     raises.  A decode that trains runs the step loop under autograd
     (``models.autoencoder.Decoder.forward_plain``)."""
-    global launches, launches_bf16
     if compute_dtype not in (None, torch.bfloat16):
         raise TypeError(f"gru_rollout: compute_dtype must be None or bfloat16, got {compute_dtype}")
-    merged = compute_dtype == torch.bfloat16
     tensors = dict(cx=cx, h0=h0, w_hh=w_hh, b_hh=b_hh, g0=g0, g_add=g_add, w_fc=w_fc,
                    b_fc=b_fc, g_fc=g_fc)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
@@ -287,42 +356,11 @@ def gru_rollout(
         raise RuntimeError(f"gru_rollout has no backward, and {needs} require grad: decode "
                            "under torch.no_grad(), or train through "
                            "Decoder.forward_plain")
+    if compute_dtype is None:
+        return gru_rollout_op(*tensors.values(), ph)
     if build.kernel_device(**tensors) == "cpu":
-        plain = gru_rollout_merged_plain if merged else gru_rollout_plain
-        return plain(**tensors, ph=ph)
-    n, b, h = h0.shape
-    f = w_fc.shape[-1]
-    shapes = dict(cx=(n, b, 3 * h), h0=(n, b, h), w_hh=(n, h, 3 * h), b_hh=(n, 3 * h),
-                  g0=(n, n), g_add=(n, n), w_fc=(n, h, f), b_fc=(n, f), g_fc=(n, n))
-    kernel = "gru_rollout_bf16" if merged else "gru_rollout"
-    dtypes = {k: (torch.bfloat16 if merged and k in ("cx", "w_hh", "w_fc") else torch.float32)
-              for k in tensors}
-    build.check_kernel_inputs(kernel, shapes, dtypes, **tensors)
-    if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
-        raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
-    out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
-    build.check_nodes(kernel, "gru_rollout_merged" if merged else "gru_rollout", n)
-    if merged:
-        entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10, n)
-        width, pack, plan = ROLLOUT_BF16_SLICE, pack_rollout_bank_bf16, rollout_bf16_plan(n, h, f)
-        aligned = dict(cx=cx)
-    else:
-        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n)
-        width, pack, plan = ROLLOUT_SLICE, pack_rollout_bank, rollout_plan(n, h)
-        aligned = dict(w_fc=w_fc, b_hh=b_hh)
-    # the bank packed into ring stages (the kernels take H = 96 only and
-    # refuse other widths), the output head's bank as it is
-    if h % width == 0:
-        tensors["w_hh"] = pack(w_hh)
-    build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], **aligned)
-    ptrs = [t.data_ptr() for t in tensors.values()]
-    status = entry(*ptrs, out.data_ptr(), n, b, h, f, ph, *plan, build.stream_of(cx))
-    build.check_status(f"{kernel} at (nodes, hidden, outputs)={(n, h, f)}", status)
-    if merged:
-        launches_bf16 += 1
-    else:
-        launches += 1
-    return out
+        return gru_rollout_merged_plain(**tensors, ph=ph)
+    return _launch(tensors, ph, merged=True)
 
 
 def rollout_args(decoder, x_last2: torch.Tensor, z: torch.Tensor,

@@ -90,17 +90,21 @@ def attention_core_plain(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.
     return torch.einsum("bhnm,mbhc->nbhc", attn, v).reshape(n, b, hd).to(dt)
 
 
-def attention_core(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.Tensor:
-    """qkv [N,B,3·H·dh] → [N,B,H·dh].  CPU tensors run
-    ``attention_core_plain``; CUDA tensors launch the kernel or raise."""
+def _checked(qkv: torch.Tensor, heads: int, dim_head: int) -> AttentionPlan:
+    n, rows, width = qkv.shape
+    build.element_suffix("attention_core", qkv.dtype)
+    plan = attention_plan(qkv.dtype, heads, dim_head, n)
+    build.check_kernel_inputs("attention_core", {"qkv": (n, rows, 3 * heads * dim_head)},
+                              qkv.dtype, qkv=qkv)
+    return plan
+
+
+def _launch(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
     global launches
-    if build.kernel_device(qkv=qkv) == "cpu":
-        return attention_core_plain(qkv, heads, dim_head)
     n, rows, width = qkv.shape
     hd = heads * dim_head
     suffix = build.element_suffix("attention_core", qkv.dtype)
-    plan = attention_plan(qkv.dtype, heads, dim_head, n)
-    build.check_kernel_inputs("attention_core", {"qkv": (n, rows, 3 * hd)}, qkv.dtype, qkv=qkv)
+    plan = _checked(qkv, heads, dim_head)
     build.check_aligned("attention_core", 16, qkv=qkv)
     out = torch.empty((n, rows, hd), dtype=qkv.dtype, device=qkv.device)
     status = build.c_entry("joint_attention", f"attention_core_{suffix}", 2, 8, n)(
@@ -109,3 +113,21 @@ def attention_core(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.Ten
                        f"{(n, heads, dim_head, *plan)}", status)
     launches += 1
     return out
+
+
+def _fake(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
+    if build.on_cuda(qkv):
+        _checked(qkv, heads, dim_head)
+    return qkv.new_empty((*qkv.shape[:2], heads * dim_head))
+
+
+attention_core_op = build.kernel_op(
+    "attention_core", "(Tensor qkv, int heads, int dim_head) -> Tensor", attention_core_plain,
+    _launch, _fake)
+
+
+def attention_core(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.Tensor:
+    """qkv [N,B,3·H·dh] → [N,B,H·dh], through the op ``skd::attention_core``.
+    CPU tensors run ``attention_core_plain``; CUDA tensors launch the kernel
+    or raise."""
+    return attention_core_op(qkv, heads, dim_head)

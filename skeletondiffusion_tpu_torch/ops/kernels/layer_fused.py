@@ -74,21 +74,24 @@ def stem_block_plan(dtype: torch.dtype, d: int, f: int,
                                     (node_mix_sm90.narrow_width("stem_block", d), f, f), nodes)
 
 
-def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
-    """x [N,B,D], u [N,B,F], film [2F], ws [N,D,F], bs [N,F], gs [N,N], the
-    block's w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] → (r, out) [N,B,F]
-    each: the stem's output (the long skip) and block 0's.  CPU tensors run
-    ``stem_block_plain``; CUDA tensors launch the kernel or raise."""
-    global launches_stem_block
-    tensors = dict(x=x, u=u, film=film, ws=ws, bs=bs, gs=gs, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2,
-                   g2=g2)
-    if build.kernel_device(**tensors) == "cpu":
-        return stem_block_plain(**tensors)
+def _stem_block_checked(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
     n, rows, d = x.shape
     f = ws.shape[-1]
     plan = stem_block_plan(x.dtype, d, f, n)
     shapes = dict(x=(n, rows, d), u=(n, rows, f), ws=(n, d, f), bs=(n, f), gs=(n, n),
                   **_block_shapes(n, f))
+    tensors = dict(x=x, u=u, film=film, ws=ws, bs=bs, gs=gs, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2,
+                   g2=g2)
+    node_mix_sm90.check("stem_block", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _stem_block_launch(*args):
+    global launches_stem_block
+    tensors, shapes, plan = _stem_block_checked(*args)
+    x, ws = args[0], args[3]
+    n, rows, d = x.shape
+    f = ws.shape[-1]
     r = torch.empty((n, rows, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(r)
     whole = ("groups", f, f)  # one tile of all f columns a bank
@@ -98,6 +101,29 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
                          (n, rows, d, f, *plan), r, out)
     launches_stem_block += 1
     return r, out
+
+
+def _stem_block_fake(*args):
+    if build.on_cuda(*args):
+        _stem_block_checked(*args)
+    x, ws = args[0], args[3]
+    r = x.new_empty((*x.shape[:2], ws.shape[-1]))
+    return r, torch.empty_like(r)
+
+
+stem_block_op = build.kernel_op(
+    "stem_block", "(Tensor x, Tensor u, Tensor film, Tensor ws, Tensor bs, Tensor gs, "
+    "Tensor w1, Tensor b1, Tensor g1, Tensor w2, Tensor b2, Tensor g2) -> (Tensor, Tensor)",
+    stem_block_plain, _stem_block_launch, _stem_block_fake)
+
+
+def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
+    """x [N,B,D], u [N,B,F], film [2F], ws [N,D,F], bs [N,F], gs [N,N], the
+    block's w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] → (r, out) [N,B,F]
+    each: the stem's output (the long skip) and block 0's, through the op
+    ``skd::stem_block``.  CPU tensors run ``stem_block_plain``; CUDA tensors
+    launch the kernel or raise."""
+    return stem_block_op(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2)
 
 
 def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int, dim_head: int,
@@ -113,24 +139,45 @@ def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int, dim_head: int,
     return node_mix_sm90.plan("rms_qkv_core", dtype, rows, 3 * dim_head, f, nodes)
 
 
-def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
-    """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·dh] (q‖k‖v),
-    g_qkv [N,N] → the attention core's output [N,B,H·dh].  CPU tensors run
-    ``rms_qkv_core_plain``; CUDA tensors launch the kernel or raise."""
-    global launches_rms_qkv_core
-    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
-    if build.kernel_device(**tensors) == "cpu":
-        return rms_qkv_core_plain(x, g_rms, w_qkv, g_qkv, heads, dim_head)
+def _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
     n, rows, f = x.shape
     hd = heads * dim_head
     plan = rms_qkv_core_plan(x.dtype, f, heads, dim_head, n)
-    out = torch.empty((n, rows, hd), dtype=x.dtype, device=x.device)
     shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
+    tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
+    node_mix_sm90.check("rms_qkv_core", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _rms_qkv_core_launch(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
+    global launches_rms_qkv_core
+    tensors, shapes, plan = _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads, dim_head)
+    n, rows, f = x.shape
+    out = torch.empty((n, rows, heads * dim_head), dtype=x.dtype, device=x.device)
     node_mix_sm90.launch("layer_fused", "rms_qkv_core", tensors, shapes,
                          {"w_qkv": ("heads", heads, dim_head)},
                          (n, rows, f, heads, dim_head, *plan), out)
     launches_rms_qkv_core += 1
     return out
+
+
+def _rms_qkv_core_fake(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
+    if build.on_cuda(x, g_rms, w_qkv, g_qkv):
+        _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads, dim_head)
+    return x.new_empty((*x.shape[:2], heads * dim_head))
+
+
+rms_qkv_core_op = build.kernel_op(
+    "rms_qkv_core", "(Tensor x, Tensor g_rms, Tensor w_qkv, Tensor g_qkv, int heads, "
+    "int dim_head) -> Tensor", rms_qkv_core_plain, _rms_qkv_core_launch, _rms_qkv_core_fake)
+
+
+def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
+    """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·dh] (q‖k‖v),
+    g_qkv [N,N] → the attention core's output [N,B,H·dh], through the op
+    ``skd::rms_qkv_core``.  CPU tensors run ``rms_qkv_core_plain``; CUDA
+    tensors launch the kernel or raise."""
+    return rms_qkv_core_op(x, g_rms, w_qkv, g_qkv, heads, dim_head)
 
 
 def outproj_block_plan(dtype: torch.dtype, hd: int, f: int,
@@ -141,20 +188,24 @@ def outproj_block_plan(dtype: torch.dtype, hd: int, f: int,
     return node_mix_sm90.block_plan("outproj_block", dtype, f, (hd, f, f), nodes)
 
 
-def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
-    """a [N,B,hd], x [N,B,F], film [2F], w_out [N,hd,F], g_out [N,N], the
-    next block's banks as ``stem_block`` takes them → [N,B,F].  CPU tensors
-    run ``outproj_block_plain``; CUDA tensors launch the kernel or raise."""
-    global launches_outproj_block
-    tensors = dict(a=a, x=x, film=film, w_out=w_out, g_out=g_out, w1=w1, b1=b1, g1=g1, w2=w2,
-                   b2=b2, g2=g2)
-    if build.kernel_device(**tensors) == "cpu":
-        return outproj_block_plain(**tensors)
+def _outproj_block_checked(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2):
     n, rows, hd = a.shape
     f = x.shape[-1]
     plan = outproj_block_plan(x.dtype, hd, f, n)
     shapes = dict(a=(n, rows, hd), x=(n, rows, f), w_out=(n, hd, f), g_out=(n, n),
                   **_block_shapes(n, f))
+    tensors = dict(a=a, x=x, film=film, w_out=w_out, g_out=g_out, w1=w1, b1=b1, g1=g1, w2=w2,
+                   b2=b2, g2=g2)
+    node_mix_sm90.check("outproj_block", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _outproj_block_launch(*args):
+    global launches_outproj_block
+    tensors, shapes, plan = _outproj_block_checked(*args)
+    a, x = args[0], args[1]
+    n, rows, hd = a.shape
+    f = x.shape[-1]
     out = torch.empty_like(x)
     whole = ("groups", f, f)  # one tile of all f columns a bank
     node_mix_sm90.launch("layer_fused", "outproj_block", tensors, shapes,
@@ -162,3 +213,23 @@ def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Ten
                          (n, rows, hd, f, *plan), out)
     launches_outproj_block += 1
     return out
+
+
+def _outproj_block_fake(*args):
+    if build.on_cuda(*args):
+        _outproj_block_checked(*args)
+    return torch.empty_like(args[1])
+
+
+outproj_block_op = build.kernel_op(
+    "outproj_block", "(Tensor a, Tensor x, Tensor film, Tensor w_out, Tensor g_out, Tensor w1, "
+    "Tensor b1, Tensor g1, Tensor w2, Tensor b2, Tensor g2) -> Tensor", outproj_block_plain,
+    _outproj_block_launch, _outproj_block_fake)
+
+
+def outproj_block(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    """a [N,B,hd], x [N,B,F], film [2F], w_out [N,hd,F], g_out [N,N], the
+    next block's banks as ``stem_block`` takes them → [N,B,F], through the op
+    ``skd::outproj_block``.  CPU tensors run ``outproj_block_plain``; CUDA
+    tensors launch the kernel or raise."""
+    return outproj_block_op(a, x, film, w_out, g_out, w1, b1, g1, w2, b2, g2)

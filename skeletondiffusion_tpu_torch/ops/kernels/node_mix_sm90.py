@@ -274,6 +274,16 @@ def pack(t: torch.Tensor, spec: Tuple) -> torch.Tensor:
     return pack_banks(t, spec)
 
 
+def check(kernel: str, tensors: Dict[str, Optional[torch.Tensor]], shapes: Dict,
+          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The given tensors (None: an input the kernel goes without), checked
+    against ``shapes`` and ``dtype`` (``build.check_kernel_inputs``): what a
+    launch and its op's fake implementation both check."""
+    given = {k: t for k, t in tensors.items() if t is not None}
+    build.check_kernel_inputs(kernel, shapes, dtype, **given)
+    return given
+
+
 def launch(library: str, kernel: str, tensors: Dict[str, Optional[torch.Tensor]], shapes: Dict,
            packs: Dict[str, Tuple], ints: Tuple[int, ...], *outs: torch.Tensor) -> None:
     """Check ``tensors``, pack each one named in ``packs`` by its spec
@@ -284,8 +294,7 @@ def launch(library: str, kernel: str, tensors: Dict[str, Optional[torch.Tensor]]
     succeeded."""
     dt = outs[0].dtype
     suffix = build.element_suffix(kernel, dt)
-    given = {k: t for k, t in tensors.items() if t is not None}
-    build.check_kernel_inputs(kernel, shapes, dt, **given)
+    given = check(kernel, tensors, shapes, dt)
     packed = {k: pack(t, packs[k]) if k in packs else t for k, t in given.items()}
     build.check_aligned(kernel, 32, **packed)
     pointers = [packed[k].data_ptr() if k in packed else None for k in tensors]

@@ -15,6 +15,8 @@ the tensor cores in 3×TF32, fed by a TMA ring (``posterior_plan``).  x̂₀ may
 be float32 or, as the fused bf16 denoiser emits it, bfloat16: the second C
 entry reads it in bf16; x_t, the noise and the output are float32 either way.
 
+``posterior_step`` calls the kernel through the custom op
+``skd::posterior_step`` (``build.kernel_op``), either x̂₀ dtype.
 ``posterior_step_cuda_core`` launches the source's second design, the same
 function on the CUDA cores: a yardstick for the first, which no path runs.
 """
@@ -87,9 +89,9 @@ def posterior_step_plain(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor
 
 def _checked(x0, xt, noise, m_t) -> tuple:
     """(n, columns, x̂₀ in bf16) of a call on CUDA tensors the kernels take,
-    or raise: shapes, dtypes, contiguity, 16-byte alignment, and columns a
-    multiple of 4 (float32 x̂₀) or 8 (bf16): a tensor map's rows are whole
-    multiples of 16 bytes."""
+    or raise: shapes, dtypes, contiguity, and columns a multiple of 4
+    (float32 x̂₀) or 8 (bf16): a tensor map's rows are whole multiples of 16
+    bytes (the launches check the 16-byte alignment after it)."""
     n, b, d = xt.shape
     build.check_nodes("posterior_step", "posterior_step", n)
     shapes = {"x0": (n, b, d), "xt": (n, b, d), "noise": (n, b, d), "m_t": (n, 3 * n)}
@@ -103,19 +105,14 @@ def _checked(x0, xt, noise, m_t) -> tuple:
         raise ValueError(f"posterior_step: B·D={cols} must be a positive multiple of {mult} below "
                          f"2^31 (a TMA row of the {'bfloat16' if x0_bf16 else 'float32'} x̂₀ "
                          "is a multiple of 16 bytes)")
-    build.check_aligned("posterior_step", 16, x0=x0, xt=xt, noise=noise)
     return n, cols, x0_bf16
 
 
-def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
-                   m_t: torch.Tensor) -> torch.Tensor:
-    """x0 [N,B,D] float32 or bfloat16 (the denoiser's x̂₀), xt, noise [N,B,D]
-    float32, m_t [N,3N] → x_{t-1} [N,B,D] float32.  CPU tensors run
-    ``posterior_step_plain``; CUDA tensors launch the kernel or raise."""
+def _launch(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
+            m_t: torch.Tensor) -> torch.Tensor:
     global launches, launches_x0_bf16
-    if build.kernel_device(x0=x0, xt=xt, noise=noise, m_t=m_t) == "cpu":
-        return posterior_step_plain(x0, xt, noise, m_t)
     n, cols, x0_bf16 = _checked(x0, xt, noise, m_t)
+    build.check_aligned("posterior_step", 16, x0=x0, xt=xt, noise=noise)
     plan = posterior_plan(n, x0.dtype)
     out = torch.empty_like(xt)
     entry = build.c_entry("posterior_step", "posterior_step_x0_bf16" if x0_bf16
@@ -131,6 +128,25 @@ def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
     return out
 
 
+def _fake(x0, xt, noise, m_t):
+    if build.on_cuda(x0, xt, noise, m_t):
+        posterior_plan(_checked(x0, xt, noise, m_t)[0], x0.dtype)
+    return torch.empty_like(xt)
+
+
+posterior_step_op = build.kernel_op(
+    "posterior_step", "(Tensor x0, Tensor xt, Tensor noise, Tensor m_t) -> Tensor",
+    posterior_step_plain, _launch, _fake)
+
+
+def posterior_step(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
+                   m_t: torch.Tensor) -> torch.Tensor:
+    """x0 [N,B,D] float32 or bfloat16 (the denoiser's x̂₀), xt, noise [N,B,D]
+    float32, m_t [N,3N] → x_{t-1} [N,B,D] float32.  CPU tensors run
+    ``posterior_step_plain``; CUDA tensors launch the kernel or raise."""
+    return posterior_step_op(x0, xt, noise, m_t)
+
+
 def posterior_step_cuda_core(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Tensor,
                              m_t: torch.Tensor) -> torch.Tensor:
     """``posterior_step`` on CUDA tensors by the source's CUDA-core design (a
@@ -140,6 +156,7 @@ def posterior_step_cuda_core(x0: torch.Tensor, xt: torch.Tensor, noise: torch.Te
     if build.kernel_device(x0=x0, xt=xt, noise=noise, m_t=m_t) == "cpu":
         raise RuntimeError("posterior_step_cuda_core: needs CUDA tensors")
     n, cols, x0_bf16 = _checked(x0, xt, noise, m_t)
+    build.check_aligned("posterior_step_cuda_core", 16, x0=x0, xt=xt, noise=noise)
     out = torch.empty_like(xt)
     entry = build.c_entry("posterior_step", "posterior_step_fma_x0_bf16" if x0_bf16
                           else "posterior_step_fma_f32", 5, 2, n)

@@ -93,18 +93,20 @@ def final_block_out_plan(dtype: torch.dtype, f: int, fo: int,
     return plan
 
 
-def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
-    """x [N,B,F], film [2F], w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] →
-    [N,B,F].  CPU tensors run ``resnet_block_plain``; CUDA tensors launch the
-    kernel or raise."""
-    global launches_block
-    tensors = dict(x=x, film=film, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2, g2=g2)
-    if build.kernel_device(**tensors) == "cpu":
-        return resnet_block_plain(**tensors)
+def _block_checked(x, film, w1, b1, g1, w2, b2, g2):
     n, rows, f = x.shape
     plan = resnet_block_plan(x.dtype, f, n)
     shapes = dict(x=(n, rows, f), film=(2 * f,), w1=(n, f, f), b1=(n, f), g1=(n, n),
                   w2=(n, f, f), b2=(n, f), g2=(n, n))
+    tensors = dict(x=x, film=film, w1=w1, b1=b1, g1=g1, w2=w2, b2=b2, g2=g2)
+    node_mix_sm90.check("resnet_block", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _block_launch(x, film, w1, b1, g1, w2, b2, g2):
+    global launches_block
+    tensors, shapes, plan = _block_checked(x, film, w1, b1, g1, w2, b2, g2)
+    n, rows, f = x.shape
     out = torch.empty_like(x)
     whole = ("groups", f, f)  # one tile of all f columns a bank
     node_mix_sm90.launch("resnet_block", "resnet_block", tensors, shapes,
@@ -113,18 +115,38 @@ def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
     return out
 
 
-def final_block_in(x, r, film, w1, b1, g1, wr, gr):
-    """x, r [N,B,F], film [2F], w1, wr [N,2F,F], b1 [N,F], g1, gr [N,N] →
-    (h, res) [N,B,F] each.  CPU tensors run ``final_block_in_plain``; CUDA
-    tensors launch the kernel or raise."""
-    global launches_final_in
-    tensors = dict(x=x, r=r, film=film, w1=w1, b1=b1, g1=g1, wr=wr, gr=gr)
-    if build.kernel_device(**tensors) == "cpu":
-        return final_block_in_plain(**tensors)
+def _block_fake(*args):
+    if build.on_cuda(*args):
+        _block_checked(*args)
+    return torch.empty_like(args[0])
+
+
+resnet_block_op = build.kernel_op(
+    "resnet_block", "(Tensor x, Tensor film, Tensor w1, Tensor b1, Tensor g1, Tensor w2, "
+    "Tensor b2, Tensor g2) -> Tensor", resnet_block_plain, _block_launch, _block_fake)
+
+
+def resnet_block(x, film, w1, b1, g1, w2, b2, g2) -> torch.Tensor:
+    """x [N,B,F], film [2F], w1, w2 [N,F,F], b1, b2 [N,F], g1, g2 [N,N] →
+    [N,B,F], through the op ``skd::resnet_block``.  CPU tensors run
+    ``resnet_block_plain``; CUDA tensors launch the kernel or raise."""
+    return resnet_block_op(x, film, w1, b1, g1, w2, b2, g2)
+
+
+def _final_in_checked(x, r, film, w1, b1, g1, wr, gr):
     n, rows, f = x.shape
     plan = final_block_in_plan(x.dtype, f, n)
     shapes = dict(x=(n, rows, f), r=(n, rows, f), film=(2 * f,), w1=(n, 2 * f, f), b1=(n, f),
                   g1=(n, n), wr=(n, 2 * f, f), gr=(n, n))
+    tensors = dict(x=x, r=r, film=film, w1=w1, b1=b1, g1=g1, wr=wr, gr=gr)
+    node_mix_sm90.check("final_block_in", tensors, shapes, x.dtype)
+    return tensors, shapes, plan
+
+
+def _final_in_launch(x, r, film, w1, b1, g1, wr, gr):
+    global launches_final_in
+    tensors, shapes, plan = _final_in_checked(x, r, film, w1, b1, g1, wr, gr)
+    n, rows, f = x.shape
     h, res = torch.empty_like(x), torch.empty_like(x)
     whole = ("groups", f, f)
     node_mix_sm90.launch("resnet_block", "final_block_in", tensors, shapes,
@@ -133,19 +155,42 @@ def final_block_in(x, r, film, w1, b1, g1, wr, gr):
     return h, res
 
 
-def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
-    """h, res [N,B,F], w2 [N,F,F], b2 [N,F], wh [N,F,O], bh [N,O], g2, gh
-    [N,N] → [N,B,O].  CPU tensors run ``final_block_out_plain``; CUDA tensors
-    launch the kernel or raise."""
-    global launches_final_out
-    tensors = dict(h=h, res=res, w2=w2, b2=b2, g2=g2, wh=wh, bh=bh, gh=gh)
-    if build.kernel_device(**tensors) == "cpu":
-        return final_block_out_plain(**tensors)
+def _final_in_fake(*args):
+    if build.on_cuda(*args):
+        _final_in_checked(*args)
+    return torch.empty_like(args[0]), torch.empty_like(args[0])
+
+
+final_block_in_op = build.kernel_op(
+    "final_block_in", "(Tensor x, Tensor r, Tensor film, Tensor w1, Tensor b1, Tensor g1, "
+    "Tensor wr, Tensor gr) -> (Tensor, Tensor)", final_block_in_plain, _final_in_launch,
+    _final_in_fake)
+
+
+def final_block_in(x, r, film, w1, b1, g1, wr, gr):
+    """x, r [N,B,F], film [2F], w1, wr [N,2F,F], b1 [N,F], g1, gr [N,N] →
+    (h, res) [N,B,F] each, through the op ``skd::final_block_in``.  CPU
+    tensors run ``final_block_in_plain``; CUDA tensors launch the kernel or
+    raise."""
+    return final_block_in_op(x, r, film, w1, b1, g1, wr, gr)
+
+
+def _final_out_checked(h, res, w2, b2, g2, wh, bh, gh):
     n, rows, f = h.shape
     fo = wh.shape[-1]
     plan = final_block_out_plan(h.dtype, f, fo, n)
     shapes = dict(h=(n, rows, f), res=(n, rows, f), w2=(n, f, f), b2=(n, f), g2=(n, n),
                   wh=(n, f, fo), bh=(n, fo), gh=(n, n))
+    tensors = dict(h=h, res=res, w2=w2, b2=b2, g2=g2, wh=wh, bh=bh, gh=gh)
+    node_mix_sm90.check("final_block_out", tensors, shapes, h.dtype)
+    return tensors, shapes, plan
+
+
+def _final_out_launch(h, res, w2, b2, g2, wh, bh, gh):
+    global launches_final_out
+    tensors, shapes, plan = _final_out_checked(h, res, w2, b2, g2, wh, bh, gh)
+    n, rows, f = h.shape
+    fo = wh.shape[-1]
     out = torch.empty((n, rows, fo), dtype=h.dtype, device=h.device)
     # the head is an F-wide pass whose bank and bias are zero past fo
     packs = {"w2": ("groups", f, f), "wh": ("groups", fo, f), "bh": ("pad", f)}
@@ -153,3 +198,24 @@ def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
                          (n, rows, f, fo, *plan), out)
     launches_final_out += 1
     return out
+
+
+def _final_out_fake(*args):
+    if build.on_cuda(*args):
+        _final_out_checked(*args)
+    h, wh = args[0], args[5]
+    return h.new_empty((*h.shape[:2], wh.shape[-1]))
+
+
+final_block_out_op = build.kernel_op(
+    "final_block_out", "(Tensor h, Tensor res, Tensor w2, Tensor b2, Tensor g2, Tensor wh, "
+    "Tensor bh, Tensor gh) -> Tensor", final_block_out_plain, _final_out_launch,
+    _final_out_fake)
+
+
+def final_block_out(h, res, w2, b2, g2, wh, bh, gh) -> torch.Tensor:
+    """h, res [N,B,F], w2 [N,F,F], b2 [N,F], wh [N,F,O], bh [N,O], g2, gh
+    [N,N] → [N,B,O], through the op ``skd::final_block_out``.  CPU tensors
+    run ``final_block_out_plain``; CUDA tensors launch the kernel or
+    raise."""
+    return final_block_out_op(h, res, w2, b2, g2, wh, bh, gh)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.autoencoder import AutoEncoder, autoencoder_loss
+from ..parallel.mesh import all_reduce_mean
 from .schedulers import CurriculumPH, make_lr_scheduler
 
 
@@ -75,6 +76,7 @@ class AutoEncoderTrainer:
                                            weight_decay=weight_decay)
         self.step = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        self.mesh = None  # a data axis (parallel.DataMesh): this rank's rows of each batch
 
     # ---- steps ---------------------------------------------------------------
     def current_lr(self) -> float:
@@ -94,6 +96,8 @@ class AutoEncoderTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         params = [p for p in self.model.parameters() if p.grad is not None]
+        if self.mesh is not None:  # the whole batch's gradient, before clipping
+            all_reduce_mean(self.mesh, [p.grad for p in params])
         gnorm = torch.nn.utils.clip_grad_norm_(
             params, self.clip_grad_norm if self.clip_grad_norm else float("inf"))
         for group in self.optimizer.param_groups:
@@ -111,7 +115,10 @@ class AutoEncoderTrainer:
         ph = self.curriculum(epoch, iteration)
         loss = self.loss(x, y, ph)
         self.last_grad_norm = self.optimizer_step(loss).detach()
-        return loss.detach(), ph
+        loss = loss.detach()
+        if self.mesh is not None:  # the whole batch's loss: the mean of the ranks' means
+            all_reduce_mean(self.mesh, [loss])
+        return loss, ph
 
     def epoch_started(self, epoch: int):
         if self.lr_scheduler is not None:

@@ -30,6 +30,7 @@ import torch
 from ..diffusion.engine import GaussianDiffusion
 from ..eval_pipeline import SkeletonDiffusionPredictor
 from ..models.autoencoder import AutoEncoder, autoencoder_loss
+from ..parallel.mesh import all_reduce_mean
 from .ema import ema_init, ema_update
 from .schedulers import make_lr_scheduler
 
@@ -86,6 +87,7 @@ class TrainerDiffusion:
         self.ema = ema_init(self.denoiser) if if_use_ema else None
         self.step = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        self.mesh = None  # a data axis (parallel.DataMesh): this rank's rows of each batch
         # the last step's k-best choice: per-sample losses and similarities
         # [b, k] and the chosen index [b] (for inspection; latent_space: the
         # losses are the similarities)
@@ -153,6 +155,8 @@ class TrainerDiffusion:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         params = [p for p in self.denoiser.parameters() if p.grad is not None]
+        if self.mesh is not None:  # the whole batch's gradient, before clipping
+            all_reduce_mean(self.mesh, [p.grad for p in params])
         gnorm = torch.nn.utils.clip_grad_norm_(params, self.max_grad_norm)
         for group in self.optimizer.param_groups:
             group["lr"] = self.current_lr()
@@ -171,9 +175,27 @@ class TrainerDiffusion:
         ``last_grad_norm``."""
         x, y = batch
         z_past, z = self.embed(x, y)
+        if self.mesh is not None and t is None:
+            t, noise = self.rank_draws(generator, z)
         loss = self.loss(x, y, z, z_past, t=t, noise=noise, generator=generator)
         self.last_grad_norm = self.optimizer_step(loss).detach()
-        return loss.detach()
+        loss = loss.detach()
+        if self.mesh is not None:  # the whole batch's loss: the mean of the ranks' means
+            all_reduce_mean(self.mesh, [loss])
+        return loss
+
+    def rank_draws(self, generator: Optional[torch.Generator], z: torch.Tensor):
+        """(t, noise) of this rank's rows: the whole batch's timesteps and
+        noise drawn in ``loss``'s order (t [B], then noise [B·k,N,D]), then
+        cut to the rank's items and their k samples."""
+        b = z.shape[0]
+        B = b * self.mesh.size
+        t = torch.randint(0, self.diffusion.num_timesteps, (B,), generator=generator,
+                          device=z.device)
+        noise = torch.randn((B * self.k, *z.shape[1:]), generator=generator, device=z.device,
+                            dtype=z.dtype)
+        lo, hi = self.mesh.rows(B)
+        return t[lo:hi], noise[lo * self.k:hi * self.k]
 
     def epoch_started(self, epoch: int):
         if self.lr_scheduler is not None:

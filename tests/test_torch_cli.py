@@ -620,12 +620,17 @@ def test_remat_denoiser_gives_bit_identical_gradients():
 
 
 def test_setup_device_defaults_to_the_card_and_refuses_more_than_one():
-    from skeletondiffusion_tpu_torch.cli.common import setup_device
+    """One process is one device: a data axis of two needs two processes
+    (torchrun), and the model axis is refused (ROADMAP Queue A item 9)."""
+    from skeletondiffusion_tpu_torch.cli.common import setup_device, setup_mesh
 
-    assert setup_device({"device": "cpu", "device_mesh": {"n_devices": None}}).type == "cpu"
-    assert setup_device({"device": "cpu", "device_mesh": {"n_devices": 1}}).type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        setup_device({"device": "cpu", "device_mesh": {"n_devices": 2}})
+    for n in (None, 1):
+        cfg = {"device": "cpu", "device_mesh": {"n_devices": n}}
+        assert setup_mesh(cfg) is None and setup_device(cfg).type == "cpu"
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        setup_mesh({"device": "cpu", "device_mesh": {"n_devices": 2}})
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        setup_mesh({"device": "cpu", "device_mesh": {"n_devices": 1, "model_parallel": 2}})
     if not torch.cuda.is_available():
         for cfg in ({}, {"device": "cuda"}):  # the default is the card
             with pytest.raises(RuntimeError, match="cuda"):

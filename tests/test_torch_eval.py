@@ -31,6 +31,7 @@ from skeletondiffusion_tpu_torch.eval_pipeline import (
     long_term_prediction_best_first50,
     process_evaluation_pair,
 )
+from skeletondiffusion_tpu_torch.parallel import DataMesh
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
@@ -199,8 +200,11 @@ def test_fid_hook_and_refusals(tree):
     kw = dict(batch_size=4, num_samples=3, silent=True, fid_classifier=clf)
     first = compute_metrics(zv, ds, sk, **kw)
     assert np.isfinite(first["FID"]) and compute_metrics(zv, ds, sk, **kw) == first
-    with pytest.raises(NotImplementedError, match="mesh"):
-        compute_metrics(zv, ds, sk, batch_size=4, mesh=object())
+    axis = DataMesh(2, 0, torch.device("cpu"))  # a data axis runs the standard eval only
+    with pytest.raises(NotImplementedError, match="data axis"):
+        compute_metrics(zv, ds, sk, batch_size=4, mesh=axis, if_long_term_test=True)
+    with pytest.raises(ValueError, match="does not split over the data axis of 2"):
+        compute_metrics(zv, ds, sk, batch_size=3, mesh=axis)
     with pytest.raises(ValueError, match="pred_length"):
         compute_metrics(zv, ds, sk, batch_size=4, pred_length=PRED + 1)
 

@@ -1,7 +1,9 @@
 """The port stands alone: ``skeletondiffusion_tpu_torch`` (its training
 modules under ``train/``, its entry points under ``cli/``, ``inference.py``,
 the ``utils/`` modules, the diffusion variants' modules and the H36M,
-FreeMan and 3DPW skeletons, loaders and synthetic trees included),
+FreeMan and 3DPW skeletons, loaders and synthetic trees, the serving
+export, the data axis under ``parallel/`` and the dataset preprocessing
+under ``data/preprocess/`` included),
 ``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``) import
 neither ``jax`` nor ``skeletondiffusion_tpu``, nor ``flax``, ``optax``,
 ``orbax``, ``pandas`` or ``yaml``, which the card's machine does not have,
@@ -41,6 +43,15 @@ skeletons = [("skeleton.kinematic", "H36MKinematic"), ("skeleton.kinematic", "Fr
              ("data.loaders", "D3PWZeroShotDataset"),
              ("data.synthetic", "make_synthetic_skeleton_tree"), ("ops.kernels.build", "NODE_RANGE")]
 assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in skeletons), skeletons
+# the serving export, the data axis and the host-side modules of the last slice
+last = [("serving", "ServingModel"), ("sampler_noise", "draw"), ("parallel.mesh", "create_mesh"),
+        ("parallel.dryrun", "dryrun_multichip"), ("utils.flops", "prediction_flops"),
+        ("utils.keypoints", "rotate_y_axis"), ("utils.plot", "render_motion_frames"),
+        ("diffusion.covariance", "verify_noise_scale"), ("data.preprocess.smplh", "SMPLHJoints"),
+        ("data.preprocess.common", "finalize_dataset"), ("data.preprocess.amass", "main"),
+        ("data.preprocess.h36m", "main"), ("data.preprocess.freeman", "main"),
+        ("data.preprocess.d3pw", "main")]
+assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in last), last
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("clean")
@@ -112,3 +123,22 @@ def test_chip_smoke_fails_alone(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+SERVING = """
+import sys
+import skeletondiffusion_tpu_torch.serving
+heavy = [m for m in ("models", "diffusion", "eval_pipeline", "cli", "train")
+         if f"skeletondiffusion_tpu_torch.{m}" in sys.modules]
+assert not heavy, heavy
+print("light")
+"""
+
+
+def test_serving_imports_the_kernel_ops_and_no_model_code():
+    """A serving host loads an artifact with the modules that register the
+    kernel ops: none of the model classes, the sampler or the eval loop."""
+    out = subprocess.run([sys.executable, "-c", SERVING], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "light"
