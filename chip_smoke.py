@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's fp32 and bf16 prediction paths, its serving
-export, its evaluation path and its two-stage training path (in one process
-and over a data axis of two ranks) on one NVIDIA GPU and hold its
+export, its evaluation path and its two-stage training path (in one process,
+over a data axis of two ranks and over a model axis of two) on one NVIDIA GPU
+and hold its
 hand-written CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
@@ -11,8 +12,8 @@ Phases, each printed with its elapsed seconds:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds skeletondiffusion_tpu_torch/csrc/*.cu at each node
               count of NODE_COUNTS (21 AMASS, 16 H36M, 17 FreeMan, 51
-              AMASS-MANO; the bf16 rollout B8 and the lab core L1 at 21
-              only), one nvcc a source and count, all at once (ptxas report);
+              AMASS-MANO), one nvcc a source and count, all at once (ptxas
+              report);
 3. kernels  — the AMASS flagship model at full width (21 nodes, latent and
               hidden 96, denoiser depth 4 × 8 heads × 32, 10 diffusion steps,
               observe 30, predict 120) is built from a seed; K1 and K2 run on
@@ -147,7 +148,11 @@ Phases, each printed with its elapsed seconds:
               table at 1e-5·max(1, |v|), with its launches; one fp32 stage-2
               step of the flagship (batch 64 × k 50, injected t and noise)
               against the same step in one process at the train phase's
-              bounds;
+              bounds; then the same step on a model axis of two (1 data × 2
+              model ranks, the banks and dense layers split by
+              shard_params_model_axis, each rank the whole batch) against
+              the same one-process step at the same bounds, with the split
+              shapes and the step's seconds beside the one-process step's;
 16. serving — the serving export (serving.py): the bf16 predictor of phase 6
               exported as torch.export programs at buckets 64 and 256, the
               fp32 one of phase 4 at 256 (export seconds, artifact size), by
@@ -168,10 +173,11 @@ Phases, each printed with its elapsed seconds:
               phases 4, 6 and 8 run and hold them (the bf16 paths'
               predictions: the max held, the mean printed, ROADMAP Queue C
               item 7); then compute_metrics with the bf16 predictor over the
-              test splits of the shipped H36M (5 168 segments, its
-              mmapd_GT.csv, FID through an h36m_classifier.pth of
-              tests/goldens/fid_classifier.npz), FreeMan (11 015) and 3DPW
-              zero-shot (3 252, on the AMASS model) annotations with
+              first SKELETON_EVAL_CUT segments of the test splits of the
+              shipped H36M (of 5 168 segments, its mmapd_GT.csv, FID
+              through an h36m_classifier.pth of
+              tests/goldens/fid_classifier.npz), FreeMan (of 11 015) and
+              3DPW zero-shot (of 3 252, on the AMASS model) annotations with
               random-walk clips, eval preds/s, the batch's device time split
               (predictor, metrics, FID features, the rest) and launches,
               ZeroVelocity card vs CPU on two batches; cli.train_autoencoder and
@@ -182,9 +188,15 @@ Phases, each printed with its elapsed seconds:
               ("nodes"), with eval_launches of its dataset; the 21-node
               entries also carry eval_3dpw_launches.  Before these, four
               kernels given 52 nodes must raise, naming shapes no skeleton of
-              the reference has (ROADMAP Queue B item 9), and at 51 nodes B8
-              and L1 (Queue B item 9) and the fp32 engine's plans (Queue B
-              item 10).
+              the reference has (ROADMAP Queue B item 9), B8 and L1 too, and
+              at 51 nodes the fp32 engine's plans (Queue B item 10).  At
+              each of 16 and 17 nodes B8 (the model's decoder's rollout
+              inputs, its steps; 12 800, 12 795 and an odd-tile row count)
+              and L1 (the lab's 8 heads × 32; 12 800, 12 795, an odd-tile
+              count, 32 heads × 1 000) against their plain versions as
+              phases 9 and 10 hold them, and their paths: a bf16 decode of
+              the model's decoder and the lab's feature-major chain, each
+              between a reset and a read of the counters.
 18. mano    — the same at AMASS-MANO's 51 nodes (observe 30, predict 120):
               K1, K2 and every kernel of phases 5 and 7 against its plain
               version (bf16; B2 and K1, K2 in fp32 too; the fp32 engine's
@@ -193,7 +205,9 @@ Phases, each printed with its elapsed seconds:
               bf16 predictor over the shipped AMASS-MANO test split cut to
               MANO_EVAL_CUT segments (APDE on the tree's mmapd_GT.csv);
               cli.train_autoencoder, cli.train_diffusion and cli.eval with
-              dataset=amass-mano as phase 17's H36M CLIs, without FID.  The
+              dataset=amass-mano as phase 17's H36M CLIs, without FID; B8
+              (its design past 21 nodes) and L1 and their paths as phase 17
+              runs them.  The
               kernels' JSON line lists the 51-node entries with eval_launches
               of the MANO eval.
 19. capstone — scripts/torch_convergence_capstone.py through its main at
@@ -273,7 +287,7 @@ from skeletondiffusion_tpu_torch.ops.kernels import layer_fused as layer_mod
 from skeletondiffusion_tpu_torch.ops.kernels import posterior_step as posterior_mod
 from skeletondiffusion_tpu_torch.ops.kernels import resnet_block as block_mod
 from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm as fm_mod
-from skeletondiffusion_tpu_torch.parallel import dryrun
+from skeletondiffusion_tpu_torch.parallel import create_mesh, dryrun
 from skeletondiffusion_tpu_torch.serving import export_predictor
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 from skeletondiffusion_tpu_torch.train.checkpoint import CheckpointManager
@@ -381,8 +395,10 @@ RESUME_TOL = 1e-6
 
 # The skeletons phase: the H36M, FreeMan and 3DPW zero-shot test splits of the
 # shipped annotations (datasets/annotations/<folder>/hmp) with random-walk
-# clips (data/synthetic.py::make_synthetic_skeleton_tree), every segment of
-# each CSV (SKELETON_EVAL_CUT: None; H36M 5 168, FreeMan 11 015, 3DPW 3 252);
+# clips (data/synthetic.py::make_synthetic_skeleton_tree), each CSV cut to
+# its first SKELETON_EVAL_CUT segments (of H36M's 5 168, FreeMan's 11 015,
+# 3DPW's 3 252: the whole splits took 68 s, to keep the script within half
+# its time limit);
 # ZeroVelocity card vs CPU on the first SKELETON_CPU_SEGMENTS segments (two
 # batches) at EVAL_DEVICE_TOL, FID left out there (its GRU h0 is drawn on
 # each device); the H36M CLIs on a tree of SKELETON_CLI_SEGMENTS segments a
@@ -390,14 +406,14 @@ RESUME_TOL = 1e-6
 ANNOTATIONS = pathlib.Path(__file__).resolve().parent / "datasets" / "annotations"
 SKELETON_EVALS = {"h36m": "Human36M", "freeman": "FreeMan", "3dpw": "3DPW",
                   "amass-mano": "AMASS-MANO"}
-SKELETON_EVAL_CUT = None
+SKELETON_EVAL_CUT = 512
 # The mano phase: AMASS-MANO's test split (12 726 segments; the CSV has 12 727
 # lines with its header) cut to its first
-# MANO_EVAL_CUT segments (16 batches of 256), to keep the script within half
+# MANO_EVAL_CUT segments (2 batches of 256), to keep the script within half
 # its time limit: a batch's prediction at 51 nodes takes ~1.7 s.
-MANO_EVAL_CUT = 4096
+MANO_EVAL_CUT = 512
 SKELETON_CPU_SEGMENTS = 2 * BATCH
-SKELETON_CLI_SEGMENTS = 512
+SKELETON_CLI_SEGMENTS = 256
 FID_GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "fid_classifier.npz"
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): fp32 outside the
@@ -1224,49 +1240,52 @@ def check_bf16_errors(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
 
 
 def check_gru_rollout_bf16(predictor, gen: torch.Generator, k1_ms: float) -> dict:
-    """B8 at the decode's shapes on the flagship decoder's own rollout inputs
-    (cx, W_hh and W_fc in bf16), at 12 800, 12 795 and ODD_TILE_ROWS rows
-    (1 595 of its 8-row tiles: the last two-block cluster's second block
-    without rows), 120 steps: the bf16 criteria against its plain version,
-    and a mean deviation of at most B8_MEAN_SHARE× the plain version's own
-    from K1's plain version on the same inputs in fp32; timed beside K1's
-    ``k1_ms`` from the same call."""
+    """B8 at the decode's shapes on the predictor's decoder's own rollout
+    inputs (cx, W_hh and W_fc in bf16), at 12 800, 12 795 and an odd-tile
+    count (up to 21 nodes ODD_TILE_ROWS: 1 595 of its 8-row tiles, the last
+    two-block cluster's second block without rows; past 21 ``odd_cluster_rows``
+    of its 4-row tiles), the predictor's steps: the bf16 criteria against its
+    plain version, and a mean deviation of at most B8_MEAN_SHARE× the plain
+    version's own from K1's plain version on the same inputs in fp32; timed
+    beside K1's ``k1_ms`` from the same call."""
     inp32, inp = rollout_inputs(predictor, gen, (None, torch.bfloat16))
-    rows = BATCH * SAMPLES
+    rows, ph = BATCH * SAMPLES, predictor.pred_length
+    n, _, h3 = inp["cx"].shape
+    h, f = h3 // 3, inp["w_fc"].shape[-1]
+    plan = rollout_mod.rollout_bf16_plan(n, h, f)
+    odd = ODD_TILE_ROWS if not build.wide(n) else odd_cluster_rows(plan)
     parts, err = [], 0.0
     with torch.no_grad():
-        for cut in (rows, rows - RAGGED, ODD_TILE_ROWS):
+        for cut in (rows, rows - RAGGED, odd):
             args, args32 = ({k: v[:, :cut].contiguous() if k in ("cx", "h0") else v
                              for k, v in a.items()} for a in (inp, inp32))
-            got = rollout_mod.gru_rollout(**args, ph=PRED_LEN, compute_dtype=torch.bfloat16)
-            want = rollout_mod.gru_rollout_merged_plain(**args, ph=PRED_LEN)
-            own = (want - rollout_mod.gru_rollout_plain(**args32, ph=PRED_LEN)).abs().mean()
+            got = rollout_mod.gru_rollout(**args, ph=ph, compute_dtype=torch.bfloat16)
+            want = rollout_mod.gru_rollout_merged_plain(**args, ph=ph)
+            own = (want - rollout_mod.gru_rollout_plain(**args32, ph=ph)).abs().mean()
             torch.cuda.synchronize()
             mean, own = (got - want).abs().mean().item(), own.item()
             parts.append(f"{cut} rows {check_bf16_errors('gru_rollout_bf16', got, want)}, "
                          f"{mean / own:.4f}× the plain version's mean {own:.3e} from fp32 "
                          f"(bound {B8_MEAN_SHARE})")
             if not mean <= B8_MEAN_SHARE * own:
-                raise AssertionError(f"gru_rollout_bf16 at {cut} rows: mean {mean} from its "
-                                     f"plain version, its plain version's from fp32 {own}")
+                raise AssertionError(f"gru_rollout_bf16 at {n} nodes, {cut} rows: mean {mean} "
+                                     f"from its plain version, its plain version's from fp32 "
+                                     f"{own}")
             err = max(err, (got - want).abs().max().item())
-        ms = cuda_ms(lambda: rollout_mod.gru_rollout(**inp, ph=PRED_LEN,
+        ms = cuda_ms(lambda: rollout_mod.gru_rollout(**inp, ph=ph,
                                                      compute_dtype=torch.bfloat16), reps=3)
-        plain_ms = cuda_ms(lambda: rollout_mod.gru_rollout_merged_plain(**inp, ph=PRED_LEN),
-                           reps=2)
-    n, _, h3 = inp["cx"].shape
-    h, f = h3 // 3, inp["w_fc"].shape[-1]
+        plain_ms = cuda_ms(lambda: rollout_mod.gru_rollout_merged_plain(**inp, ph=ph), reps=2)
     # the kernel's algorithm per row and step, as check_gru_rollout counts it:
     # the bf16 products and node mixes (tensor-core operands), the fp32 head mix
     tensor_row_step = 2 * n * h * 3 * h + 2 * n * n * h * 4 + 2 * n * h * f
     compulsory = (sum(t.numel() * t.element_size() for t in inp.values())
-                  + 4 * PRED_LEN * n * rows * f)
-    bnd, by = bound_ms(compulsory, 2.0 * n * n * f * rows * PRED_LEN,
-                       float(tensor_row_step) * rows * PRED_LEN)
-    log(f"gru_rollout_bf16: {'; '.join(parts)}; {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"library none, bound {bnd:.3f} ms ({by}); K1 {k1_ms:.3f} ms in this call "
-        f"(B8 / K1 {ms / k1_ms:.3f})")
-    return {"name": "gru_rollout_bf16", "route": "cuda", "nodes": 21,
+                  + 4 * ph * n * rows * f)
+    bnd, by = bound_ms(compulsory, 2.0 * n * n * f * rows * ph,
+                       float(tensor_row_step) * rows * ph)
+    log(f"gru_rollout_bf16 ({n} nodes, {ph} steps, plan {tuple(plan)}): {'; '.join(parts)}; "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library none, bound {bnd:.3f} ms ({by}); K1 "
+        f"{k1_ms:.3f} ms in this call (B8 / K1 {ms / k1_ms:.3f})")
+    return {"name": "gru_rollout_bf16", "route": "cuda", "nodes": n, "steps": ph,
             "source": "skeletondiffusion_tpu_torch/csrc/gru_rollout_merged.cu",
             "replaces": "skeletondiffusion_tpu/ops/pallas/gru_rollout.py:377",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
@@ -1327,24 +1346,33 @@ def peak_extra_bytes(fn) -> int:
 
 # L1's items take 16 batch columns (fp32: 8) of one head: at this count, a
 # multiple of 8 (so its TMA copies address it), both have an odd number of
-# column tiles (799 and 1 597), the last bf16 tile half past the batch.
+# column tiles (799 and 1 597), the last bf16 tile half past the batch.  Past
+# 21 nodes an item takes 8 (fp32: 4): 1 597 tiles in bf16, and in fp32 4 rows
+# fewer (3 193 tiles; ``fm_odd_rows``).
 FM_ODD_TILE_ROWS = 12_776
 
 
-def check_attention_core_fm(gen: torch.Generator) -> dict:
-    """L1 at the lab's shapes (21 joints, 8 heads × 32) in bf16 and fp32, at
-    12 800 rows, a ragged 12 795 (no TMA copies: the producer's own loads)
-    and FM_ODD_TILE_ROWS, and at 32 heads × 1 000 rows; timed in bf16 beside
-    its bound, its plain version, scaled_dot_product_attention on [B, heads,
-    21, dh] views of the feature-major tensor, and B2 on the same data in
-    batch-major."""
-    heads, dh, n, rows = attn_lab.H, attn_lab.DH, attn_lab.N, BATCH * SAMPLES
+def fm_odd_rows(dtype: torch.dtype, n: int) -> int:
+    """FM_ODD_TILE_ROWS, or 4 rows fewer where its column tiles of L1's plan
+    at ``n`` nodes are even in number."""
+    cols = fm_mod.cols(dtype, n)
+    return FM_ODD_TILE_ROWS if -(-FM_ODD_TILE_ROWS // cols) % 2 else FM_ODD_TILE_ROWS - 4
+
+
+def check_attention_core_fm(gen: torch.Generator, n: int = 21) -> dict:
+    """L1 at the lab's shapes (8 heads × 32) at ``n`` joints in bf16 and fp32,
+    at 12 800 rows, a ragged 12 795 (no TMA copies: the producer's own
+    loads) and ``fm_odd_rows``, and at 32 heads × 1 000 rows; timed in bf16
+    beside its bound, its plain version, scaled_dot_product_attention on [B,
+    heads, n, dh] views of the feature-major tensor, and B2 on the same data
+    in batch-major."""
+    heads, dh, rows = attn_lab.H, attn_lab.DH, BATCH * SAMPLES
     hd = heads * dh
     core = functools.partial(fm_mod.attention_core_fm, heads=heads, dim_head=dh)
     parts, err = [], 0.0
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
-            for h, cut in ((heads, rows), (heads, rows - RAGGED), (heads, FM_ODD_TILE_ROWS),
+            for h, cut in ((heads, rows), (heads, rows - RAGGED), (heads, fm_odd_rows(dtype, n)),
                            (32, 1000)):
                 qkv = (0.5 * torch.randn((n, 3 * h * dh, cut), generator=gen,
                                          device="cuda")).to(dtype)
@@ -1355,8 +1383,8 @@ def check_attention_core_fm(gen: torch.Generator) -> dict:
                 if dtype == torch.float32:
                     mx = (got - want).abs().max().item()
                     if not (got.shape == want.shape and mx <= F32_TOL):
-                        raise AssertionError(f"attention_core_fm (fp32, {what}) disagrees "
-                                             f"with its plain version: {mx}")
+                        raise AssertionError(f"attention_core_fm (fp32, {n} nodes, {what}) "
+                                             f"disagrees with its plain version: {mx}")
                     parts.append(f"fp32 {what} max {mx:.3e}")
                 else:
                     parts.append(f"bf16 {what} "
@@ -1378,16 +1406,50 @@ def check_attention_core_fm(gen: torch.Generator) -> dict:
         b2_ms = cuda_ms(lambda: attn_mod.attention_core(qkv_bm, heads=heads, dim_head=dh), reps=20)
     moved = qkv.numel() * qkv.element_size() + out.numel() * out.element_size()
     bnd, by = bound_ms(moved, 0.0, 4.0 * rows * heads * n * n * dh)
-    log(f"attention_core_fm: {'; '.join(parts)}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    log(f"attention_core_fm ({n} nodes, plan {tuple(fm_mod.fm_plan(torch.bfloat16, heads, dh, n))}"
+        f"): {'; '.join(parts)}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{library_ms:.4f} ms (scaled_dot_product_attention on views with a last-dim stride of "
         f"{q.stride(-1)}; {contiguous_ms:.4f} ms on contiguous copies; peak memory of one call "
         f"{extra_mb[0]:.1f} MB on the views, {extra_mb[1]:.1f} MB on the copies, q, k and v "
         f"{qc.numel() * qc.element_size() / 1e6:.1f} MB each), B2 batch-major {b2_ms:.4f} ms, "
         f"bound {bnd:.4f} ms ({by})")
-    return {"name": "attention_core_fm", "route": "cuda", "nodes": 21,
+    return {"name": "attention_core_fm", "route": "cuda", "nodes": n,
             "source": "skeletondiffusion_tpu_torch/csrc/attention_core_fm.cu",
             "replaces": "scripts/attn_core_lab.py:66", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+
+
+def run_count_paths(predictor, gen: torch.Generator, card_name: str) -> dict:
+    """The paths of B8 and L1 at the predictor's node count: a bf16 decode
+    of its decoder (``decode_rollout``, the decode check's call) on 12 800
+    rows over its steps, then the attention lab's feature-major chain
+    (``chain_fm``, DEPTH calls) on the lab's shapes at that count; every
+    launch counter set to 0 before each and read after it.  Returns
+    {kernel: launches}."""
+    n, rows, ph = predictor.skeleton.num_nodes, BATCH * SAMPLES, predictor.pred_length
+    x_last2 = 0.2 * torch.randn((rows, 2, n, 3), generator=gen, device="cuda")
+    z = torch.randn((rows, n, LATENT), generator=gen, device="cuda")
+    qkv = (0.5 * torch.randn((n, 3 * attn_lab.HD, rows), generator=gen, device="cuda")
+           ).to(torch.bfloat16)
+    launches = {}
+    for name, run, want in (
+            ("gru_rollout_bf16", lambda: rollout_mod.decode_rollout(
+                predictor.autoencoder.decoder, x_last2, z, ph, compute_dtype=torch.bfloat16), 1),
+            ("attention_core_fm", lambda: attn_lab.chain_fm(qkv), attn_lab.DEPTH)):
+        reset_counts()
+        with torch.no_grad():
+            out = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = {k: 0 for k in COUNTERS}
+        expected[name] = want
+        if counts != expected or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}'s path at {n} nodes: launch counts {counts}, expected "
+                                 f"{expected}, finite {bool(torch.isfinite(out).all())}")
+        launches[name] = counts[name]
+    log(f"B8 and L1 paths at {n} nodes on {card_name}: a bf16 decode of {rows} rows × {ph} "
+        f"steps and the lab's chain of {attn_lab.DEPTH} calls; launches {launches}")
+    return launches
 
 
 def run_attention_lab(card_name: str) -> dict:
@@ -2154,7 +2216,7 @@ def run_cli(data_root: str, out: str, card_name: str, expected_bf16: dict,
 # observations × 50 samples: |Δ| ≤ VARIANT_TOL·max(1, |CPU|).
 ISOTROPIC = {"diffusion_type": "IsotropicGaussianDiffusion", "diffusion_loss_type": "l1"}
 DDIM_STEPS = 5
-VARIANT_CUT = 4
+VARIANT_CUT = 1
 VARIANT_TOL = 1e-4
 MODULE_VARIANTS = {
     "tanh": {"diffusion_activation": "tanh"},
@@ -2506,7 +2568,8 @@ def run_skeleton_paths(dataset: str, device: torch.device, card_name: str):
     B5b, K2's bf16-x̂₀ entry) and of the layer-fused one (B9a–c) against its
     plain version as phases 3, 5 and 7 hold them, and the three paths
     (preds/s, launches, injected noise against their plain paths) as phases
-    4, 6 and 8 do.  Returns (the kernels' entries, each with its node count
+    4, 6 and 8 do; B8 and L1 as phases 9 and 10 hold them, and their paths
+    (``run_count_paths``).  Returns (the kernels' entries, each with its node count
     and its launches on the path that runs it, the fp32 and bf16
     predictors)."""
     skeleton, predictor = build_model(device, dataset=dataset)
@@ -2539,7 +2602,14 @@ def run_skeleton_paths(dataset: str, device: torch.device, card_name: str):
     for k in layer:
         k["launches"] = launches[k["name"]]
     log_kernel_time(f"{label} layer-fused bf16 path", fused + layer, launches)
-    return kernels + fused + layer, predictor, predictor_bf16
+
+    # B8 and L1 at this count against their plain versions, then their paths
+    counted = [check_gru_rollout_bf16(predictor, gen, kernels[0]["ms"]),
+               check_attention_core_fm(gen, n)]
+    launches = run_count_paths(predictor, gen, card_name)
+    for k in counted:
+        k["launches"] = launches[k["name"]]
+    return kernels + fused + layer + counted, predictor, predictor_bf16
 
 
 def eval_config(dataset: str, data_root: str, extra=()) -> dict:
@@ -2575,8 +2645,8 @@ def write_fid_classifier(folder: str) -> None:
 def run_skeleton_eval(dataset: str, predictor_bf16, card_name: str, root: str) -> dict:
     """``compute_metrics`` (probabilistic, CMD; APDE on H36M; FID on H36M
     through the eval CLI's ``fid_classifier`` hook) with the bf16 predictor
-    over the test split of ``dataset``'s shipped annotations (every segment
-    unless SKELETON_EVAL_CUT), its launches a batch as the bf16 path's, eval
+    over the test split of ``dataset``'s shipped annotations (its first
+    SKELETON_EVAL_CUT segments), its launches a batch as the bf16 path's, eval
     preds/s; ZeroVelocity on the card against the CPU on a tree of the first
     SKELETON_CPU_SEGMENTS segments; the eval batch's device time split
     (``EvalClock``: predictor, metric suite, FID features, the rest).
@@ -2695,13 +2765,14 @@ def run_skeleton_cli(root: str, card_name: str) -> None:
 
 
 def check_refusals() -> None:
-    """Past 51 nodes every predictor kernel refuses on the card before it
-    launches, naming the ROADMAP item of shapes no skeleton of the reference
-    has; so do B8 and L1 at 51 nodes (they stay at 21) and the fp32 engine's
+    """Past 51 nodes every kernel refuses on the card before it launches,
+    naming the ROADMAP item of shapes no skeleton of the reference has (B8
+    and L1 too: they take every skeleton's count); so do the fp32 engine's
     plans at 51 (their tiles do not fit, ROADMAP Queue B item 10); K2
     refuses a bf16 x̂₀ whose rows a tensor map cannot address."""
     n, rows = 52, 64
     x = torch.zeros((n, rows, 192), dtype=torch.bfloat16, device="cuda")
+    bf = dict(dtype=torch.bfloat16, device="cuda")
     calls = {"rms_qkv": lambda: proj_mod.rms_qkv(x, x[0, 0], torch.zeros(
                  (n, 192, 768), dtype=torch.bfloat16, device="cuda"), x[:, 0, :n]),
              "attention_core": lambda: attn_mod.attention_core(
@@ -2713,13 +2784,18 @@ def check_refusals() -> None:
              "gru_rollout": lambda: rollout_mod.gru_rollout(
                  *(torch.zeros(s, device="cuda") for s in (
                      (n, rows, 288), (n, rows, 96), (n, 96, 288), (n, 288), (n, n), (n, n),
-                     (n, 96, 3), (n, 3), (n, n))), ph=2)}
+                     (n, 96, 3), (n, 3), (n, n))), ph=2),
+             "gru_rollout_bf16": lambda: rollout_mod.gru_rollout(
+                 torch.zeros((n, rows, 288), **bf), torch.zeros((n, rows, 96), device="cuda"),
+                 torch.zeros((n, 96, 288), **bf),
+                 *(torch.zeros(s, device="cuda") for s in ((n, 288), (n, n), (n, n))),
+                 torch.zeros((n, 96, 3), **bf),
+                 *(torch.zeros(s, device="cuda") for s in ((n, 3), (n, n))), ph=2,
+                 compute_dtype=torch.bfloat16),
+             "attention_core_fm": lambda: fm_mod.attention_core_fm(
+                 torch.zeros((n, 768, rows), **bf), heads=8, dim_head=32)}
     m = 51
-    at51 = {"gru_rollout_bf16": lambda: build.check_nodes("gru_rollout_bf16",
-                                                          "gru_rollout_merged", m),
-            "attention_core_fm": lambda: build.check_nodes("attention_core_fm",
-                                                           "attention_core_fm", m),
-            "resnet_block fp32": lambda: block_mod.resnet_block_plan(torch.float32, 192, m),
+    at51 = {"resnet_block fp32": lambda: block_mod.resnet_block_plan(torch.float32, 192, m),
             "rms_qkv fp32": lambda: proj_mod.rms_qkv_plan(torch.float32, 192, 768, m),
             "rms_qkv_core fp32": lambda: layer_mod.rms_qkv_core_plan(torch.float32, 192, 8, 32,
                                                                      m)}
@@ -2732,8 +2808,7 @@ def check_refusals() -> None:
     before = read_counts()
     for name, call, want in [*((k, c, "multiple of 8" if "12 columns" in k
                                 else "no skeleton of the reference") for k, c in calls.items()),
-                             *((k, c, "Queue B item 9" if "fp32" not in k else "Queue B item 10")
-                               for k, c in at51.items())]:
+                             *((k, c, "Queue B item 10") for k, c in at51.items())]:
         try:
             call()
         except ValueError as e:
@@ -2745,9 +2820,8 @@ def check_refusals() -> None:
         raise AssertionError("a refused call counted a launch")
     at52 = [k for k in calls if "12 columns" not in k]
     log(f"refusals: {', '.join(at52)} at {n} nodes raise, naming shapes no skeleton of the "
-        f"reference has (ROADMAP Queue B item 9); at {m} nodes B8 and L1 raise (Queue B "
-        f"item 9) and the fp32 engine's plans (Queue B item 10); K2 refuses a bf16 x̂₀ of "
-        f"12 columns (a TMA row is whole 16 bytes)")
+        f"reference has (ROADMAP Queue B item 9); at {m} nodes the fp32 engine's plans (Queue B "
+        f"item 10); K2 refuses a bf16 x̂₀ of 12 columns (a TMA row is whole 16 bytes)")
 
 
 def run_skeletons(device: torch.device, card_name: str, predictor_bf16_amass):
@@ -2853,7 +2927,7 @@ def run_mano(device: torch.device, card_name: str):
 # The capstone phase: scripts/torch_convergence_capstone.py at full width
 # (the flagship's configs, observe 30, predict 120, its full-size synthetic
 # motion tree) on a minimal schedule set through the script's own overrides.
-CAPSTONE_CUT = ["--ae-epochs", "2", "--ae-iters", "4", "--diff-epochs", "2", "--diff-iters", "4",
+CAPSTONE_CUT = ["--ae-epochs", "1", "--ae-iters", "2", "--diff-epochs", "1", "--diff-iters", "2",
                 "--diff-warmup", "1", "--eval-freq", "1"]
 # the kernels the capstone's run must launch: K1 (the AutoEncoder's
 # validation, stage 2's k-best decode, the evals), K2 and the single-stage
@@ -3137,14 +3211,19 @@ def parallel_eval_rank(mesh, data_root: str) -> tuple:
 
 
 def parallel_ranks(mesh, data_root: str, spec: dict, step_args: tuple) -> tuple:
-    """One rank of the parallel phase: the eval (``parallel_eval_rank``), then
-    the fp32 stage-2 step (``dryrun.stage2_step``)."""
+    """One rank of the parallel phase: the eval (``parallel_eval_rank``), the
+    fp32 stage-2 step (``dryrun.stage2_step``) on the data axis, then the same
+    step on a mesh of 1 data × PARALLEL_RANKS model ranks built over the same
+    processes (``create_mesh(..., model_parallel=)``: new groups, the weights
+    split at ``shard_params_model_axis``'s default ``min_size``)."""
     t0 = time.perf_counter()
     evaluated = parallel_eval_rank(mesh, data_root)
     eval_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     step = dryrun.stage2_step(mesh, spec, *step_args)
-    return evaluated, eval_s, step, time.perf_counter() - t0
+    step_s = time.perf_counter() - t0
+    model_mesh = create_mesh(PARALLEL_RANKS, model_parallel=PARALLEL_RANKS, device="cuda")
+    return evaluated, eval_s, step, step_s, dryrun.stage2_step(model_mesh, spec, *step_args)
 
 
 def vector_relative(a: dict, b: dict) -> float:
@@ -3176,7 +3255,8 @@ def run_parallel(data_root: str, eval_results: dict, card_name: str) -> None:
     TRAIN_LOSS_TOL, gradient norm TRAIN_GNORM_TOL, relative), and its
     loss and gradient against the mean of the two halves' steps taken in
     this process (the rows a rank takes, one call each) within
-    PARALLEL_SPLIT_TOL."""
+    PARALLEL_SPLIT_TOL; then the same step on the model axis
+    (``hold_model_axis``)."""
     spec = flagship_spec()
     gen = torch.Generator().manual_seed(SEED + 60)
     x = 0.3 * torch.randn((TRAIN_BATCH, OBS_LEN, 21, 3), generator=gen)
@@ -3190,7 +3270,7 @@ def run_parallel(data_root: str, eval_results: dict, card_name: str) -> None:
         f"{time.perf_counter() - t0:.1f} s: eval {[round(r[1], 1) for r in ranks]} s, stage-2 "
         f"step {[round(r[3], 1) for r in ranks]} s")
     batches = -(-EVAL_SEGMENTS // BATCH)
-    for rank, ((results, counts), _, _, _) in enumerate(ranks):
+    for rank, ((results, counts), *_) in enumerate(ranks):
         check_counts(f"parallel eval, rank {rank}", counts,
                      {k: v * batches for k, v in EXPECTED_BF16.items()})
         hold_metrics(f"parallel eval, rank {rank} of {PARALLEL_RANKS} against the eval "
@@ -3206,7 +3286,7 @@ def run_parallel(data_root: str, eval_results: dict, card_name: str) -> None:
                                  device="cuda") for r in range(PARALLEL_RANKS)]
     split = {k: sum(h["grads"][k] for h in halves) / PARALLEL_RANKS for k in one["grads"]}
     split_loss = sum(h["loss"] for h in halves) / PARALLEL_RANKS
-    for rank, (_, _, step, _) in enumerate(ranks):
+    for rank, (_, _, step, _, _) in enumerate(ranks):
         loss_err = relative(step["loss"], one["loss"])
         gnorm_err = relative(step["grad_norm"], one["grad_norm"])
         split_err = vector_relative(step["grads"], split)
@@ -3228,6 +3308,38 @@ def run_parallel(data_root: str, eval_results: dict, card_name: str) -> None:
                 and relative(step["loss"], split_loss) <= PARALLEL_SPLIT_TOL):
             raise AssertionError(f"parallel stage-2 step, rank {rank}: loss {loss_err}, grad "
                                  f"norm {gnorm_err}, gradient against the halves {split_err}")
+    hold_model_axis([r[4] for r in ranks], one, [r[2] for r in ranks])
+
+
+def hold_model_axis(ranks: list, one: dict, data_steps: list) -> None:
+    """The parallel phase's fp32 stage-2 step of the flagship on a mesh of 1
+    data × 2 model ranks on the one card (gloo; ``ranks``): the weights that
+    ``shard_params_model_axis`` splits (its default ``min_size``: the banks
+    and the dense layers) keep half their output features on each rank, and
+    each rank runs the whole batch.  Held against the one-process step
+    ``one`` at the train phase's bounds (loss TRAIN_LOSS_TOL, gradient norm
+    TRAIN_GNORM_TOL, relative); the split shapes and the step's seconds
+    printed beside the one-process step's and the data axis's
+    (``data_steps``)."""
+    split = ranks[0]["split"]
+    log(f"parallel model axis: {PARALLEL_RANKS} ranks (1 data × {PARALLEL_RANKS} model) on one "
+        f"card; {len(split)} weights split (whole → a rank's): "
+        + ", ".join(f"{k} {w} → {l}" for k, (w, l) in split.items()))
+    for rank, step in enumerate(ranks):
+        loss_err = relative(step["loss"], one["loss"])
+        gnorm_err = relative(step["grad_norm"], one["grad_norm"])
+        worst = max((step["params"][k] - v).abs().max().item() for k, v in one["params"].items())
+        log(f"parallel model-axis stage-2 step (fp32, batch {TRAIN_BATCH} × k {TRAIN_K}), rank "
+            f"{rank} {step['mesh']}: loss {step['loss']!r} vs {one['loss']!r} (relative "
+            f"{loss_err:.3e}, tol {TRAIN_LOSS_TOL:.0e}), grad norm {step['grad_norm']!r} vs "
+            f"{one['grad_norm']!r} (relative {gnorm_err:.3e}, tol {TRAIN_GNORM_TOL:.0e}), "
+            f"parameters after the step max |Δ| {worst:.3e} (not held, as on the data axis); "
+            f"step {step['step_s']:.3f} s, the whole weights in one process "
+            f"{one['step_s']:.3f} s, a data-axis rank {[round(d['step_s'], 3) for d in data_steps]} s")
+        if not (len(split) > 0 and loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+                and step["split"] == split):
+            raise AssertionError(f"parallel model-axis step, rank {rank}: loss {loss_err}, grad "
+                                 f"norm {gnorm_err}, {len(split)} weights split")
 
 
 def log_kernel_time(label: str, entries: list, launches: dict) -> None:
@@ -3259,7 +3371,7 @@ def main() -> int:
     t = time.perf_counter()
     seconds = build.build_all(NODE_COUNTS)
     for nodes in NODE_COUNTS:
-        for src in build.sources_for(nodes):
+        for src in build.sources():
             build.library(src.stem, nodes)
             for line in build.ptxas_report(src.stem, nodes).splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:

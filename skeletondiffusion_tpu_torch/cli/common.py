@@ -5,8 +5,9 @@ loop both training CLIs run.
 Port of ``skeletondiffusion_tpu/cli/common.py`` (`:19-124`; the reference's
 `src/train_utils.py` and `src/inference_utils.py` factories).
 ``setup_mesh`` joins the process group torchrun describes and builds the
-run's data axis (``parallel/mesh.py``; None in one process), and
-``setup_device`` picks the device: the rank's own on a data axis, else the
+run's mesh (``parallel/mesh.py``; None in one process): a data axis, and a
+model axis of ``device_mesh.model_parallel`` ranks as the JAX CLIs read it,
+and ``setup_device`` picks the device: the rank's own on a mesh, else the
 ``device`` override.
 """
 from __future__ import annotations
@@ -148,11 +149,14 @@ def make_eval_preprocess(skeleton):
 
 
 def setup_mesh(cfg: Dict[str, Any]) -> Optional[DataMesh]:
-    """The run's data axis, or None in one process: the process group of
-    ``RANK``/``WORLD_SIZE``/``MASTER_*`` (torchrun) joined, an axis of
+    """The run's mesh, or None in one process: the process group of
+    ``RANK``/``WORLD_SIZE``/``MASTER_*`` (torchrun) joined, a mesh of
     ``device_mesh.n_devices`` ranks (default: the group's size; it must be
-    the group's size), each on the ``device`` override's kind of device.
-    ``device_mesh.model_parallel`` above 1 raises (``parallel.TENSOR_PARALLEL``)."""
+    the group's size), each on the ``device`` override's kind of device:
+    n / m data × m model ranks, m = ``device_mesh.model_parallel`` (1
+    unless given; it must divide n).  As in the JAX CLIs the parameters stay
+    replicated: the ranks of a model group train on the same rows, and the
+    batch rows split over the data axis."""
     maybe_initialize_distributed()
     mesh_cfg = cfg.get("device_mesh") or {}
     model_parallel = mesh_cfg.get("model_parallel") or 1
@@ -205,12 +209,13 @@ class TrainRun(NamedTuple):
     loader: DataLoader
     iter_per_epoch: int
     check_loss: Callable
-    mesh: Optional[DataMesh] = None  # the data axis; rank 0 writes the experiment
+    mesh: Optional[DataMesh] = None  # the mesh; its first rank writes the experiment
 
     @property
     def writes(self) -> bool:
-        """Whether this process writes the experiment's files (rank 0)."""
-        return self.mesh is None or self.mesh.rank == 0
+        """Whether this process writes the experiment's files (the mesh's
+        first rank)."""
+        return self.mesh is None or self.mesh.first
 
 
 def train_loader(cfg: Dict, skeleton, seed: int):
@@ -232,7 +237,7 @@ def start_run(cfg: Dict) -> TrainRun:
     loader."""
     out_dir = cfg["output_log_path"]
     mesh = setup_mesh(cfg)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.first:
         os.makedirs(out_dir, exist_ok=True)
         save_config(cfg, os.path.join(out_dir, "config.yaml"))
         snapshot_code(out_dir)

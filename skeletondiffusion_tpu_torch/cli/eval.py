@@ -179,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             fid_classifier=fid_classifier(cfg, split),
             mesh=mesh,
         )
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and not mesh.first:
         return results  # every rank holds the table; rank 0 prints and writes it
     if prof_dir is not None:
         print("profiler trace written to", prof_dir)

@@ -43,6 +43,14 @@
 // theirs (a slower path, for ragged batches).  Two stages of 64.5 KB, the
 // 70 KB transposed tile and O's 21 KB fit in 227 KB.
 //
+// The node count N is the build's (node_mix.cuh, -DSKD_NODES: 16, 17, 21,
+// 51); the figures above are at 21.  The tensor map's box {C, 32, N}, the
+// stages, the transposed tile and O's staging follow N.  Past 21 nodes
+// (nodemix::kWide) an item takes half the columns (bf16 8, fp32 4: a box
+// row of 16 bytes), the transposes take a warp per (part, joint) of 32
+// features × 8 columns, and the plan takes the stages that fit (one at 51:
+// a stage of 78 336 bytes, the tile 85 760, O 26 112 in bf16).
+//
 // At the bench shapes on an H100 (scripts/torch_attention_probe.py, PERF.md
 // §6) an item takes ~7 800 cycles of the consumers: the transpose ~1 960
 // (bound by shared memory: 129 KB through it, the ldmatrix reads 2-way
@@ -63,10 +71,6 @@ namespace {
 using sm90mix::bf16;
 
 constexpr int kN = sm90mix::kNodes;
-// the tensor map's box, the transposed tile and O's staging are sized for the
-// AMASS skeleton; ops/kernels/build.py builds this lab kernel at 21 nodes
-// only (other counts: ROADMAP Queue B item 9)
-static_assert(kN == 21, "the feature-major core is built for 21 nodes");
 constexpr int kDimHead = 32;
 constexpr int kMaxHeads = 32;
 constexpr int kWarps = 8;                  // consumer warps a block
@@ -78,16 +82,19 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// batch columns an item: a row of a stage's tile is 32 bytes in both types
+// batch columns an item: a row of a stage's tile is 32 bytes in both types up
+// to 21 nodes; past 21 (nodemix::kWide) 16 bytes, the least a TMA box row
+// may have, so that a stage, the transposed tile and O fit in one block's
+// shared memory (at 51 nodes with one stage: 190 336 bytes in bf16)
 template <typename T>
 struct FmTile;
 template <>
 struct FmTile<bf16> {
-  static constexpr int kCols = 16;
+  static constexpr int kCols = nodemix::kWide ? 8 : 16;
 };
 template <>
 struct FmTile<float> {
-  static constexpr int kCols = 8;
+  static constexpr int kCols = nodemix::kWide ? 4 : 8;
 };
 
 // Byte offsets of one block's shared memory (the wrapper's plan,
@@ -186,8 +193,7 @@ __device__ __forceinline__ void load_stage(T* st, const T* __restrict__ qkv, int
 template <typename T, int C>
 __device__ __forceinline__ void transpose_stage(const unsigned char* st, T* tt, int cs, int ld) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if constexpr (std::is_same_v<T, bf16>) {
-    static_assert(C == 16, "a warp's matrices: 16 features × 16 columns");
+  if constexpr (std::is_same_v<T, bf16> && C == 16) {
     const int mi = lane >> 3;  // the matrix whose row this lane addresses
 #pragma unroll 4
     for (int u = warp; u < 3 * kN * 2; u += kWarps) {
@@ -201,6 +207,21 @@ __device__ __forceinline__ void transpose_stage(const unsigned char* st, T* tt, 
         const int col = 8 * (m & 1) + (lane >> 2);
         const int ff = part * kDimHead + 16 * half + 8 * (m >> 1) + 2 * (lane & 3);
         *reinterpret_cast<uint32_t*>(tt + j * ld + col * cs + ff) = v[m];
+      }
+    }
+  } else if constexpr (std::is_same_v<T, bf16>) {
+    // past 21 nodes: a warp takes the 32 features × 8 columns of one (part,
+    // joint), matrix m features 8m …; lane l addresses feature l
+    static_assert(C == 8, "a warp's matrices: 32 features × 8 columns");
+#pragma unroll 4
+    for (int pj = warp; pj < 3 * kN; pj += kWarps) {
+      const int part = pj / kN, j = pj % kN;
+      uint32_t v[4];
+      sm90mix::ldmatrix_x4_trans(v, sm90mix::smem_u32(st) + sizeof(T) * (pj * kDimHead + lane) * C);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int ff = part * kDimHead + 8 * m + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(tt + j * ld + (lane >> 2) * cs + ff) = v[m];
       }
     }
   } else {
@@ -227,7 +248,7 @@ __device__ __forceinline__ void transpose_stage(const unsigned char* st, T* tt, 
 template <typename T, int C>
 __device__ __forceinline__ void stage_o(const T* tt, T* os, int cs, int ld) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && C == 16) {
     const int mi = lane >> 3;
 #pragma unroll 2
     for (int u = warp; u < kN * 2; u += kWarps) {
@@ -242,6 +263,19 @@ __device__ __forceinline__ void stage_o(const T* tt, T* os, int cs, int ld) {
         *reinterpret_cast<uint32_t*>(os + (j * kDimHead + f) * C + 8 * (m & 1) + 2 * (lane & 3)) =
             v[m];
       }
+    }
+  } else if constexpr (std::is_same_v<T, bf16>) {
+    // past 21 nodes: a warp a joint, 8 columns × 32 features (matrix m
+    // features 8m …); lane l addresses column l % 8 of matrix l / 8
+#pragma unroll 2
+    for (int j = warp; j < kN; j += kWarps) {
+      uint32_t v[4];
+      sm90mix::ldmatrix_x4_trans(
+          v, sm90mix::smem_u32(tt + j * ld + (lane & 7) * cs + 8 * (lane >> 3)));
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        *reinterpret_cast<uint32_t*>(os + (j * kDimHead + 8 * m + (lane >> 2)) * C +
+                                     2 * (lane & 3)) = v[m];
     }
   } else {
 #pragma unroll 2
@@ -402,14 +436,14 @@ cudaError_t encode_map(CUtensorMap* map, const void* base, int rows, int width,
 }
 
 // The wrapper's plan (columns an item, stages, shared-memory bytes) must be
-// the one instantiated here: the type's columns, 2 to kMaxStages stages and
+// the one instantiated here: the type's columns, 1 to kMaxStages stages and
 // the shared memory fm_layout computes.
 template <typename T>
 int launch(const void* qkv, void* out, int n_nodes, int rows, int heads, int dim_head, int cols,
            int stages, int smem_bytes, void* stream) {
   using namespace sm90mix;
   if (n_nodes != kN || dim_head != kDimHead || rows <= 0 || heads <= 0 || heads > kMaxHeads ||
-      cols != FmTile<T>::kCols || stages < 2 || stages > kMaxStages)
+      cols != FmTile<T>::kCols || stages < 1 || stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
   const FmLayout l = fm_layout<T>(stages);
   if (static_cast<size_t>(smem_bytes) != l.total || l.total > static_cast<size_t>(kMaxSmem))

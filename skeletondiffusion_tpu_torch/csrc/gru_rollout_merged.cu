@@ -87,6 +87,16 @@
 // outputs 2 016; total 232 112 of the 232 448 a block may have, one block
 // an SM.
 // The TPU kernel padded H to 128 lanes and F to 8 rows; here both stay real.
+//
+// The node count N is the build's (node_mix.cuh, -DSKD_NODES: 16 for H36M,
+// 17 for FreeMan, 21 for AMASS, 51 for AMASS-MANO); the figures above are at
+// 21.  Up to 21 nodes the tiles follow N: a warp's product nodes, the mixes'
+// output tiles and the r/z mix's k16 tiles over 2N number ⌈N/8⌉ (3 at 21 and
+// 17, 2 at 16), n's mix is a k16 and a k8 tile as N needs them, the gate
+// update takes a tile a ring stage, and the stages, cx, bf16(h), the gate
+// buffers, W_fcᵀ and G follow N (the zero and junk rows stand in for nodes
+// past N).  Past 21 nodes (nodemix::kWide) a second design runs, chosen at
+// compile time: see its section below.
 
 #include "node_mix_sm90.cuh"
 
@@ -100,10 +110,34 @@ using bf16 = __nv_bfloat16;
 using sm90mix::RingPos;
 
 constexpr int kN = nodemix::kNodes, kH = 96, kF = 3;
-// the warps' node tiles, the junk row and the stages are laid out for the
-// AMASS skeleton; ops/kernels/build.py builds this source at 21 nodes only
-// (other counts: ROADMAP Queue B item 9)
-static_assert(kN == 21, "the bf16 rollout is built for 21 nodes");
+static_assert(nodemix::kWide == (SKD_NODES > 21), "the #if below picks the design of kWide");
+
+// The gates' activations: 1/(1 + e^−x) without branches, e^−x as
+// ex2.approx of −x·log2 e (__expf), the quotient to ~2 ulp (r and z are
+// rounded to bf16 after it; expf moved B8's mean deviation from the plain
+// version by 0.5%); tanh as the library's tanhf, to ~2 ulp everywhere.  The
+// fp32 rollout's branch-free 1 − 2/(e^{2x} + 1) loses the relative
+// precision of small results to the cancellation, which moves bf16(h') off
+// the plain version's often enough to raise B8's mean deviation from it by
+// ~40% (PERF.md §6).
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
+__device__ __forceinline__ float tanh_gate(float x) {
+  return tanhf(x);
+}
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+#if SKD_NODES <= 21
+// ---- the design up to 21 nodes ---------------------------------------------
+// Node tiles of 8: a warp's product nodes (w, w + 8, …), the mixes' output
+// tiles and the r/z mix's k16 tiles over 2N all number kNT; n's mix is a k16
+// tile (nodes 0–15, past 8 nodes) and a k8 tile (the nodes past 16, or all
+// of up to 8).
+constexpr int kNT = (kN + 7) / 8;               // 3 at 21 nodes, 2 at 16, 3 at 17
+constexpr bool kNk16 = kN > 8;                  // n's mix has a k16 tile
+constexpr bool kNk8 = kN > 16 || kN <= 8;       // and a k8 tile
+constexpr int kK8Base = kNk16 ? 16 : 0;         // the k8 tile's first node
 constexpr int kRows = 8;                        // batch rows a block (the products' n8)
 constexpr int kCluster = 2;                     // blocks a cluster, one multicast a stage
 constexpr int kSlice = 16;                      // hidden columns a slice
@@ -114,12 +148,12 @@ constexpr int kKSteps = kH / kKRows;            // 6 stages a slice
 constexpr int kStages = 2;                      // ring stages
 constexpr int kStageNode = kKRows * kGateCols * 2;  // 1 536 bytes of a node in a stage
 constexpr int kStageBytes = kN * kStageNode;        // 32 256
-constexpr int kGRow = 24;                       // G rows padded to whole float4s
+constexpr int kGRow = 8 * kNT;                  // G rows padded to whole node tiles (24 at 21)
 constexpr int kPRow = 112;                      // bytes between rows of a gate buffer's plane
 constexpr int kPPlane = kRows * kPRow + 16;     // 912: bytes between its node planes
 constexpr int kHbRow = 208;                     // bytes between rows of bf16(h) (104 values)
 constexpr int kHbPlane = kRows * kHbRow + 16;   // 1 680
-constexpr int kHFrag = 3 * 32 * 4;              // fp32 h of one warp and slice: 3 n8 tiles
+constexpr int kHFrag = kNT * 32 * 4;            // fp32 h of one warp and slice: kNT n8 tiles
 constexpr int kConsumers = sm90mix::kConsumers;  // 256: 8 warps, two warpgroups
 constexpr int kWarps = sm90mix::kConsumerWarps;
 constexpr int kThreads = kConsumers + 128;      // and a third warpgroup: producer, cx loader
@@ -128,9 +162,11 @@ constexpr int kConsumerRegs = 232, kOtherRegs = 40;  // setmaxnreg: 256·232 + 1
 constexpr int kCxChunks = kN * kRows * 6;       // 16-byte chunks of a slice's cx (r, z, n × 2)
 constexpr int kFcFrags = kN * kKSteps * 12;     // W_fcᵀ A fragments: lanes 0–11 hold rows 0–2
 constexpr int kZero = 48;                       // a zero row: the mix's rows past the nodes
-constexpr int kJunk = 64;                       // a row the stores of nodes past 21 go to
-constexpr int kGateStages = 3;                  // ring stages the gate update's tiles spread over
-static_assert(3 % kGateStages == 0 && kGateStages + 1 <= kKSteps, "whole tiles a stage");
+constexpr int kJunk = 64;                       // a row the stores of nodes past kN go to
+constexpr int kGateStages = kNT;                // ring stages the gate update's tiles spread over
+static_assert(kGateStages + 1 <= kKSteps, "a tile of the gate update a ring stage");
+static_assert(kN * kRows * kF <= 2 * kConsumers && kN <= 32,
+              "the head's mix takes two items a thread, the G update an entry a lane");
 static_assert(kWarps == kRows, "the mix takes a warp a row");
 static_assert(kStages <= kKSteps - 2,
               "a warp mixes slice J - 1 before it releases stage 1 of slice J, so no warp "
@@ -157,22 +193,6 @@ static_assert(Layout::total <= sm90mix::kMaxSmem, "one block an SM");
 static_assert(Layout::h32 % 16 == 0 && Layout::hb % 16 == 0 && Layout::hw3 % 16 == 0 &&
                   Layout::cx % 16 == 0 && Layout::fc % 16 == 0 && Layout::g % 16 == 0,
               "16-byte aligned buffers (ldmatrix rows, cp.async, float4)");
-
-// The gates' activations: 1/(1 + e^−x) without branches, e^−x as
-// ex2.approx of −x·log2 e (__expf), the quotient to ~2 ulp (r and z are
-// rounded to bf16 after it; expf moved B8's mean deviation from the plain
-// version by 0.5%); tanh as the library's tanhf, to ~2 ulp everywhere.  The
-// fp32 rollout's branch-free 1 − 2/(e^{2x} + 1) loses the relative
-// precision of small results to the cancellation, which moves bf16(h') off
-// the plain version's often enough to raise B8's mean deviation from it by
-// ~40% (PERF.md §6).
-__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
-__device__ __forceinline__ float tanh_gate(float x) {
-  return tanhf(x);
-}
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <int kRegs>
 __device__ __forceinline__ void regs_inc() {
@@ -358,8 +378,8 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
   } else {
     regs_inc<kConsumerRegs>();
     const int g = lane >> 2, tq = lane & 3;
-    // the products' nodes of this warp: w, w + 8, w + 16 (< 21)
-    const int nodes = warp + 16 < kN ? 3 : 2;
+    // the products' nodes of this warp: w, w + 8, … (< kN)
+    const int nodes = warp < kN ? (kN - warp + 7) / 8 : 0;
     // ldmatrix.trans of W_hhᵀ from a stage: lane → bank row k of matrix
     // lane/8, its chunk of 8 columns (pairs swapped where bit 2 of k is set)
     const int wk = (lane & 7) + 8 * (lane >> 4);
@@ -375,32 +395,32 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
       return k < kN ? sm90mix::smem_u32(cx_s) + k * kPPlane + row_off
                     : k < 2 * kN ? sm90mix::smem_u32(hw3_s) + (k - kN) * kPPlane + row_off : 0u;
     };
-    uint32_t a_rz[3], a_x16, a_h16, a_x8, a_h8;  // 0 reads the zero row
+    uint32_t a_rz[kNT], a_x16, a_h16, a_x8, a_h8;  // 0 reads the zero row
 #pragma unroll
-    for (int s = 0; s < 3; ++s) a_rz[s] = plane(16 * s + mk);
-    a_x16 = sm90mix::smem_u32(cx_s) + mk * kPPlane + row_off;
-    a_h16 = sm90mix::smem_u32(hw3_s) + mk * kPPlane + row_off;
+    for (int s = 0; s < kNT; ++s) a_rz[s] = plane(16 * s + mk);
+    a_x16 = mk < kN ? sm90mix::smem_u32(cx_s) + mk * kPPlane + row_off : 0u;
+    a_h16 = mk < kN ? sm90mix::smem_u32(hw3_s) + mk * kPPlane + row_off : 0u;
     {
-      const int k8 = 16 + (lane & 7);  // lanes 0–15 of the x2
+      const int k8 = kK8Base + (lane & 7);  // lanes 0–15 of the x2
       a_x8 = k8 < kN ? sm90mix::smem_u32(cx_s) + k8 * kPPlane + row_off : 0u;
       a_h8 = k8 < kN ? sm90mix::smem_u32(hw3_s) + k8 * kPPlane + row_off : 0u;
     }
     auto at = [&](uint32_t a, uint32_t gate) { return a ? a + gate : zero; };
-    float bfc[3];
+    float bfc[kNT];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < kNT; ++i) {
       const int m = warp + 8 * i;
       bfc[i] = (i < nodes && g < kF) ? b_fc[m * kF + g] : 0.0f;
     }
-    uint32_t bh[3][kKSteps][2];  // bf16(h) of this warp's nodes, the products' B
-    uint32_t grz[3][3][2], gx16[3][2], gx8[3];  // bf16(G_t), the mixes' B
+    uint32_t bh[kNT][kKSteps][2];  // bf16(h) of this warp's nodes, the products' B
+    uint32_t grz[kNT][kNT][2], gx16[kNT][2], gx8[kNT];  // bf16(G_t), the mixes' B
     uint32_t cx_parity = 0;  // of cx_full, which completes once a slice
 
     // the B fragments of bf16(h) of this warp's nodes (after a barrier that
     // follows the last write of bf16(h))
     auto load_h = [&]() {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
+      for (int i = 0; i < kNT; ++i) {
         if (i < nodes) {
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
@@ -414,26 +434,26 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
         }
       }
     };
-    // bf16(G_t) as the mixes' B fragments: [gc | gc] over 48 rows for r
-    // and z, gc over 24 for n's parts (after a barrier that follows G_t's
-    // last write)
+    // bf16(G_t) as the mixes' B fragments: [gc | gc] over 16·kNT rows for r
+    // and z, gc over the k16 and k8 tiles for n's parts (after a barrier that
+    // follows G_t's last write)
     auto load_g = [&]() {
       auto gc = [&](int n, int m) {  // rows past the nodes are zero
         return n < kN && m < kN ? g_s[n * kGRow + m] : 0.0f;
       };
       auto gv = [&](int n, int k) { return gc(n, k < kN ? k : k < 2 * kN ? k - kN : kN); };
 #pragma unroll
-      for (int nt = 0; nt < 3; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
         const int n = 8 * nt + g;
 #pragma unroll
-        for (int s = 0; s < 3; ++s) {
+        for (int s = 0; s < kNT; ++s) {
           const int k = 16 * s + 2 * tq;
           grz[s][nt][0] = sm90mix::pack_bf16(gv(n, k), gv(n, k + 1));
           grz[s][nt][1] = sm90mix::pack_bf16(gv(n, k + 8), gv(n, k + 9));
         }
         gx16[nt][0] = sm90mix::pack_bf16(gc(n, 2 * tq), gc(n, 2 * tq + 1));
         gx16[nt][1] = sm90mix::pack_bf16(gc(n, 2 * tq + 8), gc(n, 2 * tq + 9));
-        gx8[nt] = sm90mix::pack_bf16(gc(n, 16 + 2 * tq), gc(n, 17 + 2 * tq));
+        gx8[nt] = sm90mix::pack_bf16(gc(n, kK8Base + 2 * tq), gc(n, kK8Base + 1 + 2 * tq));
       }
     };
 
@@ -445,7 +465,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
 #pragma unroll 1
       for (int J = 0; J < kSlices; ++J) {
 #pragma unroll
-        for (int nt = 0; nt < 3; ++nt) {
+        for (int nt = 0; nt < kNT; ++nt) {
           float v[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -457,7 +477,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
               *reinterpret_cast<bf16*>(hb_s + n * kHbPlane + warp * kHbRow + 2 * j) =
                   __float2bfloat16_rn(v[e]);
           }
-          *reinterpret_cast<float4*>(h32 + ((J * kWarps + warp) * 3 + nt) * 128 + 4 * lane) =
+          *reinterpret_cast<float4*>(h32 + ((J * kWarps + warp) * kNT + nt) * 128 + 4 * lane) =
               make_float4(v[0], v[1], v[2], v[3]);
         }
       }
@@ -484,10 +504,10 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
           const int Jm = J - 1;
           // ---- hw3 of this warp's nodes for slice J's 48 gate columns, the
           // sums started at b_hh
-          float acc[3][3][4];
+          float acc[kNT][3][4];
           if (multiply) {
 #pragma unroll
-            for (int i = 0; i < 3; ++i)
+            for (int i = 0; i < kNT; ++i)
 #pragma unroll
               for (int a = 0; a < 3; ++a) {
                 const float* b = b_hh + (warp + 8 * i) * 3 * kH + a * kH + J * kSlice + g;
@@ -497,7 +517,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
                 acc[i][a][2] = acc[i][a][3] = hi;
               }
           }
-          float yr[3][4], yz[3][4], yx[3][4], yh[3][4];
+          float yr[kNT][4], yz[kNT][4], yx[kNT][4], yh[kNT][4];
 #pragma unroll
           for (int ks = 0; ks < kKSteps; ++ks) {
             if (multiply) {
@@ -505,7 +525,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
               const uint32_t st = ring.wait_stage() + w_lane;
               ROLLOUT_STAMP(2);
 #pragma unroll
-              for (int i = 0; i < 3; ++i) {
+              for (int i = 0; i < kNT; ++i) {
                 if (i < nodes) {
 #pragma unroll
                   for (int a = 0; a < 3; ++a) {
@@ -523,31 +543,37 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
               sm90mix::mbar_wait(cx_full, cx_parity);  // its cx has landed
               cx_parity ^= 1u;
 #pragma unroll
-              for (int nt = 0; nt < 3; ++nt)
+              for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) yr[nt][e] = yz[nt][e] = yx[nt][e] = yh[nt][e] = 0.0f;
 #pragma unroll
-              for (int s = 0; s < 3; ++s) {
+              for (int s = 0; s < kNT; ++s) {
                 uint32_t ar[4], az[4];
                 sm90mix::ldmatrix_x4_trans(ar, at(a_rz[s], 0));
                 sm90mix::ldmatrix_x4_trans(az, at(a_rz[s], 32));
 #pragma unroll
-                for (int nt = 0; nt < 3; ++nt) {
+                for (int nt = 0; nt < kNT; ++nt) {
                   sm90mix::mma_bf16(yr[nt], ar, grz[s][nt][0], grz[s][nt][1]);
                   sm90mix::mma_bf16(yz[nt], az, grz[s][nt][0], grz[s][nt][1]);
                 }
               }
-              {
-                uint32_t ax[4], ah[4], ax8[2], ah8[2];
-                sm90mix::ldmatrix_x4_trans(ax, a_x16 + 64);
-                sm90mix::ldmatrix_x4_trans(ah, a_h16 + 64);
+              if constexpr (kNk16) {
+                uint32_t ax[4], ah[4];
+                sm90mix::ldmatrix_x4_trans(ax, at(a_x16, 64));
+                sm90mix::ldmatrix_x4_trans(ah, at(a_h16, 64));
+#pragma unroll
+                for (int nt = 0; nt < kNT; ++nt) {
+                  sm90mix::mma_bf16(yx[nt], ax, gx16[nt][0], gx16[nt][1]);
+                  sm90mix::mma_bf16(yh[nt], ah, gx16[nt][0], gx16[nt][1]);
+                }
+              }
+              if constexpr (kNk8) {
+                uint32_t ax8[2], ah8[2];
                 ldmatrix_x2_trans(ax8, at(a_x8, 64));
                 ldmatrix_x2_trans(ah8, at(a_h8, 64));
 #pragma unroll
-                for (int nt = 0; nt < 3; ++nt) {
-                  sm90mix::mma_bf16(yx[nt], ax, gx16[nt][0], gx16[nt][1]);
+                for (int nt = 0; nt < kNT; ++nt) {
                   mma_bf16_k8(yx[nt], ax8, gx8[nt]);
-                  sm90mix::mma_bf16(yh[nt], ah, gx16[nt][0], gx16[nt][1]);
                   mma_bf16_k8(yh[nt], ah8, gx8[nt]);
                 }
               }
@@ -560,11 +586,10 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
             if (update && ks >= 1 && ks <= kGateStages) {
               // ---- the gate update of tiles nt: element e is output node
               // 8nt + 2tq + e%2, hidden column 16(J - 1) + g + 8(e/2)
-#pragma unroll
-              for (int u = 0; u < 3 / kGateStages; ++u) {
-                const int nt = (ks - 1) * (3 / kGateStages) + u;
+              {
+                const int nt = ks - 1;
                 float4* hp =
-                    reinterpret_cast<float4*>(h32 + ((Jm * kWarps + warp) * 3 + nt) * 128) + lane;
+                    reinterpret_cast<float4*>(h32 + ((Jm * kWarps + warp) * kNT + nt) * 128) + lane;
                 const float4 hv = *hp;
                 const float h_old[4] = {hv.x, hv.y, hv.z, hv.w};
                 float h_new[4];
@@ -577,7 +602,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
                 }
                 *hp = make_float4(h_new[0], h_new[1], h_new[2], h_new[3]);
                 // bf16(h') of 8 nodes × 16 columns: memory row = node (nodes
-                // past 21 to the junk row), 8 columns a matrix
+                // past kN to the junk row), 8 columns a matrix
                 const int n = 8 * nt + (lane & 7);
                 stmatrix_x2_trans(n < kN ? sm90mix::smem_u32(hb_s) + n * kHbPlane + warp * kHbRow +
                                                2 * (Jm * kSlice) + ((lane >> 3) & 1) * 16
@@ -593,7 +618,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
             // [node][row][gate column], transposed by stmatrix: lane l gives
             // row l%8 of matrix l/8 (gate a = l/16, columns 8·((l/8)%2) …)
 #pragma unroll
-            for (int i = 0; i < 3; ++i) {
+            for (int i = 0; i < kNT; ++i) {
               if (i < nodes) {
                 const uint32_t p = sm90mix::smem_u32(hw3_s) + (warp + 8 * i) * kPPlane +
                                    (lane & 7) * kPRow + (lane >> 3) * 16;
@@ -614,7 +639,7 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
         // q[m][r][f] = b_fc + bf16(h')[m][r]·W_fc[m][:, f] on the tensor cores
         load_h();
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
+        for (int i = 0; i < kNT; ++i) {
           if (i < nodes) {
             const int m = warp + 8 * i;
             float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -663,6 +688,202 @@ gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__
   }
   sm90mix::cluster_sync();  // no block leaves while its peers may still reach its memory
 }
+
+#else
+// ---- the design past 21 nodes (nodemix::kWide; AMASS-MANO's 51) ------------
+// At 51 nodes the 21-node layout does not fit: at 8 rows a block the fp32 h
+// alone is 156 672 bytes and a ring stage 78 336.  This design is the plain
+// version's step, a phase at a time, on the CUDA cores (bf16 operands
+// widened to fp32, whose products are exact, fp32 sums): a block owns 4
+// batch rows, and its state lives in shared memory: h in fp32 [N][4][H]
+// 78 336 B, the step's hw3 [N][4][3H] bf16 117 504 B, G_t and bf16(G_t)
+// [N][kGRow] fp32 10 608 B each, the head's outputs 2 448 B; 219 504 B in
+// all.  W_hh [N][H][3H] (as it is, not packed), cx, W_fc and G_fc are read
+// from device memory (L2) as the phases need them, so each weight byte
+// fetched serves the block's 4 rows.  Per step:
+// * products: hw3 = bf16(bf16(h)·W_hh + b_hh), a thread per (node, pair of
+//   gate columns) for the 4 rows, consecutive threads on consecutive
+//   columns of W_hh's rows;
+// * mixes and gate update: a thread per (row, hidden column, quarter of the
+//   output nodes), all N input nodes: r and z over [gc | gc]·[cx ; hw3] as
+//   one sum, n's two parts apart, then h' in place (the products are done);
+// * the output head q = bf16(h')·W_fc + b_fc a thread per (node, row,
+//   output) while a warp a row takes G_{t+1}; then y = tanh(G_fc·q) and
+//   bf16(G_{t+1}).
+// Blocks come in clusters of 2 (the launch's) on adjacent row tiles,
+// persistent over the tiles; they share nothing.  A simple design that is
+// right; its time is in PERF.md §6 (ROADMAP Queue B: the cluster split).
+constexpr int kRows = 4;                        // batch rows a block
+constexpr int kCluster = 2;                     // blocks a cluster (the launch's; nothing shared)
+constexpr int kSlice = 0, kStages = 0;          // no slices and no ring: W_hh read as it is
+constexpr int kThreads = sm90mix::kConsumers;   // 256: 8 warps
+constexpr int kGRow = (kN + 3) / 4 * 4;         // G rows padded to whole float4s (52 at 51)
+constexpr int kPairs = 3 * kH / 2;              // gate-column pairs of a node's hw3
+constexpr int kMixSplit = 4;                    // threads a mix position, each a quarter
+constexpr int kMixNodes = (kN + kMixSplit - 1) / kMixSplit;  // output nodes a mix thread
+static_assert(kN <= 64, "the G update takes two entries a lane");
+static_assert(kThreads % 32 == 0 && kH % 2 == 0, "whole warps, column pairs");
+
+struct Layout {
+  static constexpr size_t h32 = 0;  // h [N][rows][H] fp32
+  static constexpr size_t hw3 = h32 + sizeof(float) * kN * kRows * kH;   // [N][rows][3H] bf16
+  static constexpr size_t g = hw3 + sizeof(bf16) * kN * kRows * 3 * kH;  // G_t [N][kGRow]
+  static constexpr size_t gc = g + sizeof(float) * kN * kGRow;          // bf16(G_t), fp32
+  static constexpr size_t q = gc + sizeof(float) * kN * kGRow;          // [N][rows][F]
+  static constexpr size_t total = q + sizeof(float) * kN * kRows * kF;
+};
+static_assert(Layout::total <= sm90mix::kMaxSmem, "one block an SM");
+static_assert(Layout::hw3 % 16 == 0 && Layout::g % 16 == 0 && Layout::q % 16 == 0,
+              "16-byte aligned buffers");
+
+__global__ void __launch_bounds__(kThreads, 1)
+gru_rollout_merged_kernel(const bf16* __restrict__ cx, const float* __restrict__ h0,
+                          const bf16* __restrict__ w_hh, const float* __restrict__ b_hh,
+                          const float* __restrict__ g0, const float* __restrict__ g_add,
+                          const bf16* __restrict__ w_fc, const float* __restrict__ b_fc,
+                          const float* __restrict__ g_fc, float* __restrict__ out, int batch,
+                          int ph) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* h32 = reinterpret_cast<float*>(smem + Layout::h32);
+  bf16* hw3 = reinterpret_cast<bf16*>(smem + Layout::hw3);
+  float* g_s = reinterpret_cast<float*>(smem + Layout::g);
+  float* gc_s = reinterpret_cast<float*>(smem + Layout::gc);
+  float* q_s = reinterpret_cast<float*>(smem + Layout::q);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (batch + kRows - 1) / kRows;
+  const int items = (tiles + kCluster - 1) / kCluster;
+  const uint32_t rank = sm90mix::cluster_rank();
+
+  for (int item = sm90mix::cluster_id(); item < items; item += sm90mix::cluster_count()) {
+    const int b0 = (item * kCluster + static_cast<int>(rank)) * kRows;
+    const int valid = max(0, min(kRows, batch - b0));
+    __syncthreads();  // the last item's reads are done
+    for (int i = tid; i < kN * kRows * kH; i += kThreads) {
+      const int n = i / (kRows * kH), r = i / kH % kRows, j = i % kH;
+      h32[i] = r < valid ? h0[(static_cast<size_t>(n) * batch + b0 + r) * kH + j] : 0.0f;
+    }
+    for (int i = tid; i < kN * kGRow; i += kThreads) {
+      const int n = i / kGRow, m = i % kGRow;
+      const float v = m < kN ? g0[n * kN + m] : 0.0f;
+      g_s[i] = v;
+      gc_s[i] = bf16_round(v);
+    }
+    __syncthreads();
+
+    for (int t = 0; t < ph; ++t) {
+      // ---- hw3 = bf16(bf16(h)·W_hh + b_hh): (node, column pair) a thread, all rows
+      for (int task = tid; task < kN * kPairs; task += kThreads) {
+        const int n = task / kPairs, c = 2 * (task % kPairs);
+        const float2 b = *reinterpret_cast<const float2*>(b_hh + n * 3 * kH + c);
+        float acc[kRows][2];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          acc[r][0] = b.x;
+          acc[r][1] = b.y;
+        }
+        const __nv_bfloat162* w =
+            reinterpret_cast<const __nv_bfloat162*>(w_hh + static_cast<size_t>(n) * kH * 3 * kH + c);
+        const float* hn = h32 + n * kRows * kH;
+#pragma unroll 8
+        for (int k = 0; k < kH; ++k) {
+          const float2 wk = __bfloat1622float2(w[k * kPairs]);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float hk = bf16_round(hn[r * kH + k]);
+            acc[r][0] = fmaf(hk, wk.x, acc[r][0]);
+            acc[r][1] = fmaf(hk, wk.y, acc[r][1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          *reinterpret_cast<__nv_bfloat162*>(hw3 + (n * kRows + r) * 3 * kH + c) =
+              __floats2bfloat162_rn(acc[r][0], acc[r][1]);
+      }
+      __syncthreads();  // hw3 is written; h is read
+
+      // ---- the mixes and the gate update: (row, hidden column, quarter of
+      // the output nodes) a thread, all N input nodes
+      for (int task = tid; task < kRows * kH * kMixSplit; task += kThreads) {
+        const int j = task % kH, r = task / kH % kRows, part = task / (kH * kRows);
+        const int n0 = part * kMixNodes;
+        float yr[kMixNodes], yz[kMixNodes], yx[kMixNodes], yh[kMixNodes];
+#pragma unroll
+        for (int i = 0; i < kMixNodes; ++i) yr[i] = yz[i] = yx[i] = yh[i] = 0.0f;
+        const int row = min(b0 + r, batch - 1);
+#pragma unroll 1
+        for (int m = 0; m < kN; ++m) {
+          const bf16* xm = cx + (static_cast<size_t>(m) * batch + row) * 3 * kH + j;
+          const bf16* hm = hw3 + (m * kRows + r) * 3 * kH + j;
+          const float xr = __bfloat162float(xm[0]), xz = __bfloat162float(xm[kH]);
+          const float xn = __bfloat162float(xm[2 * kH]);
+          const float hr = __bfloat162float(hm[0]), hz = __bfloat162float(hm[kH]);
+          const float hn = __bfloat162float(hm[2 * kH]);
+#pragma unroll
+          for (int i = 0; i < kMixNodes; ++i) {
+            const float gv = gc_s[min(n0 + i, kN - 1) * kGRow + m];
+            yr[i] = fmaf(gv, hr, fmaf(gv, xr, yr[i]));
+            yz[i] = fmaf(gv, hz, fmaf(gv, xz, yz[i]));
+            yx[i] = fmaf(gv, xn, yx[i]);
+            yh[i] = fmaf(gv, hn, yh[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMixNodes; ++i) {
+          const int n = n0 + i;
+          if (n < kN) {
+            float* hp = h32 + (n * kRows + r) * kH + j;
+            const float rg = bf16_round(sigmoid(yr[i]));
+            const float zg = bf16_round(sigmoid(yz[i]));
+            const float ng = tanh_gate(yx[i] + rg * yh[i]);
+            *hp = ng - ng * zg + zg * *hp;
+          }
+        }
+      }
+      __syncthreads();  // h' is written; bf16(G_t) is read
+
+      // ---- the output head q = b_fc + bf16(h')·W_fc; G_{t+1} = l1norm_rows(G_t + G_add)
+      for (int task = tid; task < kN * kRows * kF; task += kThreads) {
+        const int n = task / (kRows * kF), r = task / kF % kRows, f = task % kF;
+        const float* hn = h32 + (n * kRows + r) * kH;
+        const bf16* w = w_fc + static_cast<size_t>(n) * kH * kF + f;
+        float acc = b_fc[n * kF + f];
+#pragma unroll 8
+        for (int k = 0; k < kH; ++k) acc = fmaf(bf16_round(hn[k]), __bfloat162float(w[k * kF]), acc);
+        q_s[task] = acc;
+      }
+      for (int n = warp; n < kN; n += kThreads / 32) {
+        float v[2], s = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = lane + 32 * e;
+          v[e] = m < kN ? g_s[n * kGRow + m] + g_add[n * kN + m] : 0.0f;
+          s += fabsf(v[e]);
+        }
+#pragma unroll
+        for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = lane + 32 * e;
+          if (m < kN) g_s[n * kGRow + m] = v[e] / fmaxf(s, 1e-12f);
+        }
+      }
+      __syncthreads();  // q and G_{t+1} are written
+
+      // ---- y_t = tanh(G_fc·q); bf16(G_{t+1}) for the next step's mixes
+      for (int task = tid; task < kN * kRows * kF; task += kThreads) {
+        const int n = task / (kRows * kF), r = task / kF % kRows, f = task % kF;
+        float acc = 0.0f;
+#pragma unroll 4
+        for (int m = 0; m < kN; ++m) acc = fmaf(__ldg(g_fc + n * kN + m), q_s[(m * kRows + r) * kF + f], acc);
+        if (r < valid)
+          out[((static_cast<size_t>(t) * kN + n) * batch + b0 + r) * kF + f] = tanhf(acc);
+      }
+      for (int i = tid; i < kN * kGRow; i += kThreads) gc_s[i] = bf16_round(g_s[i]);
+      __syncthreads();  // the next step's products read h' and its mixes bf16(G_{t+1})
+    }
+  }
+}
+#endif
 
 }  // namespace
 

@@ -33,7 +33,7 @@ from .metrics.suite import MetricSuite
 from .models.autoencoder import AutoEncoder
 from .ops.kernels.build import without_grad
 from .ops.kernels.denoiser_fused import prep_fused_denoiser
-from .parallel.mesh import DataMesh, all_gather_host, shard_batch
+from .parallel.mesh import DataMesh, all_gather_host, refuse_model_axis, shard_batch
 
 
 class SkeletonDiffusionPredictor:
@@ -326,6 +326,7 @@ def compute_metrics(
     The batch size must split evenly over the axis; the long-term test and
     ``store`` are refused on it.
     """
+    refuse_model_axis(mesh, "compute_metrics")
     if mesh is not None and (if_long_term_test or store is not None):
         raise NotImplementedError("compute_metrics over a data axis: the long-term test and "
                                   "store run in one process")

@@ -11,7 +11,11 @@ is one batched matmul over nodes followed by one [N,N]·[N, B·F] matmul.
 Weights keep the JAX layout ``[types, in, out]`` and the flax parameter names.
 With ``compute_dtype`` (e.g. ``torch.bfloat16``) the parameters stay float32
 and x, W, b and G are cast to it where the flax module casts them, so the
-products, the mix and the output run in that dtype.
+products, the mix and the output run in that dtype.  On a model axis
+(``parallel.shard_params_model_axis``, training only) a layer whose weight
+holds a slice of its output features computes its columns of the product
+and gathers them (``parallel.mesh.model_columns``), and takes its bias whole
+(``model_whole``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import model_columns, model_whole
 from .initializers import graph_linear_bias, graph_linear_weight, torch_linear
 
 
@@ -96,7 +101,8 @@ class StaticGraphLinear(nn.Module):
         product that re-enters ``forward`` as ``partial_in``; in the compute
         dtype."""
         w = self.weight[:, input_offset : input_offset + x.shape[-1]]
-        return gmm_nm(self._cast(x), self._cast(w[self.type_index]))
+        return model_columns(self, "weight", self._cast(x),
+                             lambda a: gmm_nm(a, self._cast(w[self.type_index])))
 
     def forward(
         self,
@@ -108,7 +114,7 @@ class StaticGraphLinear(nn.Module):
         if partial_in is not None:
             out = out + partial_in.to(out.dtype)
         if self.bias is not None:
-            out = out + self._cast(self.bias[self.type_index])[:, None, :]
+            out = out + self._cast(model_whole(self, "bias")[self.type_index])[:, None, :]
         g = self.influence()
         return out if g is None else gmix_nm(self._cast(g), out)
 
@@ -123,7 +129,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch_linear((out_features,), in_features, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        return model_columns(self, "kernel", x, lambda a: a @ self.kernel) + model_whole(self, "bias")
 
 
 class DynamicGraphLinear(nn.Module):

@@ -36,7 +36,7 @@ kernel, the fused RMSNorm + qkv + attention kernel and the feature-major
 attention core share the bodies of ``csrc/joint_attention.cuh``;
 ``csrc/node_mix.cuh`` holds the element conversions they all take and the
 skeleton's node count, a build parameter: ``build.py`` builds each source
-for each count a run asks for (16 H36M, 17 FreeMan, 21 AMASS; 2 to 32, the
-fp32 rollout up to 21, the bf16 rollout and the lab core at 21 only), and a
-wrapper launches the library built at its tensors' count.
+for each count a run asks for (16 H36M, 17 FreeMan, 21 AMASS, 51
+AMASS-MANO; 2 to 51 for every source, past 21 the kernels' second designs),
+and a wrapper launches the library built at its tensors' count.
 """

@@ -31,13 +31,14 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .node_mix_sm90 import MAX_SMEM, MAX_STAGES, N_NODES
+from .node_mix_sm90 import MAX_SMEM, MAX_STAGES
 
 launches = 0
 
 DIM_HEAD = 32       # the head width the kernel is built for
 MAX_HEADS = 32
-# batch columns an item: 32 bytes of a (joint, feature) row in either type
+# batch columns an item: 32 bytes of a (joint, feature) row in either type,
+# 16 past build.NARROW_NODES (``cols``)
 COLS = {torch.bfloat16: 16, torch.float32: 8}
 PAD = 16            # bytes after each column's q‖k‖v, and after each joint's columns
 
@@ -54,28 +55,42 @@ def _up(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def plan_bytes(elem: int, cols: int, dim_head: int, stages: int) -> int:
+def cols(dtype: torch.dtype, nodes: int) -> int:
+    """Batch columns an item (``FmTile::kCols``): COLS up to
+    build.NARROW_NODES, half of them past it (a stage's row of 16 bytes, the
+    least a TMA box row may have)."""
+    return COLS[dtype] // 2 if build.wide(nodes) else COLS[dtype]
+
+
+def plan_bytes(elem: int, cols: int, dim_head: int, stages: int,
+               nodes: int = build.DEFAULT_NODES) -> int:
     """Shared memory of one block (``fm_layout`` in
     ``csrc/attention_core_fm.cu``): barriers and a zero row; ``stages``
     stages of the item's q, k and v of every joint, [3][N][dh][cols]; the
     transposed tile [N][cols][3·dh], each column followed by PAD bytes and
     each joint's columns by PAD more; the item's O, [N][dh][cols]."""
-    part = N_NODES * dim_head * cols * elem
+    part = nodes * dim_head * cols * elem
     joint = cols * (3 * dim_head * elem + PAD) + PAD
-    return 128 + stages * 3 * part + _up(N_NODES * joint) + part
+    return 128 + stages * 3 * part + _up(nodes * joint) + part
 
 
-def fm_plan(dtype: torch.dtype, heads: int, dim_head: int) -> FmPlan:
-    """The plan of the kernel: the type's columns an item with as many ring
-    stages (2 to 4) as fit; raises for what the kernel does not take."""
+def fm_plan(dtype: torch.dtype, heads: int, dim_head: int,
+            nodes: int = build.DEFAULT_NODES) -> FmPlan:
+    """The plan of the kernel at ``nodes`` joints: the type's columns an
+    item (``cols``) with as many ring stages (1 to 4) as fit (2 at 21
+    joints, 1 at 51); raises for what the kernel does not take."""
     build.element_suffix("attention_core_fm", dtype)
+    build.check_nodes("attention_core_fm", nodes)
     if dim_head != DIM_HEAD or not 0 < heads <= MAX_HEADS:
         raise ValueError(f"attention_core_fm: takes 1 to {MAX_HEADS} heads of {DIM_HEAD}, got "
                          f"{heads} × {dim_head}")
-    elem, cols = torch.empty((), dtype=dtype).element_size(), COLS[dtype]
-    fits = [s for s in range(2, MAX_STAGES + 1)
-            if plan_bytes(elem, cols, dim_head, s) <= MAX_SMEM]
-    return FmPlan(cols, fits[-1], plan_bytes(elem, cols, dim_head, fits[-1]))
+    elem, c = torch.empty((), dtype=dtype).element_size(), cols(dtype, nodes)
+    fits = [s for s in range(1, MAX_STAGES + 1)
+            if plan_bytes(elem, c, dim_head, s, nodes) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"attention_core_fm: {nodes} joints do not fit {MAX_SMEM} bytes of "
+                         "shared memory with one stage")
+    return FmPlan(c, fits[-1], plan_bytes(elem, c, dim_head, fits[-1], nodes))
 
 
 def attention_core_fm_plain(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
@@ -102,13 +117,12 @@ def attention_core_fm(qkv: torch.Tensor, *, heads: int, dim_head: int) -> torch.
     n, width, rows = qkv.shape
     hd = heads * dim_head
     suffix = build.element_suffix("attention_core_fm", qkv.dtype)
-    plan = fm_plan(qkv.dtype, heads, dim_head)
-    build.check_nodes("attention_core_fm", "attention_core_fm", n)
+    plan = fm_plan(qkv.dtype, heads, dim_head, n)
     build.check_kernel_inputs("attention_core_fm", {"qkv": (n, 3 * hd, rows)}, qkv.dtype,
                               qkv=qkv)
     build.check_aligned("attention_core_fm", 16, qkv=qkv)
     out = torch.empty((n, hd, rows), dtype=qkv.dtype, device=qkv.device)
-    status = build.c_entry("attention_core_fm", f"attention_core_fm_{suffix}", 2, 7)(
+    status = build.c_entry("attention_core_fm", f"attention_core_fm_{suffix}", 2, 7, n)(
         qkv.data_ptr(), out.data_ptr(), n, rows, heads, dim_head, *plan, build.stream_of(qkv))
     build.check_status(f"attention_core_fm at (nodes, heads, dim_head, plan)="
                        f"{(n, heads, dim_head, *plan)}", status)

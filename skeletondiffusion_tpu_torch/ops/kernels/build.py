@@ -53,9 +53,6 @@ NVCC_TIMEOUT_S = 600
 DEFAULT_NODES = 21
 MAX_NODES = 51
 NARROW_NODES = 21
-# sources whose kernels are laid out for fewer counts: the bf16 rollout (B8)
-# and the feature-major attention core (L1) at 21 only
-NODE_RANGE = {"gru_rollout_merged": (21, 21), "attention_core_fm": (21, 21)}
 MORE_NODES = "no skeleton of the reference has more than 51 nodes: ROADMAP.md Queue B item 9"
 
 _lock = threading.Lock()
@@ -73,26 +70,12 @@ def wide(nodes: int) -> bool:
     return nodes > NARROW_NODES
 
 
-def node_range(name: str) -> Tuple[int, int]:
-    """The node counts ``csrc/<name>.cu`` is built for, lowest and highest."""
-    return NODE_RANGE.get(name, (2, MAX_NODES))
-
-
-def check_nodes(kernel: str, name: str, nodes: int) -> None:
-    """Raise ValueError unless the kernels of ``csrc/<name>.cu`` take
-    ``nodes`` nodes (the message names the ROADMAP item of larger counts)."""
-    lo, hi = node_range(name)
-    if not lo <= nodes <= hi:
-        # B8 and L1 stay at the AMASS count; the others take every skeleton's
-        later = "ROADMAP.md Queue B item 9" if lo == hi else MORE_NODES
-        counts = f"{lo}" if lo == hi else f"{lo} to {hi}"
-        raise ValueError(f"{kernel}: the kernel takes {counts} nodes, got {nodes} ({later})")
-
-
-def sources_for(nodes: int) -> List[Path]:
-    """The sources built at ``nodes`` nodes."""
-    return [src for src in sources()
-            if node_range(src.stem)[0] <= nodes <= node_range(src.stem)[1]]
+def check_nodes(kernel: str, nodes: int) -> None:
+    """Raise ValueError unless the kernels take ``nodes`` nodes (2 to
+    MAX_NODES; the message names the ROADMAP item of larger counts)."""
+    if not 2 <= nodes <= MAX_NODES:
+        raise ValueError(f"{kernel}: the kernel takes 2 to {MAX_NODES} nodes, got {nodes} "
+                         f"({MORE_NODES})")
 
 
 def build_dir(nodes: int = DEFAULT_NODES) -> Path:
@@ -161,7 +144,7 @@ def compile_jobs(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
 def build_all(node_counts: Iterable[int] = (DEFAULT_NODES,)) -> float:
     """Build every library of each node count that is missing, all at once;
     returns the seconds taken (0.0 when nothing was missing)."""
-    missing = [(src, build_dir(n), n) for n in node_counts for src in sources_for(n)
+    missing = [(src, build_dir(n), n) for n in node_counts for src in sources()
                if not library_path(src.stem, n).is_file()]
     return compile_jobs(missing) if missing else 0.0
 
@@ -170,7 +153,7 @@ def library(name: str, nodes: int = DEFAULT_NODES) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` at ``nodes`` nodes."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"the {name} kernel needs a CUDA device; none is available")
-    check_nodes(name, name, nodes)
+    check_nodes(name, nodes)
     with _lock:
         if (name, nodes) not in _libraries:
             build_all((nodes,))

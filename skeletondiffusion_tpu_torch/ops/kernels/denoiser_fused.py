@@ -33,6 +33,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import torch
 
+from ...parallel.mesh import MODEL_AXIS_TRAINING_ONLY
 from . import attention_proj, build, graph_linear_fused, joint_attention, layer_fused, resnet_block
 
 if TYPE_CHECKING:  # the module runs on the modules it is given and imports none of them
@@ -63,6 +64,8 @@ def prep_fused_denoiser(den: "Denoiser") -> Dict:
     """Every weight-side operand of the fused forward, in the denoiser's
     compute dtype (float32 when it has none); FiLM projections and the time
     MLP stay float32 module references (they depend on t)."""
+    if any(getattr(m, "_model_shards", None) for m in den.modules()):
+        raise NotImplementedError(f"the fused denoiser kernels: {MODEL_AXIS_TRAINING_ONLY}")
     dt = den.compute_dtype or torch.float32
     f = den.dim + den.cond_dim
     blocks: List[Dict] = []

@@ -52,7 +52,6 @@ ROLLOUT_CLUSTER = 4
 ROLLOUT_MAX_STAGES = 6   # mbarrier pairs the kernel reserves
 H_ROW_PAD = 4            # floats after each row of h
 H_PLANE_PAD = 4          # floats after each node's plane of h
-G_ROW = 24               # influence rows of the bf16 rollout (21 nodes) padded to whole float4s
 
 
 def g_row(n: int) -> int:
@@ -141,43 +140,70 @@ def pack_rollout_bank(w_hh: torch.Tensor) -> torch.Tensor:
     return node_mix_sm90.cached_pack(w_hh, ("rollout", ROLLOUT_SLICE), _pack_rollout)
 
 
-# The bf16 kernel's tiling (csrc/gru_rollout_merged.cu): rows a block (the
-# products' n8), hidden columns a slice (its r, z and n columns: 48 gate
-# columns), bank rows a ring stage (one mma k-step), stages, blocks a cluster
-# (each weight byte read from L2 serves 16 rows).
+# The bf16 kernel's tiling (csrc/gru_rollout_merged.cu) up to
+# build.NARROW_NODES: rows a block (the products' n8), hidden columns a slice
+# (its r, z and n columns: 48 gate columns), bank rows a ring stage (one mma
+# k-step), stages, blocks a cluster (each weight byte read from L2 serves 16
+# rows); node tiles of 8 (``bf16_node_tiles``).  Past it (AMASS-MANO's 51)
+# its second design: ROLLOUT_BF16_ROWS_WIDE rows a block, no slices and no
+# ring (W_hh read as it is), clusters of 2 that share nothing.
 ROLLOUT_BF16_ROWS = 8
 ROLLOUT_BF16_SLICE = 16
 ROLLOUT_BF16_K_ROWS = 16
 ROLLOUT_BF16_STAGES = 2
 ROLLOUT_BF16_CLUSTER = 2
+ROLLOUT_BF16_ROWS_WIDE = 4
 GATE_ROW_PAD = 8         # bf16 values after each row of a gate buffer's plane
 HB_ROW_PAD = 8           # bf16 values after each row of bf16(h)
 PLANE_PAD = 16           # bytes after each node's plane of both
 
 
+def bf16_node_tiles(n: int) -> int:
+    """Tiles of 8 nodes of the bf16 rollout up to build.NARROW_NODES
+    (``kNT``): a warp's product nodes, the mixes' output tiles, the r/z
+    mix's k16 tiles over 2n; its G rows are padded to 8 of them."""
+    return -(-n // 8)
+
+
 def rollout_bf16_plan_bytes(n: int, h: int, f: int) -> int:
-    """Shared memory of one block (``Layout`` in ``csrc/gru_rollout_merged.cu``):
-    barriers and a zero row, the ring's stages of ROLLOUT_BF16_K_ROWS bank rows ×
-    n nodes × the 3·slice gate columns of a slice, h in fp32 (a float4 per
-    consumer lane, 3 tiles of 8 nodes, per slice and row), bf16(h) [n][rows][h
-    + 8], the slice's hw3 and cx [n][rows][3·slice + 8], W_fcᵀ's mma fragments
-    (12 lanes × 8 bytes per node and k-step), G_t, G_add, G_fc rows padded to
-    24, the head's outputs [n][rows][f] in fp32."""
-    rows, s = ROLLOUT_BF16_ROWS, ROLLOUT_BF16_SLICE
+    """Shared memory of one block (``Layout`` in ``csrc/gru_rollout_merged.cu``).
+    Up to build.NARROW_NODES: barriers and a zero row, the ring's stages of
+    ROLLOUT_BF16_K_ROWS bank rows × n nodes × the 3·slice gate columns of a
+    slice, h in fp32 (a float4 per consumer lane, ``bf16_node_tiles`` tiles
+    of 8 nodes, per slice and row), bf16(h) [n][rows][h + 8], the slice's hw3
+    and cx [n][rows][3·slice + 8], W_fcᵀ's mma fragments (12 lanes × 8 bytes
+    per node and k-step), G_t, G_add, G_fc rows padded to 8 node tiles, the
+    head's outputs [n][rows][f] in fp32.  Past it: h in fp32 [n][rows][h],
+    the step's hw3 [n][rows][3h] in bf16, G_t and bf16(G_t) rows padded to
+    whole float4s, the head's outputs."""
+    if build.wide(n):
+        rows = ROLLOUT_BF16_ROWS_WIDE
+        return 4 * n * rows * h + 2 * n * rows * 3 * h + 2 * 4 * n * g_row(n) + 4 * n * rows * f
+    rows, s, tiles = ROLLOUT_BF16_ROWS, ROLLOUT_BF16_SLICE, bf16_node_tiles(n)
     ring = ROLLOUT_BF16_STAGES * n * ROLLOUT_BF16_K_ROWS * 3 * s * 2
-    h32 = 4 * (h // s) * rows * 3 * 32 * 4
+    h32 = 4 * (h // s) * rows * tiles * 32 * 4
     hb = n * (rows * 2 * (h + HB_ROW_PAD) + PLANE_PAD)
     gates = 2 * n * (rows * 2 * (3 * s + GATE_ROW_PAD) + PLANE_PAD)
     fc = 8 * n * (h // ROLLOUT_BF16_K_ROWS) * 12
-    return 128 + ring + h32 + hb + gates + fc + 4 * 3 * n * G_ROW + 4 * n * rows * f
+    return 128 + ring + h32 + hb + gates + fc + 4 * 3 * n * 8 * tiles + 4 * n * rows * f
 
 
 def rollout_bf16_plan(n: int, h: int, f: int) -> RolloutPlan:
-    """The bf16 rollout's plan at n nodes, hidden width h and f outputs.  The
-    kernel is built for 21 nodes, h = 96 and 3 outputs (232 112 bytes) and
-    refuses other shapes itself."""
+    """The bf16 rollout's plan at n nodes, hidden width h and f outputs:
+    (8 rows, a slice of 16, 2 stages, clusters of 2) up to
+    build.NARROW_NODES, (4 rows, no slice, no ring, clusters of 2) past it;
+    raises ValueError when it does not fit shared memory.  The kernel is
+    built for h = 96 and 3 outputs (232 112 bytes at 21 nodes, 219 504 at
+    51) and refuses other shapes itself."""
+    build.check_nodes("gru_rollout_bf16", n)
+    smem = rollout_bf16_plan_bytes(n, h, f)
+    if smem > node_mix_sm90.MAX_SMEM:
+        raise ValueError(f"gru_rollout_bf16: {n} nodes at hidden {h} need {smem} bytes of "
+                         f"shared memory, over {node_mix_sm90.MAX_SMEM}")
+    if build.wide(n):
+        return RolloutPlan(ROLLOUT_BF16_ROWS_WIDE, 0, 0, ROLLOUT_BF16_CLUSTER, smem)
     return RolloutPlan(ROLLOUT_BF16_ROWS, ROLLOUT_BF16_SLICE, ROLLOUT_BF16_STAGES,
-                       ROLLOUT_BF16_CLUSTER, rollout_bf16_plan_bytes(n, h, f))
+                       ROLLOUT_BF16_CLUSTER, smem)
 
 
 def _pack_rollout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
@@ -267,7 +293,7 @@ def _checked(tensors: dict, ph: int, merged: bool) -> str:
     build.check_kernel_inputs(kernel, shapes, dtypes, **tensors)
     if b == 0 or ph <= 0 or n * b * 3 * h >= 2**31:
         raise ValueError(f"{kernel}: batch {b} and ph {ph} out of the kernel's range")
-    build.check_nodes(kernel, "gru_rollout_merged" if merged else "gru_rollout", n)
+    build.check_nodes(kernel, n)
     return kernel
 
 
@@ -280,16 +306,17 @@ def _launch(tensors: dict, ph: int, merged: bool) -> torch.Tensor:
     out = torch.empty((ph, n, b, f), dtype=torch.float32, device=cx.device)
     if merged:
         entry = build.c_entry("gru_rollout_merged", "gru_rollout_bf16", 10, 10, n)
-        width, pack, plan = ROLLOUT_BF16_SLICE, pack_rollout_bank_bf16, rollout_bf16_plan(n, h, f)
-        aligned = dict(cx=cx)
+        plan = rollout_bf16_plan(n, h, f)
+        pack = pack_rollout_bank_bf16 if plan.slice else None  # past NARROW_NODES: as it is
+        aligned = dict(cx=cx, b_hh=b_hh)
     else:
         entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n)
-        width, pack, plan = ROLLOUT_SLICE, pack_rollout_bank, rollout_plan(n, h)
+        plan, pack = rollout_plan(n, h), pack_rollout_bank
         aligned = dict(w_fc=w_fc, b_hh=b_hh)
     # the bank packed into ring stages (the kernels take H = 96 only and
     # refuse other widths), the output head's bank as it is
     tensors = dict(tensors)
-    if h % width == 0:
+    if pack is not None and h % plan.slice == 0:
         tensors["w_hh"] = pack(w_hh)
     build.check_aligned(kernel, 16, w_hh=tensors["w_hh"], **aligned)
     ptrs = [t.data_ptr() for t in tensors.values()]

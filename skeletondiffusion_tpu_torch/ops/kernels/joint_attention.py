@@ -61,7 +61,7 @@ def attention_plan(dtype: torch.dtype, heads: int, dim_head: int,
     largest group of heads that does, with as many stages (2 to 4) as fit;
     raises for what the kernel does not take."""
     build.element_suffix("attention_core", dtype)
-    build.check_nodes("attention_core", "joint_attention", nodes)
+    build.check_nodes("attention_core", nodes)
     if dim_head != DIM_HEAD or not 0 < heads <= MAX_HEADS:
         raise ValueError(f"attention_core: takes 1 to {MAX_HEADS} heads of {DIM_HEAD}, got "
                          f"{heads} × {dim_head}")

@@ -78,7 +78,7 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int,
     when two do not, or when f exceeds MAX_F or the node count the kernels'
     range."""
     elem = torch.empty((), dtype=dtype).element_size()
-    build.check_nodes(kernel, kernel, nodes)
+    build.check_nodes(kernel, nodes)
     if f > MAX_F:
         raise ValueError(f"{kernel}: F={f} exceeds {MAX_F}, the widest row the kernels "
                          f"normalise")
@@ -137,7 +137,7 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...],
     and fits two ring stages beside the products, with as many stages (2 to
     4) as fit; raises ValueError for what the kernel does not take."""
     build.element_suffix(kernel, dtype)
-    build.check_nodes(kernel, kernel, nodes)
+    build.check_nodes(kernel, nodes)
     elem = torch.empty((), dtype=dtype).element_size()
     if f <= 0 or f % 64 or f > MAX_F:
         raise ValueError(f"{kernel}: F={f} must be a positive multiple of 64 up to {MAX_F}")

@@ -93,7 +93,7 @@ def _checked(x0, xt, noise, m_t) -> tuple:
     (float32 x̂₀) or 8 (bf16): a tensor map's rows are whole multiples of 16
     bytes (the launches check the 16-byte alignment after it)."""
     n, b, d = xt.shape
-    build.check_nodes("posterior_step", "posterior_step", n)
+    build.check_nodes("posterior_step", n)
     shapes = {"x0": (n, b, d), "xt": (n, b, d), "noise": (n, b, d), "m_t": (n, 3 * n)}
     x0_bf16 = x0.dtype == torch.bfloat16
     dtypes = {"x0": x0.dtype if x0_bf16 else torch.float32, "xt": torch.float32,

@@ -1,8 +1,10 @@
 """The multichip dry run, the torch twin of the root ``__graft_entry__.py``:
 ``entry()`` gives one flagship denoiser step with example arguments, and
-``dryrun_multichip(n)`` runs one stage-2 training step over a data axis of
-``n`` ranks (gloo; on the CPU unless ``device`` says otherwise) and holds it
-against the same step in one process on the whole batch.
+``dryrun_multichip(n)`` runs one stage-2 training step over a mesh of ``n``
+ranks (gloo; on the CPU unless ``device`` says otherwise): a data axis, and
+for an even n ≥ 4 a model axis of 2 with the weight banks split over it
+(``shard_params_model_axis`` at ``min_size=1024``, as the JAX dry run), and
+holds it against the same step in one process on the whole batch.
 
 ``run_ranks`` starts the ranks: ``n`` spawned processes joined over
 ``tcp://localhost:<free port>``, each calling ``fn(mesh, *args)`` on its
@@ -26,7 +28,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from .mesh import DataMesh, create_mesh, maybe_initialize_distributed, shard_batch
+from .mesh import (DataMesh, create_mesh, gather_columns, maybe_initialize_distributed,
+                   shard_batch, shard_params_model_axis)
 
 ARCH = {"depth": 1, "attn_heads": 2, "attn_dim_head": 4, "use_attention": True,
         "learn_influence": True, "self_condition": False, "norm_type": "none"}
@@ -79,14 +82,18 @@ def build_models(spec: Dict[str, Any], device):
 def stage2_step(mesh: Optional[DataMesh], spec: Dict[str, Any], x: torch.Tensor,
                 y: torch.Tensor, t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, seed: int = 0,
-                device="cpu") -> Dict[str, Any]:
+                device="cpu", model_min_size: int = 2**16) -> Dict[str, Any]:
     """One stage-2 step (``TrainerDiffusion.train_step``, no EMA) of
     ``spec``'s models on the whole batch x, y (input space), on this rank's
     rows of it: the timesteps and noise injected for the whole batch (t [B],
-    noise [B·k,N,D]) or drawn from a generator seeded with ``seed``.
-    Returns the loss and gradient norm of the whole batch, the gradients
-    the step took (clipped) and the denoiser's parameters after it, on the
-    CPU."""
+    noise [B·k,N,D]) or drawn from a generator seeded with ``seed``.  On a
+    model axis the denoiser's weights that ``shard_params_model_axis``
+    splits at ``model_min_size`` keep this rank's slice.  Returns the loss
+    and gradient norm of the whole batch, the step's seconds (the train
+    step alone, synchronised), the gradients the step took (clipped) and
+    the denoiser's parameters after it, whole, on the CPU;
+    the mesh's coordinates (data size and index, model size and index) and
+    {name: (whole shape, slice shape)} of the split weights."""
     from ..train.trainer_diffusion import TrainerDiffusion
 
     device = mesh.device if mesh is not None else torch.device(device)
@@ -97,18 +104,36 @@ def stage2_step(mesh: Optional[DataMesh], spec: Dict[str, Any], x: torch.Tensor,
     x, y = x.to(device), y.to(device)
     t = None if t is None else t.to(device)
     noise = None if noise is None else noise.to(device)
-    if mesh is not None and mesh.size > 1:
+    split = {}
+    if mesh is not None and (mesh.size > 1 or mesh.model > 1):
         tr.mesh = mesh
+        split = shard_params_model_axis(mesh, tr.denoiser, model_min_size)
         x, y, t = shard_batch(mesh, (x, y, t))
         if noise is not None:
             lo, hi = mesh.rows(noise.shape[0])
             noise = noise[lo:hi]
     gen = torch.Generator(device=device).manual_seed(seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    start = time.perf_counter()
     loss = tr.train_step((x, y), gen, t=t, noise=noise)
-    return {"loss": float(loss), "grad_norm": float(tr.last_grad_norm),
-            "grads": {k: p.grad.detach().cpu() for k, p in tr.denoiser.named_parameters()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - start
+
+    def whole(t: torch.Tensor, shard) -> torch.Tensor:  # every rank gathers, in one order
+        t = t.detach()
+        return (t if shard is None else gather_columns(t, shard)).cpu()
+
+    params = dict(tr.denoiser.named_parameters())
+    shard_of = {k: getattr(p, "model_shard", None) for k, p in params.items()}
+    return {"loss": float(loss), "grad_norm": float(tr.last_grad_norm), "step_s": step_s,
+            "grads": {k: whole(p.grad, shard_of[k]) for k, p in params.items()
                       if p.grad is not None},
-            "params": {k: v.detach().cpu() for k, v in tr.denoiser.state_dict().items()}}
+            "params": {k: whole(v, shard_of.get(k)) for k, v in tr.denoiser.state_dict().items()},
+            "mesh": None if mesh is None else (mesh.size, mesh.rank, mesh.model,
+                                               mesh.model_rank),
+            "split": {k: (shape, tuple(params[k].shape)) for k, shape in split.items()}}
 
 
 def eval_metrics(mesh: Optional[DataMesh], spec: Dict[str, Any], dataset_kw: Dict[str, Any],
@@ -138,7 +163,7 @@ def free_port() -> int:
 
 
 def _rank_main(fn: Callable, rank: int, world: int, port: int, device: str, threads: int,
-               args: tuple, results) -> None:
+               model_parallel: int, args: tuple, results) -> None:
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
                       LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
     if threads:
@@ -147,7 +172,7 @@ def _rank_main(fn: Callable, rank: int, world: int, port: int, device: str, thre
         maybe_initialize_distributed()
         # as bytes: a tensor put on the queue as it is would be shared by a file
         # descriptor that dies with this process
-        value = pickle.dumps(fn(create_mesh(world, device=device), *args))
+        value = pickle.dumps(fn(create_mesh(world, model_parallel, device=device), *args))
         results.put((rank, value, None))
     except Exception:  # the parent raises it with the rank's traceback
         results.put((rank, None, traceback.format_exc()))
@@ -157,17 +182,18 @@ def _rank_main(fn: Callable, rank: int, world: int, port: int, device: str, thre
 
 
 def run_ranks(fn: Callable, world: int, *args, device: str = "cpu", timeout_s: float = 300.0,
-              threads: int = 0) -> List[Any]:
+              threads: int = 0, model_parallel: int = 1) -> List[Any]:
     """``fn(mesh, *args)`` in ``world`` spawned ranks of one gloo group on
-    ``device`` (ranks share a card when there is one); their results in rank
-    order.  ``fn`` and ``args`` are pickled (``fn`` by import path); a rank
+    ``device`` (ranks share a card when there is one), on a mesh of
+    ``model_parallel`` model ranks; their results in rank order.  ``fn`` and ``args`` are pickled (``fn`` by import path); a rank
     that raises, or no result within ``timeout_s``, raises here.  ``threads``
     caps each rank's CPU threads (0: torch's default)."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, rank, world, port, device, threads, args, results))
+                         args=(fn, rank, world, port, device, threads, model_parallel, args,
+                               results))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -223,15 +249,20 @@ def entry(device="cuda"):
 def dryrun_multichip(n_devices: int, device: str = "cpu", seed: int = 0) -> Dict[str, Any]:
     """One stage-2 step of ``tiny_spec`` over ``n_devices`` ranks on a batch
     of 4·n_devices items, against the same step in one process on the whole
-    batch: the loss, gradient norm and parameters within 1e-5 relative.
-    Returns both runs' loss and gradient norm."""
+    batch: the loss, gradient norm and parameters within 1e-5 relative.  For
+    an even n ≥ 4 the mesh has a model axis of 2 and the weights of at least
+    1 024 elements are split over it (the JAX dry run's mesh and
+    ``min_size``).  Returns both runs' loss and gradient norm, the ranks'
+    mesh coordinates, the split weights' shapes and each rank's largest
+    parameter difference from the one-process step."""
     spec = tiny_spec(seed)
     sk, b = spec["skeleton"], 4 * n_devices
+    model = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
     gen = torch.Generator().manual_seed(seed + 1)
     x = 0.3 * torch.randn((b, sk["obs_length"], 21, 3), generator=gen)
     y = 0.3 * torch.randn((b, sk["pred_length"], 21, 3), generator=gen)
-    ranks = run_ranks(stage2_step, n_devices, spec, x, y, None, None, seed, device=device,
-                      threads=1 if device == "cpu" else 0)
+    ranks = run_ranks(stage2_step, n_devices, spec, x, y, None, None, seed, device, 1024,
+                      device=device, threads=1 if device == "cpu" else 0, model_parallel=model)
     one = stage2_step(None, spec, x, y, seed=seed, device=device)
     for r in ranks:
         for key in ("loss", "grad_norm"):
@@ -242,8 +273,13 @@ def dryrun_multichip(n_devices: int, device: str = "cpu", seed: int = 0) -> Dict
             if not torch.allclose(v, one["params"][k], rtol=1e-5, atol=1e-7):
                 raise AssertionError(f"dryrun_multichip({n_devices}): {k} after the step "
                                      "differs from the one-process step")
-    print(f"dryrun_multichip({n_devices}): data axis {n_devices} on {device}, stage-2 loss "
+    if model > 1 and not ranks[0]["split"]:
+        raise AssertionError(f"dryrun_multichip({n_devices}): no weight split over the model axis")
+    print(f"dryrun_multichip({n_devices}): data axis {n_devices // model} × model axis {model} "
+          f"on {device} ({len(ranks[0]['split'])} weights split), stage-2 loss "
           f"{ranks[0]['loss']:.6f} (one process {one['loss']:.6f}), grad norm "
           f"{ranks[0]['grad_norm']:.6f} OK")
-    return {"ranks": [{k: r[k] for k in ("loss", "grad_norm")} for r in ranks],
+    return {"ranks": [{**{k: r[k] for k in ("loss", "grad_norm", "mesh", "split")},
+                       "param_max_diff": max(float((v - one["params"][k]).abs().max())
+                                             for k, v in r["params"].items())} for r in ranks],
             "one_process": {k: one[k] for k in ("loss", "grad_norm")}}

@@ -50,6 +50,7 @@ import torch
 
 from . import sampler_noise
 from .device import DeviceLike, resolve_device
+from .parallel.mesh import refuse_model_axis
 # importing the kernel wrappers registers the skd:: ops the programs call
 from .ops.kernels import (  # noqa: F401
     attention_proj, graph_linear_fused, gru_rollout, joint_attention, layer_fused,
@@ -110,6 +111,7 @@ def export_predictor(predictor, out_dir: str, batch_size: Union[int, Sequence[in
     as it stands (``SKELDIFF_LAYER_FUSED`` picks the kernel chain, recorded
     as ``path``).  ``mesh``: a data axis (``parallel.create_mesh``); every
     bucket must split evenly over it, and each program takes a rank's rows."""
+    refuse_model_axis(mesh, "export_predictor")
     sizes = _buckets(batch_size)
     S = num_samples or predictor.num_samples
     ph = pred_length or predictor.pred_length
@@ -183,6 +185,7 @@ class ServingModel:
         if nodes is not None and nodes != self.manifest["nodes"]:
             raise ValueError(f"the artifact was exported for {self.manifest['nodes']} nodes, "
                              f"not {nodes}")
+        refuse_model_axis(mesh, "ServingModel")
         exported = self.manifest.get("mesh")
         if (exported is None) != (mesh is None) or (
                 mesh is not None and exported["data"] != mesh.size):

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.autoencoder import AutoEncoder, autoencoder_loss
-from ..parallel.mesh import all_reduce_mean
+from ..parallel.mesh import all_reduce_mean, clip_grad_norm_
 from .schedulers import CurriculumPH, make_lr_scheduler
 
 
@@ -76,7 +76,7 @@ class AutoEncoderTrainer:
                                            weight_decay=weight_decay)
         self.step = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
-        self.mesh = None  # a data axis (parallel.DataMesh): this rank's rows of each batch
+        self.mesh = None  # a mesh (parallel.DataMesh): this rank's rows of each batch
 
     # ---- steps ---------------------------------------------------------------
     def current_lr(self) -> float:
@@ -98,8 +98,8 @@ class AutoEncoderTrainer:
         params = [p for p in self.model.parameters() if p.grad is not None]
         if self.mesh is not None:  # the whole batch's gradient, before clipping
             all_reduce_mean(self.mesh, [p.grad for p in params])
-        gnorm = torch.nn.utils.clip_grad_norm_(
-            params, self.clip_grad_norm if self.clip_grad_norm else float("inf"))
+        gnorm = clip_grad_norm_(
+            self.mesh, params, self.clip_grad_norm if self.clip_grad_norm else float("inf"))
         for group in self.optimizer.param_groups:
             group["lr"] = self.current_lr()
         self.optimizer.step()

@@ -30,7 +30,7 @@ import torch
 from ..diffusion.engine import GaussianDiffusion
 from ..eval_pipeline import SkeletonDiffusionPredictor
 from ..models.autoencoder import AutoEncoder, autoencoder_loss
-from ..parallel.mesh import all_reduce_mean
+from ..parallel.mesh import all_reduce_mean, clip_grad_norm_
 from .ema import ema_init, ema_update
 from .schedulers import make_lr_scheduler
 
@@ -87,7 +87,7 @@ class TrainerDiffusion:
         self.ema = ema_init(self.denoiser) if if_use_ema else None
         self.step = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
-        self.mesh = None  # a data axis (parallel.DataMesh): this rank's rows of each batch
+        self.mesh = None  # a mesh (parallel.DataMesh): this rank's rows of each batch
         # the last step's k-best choice: per-sample losses and similarities
         # [b, k] and the chosen index [b] (for inspection; latent_space: the
         # losses are the similarities)
@@ -157,7 +157,7 @@ class TrainerDiffusion:
         params = [p for p in self.denoiser.parameters() if p.grad is not None]
         if self.mesh is not None:  # the whole batch's gradient, before clipping
             all_reduce_mean(self.mesh, [p.grad for p in params])
-        gnorm = torch.nn.utils.clip_grad_norm_(params, self.max_grad_norm)
+        gnorm = clip_grad_norm_(self.mesh, params, self.max_grad_norm)
         for group in self.optimizer.param_groups:
             group["lr"] = self.current_lr()
         self.optimizer.step()

@@ -330,9 +330,9 @@ def test_fm_plan_refuses_what_the_kernel_does_not_take(call, error, match):
 @pytest.mark.parametrize("shape, heads, dim_head, error, match", [
     ((N, 3 * 33 * DH, 4), 33, DH, ValueError, "1 to 32 heads"),
     ((N, 3 * H * 16, 4), H, 16, ValueError, "heads of 32"),
-    ((20, 3 * HD, 4), H, DH, ValueError, "takes 21 nodes, got 20"),
+    ((52, 3 * HD, 4), H, DH, ValueError, "takes 2 to 51 nodes, got 52 .*Queue B item 9"),
     ((N, 3 * HD + 8, 4), H, DH, ValueError, "qkv has shape"),
-], ids=["heads33", "dh16", "nodes20", "width"])
+], ids=["heads33", "dh16", "nodes52", "width"])
 def test_attention_core_fm_refuses_before_launching(monkeypatch, shape, heads, dim_head, error,
                                                     match):
     """On a CUDA request L1's wrapper refuses what the kernel does not take

@@ -621,7 +621,8 @@ def test_remat_denoiser_gives_bit_identical_gradients():
 
 def test_setup_device_defaults_to_the_card_and_refuses_more_than_one():
     """One process is one device: a data axis of two needs two processes
-    (torchrun), and the model axis is refused (ROADMAP Queue A item 9)."""
+    (torchrun), and so does a 2-D mesh, whose model axis
+    (``device_mesh.model_parallel``) must divide its ranks."""
     from skeletondiffusion_tpu_torch.cli.common import setup_device, setup_mesh
 
     for n in (None, 1):
@@ -629,8 +630,10 @@ def test_setup_device_defaults_to_the_card_and_refuses_more_than_one():
         assert setup_mesh(cfg) is None and setup_device(cfg).type == "cpu"
     with pytest.raises(ValueError, match="needs 2 processes"):
         setup_mesh({"device": "cpu", "device_mesh": {"n_devices": 2}})
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide a mesh of 1"):
         setup_mesh({"device": "cpu", "device_mesh": {"n_devices": 1, "model_parallel": 2}})
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        setup_mesh({"device": "cpu", "device_mesh": {"n_devices": 4, "model_parallel": 2}})
     if not torch.cuda.is_available():
         for cfg in ({}, {"device": "cuda"}):  # the default is the card
             with pytest.raises(RuntimeError, match="cuda"):

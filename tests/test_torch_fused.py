@@ -27,8 +27,11 @@ from skeletondiffusion_tpu.models import AutoEncoder as JaxAutoEncoder
 from skeletondiffusion_tpu.ops.pallas import denoiser_fused as jax_fused
 from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused
 
-from torch_parity import (BF16_SPREAD, OBS_LEN, TIMESTEPS, WIDE, assert_bf16_close,
-                          bf16_predictor_ratios, hold_bf16_predictor, wide_model_pair)
+import torch_parity
+from torch_parity import (BF16_SPREAD, OBS_LEN, TIMESTEPS, WIDE, WIDE_GOLDEN_LIVE,
+                          WIDE_GOLDEN_RUNS, assert_bf16_close, bf16_predictor_ratios,
+                          golden_chain, golden_predictor_runs, hold_bf16_predictor,
+                          jax_fused_chain, predictor_inputs, wide_model_pair)
 
 N, L, B, S = 21, WIDE["latent"], 2, 4
 ROWS = B * S
@@ -114,8 +117,10 @@ def test_bf16_encoder_matches_flax(models):
 
 
 def test_bf16_predictor_matches_jax_fused_chain(models):
+    """The JAX chain's runs on the inputs of seed 8 from
+    ``tests/goldens/wide_bf16.npz`` (``scripts/wide_bf16_golden.py``)."""
     jsk, sk, m = models
-    hold_bf16_predictor(jsk, sk, m, seed=8)
+    hold_bf16_predictor(jsk, sk, m, seed=8, runs=golden_predictor_runs(sk, m, "fused_s8"))
 
 
 def test_bf16_predictor_spread_depends_on_the_inputs(models):
@@ -126,7 +131,29 @@ def test_bf16_predictor_spread_depends_on_the_inputs(models):
     random weights is ROADMAP Queue C item 1; when it changes, so does this
     reading."""
     jsk, sk, m = models
-    ratios = bf16_predictor_ratios(jsk, sk, m, seed=21)
+    ratios = bf16_predictor_ratios(jsk, sk, m, seed=21,
+                                   runs=golden_predictor_runs(sk, m, "fused_s21"))
     assert ratios["predictions"]["vs_fp32_max"] > BF16_SPREAD
     for what, r in ratios.items():
         assert r["vs_fp32_mean"] <= BF16_SPREAD and r["vs_jax_bf16_mean"] <= BF16_SPREAD, what
+
+
+def test_the_golden_holds_the_live_jax_chain():
+    """``tests/goldens/wide_bf16.npz`` against the JAX chain run now, on its
+    one-step run (the model of one diffusion step, the inputs of seed 8):
+    the same JAX package, ``torch_parity`` models and inputs wrote the
+    golden's runs.  fp32 at 1e-5 (the compiled core on another CPU may sum
+    in another order), bf16 by the bf16 criteria."""
+    from unittest import mock
+
+    want = golden_chain(WIDE_GOLDEN_LIVE)
+    with mock.patch.object(torch_parity, "TIMESTEPS", 1):
+        jsk, sk, m = wide_model_pair()
+        inputs = predictor_inputs(sk.num_nodes, m[None]["latent"], WIDE_GOLDEN_RUNS["fused_s8"][0])
+        for d in (None, "bfloat16"):
+            got = jax_fused_chain(jsk, m[d], *map(jnp.asarray, inputs), compiled=d is None)
+            for g, w, what in zip(got, want[d], ("latents", "predictions")):
+                if d is None:
+                    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=what)
+                else:
+                    assert_bf16_close(g, w, what)

@@ -41,7 +41,7 @@ skeletons = [("skeleton.kinematic", "H36MKinematic"), ("skeleton.kinematic", "Fr
              ("skeleton.motion", "SkeletonDiscreteCosineTransform"),
              ("data.loaders", "H36MDataset"), ("data.loaders", "FreeManDataset"),
              ("data.loaders", "D3PWZeroShotDataset"),
-             ("data.synthetic", "make_synthetic_skeleton_tree"), ("ops.kernels.build", "NODE_RANGE")]
+             ("data.synthetic", "make_synthetic_skeleton_tree"), ("ops.kernels.build", "MAX_NODES")]
 assert all(hasattr(sys.modules[f"{pkg.__name__}.{m}"], n) for m, n in skeletons), skeletons
 # the serving export, the data axis and the host-side modules of the last slice
 last = [("serving", "ServingModel"), ("sampler_noise", "draw"), ("parallel.mesh", "create_mesh"),

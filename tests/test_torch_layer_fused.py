@@ -36,7 +36,7 @@ from skeletondiffusion_tpu.ops.pallas.resnet_block import pad_film
 from skeletondiffusion_tpu_torch.ops.kernels import denoiser_fused, layer_fused
 
 from torch_parity import (WIDE, KernelInputs, assert_bf16_close, check_kernel,
-                          hold_bf16_predictor, pad_to, wide_model_pair)
+                          golden_predictor_runs, hold_bf16_predictor, pad_to, wide_model_pair)
 
 N, L = 21, WIDE["latent"]
 F = 2 * L  # the denoiser's width: latent ‖ conditioning
@@ -175,11 +175,13 @@ def test_layer_fused_core_matches_single_stage(wide_models, monkeypatch):
 
 def test_layer_fused_bf16_predictor_matches_jax_chain(wide_models, monkeypatch):
     """The bf16 predictor with SKELDIFF_LAYER_FUSED=1 against the JAX fused
-    chain with SKELDIFF_LAYER_FUSED=1, within BF16_SPREAD of the JAX chain's
-    own bf16-vs-fp32 deviation."""
+    chain with SKELDIFF_LAYER_FUSED=1 (its runs on the inputs of seed 9 from
+    ``tests/goldens/wide_bf16.npz``, ``scripts/wide_bf16_golden.py``), within
+    BF16_SPREAD of the JAX chain's own bf16-vs-fp32 deviation."""
     monkeypatch.setenv("SKELDIFF_LAYER_FUSED", "1")
     jsk, sk, models = wide_models
-    hold_bf16_predictor(jsk, sk, models, seed=9)
+    hold_bf16_predictor(jsk, sk, models, seed=9,
+                        runs=golden_predictor_runs(sk, models, "layer_fused_s9"))
 
 
 # ---- where the plain bf16 modules round ------------------------------------

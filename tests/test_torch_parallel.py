@@ -33,8 +33,11 @@ def test_rows_of_a_rank_and_the_refusals():
     assert torch.equal(got["x"], x[3:]) and got["pair"][1] is None and got["n"] == 3
     with pytest.raises(ValueError, match="does not split over the data axis of 2"):
         mesh.rows(5)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    # the 2-D mesh: the model axis must divide the ranks, which must be the processes
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide a mesh of 1 devices"):
         create_mesh(1, model_parallel=2, device="cpu")
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        create_mesh(4, model_parallel=2, device="cpu")
     with pytest.raises(ValueError, match="needs 2 processes"):
         create_mesh(2, device="cpu")
     one = create_mesh(device="cpu")

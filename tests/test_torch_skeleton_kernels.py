@@ -27,7 +27,8 @@ from skeletondiffusion_tpu.ops.pallas.layer_fused import (
 )
 from skeletondiffusion_tpu.ops.pallas.posterior_step import posterior_step_pallas
 from skeletondiffusion_tpu_torch.ops.graph_linear import l1_normalize_rows
-from skeletondiffusion_tpu_torch.ops.kernels import attention_proj, build, graph_linear_fused
+from skeletondiffusion_tpu_torch.ops.kernels import attention_core_fm, attention_proj, build
+from skeletondiffusion_tpu_torch.ops.kernels import graph_linear_fused
 from skeletondiffusion_tpu_torch.ops.kernels import gru_rollout, joint_attention, layer_fused
 from skeletondiffusion_tpu_torch.ops.kernels import node_mix_sm90, posterior_step, resnet_block
 
@@ -308,11 +309,19 @@ def test_the_fp32_rollout_refuses_past_21_nodes(monkeypatch):
 
 
 def test_the_bf16_rollout_and_the_lab_core_stay_at_21_nodes(monkeypatch):
+    """B8 and L1 take every skeleton's count now (2 to 51 nodes, as every
+    source): their wrappers refuse 52 before they name a C entry."""
     _cuda_request(monkeypatch, lambda *a: pytest.fail("launched"))
-    with pytest.raises(ValueError, match="takes 21 nodes, got 16 .*Queue B item 9"):
-        build.check_nodes("gru_rollout_bf16", "gru_rollout_merged", 16)
-    with pytest.raises(ValueError, match="takes 21 nodes, got 17 .*Queue B item 9"):
-        build.check_nodes("attention_core_fm", "attention_core_fm", 17)
+    n, b, h = 52, 8, 96
+    z = torch.zeros
+    with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
+        gru_rollout.gru_rollout(z(n, b, 3 * h, dtype=torch.bfloat16), z(n, b, h),
+                                z(n, h, 3 * h, dtype=torch.bfloat16), z(n, 3 * h), z(n, n),
+                                z(n, n), z(n, h, 3, dtype=torch.bfloat16), z(n, 3), z(n, n), ph=4,
+                                compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
+        attention_core_fm.attention_core_fm(z(n, 3 * 256, b, dtype=torch.bfloat16), heads=8,
+                                            dim_head=32)
 
 
 FAKE_NVCC = """#!/bin/sh
@@ -326,8 +335,8 @@ done
 
 def test_build_all_builds_each_source_once_for_each_node_count(tmp_path, monkeypatch):
     """One nvcc a (source, count) with -DSKD_NODES, all at once, into a
-    directory of its own for each count; the 21-node-only sources (B8, L1)
-    are built at 21 only, and a library that exists is not built again."""
+    directory of its own for each count (B8 and L1 too, as every source),
+    and a library that exists is not built again."""
     home = tmp_path / "cuda"
     (home / "bin").mkdir(parents=True)
     nvcc = home / "bin" / "nvcc"
@@ -344,13 +353,12 @@ def test_build_all_builds_each_source_once_for_each_node_count(tmp_path, monkeyp
     calls = [p.read_text().split("\n") for p in (home / "bin").glob("args.*")]
     built = sorted((pathlib.Path(a[-2]).name, a[len(build.NVCC_FLAGS)]) for a in calls)
     assert built == sorted(
-        [(f"{s}.cu", f"-DSKD_NODES={n}") for n in (16, 17, 21)
-         for s in ("resnet_block", "gru_rollout")]
-        + [("gru_rollout_merged.cu", "-DSKD_NODES=21"), ("attention_core_fm.cu", "-DSKD_NODES=21")])
+        (f"{s}.cu", f"-DSKD_NODES={n}") for n in (16, 17, 21)
+        for s in ("resnet_block", "gru_rollout", "gru_rollout_merged", "attention_core_fm"))
     dirs = {n: build.build_dir(n) for n in (16, 17, 21)}
     assert len(set(dirs.values())) == 3
-    assert all(build.library_path("resnet_block", n).is_file() for n in dirs)
-    assert not build.library_path("gru_rollout_merged", 16).exists()
+    assert all(build.library_path(s, n).is_file() for n in dirs
+               for s in ("resnet_block", "gru_rollout_merged"))
     for p in (home / "bin").glob("args.*"):
         os.remove(p)
     assert build.build_all((16,)) == 0.0 and not list((home / "bin").glob("args.*"))
@@ -361,5 +369,5 @@ def test_library_refuses_a_node_count_before_building(monkeypatch):
     monkeypatch.setattr(build, "build_all", lambda *a: pytest.fail("built"))
     with pytest.raises(ValueError, match="got 52"):
         build.library("resnet_block", 52)
-    with pytest.raises(ValueError, match="takes 21 nodes, got 16"):
-        build.library("gru_rollout_merged", 16)
+    with pytest.raises(ValueError, match="got 1 "):
+        build.library("gru_rollout_merged", 1)

@@ -174,7 +174,7 @@ def test_amass_mano_is_refused_naming_the_roadmap_item():
         assert create_skeleton(**_kw(name, 52, False)).num_nodes == 51
     with pytest.raises(ValueError, match="22 joints, or 52"):
         create_skeleton(**_kw("amass-mano", 51, False))
-    build.check_nodes("attention_core", "joint_attention", 51)
+    build.check_nodes("attention_core", 51)
     for name in ("joint_attention", "gru_rollout", "posterior_step", "resnet_block"):
         with pytest.raises(ValueError, match="takes 2 to 51 nodes, got 52 .*Queue B item 9"):
-            build.check_nodes(name, name, 52)
+            build.check_nodes(name, 52)

@@ -31,6 +31,16 @@ from skeletondiffusion_tpu_torch.ops.graph_linear import l1_normalize_rows
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 from skeletondiffusion_tpu_torch.weights import load_autoencoder_params, load_denoiser_params
 
+# The test run spreads the test files over several worker processes on a few
+# cores.  torch's intra-op pool at its default size (a thread a core) in each
+# of them oversubscribes the cores, and its small element-wise ops then wait
+# on each other's threads: the attention lab's bf16 chain at batch 8 took
+# 46 s on 8 threads beside such a run, 0.03 s on one.  So one thread a
+# process, and the processes the tests start (scripts, spawned ranks) take
+# one too.
+torch.set_num_threads(1)
+os.environ["OMP_NUM_THREADS"] = "1"
+
 LATENT = HIDDEN = 16
 TIMESTEPS = 4
 OBS_LEN, PRED_LEN = 6, 10
@@ -193,6 +203,33 @@ SAMPLES_E2E, BATCH_E2E = 4, 2
 MANO_SMALL = dict(latent=32, hidden=16, arch={**ARCH, "attn_heads": 4, "attn_dim_head": 32})
 MANO_GOLDEN = pathlib.Path(__file__).resolve().parent / "goldens" / "mano_bf16.npz"
 MANO_GOLDEN_STEPS, MANO_GOLDEN_INPUT_SEED, MANO_GOLDEN_WEIGHT_SEED = 2, 52, 3
+
+
+# The JAX fused chain's runs at the flagship's widths that the bf16 predictor
+# tests hold the port to, kept in a golden written by
+# scripts/wide_bf16_golden.py (the JAX bf16 chain takes minutes in interpret
+# mode): name → (input seed, layer-fused core); and the one-step run that
+# test_torch_fused.py runs live and holds to the file.
+WIDE_GOLDEN = pathlib.Path(__file__).resolve().parent / "goldens" / "wide_bf16.npz"
+WIDE_GOLDEN_RUNS = {"fused_s8": (8, False), "fused_s21": (21, False), "layer_fused_s9": (9, True)}
+WIDE_GOLDEN_LIVE = "fused_s8_1step"
+
+
+def golden_chain(name: str) -> dict:
+    """{None | "bfloat16": (latents, predictions)}: the JAX chain's fp32 and
+    bf16 runs ``name`` of ``WIDE_GOLDEN``."""
+    golden = np.load(WIDE_GOLDEN)
+    return {d: (golden[f"{name}_{dt}_latents"], golden[f"{name}_{dt}_predictions"])
+            for d, dt in ((None, "fp32"), ("bfloat16", "bf16"))}
+
+
+def golden_predictor_runs(sk, m, name: str) -> dict:
+    """``predictor_runs``'s result with the JAX chain's runs read from
+    ``WIDE_GOLDEN`` (``name``'s input seed) and the port's bf16 predictor run
+    live (the denoiser path the environment selects)."""
+    inputs = predictor_inputs(sk.num_nodes, m[None]["latent"], WIDE_GOLDEN_RUNS[name][0])
+    return {"jax": golden_chain(name),
+            "port": {"bfloat16": port_predictor_run(sk, m["bfloat16"], inputs, fused=True)}}
 
 
 def model_pair(jsk, sk, width=WIDE, seed: int = 3) -> dict:
