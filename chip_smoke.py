@@ -291,6 +291,7 @@ from skeletondiffusion_tpu_torch.parallel import create_mesh, dryrun
 from skeletondiffusion_tpu_torch.serving import export_predictor
 from skeletondiffusion_tpu_torch.skeleton import create_skeleton
 from skeletondiffusion_tpu_torch.train.checkpoint import CheckpointManager
+from skeletondiffusion_tpu_torch.train.ema import ema_decay
 from skeletondiffusion_tpu_torch.train.trainer_autoencoder import AutoEncoderTrainer
 from skeletondiffusion_tpu_torch.train.trainer_diffusion import TrainerDiffusion
 from skeletondiffusion_tpu_torch.utils import yaml_lite
@@ -1724,16 +1725,22 @@ def make_ae_trainer(ae: AutoEncoder) -> AutoEncoderTrainer:
                               random_prediction_horizon=True, seed=SEED)
 
 
+# The stage-2 EMA of the train phase: updates every second call, hard copies
+# through call 3, so that TRAIN_STEPS steps take it into decaying updates
+# (the flagship's every 10 after 100 would still be its first copy)
+TRAIN_EMA = dict(ema_update_every=2, step_start_ema=3)
+
+
 def make_diffusion_trainer(skeleton, engine, ae: AutoEncoder, if_use_ema: bool = True
                            ) -> TrainerDiffusion:
     """Stage 2 with the flagship's objective and optimizer
-    (`configs/config_train_diffusion/model/skeleton_diffusion.yaml`)."""
+    (`configs/config_train_diffusion/model/skeleton_diffusion.yaml`) and the
+    EMA of ``TRAIN_EMA``."""
     return TrainerDiffusion(engine, ae, lr=1e-3, weight_decay=0.0,
                             train_pick_best_sample_among_k=TRAIN_K,
                             similarity_space="input_space", if_use_ema=if_use_ema,
-                            ema_update_every=10, step_start_ema=100,
                             prediction_horizon_eval=PRED_LEN, num_prob_samples=SAMPLES,
-                            skeleton=skeleton)
+                            skeleton=skeleton, **TRAIN_EMA)
 
 
 def timed(fn):
@@ -1996,7 +2003,67 @@ def run_stage2(skeleton, loader, ae: AutoEncoder, ckpt_dir: str, card_name: str,
     log(f"train validation step on the EMA weights (EMA step {tr.ema.step}; batch {BATCH} × "
         f"{SAMPLES} samples, fused operands prepared at the call): {val_ms:.1f} ms; launches "
         f"{ {k: v for k, v in val_counts.items() if v} }")
+    hold_validation(skeleton, tr, ae, obs, fut, batch, step_gen)
     return {k: counts[k] + val_counts[k] for k in counts}
+
+
+def validation_runs(skeleton, tr: TrainerDiffusion, ae: AutoEncoder, obs: torch.Tensor,
+                    fut: torch.Tensor, start: torch.Tensor, steps: torch.Tensor) -> dict:
+    """The validation step's prediction on the EMA weights with injected
+    noise (``injected_run``: metric space, sampler states) on the kernel
+    chain, on the plain versions, and on an fp32 denoiser of the same EMA
+    weights."""
+    def validation_path(gen, obs, **noise):
+        out, _, samples, _ = tr.validation_step((obs, fut), gen, **noise)
+        return out, samples
+
+    engine32, den32 = train_denoiser(skeleton, "cuda")
+    den32.load_state_dict(tr.ema.module.state_dict())
+    fp32 = SkeletonDiffusionPredictor(skeleton, ae, engine32, num_samples=SAMPLES,
+                                      pred_length=PRED_LEN, device="cuda")
+    runs = {"kernels": injected_run(skeleton, validation_path, obs, start, steps, plain=False),
+            "plain": injected_run(skeleton, validation_path, obs, start, steps, plain=True),
+            "fp32": injected_run(skeleton, fp32, obs, start, steps, plain=False)}
+    torch.cuda.synchronize()
+    return runs
+
+
+def hold_validation(skeleton, tr: TrainerDiffusion, ae: AutoEncoder, obs: torch.Tensor,
+                    fut: torch.Tensor, batch, step_gen) -> None:
+    """The validation step on EMA weights past their hard copies, with
+    injected noise, held against the plain path on the same weights
+    (``hold_bf16``); then, after one more EMA update that moves them, the
+    same hold on the new weights and the kernel chain's move beside its
+    deviation from the plain path: packed operands left from before the
+    update would keep the chain's output where it was.  After the update
+    the predictions' mean ratio is printed, not held, as for the 16- and
+    17-node paths (ROADMAP Queue C item 7): on these weights it read 1.015
+    with the sampler states' at 0.825 (H100 80GB HBM3, 700 W), where the
+    same hold before the update read 0.818 and 0.815."""
+    if tr.ema.step <= tr.ema_kwargs["update_after_step"] + tr.ema_kwargs["update_every"]:
+        raise AssertionError(f"validation hold: the EMA (step {tr.ema.step}) has not left its "
+                             f"hard copies ({tr.ema_kwargs})")
+    start, steps = injected_noise(skeleton, torch.Generator(device="cuda").manual_seed(SEED + 11))
+    before = validation_runs(skeleton, tr, ae, obs, fut, start, steps)
+    hold_bf16(f"train validation step (EMA step {tr.ema.step})", before, [("kernels", "plain")])
+    decays = []
+    while not decays or decays[-1] == 1.0:  # steps up to one EMA update that decays
+        decays.append(ema_decay(tr.ema.step, **tr.ema_kwargs))
+        tr.train_step(batch, step_gen())
+    if not 0.0 < decays[-1] < 1.0:
+        raise AssertionError(f"validation hold: the EMA update applied decay {decays[-1]}")
+    after = validation_runs(skeleton, tr, ae, obs, fut, start, steps)
+    hold_bf16(f"train validation step after an EMA update of decay {decays[-1]:.4f} (EMA step "
+              f"{tr.ema.step})", after, [("kernels", "plain")], prediction_mean=False)
+    moved = {name: (after[name][0] - before[name][0]).abs() * 1e3 for name in after}
+    gap = (after["kernels"][0] - after["plain"][0]).abs() * 1e3
+    log(f"train validation step, the EMA update's move of the prediction (metric space): "
+        f"kernels mean {moved['kernels'].mean().item():.4e} mm, plain mean "
+        f"{moved['plain'].mean().item():.4e} mm, fp32 mean {moved['fp32'].mean().item():.4e} "
+        f"mm; kernels vs plain after it mean {gap.mean().item():.4e} mm")
+    if not moved["kernels"].mean().item() > gap.mean().item():
+        raise AssertionError("validation hold: the kernel chain's prediction did not move with "
+                             "the EMA weights beyond its deviation from the plain path")
 
 
 def run_train(skeleton, data_root: str, card_name: str, expected_bf16: dict) -> dict:

@@ -3,35 +3,80 @@
 # on its trained flagship, each bounded by `timeout` so that what was banked
 # is still written out when a later step is cut:
 #
-#   1. scripts/torch_convergence_capstone.py with the cut schedule below
-#      (override it with CAPSTONE_ARGS) → <out>/torch_convergence.json, .md
+#   1. scripts/torch_convergence_capstone.py with the schedule SCHEDULE names
+#      (CAPSTONE_ARGS replaces it) → <out>/torch_convergence.json, .md
 #   2. scripts/torch_bf16_converged_quality.py --eval-only (the eval dtype)
 #   3. scripts/torch_bf16_chain_split.py --checkpoint <flagship> (the bf16
 #      chain's split and chip_smoke's hold_bf16 on the trained weights)
 #   4. scripts/torch_bf16_converged_quality.py (the train-dtype half), if
 #      TRAIN_DTYPE_SECONDS > 0
+#   5. scripts/torch_validation_reading.py --experiment <flagship> (its
+#      validation ADE through each path, beside the test split's)
 #
 #   bash scripts/torch_capstone_card.sh [out_dir] [root]
 #
-# Times (seconds) come from CAPSTONE_SECONDS, TRAIN_DTYPE_SECONDS; the logs
+# SCHEDULE=cut (the default) is a quarter of the JAX run's steps a stage, to
+# fit one call; SCHEDULE=full is the JAX run's own (docs/convergence.json →
+# config), ~3 h on an H100, run across calls: CAPSTONE_SECONDS is this call's
+# time for step 1 (the capstone's phase markers and the CLIs' resume carry
+# the run into the next call, which starts where the cut one stopped).
+# Stage 1 at the full schedule takes ~3 800 s on an H100 (0.246 s a step):
+# more than one call.
+# Times (seconds) come from CAPSTONE_SECONDS, BF16_EVAL_SECONDS (600),
+# CHAIN_SPLIT_SECONDS (900), TRAIN_DTYPE_SECONDS (0), READING_SECONDS (600);
+# a step given 0 is skipped.  The logs
 # and JSON files land in out_dir (default output/capstone_report), the
-# checkpoints under root (default output/torch_capstone).
+# checkpoints under root (default output/torch_capstone).  A call on a
+# machine that is thrown away afterwards carries stage 1 to the next one
+# through out_dir/carry/out_ae (the AutoEncoder's latest and best
+# checkpoints, its log and host state; ~50 MB): move it back to
+# root/out_ae before the next call.  Stage 2's checkpoints (~0.5 GB each)
+# do not travel, so a stage-2 variant trains within one call.
 set -u
 cd "$(dirname "$0")/.."
 OUT=${1:-output/capstone_report}
 ROOT=${2:-output/torch_capstone}
-CUT=${CAPSTONE_ARGS:---ae-epochs 60 --ae-iters 64 --ae-gamma 0.92 --diff-epochs 30 --diff-iters 64 --diff-gamma 0.9 --diff-warmup 5 --eval-freq 5}
+case "${SCHEDULE:-cut}" in
+  cut) SCHED="--ae-epochs 60 --ae-iters 64 --ae-gamma 0.92 --diff-epochs 30 --diff-iters 64 --diff-gamma 0.9 --diff-warmup 5 --eval-freq 5" ;;
+  full) SCHED="--ae-epochs 120 --ae-iters 128 --ae-gamma 0.94 --diff-epochs 60 --diff-iters 128 --diff-gamma 0.94 --diff-warmup 10 --eval-freq 10" ;;
+  *) echo "SCHEDULE is cut or full, not ${SCHEDULE}" >&2; exit 2 ;;
+esac
+CUT=${CAPSTONE_ARGS:-$SCHED}
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
 python3 -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)' \
   | tee -a "$OUT/card.txt"
 
 start=$(date +%s)
+budget=${CAPSTONE_SECONDS:-2400}
 # shellcheck disable=SC2086
-timeout -k 20 "${CAPSTONE_SECONDS:-2400}" python3 scripts/torch_convergence_capstone.py \
-  --root "$ROOT" --out-json "$OUT/torch_convergence.json" $CUT > "$OUT/capstone.log" 2>&1
+timeout -k 20 "$budget" python3 scripts/torch_convergence_capstone.py \
+  --root "$ROOT" --out-json "$OUT/torch_convergence.json" $CUT >> "$OUT/capstone.log" 2>&1
 echo "capstone rc=$? after $(( $(date +%s) - start )) s"
 grep -a "\[capstone\]\|Error\|error" "$OUT/capstone.log" | tail -40
+if [ -d "$ROOT/out_ae" ] && [ ! -f "$ROOT/out_ae/CAPSTONE_DONE" ]; then
+  # stage 1 cut by the budget, for the next call: its log, config and host
+  # state, and of its checkpoints the latest (to resume) and the best (the
+  # one stage 2 will load if no later one beats it); ~45 MB
+  rm -rf "$OUT/carry" && mkdir -p "$OUT/carry"
+  cp -r "$ROOT/timings" "$OUT/carry/" 2>/dev/null
+  python3 - "$ROOT/out_ae" "$OUT/carry/out_ae" <<'PY'
+import json, os, shutil, sys
+src, dst = sys.argv[1:]
+keep = set()
+index = os.path.join(src, "checkpoints", "index.json")
+if os.path.exists(index):
+    entries = json.load(open(index))
+    scored = [e for e in entries if e["score"] is not None]
+    keep = {e["name"] + ".pt" for e in entries if e["name"].startswith("latest")}
+    if scored:
+        keep.add(max(scored, key=lambda e: e["score"])["name"] + ".pt")
+shutil.copytree(src, dst, ignore=lambda d, names: [
+    n for n in names if n.startswith("events.out.tfevents") or n == "code_snapshot.zip"
+    or (d.endswith("checkpoints") and n.endswith((".pt", ".tmp")) and n not in keep)])
+print("carried", sorted(keep))
+PY
+fi
 for d in "$ROOT"/out_*; do
   [ -f "$d/metrics.jsonl" ] && grep -a '"prefix": "\(train\|valid\)"' "$d/metrics.jsonl" \
     > "$OUT/metrics_$(basename "$d").jsonl"
@@ -43,17 +88,28 @@ fi
 
 flagship="$ROOT/out_diff_k50_motion"
 if [ -f "$flagship/CAPSTONE_DONE" ]; then
-  t=$(date +%s)
-  timeout -k 20 600 python3 scripts/torch_bf16_converged_quality.py --eval-only --root "$ROOT" \
-    --out "$OUT/torch_bf16_eval_quality.json" > "$OUT/bf16_eval.log" 2>&1
-  echo "bf16 eval-dtype rc=$? after $(( $(date +%s) - t )) s"
-  tail -3 "$OUT/bf16_eval.log"
-  t=$(date +%s)
-  timeout -k 20 900 python3 scripts/torch_bf16_chain_split.py --checkpoint "$flagship" \
-    > "$OUT/chain_split_trained.log" 2>&1
-  echo "chain split rc=$? after $(( $(date +%s) - t )) s"
-  grep -a "plain vs fp32\|kernels:\|step by step\|hold_bf16\|with injected noise" \
-    "$OUT/chain_split_trained.log" | cut -c1-400
+  if [ "${READING_SECONDS:-600}" -gt 0 ]; then
+    t=$(date +%s)
+    timeout -k 20 "${READING_SECONDS:-600}" python3 scripts/torch_validation_reading.py \
+      --experiment "$flagship" --out "$OUT/validation_reading.json" > "$OUT/validation_reading.log" 2>&1
+    echo "validation reading rc=$? after $(( $(date +%s) - t )) s"
+    grep -a "ADE\|Error" "$OUT/validation_reading.log" | grep -v "^{" | cut -c1-300
+  fi
+  if [ "${BF16_EVAL_SECONDS:-600}" -gt 0 ]; then
+    t=$(date +%s)
+    timeout -k 20 "${BF16_EVAL_SECONDS:-600}" python3 scripts/torch_bf16_converged_quality.py \
+      --eval-only --root "$ROOT" --out "$OUT/torch_bf16_eval_quality.json" > "$OUT/bf16_eval.log" 2>&1
+    echo "bf16 eval-dtype rc=$? after $(( $(date +%s) - t )) s"
+    tail -3 "$OUT/bf16_eval.log"
+  fi
+  if [ "${CHAIN_SPLIT_SECONDS:-900}" -gt 0 ]; then
+    t=$(date +%s)
+    timeout -k 20 "${CHAIN_SPLIT_SECONDS:-900}" python3 scripts/torch_bf16_chain_split.py \
+      --checkpoint "$flagship" > "$OUT/chain_split_trained.log" 2>&1
+    echo "chain split rc=$? after $(( $(date +%s) - t )) s"
+    grep -a "plain vs fp32\|kernels:\|step by step\|hold_bf16\|with injected noise" \
+      "$OUT/chain_split_trained.log" | cut -c1-400
+  fi
   if [ "${TRAIN_DTYPE_SECONDS:-0}" -gt 0 ]; then
     t=$(date +%s)
     timeout -k 20 "$TRAIN_DTYPE_SECONDS" python3 scripts/torch_bf16_converged_quality.py \

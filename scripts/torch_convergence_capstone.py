@@ -18,7 +18,11 @@ in-process through their ``main(argv)``, and judges:
 
 Output: ``docs/torch_convergence.json`` (``--out-json``), rewritten after
 every phase, with the card's name and power limit beside the timings.
-Resumable: each phase writes a completion marker and is skipped when done.
+Resumable: each phase writes a completion marker and is skipped when done,
+and a phase cut by ``timeout`` resumes from its latest checkpoint.  Each
+phase's seconds are summed over the runs that worked on it (files under
+``<root>/timings``), so a schedule run across several calls reports its
+whole cost.
 Exits 1 when a judged check fails (``main`` returns the report; the exit
 code is ``verdict``'s).
 
@@ -32,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -90,16 +95,46 @@ def kept_checkpoints(ckpt_dir: str) -> list:
     return sorted(names)
 
 
-def run_phase(name: str, out_dir: str, fn, timings: dict):
+def read_seconds(path: str) -> float:
+    if not os.path.exists(path):
+        return 0.0
+    with open(path) as f:
+        return float(f.read())
+
+
+def spend(root: str, name: str, seconds: float) -> float:
+    """Add ``seconds`` to phase ``name``'s total over every run (a file a
+    phase, so that processes that run at once never write the same file);
+    returns the total."""
+    os.makedirs(os.path.join(root, "timings"), exist_ok=True)
+    path = os.path.join(root, "timings", name)
+    total = seconds + read_seconds(path)
+    with open(path, "w") as f:
+        f.write(repr(total))
+    return total
+
+
+def spent(root: str) -> dict:
+    """Every phase's seconds over all runs, as ``spend`` summed them."""
+    directory = os.path.join(root, "timings")
+    if not os.path.isdir(directory):
+        return {}
+    return {name: round(read_seconds(os.path.join(directory, name)), 1)
+            for name in sorted(os.listdir(directory))}
+
+
+def run_phase(root: str, name: str, out_dir: str, fn):
     if done(out_dir):
         print(f"[capstone] {name}: already done, skipping")
         return
     print(f"[capstone] {name}: starting", flush=True)
     t0 = time.time()
-    fn()
-    timings[name] = round(time.time() - t0, 1)
+    try:
+        fn()
+    finally:  # a phase cut by `timeout` (SIGTERM, see __main__) counts its seconds too
+        total = spend(root, name, time.time() - t0)
     mark(out_dir)
-    print(f"[capstone] {name}: done in {timings[name]} s", flush=True)
+    print(f"[capstone] {name}: done, {total:.1f} s over every run", flush=True)
 
 
 def card_line(smoke: bool) -> str:
@@ -110,6 +145,12 @@ def card_line(smoke: bool) -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+# the stage-2 variants in training order: the flagship first (checks (a),
+# (c) and (d) rest on it alone), then the two legs of check (b)'s first
+# comparison, then k1
+VARIANTS = ("k50_motion", "k50_latent", "k1")
 
 
 def parse_args(argv):
@@ -148,7 +189,6 @@ def main(argv=None):
 
     root = args.root
     os.makedirs(root, exist_ok=True)
-    timings: dict = {}
     t_all = time.time()
 
     # ---- shapes / schedule ---------------------------------------------
@@ -218,7 +258,7 @@ def main(argv=None):
         )
 
     os.makedirs(ds_root, exist_ok=True)
-    run_phase("data", ds_root, build_data, timings)
+    run_phase(root, "data", ds_root, build_data)
     if args.data_only:
         print("[capstone] --data-only: dataset ready, exiting")
         return None
@@ -258,10 +298,12 @@ def main(argv=None):
 
     def bank(last_phase: str):
         """Write the partial report now; safe at any point after data prep."""
+        timings = spent(root)
         report = analyze(root, ae_dir, diff_dirs, results, smoke=args.smoke,
                          timings=timings, config=resolved_config)
         report["last_phase_done"] = last_phase
-        report["timings_sec"] = dict(timings, total=round(time.time() - t_all, 1))
+        report["timings_sec"] = dict(timings, total=round(sum(timings.values()), 1),
+                                     this_run=round(time.time() - t_all, 1))
         report["card"] = card
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)), exist_ok=True)
         with open(args.out_json, "w") as f:
@@ -289,7 +331,7 @@ def main(argv=None):
             "model.lr_scheduler_kwargs.update_every=1",
         ])
 
-    run_phase("train_autoencoder", ae_dir, train_ae, timings)
+    run_phase(root, "train_autoencoder", ae_dir, train_ae)
     bank("train_autoencoder")
 
     # ---- eval helper (used per variant, right after it trains) -------------
@@ -313,7 +355,7 @@ def main(argv=None):
                 "if_compute_apde=True",
                 f"results_path={res_path}",
             ] + extra)
-            timings[f"eval_{name}"] = round(time.time() - t0, 1)
+            spend(root, f"eval_{name}", time.time() - t0)
         return yaml_lite.read(res_path)
 
     # the reference's algorithmic baseline; it needs no trained model, so it
@@ -324,16 +366,17 @@ def main(argv=None):
     bank("eval_zero_velocity")
 
     # ---- phase: stage-2 diffusion, three objective variants ----------------
-    # the flagship trains first: if the run is cut, the checks that depend
-    # only on it ((a), (c), (d)) survive
+    # in VARIANTS' order: if the run is cut, the checks that depend only on
+    # the flagship ((a), (c), (d)) survive, then check (b)'s first leg
     variants = {
         "k50_motion": [f"model.train_pick_best_sample_among_k={k_full}",
                        "model.similarity_space=input_space"],
-        "k1": ["model.train_pick_best_sample_among_k=1"],
         "k50_latent": [f"model.train_pick_best_sample_among_k={k_full}",
                        "model.similarity_space=latent_space"],
+        "k1": ["model.train_pick_best_sample_among_k=1"],
     }
-    for vname, vargs in variants.items():
+    for vname in VARIANTS:
+        vargs = variants[vname]
         out = os.path.join(root, f"out_diff_{vname}")
         if args.only_done_variants and not done(out):
             print(f"[capstone] train_diffusion_{vname}: not done, "
@@ -355,7 +398,7 @@ def main(argv=None):
                 "model.lr_scheduler_kwargs.update_every=1",
             ])
 
-        run_phase(f"train_diffusion_{vname}", out, train_diff, timings)
+        run_phase(root, f"train_diffusion_{vname}", out, train_diff)
         results[vname] = run_eval(vname, [f"checkpoint_path={out}"])
         bank(f"eval_{vname}")
 
@@ -514,4 +557,7 @@ def analyze(root, ae_dir, diff_dirs, results, *, smoke, timings, config):
 
 
 if __name__ == "__main__":
+    # `timeout` ends a cut run with SIGTERM: exit through the phases'
+    # `finally`, so that their seconds so far are kept
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     sys.exit(verdict(main()))

@@ -36,6 +36,19 @@ def fmt(v, nd=4):
     return f"{v:.{nd}f}" if isinstance(v, (int, float)) else str(v)
 
 
+def steps_of(phase: str, cfg: dict):
+    """The training steps of a training phase (None for the others or for
+    whole-pass epochs)."""
+    if phase == "train_autoencoder" and cfg.get("ae_iters_per_epoch"):
+        return cfg["ae_epochs"] * cfg["ae_iters_per_epoch"]
+    if phase.startswith("train_diffusion_"):
+        iters = [o.split("=", 1)[1] for o in cfg["diff_sched"]
+                 if o.startswith("model.num_iter_perepoch=")]
+        if iters and iters[0] != "null":
+            return cfg["diff_epochs"] * int(iters[0])
+    return None
+
+
 def trajectory_table(rows, every=1):
     out = ["| epoch-step | valid ADE |", "|---|---|"]
     for i, (step, ade) in enumerate(rows):
@@ -159,11 +172,16 @@ def main():
         "",
         f"## Timings ({r.get('card', 'card not recorded')})",
         "",
-        "| phase | seconds |",
-        "|---|---|",
+        "Each phase's seconds over every call that worked on it; a training "
+        "phase's seconds a step include its validations and checkpoint writes.",
+        "",
+        "| phase | seconds | steps | seconds a step |",
+        "|---|---|---|---|",
     ]
     for k, v in r.get("timings_sec", {}).items():
-        lines.append(f"| {k} | {v} |")
+        steps = steps_of(k, cfg)
+        per = "—" if not steps else f"{v / steps:.4f}"
+        lines.append(f"| {k} | {v} | {steps or '—'} | {per} |")
     lines.append("")
 
     with open(args.out, "w") as f:

@@ -13,6 +13,7 @@
 """
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -102,13 +103,22 @@ def run_blocked(script: str, args: list, cwd) -> subprocess.CompletedProcess:
                           timeout=600)
 
 
-def test_smoke_run_writes_the_jax_report_without_jax(scripts, tmp_path):
-    root, out = tmp_path / "root", tmp_path / "torch_convergence.json"
+@pytest.fixture(scope="module")
+def smoke_root(tmp_path_factory):
+    """The twin's ``--smoke`` run, one epoch and one iteration a stage, in a
+    process where jax cannot be imported → (its root, its report's path)."""
+    tmp = tmp_path_factory.mktemp("capstone_smoke")
+    root, out = tmp / "root", tmp / "torch_convergence.json"
     cut = ["--ae-epochs", "1", "--ae-iters", "1", "--diff-epochs", "1", "--diff-iters", "1",
            "--diff-warmup", "1", "--eval-freq", "1"]
     proc = run_blocked("torch_convergence_capstone.py",
-                       ["--smoke", "--root", str(root), "--out-json", str(out), *cut], tmp_path)
+                       ["--smoke", "--root", str(root), "--out-json", str(out), *cut], tmp)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return root, out
+
+
+def test_smoke_run_writes_the_jax_report_without_jax(scripts, smoke_root, tmp_path):
+    root, out = smoke_root
     report = json.loads(out.read_text())
     # every key the JAX script's report has (analyze's, and those bank adds)
     ae_dir, diff_dirs, results = _fabricate(str(tmp_path / "fab"), good=True)
@@ -142,3 +152,26 @@ def test_smoke_run_writes_the_jax_report_without_jax(scripts, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     text = md.read_text()
     assert "## Timings (cpu)" in text and "flagship/ZV ADE ratio" in text
+
+
+def test_validation_reading_repeats_the_logged_validation(smoke_root, tmp_path):
+    """``scripts/torch_validation_reading.py`` on the smoke run's flagship, on
+    the CPU where jax cannot be imported: the training CLI's ``validate``
+    on the best checkpoint repeats the ADE the run logged for its epoch bit
+    for bit, the plain versions (which the CPU runs anyway) give the same,
+    and every path reads a finite ADE on both splits."""
+    root, _ = smoke_root
+    out = tmp_path / "reading.json"
+    proc = run_blocked("torch_validation_reading.py",
+                       ["--device", "cpu", "--experiment", str(root / "out_diff_k50_motion"),
+                        "--out", str(out)], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    reading = json.loads(out.read_text())
+    valid, test = reading["ade"]["valid"], reading["ade"]["test"]
+    assert reading["epoch"] == 1 and reading["card"] == "cpu"
+    assert valid["validate"] == valid["logged"] == valid["plain_bf16"]
+    assert set(valid) == {"logged", "validate", "plain_bf16", "fp32", "live", "eval_cli",
+                          "zero_velocity", "autoencoder"}
+    assert set(test) == {"validate", "eval_cli", "zero_velocity", "autoencoder"}
+    assert all(math.isfinite(v) and v > 0 for v in [*valid.values(), *test.values()])
+    assert reading["valid_datasets"] == ["HumanEva"] and reading["segments"]["valid"] > 0
