@@ -218,6 +218,19 @@ Phases, each printed with its elapsed seconds:
               report, and K1, K2 and the single-stage bf16 chain launched
               between the counters' reset and read (``capstone_launches`` in
               the kernels' JSON line, 21-node entries).
+20. small   — the JAX quickstart's small models on the card: K1 built at the
+              hidden widths of SMALL_WIDTHS (with the others in phase 2)
+              against its plain version at 21 nodes (12 800, 12 795 and an
+              odd-tile row count; ms, plain ms and bound on a line of their
+              own), then examples/torch_quickstart_synthetic.py on the card
+              (its synthetic tree, both training CLIs at hidden and latent
+              16 and a denoiser of 2 heads × 4, the eval CLI, the serving
+              export and a served call): the predictor takes the plain bf16
+              denoiser, with its reason, K1 at hidden 16 and K2 launched,
+              no kernel of the chain, finite metrics and predictions of
+              their shapes (``small_launches`` in the kernels' JSON line).
+              The flagship's and every skeleton's bf16 predictors take the
+              kernel chain (use_fused_denoiser; held where each is built).
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
@@ -2652,6 +2665,7 @@ def run_skeleton_paths(dataset: str, device: torch.device, card_name: str):
         k["launches"] = launches[k["name"]]
 
     _, predictor_bf16 = build_model(device, torch.bfloat16, dataset=dataset)
+    hold_chain_route(label, predictor_bf16)
     fused = check_denoiser_kernels(predictor_bf16, gen)
     launches = run_main_path(skeleton, predictor_bf16, obs, card_name, EXPECTED_BF16,
                              f"{label} path bf16")
@@ -2989,6 +3003,115 @@ def run_mano(device: torch.device, card_name: str):
         run_mano_cli(root, card_name)
         log(f"mano: cli {time.perf_counter() - t:.1f} s")
     return entries
+
+
+# The small phase: K1 at these hidden widths beside the flagship's 96 (21
+# nodes, the flagship's batch and steps), and the JAX quickstart's models
+# through its twin, examples/torch_quickstart_synthetic.py.
+SMALL_WIDTHS = (16, 32, 64, 128)
+QUICKSTART = pathlib.Path(__file__).resolve().parent / "examples"
+CHAIN_KERNELS = sorted((set(EXPECTED_BF16) | set(EXPECTED_LAYER_FUSED))
+                       - {"gru_rollout", "posterior_step_x0_bf16"})
+
+
+def hold_chain_route(label: str, predictor) -> None:
+    """A bf16 predictor of the flagship's widths takes the kernel chain: the
+    route by width must not move it onto the plain modules."""
+    if not predictor.use_fused_denoiser:
+        raise AssertionError(f"{label}: the bf16 predictor left the kernel chain: "
+                             f"{predictor.fused_denoiser_refusal}")
+    log(f"{label}: bf16 denoiser on the kernel chain (use_fused_denoiser True)")
+
+
+def rollout_width_inputs(n: int, h: int, rows: int, gen: torch.Generator) -> dict:
+    """K1's inputs at n nodes and hidden width h from ``gen``: gates and
+    states O(1), banks scaled by 1/√h as a trained decoder's, influences
+    row-normalized near the identity."""
+    def rnd(*shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def infl():
+        g = torch.eye(n, device="cuda") + 0.2 * torch.rand((n, n), generator=gen, device="cuda")
+        return g / g.sum(dim=1, keepdim=True)
+
+    return dict(cx=rnd(n, rows, 3 * h, scale=0.5), h0=rnd(n, rows, h, scale=0.5),
+                w_hh=rnd(n, h, 3 * h, scale=h ** -0.5), b_hh=rnd(n, 3 * h, scale=0.1),
+                g0=infl(), g_add=0.05 * infl(), w_fc=rnd(n, h, 3, scale=h ** -0.5),
+                b_fc=rnd(n, 3, scale=0.1), g_fc=infl())
+
+
+def check_rollout_width(h: int, gen: torch.Generator, n: int = 21) -> dict:
+    """K1 built at hidden width h against its plain version at the
+    flagship's 12 800 rows and 120 steps, a ragged 12 795 and
+    ``odd_cluster_rows``; timed beside the plain version, with its bound."""
+    rows, ph = BATCH * SAMPLES, PRED_LEN
+    inp = rollout_width_inputs(n, h, rows, gen)
+    plan = rollout_mod.rollout_plan(n, h)
+    err = 0.0
+    with torch.no_grad():
+        for cut in (rows, rows - RAGGED, odd_cluster_rows(plan)):
+            args = {k: v[:, :cut].contiguous() if k in ("cx", "h0") else v for k, v in inp.items()}
+            got = rollout_mod.gru_rollout(**args, ph=ph)
+            want = rollout_mod.gru_rollout_plain(**args, ph=ph)
+            torch.cuda.synchronize()
+            cut_err = (got - want).abs().max().item()
+            if not (got.shape == want.shape and cut_err <= K1_TOL):
+                raise AssertionError(f"gru_rollout at hidden {h} disagrees with its plain version "
+                                     f"at {cut} rows: {cut_err}")
+            err = max(err, cut_err)
+        ms = cuda_ms(lambda: rollout_mod.gru_rollout(**inp, ph=ph), reps=3)
+        plain_ms = cuda_ms(lambda: rollout_mod.gru_rollout_plain(**inp, ph=ph), reps=2)
+    f = 3
+    flops_row_step = 2 * n * h * 3 * h + 2 * n * n * h * 4 + 2 * n * h * f + 2 * n * n * f
+    compulsory = sum(t.numel() for t in inp.values()) + ph * n * rows * f
+    bnd, by = bound_ms(4.0 * compulsory, float(flops_row_step) * rows * ph)
+    log(f"gru_rollout at hidden {h} ({n} nodes): max_abs_err {err:.3e} (tol {K1_TOL:.0e}) at "
+        f"{rows}, {rows - RAGGED} and {odd_cluster_rows(plan)} rows; plan {plan._asdict()}; "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.3f} ms ({by})")
+    return {"name": "gru_rollout", "hidden": h, "nodes": n, "steps": ph, "rows": rows,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "plan": list(plan)}
+
+
+def run_small(card_name: str) -> dict:
+    """The small phase (see the head of this file); returns the launches of
+    the quickstart's pipeline."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    widths = [check_rollout_width(h, gen) for h in SMALL_WIDTHS]
+    log(json.dumps({"k1_widths": widths, "card": card_name}))
+    sys.path.insert(0, str(QUICKSTART))
+    import torch_quickstart_synthetic as quickstart
+
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        reset_counts()
+        out = quickstart.main(["--out", os.path.join(root, "quickstart"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        seconds = time.perf_counter() - t
+    predictor, served, results = out["predictor"], out["served"], out["results"]
+    ae = predictor.autoencoder
+    hidden = ae.decoder.rollout.cell.hidden_banks()[0].shape[-2]
+    den = predictor.diffusion.denoiser
+    chain = {k: launches[k] for k in CHAIN_KERNELS if launches[k]}
+    posterior = launches["posterior_step"] + launches["posterior_step_x0_bf16"]
+    if predictor.use_fused_denoiser or not predictor.fused_denoiser_refusal:
+        raise AssertionError("quickstart: its denoiser (F = 32, 2 heads × 4) took the chain")
+    if hidden != 16 or not predictor.use_fused_decode or launches["gru_rollout"] == 0:
+        raise AssertionError(f"quickstart: K1 at hidden {hidden}, fused decode "
+                             f"{predictor.use_fused_decode}, {launches['gru_rollout']} launches")
+    if chain or posterior == 0:
+        raise AssertionError(f"quickstart: chain kernels launched {chain}, K2 {posterior} times")
+    if not (tuple(served.shape) == (2, 4, 15, 21, 3) and bool(torch.isfinite(served).all())
+            and all(math.isfinite(v) for v in results.values())):
+        raise AssertionError(f"quickstart: served {tuple(served.shape)}, finite "
+                             f"{bool(torch.isfinite(served).all())}, metrics {results}")
+    log(f"small: the quickstart's pipeline on {card_name} in {seconds:.1f} s (train both "
+        f"stages, eval, export, serve): ADE {results['ADE']:.4f}, APD {results['APD']:.4f}; "
+        f"denoiser {den.dim}+{den.cond_dim} wide, {den.attn_heads} heads × {den.attn_dim_head}, "
+        f"plain bf16 ({predictor.fused_denoiser_refusal}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
 
 
 # The capstone phase: scripts/torch_convergence_capstone.py at full width
@@ -3436,14 +3559,23 @@ def main() -> int:
     phase("device", t)
 
     t = time.perf_counter()
-    seconds = build.build_all(NODE_COUNTS)
+    # the small phase's K1 widths (the quickstart's 16 among them)
+    widths = [(21, h) for h in SMALL_WIDTHS if h != build.DEFAULT_HIDDEN]
+    seconds = build.build_all(NODE_COUNTS, widths)
     for nodes in NODE_COUNTS:
         for src in build.sources():
             build.library(src.stem, nodes)
             for line in build.ptxas_report(src.stem, nodes).splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
                     log(f"  {src.stem} ({nodes} nodes): {line.strip()}")
-    log(f"build: nvcc {seconds:.2f} s, every source at each of {NODE_COUNTS} nodes at once, "
+    for nodes, hidden in widths:
+        for src in build.HIDDEN_SOURCES:
+            build.library(src, nodes, hidden)
+            for line in build.ptxas_report(src, nodes, hidden).splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {src} ({nodes} nodes, hidden {hidden}): {line.strip()}")
+    log(f"build: nvcc {seconds:.2f} s, every source at each of {NODE_COUNTS} nodes and "
+        f"{', '.join(build.HIDDEN_SOURCES)} at hidden {sorted({h for _, h in widths})}, at once, "
         f"into {', '.join(str(build.build_dir(n)) for n in NODE_COUNTS)}")
     phase("build", t)
     # the serving phase's export and load run on the host beside the next phases
@@ -3478,6 +3610,7 @@ def run_phases(t_all: float, card_name: str, device: torch.device, serving_root:
 
     t = time.perf_counter()
     _, predictor_bf16 = build_model(device, torch.bfloat16)
+    hold_chain_route("amass flagship (21 nodes)", predictor_bf16)
     fused = check_denoiser_kernels(predictor_bf16, gen)
     phase("denoiser", t)
 
@@ -3576,6 +3709,12 @@ def run_phases(t_all: float, card_name: str, device: torch.device, serving_root:
     for k in kernels:
         k["capstone_launches"] = launches[k["name"]] if k.get("nodes", 21) == 21 else 0
     phase("capstone", t)
+
+    t = time.perf_counter()
+    launches = run_small(card_name)
+    for k in kernels:  # the quickstart's models have 21 nodes
+        k["small_launches"] = launches[k["name"]] if k.get("nodes", 21) == 21 else 0
+    phase("small", t)
 
     for k in kernels:  # the served programs are the 21-node flagship's
         k.setdefault("serving_launches", {"bf16": 0, "fp32": 0})

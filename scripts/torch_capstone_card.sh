@@ -22,6 +22,10 @@
 # the run into the next call, which starts where the cut one stopped).
 # Stage 1 at the full schedule takes ~3 800 s on an H100 (0.246 s a step):
 # more than one call.
+# PARALLEL_VARIANTS="k50_motion k50_latent" trains those variants at once
+# after stage 1 (each in its own process, evaluated on its EMA and its live
+# weights) and merges the report from their stage files; the first of them
+# is kept if the pair would overrun the budget.
 # Times (seconds) come from CAPSTONE_SECONDS, BF16_EVAL_SECONDS (600),
 # CHAIN_SPLIT_SECONDS (900), TRAIN_DTYPE_SECONDS (0), READING_SECONDS (600);
 # a step given 0 is skipped.  The logs
@@ -49,11 +53,63 @@ python3 -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, 
 
 start=$(date +%s)
 budget=${CAPSTONE_SECONDS:-2400}
-# shellcheck disable=SC2086
-timeout -k 20 "$budget" python3 scripts/torch_convergence_capstone.py \
-  --root "$ROOT" --out-json "$OUT/torch_convergence.json" $CUT >> "$OUT/capstone.log" 2>&1
-echo "capstone rc=$? after $(( $(date +%s) - start )) s"
-grep -a "\[capstone\]\|Error\|error" "$OUT/capstone.log" | tail -40
+if [ -z "${PARALLEL_VARIANTS:-}" ]; then
+  # shellcheck disable=SC2086
+  timeout -k 20 "$budget" python3 scripts/torch_convergence_capstone.py \
+    --root "$ROOT" --out-json "$OUT/torch_convergence.json" $CUT >> "$OUT/capstone.log" 2>&1
+  echo "capstone rc=$? after $(( $(date +%s) - start )) s"
+else
+  # stage 1 and the ZeroVelocity eval in one process, then the variants of
+  # PARALLEL_VARIANTS at once on the card, each in its own process and report
+  # directory (with its eval on the live weights), then one report merged
+  # from their stage files.  The first variant is kept: while it runs, the
+  # others are stopped as soon as its epochs so far say it would not finish
+  # within the budget beside them.
+  # shellcheck disable=SC2086
+  timeout -k 20 "$budget" python3 scripts/torch_convergence_capstone.py \
+    --root "$ROOT" --out-json "$OUT/stage1/torch_convergence.json" $CUT --variants \
+    >> "$OUT/capstone.log" 2>&1
+  echo "capstone stage 1 rc=$? after $(( $(date +%s) - start )) s"
+  dirs="$OUT/stage1"
+  if [ -f "$OUT/stage1/stage_zero_velocity.json" ]; then
+    epochs=$(echo "$CUT" | sed -n 's/.*--diff-epochs \([0-9]*\).*/\1/p')
+    t0=$(date +%s)
+    deadline=$(( start + budget ))
+    pids=""
+    for v in $PARALLEL_VARIANTS; do
+      # shellcheck disable=SC2086
+      timeout -k 20 $(( deadline - t0 )) python3 scripts/torch_convergence_capstone.py \
+        --root "$ROOT" --out-json "$OUT/$v/torch_convergence.json" $CUT --variants "$v" \
+        --live-eval >> "$OUT/capstone_$v.log" 2>&1 &
+      pids="$pids $!"
+      dirs="$dirs $OUT/$v"
+    done
+    first=${pids# }; first=${first%% *}
+    others=${pids# }; others=${others#"$first"}
+    kept=${PARALLEL_VARIANTS%% *}
+    while kill -0 "$first" 2>/dev/null && [ -n "$others" ]; do
+      sleep 30
+      e=$(grep -c '"prefix": "train"' "$ROOT/out_diff_$kept/metrics.jsonl" 2>/dev/null)
+      if [ "${e:-0}" -ge 2 ] && [ -n "$epochs" ]; then
+        end=$(( t0 + ($(date +%s) - t0) * epochs / e ))
+        if [ "$end" -gt $(( deadline - 120 )) ]; then
+          echo "$kept: epoch $e of $epochs, projected end $(( end - start )) s of $budget:" \
+               "stopping the others after $(( $(date +%s) - start )) s"
+          # shellcheck disable=SC2086
+          kill $others 2>/dev/null
+          others=""
+        fi
+      fi
+    done
+    wait
+    echo "variants done after $(( $(date +%s) - start )) s"
+  fi
+  # shellcheck disable=SC2086
+  python3 scripts/torch_convergence_capstone.py --merge $dirs \
+    --out-json "$OUT/torch_convergence.json" >> "$OUT/capstone.log" 2>&1
+  echo "merge rc=$?"
+fi
+grep -a "\[capstone\]\|Error\|error\|Traceback" "$OUT"/capstone*.log | tail -40
 if [ -d "$ROOT/out_ae" ] && [ ! -f "$ROOT/out_ae/CAPSTONE_DONE" ]; then
   # stage 1 cut by the budget, for the next call: its log, config and host
   # state, and of its checkpoints the latest (to resume) and the best (the

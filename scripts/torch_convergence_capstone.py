@@ -26,10 +26,25 @@ whole cost.
 Exits 1 when a judged check fails (``main`` returns the report; the exit
 code is ``verdict``'s).
 
+A schedule too long for one process or one call runs in parts:
+``--variants`` picks the stage-2 variants a run trains (none: stage 1 and
+the ZeroVelocity eval only), ``--live-eval`` also evaluates each variant on
+its live weights beside the EMA weights the checks read, and every finished
+stage leaves a small file beside ``--out-json`` (``stage_<name>.json``: its
+metrics, validation curve, LR, checkpoints and seconds) that travels back
+with its call.  ``--merge DIR …`` judges the stage files of several runs
+(the first directory that has a stage gives it) as one report at ``--out-json``.
+
 Run (one CUDA device; raises without one):
     python3 scripts/torch_convergence_capstone.py [--ae-epochs … overrides]
 Smoke (CPU, small shapes):
     python3 scripts/torch_convergence_capstone.py --smoke
+Two variants at once on one card, then one report:
+    python3 scripts/torch_convergence_capstone.py --variants --out-json o/s1/r.json …
+    python3 scripts/torch_convergence_capstone.py --variants k50_motion --live-eval \
+        --out-json o/k50_motion/r.json … &   (and k50_latent into o/k50_latent)
+    python3 scripts/torch_convergence_capstone.py --merge o/s1 o/k50_motion o/k50_latent \
+        --out-json o/torch_convergence.json
 """
 from __future__ import annotations
 
@@ -162,6 +177,14 @@ def parse_args(argv):
                     help="do not train stage-2 variants whose phase marker is absent; "
                          "evaluate and report only the completed ones")
     ap.add_argument("--out-json", default=os.path.join(REPO, "docs", "torch_convergence.json"))
+    ap.add_argument("--variants", nargs="*", choices=VARIANTS, default=list(VARIANTS),
+                    help="the stage-2 variants this run trains, in VARIANTS' order "
+                         "(none: stage 1 and the ZeroVelocity eval only)")
+    ap.add_argument("--live-eval", action="store_true",
+                    help="also evaluate each variant on its live (non-EMA) weights")
+    ap.add_argument("--merge", nargs="+", metavar="DIR", default=None,
+                    help="judge the stage files of these runs' --out-json directories "
+                         "as one report at --out-json, and exit")
     # schedule overrides: the values land in the report's `config` block
     ap.add_argument("--ae-epochs", type=int, default=None)
     ap.add_argument("--ae-iters", type=int, default=None,
@@ -180,6 +203,8 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.merge:
+        return merge(args.merge, args.out_json)
     import torch
 
     if not args.smoke and not args.data_only and not torch.cuda.is_available():
@@ -293,8 +318,21 @@ def main(argv=None):
     )
     card = card_line(args.smoke)
     results: dict = {}
+    live: dict = {}  # the variants' evals on their live weights (--live-eval)
     diff_dirs: dict = {}
     ae_dir = os.path.join(root, "out_ae")
+
+    stage_dir = os.path.dirname(os.path.abspath(args.out_json))
+
+    def write_stage(name: str, stage: dict, phases):
+        """``stage_<name>.json`` beside the report: what ``merge`` needs of
+        a finished stage, with its phases' seconds and the card."""
+        timings = spent(root)
+        stage = dict(stage, config=resolved_config, smoke=args.smoke, card=card,
+                     timings={k: v for k, v in timings.items() if k in phases})
+        os.makedirs(stage_dir, exist_ok=True)
+        with open(os.path.join(stage_dir, f"stage_{name}.json"), "w") as f:
+            json.dump(stage, f, indent=2)
 
     def bank(last_phase: str):
         """Write the partial report now; safe at any point after data prep."""
@@ -305,6 +343,8 @@ def main(argv=None):
         report["timings_sec"] = dict(timings, total=round(sum(timings.values()), 1),
                                      this_run=round(time.time() - t_all, 1))
         report["card"] = card
+        if live:
+            report["metrics_live"] = live
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)), exist_ok=True)
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=2)
@@ -333,6 +373,7 @@ def main(argv=None):
 
     run_phase(root, "train_autoencoder", ae_dir, train_ae)
     bank("train_autoencoder")
+    write_stage("autoencoder", {"evidence": ae_evidence(ae_dir)}, ("data", "train_autoencoder"))
 
     # ---- eval helper (used per variant, right after it trains) -------------
     eval_dir = os.path.join(root, "evals")
@@ -364,6 +405,7 @@ def main(argv=None):
         "method_specs=zerovelocity_alg_baseline",
     ])
     bank("eval_zero_velocity")
+    write_stage("zero_velocity", {"metrics": results["zero_velocity"]}, ("eval_zv",))
 
     # ---- phase: stage-2 diffusion, three objective variants ----------------
     # in VARIANTS' order: if the run is cut, the checks that depend only on
@@ -376,6 +418,8 @@ def main(argv=None):
         "k1": ["model.train_pick_best_sample_among_k=1"],
     }
     for vname in VARIANTS:
+        if vname not in args.variants:
+            continue
         vargs = variants[vname]
         out = os.path.join(root, f"out_diff_{vname}")
         if args.only_done_variants and not done(out):
@@ -400,9 +444,15 @@ def main(argv=None):
 
         run_phase(root, f"train_diffusion_{vname}", out, train_diff)
         results[vname] = run_eval(vname, [f"checkpoint_path={out}"])
+        stage = {"metrics": results[vname], "evidence": variant_evidence(out)}
+        if args.live_eval:
+            live[vname] = stage["metrics_live"] = run_eval(
+                f"{vname}_live", [f"checkpoint_path={out}", "if_use_ema=False"])
         bank(f"eval_{vname}")
+        write_stage(vname, stage, (f"train_diffusion_{vname}", f"eval_{vname}",
+                                   f"eval_{vname}_live"))
 
-    if "k50_motion" not in diff_dirs:
+    if "k50_motion" in args.variants and "k50_motion" not in diff_dirs:
         sys.exit("[capstone] flagship (k50_motion) not trained yet — nothing to "
                  "report; run without --only-done-variants first")
 
@@ -425,6 +475,72 @@ def verdict(report) -> int:
     return 0
 
 
+def ae_evidence(ae_dir: str) -> dict:
+    """What the checks read of stage 1's log: the LR of each epoch row, the
+    curriculum's horizons and the validation ADE."""
+    rows = read_jsonl(os.path.join(ae_dir, "metrics.jsonl"))
+    return {
+        # LR from the per-EPOCH rows (prefix "train"): iteration rows are only
+        # logged every log_every_iters and can miss the final epochs entirely
+        "epoch_lr": [r["lr"] for r in rows if r.get("prefix") == "train" and "lr" in r],
+        "ph": [(r["step"], r["ph"]) for r in rows
+               if r.get("prefix") in ("train", "train_iter") and "ph" in r],
+        "val": [(r["step"], r["ADE"]) for r in rows
+                if r.get("prefix") == "valid" and "ADE" in r],
+    }
+
+
+def variant_evidence(out_dir: str) -> dict:
+    """What the checks read of a stage-2 variant: its EMA validation ADE,
+    its kept checkpoints and the LR of each epoch row."""
+    rows = read_jsonl(os.path.join(out_dir, "metrics.jsonl"))
+    return {
+        "val": [(r["step"], r["ADE"]) for r in rows
+                if r.get("prefix") == "valid" and "ADE" in r],
+        "kept": kept_checkpoints(os.path.join(out_dir, "checkpoints")),
+        "epoch_lr": [r["lr"] for r in rows if r.get("prefix") == "train" and "lr" in r],
+    }
+
+
+def merge(dirs, out_json: str) -> dict:
+    """One report from the ``stage_<name>.json`` files of several runs'
+    report directories (a stage found in more than one: the first
+    directory's, so list the run that finished a stage first), judged as
+    ``analyze`` judges one run; written to ``out_json``.  ``calls`` says
+    which directory gave each stage."""
+    stages, calls = {}, {}
+    for d in dirs:
+        for name in sorted(os.listdir(d)):
+            stage = name[len("stage_"):-len(".json")]
+            if name.startswith("stage_") and name.endswith(".json") and stage not in stages:
+                with open(os.path.join(d, name)) as f:
+                    stages[stage] = json.load(f)
+                calls[stage] = d
+    if "autoencoder" not in stages:
+        sys.exit(f"[capstone] no stage_autoencoder.json in {dirs}: stage 1 did not finish")
+    ae = stages["autoencoder"]
+    results = {s: stages[s]["metrics"] for s in ("zero_velocity", *VARIANTS) if s in stages}
+    flag = stages["k50_motion"]["evidence"] if "k50_motion" in stages else None
+    report = judge(ae["evidence"], flag, results, smoke=ae["smoke"], config=ae["config"])
+    live = {v: stages[v]["metrics_live"] for v in VARIANTS
+            if v in stages and "metrics_live" in stages[v]}
+    if live:
+        report["metrics_live"] = live
+    timings = {}
+    for stage in stages.values():
+        timings.update(stage["timings"])
+    report["last_phase_done"] = "merged"
+    report["timings_sec"] = dict(timings, total=round(sum(timings.values()), 1))
+    report["card"] = "; ".join(sorted({stage["card"] for stage in stages.values()}))
+    report["calls"] = calls
+    os.makedirs(os.path.dirname(os.path.abspath(out_json)), exist_ok=True)
+    with open(out_json, "w") as f:
+        json.dump(report, f, indent=2)
+    print(f"[capstone] merged {sorted(stages)} -> {out_json}")
+    print(json.dumps(report["checks"], indent=2))
+    return report
+
+
 def analyze(root, ae_dir, diff_dirs, results, *, smoke, timings, config):
     """The evidence trail for checks (a)-(d), as the JAX script's
     ``analyze`` assembles it.
@@ -432,39 +548,31 @@ def analyze(root, ae_dir, diff_dirs, results, *, smoke, timings, config):
     Tolerates partially-complete runs (missing variants / missing evals):
     every check that cannot be judged yet is reported as ``None``, so this
     can be called after EVERY phase to bank honest partial evidence."""
+    flag_dir = diff_dirs.get("k50_motion")
+    return judge(ae_evidence(ae_dir), variant_evidence(flag_dir) if flag_dir else None,
+                 results, smoke=smoke, config=config)
+
+
+def judge(ae: dict, flag, results: dict, *, smoke: bool, config: dict) -> dict:
+    """``analyze``'s report from stage 1's evidence, the flagship's (None
+    before it trained) and the evals' metrics."""
     flagship = results.get("k50_motion")
     zv = results.get("zero_velocity")
-    flag_dir = diff_dirs.get("k50_motion")
 
     # (c) EMA validation ADE trajectory + top-k rotation evidence
-    val_ade = [
-        (r["step"], r["ADE"])
-        for r in (read_jsonl(os.path.join(flag_dir, "metrics.jsonl")) if flag_dir else [])
-        if r.get("prefix") == "valid" and "ADE" in r
-    ]
-    kept = kept_checkpoints(os.path.join(flag_dir, "checkpoints")) if flag_dir else []
+    val_ade = [tuple(v) for v in flag["val"]] if flag else []
+    kept = flag["kept"] if flag else []
 
-    # (d) LR floor + curriculum annealing. LR comes from the per-EPOCH log
-    # rows (prefix "train") — iteration rows are only logged every
-    # log_every_iters and can miss the final epochs entirely.
-    ae_rows = read_jsonl(os.path.join(ae_dir, "metrics.jsonl"))
-    diff_rows = read_jsonl(os.path.join(flag_dir, "metrics.jsonl")) if flag_dir else []
-    ae_epoch_lr = [r["lr"] for r in ae_rows if r.get("prefix") == "train" and "lr" in r]
-    diff_epoch_lr = [r["lr"] for r in diff_rows if r.get("prefix") == "train" and "lr" in r]
-    ae_lr_final = ae_epoch_lr[-1] if ae_epoch_lr else None
-    diff_lr_final = diff_epoch_lr[-1] if diff_epoch_lr else None
-    ph_series = [(r["step"], r["ph"]) for r in ae_rows
-                 if r.get("prefix") in ("train", "train_iter") and "ph" in r]
+    # (d) LR floor + curriculum annealing
+    ae_lr_final = ae["epoch_lr"][-1] if ae["epoch_lr"] else None
+    diff_lr_final = flag["epoch_lr"][-1] if flag and flag["epoch_lr"] else None
+    ph_series = ae["ph"]
     # after the cosine cycle the horizon is randomized in [ph_min, ph_train)
     # (reference `trainer.py:66-76`), so "annealed" shows as logged horizons
     # reaching the upper end of that range, not a single deterministic value
     ph_max_reached = max((p for _, p in ph_series), default=0)
 
-    ae_val = [
-        (r["step"], r["ADE"])
-        for r in ae_rows
-        if r.get("prefix") == "valid" and "ADE" in r
-    ]
+    ae_val = [tuple(v) for v in ae["val"]]
 
     def apd_gt(a, b):
         # None (= not judged) when a variant was skipped by --only-done-variants
@@ -487,7 +595,7 @@ def analyze(root, ae_dir, diff_dirs, results, *, smoke, timings, config):
         "ema_val_ade_improved": (None if not val_ade else
                                  (len(val_ade) >= 2 and
                                   min(a for _, a in val_ade[1:]) < val_ade[0][1])),
-        "topk_checkpoints_rotated": (None if flag_dir is None else len(kept) >= 2),
+        "topk_checkpoints_rotated": (None if flag is None else len(kept) >= 2),
         "ae_lr_reached_floor": (None if ae_lr_final is None
                                 else ae_lr_final <= 1.0e-4 * 1.001),
         "diff_lr_reached_floor": (None if diff_lr_final is None

@@ -138,6 +138,24 @@ def main():
         "k50-motion > k50-latent > k1 (reference `README.md:279-294`); checks (b) "
         "above hold this run against that direction.",
     ]
+    live = r.get("metrics_live")
+    if live:
+        lines += ["", "### The same eval on each variant's live (non-EMA) weights", "",
+                  header, "|" + "---|" * (len(METRIC_COLS) + 1)]
+        for name in ("k1", "k50_latent", "k50_motion"):
+            if name in live:
+                lines.append(f"| {name} | " + " | ".join(fmt(live[name].get(c, "-"))
+                                                        for c in METRIC_COLS) + " |")
+        if "k50_motion" in live and "k50_latent" in live and live["k50_latent"].get("APD"):
+            ratio = live["k50_motion"]["APD"] / live["k50_latent"]["APD"]
+            lines += ["", f"APD ratio k50-motion / k50-latent on the live weights: "
+                          f"{fmt(ratio)} (check (b) reads the EMA weights: "
+                          f"{fmt(r['margins'].get('apd_motion_over_latent_ratio'))})."]
+    if r.get("calls"):
+        lines += ["", "Merged from the stage files of several runs "
+                      "(`--merge`); each stage from: " +
+                  "; ".join(f"{k} `{os.path.basename(v.rstrip('/'))}`"
+                            for k, v in r["calls"].items()) + "."]
     stretch = r.get("limb_stretch_flagship_mm")
     if stretch:
         lines += [

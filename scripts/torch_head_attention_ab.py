@@ -79,7 +79,8 @@ def build_variants() -> dict:
 def use(libraries: dict) -> None:
     """Point the wrappers at one variant's libraries."""
     build._libraries.clear()
-    build._libraries.update({(name, build.DEFAULT_NODES): lib for name, lib in libraries.items()})
+    build._libraries.update({(name, build.DEFAULT_NODES, build.DEFAULT_HIDDEN): lib
+                             for name, lib in libraries.items()})
     build.c_entry.cache_clear()
 
 

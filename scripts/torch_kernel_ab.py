@@ -97,7 +97,8 @@ def k2_calls(nodes: list, parent: pathlib.Path) -> dict:
 
 def use(libraries: dict) -> None:
     build._libraries.clear()
-    build._libraries.update({(name, build.DEFAULT_NODES): lib for name, lib in libraries.items()})
+    build._libraries.update({(name, build.DEFAULT_NODES, build.DEFAULT_HIDDEN): lib
+                             for name, lib in libraries.items()})
     build.c_entry.cache_clear()
 
 

@@ -46,7 +46,11 @@
 // * A step runs the 96 hidden columns in 3 slices of 32.  For each slice 252
 //   consumer threads (12 a node, 8 rows × 8 gate columns each) sum h·W_hh
 //   over the ring in registers, a stage's weights loaded and the stage
-//   released before its FMAs; meanwhile the loader warp copies the slice's
+//   released after the first row's FMAs (which read every loaded weight,
+//   so no load is still in flight when a peer may refill the stage: a
+//   release right after the loads let a peer's multicast overwrite a stage
+//   under a pending load, now and then, at slices of 16; PERF.md);
+//   meanwhile the loader warp copies the slice's
 //   cx into P, the slice's gate buffer [node][r | z | n_h | n_x][8 rows][32]
 //   (cp.async, completing on an mbarrier), as soon as the previous mix has
 //   let go of P.  The products add b_hh (and the cx for r and z) into P.
@@ -74,6 +78,19 @@
 // all 132 SMs would work (13 rounds) at 16 rows a weight byte from L2; a
 // round's step took the same time (PERF.md §6, PR 10).
 // The TPU kernel padded H to 128 lanes; here H stays at its real width.
+//
+// The hidden width H is a build parameter too (-DSKD_HIDDEN, default 96:
+// every multiple of 16 from 16 to 128, ROADMAP Queue B item 9), with 3
+// outputs.  The figures above are at 96.  Slices are 32 columns where H is
+// 32, 64 or 96 and 16 columns otherwise (a slice of 32 at H = 128 would not
+// fit h and P beside two stages); the product threads a node (kNodeThreads,
+// 8 gate columns each), the ring's stages, W_fc's stages (kFcNodes nodes
+// each), the cx copies and the h' of the earlier slices held in registers
+// follow the slice.  Where a slice's positions (rows × columns) are fewer
+// than the 256 consumers, the mix splits a position's output nodes over
+// kMixSplit threads, as the design past 21 nodes does.  Only the chunk swap
+// of odd nodes needs whole groups of 8 chunks a row: slices of 16 (12
+// chunks) go unswapped.
 //
 // The node count N is the build's (node_mix.cuh, -DSKD_NODES: 16 for H36M,
 // 17 for FreeMan, 21 for AMASS, 51 for AMASS-MANO); the figures above are at
@@ -104,13 +121,20 @@ namespace {
 
 using sm90mix::RingPos;
 
-constexpr int kN = nodemix::kNodes, kH = 96, kF = 3;
+#ifndef SKD_HIDDEN
+#define SKD_HIDDEN 96
+#endif
+
+constexpr int kN = nodemix::kNodes, kH = SKD_HIDDEN, kF = 3;
+static_assert(kH % 16 == 0 && kH >= 16 && kH <= 128,
+              "the hidden width is a multiple of 16 from 16 to 128");
 constexpr bool kWide = nodemix::kWide;          // the design past 21 nodes
 constexpr int kRows = kWide ? 2 : 8;            // batch rows a block
 constexpr int kCluster = 4;                     // blocks a cluster, one multicast a stage
-constexpr int kSlice = 32;                      // hidden columns a slice
-constexpr int kSlices = kH / kSlice;            // 3
+constexpr int kSlice = kH % 32 == 0 && kH <= 96 ? 32 : 16;  // hidden columns a slice
+constexpr int kSlices = kH / kSlice;            // 3 at H = 96
 constexpr int kGateCols = 3 * kSlice;           // a node's r|z|n columns of a slice
+constexpr int kChunkSwap = kGateCols / 4 % 8 == 0 ? 4 : 0;  // chunk_at's swap of odd nodes
 constexpr int kKRows = kWide ? 2 : 4;           // bank rows a stage
 constexpr int kStageFloats = kKRows * kN * kGateCols;  // 8 064 at 21 nodes
 constexpr int kStageBytes = 4 * kStageFloats;          // 32 256
@@ -120,28 +144,28 @@ constexpr int kFcStages = (kN + kFcNodes - 1) / kFcNodes;  // W_fc's stages: 1 u
 constexpr int kFcBytes = kFcNodes * kFcNodeBytes;      // 24 192 at 21: W_fc in one stage
 constexpr int kKSteps = kH / kKRows;                   // stages a slice
 constexpr int kMaxRing = 6;                     // full/empty pairs before the cx barriers
-constexpr int kGRow = (kN + 3) / 4 * 4;         // G rows padded to whole float4s (24 at 21)
 constexpr int kHRow = kH + 4;                   // floats between rows of h: one bank quad on
 constexpr int kHPlane = kRows * kHRow + 4;      // floats between node planes of h
 constexpr int kArea = kRows * kSlice;           // 256: one gate area of a node's P
 constexpr int kPPlane = 4 * kArea;              // r, z, n_h, n_x
-constexpr int kNodeThreads = 12;                // product threads (kWide: tasks) a node
+constexpr int kNodeThreads = kGateCols / 8;     // product threads (kWide: tasks) a node: 12
 constexpr int kProdThreads = kN * kNodeThreads;  // 252 at 21 nodes
 constexpr int kConsumers = sm90mix::kConsumers;  // 256: 8 warps, two warpgroups
 constexpr int kThreads = kConsumers + 128;      // and a third warpgroup: producer, cx loader
 constexpr int kProducerWarp = 8, kLoaderWarp = 9;
 constexpr int kConsumerRegs = 232, kOtherRegs = 40;  // setmaxnreg: 256·232 + 128·40 = 384·168
 constexpr int kCxChunks = kN * 3 * kRows * (kSlice / 4);  // 16-byte chunks of a slice's cx
-// kWide: product tasks a thread, threads a mix position, output nodes a mix thread
+// kWide: product tasks a thread; threads a mix position, output nodes a mix thread
 constexpr int kTaskPasses = (kProdThreads + kConsumers - 1) / kConsumers;  // 3 at 51 nodes
-constexpr int kMixSplit = kConsumers / (kRows * kSlice);                   // 4 when kWide
-constexpr int kMixNodes = (kN + kMixSplit - 1) / kMixSplit;                // 13 at 51 nodes
-static_assert(kWide || kConsumers == kRows * kSlice, "the mix takes a thread per (row, column)");
+constexpr int kMixSplit = kConsumers / kArea;                // 1 at H = 96, 4 when kWide
+constexpr int kMixNodes = (kN + kMixSplit - 1) / kMixSplit;  // 21 at H = 96, 13 at 51 nodes
+// G rows padded to whole float4s and past the last mix thread's nodes (24 at 21)
+constexpr int kGRow = ((kMixSplit * kMixNodes > kN ? kMixSplit * kMixNodes : kN) + 3) / 4 * 4;
+static_assert(kMixSplit * kArea == kConsumers,
+              "the mix's threads split the output nodes of a position, G's zero padding past N "
+              "covering the last split");
 static_assert(kWide || kProdThreads <= kConsumers,
               "a product thread a node's 8 gate columns: N ≤ 21");
-static_assert(!kWide || (kMixSplit * kRows * kSlice == kConsumers && kMixSplit * kMixNodes <= kGRow),
-              "kWide: the mix's threads split the output nodes of a position, G's zero padding "
-              "past N covering the last split");
 static_assert(kN <= 64, "the G update takes two entries a lane");
 static_assert(kN * kRows * kF <= 2 * kConsumers, "the head's mix takes two items a thread");
 static_assert(kN * kRows <= kConsumers, "the head's products take a thread per (node, row)");
@@ -179,7 +203,9 @@ __device__ __forceinline__ float tanh_gate(float x) {
 
 // The 16-byte chunk where the packed bank keeps chunk c of node m's row of a
 // stage (gru_rollout.py::pack_rollout_bank swaps the halves of odd nodes).
-__device__ __forceinline__ int chunk_at(int m, int c) { return c ^ ((m & 1) << 2); }
+__device__ __forceinline__ int chunk_at(int m, int c) {
+  return kChunkSwap ? c ^ ((m & 1) << 2) : c;
+}
 
 template <int kRegs>
 __device__ __forceinline__ void regs_inc() {
@@ -280,6 +306,52 @@ __device__ __forceinline__ void load_cx(const float* cx, float* p_s, uint64_t* c
   }
 }
 
+// One row's products of a ring stage's KR bank rows into a product
+// thread's 8 gate columns: acc[c] += Σ_kk hk[kk]·w[kk][c].
+template <int KR>
+__device__ __forceinline__ void row_products(float (&acc)[8], const float (&hk)[KR],
+                                             const float4 (&w)[KR][2]) {
+#pragma unroll
+  for (int kk = 0; kk < KR; ++kk)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      acc[4 * u] = fmaf(hk[kk], w[kk][u].x, acc[4 * u]);
+      acc[4 * u + 1] = fmaf(hk[kk], w[kk][u].y, acc[4 * u + 1]);
+      acc[4 * u + 2] = fmaf(hk[kk], w[kk][u].z, acc[4 * u + 2]);
+      acc[4 * u + 3] = fmaf(hk[kk], w[kk][u].w, acc[4 * u + 3]);
+    }
+}
+
+// The output head's product for one (node, row) before its mix,
+// q = b_fc + h'·W_fc: four bank rows at a time, h's float4 and W_fc's 12
+// values [k][f] as 3 float4.
+__device__ __forceinline__ void head_row(const float* hrow, const float4* w4, const float* bfc,
+                                         float* q) {
+  float qa[kF] = {bfc[0], bfc[1], bfc[2]};
+  float qb[kF] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int k4 = 0; k4 < kH / 4; ++k4) {
+    const float4 hv = *reinterpret_cast<const float4*>(hrow + 4 * k4);
+    const float4 a = w4[3 * k4], c = w4[3 * k4 + 1], e = w4[3 * k4 + 2];
+    // [k][f] flattened: a = (k0f0 k0f1 k0f2 k1f0), c = (k1f1 k1f2 k2f0 k2f1),
+    // e = (k2f2 k3f0 k3f1 k3f2)
+    qa[0] = fmaf(hv.x, a.x, qa[0]);
+    qa[1] = fmaf(hv.x, a.y, qa[1]);
+    qa[2] = fmaf(hv.x, a.z, qa[2]);
+    qb[0] = fmaf(hv.y, a.w, qb[0]);
+    qb[1] = fmaf(hv.y, c.x, qb[1]);
+    qb[2] = fmaf(hv.y, c.y, qb[2]);
+    qa[0] = fmaf(hv.z, c.z, qa[0]);
+    qa[1] = fmaf(hv.z, c.w, qa[1]);
+    qa[2] = fmaf(hv.z, e.x, qa[2]);
+    qb[0] = fmaf(hv.w, e.y, qb[0]);
+    qb[1] = fmaf(hv.w, e.z, qb[1]);
+    qb[2] = fmaf(hv.w, e.w, qb[2]);
+  }
+#pragma unroll
+  for (int f = 0; f < kF; ++f) q[f] = qa[f] + qb[f];
+}
+
 // The consumers' views of shared memory: h, the gate buffer P, G_tᵀ, G_add,
 // G_fc, and the cx loader's barriers.
 struct Shared {
@@ -311,12 +383,16 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
   uint64_t* p_free = sh.p_free;
   static_assert(KR == 4, "a stage holds four bank rows (float4 loads of h)");
   const int tid = threadIdx.x, warp = tid >> 5;
-  // product threads: node pm, gate columns of chunks ps and ps + 12 of the slice
+  // product threads: node pm, gate columns of chunks ps and ps + kNodeThreads
+  // of the slice
   const int pm = tid / kNodeThreads, ps = tid % kNodeThreads;
   const bool prod = tid < kProdThreads;
   const float* hm = h_s + pm * kHPlane;
-  // mix threads: row mr, column mj of the slice
-  const int mr = warp, mj = tid & 31;
+  // mix threads: row mr, column mj of the slice, output nodes n0 … n0 +
+  // kMixNodes − 1 (at H = 96 a thread a position, all nodes)
+  const int pos = kMixSplit == 1 ? tid : tid % kArea;
+  const int mr = kMixSplit == 1 ? warp : pos / kSlice, mj = kMixSplit == 1 ? tid & 31 : pos % kSlice;
+  const int n0 = kMixSplit == 1 ? 0 : tid / kArea * kMixNodes;
   // head threads: node hm_, row hr of the output head (all F outputs)
   const int hn_node = tid / kRows, hr = tid % kRows;
   const bool head = tid < kN * kRows;
@@ -341,15 +417,18 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
     if (tid == 0) sm90mix::mbar_arrive(p_free);  // the first slice's cx may come
 
     for (int t = 0; t < ph; ++t) {
-      // h' of (row mr, column 32J + mj) of the two earlier slices, older
-      // and newer; the slice loop stays rolled (the code of an unrolled
-      // step outgrew the instruction cache)
-      float h_old[kN], h_new[kN];
-      static_assert(kSlices == 3, "two earlier slices are held");
+      // h' of (row mr, column kSlice·J + mj) of this thread's nodes for
+      // the slices before the last: the two latest in h_old and h_new (at
+      // H = 96 the only two), earlier ones in h_older, oldest first; the
+      // slice loop stays rolled (the code of an unrolled step outgrew the
+      // instruction cache)
+      float h_old[kMixNodes], h_new[kMixNodes];
+      float h_older[kSlices > 3 ? kSlices - 3 : 1][kMixNodes];
 #pragma unroll 1
       for (int J = 0; J < kSlices; ++J) {
         // P[pm] = h·W_hh for this thread's 8 rows × 8 columns; a stage's
-        // weights go to registers and the stage is released before the FMAs
+        // weights go to registers and the stage is released after the first
+        // row's FMAs, which read every one of them (see the head of this file)
         float acc[kRows][8];
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
@@ -365,23 +444,20 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
             for (int u = 0; u < 2; ++u)
               w[kk][u] = prod ? *reinterpret_cast<const float4*>(
                                     st + kk * kN * kGateCols + pm * kGateCols +
-                                    4 * chunk_at(pm, ps + 12 * u))
+                                    4 * chunk_at(pm, ps + kNodeThreads * u))
                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (prod) {
+            const float4 hv = *reinterpret_cast<const float4*>(hm + ks * KR);
+            const float hk[KR] = {hv.x, hv.y, hv.z, hv.w};
+            row_products<KR>(acc[0], hk, w);
+          }
           b.release_stage();
           if (prod) {
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
+            for (int r = 1; r < kRows; ++r) {
               const float4 hv = *reinterpret_cast<const float4*>(hm + r * kHRow + ks * KR);
               const float hk[KR] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-              for (int kk = 0; kk < KR; ++kk)
-#pragma unroll
-                for (int u = 0; u < 2; ++u) {
-                  acc[r][4 * u] = fmaf(hk[kk], w[kk][u].x, acc[r][4 * u]);
-                  acc[r][4 * u + 1] = fmaf(hk[kk], w[kk][u].y, acc[r][4 * u + 1]);
-                  acc[r][4 * u + 2] = fmaf(hk[kk], w[kk][u].z, acc[r][4 * u + 2]);
-                  acc[r][4 * u + 3] = fmaf(hk[kk], w[kk][u].w, acc[r][4 * u + 3]);
-                }
+              row_products<KR>(acc[r], hk, w);
             }
           }
         }
@@ -390,7 +466,7 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
         if (prod) {  // P += b_hh (+ the cx there for r and z)
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int col = 4 * (ps + 12 * u), a = col / kSlice;
+            const int col = 4 * (ps + kNodeThreads * u), a = col / kSlice;
             const float4 bias = *reinterpret_cast<const float4*>(
                 b_hh + pm * 3 * kH + a * kH + J * kSlice + col % kSlice);
 #pragma unroll
@@ -408,46 +484,70 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
           }
         }
         sm90mix::consumer_sync();
-        // The mix of (row mr, column mj) over the nodes: all 21 output nodes
-        // of the four areas at once, input node by input node (G's column m
-        // from G_tᵀ in shared memory, each value for four sums): 84
-        // independent sums, each in node order; then the gate update.
+        // The mix of (row mr, column mj) over the nodes: at H = 96 all 21
+        // output nodes of the four areas at once, input node by input node
+        // (G's column m from G_tᵀ in shared memory, each value for four
+        // sums): 84 independent sums, each in node order; split over
+        // kMixSplit threads, this thread's kMixNodes.  Then the gate update.
         {
-          float y[4][kN];
+          float y[4][kMixNodes];
 #pragma unroll
-          for (int n = 0; n < kN; ++n) y[0][n] = y[1][n] = y[2][n] = y[3][n] = 0.0f;
+          for (int e = 0; e < kMixNodes; ++e) y[0][e] = y[1][e] = y[2][e] = y[3][e] = 0.0f;
+          if constexpr (kMixSplit == 1) {
 #pragma unroll 7
-          for (int m = 0; m < kN; ++m) {
-            float v[4];
+            for (int m = 0; m < kN; ++m) {
+              float v[4];
 #pragma unroll
-            for (int a = 0; a < 4; ++a) v[a] = p_s[m * kPPlane + a * kArea + tid];
-            const float4* gc = reinterpret_cast<const float4*>(g_s + m * kGRow);
+              for (int a = 0; a < 4; ++a) v[a] = p_s[m * kPPlane + a * kArea + tid];
+              const float4* gc = reinterpret_cast<const float4*>(g_s + m * kGRow);
 #pragma unroll
-            for (int q4 = 0; q4 < kGRow / 4; ++q4) {
-              const float4 g4 = gc[q4];
-              const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+              for (int q4 = 0; q4 < kGRow / 4; ++q4) {
+                const float4 g4 = gc[q4];
+                const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int n = 4 * q4 + e;
-                if (n < kN) {
+                for (int e = 0; e < 4; ++e) {
+                  const int n = 4 * q4 + e;
+                  if (n < kN) {
 #pragma unroll
-                  for (int a = 0; a < 4; ++a) y[a][n] = fmaf(gv[e], v[a], y[a][n]);
+                    for (int a = 0; a < 4; ++a) y[a][n] = fmaf(gv[e], v[a], y[a][n]);
+                  }
                 }
+              }
+            }
+          } else {
+#pragma unroll 3
+            for (int m = 0; m < kN; ++m) {
+              float v[4];
+#pragma unroll
+              for (int a = 0; a < 4; ++a) v[a] = p_s[m * kPPlane + a * kArea + pos];
+              const float* gc = g_s + m * kGRow + n0;
+#pragma unroll
+              for (int e = 0; e < kMixNodes; ++e) {
+                const float gv = gc[e];
+#pragma unroll
+                for (int a = 0; a < 4; ++a) y[a][e] = fmaf(gv, v[a], y[a][e]);
               }
             }
           }
 #pragma unroll
-          for (int n = 0; n < kN; ++n) {
-            const float rg = sigmoid(y[0][n]), zg = sigmoid(y[1][n]);
-            const float ng = tanh_gate(y[3][n] + rg * y[2][n]);
+          for (int e = 0; e < kMixNodes; ++e) {
+            const int n = n0 + e;
+            if (kMixSplit > 1 && n >= kN) continue;
+            const float rg = sigmoid(y[0][e]), zg = sigmoid(y[1][e]);
+            const float ng = tanh_gate(y[3][e] + rg * y[2][e]);
             float* hp = h_s + n * kHPlane + mr * kHRow + J * kSlice + mj;
             const float hnew = ng - ng * zg + zg * *hp;
             // the last slice's products are done: its h' goes to h at once
             if (J == kSlices - 1) {
               *hp = hnew;
             } else {
-              h_old[n] = h_new[n];
-              h_new[n] = hnew;
+              if constexpr (kSlices > 3) {
+#pragma unroll
+                for (int j = 0; j + 1 < kSlices - 3; ++j) h_older[j][e] = h_older[j + 1][e];
+                h_older[kSlices - 4][e] = h_old[e];
+              }
+              h_old[e] = h_new[e];
+              h_new[e] = hnew;
             }
           }
         }
@@ -458,45 +558,39 @@ __device__ __forceinline__ void consume_narrow(Block& b, const Shared& sh, const
       }
       // every product of the step has read h: h ← h'
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        h_s[n * kHPlane + mr * kHRow + mj] = h_old[n];
-        h_s[n * kHPlane + mr * kHRow + kSlice + mj] = h_new[n];
+      for (int e = 0; e < kMixNodes; ++e) {
+        const int n = n0 + e;
+        if (kMixSplit > 1 && n >= kN) continue;
+        float* hp = h_s + n * kHPlane + mr * kHRow + mj;
+#pragma unroll
+        for (int j = 0; j + 3 < kSlices; ++j) hp[j * kSlice] = h_older[j][e];
+        if (kSlices >= 3) hp[(kSlices - 3) * kSlice] = h_old[e];
+        if (kSlices >= 2) hp[(kSlices - 2) * kSlice] = h_new[e];
       }
       sm90mix::consumer_sync();
 
       // the output head before its mix, q[m][r][:] = b_fc + h'[m][r]·W_fc[m]
-      // (W_fc [m][k][f] from the ring), a thread per (node, row)
-      const float* wf = b.wait_stage();
+      // (W_fc [m][k][f] from the ring), a thread per (node, row), in the
+      // W_fc stage that holds its node (one stage at H = 96)
       float* q_s = p_s;  // [N][rows][F]; P is free until the next slice's cx
-      if (head) {
-        // four bank rows at a time: h's float4 and W_fc's 12 values as 3 float4
-        const float* hrow = h_s + hn_node * kHPlane + hr * kHRow;
-        const float4* w4 = reinterpret_cast<const float4*>(wf + hn_node * kH * kF);
-        float qa[kF] = {bfc[0], bfc[1], bfc[2]};
-        float qb[kF] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-        for (int k4 = 0; k4 < kH / 4; ++k4) {
-          const float4 hv = *reinterpret_cast<const float4*>(hrow + 4 * k4);
-          const float4 a = w4[3 * k4], c = w4[3 * k4 + 1], e = w4[3 * k4 + 2];
-          // [k][f] flattened: a = (k0f0 k0f1 k0f2 k1f0), c = (k1f1 k1f2 k2f0 k2f1),
-          // e = (k2f2 k3f0 k3f1 k3f2)
-          qa[0] = fmaf(hv.x, a.x, qa[0]);
-          qa[1] = fmaf(hv.x, a.y, qa[1]);
-          qa[2] = fmaf(hv.x, a.z, qa[2]);
-          qb[0] = fmaf(hv.y, a.w, qb[0]);
-          qb[1] = fmaf(hv.y, c.x, qb[1]);
-          qb[2] = fmaf(hv.y, c.y, qb[2]);
-          qa[0] = fmaf(hv.z, c.z, qa[0]);
-          qa[1] = fmaf(hv.z, c.w, qa[1]);
-          qa[2] = fmaf(hv.z, e.x, qa[2]);
-          qb[0] = fmaf(hv.w, e.y, qb[0]);
-          qb[1] = fmaf(hv.w, e.z, qb[1]);
-          qb[2] = fmaf(hv.w, e.w, qb[2]);
+      if constexpr (kFcStages == 1) {
+        const float* wf = b.wait_stage();
+        if (head)
+          head_row(h_s + hn_node * kHPlane + hr * kHRow,
+                   reinterpret_cast<const float4*>(wf + hn_node * kH * kF), bfc,
+                   q_s + (hn_node * kRows + hr) * kF);
+        b.release_stage();
+      } else {
+#pragma unroll 1
+        for (int fs = 0; fs < kFcStages; ++fs) {
+          const float* wf = b.wait_stage();
+          if (head && hn_node / kFcNodes == fs)
+            head_row(h_s + hn_node * kHPlane + hr * kHRow,
+                     reinterpret_cast<const float4*>(wf + (hn_node - fs * kFcNodes) * kH * kF),
+                     bfc, q_s + (hn_node * kRows + hr) * kF);
+          b.release_stage();
         }
-#pragma unroll
-        for (int f = 0; f < kF; ++f) q_s[(hn_node * kRows + hr) * kF + f] = qa[f] + qb[f];
       }
-      b.release_stage();
       sm90mix::consumer_sync();
       // y_t = tanh(G_fc·q), two items (node, row, output) a thread
 #pragma unroll
@@ -571,15 +665,15 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
     if (tid == 0) sm90mix::mbar_arrive(sh.p_free);  // the first slice's cx may come
 
     for (int t = 0; t < ph; ++t) {
-      // h' of (row mr, column 32J + mj) of this thread's nodes for the two
-      // earlier slices, older and newer
+      // h' of (row mr, column kSlice·J + mj) of this thread's nodes for the
+      // slices before the last, as in consume_narrow
       float h_old[kMixNodes], h_new[kMixNodes];
-      static_assert(kSlices == 3, "two earlier slices are held");
+      float h_older[kSlices > 3 ? kSlices - 3 : 1][kMixNodes];
 #pragma unroll 1
       for (int J = 0; J < kSlices; ++J) {
         // P[node] = h·W_hh for each of this thread's tasks (node, 8 gate
         // columns × kRows rows); a stage's weights go to registers and the
-        // stage is released before the FMAs
+        // stage is released after each task's first row, as in consume_narrow
         float acc[kTaskPasses][kRows][8];
 #pragma unroll
         for (int i = 0; i < kTaskPasses; ++i)
@@ -602,28 +696,20 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
                 w[i][kk][u] = task < kProdThreads
                                   ? *reinterpret_cast<const float4*>(
                                         st + kk * kN * kGateCols + pm * kGateCols +
-                                        4 * chunk_at(pm, ps + 12 * u))
+                                        4 * chunk_at(pm, ps + kNodeThreads * u))
                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           }
-          b.release_stage();
 #pragma unroll
-          for (int i = 0; i < kTaskPasses; ++i) {
-            const int task = tid + kConsumers * i;
-            if (task >= kProdThreads) continue;
-            const float* hm = h_s + task / kNodeThreads * kHPlane;
+          for (int r = 0; r < kRows; ++r) {
+            if (r == 1) b.release_stage();
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float2 hv = *reinterpret_cast<const float2*>(hm + r * kHRow + ks * KR);
+            for (int i = 0; i < kTaskPasses; ++i) {
+              const int task = tid + kConsumers * i;
+              if (task >= kProdThreads) continue;
+              const float2 hv = *reinterpret_cast<const float2*>(
+                  h_s + task / kNodeThreads * kHPlane + r * kHRow + ks * KR);
               const float hk[KR] = {hv.x, hv.y};
-#pragma unroll
-              for (int kk = 0; kk < KR; ++kk)
-#pragma unroll
-                for (int u = 0; u < 2; ++u) {
-                  acc[i][r][4 * u] = fmaf(hk[kk], w[i][kk][u].x, acc[i][r][4 * u]);
-                  acc[i][r][4 * u + 1] = fmaf(hk[kk], w[i][kk][u].y, acc[i][r][4 * u + 1]);
-                  acc[i][r][4 * u + 2] = fmaf(hk[kk], w[i][kk][u].z, acc[i][r][4 * u + 2]);
-                  acc[i][r][4 * u + 3] = fmaf(hk[kk], w[i][kk][u].w, acc[i][r][4 * u + 3]);
-                }
+              row_products<KR>(acc[i][r], hk, w[i]);
             }
           }
         }
@@ -636,7 +722,7 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
           if (task >= kProdThreads) continue;
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int col = 4 * (ps + 12 * u), a = col / kSlice;
+            const int col = 4 * (ps + kNodeThreads * u), a = col / kSlice;
             const float4 bias = *reinterpret_cast<const float4*>(
                 b_hh + pm * 3 * kH + a * kH + J * kSlice + col % kSlice);
 #pragma unroll
@@ -687,6 +773,11 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
             if (J == kSlices - 1) {
               *hp = hnew;
             } else {
+              if constexpr (kSlices > 3) {
+#pragma unroll
+                for (int j = 0; j + 1 < kSlices - 3; ++j) h_older[j][e] = h_older[j + 1][e];
+                h_older[kSlices - 4][e] = h_old[e];
+              }
               h_old[e] = h_new[e];
               h_new[e] = hnew;
             }
@@ -702,8 +793,11 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
       for (int e = 0; e < kMixNodes; ++e) {
         const int n = n0 + e;
         if (n >= kN) continue;
-        h_s[n * kHPlane + mr * kHRow + mj] = h_old[e];
-        h_s[n * kHPlane + mr * kHRow + kSlice + mj] = h_new[e];
+        float* hp = h_s + n * kHPlane + mr * kHRow + mj;
+#pragma unroll
+        for (int j = 0; j + 3 < kSlices; ++j) hp[j * kSlice] = h_older[j][e];
+        if (kSlices >= 3) hp[(kSlices - 3) * kSlice] = h_old[e];
+        if (kSlices >= 2) hp[(kSlices - 2) * kSlice] = h_new[e];
       }
       sm90mix::consumer_sync();
 
@@ -713,31 +807,10 @@ __device__ __forceinline__ void consume_wide(Block& b, const Shared& sh, const f
 #pragma unroll 1
       for (int fs = 0; fs < kFcStages; ++fs) {
         const float* wf = b.wait_stage();
-        if (head && hn / kFcNodes == fs) {
-          const float* hrow = h_s + hn * kHPlane + hr * kHRow;
-          const float4* w4 = reinterpret_cast<const float4*>(wf + (hn - fs * kFcNodes) * kH * kF);
-          float qa[kF] = {bfc[0], bfc[1], bfc[2]};
-          float qb[kF] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-          for (int k4 = 0; k4 < kH / 4; ++k4) {
-            const float4 hv = *reinterpret_cast<const float4*>(hrow + 4 * k4);
-            const float4 a = w4[3 * k4], c = w4[3 * k4 + 1], e = w4[3 * k4 + 2];
-            qa[0] = fmaf(hv.x, a.x, qa[0]);
-            qa[1] = fmaf(hv.x, a.y, qa[1]);
-            qa[2] = fmaf(hv.x, a.z, qa[2]);
-            qb[0] = fmaf(hv.y, a.w, qb[0]);
-            qb[1] = fmaf(hv.y, c.x, qb[1]);
-            qb[2] = fmaf(hv.y, c.y, qb[2]);
-            qa[0] = fmaf(hv.z, c.z, qa[0]);
-            qa[1] = fmaf(hv.z, c.w, qa[1]);
-            qa[2] = fmaf(hv.z, e.x, qa[2]);
-            qb[0] = fmaf(hv.w, e.y, qb[0]);
-            qb[1] = fmaf(hv.w, e.z, qb[1]);
-            qb[2] = fmaf(hv.w, e.w, qb[2]);
-          }
-#pragma unroll
-          for (int f = 0; f < kF; ++f) q_s[(hn * kRows + hr) * kF + f] = qa[f] + qb[f];
-        }
+        if (head && hn / kFcNodes == fs)
+          head_row(h_s + hn * kHPlane + hr * kHRow,
+                   reinterpret_cast<const float4*>(wf + (hn - fs * kFcNodes) * kH * kF), bfc,
+                   q_s + (hn * kRows + hr) * kF);
         b.release_stage();
       }
       sm90mix::consumer_sync();

@@ -32,7 +32,7 @@ from .metrics.multimodal import best_sample_index
 from .metrics.suite import MetricSuite
 from .models.autoencoder import AutoEncoder
 from .ops.kernels.build import without_grad
-from .ops.kernels.denoiser_fused import prep_fused_denoiser
+from .ops.kernels.denoiser_fused import chain_refusal, prep_fused_denoiser
 from .parallel.mesh import DataMesh, all_gather_host, refuse_model_axis, shard_batch
 
 
@@ -40,13 +40,18 @@ class SkeletonDiffusionPredictor:
     """The trained model pair (AE + diffusion) as a prediction function.
 
     The sampler runs the fused kernel chain when the denoiser's
-    ``compute_dtype`` is bfloat16 and the JAX predictor's conditions hold
+    ``compute_dtype`` is bfloat16, the JAX predictor's conditions hold
     (`eval_pipeline.py:72-87`: attention, no self-conditioning, the
-    conditioning hoisted), minus the TPU's shape limits; its weight operands
-    are prepared once, at construction (re-preparing per call cost the JAX
-    package 42 ms).  The chain serves every sampler of the engine (any
-    process, objective and activation, DDIM), as the JAX predictor rebinds
-    its denoiser for any process (`eval_pipeline.py:94-108`).
+    conditioning hoisted) and, on the card, every kernel of the chain plans
+    the denoiser's widths (``denoiser_fused.chain_refusal``; the JAX gate's
+    own width limits are the TPU's lanes; on the CPU the chain's plain
+    versions take every width); its weight operands are prepared
+    once, at construction (re-preparing per call cost the JAX package
+    42 ms).  The route is decided there, once: ``fused_denoiser_refusal``
+    says why a denoiser runs its plain modules (None on the chain).  The
+    chain serves every sampler of the engine (any process, objective and
+    activation, DDIM), as the JAX predictor rebinds its denoiser for any
+    process (`eval_pipeline.py:94-108`).
     ``use_fused_denoiser`` says whether it was prepared; otherwise the plain
     denoiser runs, in its dtype.
 
@@ -85,8 +90,12 @@ class SkeletonDiffusionPredictor:
         self.autoencoder = autoencoder.to(self.device).eval()
         self.diffusion = diffusion.to(self.device)
         den = diffusion.denoiser
-        self.use_fused_denoiser = (den.compute_dtype == torch.bfloat16 and den.use_attention
-                                   and not den.self_condition and diffusion.condition)
+        # the route, decided once by the denoiser's widths (as the JAX
+        # predictor's gate, `eval_pipeline.py:72-87`), with its reason
+        self.fused_denoiser_refusal = (
+            chain_refusal(den, self.device) if diffusion.condition
+            else "the chain runs a conditioned denoiser (its conditioning hoisted)")
+        self.use_fused_denoiser = self.fused_denoiser_refusal is None
         if self.use_fused_denoiser:
             self.diffusion.fused = prep_fused_denoiser(den)
         self.diffusion_conditioning = diffusion.condition

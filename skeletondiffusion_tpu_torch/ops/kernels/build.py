@@ -6,10 +6,13 @@ The node count is a build parameter of every kernel (``-DSKD_NODES=<n>``,
 read by ``csrc/node_mix.cuh``): 16 for H36M, 17 for FreeMan, 21 for AMASS and
 3DPW, 51 for AMASS-MANO.  A library takes its own count only.  The libraries go to
 ``build/torch_kernels/<hash of sources and flags>-n<nodes>/`` beside the
-package (``.gitignore`` lists ``build/``).  Missing libraries are built
-together at first use of a node count, one ``nvcc`` process per source
-started at once (``build_all`` takes several counts in one go); no PyTorch
-headers are compiled, so a build takes seconds.  ``nvcc``'s ``-Xptxas -v``
+package (``.gitignore`` lists ``build/``).  The fp32 rollout (HIDDEN_SOURCES)
+also takes the decoder's hidden width as one (``-DSKD_HIDDEN=<h>``): at any
+width but DEFAULT_HIDDEN it is built alone, into ``…-n<nodes>-h<h>/``.
+Missing libraries are built together at first use of a node count, one
+``nvcc`` process per source started at once (``build_all`` takes several
+counts in one go); no PyTorch headers are compiled, so a build takes
+seconds.  ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills) is kept next to each library as
 ``<name>.log``.
 
@@ -54,9 +57,17 @@ DEFAULT_NODES = 21
 MAX_NODES = 51
 NARROW_NODES = 21
 MORE_NODES = "no skeleton of the reference has more than 51 nodes: ROADMAP.md Queue B item 9"
+# The hidden widths of the sources built for one (HIDDEN_SOURCES): every
+# multiple of HIDDEN_STEP up to MAX_HIDDEN; the flagship's DEFAULT_HIDDEN is
+# the source's own default, built with every other source.
+DEFAULT_HIDDEN = 96
+HIDDEN_STEP = 16
+MAX_HIDDEN = 128
+HIDDEN_SOURCES = ("gru_rollout",)
+WIDER = "other widths: ROADMAP.md Queue B item 9"
 
 _lock = threading.Lock()
-_libraries: Dict[Tuple[str, int], ctypes.CDLL] = {}
+_libraries: Dict[Tuple[str, int, int], ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
@@ -78,18 +89,35 @@ def check_nodes(kernel: str, nodes: int) -> None:
                          f"({MORE_NODES})")
 
 
-def build_dir(nodes: int = DEFAULT_NODES) -> Path:
+def takes_hidden(hidden: int) -> bool:
+    """Whether the sources built for a hidden width take ``hidden``."""
+    return hidden % HIDDEN_STEP == 0 and HIDDEN_STEP <= hidden <= MAX_HIDDEN
+
+
+def check_hidden(kernel: str, hidden: int) -> None:
+    """Raise ValueError unless ``kernel`` is built for hidden width
+    ``hidden`` (``takes_hidden``; the message names the ROADMAP item of
+    other widths)."""
+    if not takes_hidden(hidden):
+        raise ValueError(f"{kernel}: the kernel takes hidden widths that are multiples of "
+                         f"{HIDDEN_STEP} from {HIDDEN_STEP} to {MAX_HIDDEN}, got {hidden} "
+                         f"({WIDER})")
+
+
+def build_dir(nodes: int = DEFAULT_NODES, hidden: int = DEFAULT_HIDDEN) -> Path:
     """Directory named by a hash of the flags and every source's name and
-    bytes, and by the node count."""
+    bytes, and by the node count (and a hidden width other than
+    DEFAULT_HIDDEN)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_ROOT / f"{digest.hexdigest()[:16]}-n{nodes}"
+    width = "" if hidden == DEFAULT_HIDDEN else f"-h{hidden}"
+    return BUILD_ROOT / f"{digest.hexdigest()[:16]}-n{nodes}{width}"
 
 
-def library_path(name: str, nodes: int = DEFAULT_NODES) -> Path:
-    return build_dir(nodes) / f"lib{name}.so"
+def library_path(name: str, nodes: int = DEFAULT_NODES, hidden: int = DEFAULT_HIDDEN) -> Path:
+    return build_dir(nodes, hidden) / f"lib{name}.so"
 
 
 def nvcc() -> str:
@@ -110,17 +138,19 @@ def compile_sources(srcs: List[Path], out_dir: Path, nodes: int = DEFAULT_NODES)
     return compile_jobs([(src, out_dir, nodes) for src in srcs])
 
 
-def compile_jobs(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
-    """nvcc every (source, output directory, node count) at once."""
+def compile_jobs(jobs_in: Iterable[Tuple]) -> float:
+    """nvcc every (source, output directory, node count[, hidden width]) at
+    once."""
     compiler = nvcc()
     start = time.perf_counter()
     jobs = []
-    for src, out_dir, nodes in jobs_in:
+    for src, out_dir, nodes, *hidden in jobs_in:
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
         log = open(out_dir / f"{src.stem}.log", "w")
+        width = [f"-DSKD_HIDDEN={hidden[0]}"] if hidden and hidden[0] != DEFAULT_HIDDEN else []
         proc = subprocess.Popen(
-            [compiler, *NVCC_FLAGS, f"-DSKD_NODES={nodes}", "-o", str(tmp), str(src)],
+            [compiler, *NVCC_FLAGS, f"-DSKD_NODES={nodes}", *width, "-o", str(tmp), str(src)],
             stdout=log, stderr=subprocess.STDOUT)
         jobs.append((src, out_dir, nodes, tmp, log, proc))
     failed = []
@@ -141,30 +171,44 @@ def compile_jobs(jobs_in: Iterable[Tuple[Path, Path, int]]) -> float:
     return time.perf_counter() - start
 
 
-def build_all(node_counts: Iterable[int] = (DEFAULT_NODES,)) -> float:
-    """Build every library of each node count that is missing, all at once;
-    returns the seconds taken (0.0 when nothing was missing)."""
+def build_all(node_counts: Iterable[int] = (DEFAULT_NODES,),
+              widths: Iterable[Tuple[int, int]] = ()) -> float:
+    """Build every library of each node count that is missing, and the
+    HIDDEN_SOURCES at each (node count, hidden width) of ``widths``, all at
+    once; returns the seconds taken (0.0 when nothing was missing)."""
     missing = [(src, build_dir(n), n) for n in node_counts for src in sources()
                if not library_path(src.stem, n).is_file()]
+    missing += [(src, build_dir(n, h), n, h) for n, h in dict.fromkeys(widths)
+                for src in sources() if h != DEFAULT_HIDDEN and src.stem in HIDDEN_SOURCES
+                and not library_path(src.stem, n, h).is_file()]
     return compile_jobs(missing) if missing else 0.0
 
 
-def library(name: str, nodes: int = DEFAULT_NODES) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` at ``nodes`` nodes."""
+def library(name: str, nodes: int = DEFAULT_NODES,
+            hidden: int = DEFAULT_HIDDEN) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` at ``nodes`` nodes
+    (and, for HIDDEN_SOURCES, hidden width ``hidden``)."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"the {name} kernel needs a CUDA device; none is available")
     check_nodes(name, nodes)
+    if name not in HIDDEN_SOURCES:
+        hidden = DEFAULT_HIDDEN
+    check_hidden(name, hidden)
     with _lock:
-        if (name, nodes) not in _libraries:
-            build_all((nodes,))
-            _libraries[(name, nodes)] = ctypes.CDLL(str(library_path(name, nodes)))
-        return _libraries[(name, nodes)]
+        if (name, nodes, hidden) not in _libraries:
+            if hidden == DEFAULT_HIDDEN:
+                build_all((nodes,))
+            else:
+                build_all((), ((nodes, hidden),))
+            _libraries[(name, nodes, hidden)] = ctypes.CDLL(str(library_path(name, nodes,
+                                                                              hidden)))
+        return _libraries[(name, nodes, hidden)]
 
 
-def ptxas_report(name: str, nodes: int = DEFAULT_NODES) -> str:
+def ptxas_report(name: str, nodes: int = DEFAULT_NODES, hidden: int = DEFAULT_HIDDEN) -> str:
     """nvcc's -Xptxas -v lines for ``csrc/<name>.cu`` at ``nodes`` nodes
-    (empty before a build)."""
-    log = build_dir(nodes) / f"{name}.log"
+    (and hidden width ``hidden``; empty before a build)."""
+    log = build_dir(nodes, hidden) / f"{name}.log"
     return log.read_text() if log.is_file() else ""
 
 
@@ -218,11 +262,12 @@ def element_suffix(kernel: str, dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def c_entry(name: str, symbol: str, n_pointers: int, n_ints: int, nodes: int = DEFAULT_NODES):
+def c_entry(name: str, symbol: str, n_pointers: int, n_ints: int, nodes: int = DEFAULT_NODES,
+            hidden: int = DEFAULT_HIDDEN):
     """The C function ``symbol`` of ``csrc/<name>.cu`` built at ``nodes``
-    nodes, taking ``n_pointers`` pointers, ``n_ints`` ints and the stream,
-    returning a cudaError."""
-    fn = getattr(library(name, nodes), symbol)
+    nodes (and hidden width ``hidden``, ``library``), taking ``n_pointers``
+    pointers, ``n_ints`` ints and the stream, returning a cudaError."""
+    fn = getattr(library(name, nodes, hidden), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

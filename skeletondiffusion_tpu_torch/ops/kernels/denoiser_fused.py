@@ -59,6 +59,52 @@ def _banks(lin: "StaticGraphLinear", dt: torch.dtype, rows: Optional[slice] = No
     return out
 
 
+def chain_plans(den: "Denoiser") -> List:
+    """Every plan the kernel chain makes for ``den``'s widths, node count and
+    compute dtype, on both chains (the environment picks one at each call):
+    B4, B1, B3a, B2, B3b, B9a, B9b, B9c, B5a and B5b through their own plan
+    functions.  Raises the first plan's ValueError where a kernel does not
+    take the denoiser; nothing is built or launched."""
+    dt = den.compute_dtype or torch.float32
+    n = den.init_lin.type_index.numel()
+    f, d = den.dim + den.cond_dim, den.dim
+    heads, dh = den.attn_heads, den.attn_dim_head
+    hd, fo = heads * dh, den.final_glin.weight.shape[-1]
+    plans = [graph_linear_fused.graph_linear_fused_plan(dt, d, f, n),
+             resnet_block.resnet_block_plan(dt, f, n),
+             layer_fused.stem_block_plan(dt, d, f, n),
+             resnet_block.final_block_in_plan(dt, f, n),
+             resnet_block.final_block_out_plan(dt, f, fo, n)]
+    if den.n_pairs > 1:  # the attention layers between the blocks
+        plans += [attention_proj.rms_qkv_plan(dt, f, 3 * hd, n),
+                  joint_attention.attention_plan(dt, heads, dh, n),
+                  attention_proj.outproj_res_plan(dt, hd, f, n),
+                  layer_fused.rms_qkv_core_plan(dt, f, heads, dh, n),
+                  layer_fused.outproj_block_plan(dt, hd, f, n)]
+    return plans
+
+
+def chain_refusal(den: "Denoiser", device: torch.device) -> Optional[str]:
+    """Why the kernel chain does not take ``den`` on ``device``, or None
+    where it does: the JAX predictor's conditions (bf16, attention, no
+    self-conditioning; the caller adds the hoisted conditioning), then, on
+    a CUDA device, every plan of ``chain_plans`` at its widths (on the CPU
+    each kernel of the chain is its plain version, which takes every
+    width)."""
+    if den.compute_dtype != torch.bfloat16:
+        return f"the chain is bf16-compute only, the denoiser computes in {den.compute_dtype}"
+    if not den.use_attention:
+        return "the chain runs a denoiser with attention"
+    if den.self_condition:
+        return "the chain runs no self-conditioning"
+    if device.type == "cuda":
+        try:  # plans only: no kernel is built or launched here
+            chain_plans(den)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
 @torch.no_grad()
 def prep_fused_denoiser(den: "Denoiser") -> Dict:
     """Every weight-side operand of the fused forward, in the denoiser's

@@ -10,7 +10,9 @@ The decoder unrolls ``ph`` graph-GRU steps with a constant input whose gates
 Port of ``skeletondiffusion_tpu/ops/pallas/gru_rollout.py::gru_rollout_pallas``
 without the TPU's 128-lane padding, in its two forms:
 
-* fp32 (``_rollout_kernel``): the kernel is ``csrc/gru_rollout.cu``, which
+* fp32 (``_rollout_kernel``): the kernel is ``csrc/gru_rollout.cu``, built
+  for the decoder's hidden width (every multiple of 16 from 16 to 128, as
+  the Pallas kernel takes every width in its 128-lane blocks), which
   streams W_hh through shared memory from a copy packed once per bank
   (``pack_rollout_bank``) and is launched with ``rollout_plan``; the plain
   version is the step loop of ``ops/graph_gru.py``;
@@ -40,11 +42,16 @@ launches = 0
 launches_bf16 = 0
 
 # The fp32 kernel's tiling (csrc/gru_rollout.cu): rows a block, hidden columns
-# a slice, bank rows a ring stage, blocks a cluster (each weight byte read from
-# L2 serves 32 rows); past build.NARROW_NODES (AMASS-MANO's 51) its second
-# design's 2 rows a block and 2 bank rows a stage (``rollout_tiling``).
+# a slice (at the flagship's H = 96; ``rollout_slice``), bank rows a ring
+# stage, blocks a cluster (each weight byte read from L2 serves 32 rows); past
+# build.NARROW_NODES (AMASS-MANO's 51) its second design's 2 rows a block and
+# 2 bank rows a stage (``rollout_tiling``).  The hidden width is a build
+# parameter of the kernel (``build.check_hidden``: every multiple of 16 from
+# 16 to 128).
 ROLLOUT_ROWS = 8
 ROLLOUT_SLICE = 32
+ROLLOUT_SLICE_NARROW = 16
+ROLLOUT_CONSUMERS = 256  # the mix's threads
 ROLLOUT_K_ROWS = 4
 ROLLOUT_ROWS_WIDE = 2
 ROLLOUT_K_ROWS_WIDE = 2
@@ -55,8 +62,30 @@ H_PLANE_PAD = 4          # floats after each node's plane of h
 
 
 def g_row(n: int) -> int:
-    """The fp32 rollout's influence rows padded to whole float4s (``kGRow``)."""
+    """n influence rows padded to whole float4s."""
     return -(-n // 4) * 4
+
+
+def rollout_g_row(n: int, h: int) -> int:
+    """The fp32 rollout's influence rows (``kGRow``): whole float4s past the
+    last of the nodes its mix threads split (``rollout_mix``)."""
+    split, nodes = rollout_mix(n, h)
+    return g_row(max(n, split * nodes))
+
+
+def rollout_slice(h: int) -> int:
+    """Hidden columns a slice of the fp32 rollout (``kSlice``): 32 where h is
+    32, 64 or 96, else 16 (at 128 a slice of 32 would not fit beside two
+    stages)."""
+    return ROLLOUT_SLICE if h % ROLLOUT_SLICE == 0 and h <= 96 else ROLLOUT_SLICE_NARROW
+
+
+def rollout_mix(n: int, h: int):
+    """(threads a mix position, output nodes a mix thread) of the fp32
+    rollout (``kMixSplit``, ``kMixNodes``): a slice's rows × columns
+    positions shared by the 256 consumers."""
+    split = ROLLOUT_CONSUMERS // (rollout_tiling(n)[0] * rollout_slice(h))
+    return split, -(-n // split)
 
 
 class RolloutPlan(NamedTuple):
@@ -82,62 +111,79 @@ def rollout_plan_bytes(n: int, h: int, stages: int) -> int:
     3·slice gate columns of a slice, h [n][rows·(h + pad) + pad], the
     slice's gate buffer [n][4 areas][rows][slice] and G_t, G_add, G_fc."""
     rows, k_rows = rollout_tiling(n)
-    stage = 4 * k_rows * n * 3 * ROLLOUT_SLICE
+    s = rollout_slice(h)
+    stage = 4 * k_rows * n * 3 * s
     h_bytes = 4 * n * (rows * (h + H_ROW_PAD) + H_PLANE_PAD)
-    p_bytes = 4 * n * 4 * rows * ROLLOUT_SLICE
-    return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * g_row(n)
+    p_bytes = 4 * n * 4 * rows * s
+    return 128 + stages * stage + h_bytes + p_bytes + 4 * 3 * n * rollout_g_row(n, h)
 
 
-def rollout_plan(n: int, h: int) -> RolloutPlan:
-    """The fp32 rollout's plan at n nodes and hidden width h: as many ring
-    stages as fit (at most ROLLOUT_MAX_STAGES); raises ValueError when two do
-    not.  The kernel is built for h = 96 and 3 outputs and refuses other
-    shapes itself."""
+def rollout_plan(n: int, h: int, f: int = 3) -> RolloutPlan:
+    """The fp32 rollout's plan at n nodes, hidden width h and f outputs: as
+    many ring stages as fit (at most ROLLOUT_MAX_STAGES); raises ValueError
+    for a node count, width or output count the kernel is not built for and
+    when two stages do not fit."""
+    build.check_nodes("gru_rollout", n)
+    build.check_hidden("gru_rollout", h)
+    if f != 3:
+        raise ValueError(f"gru_rollout: the kernel is built for 3 outputs, got {f}")
     fits = [s for s in range(2, ROLLOUT_MAX_STAGES + 1)
             if rollout_plan_bytes(n, h, s) <= node_mix_sm90.MAX_SMEM]
     if not fits:
         raise ValueError(f"gru_rollout: {n} nodes at hidden {h} do not fit "
                          f"{node_mix_sm90.MAX_SMEM} bytes of shared memory with two stages "
-                         f"({build.MORE_NODES})")
-    return RolloutPlan(rollout_tiling(n)[0], ROLLOUT_SLICE, fits[-1], ROLLOUT_CLUSTER,
+                         f"({build.WIDER})")
+    return RolloutPlan(rollout_tiling(n)[0], rollout_slice(h), fits[-1], ROLLOUT_CLUSTER,
                        rollout_plan_bytes(n, h, fits[-1]))
 
 
-def resident_clusters(plan: RolloutPlan, nodes: int = build.DEFAULT_NODES) -> int:
+def resident_clusters(plan: RolloutPlan, nodes: int = build.DEFAULT_NODES,
+                      hidden: int = build.DEFAULT_HIDDEN) -> int:
     """How many of the fp32 rollout kernel's clusters, built at ``nodes``
-    nodes, fit on the card at once under ``plan`` (the blocks of one round
-    are that × ``plan.cluster``); needs a CUDA device."""
+    nodes and hidden width ``hidden``, fit on the card at once under
+    ``plan`` (the blocks of one round are that × ``plan.cluster``); needs a
+    CUDA device."""
     clusters = ctypes.c_int(0)
-    status = build.c_entry("gru_rollout", "gru_rollout_f32_clusters", 1, 2, nodes)(
+    status = build.c_entry("gru_rollout", "gru_rollout_f32_clusters", 1, 2, nodes, hidden)(
         ctypes.addressof(clusters), plan.stages, plan.smem_bytes, None)
     build.check_status(f"gru_rollout's occupancy query at plan {tuple(plan)}", status)
     return clusters.value
 
 
+def chunk_swap(h: int) -> int:
+    """What the packed bank XORs into the 16-byte chunk index of an odd
+    node's row (``kChunkSwap``): 4, the halves of each group of 8 chunks,
+    where a row is whole groups of 8 (slices of 32), else 0."""
+    return 4 if (3 * rollout_slice(h) // 4) % 8 == 0 else 0
+
+
 def _pack_rollout(w_hh: torch.Tensor) -> torch.Tensor:
     n, h, h3 = w_hh.shape
-    s = ROLLOUT_SLICE
+    s = rollout_slice(h)
     # [slice J][k][node][gate a][column c] = W_hh[node][k][a·h + J·s + c]
     t = w_hh.reshape(n, h, 3, h // s, s).permute(3, 1, 0, 2, 4).reshape(h // s, h, n, 3 * s // 4, 4)
     # the halves of each odd node's row of 16-byte chunks swapped in groups of 8
     chunk = torch.arange(3 * s // 4)
-    swap = torch.stack([chunk, chunk ^ 4]).to(w_hh.device)  # [parity][position] → chunk
+    swap = torch.stack([chunk, chunk ^ chunk_swap(h)]).to(w_hh.device)  # [parity][position]
     t = torch.stack([t[:, :, m, swap[m % 2]] for m in range(n)], dim=2)
     return t.contiguous().reshape(h // s, h * n * 3 * s)
 
 
 def pack_rollout_bank(w_hh: torch.Tensor) -> torch.Tensor:
     """W_hh [N, H, 3H] → [H/slice, H·N·3·slice]: for each slice of
-    ROLLOUT_SLICE hidden columns, bank rows k in order, each the N nodes' r, z
-    and n columns of the slice, so that ROLLOUT_K_ROWS consecutive rows are
-    one contiguous ring stage; in node m's row the 16-byte chunk c lies at
-    chunk c ^ 4 for odd m (the kernel's loads then hit distinct banks).
-    Cached per bank (``node_mix_sm90.cached_pack``)."""
+    ``rollout_slice(H)`` hidden columns, bank rows k in order, each the N
+    nodes' r, z and n columns of the slice, so that ROLLOUT_K_ROWS
+    consecutive rows are one contiguous ring stage; in node m's row the
+    16-byte chunk c lies at chunk c ^ ``chunk_swap(H)`` for odd m (the
+    kernel's loads then hit distinct banks).  Cached per bank
+    (``node_mix_sm90.cached_pack``)."""
     n, h, h3 = w_hh.shape
-    if h % ROLLOUT_SLICE or h3 != 3 * h:
+    if h3 != 3 * h or not build.takes_hidden(h):
         raise ValueError(f"gru_rollout: W_hh of shape {tuple(w_hh.shape)} is not [N, H, 3H] "
-                         f"with H a multiple of {ROLLOUT_SLICE}")
-    return node_mix_sm90.cached_pack(w_hh, ("rollout", ROLLOUT_SLICE), _pack_rollout)
+                         f"with H a multiple of {build.HIDDEN_STEP} from {build.HIDDEN_STEP} to "
+                         f"{build.MAX_HIDDEN} ({build.WIDER})")
+    s = rollout_slice(h)
+    return node_mix_sm90.cached_pack(w_hh, ("rollout", s), _pack_rollout)
 
 
 # The bf16 kernel's tiling (csrc/gru_rollout_merged.cu) up to
@@ -310,11 +356,11 @@ def _launch(tensors: dict, ph: int, merged: bool) -> torch.Tensor:
         pack = pack_rollout_bank_bf16 if plan.slice else None  # past NARROW_NODES: as it is
         aligned = dict(cx=cx, b_hh=b_hh)
     else:
-        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n)
-        plan, pack = rollout_plan(n, h), pack_rollout_bank
+        plan, pack = rollout_plan(n, h, f), pack_rollout_bank
+        entry = build.c_entry("gru_rollout", "gru_rollout_f32", 10, 10, n, h)
         aligned = dict(w_fc=w_fc, b_hh=b_hh)
-    # the bank packed into ring stages (the kernels take H = 96 only and
-    # refuse other widths), the output head's bank as it is
+    # the bank packed into ring stages (B8 takes H = 96 only and refuses
+    # other widths), the output head's bank as it is
     tensors = dict(tensors)
     if pack is not None and h % plan.slice == 0:
         tensors["w_hh"] = pack(w_hh)
@@ -336,7 +382,7 @@ def _fake(*args):
     tensors, ph = dict(zip(ROLLOUT_ARGS, args[:-1])), args[-1]
     if build.on_cuda(*args[:-1]):
         _checked(tensors, ph, merged=False)
-        rollout_plan(tensors["h0"].shape[0], tensors["h0"].shape[-1])
+        rollout_plan(tensors["h0"].shape[0], tensors["h0"].shape[-1], tensors["w_fc"].shape[-1])
     n, b, _ = tensors["h0"].shape
     return args[0].new_empty((ph, n, b, tensors["w_fc"].shape[-1]), dtype=torch.float32)
 

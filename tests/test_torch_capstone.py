@@ -175,3 +175,50 @@ def test_validation_reading_repeats_the_logged_validation(smoke_root, tmp_path):
     assert set(test) == {"validate", "eval_cli", "zero_velocity", "autoencoder"}
     assert all(math.isfinite(v) and v > 0 for v in [*valid.values(), *test.values()])
     assert reading["valid_datasets"] == ["HumanEva"] and reading["segments"]["valid"] > 0
+
+
+def test_variants_and_the_merged_report_of_several_runs(scripts, smoke_root, tmp_path):
+    """A second run on the smoke run's root with ``--variants k50_motion
+    --live-eval`` trains nothing (every phase is done) and adds the eval on
+    the flagship's live weights; ``--merge`` of its directory and the smoke
+    run's judges the stage files of both as one report: the smoke run's
+    checks and metrics, the live eval beside them, which run gave each
+    stage."""
+    root, out = smoke_root
+    single = json.loads(out.read_text())
+    second = tmp_path / "second" / "torch_convergence.json"
+    proc = run_blocked("torch_convergence_capstone.py",
+                       ["--smoke", "--root", str(root), "--out-json", str(second),
+                        "--ae-epochs", "1", "--ae-iters", "1", "--diff-epochs", "1",
+                        "--diff-iters", "1", "--diff-warmup", "1", "--eval-freq", "1",
+                        "--variants", "k50_motion", "--live-eval"], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "train_diffusion_k50_motion: already done" in proc.stdout
+    assert "train_diffusion_k50_latent" not in proc.stdout
+    stages = sorted(p.name for p in second.parent.glob("stage_*.json"))
+    assert stages == ["stage_autoencoder.json", "stage_k50_motion.json",
+                      "stage_zero_velocity.json"]
+
+    merged = tmp_path / "merged.json"
+    proc = run_blocked("torch_convergence_capstone.py",
+                       ["--merge", str(second.parent), str(out.parent), "--out-json",
+                        str(merged)], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    report = json.loads(merged.read_text())
+    for key in ("checks", "margins", "metrics", "valid_ade_trajectory_k50_motion",
+                "valid_ade_trajectory_autoencoder", "kept_checkpoints_k50_motion",
+                "final_lr", "curriculum_ph_max", "config"):
+        assert json.dumps(report[key]) == json.dumps(single[key]), key
+    live = report["metrics_live"]["k50_motion"]
+    assert set(live) == set(report["metrics"]["k50_motion"])
+    assert all(math.isfinite(v) for v in live.values())
+    assert report["calls"] == {"autoencoder": str(second.parent),
+                               "zero_velocity": str(second.parent),
+                               "k50_motion": str(second.parent),
+                               "k50_latent": str(out.parent), "k1": str(out.parent)}
+    assert report["last_phase_done"] == "merged" and report["card"] == "cpu"
+    assert report["timings_sec"]["eval_k50_motion_live"] > 0
+    # a merge without stage 1 has nothing to judge
+    proc = run_blocked("torch_convergence_capstone.py",
+                       ["--merge", str(tmp_path / "none"), "--out-json", str(merged)], tmp_path)
+    assert proc.returncode != 0

@@ -333,7 +333,7 @@ def test_wrappers_call_c_entries_that_exist(monkeypatch, dtype):
     csrc = pathlib.Path(build.__file__).resolve().parents[2] / "csrc"
     calls = []
 
-    def recording(name, symbol, n_pointers, n_ints, nodes=21):
+    def recording(name, symbol, n_pointers, n_ints, nodes=21, hidden=build.DEFAULT_HIDDEN):
         assert nodes == N, symbol  # the library built at the tensors' node count
         calls.append((name, symbol, n_pointers, n_ints))
         return lambda *args: 0
