@@ -225,12 +225,35 @@ Phases, each printed with its elapsed seconds:
               own), then examples/torch_quickstart_synthetic.py on the card
               (its synthetic tree, both training CLIs at hidden and latent
               16 and a denoiser of 2 heads × 4, the eval CLI, the serving
-              export and a served call): the predictor takes the plain bf16
-              denoiser, with its reason, K1 at hidden 16 and K2 launched,
-              no kernel of the chain, finite metrics and predictions of
-              their shapes (``small_launches`` in the kernels' JSON line).
-              The flagship's and every skeleton's bf16 predictors take the
-              kernel chain (use_fused_denoiser; held where each is built).
+              export and a served call): the predictor takes the kernel
+              chain padded (F 32 → 64, heads of 4 → 16), K1 at hidden 16, K2
+              and every kernel of the chain launched, finite metrics and
+              predictions of their shapes (``small_launches`` in the
+              kernels' JSON line).  The flagship's and every skeleton's bf16
+              predictors take the kernel chain (use_fused_denoiser; held
+              where each is built).
+21. widths  — the grid WIDTH_GRID of widths the JAX predictor's fused gate
+              admits (latent 80 / 96 / 112 / 100 / 128 / 48, heads 8 × 16,
+              2 × 64, 1 × 128, 4 × 32, 4 × 64, 32 × 4), each a full-width
+              model at 21 nodes from a seed: the bf16 predictor on the
+              kernel chain (use_fused_denoiser held), every kernel of phases
+              5 and 7 at the chain's padded widths (K2's bf16-x̂₀ entry at
+              the true latent width) against its plain version (bf16, a
+              ragged and an odd-tile row count; B2 in fp32 too), timed
+              beside its plain version and its bound at the true widths
+              (the padded widths' bound beside it; at heads of 4, B2 at the
+              true width's bytes too), the bf16 and
+              layer-fused paths (preds/s, launches) held with injected
+              noise against their plain versions as phases 6 and 8 hold
+              them, the max taken from the fp32 path and the states'
+              kernels-vs-plain max within WIDTHS_STATE_MAX (HOLD_WIDTHS),
+              the predictions' mean printed, not held (as phase 17's,
+              ROADMAP Queue C item 7), and the plain bf16
+              denoiser module, the route those
+              widths took before (preds/s); then B2 and B9b alone at 51
+              nodes at 4 heads × 64 and 1 × 128 (F 256).  The kernels' JSON
+              line lists each width's kernels ("grid", "heads", launches on
+              the width's paths, "preds_s").
 
 The fp32 parts run with TF32 off for matmuls and cuDNN.  Each kernel's entry
 in the kernels' JSON line also carries ``eval_launches``, its launches in
@@ -367,6 +390,20 @@ ODD_TILE_ROWS = 12_760
 # rounded where XLA rounds, 0.949 and 1.149 after; 0.80–0.87 in the
 # predictions.  It was 2.0.
 BF16_E2E_MAX = 1.3
+# What hold_bf16 holds.  HOLD_ALL (the flagship): of the sampler states and
+# of the metric-space predictions, the held run's mean deviation from the run
+# it is held against below the latter's from fp32, and its max within
+# BF16_E2E_MAX times the latter's max.  HOLD_STATES_MEAN: the predictions'
+# mean printed, not held (16, 17 and 51 nodes, the validation step; ROADMAP
+# Queue C item 7).  HOLD_WIDTHS (the widths phase): as HOLD_STATES_MEAN, the
+# max held being the held run's own from fp32, and the states' held-vs-against
+# max held within WIDTHS_STATE_MAX.
+HOLD_ALL, HOLD_STATES_MEAN, HOLD_WIDTHS = "all", "states mean", "widths"
+# The widths phase's sampler states, kernels against plain: two bf16 steps of
+# a value in [1, 2), twice the most that the sound chain reads at any width
+# of the grid (one step, at G5, on four noise draws: chip_smoke and
+# scripts/torch_widths_hold.py, H100 80GB HBM3, 700 W).
+WIDTHS_STATE_MAX = 2 ** -6
 # B8's mean deviation from its plain version may reach this share of the
 # plain version's own mean deviation from K1's fp32 plain version (as the CPU
 # tests hold the plain version to the Pallas kernel): leaving out any one of
@@ -544,7 +581,8 @@ def spread_weights(module: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
-                dataset: str = "amass", ae_variant: dict | None = None, **variant):
+                dataset: str = "amass", ae_variant: dict | None = None, latent: int = LATENT,
+                **variant):
     """(skeleton, predictor) of the flagship from seed ``SEED``, on the
     skeleton of ``dataset`` (SKELETONS: its joints and task lengths); the
     weights do not depend on ``compute_dtype`` (the denoiser's and the
@@ -559,13 +597,13 @@ def build_model(device: torch.device, compute_dtype=None, use_fused_decode=None,
         pose_box_size=1.5, obs_length=obs_len, pred_length=pred_len, if_consider_hip=False,
     )
     gen = torch.Generator().manual_seed(SEED)
-    ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, LATENT, gen,
+    ae = AutoEncoder(skeleton.num_nodes, HIDDEN, HIDDEN, latent, gen,
                      node_types=skeleton.nodes_type_id, compute_dtype=compute_dtype,
                      **(ae_variant or {}))
     keys = dict(diffusion_conditioning=True, diffusion_timesteps=TIMESTEPS, diffusion_arch=ARCH)
     keys.update(variant)
     diffusion, denoiser = create_diffusion(
-        skeleton, gen, latent_size=LATENT, device=device, compute_dtype=compute_dtype, **keys)
+        skeleton, gen, latent_size=latent, device=device, compute_dtype=compute_dtype, **keys)
     perturb_influence(ae, gen)
     perturb_influence(denoiser, gen)
     spread_weights(denoiser, gen)
@@ -724,9 +762,10 @@ def check_gru_rollout(predictor, gen: torch.Generator) -> dict:
 
 
 def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str, expected: dict,
-                  label: str) -> dict:
+                  label: str, rates: list | None = None) -> dict:
     """Timed predictions; every launch counter is set to 0 before each timed
-    call and read after it.  Returns the launches of one call."""
+    call and read after it.  Returns the launches of one call (and appends
+    the preds/s to ``rates``)."""
     def predict(seed: int) -> torch.Tensor:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         pred, _ = predictor(gen, obs)
@@ -750,6 +789,8 @@ def run_main_path(skeleton, predictor, obs: torch.Tensor, card_name: str, expect
         raise AssertionError(f"{label}: prediction of shape {tuple(out.shape)} (want "
                              f"{want_shape}) or not finite")
     p50 = statistics.median(times)
+    if rates is not None:
+        rates.append(BATCH / p50)
     launched = {k: v for k, v in counts[-1].items() if v}
     log(f"{label}: {BATCH / p50:.2f} preds/s (batch {BATCH} × {SAMPLES} samples, median of "
         f"{TIMED_CALLS} calls {[round(t, 4) for t in times]} s) on {card_name}; "
@@ -798,10 +839,10 @@ def injected_run(skeleton, predictor, obs: torch.Tensor, start: torch.Tensor,
     return skeleton.transform_to_metric_space(pred), torch.stack(states)
 
 
-def injected_noise(skeleton, gen: torch.Generator):
+def injected_noise(skeleton, gen: torch.Generator, latent: int = LATENT):
     rows, n = BATCH * SAMPLES, skeleton.num_nodes
-    return (torch.randn((rows, n, LATENT), generator=gen, device="cuda"),
-            torch.randn((rows, TIMESTEPS - 1, n, LATENT), generator=gen, device="cuda"))
+    return (torch.randn((rows, n, latent), generator=gen, device="cuda"),
+            torch.randn((rows, TIMESTEPS - 1, n, latent), generator=gen, device="cuda"))
 
 
 def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Generator) -> None:
@@ -822,12 +863,12 @@ def compare_with_plain(skeleton, predictor, obs: torch.Tensor, gen: torch.Genera
 
 
 def hold_bf16(label: str, runs: dict, pairs,
-              states: str = "sampler states after each step",
-              prediction_mean: bool = True) -> None:
+              states: str = "sampler states after each step", hold: str = HOLD_ALL) -> None:
     """For each (name of the run held, name of the run it is held against)
     in ``pairs``, the sampler's state after each step and the metric-space
     predictions of the two runs with injected noise, beside the deviation of
-    the run held against from the ``"fp32"`` run (same weights and noise).
+    the run held against from the ``"fp32"`` run (same weights and noise),
+    as ``hold`` says (HOLD_ALL, HOLD_STATES_MEAN, HOLD_WIDTHS).
 
     The mean deviation must be below that one.  The max may reach
     BF16_E2E_MAX times its max: two bf16 paths that round at the same points
@@ -835,10 +876,17 @@ def hold_bf16(label: str, runs: dict, pairs,
     rounding point a value lands, and the flip, a whole bf16 step of an O(1)
     x̂₀, is carried through the later layers and steps, where the
     bf16-vs-fp32 deviation of the same value can stay below one step.
-    Without ``prediction_mean`` the predictions' mean ratio is printed, not
-    held (the 16- and 17-node paths, ROADMAP Queue C item 7: there the
-    decode turns a state ratio of 0.91–0.99 into 1.02–1.11, whichever single
-    kernel runs; scripts/torch_bf16_chain_split.py)."""
+    HOLD_STATES_MEAN prints the predictions' mean ratio (the 16- and 17-node
+    paths, ROADMAP Queue C item 7: there the decode turns a state ratio of
+    0.91–0.99 into 1.02–1.11, whichever single kernel runs;
+    scripts/torch_bf16_chain_split.py).  HOLD_WIDTHS holds the held run's
+    own max from the fp32 run within BF16_E2E_MAX times the other's, and the
+    states' held-vs-against max within WIDTHS_STATE_MAX: at G5 one flip of
+    2^-7 in a sampler state (kernels against plain) exceeds 1.3× a
+    plain-vs-fp32 max of ~0.0057, with B2 on its plain version too, while
+    the kernel path's deviation from fp32 equals the plain path's
+    (scripts/torch_widths_hold.py, which also reads the hold on planted
+    faults; ROADMAP Queue C item 1)."""
     for held, against in pairs:
         for what, unit, scale, i in ((states, "", 1.0, 1),
                                      ("prediction, metric space", " mm", 1e3, 0)):
@@ -846,29 +894,37 @@ def hold_bf16(label: str, runs: dict, pairs,
             kp, bf = (a - b).abs() * scale, (b - c).abs() * scale
             kp_max, kp_mean, bf_max, bf_mean = (kp.max().item(), kp.mean().item(),
                                                 bf.max().item(), bf.mean().item())
-            mean_held = i == 1 or prediction_mean
+            mean_held = i == 1 or hold == HOLD_ALL
+            from_fp32 = hold == HOLD_WIDTHS
+            top = (a - c).abs().max().item() * scale if from_fp32 else kp_max
+            kp_limit = WIDTHS_STATE_MAX if from_fp32 and i == 1 else math.inf
             log(f"{label} with injected noise: {what}: {held} vs {against} max "
                 f"{kp_max:.4e}{unit} mean {kp_mean:.4e}{unit}; {against} vs fp32 path max "
                 f"{bf_max:.4e}{unit} mean {bf_mean:.4e}{unit} (max ratio {kp_max / bf_max:.3f}, "
-                f"bound {BF16_E2E_MAX}; mean ratio {kp_mean / bf_mean:.3f}, "
+                + (f"{'held ≤ ' + f'{kp_limit:.4e}' if kp_limit < math.inf else 'not held'}; "
+                   f"{held} vs fp32 path max {top:.4e}{unit}, ratio {top / bf_max:.3f}, "
+                   if from_fp32 else "")
+                + f"bound {BF16_E2E_MAX}; mean ratio {kp_mean / bf_mean:.3f}, "
                 f"{'bound < 1' if mean_held else 'not held: ROADMAP Queue C item 7'}; "
                 f"|fp32| ≤ {c.abs().max().item() * scale:.4f}{unit})")
-            if not ((kp_mean < bf_mean or not mean_held) and kp_max <= BF16_E2E_MAX * bf_max):
+            if not ((kp_mean < bf_mean or not mean_held) and top <= BF16_E2E_MAX * bf_max
+                    and kp_max <= kp_limit):
                 raise AssertionError(f"{label}: {held} vs {against} in the {what}: max {kp_max}, "
                                      f"mean {kp_mean}, against the {against}-vs-fp32 deviation "
-                                     f"(max {bf_max}, mean {bf_mean})")
+                                     f"(max {bf_max}, mean {bf_mean})"
+                                     + (f"; {held} vs fp32 max {top}" if from_fp32 else ""))
 
 
 def compare_bf16(skeleton, predictor, predictor_f32, obs: torch.Tensor,
-                 gen: torch.Generator, prediction_mean: bool = True) -> None:
+                 gen: torch.Generator, hold: str = HOLD_ALL) -> None:
     """The bf16 path with injected noise: kernels against plain versions
-    (``hold_bf16``, with its ``prediction_mean``)."""
-    start, steps = injected_noise(skeleton, gen)
+    (``hold_bf16``, as ``hold`` says)."""
+    start, steps = injected_noise(skeleton, gen, predictor.diffusion.seq_length)
     runs = {"kernels": injected_run(skeleton, predictor, obs, start, steps, plain=False),
             "plain": injected_run(skeleton, predictor, obs, start, steps, plain=True),
             "fp32": injected_run(skeleton, predictor_f32, obs, start, steps, plain=False)}
     torch.cuda.synchronize()
-    hold_bf16("bf16 path", runs, [("kernels", "plain")], prediction_mean=prediction_mean)
+    hold_bf16("bf16 path", runs, [("kernels", "plain")], hold=hold)
 
 
 @contextlib.contextmanager
@@ -886,11 +942,11 @@ def layer_fused_path():
 
 
 def compare_layer_fused(skeleton, predictor, predictor_f32, obs: torch.Tensor,
-                        gen: torch.Generator, prediction_mean: bool = True) -> None:
+                        gen: torch.Generator, hold: str = HOLD_ALL) -> None:
     """The layer-fused bf16 path with injected noise against the same path
     on plain versions and against the single-stage kernel path
-    (``hold_bf16``, with its ``prediction_mean``)."""
-    start, steps = injected_noise(skeleton, gen)
+    (``hold_bf16``, as ``hold`` says)."""
+    start, steps = injected_noise(skeleton, gen, predictor.diffusion.seq_length)
     with layer_fused_path():
         runs = {"layer-fused kernels": injected_run(skeleton, predictor, obs, start, steps,
                                                     plain=False),
@@ -903,7 +959,7 @@ def compare_layer_fused(skeleton, predictor, predictor_f32, obs: torch.Tensor,
     hold_bf16("layer-fused bf16 path", runs,
               [("layer-fused kernels", "layer-fused plain"),
                ("layer-fused kernels", "single-stage kernels")],
-              prediction_mean=prediction_mean)
+              hold=hold)
 
 
 def bf16_errors(got: torch.Tensor, want: torch.Tensor):
@@ -945,15 +1001,42 @@ def odd_tile_rows(tile_rows: int) -> int:
     return (tiles - 1 + tiles % 2) * tile_rows
 
 
+def moved_bytes(tensors, roles=None, widths=None, which: int = 1) -> int:
+    """The bytes of ``tensors`` (each input read once, each output written
+    once).  ``roles``, a string a tensor, names its trailing axes that the
+    chain pads ("." an axis kept): each named axis counts at
+    ``widths[role][which]`` (0 the padded width, 1 the true one) and must be
+    the padded width."""
+    total = 0
+    for t, r in zip(tensors, roles or [""] * len(tensors)):
+        if not torch.is_tensor(t):
+            continue
+        shape = list(t.shape)
+        for axis, role in enumerate(reversed(r), 1):
+            if role != ".":
+                if shape[-axis] != widths[role][0]:
+                    raise AssertionError(f"axis -{axis} of a {tuple(t.shape)} tensor is not the "
+                                         f"padded width of {role!r}, {widths[role][0]}")
+                shape[-axis] = widths[role][which]
+        total += math.prod(shape) * t.element_size()
+    return total
+
+
 def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, source: str,
-                       tensor_flops: float = 0.0, flops: float = 0.0, tf32_flops: float = 0.0,
-                       library=None,
-                       products=None, f32: bool = True, odd_rows: tuple = ()) -> dict:
+                       tensor_flops=0.0, flops: float = 0.0, tf32_flops: float = 0.0,
+                       library=None, products=None, f32: bool = True, odd_rows: tuple = (),
+                       roles=None, widths=None, ragged: int = RAGGED) -> dict:
     """One kernel at the bench shapes: bf16 against its plain version, its
     fp32 instantiation, a ragged row count, with ``odd_rows`` (bf16, fp32)
-    also those row counts (an odd number of the kernel's row tiles), and its
+    also those row counts (an odd number of the kernel's row tiles; the
+    ragged one ``ragged`` rows short of the bench's), and its
     times (``products``: a call of the kernel's per-node products alone,
-    timed as a yardstick)."""
+    timed as a yardstick).  Its bound counts the function at its true
+    widths: ``widths`` maps a role to (the chain's padded width, the true
+    one), ``roles`` names the padded axes of each of ``args`` and then of
+    the outputs (``moved_bytes``), and ``tensor_flops`` is a number or a
+    function of {role: width}; where the padded widths' bound differs it is
+    ``padded_bound_ms``, the padding's cost beside the bound."""
     rows = BATCH * SAMPLES
     got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
@@ -975,7 +1058,7 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
                       for g, w in zip(as_tuple(kernel(*a32)), as_tuple(plain(*a32))))
         if not f32_err <= F32_TOL:
             raise AssertionError(f"{name} (fp32) disagrees with its plain version: {f32_err}")
-    cut = rows - RAGGED
+    cut = rows - ragged
     r_err = hold_at_rows(name, kernel, plain, cut_rows(args, rows, cut), cut)
     odd = "".join(f"; {dt} {n} rows {hold_at_rows(name, kernel, plain, cut_rows(a, rows, n), n):.3e}"
                   for dt, a, n in zip(("bf16", "fp32"), (args, a32), odd_rows))
@@ -983,18 +1066,28 @@ def check_fused_kernel(name: str, kernel, plain, args: list, *, replaces: str, s
     plain_ms = cuda_ms(lambda: plain(*args), reps=3)
     library_ms = cuda_ms(library, reps=20) if library is not None else None
     products_ms = cuda_ms(products, reps=20) if products is not None else None
-    moved = sum(t.numel() * t.element_size() for t in (*args, *got) if torch.is_tensor(t))
-    bnd, by = bound_ms(moved, flops, tensor_flops, tf32_flops)
+    widths = widths or {}
+
+    def bound_at(which: int):
+        sizes = {role: w[which] for role, w in widths.items()}
+        tensor = tensor_flops(sizes) if callable(tensor_flops) else tensor_flops
+        return bound_ms(moved_bytes((*args, *got), roles, widths, which), flops, tensor,
+                        tf32_flops)
+
+    (bnd, by), (padded_bnd, _) = bound_at(1), bound_at(0)
     log(f"{name}: bf16 vs plain {'; '.join(parts)}; fp32 vs plain "
         f"{'—' if f32_err is None else f'{f32_err:.3e}'} (tol {F32_TOL:.0e}); {cut} rows "
         f"{r_err:.3e}{odd}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bnd:.4f} ms ({by})"
+        + ("" if padded_bnd == bnd else f", at the padded widths {padded_bnd:.4f} ms")
         + ("" if products_ms is None else f", products-only bmm {products_ms:.4f} ms"))
     entry = {"name": name, "route": "cuda", "nodes": args[0].shape[0],
              "source": f"skeletondiffusion_tpu_torch/csrc/{source}",
              "replaces": f"skeletondiffusion_tpu/ops/pallas/{replaces}", "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
              "library_ms": library_ms}
+    if padded_bnd != bnd:
+        entry["padded_bound_ms"] = padded_bnd
     if products_ms is not None:
         entry["products_only_bmm_ms"] = products_ms
     return entry
@@ -1048,41 +1141,65 @@ def engine_dtypes(n: int) -> tuple:
     return (torch.bfloat16,) if build.wide(n) else (torch.bfloat16, torch.float32)
 
 
-def odd_qkv_rows(plan_of, n: int) -> tuple:
+def odd_qkv_rows(plan_of, n: int, dtypes: tuple | None = None) -> tuple:
     """B3a's and B9b's odd-tile row counts at ``n`` nodes for each of
-    ``engine_dtypes``: ODD_TILE_ROWS with the 21-node tiles, else from the
-    plan's rows (``plan_of(dtype)``)."""
-    if not build.wide(n):
-        return (ODD_TILE_ROWS, ODD_TILE_ROWS)
-    return tuple(odd_tile_rows(plan_of(dt).rows) for dt in engine_dtypes(n))
+    ``dtypes`` (``engine_dtypes``): ODD_TILE_ROWS with the 21-node tiles of
+    32 rows (bf16) and 8 (fp32), else from the plan's rows
+    (``plan_of(dtype)``)."""
+    dtypes = engine_dtypes(n) if dtypes is None else dtypes
+    return tuple(ODD_TILE_ROWS if not build.wide(n) and plan_of(dt).rows in (32, 8)
+                 else odd_tile_rows(plan_of(dt).rows) for dt in dtypes)
 
 
-def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
+def engine_check_widths(predictor, flagship: bool):
+    """(the chain's widths, the element types its engine kernels are
+    checked in, whether in fp32 too) of a bf16 predictor: fp32 where its
+    plans fit for the flagship's widths (``engine_dtypes``); bf16 alone at
+    the widths phase's (the route takes the chain in bf16 only)."""
+    n = predictor.skeleton.num_nodes
+    dts = engine_dtypes(n) if flagship else (torch.bfloat16,)
+    return predictor.diffusion.fused["widths"], dts, flagship and not build.wide(n)
+
+
+def padding_roles(w) -> dict:
+    """role → (the chain's padded width, the true one) for ``moved_bytes``:
+    F ("f"), a FiLM row's or the final block's x‖skip two halves ("e"), D
+    ("d"), the head's output ("o"), heads × dh ("h") and q‖k‖v ("q") of
+    the chain's widths ``w``."""
+    hd, hd_pad = w.heads * w.dim_head, w.heads * w.width
+    return {"f": (w.f_pad, w.f), "e": (2 * w.f_pad, 2 * w.f), "d": (w.d_pad, w.d),
+            "o": (w.out_pad, w.out), "h": (hd_pad, hd), "q": (3 * hd_pad, 3 * hd)}
+
+
+def check_denoiser_kernels(predictor, gen: torch.Generator, flagship: bool = True) -> list:
     """The fused denoiser's kernels and K2's bf16-x̂₀ entry on the bench
-    shapes, on the bf16 model's own operands and activations drawn from
-    ``gen`` (each kernel's input is what the one before it produced); the
-    engine's kernels in fp32 too where their fp32 plans fit
-    (``engine_dtypes``)."""
+    shapes, on the bf16 model's own operands (padded to the chain's widths)
+    and activations drawn from ``gen`` (each kernel's input is what the one
+    before it produced; K2 at the true latent width, as the sampler gives
+    it); the engine's kernels in fp32 too where ``engine_check_widths``
+    says, B2 in fp32 at every width; B2's head groups at the flagship's
+    (``flagship``).  Bounds at the true widths (``padding_roles``)."""
     bf16 = torch.bfloat16
     diff, den = predictor.diffusion, predictor.diffusion.denoiser
     pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
-    dts, f32 = engine_dtypes(n), not build.wide(n)
-    f, d = den.dim + den.cond_dim, den.dim
-    heads, dh = den.attn_heads, den.attn_dim_head
-    hd = heads * dh
+    w, dts, f32 = engine_check_widths(predictor, flagship)
+    f, d, fo = w.f_pad, w.d_pad, w.out_pad
+    heads, dh, width = w.heads, w.dim_head, w.width
+    hd, pads = heads * width, padding_roles(w)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf16)
 
     with torch.no_grad():
-        check_attention_head_groups(torch.Generator(device="cuda").manual_seed(SEED), n)
+        if flagship:
+            check_attention_head_groups(torch.Generator(device="cuda").manual_seed(SEED), n)
         tt = torch.tanh(den.time_embedding(TIMESTEPS // 2, torch.device("cuda")))
-        u = den.cond_embedding(torch.tanh(torch.randn((rows, n, d), generator=gen,
-                                                      device="cuda"))).contiguous()
+        u = denoiser_fused.pad_condition(pre, den.cond_embedding(torch.tanh(torch.randn(
+            (rows, n, w.d), generator=gen, device="cuda"))))
         stem, blk, att, fin, head = (pre["stem"], pre["blocks"][0], pre["attns"][0],
                                      pre["final"], pre["head"])
-        film = denoiser_fused._film(blk["film"], tt, bf16)
-        film_f = denoiser_fused._film(fin["film"], tt, bf16)
+        film = denoiser_fused._film(blk["film"], tt, bf16, f)
+        film_f = denoiser_fused._film(fin["film"], tt, bf16, f)
         x_lat, r = rnd(n, rows, d), rnd(n, rows, f, scale=0.5)
         x = stem_mod.graph_linear_fused(x_lat, stem["w"], stem["b"], stem["g"], u)
         qkv = proj_mod.rms_qkv(x, att["g_rms"], att["w_qkv"], att["g_qkv"])
@@ -1092,75 +1209,91 @@ def check_denoiser_kernels(predictor, gen: torch.Generator) -> list:
         xr = torch.cat([x, r], dim=-1)  # B5a's contraction input, for its products-only bmm
         o = (torch.tanh(stem_mod.mix_plain(fin["g2"], stem_mod.product_plain(
             h, fin["w2"], fin["b2"]).to(bf16))) + res.float()).to(bf16)  # B5b's head input
-        x0 = rnd(n, rows, d, scale=1.5)
-        xt, eps = (torch.randn((n, rows, d), generator=gen, device="cuda") for _ in range(2))
+        x0 = rnd(n, rows, w.d, scale=1.5)
+        xt, eps = (torch.randn((n, rows, w.d), generator=gen, device="cuda") for _ in range(2))
         m_t = diff.step_tables[TIMESTEPS // 2]
-        q, k, v = (t.reshape(n, rows, heads, dh).permute(1, 2, 0, 3).reshape(rows * heads, n, dh)
-                   .contiguous() for t in qkv.split(hd, dim=-1))
+        # SDPA on the true head width: [rows·heads, n, dh] from the padded bank
+        q, k, v = (t.reshape(n, rows, heads, width)[..., :dh].permute(1, 2, 0, 3)
+                   .reshape(rows * heads, n, dh).contiguous() for t in qkv.split(hd, dim=-1))
         stacked = torch.cat([x0.float().clamp(-1, 1), xt, eps]).reshape(3 * n, -1)
         mix = lambda width: 2.0 * n * n * rows * width  # noqa: E731
         prod = lambda k_, o: 2.0 * n * rows * k_ * o  # noqa: E731
-        return [
-            check_fused_kernel(
+        core_flops = lambda s: 4.0 * rows * n * n * s["h"]  # noqa: E731
+        chain = functools.partial(check_fused_kernel, widths=pads)
+        entries = [
+            chain(
                 "graph_linear_fused", stem_mod.graph_linear_fused,
                 stem_mod.graph_linear_fused_plain, [x_lat, stem["w"], stem["b"], stem["g"], u],
                 replaces="graph_linear_fused.py:70", source="graph_linear_fused.cu",
-                tensor_flops=prod(d, f) + mix(f),
+                tensor_flops=lambda s: prod(s["d"], s["f"]) + mix(s["f"]),
+                roles=("d", "df", "f", "", "f", "f"),
                 odd_rows=tuple(odd_tile_rows(stem_mod.graph_linear_fused_plan(dt, d, f, n).rows)
                                for dt in dts), f32=f32),
-            check_fused_kernel(
+            chain(
                 "resnet_block", block_mod.resnet_block, block_mod.resnet_block_plain,
                 [x, film, blk["w1"], blk["b1"], blk["g1"], blk["w2"], blk["b2"], blk["g2"]],
                 replaces="resnet_block.py:134", source="resnet_block.cu",
-                tensor_flops=2 * (prod(f, f) + mix(f)),
+                tensor_flops=lambda s: 2 * (prod(s["f"], s["f"]) + mix(s["f"])),
+                roles=("f", "e", "ff", "f", "", "ff", "f", "", "f"),
                 products=products_only((x, blk["w1"]), (x, blk["w2"])),
                 odd_rows=tuple(odd_tile_rows(block_mod.resnet_block_plan(dt, f, n).rows)
                                for dt in dts), f32=f32),
-            check_fused_kernel(
+            chain(
                 "rms_qkv", proj_mod.rms_qkv, proj_mod.rms_qkv_plain,
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="attention_proj.py:114",
-                source="attention_proj.cu", tensor_flops=prod(f, 3 * hd) + mix(3 * hd),
+                source="attention_proj.cu",
+                tensor_flops=lambda s: prod(s["f"], s["q"]) + mix(s["q"]),
+                roles=("f", "f", "fq", "", "q"),
                 products=products_only((x, att["w_qkv"])), f32=f32,
-                odd_rows=odd_qkv_rows(lambda dt: proj_mod.rms_qkv_plan(dt, f, 3 * hd, n), n)),
-            check_fused_kernel(
+                odd_rows=odd_qkv_rows(lambda dt: proj_mod.rms_qkv_plan(dt, f, 3 * hd, n), n,
+                                      dts)),
+            chain(
                 "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
                                                     dim_head=dh),
                 functools.partial(attn_mod.attention_core_plain, heads=heads, dim_head=dh),
                 [qkv], replaces="joint_attention.py:124", source="joint_attention.cu",
-                tensor_flops=4.0 * rows * heads * n * n * dh,
+                tensor_flops=core_flops, roles=("q", "h"),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-                odd_rows=tuple(odd_tile_rows(attn_mod.attention_plan(dt, heads, dh, n).rows)
+                odd_rows=tuple(odd_tile_rows(attn_mod.attention_plan(dt, heads, width, n).rows)
                                for dt in (bf16, torch.float32))),
-            check_fused_kernel(
+            chain(
                 "outproj_res", proj_mod.outproj_res, proj_mod.outproj_res_plain,
                 [core, x, att["w_out"], att["g_out"]], replaces="attention_proj.py:143",
-                source="attention_proj.cu", tensor_flops=prod(hd, f) + mix(f),
+                source="attention_proj.cu",
+                tensor_flops=lambda s: prod(s["h"], s["f"]) + mix(s["f"]),
+                roles=("h", "f", "hf", "", "f"),
                 products=products_only((core, att["w_out"])),
                 odd_rows=tuple(odd_tile_rows(proj_mod.outproj_res_plan(dt, hd, f, n).rows)
                                for dt in dts), f32=f32),
-            check_fused_kernel(
+            chain(
                 "final_block_in", block_mod.final_block_in, block_mod.final_block_in_plain,
                 [x, r, film_f, fin["w1"], fin["b1"], fin["g1"], fin["wr"], fin["gr"]],
                 replaces="resnet_block.py:351", source="resnet_block.cu",
-                tensor_flops=2 * (prod(2 * f, f) + mix(f)),
+                tensor_flops=lambda s: 2 * (prod(s["e"], s["f"]) + mix(s["f"])),
+                roles=("f", "f", "e", "ef", "f", "", "ef", "", "f", "f"),
                 products=products_only((xr, fin["w1"]), (xr, fin["wr"])),
                 odd_rows=tuple(odd_tile_rows(block_mod.final_block_in_plan(dt, f, n).rows)
                                for dt in dts), f32=f32),
-            check_fused_kernel(
+            chain(
                 "final_block_out", block_mod.final_block_out, block_mod.final_block_out_plain,
                 [h, res, fin["w2"], fin["b2"], fin["g2"], head["w"], head["b"], head["g"]],
                 replaces="resnet_block.py:372", source="resnet_block.cu",
-                tensor_flops=prod(f, f) + mix(f) + prod(f, d) + mix(d),
+                tensor_flops=lambda s: (prod(s["f"], s["f"]) + mix(s["f"]) + prod(s["f"], s["o"])
+                                        + mix(s["o"])),
+                roles=("f", "f", "ff", "f", "", "fo", "o", "", "o"),
                 products=products_only((h, fin["w2"]), (o, head["w"])),
-                odd_rows=tuple(odd_tile_rows(block_mod.final_block_out_plan(dt, f, d, n).rows)
+                odd_rows=tuple(odd_tile_rows(block_mod.final_block_out_plan(dt, f, fo, n).rows)
                                for dt in dts), f32=f32),
             check_fused_kernel(
                 "posterior_step_x0_bf16", posterior_mod.posterior_step,
                 posterior_mod.posterior_step_plain, [x0, xt, eps, m_t],
                 replaces="posterior_step.py:93", source="posterior_step.cu",
-                tf32_flops=k2_tf32_flops(n, rows * d, True), f32=False,
-                library=lambda: torch.matmul(m_t, stacked)),
+                tf32_flops=k2_tf32_flops(n, rows * w.d, True), f32=False,
+                library=lambda: torch.matmul(m_t, stacked),
+                # a row count whose B·D the bf16 entry takes (a multiple of 8)
+                ragged=next(r for r in range(RAGGED, rows) if (rows - r) * w.d % 8 == 0)),
         ]
+        return entries
 
 
 def check_stem_bits(x, u, film, ws, bs, gs, block: tuple) -> None:
@@ -1184,59 +1317,68 @@ def check_stem_bits(x, u, film, ws, bs, gs, block: tuple) -> None:
     log("graph_linear_fused equals stem_block's r bit for bit: " + ", ".join(parts))
 
 
-def check_layer_fused_kernels(predictor, gen: torch.Generator) -> list:
+def check_layer_fused_kernels(predictor, gen: torch.Generator, flagship: bool = True) -> list:
     """The layer-fused denoiser's kernels (B9a–c) on the bench shapes, on the
-    bf16 model's own operands and activations drawn from ``gen`` (each
-    kernel's input is what the one before it produced)."""
+    bf16 model's own operands (padded to the chain's widths) and activations
+    drawn from ``gen`` (each kernel's input is what the one before it
+    produced); B4's output against B9a's r bit for bit (``flagship``).
+    Bounds at the true widths (``padding_roles``)."""
     bf16 = torch.bfloat16
     diff, den = predictor.diffusion, predictor.diffusion.denoiser
     pre, n, rows = diff.fused, predictor.skeleton.num_nodes, BATCH * SAMPLES
-    dts, f32 = engine_dtypes(n), not build.wide(n)
-    f, d = den.dim + den.cond_dim, den.dim
-    heads, dh = den.attn_heads, den.attn_dim_head
-    hd = heads * dh
+    w, dts, f32 = engine_check_widths(predictor, flagship)
+    f, d = w.f_pad, w.d_pad
+    heads, dh, width = w.heads, w.dim_head, w.width
+    hd, pads = heads * width, padding_roles(w)
     banks = denoiser_fused._block_banks
 
     with torch.no_grad():
         tt = torch.tanh(den.time_embedding(TIMESTEPS // 2, torch.device("cuda")))
-        u = den.cond_embedding(torch.tanh(torch.randn((rows, n, d), generator=gen,
-                                                      device="cuda"))).contiguous()
+        u = denoiser_fused.pad_condition(pre, den.cond_embedding(torch.tanh(torch.randn(
+            (rows, n, w.d), generator=gen, device="cuda"))))
         stem, att, blk0, blk1 = pre["stem"], pre["attns"][0], pre["blocks"][0], pre["blocks"][1]
-        film0 = denoiser_fused._film(blk0["film"], tt, bf16)
-        film1 = denoiser_fused._film(blk1["film"], tt, bf16)
+        film0 = denoiser_fused._film(blk0["film"], tt, bf16, f)
+        film1 = denoiser_fused._film(blk1["film"], tt, bf16, f)
         x_lat = torch.randn((n, rows, d), generator=gen, device="cuda").to(bf16)
         r, x = layer_mod.stem_block(x_lat, u, film0, stem["w"], stem["b"], stem["g"],
                                     *banks(blk0))
-        check_stem_bits(x_lat, u, film0, stem["w"], stem["b"], stem["g"], banks(blk0))
+        if flagship:
+            check_stem_bits(x_lat, u, film0, stem["w"], stem["b"], stem["g"], banks(blk0))
         core = layer_mod.rms_qkv_core(x, att["g_rms"], att["w_qkv"], att["g_qkv"], heads=heads,
                                       dim_head=dh)
         mix = lambda width: 2.0 * n * n * rows * width  # noqa: E731
         prod = lambda k_, o: 2.0 * n * rows * k_ * o  # noqa: E731
-        block = 2 * (prod(f, f) + mix(f))
+        block = lambda s: 2 * (prod(s["f"], s["f"]) + mix(s["f"]))  # noqa: E731
+        banks_roles = ("ff", "f", "", "ff", "f", "")
+        chain = functools.partial(check_fused_kernel, widths=pads)
         return [
-            check_fused_kernel(
+            chain(
                 "stem_block", layer_mod.stem_block, layer_mod.stem_block_plain,
                 [x_lat, u, film0, stem["w"], stem["b"], stem["g"], *banks(blk0)],
                 replaces="layer_fused.py:233", source="layer_fused.cu",
-                tensor_flops=prod(d, f) + mix(f) + block,
+                tensor_flops=lambda s: prod(s["d"], s["f"]) + mix(s["f"]) + block(s),
+                roles=("d", "f", "e", "df", "f", "", *banks_roles, "f", "f"),
                 products=products_only((x_lat, stem["w"]), (r, blk0["w1"]), (r, blk0["w2"])),
                 odd_rows=tuple(odd_tile_rows(layer_mod.stem_block_plan(dt, d, f, n).rows)
                                for dt in dts), f32=f32),
-            check_fused_kernel(
+            chain(
                 "rms_qkv_core",
                 functools.partial(layer_mod.rms_qkv_core, heads=heads, dim_head=dh),
                 functools.partial(layer_mod.rms_qkv_core_plain, heads=heads, dim_head=dh),
                 [x, att["g_rms"], att["w_qkv"], att["g_qkv"]], replaces="layer_fused.py:285",
                 source="layer_fused.cu",
-                tensor_flops=prod(f, 3 * hd) + mix(3 * hd) + 4.0 * rows * heads * n * n * dh,
+                tensor_flops=lambda s: (prod(s["f"], s["q"]) + mix(s["q"])
+                                        + 4.0 * rows * n * n * s["h"]),
+                roles=("f", "f", "fq", "", "h"),
                 products=products_only((x, att["w_qkv"])), f32=f32,
                 odd_rows=odd_qkv_rows(
-                    lambda dt: layer_mod.rms_qkv_core_plan(dt, f, heads, dh, n), n)),
-            check_fused_kernel(
+                    lambda dt: layer_mod.rms_qkv_core_plan(dt, f, heads, width, n), n, dts)),
+            chain(
                 "outproj_block", layer_mod.outproj_block, layer_mod.outproj_block_plain,
                 [core, x, film1, att["w_out"], att["g_out"], *banks(blk1)],
                 replaces="layer_fused.py:325", source="layer_fused.cu",
-                tensor_flops=prod(hd, f) + mix(f) + block,
+                tensor_flops=lambda s: prod(s["h"], s["f"]) + mix(s["f"]) + block(s),
+                roles=("h", "f", "e", "hf", "", *banks_roles, "f"),
                 products=products_only((core, att["w_out"]), (x, blk1["w1"]), (x, blk1["w2"])),
                 odd_rows=tuple(odd_tile_rows(layer_mod.outproj_block_plan(dt, hd, f, n).rows)
                                for dt in dts), f32=f32),
@@ -2067,7 +2209,7 @@ def hold_validation(skeleton, tr: TrainerDiffusion, ae: AutoEncoder, obs: torch.
         raise AssertionError(f"validation hold: the EMA update applied decay {decays[-1]}")
     after = validation_runs(skeleton, tr, ae, obs, fut, start, steps)
     hold_bf16(f"train validation step after an EMA update of decay {decays[-1]:.4f} (EMA step "
-              f"{tr.ema.step})", after, [("kernels", "plain")], prediction_mean=False)
+              f"{tr.ema.step})", after, [("kernels", "plain")], hold=HOLD_STATES_MEAN)
     moved = {name: (after[name][0] - before[name][0]).abs() * 1e3 for name in after}
     gap = (after["kernels"][0] - after["plain"][0]).abs() * 1e3
     log(f"train validation step, the EMA update's move of the prediction (metric space): "
@@ -2670,7 +2812,7 @@ def run_skeleton_paths(dataset: str, device: torch.device, card_name: str):
     launches = run_main_path(skeleton, predictor_bf16, obs, card_name, EXPECTED_BF16,
                              f"{label} path bf16")
     # the predictions' mean is printed, not held (ROADMAP Queue C item 7)
-    compare_bf16(skeleton, predictor_bf16, predictor, obs, gen, prediction_mean=False)
+    compare_bf16(skeleton, predictor_bf16, predictor, obs, gen, hold=HOLD_STATES_MEAN)
     for k in fused:
         k["launches"] = launches[k["name"]]
     log_kernel_time(f"{label} bf16 path", fused, launches)
@@ -2679,7 +2821,8 @@ def run_skeleton_paths(dataset: str, device: torch.device, card_name: str):
     with layer_fused_path():
         launches = run_main_path(skeleton, predictor_bf16, obs, card_name,
                                  EXPECTED_LAYER_FUSED, f"{label} path bf16, layer-fused")
-    compare_layer_fused(skeleton, predictor_bf16, predictor, obs, gen, prediction_mean=False)
+    compare_layer_fused(skeleton, predictor_bf16, predictor, obs, gen,
+                        hold=HOLD_STATES_MEAN)
     for k in layer:
         k["launches"] = launches[k["name"]]
     log_kernel_time(f"{label} layer-fused bf16 path", fused + layer, launches)
@@ -3015,8 +3158,9 @@ CHAIN_KERNELS = sorted((set(EXPECTED_BF16) | set(EXPECTED_LAYER_FUSED))
 
 
 def hold_chain_route(label: str, predictor) -> None:
-    """A bf16 predictor of the flagship's widths takes the kernel chain: the
-    route by width must not move it onto the plain modules."""
+    """A bf16 predictor at a width the JAX gate admits (the flagship's, the
+    widths phase's) takes the kernel chain: the route by width must not move
+    it onto the plain modules."""
     if not predictor.use_fused_denoiser:
         raise AssertionError(f"{label}: the bf16 predictor left the kernel chain: "
                              f"{predictor.fused_denoiser_refusal}")
@@ -3095,12 +3239,13 @@ def run_small(card_name: str) -> dict:
     den = predictor.diffusion.denoiser
     chain = {k: launches[k] for k in CHAIN_KERNELS if launches[k]}
     posterior = launches["posterior_step"] + launches["posterior_step_x0_bf16"]
-    if predictor.use_fused_denoiser or not predictor.fused_denoiser_refusal:
-        raise AssertionError("quickstart: its denoiser (F = 32, 2 heads × 4) took the chain")
+    # its denoiser (F = 32, 2 heads × 4) takes the chain padded (F 64, heads of 16)
+    hold_chain_route("quickstart", predictor)
     if hidden != 16 or not predictor.use_fused_decode or launches["gru_rollout"] == 0:
         raise AssertionError(f"quickstart: K1 at hidden {hidden}, fused decode "
                              f"{predictor.use_fused_decode}, {launches['gru_rollout']} launches")
-    if chain or posterior == 0:
+    if set(chain) != set(EXPECTED_BF16) - {"gru_rollout", "posterior_step_x0_bf16"} or \
+            launches["posterior_step_x0_bf16"] == 0:
         raise AssertionError(f"quickstart: chain kernels launched {chain}, K2 {posterior} times")
     if not (tuple(served.shape) == (2, 4, 15, 21, 3) and bool(torch.isfinite(served).all())
             and all(math.isfinite(v) for v in results.values())):
@@ -3109,9 +3254,145 @@ def run_small(card_name: str) -> dict:
     log(f"small: the quickstart's pipeline on {card_name} in {seconds:.1f} s (train both "
         f"stages, eval, export, serve): ADE {results['ADE']:.4f}, APD {results['APD']:.4f}; "
         f"denoiser {den.dim}+{den.cond_dim} wide, {den.attn_heads} heads × {den.attn_dim_head}, "
-        f"plain bf16 ({predictor.fused_denoiser_refusal}); launches "
+        f"on the kernel chain at {predictor.diffusion.fused['widths']}; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     return launches
+
+
+# The widths phase: the grid G of widths the JAX predictor's fused gate
+# admits (bf16, heads·dh a multiple of 128, F = 2·latent ≤ 256), each a
+# full-width model of the flagship's other widths (encoder and decoder hidden
+# 96, depth 4, 10 steps, 21 nodes): name → (latent D, heads, dim_head).  The
+# chain runs them padded (F to 64, D and the head's columns to 8, dh to 16,
+# 32, 64 or 128; ops/kernels/denoiser_fused.py).
+WIDTH_GRID = {"G1": (80, 8, 16), "G2": (96, 2, 64), "G3": (112, 1, 128), "G4": (100, 4, 32),
+              "G5": (128, 4, 64), "G6": (48, 32, 4)}
+# B2 and B9b alone at 51 nodes at the wide heads: (heads, head width, F)
+WIDE_HEADS_51 = ((4, 64, 256), (1, 128, 256))
+
+
+def check_wide_heads(n: int, heads: int, width: int, f: int, gen: torch.Generator) -> list:
+    """B2 and B9b at ``n`` nodes for ``heads`` heads of ``width`` columns at
+    input width ``f`` on random operands (B2 on B3a's output), against
+    their plain versions as ``check_fused_kernel`` holds them (B2 in fp32
+    too; B9b's fp32 tiles are built for heads up to 32 only)."""
+    rows, hd, bf16 = BATCH * SAMPLES, heads * width, torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf16)
+
+    g = torch.eye(n, device="cuda") + 0.2 * torch.rand((n, n), generator=gen, device="cuda")
+    g = (g / g.sum(dim=1, keepdim=True)).to(bf16)
+    # the RMSNorm gain with √F folded in, as the chain's prep gives it: O(1) q, k, v
+    x, w_qkv = rnd(n, rows, f, scale=0.5), rnd(n, f, 3 * hd, scale=f ** -0.5)
+    g_rms = (f ** 0.5 * (1 + 0.1 * torch.randn(f, generator=gen, device="cuda"))).to(bf16)
+    with torch.no_grad():
+        qkv = proj_mod.rms_qkv(x, g_rms, w_qkv, g)
+        q, k, v = (t.reshape(n, rows, heads, width).permute(1, 2, 0, 3)
+                   .reshape(rows * heads, n, width).contiguous() for t in qkv.split(hd, dim=-1))
+        core = 4.0 * rows * heads * n * n * width
+        mix = 2.0 * n * n * rows * 3 * hd
+        return [
+            check_fused_kernel(
+                "attention_core", functools.partial(attn_mod.attention_core, heads=heads,
+                                                    dim_head=width),
+                functools.partial(attn_mod.attention_core_plain, heads=heads, dim_head=width),
+                [qkv], replaces="joint_attention.py:124", source="joint_attention.cu",
+                tensor_flops=core,
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                odd_rows=tuple(odd_tile_rows(attn_mod.attention_plan(dt, heads, width, n).rows)
+                               for dt in (bf16, torch.float32))),
+            check_fused_kernel(
+                "rms_qkv_core",
+                functools.partial(layer_mod.rms_qkv_core, heads=heads, dim_head=width),
+                functools.partial(layer_mod.rms_qkv_core_plain, heads=heads, dim_head=width),
+                [x, g_rms, w_qkv, g], replaces="layer_fused.py:285", source="layer_fused.cu",
+                tensor_flops=2.0 * n * rows * f * 3 * hd + mix + core,
+                products=products_only((x, w_qkv)), f32=False,
+                odd_rows=odd_qkv_rows(
+                    lambda dt: layer_mod.rms_qkv_core_plan(dt, f, heads, width, n), n, (bf16,))),
+        ]
+
+
+def same_bytes_b2_ms(n: int, heads: int, dh: int, gen: torch.Generator) -> float:
+    """B2's ms at heads·dh/16 heads of 16 on random operands at the bench
+    rows: the bytes of ``heads`` heads of ``dh`` < 16 (which the chain pads
+    to 16 columns) on the same kernel, the least a kernel that masked the
+    pad in place of it could take (it would still run ``heads`` softmaxes a
+    row)."""
+    eq = heads * dh // 16
+    qkv = torch.randn((n, BATCH * SAMPLES, 3 * eq * 16), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    return cuda_ms(lambda: attn_mod.attention_core(qkv, heads=eq, dim_head=16), reps=20)
+
+
+def run_width(name: str, card_name: str, gen: torch.Generator) -> list:
+    """One width of WIDTH_GRID: the bf16 model on the chain
+    (``hold_chain_route``), each chain kernel at the bench shapes against its
+    plain version (``check_denoiser_kernels``, ``check_layer_fused_kernels``
+    at the chain's widths, bf16; B2 in fp32 too), the bf16 and layer-fused
+    paths (preds/s, launches) held with injected noise against their plain
+    versions (``hold_bf16``, HOLD_WIDTHS), and the plain bf16 denoiser
+    module, the route this width took before (preds/s); at heads narrower
+    than 16, B2 at the true width's bytes beside it (``same_bytes_b2_ms``).
+    Returns the kernels' entries with the launches of one prediction on
+    their path."""
+    latent, heads, dh = WIDTH_GRID[name]
+    arch = {**ARCH, "attn_heads": heads, "attn_dim_head": dh}
+    device = torch.device("cuda")
+    skeleton, p16 = build_model(device, torch.bfloat16, latent=latent, diffusion_arch=arch)
+    _, p32 = build_model(device, latent=latent, diffusion_arch=arch)
+    label = f"widths {name} (latent {latent}, {heads} heads × {dh})"
+    hold_chain_route(label, p16)
+    log(f"{label}: the chain's widths {p16.diffusion.fused['widths']}")
+    entries = (check_denoiser_kernels(p16, gen, flagship=False)
+               + check_layer_fused_kernels(p16, gen, flagship=False))
+    if p16.diffusion.fused["widths"].width != dh:
+        b2 = next(e for e in entries if e["name"] == "attention_core")
+        b2["same_bytes_ms"] = same_bytes_b2_ms(skeleton.num_nodes, heads, dh, gen)
+        log(f"{label}: B2 {b2['ms']:.4f} ms on heads of {dh} padded to 16, "
+            f"{b2['same_bytes_ms']:.4f} ms at {heads * dh // 16} heads of 16 (the true width's "
+            f"bytes), bound {b2['bound_ms']:.4f} ms (padded {b2['padded_bound_ms']:.4f})")
+    obs = 0.3 * torch.randn((BATCH, OBS_LEN, skeleton.num_nodes, 3), generator=gen,
+                            device="cuda")
+    rates = []
+    launches = run_main_path(skeleton, p16, obs, card_name, EXPECTED_BF16, f"{label} bf16 path",
+                             rates)
+    # the predictions' mean printed, not held, as at 16 and 17 nodes (ROADMAP
+    # Queue C item 7): at G6 the states' mean ratio 0.833 reads 1.023 after
+    # the decode, whichever kernel runs (scripts/torch_widths_hold.py)
+    compare_bf16(skeleton, p16, p32, obs, gen, hold=HOLD_WIDTHS)
+    with layer_fused_path():
+        layer = run_main_path(skeleton, p16, obs, card_name, EXPECTED_LAYER_FUSED,
+                              f"{label} layer-fused bf16 path", rates)
+    compare_layer_fused(skeleton, p16, p32, obs, gen, hold=HOLD_WIDTHS)
+    fused, p16.diffusion.fused = p16.diffusion.fused, None
+    try:  # the route before: the plain bf16 denoiser module, K2's fp32 entry
+        run_main_path(skeleton, p16, obs, card_name, EXPECTED_FP32,
+                      f"{label} plain bf16 denoiser", rates)
+    finally:
+        p16.diffusion.fused = fused
+    log(f"{label}: {rates[0]:.2f} preds/s on the chain, {rates[1]:.2f} layer-fused, "
+        f"{rates[2]:.2f} on the plain bf16 denoiser ({rates[0] / rates[2]:.2f}×) on {card_name}")
+    for e in entries:
+        e.update(grid=name, heads=f"{heads} × {dh}",
+                 launches=(launches if e["name"] in EXPECTED_BF16 else layer)[e["name"]],
+                 preds_s={"chain": rates[0], "layer_fused": rates[1], "plain_bf16": rates[2]})
+    return entries
+
+
+def run_widths(card_name: str) -> list:
+    """The widths phase (see the head of this file); returns the kernels'
+    entries."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    entries = []
+    for name in WIDTH_GRID:
+        entries += run_width(name, card_name, gen)
+    for heads, width, f in WIDE_HEADS_51:
+        for e in check_wide_heads(51, heads, width, f, gen):
+            e.update(grid=f"51 nodes, F {f}", heads=f"{heads} × {width}", launches=0)
+            entries.append(e)
+    return entries
 
 
 # The capstone phase: scripts/torch_convergence_capstone.py at full width
@@ -3715,6 +3996,10 @@ def run_phases(t_all: float, card_name: str, device: torch.device, serving_root:
     for k in kernels:  # the quickstart's models have 21 nodes
         k["small_launches"] = launches[k["name"]] if k.get("nodes", 21) == 21 else 0
     phase("small", t)
+
+    t = time.perf_counter()
+    kernels += run_widths(card_name)
+    phase("widths", t)
 
     for k in kernels:  # the served programs are the 21-node flagship's
         k.setdefault("serving_launches", {"bf16": 0, "fp32": 0})

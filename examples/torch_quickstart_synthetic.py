@@ -13,8 +13,8 @@ probabilistic metric suite, and exports a serving artifact, then serves
 from it: the same flow as the real recipes in README.md, at smoke scale
 (0.1 s history / 0.25 s horizon).  On a GPU (the default device; asking for
 CUDA without one raises) the decoder's rollout runs its kernel at hidden
-16, and the denoiser, whose widths the kernel chain does not take, its
-plain bf16 modules (``SkeletonDiffusionPredictor.fused_denoiser_refusal``).
+16, and the denoiser the kernel chain at its padded widths (F 32 → 64,
+heads of 4 → 16; ``SkeletonDiffusionPredictor.use_fused_denoiser``).
 """
 import argparse
 import os

@@ -136,7 +136,7 @@ def variant_sources(name: str) -> pathlib.Path:
                    "        for (int n = 0; n < kNodes; ++n) {",
                 "        mbar_arrive(&full[q.s]);\n        for (int n = 0; n < 0; ++n) {")
     elif name == "nostore":
-        h = sub(h, "  for (int c = threadIdx.x & 31; c < 4 * N; c += 32) {",
+        h = sub(h, "  for (int c = threadIdx.x & 31; c < kParts * N; c += 32) {",
                 "  for (int c = threadIdx.x & 31; c < 0; c += 32) {")
     elif name == "cudacore":
         h = sub(h, "constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;",
@@ -315,8 +315,8 @@ def main() -> int:
             st = entry(libs[v], "attention_core_fm_bf16", 2, 7)(
                 qkv_fm.data_ptr(), out_fm.data_ptr(), N, B, H, DH, *fm_plan, stream())
         else:
-            st = entry(libs[v], "attention_core_bf16", 2, 8)(qkv.data_ptr(), out.data_ptr(), N,
-                                                              B, H, DH, *plans[v], stream())
+            st = entry(libs[v], "attention_core_bf16", 2, 9)(qkv.data_ptr(), out.data_ptr(), N,
+                                                              B, H, DH, DH, *plans[v], stream())
         if st != 0:
             raise RuntimeError(f"{v}: cudaError {st}")
 

@@ -25,7 +25,11 @@
 # PARALLEL_VARIANTS="k50_motion k50_latent" trains those variants at once
 # after stage 1 (each in its own process, evaluated on its EMA and its live
 # weights) and merges the report from their stage files; the first of them
-# is kept if the pair would overrun the budget.
+# is kept if the others would overrun the budget.  An entry <variant>:fp32
+# trains that variant with an fp32 stage 2 (--stage2-dtype fp32, named
+# <variant>_fp32): "k50_motion k50_latent k50_motion:fp32 k50_latent:fp32"
+# reads check (b)'s first leg in both dtypes on one AutoEncoder (the merged
+# report's `stage2_dtype`).
 # Times (seconds) come from CAPSTONE_SECONDS, BF16_EVAL_SECONDS (600),
 # CHAIN_SPLIT_SECONDS (900), TRAIN_DTYPE_SECONDS (0), READING_SECONDS (600);
 # a step given 0 is skipped.  The logs
@@ -33,8 +37,9 @@
 # checkpoints under root (default output/torch_capstone).  A call on a
 # machine that is thrown away afterwards carries stage 1 to the next one
 # through out_dir/carry/out_ae (the AutoEncoder's latest and best
-# checkpoints, its log and host state; ~50 MB): move it back to
-# root/out_ae before the next call.  Stage 2's checkpoints (~0.5 GB each)
+# checkpoints, its log and host state; ~50 MB) while stage 1 or a variant of
+# PARALLEL_VARIANTS is unfinished: move it back to root/out_ae before the
+# next call.  Stage 2's checkpoints (~0.5 GB each)
 # do not travel, so a stage-2 variant trains within one call.
 set -u
 cd "$(dirname "$0")/.."
@@ -76,17 +81,23 @@ else
     t0=$(date +%s)
     deadline=$(( start + budget ))
     pids=""
+    tags=""
     for v in $PARALLEL_VARIANTS; do
+      # <variant>[:<stage-2 dtype>]; a variant trained in fp32 is <variant>_fp32
+      name=${v%%:*}; dtype=bf16
+      [ "$v" != "$name" ] && dtype=${v#*:}
+      tag=$name; [ "$dtype" != bf16 ] && tag=${name}_$dtype
       # shellcheck disable=SC2086
       timeout -k 20 $(( deadline - t0 )) python3 scripts/torch_convergence_capstone.py \
-        --root "$ROOT" --out-json "$OUT/$v/torch_convergence.json" $CUT --variants "$v" \
-        --live-eval >> "$OUT/capstone_$v.log" 2>&1 &
+        --root "$ROOT" --out-json "$OUT/$tag/torch_convergence.json" $CUT --variants "$name" \
+        --stage2-dtype "$dtype" --live-eval >> "$OUT/capstone_$tag.log" 2>&1 &
       pids="$pids $!"
-      dirs="$dirs $OUT/$v"
+      dirs="$dirs $OUT/$tag"
+      tags="$tags $tag"
     done
     first=${pids# }; first=${first%% *}
     others=${pids# }; others=${others#"$first"}
-    kept=${PARALLEL_VARIANTS%% *}
+    kept=${tags# }; kept=${kept%% *}
     while kill -0 "$first" 2>/dev/null && [ -n "$others" ]; do
       sleep 30
       e=$(grep -c '"prefix": "train"' "$ROOT/out_diff_$kept/metrics.jsonl" 2>/dev/null)
@@ -110,10 +121,17 @@ else
   echo "merge rc=$?"
 fi
 grep -a "\[capstone\]\|Error\|error\|Traceback" "$OUT"/capstone*.log | tail -40
-if [ -d "$ROOT/out_ae" ] && [ ! -f "$ROOT/out_ae/CAPSTONE_DONE" ]; then
-  # stage 1 cut by the budget, for the next call: its log, config and host
-  # state, and of its checkpoints the latest (to resume) and the best (the
-  # one stage 2 will load if no later one beats it); ~45 MB
+unfinished=""
+[ -f "$ROOT/out_ae/CAPSTONE_DONE" ] || unfinished="stage 1"
+for tag in ${tags:-}; do
+  [ -f "$ROOT/out_diff_$tag/CAPSTONE_DONE" ] || unfinished="$unfinished $tag"
+done
+if [ -d "$ROOT/out_ae" ] && [ -n "$unfinished" ]; then
+  # stage 1 cut by the budget, or a variant of PARALLEL_VARIANTS unfinished
+  # (a stage-2 variant restarts in the next call on this stage 1), for the
+  # next call: its log, config and host state, and of its checkpoints the
+  # latest (to resume) and the best (the one stage 2 loads); ~45 MB
+  echo "carrying stage 1 to the next call: unfinished $unfinished"
   rm -rf "$OUT/carry" && mkdir -p "$OUT/carry"
   cp -r "$ROOT/timings" "$OUT/carry/" 2>/dev/null
   python3 - "$ROOT/out_ae" "$OUT/carry/out_ae" <<'PY'

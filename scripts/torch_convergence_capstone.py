@@ -45,6 +45,9 @@ Two variants at once on one card, then one report:
         --out-json o/k50_motion/r.json … &   (and k50_latent into o/k50_latent)
     python3 scripts/torch_convergence_capstone.py --merge o/s1 o/k50_motion o/k50_latent \
         --out-json o/torch_convergence.json
+``--stage2-dtype fp32`` trains the variants of a run with an fp32 stage 2
+(``model.compute_dtype=null``), named ``<variant>_fp32``; a merge of both
+dtypes' runs reads check (b)'s first leg in each (``stage2_dtype``).
 """
 from __future__ import annotations
 
@@ -167,6 +170,31 @@ def card_line(smoke: bool) -> str:
 # comparison, then k1
 VARIANTS = ("k50_motion", "k50_latent", "k1")
 
+# the stage-2 training dtypes (``--stage2-dtype``) and their CLI overrides:
+# bf16 is the configs' own (model.compute_dtype: bfloat16), fp32 trains the
+# networks without a compute dtype; the evals take the eval config's either way
+STAGE2_DTYPES = {"bf16": [], "fp32": ["model.compute_dtype=null"]}
+
+
+def variant_name(name: str, dtype: str) -> str:
+    """A variant's name at a stage-2 dtype: its directories, stage file and
+    evals carry it (``k50_motion``, ``k50_motion_fp32``)."""
+    return name if dtype == "bf16" else f"{name}_{dtype}"
+
+
+def stage2_variants(names, k_full: int, dtype: str) -> dict:
+    """{variant name at ``dtype``: its stage-2 CLI overrides} for the
+    variants ``names``, in VARIANTS' order."""
+    base = {
+        "k50_motion": [f"model.train_pick_best_sample_among_k={k_full}",
+                       "model.similarity_space=input_space"],
+        "k50_latent": [f"model.train_pick_best_sample_among_k={k_full}",
+                       "model.similarity_space=latent_space"],
+        "k1": ["model.train_pick_best_sample_among_k=1"],
+    }
+    return {variant_name(v, dtype): base[v] + STAGE2_DTYPES[dtype]
+            for v in VARIANTS if v in names}
+
 
 def parse_args(argv):
     ap = argparse.ArgumentParser()
@@ -180,6 +208,9 @@ def parse_args(argv):
     ap.add_argument("--variants", nargs="*", choices=VARIANTS, default=list(VARIANTS),
                     help="the stage-2 variants this run trains, in VARIANTS' order "
                          "(none: stage 1 and the ZeroVelocity eval only)")
+    ap.add_argument("--stage2-dtype", choices=sorted(STAGE2_DTYPES), default="bf16",
+                    help="the dtype stage 2 trains in (fp32: model.compute_dtype=null); "
+                         "a variant trained in fp32 is named <variant>_fp32")
     ap.add_argument("--live-eval", action="store_true",
                     help="also evaluate each variant on its live (non-EMA) weights")
     ap.add_argument("--merge", nargs="+", metavar="DIR", default=None,
@@ -410,17 +441,8 @@ def main(argv=None):
     # ---- phase: stage-2 diffusion, three objective variants ----------------
     # in VARIANTS' order: if the run is cut, the checks that depend only on
     # the flagship ((a), (c), (d)) survive, then check (b)'s first leg
-    variants = {
-        "k50_motion": [f"model.train_pick_best_sample_among_k={k_full}",
-                       "model.similarity_space=input_space"],
-        "k50_latent": [f"model.train_pick_best_sample_among_k={k_full}",
-                       "model.similarity_space=latent_space"],
-        "k1": ["model.train_pick_best_sample_among_k=1"],
-    }
-    for vname in VARIANTS:
-        if vname not in args.variants:
-            continue
-        vargs = variants[vname]
+    flagship = variant_name("k50_motion", args.stage2_dtype)
+    for vname, vargs in stage2_variants(args.variants, k_full, args.stage2_dtype).items():
         out = os.path.join(root, f"out_diff_{vname}")
         if args.only_done_variants and not done(out):
             print(f"[capstone] train_diffusion_{vname}: not done, "
@@ -452,8 +474,8 @@ def main(argv=None):
         write_stage(vname, stage, (f"train_diffusion_{vname}", f"eval_{vname}",
                                    f"eval_{vname}_live"))
 
-    if "k50_motion" in args.variants and "k50_motion" not in diff_dirs:
-        sys.exit("[capstone] flagship (k50_motion) not trained yet — nothing to "
+    if "k50_motion" in args.variants and flagship not in diff_dirs:
+        sys.exit(f"[capstone] flagship ({flagship}) not trained yet — nothing to "
                  "report; run without --only-done-variants first")
 
     # ---- final report ---------------------------------------------------------
@@ -526,6 +548,9 @@ def merge(dirs, out_json: str) -> dict:
             if v in stages and "metrics_live" in stages[v]}
     if live:
         report["metrics_live"] = live
+    dtypes = dtype_reading(stages)
+    if dtypes:
+        report["stage2_dtype"] = dtypes
     timings = {}
     for stage in stages.values():
         timings.update(stage["timings"])
@@ -539,6 +564,30 @@ def merge(dirs, out_json: str) -> dict:
     print(f"[capstone] merged {sorted(stages)} -> {out_json}")
     print(json.dumps(report["checks"], indent=2))
     return report
+
+
+def dtype_reading(stages: dict) -> dict:
+    """Check (b)'s first leg, APD(k50_motion) > APD(k50_latent), for each
+    stage-2 dtype whose pair of stage files is there: {dtype: {weights:
+    {apd_motion, apd_latent, ratio, passes, ade_motion, ade_latent}}} on
+    the EMA weights the check reads and, where the runs evaluated them, the
+    live weights."""
+    reading = {}
+    for dtype in STAGE2_DTYPES:
+        motion = stages.get(variant_name("k50_motion", dtype))
+        latent = stages.get(variant_name("k50_latent", dtype))
+        if motion is None or latent is None:
+            continue
+        reading[dtype] = {}
+        for weights, key in (("ema", "metrics"), ("live", "metrics_live")):
+            if key in motion and key in latent:
+                a, b = float(motion[key]["APD"]), float(latent[key]["APD"])
+                reading[dtype][weights] = {"apd_motion": a, "apd_latent": b,
+                                           "ratio": round(a / b, 4) if b else None,
+                                           "passes": bool(a > b),
+                                           "ade_motion": motion[key].get("ADE"),
+                                           "ade_latent": latent[key].get("ADE")}
+    return reading
 
 
 def analyze(root, ae_dir, diff_dirs, results, *, smoke, timings, config):

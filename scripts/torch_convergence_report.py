@@ -151,6 +151,17 @@ def main():
             lines += ["", f"APD ratio k50-motion / k50-latent on the live weights: "
                           f"{fmt(ratio)} (check (b) reads the EMA weights: "
                           f"{fmt(r['margins'].get('apd_motion_over_latent_ratio'))})."]
+    dtypes = r.get("stage2_dtype")
+    if dtypes:
+        lines += ["", "### Check (b)'s first leg by stage-2 training dtype (one stage 1)", "",
+                  "| stage 2 | weights | APD k50-motion | APD k50-latent | ratio (pass > 1) "
+                  "| ADE k50-motion | ADE k50-latent |", "|---|---|---|---|---|---|---|"]
+        for dtype, by_weights in dtypes.items():
+            for weights, v in by_weights.items():
+                lines.append(f"| {dtype} | {weights} | {fmt(v['apd_motion'])} | "
+                             f"{fmt(v['apd_latent'])} | {fmt(v['ratio'])} "
+                             f"{'PASS' if v['passes'] else 'FAIL'} | {fmt(v.get('ade_motion'))} "
+                             f"| {fmt(v.get('ade_latent'))} |")
     if r.get("calls"):
         lines += ["", "Merged from the stage files of several runs "
                       "(`--merge`); each stage from: " +

@@ -13,10 +13,13 @@ this tree's wrappers with one tree's libraries, then the other's, on random
 inputs from a seed (21 nodes, 12 800 rows, D 96, F 192, 8 heads × 32; the
 rollouts 120 steps), both trees' libraries built at 21 nodes.  K2, the
 posterior step, runs at every count of ``--nodes`` (both entries, x̂₀ fp32
-and bf16, [N, 12 800, 96]), each tree's library called through its own C
-entry (the parent's posterior_step.cu built at each count too): its plan
-ints are this tree's alone.  A kernel whose C entry changed between the
-trees needs a call through the other tree's own C signature here.  Times
+and bf16, [N, 12 800, 96]), each tree's library called through its C entry
+with this tree's plan (the parent's posterior_step.cu built at each count
+too).  A kernel whose C entry changed between the
+trees needs a call through the other tree's own C signature here: B2 and
+B9b (``parent_call``: a tree whose B2 and B9b take heads of 32 alone has
+no head width beside dim_head in their ints).
+Times
 are CUDA events over
 ``reps`` calls after a warm-up, in rounds ordered parent, new, new, parent,
 …; the card's name and power limit, then one JSON line: ms per kernel, side
@@ -60,8 +63,8 @@ def build_parent(parent: pathlib.Path) -> dict:
 
 def k2_calls(nodes: list, parent: pathlib.Path) -> dict:
     """``posterior_step[_x0_bf16]@<n>`` → {side: call} for K2 at each count:
-    this tree's C entry with its plan, the other tree's through its old
-    signature (x0, xt, eps, m, out, n, cols, stream)."""
+    each tree's C entry (x0, xt, eps, m, out, n, cols, warps, stages, smem,
+    stream) with this tree's plan."""
     psrc = parent / "skeletondiffusion_tpu_torch" / "csrc" / "posterior_step.cu"
     build.compile_jobs([(psrc, OUT / f"parent-n{n}", n) for n in nodes])
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -77,10 +80,9 @@ def k2_calls(nodes: list, parent: pathlib.Path) -> dict:
             sides = {}
             for side, lib in libs.items():
                 fn = getattr(lib, symbol)
-                ints = 5 if side == "new" else 2
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-                extra = (plan.warps, plan.stages, plan.smem) if side == "new" else ()
+                extra = (plan.warps, plan.stages, plan.smem)
 
                 def call(fn=fn, x=x, xt=xt, eps=eps, m=m, n=n, extra=extra):
                     out = torch.empty_like(xt)
@@ -114,9 +116,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernels() -> dict:
+def parent_call(lib, symbol: str, pointers: list, ints: tuple):
+    """A call of ``symbol`` in the other tree's library ``lib`` through its
+    own C signature (``pointers`` tensors or packed banks, then ``ints``)."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints) + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        status = fn(*(t.data_ptr() for t in pointers), *ints,
+                    torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"parent {symbol}: cudaError {status}")
+    return call
+
+
+def kernels(parent: dict) -> dict:
     """name → (reps, the wrapper's call, made with whichever tree's
-    libraries are in use)."""
+    libraries are in use, or for a kernel whose C entry changed a pair (this
+    tree's wrapper, the other tree's C entry called on the same inputs))."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
 
@@ -144,19 +163,34 @@ def kernels() -> dict:
                 g0=infl(torch.float32), g_add=0.01 * infl(torch.float32), b_fc=bias(3).float(),
                 g_fc=infl(torch.float32))
     cx, w_hh, w_fc = rnd(N, B, 3 * D, scale=0.5), bank(D, 3 * D), bank(D, 3)
+    from skeletondiffusion_tpu_torch.ops.kernels import node_mix_sm90
+    out_core, out_qkv = torch.empty_like(a), torch.empty_like(a)
+    core_plan = tuple(joint_attention.attention_plan(bf, H, DH))
+    qkv_core_plan = tuple(layer_fused.rms_qkv_core_plan(bf, F, H, DH))
+    w_heads = node_mix_sm90.pack_banks(w_qkv, ("heads", H, DH))
+    # the C entries of heads of 32 alone: B2 (qkv, out, N, rows, heads, dim_head,
+    # plan), B9b (x, g_rms, w, g, out, N, rows, F, heads, dim_head, plan)
+    parent_core = parent_call(parent["joint_attention"], "attention_core_bf16", [qkv, out_core],
+                              (N, B, H, DH, *core_plan))
+    parent_qkv_core = parent_call(parent["layer_fused"], "rms_qkv_core_bf16",
+                                  [x, g_rms, w_heads, g_qkv, out_qkv],
+                                  (N, B, F, H, DH, *qkv_core_plan))
     return {
         "graph_linear_fused": (20, lambda: graph_linear_fused.graph_linear_fused(
             x_lat, ws, bs, gs, u)),
         "resnet_block": (20, lambda: resnet_block.resnet_block(x, film, *blk)),
         "rms_qkv": (20, lambda: attention_proj.rms_qkv(x, g_rms, w_qkv, g_qkv)),
-        "attention_core": (20, lambda: joint_attention.attention_core(qkv, heads=H, dim_head=DH)),
+        "attention_core": (20, (lambda: joint_attention.attention_core(qkv, heads=H,
+                                                                       dim_head=DH),
+                                parent_core)),
         "outproj_res": (20, lambda: attention_proj.outproj_res(a, x, w_out, g_out)),
         "final_block_in": (20, lambda: resnet_block.final_block_in(x, r, film, w1f, b1f, g1f,
                                                                    wr, gr)),
         "final_block_out": (20, lambda: resnet_block.final_block_out(x, r, *blk[3:], wh, bh, gh)),
         "stem_block": (20, lambda: layer_fused.stem_block(x_lat, u, film, ws, bs, gs, *blk)),
-        "rms_qkv_core": (20, lambda: layer_fused.rms_qkv_core(x, g_rms, w_qkv, g_qkv, heads=H,
-                                                              dim_head=DH)),
+        "rms_qkv_core": (20, (lambda: layer_fused.rms_qkv_core(x, g_rms, w_qkv, g_qkv, heads=H,
+                                                               dim_head=DH),
+                              parent_qkv_core)),
         "outproj_block": (20, lambda: layer_fused.outproj_block(a, x, film, w_out, g_out, *blk)),
         "attention_core_fm": (20, lambda: attention_core_fm.attention_core_fm(
             qkv_fm, heads=H, dim_head=DH)),
@@ -181,7 +215,7 @@ def main() -> int:
     build.build_all(sorted({build.DEFAULT_NODES, *args.nodes}))
     new = {s.stem: build.library(s.stem) for s in build.sources()}
     parent = build_parent(args.parent.resolve())
-    calls = kernels()
+    calls = kernels(parent)
     k2 = k2_calls(args.nodes, args.parent.resolve())
     times = {k: {"parent": [], "new": []} for k in [*calls, *k2]}
     order = ["parent", "new", "new", "parent"]
@@ -190,6 +224,8 @@ def main() -> int:
             side = order[rnd_ % 4]
             use(new if side == "new" else parent)
             for name, (reps, fn) in calls.items():
+                if isinstance(fn, tuple):  # a changed C entry: (this tree's, the parent's)
+                    fn = fn[side == "parent"]
                 times[name][side].append(cuda_ms(fn, reps))
             for name, sides in k2.items():
                 times[name][side].append(cuda_ms(sides[side], 20))

@@ -376,8 +376,8 @@ attention_core_fm_kernel(__grid_constant__ const CUtensorMap in_map,
       for (int col = warp; col < valid; col += kWarps) {
         T* base = tt + col * cs;
         if constexpr (nodemix::kTensorCoreBody<T>) {
-          nodemix::head_attention_mma_smem(base, base + kDimHead, base + 2 * kDimHead, ld, scale,
-                                           smem + kZeroOffset);
+          nodemix::head_attention_mma_smem<kDimHead>(base, base + kDimHead, base + 2 * kDimHead,
+                                                     ld, scale, smem + kZeroOffset);
         } else {  // lane n writes O of joint n over its own q row, read by it alone
           nodemix::head_attention<T, kN, kDimHead>(base, base + kDimHead, base + 2 * kDimHead,
                                                    ld, scale, base, ld);

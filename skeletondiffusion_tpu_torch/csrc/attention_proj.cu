@@ -51,26 +51,18 @@ namespace {
 
 using namespace nodemix;
 
-// B3a's tiles: rows an item, output columns a group.  Past 21 nodes
-// (AMASS-MANO's 51) 16 rows × 64 columns: P of 51 × 16 × 64 bf16 is 105 KB
-// (32 × 96 would be 313 KB, 16 × 96 needs 244 KB with two stages).
-template <typename T>
-struct QkvTile;
-template <>
-struct QkvTile<bf16> {
-  static constexpr int kRows = kWide ? 16 : 32, kCols = kWide ? 64 : 96;
-};
-template <>
-struct QkvTile<float> {
-  static constexpr int kRows = 8, kCols = 96;  // an fp32 weight tile takes 73.7 KB a stage
-};
-
-template <typename T>
+// B3a's tiles: rows an item, output columns a group
+// (ops/kernels/attention_proj.py::QKV_TILES, the first that fits two stages
+// at F).  Up to 21 nodes 32 × 96, and 16 × 96 at F = 256 (32 rows would
+// need 260 KB with two stages); past 21 nodes (AMASS-MANO's 51) 16 rows ×
+// 64 columns: P of 51 × 16 × 64 bf16 is 105 KB (32 × 96 would be 313 KB,
+// 16 × 96 needs 244 KB with two stages).  fp32: 8 × 96 (an fp32 weight tile
+// takes 73.7 KB a stage).
+template <typename T, int R, int C>
 __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 rms_qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_rms, const T* __restrict__ w,
                const T* __restrict__ g, T* __restrict__ out, int rows, int f, int fo, int groups,
                int stages) {
-  constexpr int R = QkvTile<T>::kRows, C = QkvTile<T>::kCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::Problem<T> pb{x, g_rms, w, g, rows, f, groups, stages};
   sm90mix::run<T, R, C>(
@@ -84,7 +76,7 @@ __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __restrict__ w,
                    const T* __restrict__ g, T* __restrict__ out, int rows, int hd, int f,
                    int kslice, int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{{{a, w, nullptr, hd}, {}, {}}, {g, nullptr, nullptr},
                                     nullptr, 1, rows, f, kslice, stages};
@@ -92,23 +84,41 @@ outproj_res_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __
 }
 
 // The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
-// bytes) must be the one instantiated here.
-template <typename T>
-int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* g, void* out,
-                   int n_nodes, int rows, int f, int fo, int tile_rows, int tile_cols, int stages,
-                   int cluster, int smem_bytes, void* stream) {
-  constexpr int R = QkvTile<T>::kRows, C = QkvTile<T>::kCols;
-  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 ||
-      f > sm90mix::kMaxF ||
-      fo <= 0 || fo % 8 || tile_rows != R || tile_cols != C || stages < 2 ||
+// bytes) must be one instantiated here.
+template <typename T, int R, int C>
+int launch_qkv_tile(const void* x, const void* g_rms, const void* w, const void* g, void* out,
+                    int rows, int f, int fo, int stages, int cluster, int smem_bytes,
+                    void* stream) {
+  if (rows <= 0 || f <= 0 || f % 32 || f > sm90mix::kMaxF || fo <= 0 || fo % 8 || stages < 2 ||
       stages > sm90mix::kMaxStages || cluster != sm90mix::kCluster ||
       static_cast<size_t>(smem_bytes) != sm90mix::layout<T>(R, C, f, stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (fo + C - 1) / C;
   return static_cast<int>(sm90mix::launch(
-      rms_qkv_kernel<T>, sm90mix::items(rows, R, groups), smem_bytes, cluster, stream,
+      rms_qkv_kernel<T, R, C>, sm90mix::items(rows, R, groups), smem_bytes, cluster, stream,
       static_cast<const T*>(x), static_cast<const T*>(g_rms), static_cast<const T*>(w),
       static_cast<const T*>(g), static_cast<T*>(out), rows, f, fo, groups, stages));
+}
+
+template <typename T>
+int launch_rms_qkv(const void* x, const void* g_rms, const void* w, const void* g, void* out,
+                   int n_nodes, int rows, int f, int fo, int tile_rows, int tile_cols, int stages,
+                   int cluster, int smem_bytes, void* stream) {
+  if (n_nodes != kNodes) return static_cast<int>(cudaErrorInvalidValue);
+#define SKD_QKV(R, C)                                                                          \
+  if (tile_rows == R && tile_cols == C)                                                        \
+    return launch_qkv_tile<T, R, C>(x, g_rms, w, g, out, rows, f, fo, stages, cluster,         \
+                                    smem_bytes, stream);
+  if constexpr (sm90mix::is_f32<T>()) {
+    SKD_QKV(8, 96)
+  } else if constexpr (kWide) {
+    SKD_QKV(16, 64)
+  } else {
+    SKD_QKV(32, 96)
+    SKD_QKV(16, 96)
+  }
+#undef SKD_QKV
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory

@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 graph_linear_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
                     const T* __restrict__ g, const T* __restrict__ u, T* __restrict__ out,
                     int rows, int d, int kd, int f, int kslice, int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   sm90mix::BlockProblem<T> pb{{{x, w, b, kd}}, {g}, nullptr, 1, rows, f, kslice, stages};
   pb.a_cols = d;

@@ -12,6 +12,10 @@
 //
 // round() is to the element type; the Pallas kernel also rounds each
 // product qs·k in bf16, which the tensor cores do not (joint_attention.cuh).
+// A head's q, k and v take W = dh columns each, W one of 16, 32, 64 and 128
+// (one instantiation each); a narrower head comes zero-padded to 16 by the
+// qkv bank's columns (ops/kernels/denoiser_fused.py), scaled by its own
+// width's round(dh^-1/2).
 //
 // What bounds it on the H100: memory.  At N=21, B=12 800, 8 heads × 32 in
 // bf16 it reads 413 MB and writes 138 MB (0.164 ms) against ~2.9 G
@@ -19,7 +23,9 @@
 //
 // What the design does about it: persistent blocks, one an SM, each a
 // producer warp and 8 consumer warps, walk items of R rows × a group of G
-// heads (bench, bf16: 2 rows × all 8 heads; fp32: 1 row).  The producer
+// heads (bench, bf16: 2 rows × all 8 heads; fp32: 1 row; the plan takes
+// one row of a group where two rows of all heads do not fit, as for 32
+// heads of 16 or at 51 nodes).  The producer
 // fills a ring of stages (mbarriers, node_mix_sm90.cuh) with one
 // cp.async.bulk copy a node: node n's R rows of the item are contiguous in
 // device memory (3 copies a node, q, k and v of the group, when G < H).  In
@@ -46,7 +52,6 @@ namespace {
 
 using sm90mix::bf16;
 
-constexpr int kDimHead = 32;
 constexpr int kMaxHeads = 32;
 
 // Byte offsets of one block's shared memory (the wrapper's plan,
@@ -58,16 +63,16 @@ struct AttentionLayout {
 };
 
 template <typename T>
-AttentionLayout attention_layout(int tile_rows, int group_heads, int stages) {
+AttentionLayout attention_layout(int tile_rows, int group_heads, int width, int stages) {
   AttentionLayout l{};
-  l.node_bytes = sizeof(T) * tile_rows * 3 * group_heads * kDimHead + 16;
+  l.node_bytes = sizeof(T) * tile_rows * 3 * group_heads * width + 16;
   l.stage_bytes = sm90mix::up(sm90mix::kNodes * l.node_bytes);
   l.stages = 128;  // full[kMaxStages], empty[kMaxStages], the zero row
   l.total = l.stages + stages * l.stage_bytes;
   return l;
 }
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 attention_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int rows, int heads,
                       int tile_rows, int group_heads, int stages, int node_bytes,
@@ -77,8 +82,8 @@ attention_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int rows, 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = heads / group_heads, hd = heads * kDimHead;
-  const int gw = group_heads * kDimHead;  // a group's q (k, v) columns of a row
+  const int groups = heads / group_heads, hd = heads * W;
+  const int gw = group_heads * W;  // a group's q (k, v) columns of a row
   const int n_items = (rows + tile_rows - 1) / tile_rows * groups;
   auto item_rows = [&](int item, int& b0, int& valid) {
     b0 = item / groups * tile_rows;
@@ -131,14 +136,14 @@ attention_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int rows, 
       T* st = reinterpret_cast<T*>(smem + 128 + static_cast<size_t>(q.s) * stage_bytes);
       for (int task = warp; task < valid * group_heads; task += kConsumerWarps) {
         const int r = task / group_heads, hh = task % group_heads;
-        T* base = st + r * 3 * gw + hh * kDimHead;
-        T* o = out + static_cast<size_t>(b0 + r) * hd + (h0 + hh) * kDimHead;
+        T* base = st + r * 3 * gw + hh * W;
+        T* o = out + static_cast<size_t>(b0 + r) * hd + (h0 + hh) * W;
         if constexpr (nodemix::kTensorCoreBody<T>) {
-          nodemix::head_attention_mma(base, base + gw, base + 2 * gw, ld, scale, o, ldo,
-                                      smem + kZeroOffset);
+          nodemix::head_attention_mma<W>(base, base + gw, base + 2 * gw, ld, scale, o, ldo,
+                                         smem + kZeroOffset);
         } else {
-          nodemix::head_attention<T, kNodes, kDimHead>(base, base + gw, base + 2 * gw, ld, scale,
-                                                       o, ldo);
+          nodemix::head_attention<T, kNodes, W>(base, base + gw, base + 2 * gw, ld, scale, o,
+                                                ldo);
         }
       }
       fence_proxy_async();  // the stage's writes (O in q's rows) before its next bulk copy
@@ -152,19 +157,19 @@ attention_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int rows, 
 // bytes) must be one this kernel takes: 1 or 2 rows, whole rows of all heads
 // when 2, the group dividing the heads, 2 to kMaxStages stages, and the
 // shared memory attention_layout computes.
-template <typename T>
-int launch(const void* qkv, void* out, int n_nodes, int rows, int heads, int dim_head,
-           int tile_rows, int group_heads, int stages, int smem_bytes, void* stream) {
+template <typename T, int W>
+int launch_width(const void* qkv, void* out, int rows, int heads, int dim_head, int tile_rows,
+                 int group_heads, int stages, int smem_bytes, void* stream) {
   using namespace sm90mix;
-  if (n_nodes != kNodes || dim_head != kDimHead || rows <= 0 || heads <= 0 ||
+  if (dim_head <= 0 || dim_head > W || rows <= 0 || heads <= 0 ||
       heads > kMaxHeads || tile_rows < 1 || tile_rows > 2 || group_heads < 1 ||
       heads % group_heads || (tile_rows > 1 && group_heads != heads) || stages < 2 ||
       stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  const AttentionLayout l = attention_layout<T>(tile_rows, group_heads, stages);
+  const AttentionLayout l = attention_layout<T>(tile_rows, group_heads, W, stages);
   if (static_cast<size_t>(smem_bytes) != l.total || l.total > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = attention_core_kernel<T>;
+  auto kernel = attention_core_kernel<T, W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -179,26 +184,45 @@ int launch(const void* qkv, void* out, int n_nodes, int rows, int heads, int dim
   kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out), rows, heads, tile_rows, group_heads,
       stages, static_cast<int>(l.node_bytes), static_cast<int>(l.stage_bytes),
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(kDimHead))));
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(dim_head))));
   return static_cast<int>(cudaGetLastError());
+}
+
+// heads of `width` columns (16, 32, 64 or 128), the true width dim_head ≤ width
+template <typename T>
+int launch(const void* qkv, void* out, int n_nodes, int rows, int heads, int width, int dim_head,
+           int tile_rows, int group_heads, int stages, int smem_bytes, void* stream) {
+  if (n_nodes != sm90mix::kNodes) return static_cast<int>(cudaErrorInvalidValue);
+  switch (width) {
+    case 16: return launch_width<T, 16>(qkv, out, rows, heads, dim_head, tile_rows, group_heads,
+                                        stages, smem_bytes, stream);
+    case 32: return launch_width<T, 32>(qkv, out, rows, heads, dim_head, tile_rows, group_heads,
+                                        stages, smem_bytes, stream);
+    case 64: return launch_width<T, 64>(qkv, out, rows, heads, dim_head, tile_rows, group_heads,
+                                        stages, smem_bytes, stream);
+    case 128: return launch_width<T, 128>(qkv, out, rows, heads, dim_head, tile_rows,
+                                          group_heads, stages, smem_bytes, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// qkv [n_nodes, rows, 3·heads·dim_head] (q‖k‖v, heads major within each),
-// out [n_nodes, rows, heads·dim_head]; contiguous, 16-byte aligned; the plan
+// qkv [n_nodes, rows, 3·heads·width] (q‖k‖v, heads major within each; a
+// head's columns past dim_head zero), out [n_nodes, rows, heads·width];
+// contiguous, 16-byte aligned; the plan
 // (ops/kernels/joint_attention.py::attention_plan).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
 // and plans not instantiated.
 extern "C" int attention_core_bf16(const void* qkv, void* out, int n_nodes, int rows, int heads,
-                                   int dim_head, int tile_rows, int group_heads, int stages,
-                                   int smem_bytes, void* stream) {
-  return launch<bf16>(qkv, out, n_nodes, rows, heads, dim_head, tile_rows, group_heads, stages,
-                      smem_bytes, stream);
+                                   int width, int dim_head, int tile_rows, int group_heads,
+                                   int stages, int smem_bytes, void* stream) {
+  return launch<bf16>(qkv, out, n_nodes, rows, heads, width, dim_head, tile_rows, group_heads,
+                      stages, smem_bytes, stream);
 }
 extern "C" int attention_core_f32(const void* qkv, void* out, int n_nodes, int rows, int heads,
-                                  int dim_head, int tile_rows, int group_heads, int stages,
-                                  int smem_bytes, void* stream) {
-  return launch<float>(qkv, out, n_nodes, rows, heads, dim_head, tile_rows, group_heads, stages,
-                       smem_bytes, stream);
+                                  int width, int dim_head, int tile_rows, int group_heads,
+                                  int stages, int smem_bytes, void* stream) {
+  return launch<float>(qkv, out, n_nodes, rows, heads, width, dim_head, tile_rows, group_heads,
+                       stages, smem_bytes, stream);
 }

@@ -14,6 +14,9 @@
 // matmul (a workaround for the TPU's matrix unit) in fp32: in bf16 they
 // round each product qs·k too.  Two bodies:
 //
+// Both take a head of DH columns (16, 32, 64 or 128; narrower heads come
+// zero-padded to 16, with the scale of their true width).
+//
 // * head_attention_mma, the kernels' bf16 body: a warp per (row, head), both
 //   products on the tensor cores, which sum the products qs·k exact: the one
 //   rounding point where it differs from the Pallas kernel and the plain
@@ -172,79 +175,123 @@ template <typename T>
 constexpr bool kTensorCoreBody = std::is_same_v<T, bf16>;
 
 // The attention of one (row, head) by the whole calling warp, bf16, on the
-// tensor cores (mma.sync m16n8k16, fp32 sums):
+// tensor cores (mma.sync m16n8k16, fp32 sums), for a head of DH columns
+// (16, 32, 64 or 128; a narrower head is zero-padded to 16 by the caller,
+// with `scale` the true width's):
 //
 //   S = qs·kᵀ   queries N → 16·MT (MT = ⌈N/16⌉ m16 tiles) × keys N → 8·KT
-//               (KT = ⌈N/8⌉ n8 tiles) × dh 32 (two k-steps): at N = 21 two
-//               × three tiles, 12 mma, q and k through ldmatrix, q scaled in
-//               its fragments (qs = round(q·round(scale)))
+//               (KT = ⌈N/8⌉ n8 tiles) × dh DH (DH/16 k-steps): at N = 21
+//               and DH = 32 two × three tiles, 12 mma, q and k through
+//               ldmatrix, q scaled in its fragments (qs = round(q·round(scale)))
 //   p = round(softmax(S)) in the accumulators: keys ≥ N masked to −∞, each
 //               row's max and sum over its quad of lanes by shuffles
 //   O = p·v     p reused from registers as the A operand (keys N → 16·MT,
-//               MT k-steps) × dh 32 (four n8 tiles): 16 mma at N = 21, v
-//               through ldmatrix.trans
+//               MT k-steps) × dh DH (DH/8 n8 tiles): 16 mma at N = 21 and
+//               DH = 32, v through ldmatrix.trans
 //
-// Up to 32 joints S holds every query tile at once; past 32 (AMASS-MANO's
-// 51: MT = 4, KT = 7) the body takes the query m16 tiles one at a time, each
-// with its own S (7 × 4 fp32 a lane), softmax, p·v and store of O, so that S
-// is live for one tile (all four would be 112 registers a lane).
+// Up to 32 joints and DH = 32, S holds every query tile at once; past 32
+// (AMASS-MANO's 51: MT = 4, KT = 7) or at DH ≥ 64 the body takes the query
+// m16 tiles one at a time, each with its own S (KT × 4 fp32 a lane),
+// softmax, p·v and store of O, so that S and O (DH/2 fp32 a lane a tile) are
+// live for one tile.  k's fragments (KT × DH/8 registers a lane) are loaded
+// once and held across the tiles while they take at most 32 registers,
+// else loaded again for each tile, a pair of k-steps at a time.
 //
 // N is the build's node count (16 for H36M, 17 for FreeMan, 21 for AMASS, 51
-// for AMASS-MANO).  Joint m's q, k and v (32 values each, 16-byte aligned) lie at
+// for AMASS-MANO).  Joint m's q, k and v (DH values each, 16-byte aligned) lie at
 // q + m·ld, k + m·ld and v + m·ld in shared memory; the ldmatrix rows of
 // joints ≥ N read `zero`, a 16-byte zero row.  O, rounded, overwrites q's rows (read by
 // this warp alone, and no more): head_attention_mma_smem ends there (the
 // feature-major core, attention_core_fm.cu, stores O itself);
-// head_attention_mma then sends it to o + n·ldo with 16-byte stores (64
-// contiguous bytes a joint).  With ld ≡ 16 bytes mod 128 the eight rows of
-// each ldmatrix and of each fragment store fall in distinct banks.
+// head_attention_mma then sends it to o + n·ldo with 16-byte stores (2·DH
+// contiguous bytes a joint).  With ld ≡ 16 bytes mod 128 (or an odd
+// multiple of 16 bytes) the eight rows of each ldmatrix and of each
+// fragment store fall in distinct banks.
+template <int DH>
 __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, const bf16* v,
                                                         int ld, float scale, const void* zero) {
+  using sm90mix::ldmatrix_x2;
   using sm90mix::ldmatrix_x4;
   using sm90mix::ldmatrix_x4_trans;
   using sm90mix::mma_bf16;
   using sm90mix::pack_bf16;
   using sm90mix::smem_u32;
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128, "a head of 16, 32, 64 or 128");
   constexpr int N = sm90mix::kNodes;
   constexpr int MT = (N + 15) / 16;  // query m16 tiles, and p·v's k-steps
   constexpr int KT = (N + 7) / 8;    // key n8 tiles of S
-  constexpr int MG = MT > 2 ? 1 : MT;  // query tiles a pass
+  constexpr int KS = DH / 16;        // k-steps of S
+  constexpr int KP = (KS + 1) / 2;   // pairs of them (one ldmatrix.x4 of k a pair)
+  constexpr int MG = (MT > 2 || DH > 32) ? 1 : MT;  // query tiles a pass
+  constexpr bool kHoldK = KT * KP * 4 <= 32;        // k's fragments held across the passes
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t zrow = smem_u32(zero);
   auto row = [&](const bf16* base, int joint, int col) {
     return joint < N ? smem_u32(base + joint * ld + col) : zrow;
   };
-
-  // k: B fragments of n-tile nt, dh 0-7, 8-15, 16-23, 24-31 (keys 8·nt + lane%8)
-  uint32_t kb[KT][4];
+  // k: B fragments of n-tile nt, k-steps 2·kp and 2·kp + 1 (dh 32·kp + 0-7,
+  // 8-15, 16-23, 24-31; keys 8·nt + lane%8); at DH = 16 one k-step (x2)
+  auto load_k = [&](uint32_t (&b)[4], int nt, int kp) {
+    if constexpr (DH == 16) {
+      uint32_t (&b2)[2] = *reinterpret_cast<uint32_t(*)[2]>(&b[0]);
+      ldmatrix_x2(b2, row(k, 8 * nt + (lane & 7), 8 * ((lane >> 3) & 1)));
+    } else {
+      ldmatrix_x4(b, row(k, 8 * nt + (lane & 7), 32 * kp + 8 * (lane >> 3)));
+    }
+  };
+  uint32_t kb[kHoldK ? KT : 1][kHoldK ? KP : 1][4];
+  if constexpr (kHoldK) {
 #pragma unroll
-  for (int nt = 0; nt < KT; ++nt) ldmatrix_x4(kb[nt], row(k, 8 * nt + (lane & 7), 8 * (lane >> 3)));
+    for (int nt = 0; nt < KT; ++nt)
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) load_k(kb[nt][kp], nt, kp);
+  }
   const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
   // the query tiles m0 … m0 + MG − 1 of a pass
 #pragma unroll 1
   for (int m0 = 0; m0 < MT; m0 += MG) {
-    // qs: A fragments [m-tile][k-step], this lane's row 16·mt + lane%16, k half lane/16
-    uint32_t qa[MG][2][4];
-#pragma unroll
-    for (int mt = 0; mt < MG; ++mt)
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        ldmatrix_x4(qa[mt][ks], row(q, 16 * (m0 + mt) + (lane & 15), 16 * ks + 8 * (lane >> 4)));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const __nv_bfloat162 qs = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qa[mt][ks][i]), sc);
-          qa[mt][ks][i] = *reinterpret_cast<const uint32_t*>(&qs);
-        }
-      }
     float s[MG][KT][4];
 #pragma unroll
     for (int mt = 0; mt < MG; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < KT; ++nt) {
+      for (int nt = 0; nt < KT; ++nt)
         s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
-        mma_bf16(s[mt][nt], qa[mt][0], kb[nt][0], kb[nt][1]);
-        mma_bf16(s[mt][nt], qa[mt][1], kb[nt][2], kb[nt][3]);
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp) {
+      // qs: A fragments [m-tile][k-step of the pair], this lane's row 16·mt +
+      // lane%16, k half lane/16
+      uint32_t qa[MG][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MG; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2 && 2 * kp + h < KS; ++h) {
+          ldmatrix_x4(qa[mt][h],
+                      row(q, 16 * (m0 + mt) + (lane & 15), 32 * kp + 16 * h + 8 * (lane >> 4)));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162 qs =
+                __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qa[mt][h][i]), sc);
+            qa[mt][h][i] = *reinterpret_cast<const uint32_t*>(&qs);
+          }
+        }
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt) {
+        auto multiply = [&](const uint32_t (&b)[4]) {
+#pragma unroll
+          for (int mt = 0; mt < MG; ++mt) {
+            mma_bf16(s[mt][nt], qa[mt][0], b[0], b[1]);
+            if constexpr (KS > 1) mma_bf16(s[mt][nt], qa[mt][1], b[2], b[3]);
+          }
+        };
+        if constexpr (kHoldK) {
+          multiply(kb[nt][kp]);
+        } else {
+          uint32_t kl[4];
+          load_k(kl, nt, kp);
+          multiply(kl);
+        }
       }
+    }
 
     // softmax of this lane's rows 16·mt + g (elements 0, 1) and + 8 (2, 3),
     // columns 8·nt + 2t + e, over the quad that holds the row
@@ -300,30 +347,28 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
           pa[mt][kk][2] = pa[mt][kk][3] = 0u;
         }
       }
-    float acc[MG][4][4];
+    float acc[MG][DH / 8][4];
 #pragma unroll
     for (int mt = 0; mt < MG; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
+      for (int j = 0; j < DH / 8; ++j)
+        acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < MT; ++kk) {
-      // v: B fragments of dh n-tiles j, j + 1 from one ldmatrix.trans (keys
-      // 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 8·j (+ 8 for lanes ≥ 16))
-      uint32_t vb[4][2];
+      // v: B fragments of dh n-tiles 2·jp, 2·jp + 1 from one ldmatrix.trans
+      // (keys 16·kk + lane%8 (+ 8 for lanes 8-15 and 24-31), dh 16·jp (+ 8
+      // for lanes ≥ 16))
 #pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
+      for (int jp = 0; jp < DH / 16; ++jp) {
         uint32_t r[4];
         ldmatrix_x4_trans(r, row(v, 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
                                  16 * jp + 8 * (lane >> 4)));
-        vb[2 * jp][0] = r[0];
-        vb[2 * jp][1] = r[1];
-        vb[2 * jp + 1][0] = r[2];
-        vb[2 * jp + 1][1] = r[3];
+#pragma unroll
+        for (int mt = 0; mt < MG; ++mt) {
+          mma_bf16(acc[mt][2 * jp], pa[mt][kk], r[0], r[1]);
+          mma_bf16(acc[mt][2 * jp + 1], pa[mt][kk], r[2], r[3]);
+        }
       }
-#pragma unroll
-      for (int mt = 0; mt < MG; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], pa[mt][kk], vb[j][0], vb[j][1]);
     }
 
     // O into the pass's q rows (every lane's ldmatrix of them is long done;
@@ -336,7 +381,7 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
         const int joint = 16 * (m0 + mt) + 8 * hf + g;
         if (joint < N) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < DH / 8; ++j)
             *reinterpret_cast<uint32_t*>(q + joint * ld + 8 * j + 2 * t) =
                 pack_bf16(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
         }
@@ -344,14 +389,15 @@ __device__ __forceinline__ void head_attention_mma_smem(bf16* q, const bf16* k, 
   }
 }
 
+template <int DH>
 __device__ __forceinline__ void head_attention_mma(bf16* q, const bf16* k, const bf16* v, int ld,
                                                    float scale, bf16* o, size_t ldo,
                                                    const void* zero) {
-  head_attention_mma_smem(q, k, v, ld, scale, zero);
+  head_attention_mma_smem<DH>(q, k, v, ld, scale, zero);
   __syncwarp();
-  constexpr int N = sm90mix::kNodes;
-  for (int c = threadIdx.x & 31; c < 4 * N; c += 32) {
-    const int joint = c >> 2, part = c & 3;
+  constexpr int N = sm90mix::kNodes, kParts = DH / 8;  // 16-byte parts of a joint's O
+  for (int c = threadIdx.x & 31; c < kParts * N; c += 32) {
+    const int joint = c / kParts, part = c % kParts;
     *reinterpret_cast<uint4*>(o + joint * ldo + 8 * part) =
         *reinterpret_cast<const uint4*>(q + joint * ld + 8 * part);
   }

@@ -58,7 +58,9 @@
 //   (a fifth of it waiting on the ring), the three mixes 35%, the two
 //   stores 4% (PERF.md §6).
 // * B9b runs on node_mix_sm90.cuh's engine, as B3a (attention_proj.cu)
-//   does: items of 32 rows × one head's 96 q‖k‖v columns (fp32: 8 rows),
+//   does, for heads of W = 16, 32, 64 or 128 columns (CoreTile below; the
+//   flagship's 32 described here):
+//   items of 32 rows × one head's 96 q‖k‖v columns (fp32: 8 rows),
 //   the two blocks of a cluster on adjacent row tiles, each weight tile
 //   multicast to both; per item the 21 × 32 × 96 products are mixed in
 //   place, then the head's attention runs with a warp per row on the tensor
@@ -81,9 +83,6 @@ namespace {
 
 using namespace nodemix;
 
-constexpr int kDimHead = 32;
-constexpr int kHeadCols = 3 * kDimHead;  // a head's q‖k‖v columns
-
 template <typename T, int NT>
 __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __restrict__ film,
@@ -92,7 +91,7 @@ stem_block_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __r
                   const T* __restrict__ w2, const T* __restrict__ b2, const T* __restrict__ g2,
                   T* r_out, T* __restrict__ out, int rows, int d, int kd, int f, int kslice,
                   int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   sm90mix::BlockProblem<T> pb{
       {{x, ws, bs, kd}, {nullptr, w1, b1, f}, {nullptr, w2, b2, f}}, {gs, g1, g2}, film, 3,
@@ -111,7 +110,7 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
                      const T* __restrict__ w2, const T* __restrict__ b2,
                      const T* __restrict__ g2, T* out, int rows, int hd, int f, int kslice,
                      int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{
       {{a, wo, nullptr, hd}, {nullptr, w1, b1, f}, {nullptr, w2, b2, f}}, {go, g1, g2}, film, 3,
@@ -127,41 +126,42 @@ outproj_block_kernel(const T* __restrict__ a, const T* __restrict__ x,
   });
 }
 
-// B9b's rows an item (the columns are a head's q‖k‖v).  Past 21 nodes
-// (AMASS-MANO's 51) 8 rows, a half-empty m16 tile of the products: P of 51 ×
-// 8 × 96 bf16 is 79 KB (16 rows need 244 KB with two stages).
-template <typename T>
-struct CoreTile;
-template <>
-struct CoreTile<bf16> {
-  static constexpr int kRows = kWide ? 8 : 32;
-};
-template <>
-struct CoreTile<float> {
-  static constexpr int kRows = 8;  // an fp32 weight tile takes 73.7 KB a stage
+// B9b's item: R rows × one head's 3·W q‖k‖v columns (W = 16, 32, 64 or 128;
+// a narrower head comes zero-padded to 16), its products whole in P, the
+// head's weight tile brought CW columns a stage (CW < 3·W where a whole
+// tile would not fit two stages beside P: F = 256, or W ≥ 64).  P holds N ×
+// R × 3·W: 129 KB at 21 nodes for 32 rows of W = 32, 16 of 64, 8 of 128;
+// past 21 nodes (AMASS-MANO's 51) 16 rows of 16, 8 of 32 or 64, 4 of 128
+// (157 KB), a part-empty m16 tile of the products.
+template <typename T, int W>
+struct CoreTile {
+  static constexpr int kRows =
+      sm90mix::is_f32<T>() ? 8  // an fp32 weight tile of W = 32 takes 73.7 KB a stage
+                           : (kWide ? (W == 16 ? 16 : W == 128 ? 4 : 8)
+                                    : (W <= 32 ? 32 : W == 64 ? 16 : 8));
 };
 
-template <typename T>
+template <typename T, int W, int CW>
 __global__ void __launch_bounds__(sm90mix::kThreads, 1)
 rms_qkv_core_kernel(const T* __restrict__ x, const T* __restrict__ g_rms,
                     const T* __restrict__ w, const T* __restrict__ g, T* __restrict__ out,
                     int rows, int f, int heads, int stages, float scale) {
-  constexpr int R = CoreTile<T>::kRows;
+  constexpr int R = CoreTile<T, W>::kRows, C = 3 * W;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::Problem<T> pb{x, g_rms, w, g, rows, f, heads, stages};
-  const int hd = heads * kDimHead;
-  sm90mix::run<T, R, kHeadCols>(
+  const int hd = heads * W;
+  sm90mix::run<T, R, C, CW>(
       pb, smem_raw, [&](T* p, int plane, int b0, int valid, int h) {
         // warp r takes rows r, r + 8, …
         for (int r = threadIdx.x >> 5; r < valid; r += sm90mix::kConsumerWarps) {
-          T* row = p + r * kHeadCols;
-          T* o = out + at(0, rows, b0 + r, hd, h * kDimHead);
+          T* row = p + r * C;
+          T* o = out + at(0, rows, b0 + r, hd, h * W);
           if constexpr (kTensorCoreBody<T>) {
-            head_attention_mma(row, row + kDimHead, row + 2 * kDimHead, plane, scale, o,
-                               static_cast<size_t>(rows) * hd, smem_raw + sm90mix::kZeroOffset);
+            head_attention_mma<W>(row, row + W, row + 2 * W, plane, scale, o,
+                                  static_cast<size_t>(rows) * hd, smem_raw + sm90mix::kZeroOffset);
           } else {
-            head_attention<T, kNodes, kDimHead>(row, row + kDimHead, row + 2 * kDimHead, plane,
-                                                scale, o, static_cast<size_t>(rows) * hd);
+            head_attention<T, kNodes, W>(row, row + W, row + 2 * W, plane, scale, o,
+                                         static_cast<size_t>(rows) * hd);
           }
         }
       });
@@ -194,25 +194,50 @@ int launch_stem_block(const void* x, const void* u, const void* film, const void
   }));
 }
 
-// The wrapper's tile plan (rows, columns, stages, cluster, shared-memory
-// bytes) must be the one instantiated here.
-template <typename T>
-int launch_rms_qkv_core(const void* x, const void* g_rms, const void* w, const void* g, void* out,
-                        int n_nodes, int rows, int f, int heads, int dim_head, int tile_rows,
-                        int tile_cols, int stages, int cluster, int smem_bytes, void* stream) {
-  constexpr int R = CoreTile<T>::kRows;
-  if (n_nodes != kNodes || rows <= 0 || f <= 0 || f % 32 ||
-      f > sm90mix::kMaxF || heads <= 0 ||
-      dim_head != kDimHead ||
-      tile_rows != R || tile_cols != kHeadCols || stages < 2 || stages > sm90mix::kMaxStages ||
+// The wrapper's tile plan (rows, a weight stage's columns, stages, cluster,
+// shared-memory bytes) must be the one instantiated here.
+template <typename T, int W, int CW>
+int launch_core(const void* x, const void* g_rms, const void* w, const void* g, void* out,
+                int rows, int f, int heads, int dim_head, int tile_rows, int stages, int cluster,
+                int smem_bytes, void* stream) {
+  constexpr int R = CoreTile<T, W>::kRows;
+  if (rows <= 0 || f <= 0 || f % 32 || f > sm90mix::kMaxF || heads <= 0 || dim_head <= 0 ||
+      dim_head > W || tile_rows != R || stages < 2 || stages > sm90mix::kMaxStages ||
       cluster != sm90mix::kCluster ||
-      static_cast<size_t>(smem_bytes) != sm90mix::layout<T>(R, kHeadCols, f, stages).total)
+      static_cast<size_t>(smem_bytes) != sm90mix::layout<T>(R, 3 * W, f, stages, CW).total)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(sm90mix::launch(
-      rms_qkv_core_kernel<T>, sm90mix::items(rows, R, heads), smem_bytes, cluster, stream,
+      rms_qkv_core_kernel<T, W, CW>, sm90mix::items(rows, R, heads), smem_bytes, cluster, stream,
       static_cast<const T*>(x), static_cast<const T*>(g_rms), static_cast<const T*>(w),
       static_cast<const T*>(g), static_cast<T*>(out), rows, f, heads, stages,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(kDimHead)))));
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(dim_head)))));
+}
+
+// The instantiations (ops/kernels/layer_fused.py::CORE_TILES): heads of
+// width W, a weight stage of tile_cols columns.
+template <typename T>
+int launch_rms_qkv_core(const void* x, const void* g_rms, const void* w, const void* g, void* out,
+                        int n_nodes, int rows, int f, int heads, int width, int dim_head,
+                        int tile_rows, int tile_cols, int stages, int cluster, int smem_bytes,
+                        void* stream) {
+  if (n_nodes != kNodes) return static_cast<int>(cudaErrorInvalidValue);
+#define SKD_CORE(W, CW)                                                                      \
+  if (width == W && tile_cols == CW)                                                         \
+    return launch_core<T, W, CW>(x, g_rms, w, g, out, rows, f, heads, dim_head, tile_rows,   \
+                                 stages, cluster, smem_bytes, stream);
+  SKD_CORE(16, 48)
+  if constexpr (sm90mix::is_f32<T>()) {
+    SKD_CORE(32, 96)
+  } else {
+    SKD_CORE(32, 96)
+    SKD_CORE(32, 48)
+    SKD_CORE(64, 96)
+    SKD_CORE(64, 64)
+    SKD_CORE(128, 96)
+    SKD_CORE(128, 64)
+  }
+#undef SKD_CORE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The wrapper's tile plan (rows, k-slice, stages, cluster, shared-memory
@@ -273,23 +298,25 @@ extern "C" int stem_block_f32(const void* x, const void* u, const void* film, co
                                   smem_bytes, stream);
 }
 
-// x [·, rows, f], g_rms [f], g [·, ·], out [·, rows, heads·dim_head]; w is
-// W_qkv [·, f, 3·heads·dim_head] (q‖k‖v) packed into one tile of a head's
-// q, k and v columns each, [·, heads, f·3·dim_head] (ops/kernels/node_mix_sm90.py).
+// x [·, rows, f], g_rms [f], g [·, ·], out [·, rows, heads·width]; w is
+// W_qkv [·, f, 3·heads·width] (q‖k‖v; a head's columns past dim_head zero)
+// packed into tiles of tile_cols of a head's q, k and v columns each,
+// [·, heads·3·width/tile_cols, f·tile_cols] (ops/kernels/node_mix_sm90.py).
 extern "C" int rms_qkv_core_bf16(const void* x, const void* g_rms, const void* w, const void* g,
-                                 void* out, int n_nodes, int rows, int f, int heads, int dim_head,
-                                 int tile_rows, int tile_cols, int stages, int cluster,
-                                 int smem_bytes, void* stream) {
-  return launch_rms_qkv_core<nodemix::bf16>(x, g_rms, w, g, out, n_nodes, rows, f, heads,
+                                 void* out, int n_nodes, int rows, int f, int heads, int width,
+                                 int dim_head, int tile_rows, int tile_cols, int stages,
+                                 int cluster, int smem_bytes, void* stream) {
+  return launch_rms_qkv_core<nodemix::bf16>(x, g_rms, w, g, out, n_nodes, rows, f, heads, width,
                                             dim_head, tile_rows, tile_cols, stages, cluster,
                                             smem_bytes, stream);
 }
 extern "C" int rms_qkv_core_f32(const void* x, const void* g_rms, const void* w, const void* g,
-                                void* out, int n_nodes, int rows, int f, int heads, int dim_head,
-                                int tile_rows, int tile_cols, int stages, int cluster,
-                                int smem_bytes, void* stream) {
-  return launch_rms_qkv_core<float>(x, g_rms, w, g, out, n_nodes, rows, f, heads, dim_head,
-                                    tile_rows, tile_cols, stages, cluster, smem_bytes, stream);
+                                void* out, int n_nodes, int rows, int f, int heads, int width,
+                                int dim_head, int tile_rows, int tile_cols, int stages,
+                                int cluster, int smem_bytes, void* stream) {
+  return launch_rms_qkv_core<float>(x, g_rms, w, g, out, n_nodes, rows, f, heads, width,
+                                    dim_head, tile_rows, tile_cols, stages, cluster, smem_bytes,
+                                    stream);
 }
 
 // a [·, rows, hd], x and out [·, rows, f]; w_out [·, hd, f] and w1, w2

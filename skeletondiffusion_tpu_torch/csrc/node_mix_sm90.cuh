@@ -75,7 +75,7 @@
 //
 // Tiles past 21 nodes (nodemix::kWide).  P holds all N nodes' products of a
 // tile, so its rows shrink with N: at 51 nodes the whole-row kernels take 8
-// rows in bf16 (`BlockRows`; 16 would need 356–383 KB), B3a 16 rows × 64
+// rows in bf16 (`block_rows`, 4 at F = 256; 16 would need 356–383 KB), B3a 16 rows × 64
 // columns and B9b 8 rows × a head's 96.  An 8-row tile runs the products
 // as a half-empty m16 tile: the A rows 8–15 of the ldmatrix read the zero
 // row and the accumulators of those rows are dropped.  The fp32 tiles stay
@@ -132,14 +132,16 @@ struct Layout {
   int plane;  // elements between node planes of P
 };
 
+// part_cols: the columns of the weight tile a stage brings, when a group's
+// cols come in parts (B9b's wide heads); 0: all cols.
 template <typename T>
-__host__ __device__ Layout layout(int rows, int cols, int f, int stages) {
+__host__ __device__ Layout layout(int rows, int cols, int f, int stages, int part_cols = 0) {
   Layout l{};
   size_t off = 128;  // full[kMaxStages], empty[kMaxStages], the zero row
   l.gmix = off;
   off += is_f32<T>() ? up(sizeof(float) * kNodes * kGStride) : 0;
   l.x_bytes = up(sizeof(T) * rows * f);
-  l.stage_bytes = l.x_bytes + up(sizeof(T) * f * cols);
+  l.stage_bytes = l.x_bytes + up(sizeof(T) * f * (part_cols ? part_cols : cols));
   l.stages = off;
   off += stages * l.stage_bytes;
   l.plane = static_cast<int>((sizeof(T) * rows * cols + kPlanePad) / sizeof(T));
@@ -420,15 +422,16 @@ constexpr int divisor_at_most(int n, int m) {
   return d;
 }
 
-// Warp layout of the bf16 products: R/16 row tiles (one at R = 8, rows 8–15
-// empty) × column parts, each warp 16 rows × kNt n8 tiles; the warps past
-// kWm·kWn (B9b's 8 × 96 tile: 6 of 8 warps) take no products.
+// Warp layout of the bf16 products: R/16 row tiles (one at R = 8 or 4, its
+// rows past R empty) × column parts, each warp 16 rows × kNt n8 tiles; the
+// warps past kWm·kWn (B9b's 8 × 96 tile: 6 of 8 warps) take no products.
 template <int R, int C>
 struct MmaTiles {
   static constexpr int kWm = R >= 16 ? R / 16 : 1;
   static constexpr int kWn = divisor_at_most(C / 8, kConsumerWarps / kWm);
   static constexpr int kNt = C / (8 * kWn);
-  static_assert((R == 8 || R % 16 == 0) && kWm * kWn <= kConsumerWarps && kNt * 8 * kWn == C,
+  static_assert((R == 4 || R == 8 || R % 16 == 0) && kWm * kWn <= kConsumerWarps &&
+                    kNt * 8 * kWn == C,
                 "bf16 tile");
 };
 
@@ -450,26 +453,28 @@ __device__ __forceinline__ ARow a_row(const unsigned char* xs, int f, int wm) {
               r & swizzle_mask(f * static_cast<int>(sizeof(T)) / 16), lane >> 4};
 }
 
-// Rounded sums of one warp's tile → P (row-major [R][C] of one node); at
-// R = 8 the m16 tile's rows 8–15 are dropped.
-template <int R, int C, int kNt>
+// Rounded sums of one warp's tile → P (row-major [R][LD] of one node); at
+// R ≤ 8 the m16 tile's rows past R are dropped.
+template <int R, int LD, int kNt>
 __device__ __forceinline__ void store_products(const float (&acc)[kNt][4], bf16* pn, int wm,
                                                int col0) {
   const int lane = threadIdx.x & 31;
   const int r = 16 * wm + (lane >> 2);
+  if (R < 8 && r >= R) return;
 #pragma unroll
   for (int j = 0; j < kNt; ++j) {
     const int c = col0 + 8 * j + 2 * (lane & 3);
-    *reinterpret_cast<uint32_t*>(pn + r * C + c) = pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(pn + r * LD + c) = pack_bf16(acc[j][0], acc[j][1]);
     if constexpr (R > 8)
-      *reinterpret_cast<uint32_t*>(pn + (r + 8) * C + c) = pack_bf16(acc[j][2], acc[j][3]);
+      *reinterpret_cast<uint32_t*>(pn + (r + 8) * LD + c) = pack_bf16(acc[j][2], acc[j][3]);
   }
 }
 
 // P[n] = round(h·W) with mma.sync: A and B through ldmatrix from the stage.
-// The weight tile is [F/8][C/8] core matrices of 8 columns × 8 k.  At R = 8
-// the A rows 8–15 read `zero`, a 16-byte zero row.
-template <int R, int C>
+// The weight tile is [F/8][C/8] core matrices of 8 columns × 8 k; its
+// products go to columns 0 … C of P's rows of LD elements.  At R ≤ 8 the A
+// rows past R read `zero`, a 16-byte zero row.
+template <int R, int C, int LD = C>
 __device__ __forceinline__ void product_mma(const unsigned char* xs, const bf16* ws, int f,
                                             bf16* pn, const unsigned char* zero) {
   using L = MmaTiles<R, C>;
@@ -509,11 +514,12 @@ __device__ __forceinline__ void product_mma(const unsigned char* xs, const bf16*
     if (ks + 2 < ksteps) load(0, ks + 2);
     multiply(1);
   }
-  store_products<R, C, L::kNt>(acc, pn, wm, wn * L::kNt * 8);
+  store_products<R, LD, L::kNt>(acc, pn, wm, wn * L::kNt * 8);
 }
 
-// P[n] = h·W in fp32 FMAs (weight tile row-major [F][C]), a thread per output.
-template <int R, int C>
+// P[n] = h·W in fp32 FMAs (weight tile row-major [F][C]), a thread per output
+// (P's rows of LD elements).
+template <int R, int C, int LD = C>
 __device__ __forceinline__ void product_fma(const unsigned char* xs, const float* ws, int f,
                                             float* pn) {
   const int mask = swizzle_mask(f / 4);
@@ -522,7 +528,7 @@ __device__ __forceinline__ void product_fma(const unsigned char* xs, const float
     const float* xr = reinterpret_cast<const float*>(xs + sizeof(float) * r * f);
     float acc = 0.0f;
     for (int k = 0; k < f; ++k) acc = fmaf(xr[(((k >> 2) ^ swz) << 2) | (k & 3)], ws[k * C + c], acc);
-    pn[r * C + c] = acc;
+    pn[r * LD + c] = acc;
   }
 }
 
@@ -626,7 +632,7 @@ __host__ __device__ inline int items(int rows, int tile_rows, int groups) {
 }
 
 // What one launch works on: x [N, rows, f], g_rms [f], the packed banks
-// w [N, groups, tile], G [N, N]; a row tile × column group per item.
+// w [N, groups·parts, tile], G [N, N]; a row tile × column group per item.
 template <typename T>
 struct Problem {
   const T* x;
@@ -639,10 +645,16 @@ struct Problem {
 // Runs every item of this block; epi(p, plane, b0, valid, group) gets each
 // item's mixed, rounded tile P [N][R][C] (plane elements between nodes) in
 // shared memory, called by all consumer threads together; it may overwrite
-// P (B9b stages its attention's output there).
-template <typename T, int R, int C, typename Epi>
+// P (B9b stages its attention's output there).  A group's weight tile comes
+// in C/CW parts of CW columns (B9b's wide heads: a head's whole tile would
+// not fit two stages), packed as consecutive tiles: each part a stage of its
+// own, with its own copy of the node's rows, its products into columns
+// part·CW … of P.
+template <typename T, int R, int C, int CW = C, typename Epi>
 __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, Epi epi) {
-  const Layout l = layout<T>(R, C, pb.f, pb.stages);
+  static_assert(C % CW == 0, "a group's columns in whole parts");
+  constexpr int kParts = C / CW;
+  const Layout l = layout<T>(R, C, pb.f, pb.stages, CW);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   float* gmix = reinterpret_cast<float*>(smem + l.gmix);
@@ -675,14 +687,15 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
   if (warp == kConsumerWarps) {
     if (lane == 0) {  // the producer
       const uint32_t row_bytes = pb.f * sizeof(T);
-      const uint32_t w_bytes = static_cast<uint32_t>(sizeof(T) * pb.f * C);
+      const uint32_t w_bytes = static_cast<uint32_t>(sizeof(T) * pb.f * CW);
       const uint32_t w_part = w_bytes / kCluster;
       uint32_t q = 0;
       for (int item = cluster_id(); item < n_items; item += cluster_count()) {
         const int grp = item % pb.groups;
         int b0, valid;
         rows_of(item, b0, valid);
-        for (int n = 0; n < kNodes; ++n, ++q) {
+        for (int np = 0; np < kNodes * kParts; ++np, ++q) {
+          const int n = np / kParts, part = np % kParts;
           const int s = q % pb.stages;
           mbar_wait(&empty[s], ((q / pb.stages) & 1) ^ 1);  // both blocks' consumers are done
           unsigned char* st = smem + l.stages + s * l.stage_bytes;
@@ -692,7 +705,7 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
                       valid * row_bytes, &full[s]);
           // this block's part of the weight tile, into both blocks
           const unsigned char* wt = reinterpret_cast<const unsigned char*>(
-              pb.w + (static_cast<size_t>(n) * pb.groups + grp) * pb.f * C);
+              pb.w + ((static_cast<size_t>(n) * pb.groups + grp) * kParts + part) * pb.f * CW);
           bulk_load_multicast(st + l.x_bytes + rank * w_part, wt + rank * w_part, w_part,
                               &full[s]);
         }
@@ -709,7 +722,8 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
       const int grp = item % pb.groups;
       int b0, valid;
       rows_of(item, b0, valid);
-      for (int n = 0; n < kNodes; ++n, ++q) {
+      for (int np = 0; np < kNodes * kParts; ++np, ++q) {
+        const int n = np / kParts, part = np % kParts;
         const int s = q % pb.stages;
         mbar_wait(&full[s], (q / pb.stages) & 1);
         unsigned char* xs = smem + l.stages + s * l.stage_bytes;
@@ -717,10 +731,11 @@ __device__ __forceinline__ void run(const Problem<T>& pb, unsigned char* smem, E
         normalize_tile<T, R>(xs, gain, pb.f, valid);
         fence_proxy_async();
         consumer_sync();
+        T* pn = p + n * l.plane + part * CW;
         if constexpr (is_f32<T>()) {
-          product_fma<R, C>(xs, ws, pb.f, p + n * l.plane);
+          product_fma<R, CW, C>(xs, ws, pb.f, pn);
         } else {
-          product_mma<R, C>(xs, ws, pb.f, p + n * l.plane, smem + kZeroOffset);
+          product_mma<R, CW, C>(xs, ws, pb.f, pn, smem + kZeroOffset);
         }
         __syncwarp();
         if (lane == 0) {  // the stage may be refilled once both blocks are done with it
@@ -994,8 +1009,8 @@ struct BlockItem {
   template <bool kAddend>
   __device__ __forceinline__ void product_node_mma(const BlockPass<T>& ps, int n, bool in_place,
                                                    const T* addend) {
-    static_assert((R == 16 || R == 8) && NT >= 1 && NT <= kMaxNt,
-                  "a warp's tile: 16 rows (8 of them empty at R = 8) × 8·NT columns");
+    static_assert((R == 16 || R == 8 || R == 4) && NT >= 1 && NT <= kMaxNt,
+                  "a warp's tile: 16 rows (those past R empty at R ≤ 8) × 8·NT columns");
     constexpr int kMaxKs = 4;  // k-steps of a k-slice (kslice ≤ 64)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     constexpr int f = kF;
@@ -1068,6 +1083,7 @@ struct BlockItem {
     }
     if (in_place) consumer_sync();  // every warp has read node n's plane
     const int r = lane >> 2;
+    if (R < 8 && r >= R) return;  // the empty rows of the m16 tile
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = (warp * NT + j) * 8 + 2 * (lane & 3);
@@ -1362,20 +1378,16 @@ struct BlockItem {
   }
 };
 
-// Rows of a ResnetBlock item: at 21 nodes P of 21 × 16 × 200 bf16 (fp32: × 8
-// × 196) is 135 KB (132 KB); 32 rows would need 270 KB.  Past 21 nodes
-// (AMASS-MANO's 51: P of 51 × 8 × 200 bf16 is 164 KB) 8 rows, a half-empty m16
-// tile; fp32 keeps 8 rows, which do not fit at 51 nodes (its plans refuse).
+// Rows of a ResnetBlock item at width f: at 21 nodes P of 21 × 16 × 200 bf16
+// (fp32: × 8 × 196) is 135 KB (132 KB); 32 rows would need 270 KB.  Past 21
+// nodes (AMASS-MANO's 51: P of 51 × 8 × 200 bf16 is 164 KB) 8 rows, a
+// half-empty m16 tile, and 4 at f = 256 (51 × 8 × 264 bf16 would be 215 KB
+// alone); fp32 keeps 8 rows, which do not fit at 51 nodes (its plans refuse).
 template <typename T>
-struct BlockRows;
-template <>
-struct BlockRows<bf16> {
-  static constexpr int kRows = nodemix::kWide ? 8 : 16;  // the mma tile's M (half of it)
-};
-template <>
-struct BlockRows<float> {
-  static constexpr int kRows = 8;
-};
+__host__ __device__ constexpr int block_rows(int f) {
+  if (is_f32<T>()) return 8;
+  return nodemix::kWide ? (f > 192 ? 4 : 8) : 16;  // the mma tile's M (part of it)
+}
 
 // Whether a launch's widths and tile plan are ones the kernels take: f a
 // multiple of 64 up to kMaxF, each pass's contraction width a multiple of
@@ -1384,7 +1396,7 @@ struct BlockRows<float> {
 template <typename T>
 bool block_plan_ok(int f, const int* ks, int passes, int tile_rows, int kslice, int stages,
                    int cluster, int smem_bytes) {
-  if (f <= 0 || f % 64 || f > kMaxF || tile_rows != BlockRows<T>::kRows ||
+  if (f <= 0 || f % 64 || f > kMaxF || tile_rows != block_rows<T>(f) ||
       (kslice != 64 && kslice != 32) || stages < 2 || stages > kMaxStages || cluster != kCluster)
     return false;
   for (int i = 0; i < passes; ++i)

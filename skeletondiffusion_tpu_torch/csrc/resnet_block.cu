@@ -69,7 +69,7 @@ resnet_block_kernel(const T* __restrict__ x, const T* __restrict__ film,
                     const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ g1,
                     const T* __restrict__ w2, const T* __restrict__ b2, const T* __restrict__ g2,
                     T* __restrict__ out, int rows, int f, int kslice, int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{{{x, w1, b1, f}, {nullptr, w2, b2, f}, {}},
                                     {g1, g2, nullptr}, film, 2, rows, f, kslice, stages};
@@ -86,7 +86,7 @@ final_block_in_kernel(const T* __restrict__ x, const T* __restrict__ r,
                       const T* __restrict__ b1, const T* __restrict__ g1,
                       const T* __restrict__ wr, const T* __restrict__ gr, T* __restrict__ h_out,
                       T* __restrict__ res_out, int rows, int f, int kslice, int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{{{x, w1, b1, 2 * f}, {x, wr, nullptr, 2 * f}, {}},
                                     {g1, gr, nullptr}, film, 2, rows, f, kslice, stages, r};
@@ -101,7 +101,7 @@ final_block_out_kernel(const T* __restrict__ h, const T* __restrict__ res,
                        const T* __restrict__ g2, const T* __restrict__ wh,
                        const T* __restrict__ bh, const T* __restrict__ gh, T* __restrict__ out,
                        int rows, int f, int fo, int kslice, int stages) {
-  constexpr int R = sm90mix::BlockRows<T>::kRows;
+  constexpr int R = sm90mix::block_rows<T>(64 * NT);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const sm90mix::BlockProblem<T> pb{{{h, w2, b2, f}, {nullptr, wh, bh, f}, {}},
                                     {g2, gh, nullptr}, nullptr, 2, rows, f, kslice, stages};

@@ -44,7 +44,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.denoiser import Denoiser
 from ..ops.kernels import posterior_step as posterior_kernel
 from ..ops.kernels.build import without_grad
-from ..ops.kernels.denoiser_fused import fused_denoiser_core_nm, prep_fused_denoiser
+from ..ops.kernels.denoiser_fused import (fused_denoiser_core_nm, pad_condition,
+                                         prep_fused_denoiser)
 from .process import IsotropicProcess, NonisotropicProcess, Timestep
 
 Process = Union[IsotropicProcess, NonisotropicProcess]
@@ -146,6 +147,15 @@ class GaussianDiffusion:
             raise ValueError("the conditioned model needs x_cond")
         return self.denoiser.cond_embedding(x_cond)
 
+    def chain_condition(self, x_cond: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``embed_condition`` for a sampling call: where the kernel chain is
+        prepared, padded to its width once (``denoiser_fused.pad_condition``),
+        not at every step."""
+        u_cond = self.embed_condition(x_cond)
+        if self.fused is None or u_cond is None:
+            return u_cond
+        return pad_condition(self.fused, u_cond)
+
     def _activate(self, out: torch.Tensor) -> torch.Tensor:
         return torch.tanh(out) if self.activation == "tanh" else out
 
@@ -197,7 +207,12 @@ class GaussianDiffusion:
     def posterior_step(self, x0: torch.Tensor, img: torch.Tensor, noise: torch.Tensor,
                        t: int) -> torch.Tensor:
         """x_{t-1} from x̂₀ (clipped here), x_t and the step's noise, all
-        node-major, on the posterior-step kernel."""
+        node-major, on the posterior-step kernel.  A bf16 x̂₀ whose B·D is
+        not a multiple of 8 (the bf16 entry's rows are whole 16 bytes; a
+        latent off the 8-granule at an odd row count) is widened, exactly,
+        for the fp32 entry."""
+        if x0.dtype == torch.bfloat16 and x0[0].numel() % 8:
+            x0 = x0.float()
         return posterior_kernel.posterior_step(x0.contiguous(), img, noise, self.step_tables[t])
 
     # ---- training ------------------------------------------------------------
@@ -326,7 +341,7 @@ class GaussianDiffusion:
         from ``generator``.
         """
         T = self.num_timesteps
-        u_cond = self.embed_condition(x_cond)
+        u_cond = self.chain_condition(x_cond)
         img = self._start(self._batch(x_cond, start_noise, batch_size), generator, start_noise)
         start = _swap(img)
         no_noise = torch.zeros_like(img)
@@ -360,7 +375,7 @@ class GaussianDiffusion:
         With η = 0 no noise is drawn."""
         if not isinstance(self.process, IsotropicProcess):
             raise NotImplementedError("DDIM requires the isotropic process")
-        u_cond = self.embed_condition(x_cond)
+        u_cond = self.chain_condition(x_cond)
         img = self._start(self._batch(x_cond, start_noise, batch_size), generator, start_noise)
         start = _swap(img)
         acp, eta = self.process.alphas_cumprod, self.ddim_sampling_eta

@@ -30,9 +30,11 @@ launches_rms_qkv = 0
 launches_outproj_res = 0
 
 # rows an item and output columns a group of the rms_qkv kernel, up to
-# build.NARROW_NODES and past it (``QkvTile`` in csrc/attention_proj.cu)
-QKV_TILES = {torch.bfloat16: (32, 96), torch.float32: (8, 96)}
-QKV_TILES_WIDE = {torch.bfloat16: (16, 64), torch.float32: (8, 96)}
+# build.NARROW_NODES and past it, the first that fits two stages at F
+# (``QkvTile`` in csrc/attention_proj.cu: 32 × 96 up to F = 192, 16 × 96 at
+# F = 256)
+QKV_TILES = {torch.bfloat16: ((32, 96), (16, 96)), torch.float32: ((8, 96),)}
+QKV_TILES_WIDE = {torch.bfloat16: ((16, 64),), torch.float32: ((8, 96),)}
 
 
 def rms_qkv_plain(x, g_rms, w_qkv, g_qkv) -> torch.Tensor:
@@ -58,8 +60,12 @@ def rms_qkv_plan(dtype: torch.dtype, f: int, fo: int,
         raise ValueError(f"rms_qkv: F={f} must be a positive multiple of 32")
     if fo <= 0 or fo % 8:
         raise ValueError(f"rms_qkv: the output width {fo} must be a positive multiple of 8")
-    rows, cols = (QKV_TILES_WIDE if build.wide(nodes) else QKV_TILES)[dtype]
-    return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f, nodes)
+    for rows, cols in (QKV_TILES_WIDE if build.wide(nodes) else QKV_TILES)[dtype]:
+        try:
+            return node_mix_sm90.plan("rms_qkv", dtype, rows, cols, f, nodes)
+        except ValueError as e:
+            refusal = e
+    raise refusal
 
 
 def _rms_qkv_checked(x, g_rms, w_qkv, g_qkv):

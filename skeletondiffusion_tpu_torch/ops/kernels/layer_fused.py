@@ -18,11 +18,15 @@ Ports of ``skeletondiffusion_tpu/ops/pallas/layer_fused.py``
 without the TPU's padding; the kernels are ``csrc/layer_fused.cu``, all three
 on the engine of ``csrc/node_mix_sm90.cuh``: they take the banks in the JAX
 layout and hand the kernel packed copies (``node_mix_sm90.pack_banks``,
-cached per bank: for ``rms_qkv_core`` one tile of a head's q, k and v
-columns, for ``outproj_block`` and ``stem_block`` one tile of all F columns
-of each bank, the stem's [N, D, F] bank with its rows zero-padded to
-``node_mix_sm90.padded_width(D)``) and the tile plan
+cached per bank: for ``rms_qkv_core`` a head's q, k and v columns as one
+tile, or in parts of the plan's ``cols`` where a whole tile would not fit
+two stages, for ``outproj_block`` and ``stem_block`` one tile of all F
+columns of each bank, the stem's [N, D, F] bank with its rows zero-padded
+to ``node_mix_sm90.padded_width(D)``) and the tile plan
 (``rms_qkv_core_plan``, ``outproj_block_plan``, ``stem_block_plan``).
+``rms_qkv_core`` takes heads of W = 16, 32, 64 or 128 columns
+(``CORE_TILES``); a narrower head comes zero-padded in the bank's columns,
+its scale its own width's.
 """
 from __future__ import annotations
 
@@ -31,18 +35,25 @@ import torch
 from . import build, node_mix_sm90
 from .attention_proj import outproj_res_plain, rms_qkv_plain
 from .graph_linear_fused import graph_linear_fused_plain
-from .joint_attention import attention_core_plain
+from .joint_attention import attention_core_plain, check_heads, columns_per_head
 from .resnet_block import resnet_block_plain
 
 launches_stem_block = 0
 launches_rms_qkv_core = 0
 launches_outproj_block = 0
 
-# rows an item of the rms_qkv_core kernel (its columns are a head's q‖k‖v),
-# up to build.NARROW_NODES and past it (``CoreTile`` in csrc/layer_fused.cu)
-CORE_ROWS = {torch.bfloat16: 32, torch.float32: 8}
-CORE_ROWS_WIDE = {torch.bfloat16: 8, torch.float32: 8}
-CORE_DIM_HEAD = 32
+# the rms_qkv_core kernel's item (a row tile × one head's 3·W q‖k‖v
+# columns) by head width W, up to build.NARROW_NODES and past it: rows an
+# item, and the columns of the head's weight tile a ring stage brings,
+# widest first (the plan takes the first that fits two stages; the head's
+# products stay whole in P).  ``CoreTile`` in csrc/layer_fused.cu.
+CORE_TILES = {torch.bfloat16: {16: (32, (48,)), 32: (32, (96, 48)), 64: (16, (96, 64)),
+                               128: (8, (96, 64))},
+              torch.float32: {16: (8, (48,)), 32: (8, (96,))}}
+CORE_TILES_WIDE = {torch.bfloat16: {16: (16, (48,)), 32: (8, (96, 48)), 64: (8, (96, 64)),
+                                    128: (4, (96, 64))},
+                   torch.float32: {16: (8, (48,)), 32: (8, (96,))}}
+FP32_CHAIN = "ROADMAP.md Queue B item 5"
 
 
 def stem_block_plain(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
@@ -128,35 +139,47 @@ def stem_block(x, u, film, ws, bs, gs, w1, b1, g1, w2, b2, g2):
 
 def rms_qkv_core_plan(dtype: torch.dtype, f: int, heads: int, dim_head: int,
                       nodes: int = node_mix_sm90.N_NODES) -> node_mix_sm90.TilePlan:
-    """The tile plan of the rms_qkv_core kernel at input width ``f`` and
-    ``nodes`` nodes; raises for what the kernel does not take."""
+    """The tile plan of the rms_qkv_core kernel at input width ``f``, for
+    ``heads`` heads of ``dim_head`` columns (the head width W) at ``nodes``
+    nodes: its ``cols`` are the columns of a head's weight tile a stage
+    brings (3·W, or a part of them); raises for what the kernel does not
+    take."""
     build.element_suffix("rms_qkv_core", dtype)
-    if dim_head != CORE_DIM_HEAD or heads <= 0:
-        raise ValueError(f"rms_qkv_core: takes heads of {CORE_DIM_HEAD}, got {heads} × {dim_head}")
     if f <= 0 or f % 32:
         raise ValueError(f"rms_qkv_core: F={f} must be a positive multiple of 32")
-    rows = (CORE_ROWS_WIDE if build.wide(nodes) else CORE_ROWS)[dtype]
-    return node_mix_sm90.plan("rms_qkv_core", dtype, rows, 3 * dim_head, f, nodes)
+    check_heads("rms_qkv_core", heads, dim_head)
+    tiles = (CORE_TILES_WIDE if build.wide(nodes) else CORE_TILES)[dtype]
+    if dim_head not in tiles:
+        raise ValueError(f"rms_qkv_core: heads of {dim_head} are built in bf16 only "
+                         f"({FP32_CHAIN})")
+    rows, parts = tiles[dim_head]
+    for part in parts:
+        try:
+            return node_mix_sm90.plan("rms_qkv_core", dtype, rows, 3 * dim_head, f, nodes, part)
+        except ValueError as e:
+            refusal = e
+    raise refusal
 
 
 def _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
     n, rows, f = x.shape
-    hd = heads * dim_head
-    plan = rms_qkv_core_plan(x.dtype, f, heads, dim_head, n)
-    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * hd), g_qkv=(n, n))
+    width = (columns_per_head(w_qkv, heads, dim_head, "rms_qkv_core") if heads > 0
+             else dim_head)
+    plan = rms_qkv_core_plan(x.dtype, f, heads, width, n)
+    shapes = dict(x=(n, rows, f), g_rms=(f,), w_qkv=(n, f, 3 * heads * width), g_qkv=(n, n))
     tensors = dict(x=x, g_rms=g_rms, w_qkv=w_qkv, g_qkv=g_qkv)
     node_mix_sm90.check("rms_qkv_core", tensors, shapes, x.dtype)
-    return tensors, shapes, plan
+    return tensors, shapes, width, plan
 
 
 def _rms_qkv_core_launch(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
     global launches_rms_qkv_core
-    tensors, shapes, plan = _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads, dim_head)
+    tensors, shapes, width, plan = _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads, dim_head)
     n, rows, f = x.shape
-    out = torch.empty((n, rows, heads * dim_head), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, rows, heads * width), dtype=x.dtype, device=x.device)
     node_mix_sm90.launch("layer_fused", "rms_qkv_core", tensors, shapes,
-                         {"w_qkv": ("heads", heads, dim_head)},
-                         (n, rows, f, heads, dim_head, *plan), out)
+                         {"w_qkv": ("heads", heads, width, plan.cols)},
+                         (n, rows, f, heads, width, dim_head, *plan), out)
     launches_rms_qkv_core += 1
     return out
 
@@ -164,7 +187,7 @@ def _rms_qkv_core_launch(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
 def _rms_qkv_core_fake(x, g_rms, w_qkv, g_qkv, heads: int, dim_head: int):
     if build.on_cuda(x, g_rms, w_qkv, g_qkv):
         _rms_qkv_core_checked(x, g_rms, w_qkv, g_qkv, heads, dim_head)
-    return x.new_empty((*x.shape[:2], heads * dim_head))
+    return x.new_empty((*x.shape[:2], w_qkv.shape[-1] // 3))
 
 
 rms_qkv_core_op = build.kernel_op(
@@ -173,8 +196,9 @@ rms_qkv_core_op = build.kernel_op(
 
 
 def rms_qkv_core(x, g_rms, w_qkv, g_qkv, *, heads: int, dim_head: int) -> torch.Tensor:
-    """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·dh] (q‖k‖v),
-    g_qkv [N,N] → the attention core's output [N,B,H·dh], through the op
+    """x [N,B,F], g_rms [F] (√F folded in), w_qkv [N,F,3·H·W] (q‖k‖v, heads
+    of ``dim_head`` ≤ W columns, the columns past dim_head zero), g_qkv
+    [N,N] → the attention core's output [N,B,H·W], through the op
     ``skd::rms_qkv_core``.  CPU tensors run ``rms_qkv_core_plain``; CUDA
     tensors launch the kernel or raise."""
     return rms_qkv_core_op(x, g_rms, w_qkv, g_qkv, heads, dim_head)

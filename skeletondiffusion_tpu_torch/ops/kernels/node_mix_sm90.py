@@ -61,47 +61,52 @@ def g_stride(nodes: int) -> int:
 
 
 def plan_bytes(elem: int, rows: int, cols: int, f: int, stages: int,
-               nodes: int = N_NODES) -> int:
+               nodes: int = N_NODES, part_cols: Optional[int] = None) -> int:
     """Shared memory of one block (``layout`` in ``node_mix_sm90.cuh``):
     barriers and a zero row, the fp32 influence (fp32 only), ``stages`` ×
-    (input rows + weight tile), the products of all nodes."""
+    (input rows + weight tile of ``part_cols`` columns, ``cols`` unless the
+    group's columns come in parts), the products of all nodes."""
     g_mix = _up(4 * nodes * g_stride(nodes)) if elem == 4 else 0
-    stage = _up(rows * f * elem) + _up(f * cols * elem)
+    stage = _up(rows * f * elem) + _up(f * (part_cols or cols) * elem)
     plane = rows * cols * elem + PLANE_PAD
     return 128 + g_mix + stages * stage + _up(nodes * plane)
 
 
 def plan(kernel: str, dtype: torch.dtype, rows: int, cols: int, f: int,
-         nodes: int = N_NODES) -> TilePlan:
+         nodes: int = N_NODES, part_cols: Optional[int] = None) -> TilePlan:
     """The plan of ``rows`` × ``cols`` tiles at input width ``f`` and
-    ``nodes`` nodes: as many ring stages (2 to 4) as fit; raises ValueError
-    when two do not, or when f exceeds MAX_F or the node count the kernels'
-    range."""
+    ``nodes`` nodes, the weight tile brought ``part_cols`` columns a stage
+    (B9b's wide heads; the plan's ``cols`` is then ``part_cols``): as many
+    ring stages (2 to 4) as fit; raises ValueError when two do not, or when
+    f exceeds MAX_F or the node count the kernels' range."""
     elem = torch.empty((), dtype=dtype).element_size()
     build.check_nodes(kernel, nodes)
     if f > MAX_F:
         raise ValueError(f"{kernel}: F={f} exceeds {MAX_F}, the widest row the kernels "
                          f"normalise")
     fits = [s for s in range(2, MAX_STAGES + 1)
-            if plan_bytes(elem, rows, cols, f, s, nodes) <= MAX_SMEM]
+            if plan_bytes(elem, rows, cols, f, s, nodes, part_cols) <= MAX_SMEM]
     if not fits:
         raise ValueError(f"{kernel}: a {rows} × {cols} tile at F={f} and {nodes} nodes in "
                          f"{dtype} does not fit {MAX_SMEM} bytes of shared memory with two "
                          f"stages ({NO_FIT})")
-    return TilePlan(rows, cols, fits[-1], CLUSTER,
-                    plan_bytes(elem, rows, cols, f, fits[-1], nodes))
+    return TilePlan(rows, part_cols or cols, fits[-1], CLUSTER,
+                    plan_bytes(elem, rows, cols, f, fits[-1], nodes, part_cols))
 
 
-# rows of a ResnetBlock item up to build.NARROW_NODES and past it, and the
-# k-slices of its banks, widest first
+# rows of a ResnetBlock item up to build.NARROW_NODES and past it (bf16: 4
+# past it at F = 256), and the k-slices of its banks, widest first
 BLOCK_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 BLOCK_ROWS_WIDE = {torch.bfloat16: 8, torch.float32: 8}
 KSLICES = (64, 32)
 NO_FIT = "ROADMAP.md Queue B item 10"
 
 
-def block_rows(dtype: torch.dtype, nodes: int = N_NODES) -> int:
-    """Rows of a whole-row item (``BlockRows`` in ``node_mix_sm90.cuh``)."""
+def block_rows(dtype: torch.dtype, nodes: int = N_NODES, f: int = 0) -> int:
+    """Rows of a whole-row item at width ``f`` (``block_rows`` in
+    ``node_mix_sm90.cuh``)."""
+    if dtype == torch.bfloat16 and build.wide(nodes) and f > 192:
+        return 4
     return (BLOCK_ROWS_WIDE if build.wide(nodes) else BLOCK_ROWS)[dtype]
 
 
@@ -144,7 +149,7 @@ def block_plan(kernel: str, dtype: torch.dtype, f: int, ks: Tuple[int, ...],
     if any(k <= 0 or k % KSLICES[-1] for k in ks):
         raise ValueError(f"{kernel}: the contraction widths {ks} must be positive multiples of "
                          f"{KSLICES[-1]}")
-    rows = block_rows(dtype, nodes)
+    rows = block_rows(dtype, nodes, f)
     for kslice in KSLICES:
         if any(k % kslice for k in ks):
             continue
@@ -191,12 +196,15 @@ def group_columns(out: int, cols: int) -> torch.Tensor:
     return torch.where(idx < out, idx, -1)
 
 
-def head_columns(heads: int, dim_head: int) -> torch.Tensor:
-    """[heads, 3·dim_head]: head h's q, k and v columns of a q‖k‖v bank."""
+def head_columns(heads: int, dim_head: int, part_cols: Optional[int] = None) -> torch.Tensor:
+    """[heads, 3·dim_head]: head h's q, k and v columns of a q‖k‖v bank; with
+    ``part_cols``, [heads·parts, part_cols]: each head's columns in parts of
+    ``part_cols``, head h's part j in row h·parts + j."""
     hd = heads * dim_head
     one = torch.arange(dim_head)
-    return torch.stack([torch.cat([h * dim_head + one, hd + h * dim_head + one,
+    cols = torch.stack([torch.cat([h * dim_head + one, hd + h * dim_head + one,
                                    2 * hd + h * dim_head + one]) for h in range(heads)])
+    return cols if part_cols is None else cols.reshape(-1, part_cols)
 
 
 COLUMNS = {"groups": group_columns, "heads": head_columns}

@@ -87,7 +87,9 @@ def test_bench_stage_puts_the_joints_of_an_ldmatrix_in_distinct_banks():
 
 
 @pytest.mark.parametrize("call, error, match", [
-    (lambda: joint_attention.attention_plan(torch.bfloat16, H, 16), ValueError, "heads of 32"),
+    # heads of 16 are a width of the kernel now (id kept): 24 is not one
+    (lambda: joint_attention.attention_plan(torch.bfloat16, H, 24), ValueError,
+     "heads of 16, 32, 64 or 128"),
     (lambda: joint_attention.attention_plan(torch.bfloat16, 0, DH), ValueError, "1 to 32 heads"),
     (lambda: joint_attention.attention_plan(torch.float32, 33, DH), ValueError, "1 to 32 heads"),
     (lambda: joint_attention.attention_plan(torch.float16, H, DH), TypeError, "built for"),
@@ -105,7 +107,7 @@ def _cuda_request(monkeypatch, entry):
 
 @pytest.mark.parametrize("shape, heads, dim_head, error, match", [
     ((N, 4, 3 * 33 * DH), 33, DH, ValueError, "1 to 32 heads"),
-    ((N, 4, 3 * H * 16), H, 16, ValueError, "heads of 32"),
+    ((N, 4, 3 * H * 24), H, 24, ValueError, "heads of 16, 32, 64 or 128"),  # id kept
     # 20 joints are a build of the kernel now; past 51 the ROADMAP item
     ((52, 4, 3 * HD), H, DH, ValueError, "takes 2 to 51 nodes, got 52 .*ROADMAP"),
     ((N, 4, 3 * HD + 8), H, DH, ValueError, "qkv has shape"),
@@ -143,7 +145,7 @@ def test_attention_core_hands_the_kernel_its_plan(monkeypatch, dtype):
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     assert (library, symbol) == ("joint_attention", f"attention_core_{suffix}")
     assert pointers == (qkv.data_ptr(), out.data_ptr())
-    assert ints == (N, rows, H, DH, *joint_attention.attention_plan(dtype, H, DH))
+    assert ints == (N, rows, H, DH, DH, *joint_attention.attention_plan(dtype, H, DH))
     assert out.shape == (N, rows, HD) and out.dtype == dtype
 
 

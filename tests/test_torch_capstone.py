@@ -222,3 +222,47 @@ def test_variants_and_the_merged_report_of_several_runs(scripts, smoke_root, tmp
     proc = run_blocked("torch_convergence_capstone.py",
                        ["--merge", str(tmp_path / "none"), "--out-json", str(merged)], tmp_path)
     assert proc.returncode != 0
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_stage2_dtype_switch_names_the_variants_and_their_overrides(scripts, dtype):
+    """``--stage2-dtype``: bf16 by default, the configs' own dtype and the
+    variants' own names; fp32 adds ``model.compute_dtype=null`` to every
+    variant's stage-2 overrides and names each ``<variant>_fp32``."""
+    cap = scripts[1]
+    assert cap.parse_args([]).stage2_dtype == "bf16"
+    args = cap.parse_args(["--variants", "k50_motion", "k50_latent", "--stage2-dtype", dtype])
+    plan = cap.stage2_variants(args.variants, 50, args.stage2_dtype)
+    suffix = "" if dtype == "bf16" else "_fp32"
+    assert list(plan) == [f"k50_motion{suffix}", f"k50_latent{suffix}"]
+    bf16 = cap.stage2_variants(args.variants, 50, "bf16")
+    for name, overrides in plan.items():
+        base = bf16[name[:len(name) - len(suffix)]]
+        extra = overrides[len(base):]
+        assert overrides[:len(base)] == base
+        assert extra == ([] if dtype == "bf16" else ["model.compute_dtype=null"])
+        assert not any("compute_dtype" in o for o in base)
+    with pytest.raises(SystemExit):
+        cap.parse_args(["--stage2-dtype", "fp16"])
+
+
+def test_dtype_reading_reads_check_b_in_each_dtype(scripts):
+    """``dtype_reading`` of a merge's stage files: check (b)'s first leg on
+    the EMA and live weights for each dtype whose pair is there."""
+    cap = scripts[1]
+
+    def stage(ema, live=None):
+        s = {"metrics": {"APD": ema, "ADE": 0.5}}
+        if live is not None:
+            s["metrics_live"] = {"APD": live, "ADE": 0.5}
+        return s
+
+    reading = cap.dtype_reading({
+        "k50_motion": stage(8.0, 9.0), "k50_latent": stage(10.0, 8.0),
+        "k50_motion_fp32": stage(11.0), "k50_latent_fp32": stage(10.0), "k1": stage(1.0)})
+    assert reading["bf16"]["ema"] == {"apd_motion": 8.0, "apd_latent": 10.0, "ratio": 0.8,
+                                      "passes": False, "ade_motion": 0.5, "ade_latent": 0.5}
+    assert reading["bf16"]["live"]["passes"] is True
+    assert reading["fp32"] == {"ema": {"apd_motion": 11.0, "apd_latent": 10.0, "ratio": 1.1,
+                                       "passes": True, "ade_motion": 0.5, "ade_latent": 0.5}}
+    assert cap.dtype_reading({"k50_motion": stage(1.0)}) == {}

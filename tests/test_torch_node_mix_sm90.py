@@ -63,8 +63,11 @@ def test_bench_plans_are_the_documented_ones():
     (lambda: attention_proj.rms_qkv_plan(torch.bfloat16, 288, 768), ValueError, "exceeds 256"),
     (lambda: attention_proj.rms_qkv_plan(torch.float32, 192, 20), ValueError, "multiple of 8"),
     (lambda: attention_proj.rms_qkv_plan(torch.float16, 192, 768), TypeError, "built for"),
-    (lambda: layer_fused.rms_qkv_core_plan(torch.bfloat16, 192, 8, 16), ValueError, "heads of 32"),
-    (lambda: layer_fused.rms_qkv_core_plan(torch.bfloat16, 32, 2, 4), ValueError, "heads of 32"),
+    # heads of 16 are a width of the kernel now (id kept): 24 is not one
+    (lambda: layer_fused.rms_qkv_core_plan(torch.bfloat16, 192, 8, 24), ValueError,
+     "heads of 16, 32, 64 or 128"),
+    (lambda: layer_fused.rms_qkv_core_plan(torch.bfloat16, 32, 2, 4), ValueError,
+     "heads of 16, 32, 64 or 128"),
     (lambda: layer_fused.rms_qkv_core_plan(torch.float32, 40, 8, 32), ValueError, "multiple of 32"),
     (lambda: engine.plan("k", torch.float32, 64, 96, 192), ValueError, "does not fit"),
 ], ids=["f48", "f288", "fo20", "fp16", "dh16", "small-core", "f40", "too-big"])

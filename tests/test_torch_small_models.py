@@ -219,8 +219,8 @@ def test_the_route_is_the_plans(n, dim, heads, dim_head):
     # the flagship's widths, and those of the JAX quickstart
     if (dim, heads, dim_head) == (96, 8, 32):
         assert refusal is None
-    if (dim, heads, dim_head) == (16, 2, 4):
-        assert "F=32" in refusal
+    if (dim, heads, dim_head) == (16, 2, 4):  # F 32 → 64, heads of 4 → 16 (zero-padded)
+        assert refusal is None
     # on the CPU every kernel of the chain is its plain version
     assert denoiser_fused.chain_refusal(den, torch.device("cpu")) is None
 
